@@ -1,0 +1,48 @@
+"""JAX parameter trees → the port's parameter trees.
+
+The caller hands over the JAX package's params as a nested dict of numpy
+arrays (the port never sees JAX): every array leaf becomes a tensor, and a
+``QuantizedTensor`` leaf arrives as ``{"packed", "scales", "zeros",
+"group_size"}`` (stacked over L like the rest of ``layers``) and becomes the
+port's :class:`~repro_torch.core.quant.QuantizedTensor` with the same bytes.
+numpy ``bfloat16`` arrays (``ml_dtypes``) are reinterpreted bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import QuantizedTensor
+
+_QT_KEYS = {"packed", "scales", "zeros", "group_size"}
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """numpy array → tensor (copied), bfloat16 kept bit-exact."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def from_jax_params(tree: Mapping[str, Any], *, dtype: torch.dtype,
+                    device=None):
+    """Convert a numpy param tree to the port's tree. Float leaves are cast
+    to ``dtype`` (the model's dtype); quantized leaves keep int8 payloads
+    and fp32 scales and dequantize to ``dtype``."""
+    if isinstance(tree, Mapping) and set(tree) == _QT_KEYS:
+        zeros = tree["zeros"]
+        return QuantizedTensor(
+            packed=to_tensor(tree["packed"], device).view(torch.int8),
+            scales=to_tensor(tree["scales"], device),
+            zeros=None if zeros is None else to_tensor(zeros, device),
+            group_size=int(tree["group_size"]), out_dtype=dtype)
+    if isinstance(tree, Mapping):
+        return {k: from_jax_params(v, dtype=dtype, device=device)
+                for k, v in tree.items()}
+    t = to_tensor(tree, device)
+    return t.to(dtype) if t.is_floating_point() else t

@@ -1,0 +1,129 @@
+"""H100 roofline: the planner's cost and the "bound" of every kernel timing.
+
+A kernel's bound is the least time the card could take for the same work:
+the larger of (bytes the function must move, each input read once and each
+output written once) / memory rate and (operations) / peak rate for their
+type. Peaks are NVIDIA's published H100 SXM figures at the 700 W power
+limit (see the ``hopper-kernels`` guide): 989 TFLOP/s dense bf16/fp16 on the
+tensor cores and 3.35 TB/s of HBM3.
+
+Only the two kernels on the serving path are modelled: the fused W4A16 GEMM
+and paged attention.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class H100Spec:
+    flops: float = 989e12             # dense bf16/fp16 tensor-core FLOP/s
+    hbm_bw: float = 3.35e12           # HBM3 bytes/s
+    num_sms: int = 132
+
+
+H100 = H100Spec()
+
+
+def roofline_s(bytes_moved: float, flops: float,
+               spec: H100Spec = H100) -> float:
+    """Least time for ``bytes_moved`` and ``flops`` on the card."""
+    return max(bytes_moved / spec.hbm_bw, flops / spec.flops)
+
+
+def bound_by(bytes_moved: float, flops: float,
+             spec: H100Spec = H100) -> str:
+    """Which of the two terms sets :func:`roofline_s`."""
+    return "bytes" if bytes_moved / spec.hbm_bw >= flops / spec.flops \
+        else "operations"
+
+
+# ---------------------------------------------------------------------------
+# W4A16 GEMM
+# ---------------------------------------------------------------------------
+
+def w4a16_gemm_bytes(M: int, N: int, K: int, *, group: int = 128,
+                     act_bytes: int = 2, out_bytes: int = 2,
+                     has_zeros: bool = False) -> float:
+    """x read once, packed int4 weights (K·N/2), fp32 group scales (and
+    zeros) read once, the output written once."""
+    scale_rows = K // max(group, 1)
+    scales = scale_rows * N * 4 * (2 if has_zeros else 1)
+    return M * K * act_bytes + K * N / 2 + scales + M * N * out_bytes
+
+
+def w4a16_gemm_flops(M: int, N: int, K: int) -> float:
+    return 2.0 * M * N * K
+
+
+def w4a16_time_fused(M: int, N: int, K: int, *, group: int = 128,
+                     act_bytes: int = 2, has_zeros: bool = False) -> float:
+    """Fused kernel: INT4 weights cross HBM once, dequant stays on chip."""
+    return roofline_s(
+        w4a16_gemm_bytes(M, N, K, group=group, act_bytes=act_bytes,
+                         out_bytes=act_bytes, has_zeros=has_zeros),
+        w4a16_gemm_flops(M, N, K))
+
+
+def w4a16_time_dequant_matmul(M: int, N: int, K: int, *,
+                              act_bytes: int = 2) -> float:
+    """Plain path: dequantize to a (K, N) float weight in HBM (int4 read +
+    float write), then a dense GEMM that reads it back."""
+    t_deq = (0.5 * K * N + act_bytes * K * N) / H100.hbm_bw
+    t_mm = roofline_s(act_bytes * (M * K + K * N + M * N),
+                      w4a16_gemm_flops(M, N, K))
+    return t_deq + t_mm
+
+
+# ---------------------------------------------------------------------------
+# paged attention
+# ---------------------------------------------------------------------------
+
+def kv_bytes_per_token(Hkv: int, D: int, *, quantized: bool,
+                       act_bytes: int = 2) -> float:
+    """Bytes to read one cached token's K+V across all kv-heads, payload
+    plus the fp32 per-(token, head) scale pair of quantized formats and
+    the int32 position tag."""
+    payload = 1 if quantized else act_bytes
+    scales = 2 * 4 * Hkv if quantized else 0
+    return 2 * payload * Hkv * D + scales + 4
+
+
+def paged_attn_bytes(path: str, B: int, Hq: int, Hkv: int, D: int,
+                     ctx: int, *, quantized: bool, act_bytes: int = 2,
+                     kv_partitions: int = 1, q_len: int = 1) -> float:
+    """Bytes one attention step of ``q_len`` queries per row moves over a
+    ``ctx``-token window: ``gather`` reads the pool, writes the dequantized
+    window and reads it back; ``fused`` reads the pool once and writes
+    O(S·q_len) fp32 partials. A multi-query step (q_len > 1) also stages
+    the chunk's own K/V segment on both paths."""
+    q_out = 2 * B * q_len * Hq * D * act_bytes
+    window = B * ctx
+    dense_tok = 2 * act_bytes * Hkv * D
+    seg = 2 * B * q_len * dense_tok if q_len > 1 else 0
+    pool = window * kv_bytes_per_token(Hkv, D, quantized=quantized,
+                                       act_bytes=act_bytes)
+    if path == "gather":
+        return pool + 2 * window * dense_tok + seg + q_out
+    if path == "fused":
+        partials = kv_partitions * B * q_len * Hq * (D + 2) * 4
+        return pool + seg + q_out + partials
+    raise ValueError(f"unknown attention path {path!r} "
+                     "(expected gather | fused)")
+
+
+def paged_attn_flops(B: int, Hq: int, D: int, ctx: int, *,
+                     q_len: int = 1) -> float:
+    """QKᵀ + PV multiply-adds, as FLOPs."""
+    return 4.0 * B * q_len * Hq * D * ctx
+
+
+def attn_time(path: str, B: int, Hq: int, Hkv: int, D: int, ctx: int, *,
+              quantized: bool, act_bytes: int = 2, kv_partitions: int = 1,
+              q_len: int = 1) -> float:
+    """Roofline time of one paged-attention step on ``path``."""
+    return roofline_s(
+        paged_attn_bytes(path, B, Hq, Hkv, D, ctx, quantized=quantized,
+                         act_bytes=act_bytes, kv_partitions=kv_partitions,
+                         q_len=q_len),
+        paged_attn_flops(B, Hq, D, ctx, q_len=q_len))

@@ -1,0 +1,552 @@
+"""Plan-based W4A16 matmul and paged-attention planning: problem → plan →
+execute.
+
+Port of ``repro/kernels/planning.py``. Strategies and attention paths are
+registered entries with an H100 roofline cost (``core/costmodel.py``) and a
+``supports()`` gate; the planner ranks whatever is registered.
+
+Matmul strategies: ``reference`` (dequantize + ``torch.matmul``, the plain
+path; the planner picks it only for CPU operands) and ``fused`` (the
+hand-written Hopper kernel, supported only for CUDA operands — which takes
+the place of the JAX package's interpret-mode penalty). Attention paths:
+``gather`` (materialize the window, plain attention; the CPU path) and
+``fused`` (the paged-attention kernel, CUDA only). On CUDA, ``auto`` picks
+``fused`` for both, whatever the shape or dtype: a CUDA problem the kernel
+cannot take raises when it runs, never routes to the plain path. A forced
+strategy or path skips the ranking, so the plain paths still run on the
+card when asked for by name (the comparisons of ``chip_smoke.py``).
+
+A ``KernelPlan`` carries no tile sizes: the Hopper GEMM picks its own
+tiles and honours ``split_k`` only.
+"""
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+import math
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.core import costmodel
+from repro_torch.core.device import dtype_name
+from repro_torch.core.quant import (
+    DEFAULT_FORMAT, DEFAULT_KV_FORMAT, QuantizedTensor, get_kv_format,
+)
+from repro_torch.kernels import ref
+from repro_torch.kernels.w4a16_fused import w4a16_fused
+
+__all__ = [
+    "MatmulProblem", "KernelPlan", "Strategy",
+    "register_strategy", "get_strategy", "available_strategies",
+    "strategies_for_format",
+    "plan_matmul", "resolve_plan", "execute", "matmul", "plan_for_params",
+    "PlanCache", "PLAN_CACHE",
+    "choose_split_k", "num_cores",
+    "AttentionProblem", "AttentionPlan", "register_attn_path",
+    "available_attn_paths", "plan_attention", "choose_kv_partitions",
+    "choose_q_block",
+]
+
+
+# ---------------------------------------------------------------------------
+# Problem
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MatmulProblem:
+    """One W4A16 GEMM: C[M, N] = A[M, K] · Dequant(W[K, N]). Hashable —
+    the plan cache and the planner key on it. ``backend`` is the operands'
+    device type (``cuda`` | ``cpu``)."""
+
+    M: int
+    N: int
+    K: int
+    group_size: int = 128
+    act_dtype: str = "bfloat16"
+    out_dtype: str = "bfloat16"
+    has_zeros: bool = False
+    backend: str = "cpu"
+    batch: int = 1
+    format: str = DEFAULT_FORMAT
+
+    @classmethod
+    def from_operands(cls, x: torch.Tensor, qt: QuantizedTensor, *,
+                      out_dtype=None, batch: int = 1) -> "MatmulProblem":
+        """Describe ``x @ Dequant(qt)``; x may have leading dims."""
+        K = x.shape[-1]
+        M = math.prod(x.shape[:-1]) if x.dim() > 1 else 1
+        return cls(
+            M=int(M), N=int(qt.N), K=int(K),
+            group_size=int(qt.group_size),
+            act_dtype=dtype_name(x.dtype),
+            out_dtype=dtype_name(out_dtype or x.dtype),
+            has_zeros=qt.zeros is not None,
+            backend=x.device.type,
+            batch=batch,
+            format=qt.format.name,
+        )
+
+    @property
+    def layer_key(self) -> str:
+        """Weight-shape key ("KxN") — one entry per model layer."""
+        return f"{self.K}x{self.N}"
+
+
+# ---------------------------------------------------------------------------
+# Plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """A dispatch decision: strategy + Split-K degree (the Hopper GEMM
+    picks its own tiles). ``out_dtype`` None means "the activation dtype
+    at execute time"."""
+
+    strategy: str
+    split_k: int = 1
+    out_dtype: Optional[str] = None
+
+
+# ---------------------------------------------------------------------------
+# Strategy registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Strategy:
+    """execute(x2, qt, plan) -> (M, N); cost(problem, plan) -> seconds;
+    supports(problem) -> eligibility; formats -> fnmatch patterns over
+    QuantFormat names; splittable -> honours plan.split_k."""
+
+    name: str
+    execute: Callable[..., torch.Tensor]
+    cost: Callable[[MatmulProblem, KernelPlan], float]
+    supports: Callable[[MatmulProblem], bool]
+    formats: Tuple[str, ...] = ("w4a16_*",)
+    splittable: bool = False
+
+    def supports_format(self, format_name: str) -> bool:
+        return any(fnmatch.fnmatchcase(format_name, pat)
+                   for pat in self.formats)
+
+
+_REGISTRY: Dict[str, Strategy] = {}
+
+
+def register_strategy(name: str, *, cost=None, supports=None,
+                      formats: Tuple[str, ...] = ("w4a16_*",),
+                      splittable: bool = False):
+    """Register an execute fn under ``name``; the planner picks it up with
+    no dispatcher edits."""
+
+    def deco(fn):
+        _REGISTRY[name] = Strategy(
+            name=name, execute=fn,
+            cost=cost or (lambda problem, plan: float("inf")),
+            supports=supports or (lambda problem: True),
+            formats=tuple(formats), splittable=splittable)
+        return fn
+
+    return deco
+
+
+def get_strategy(name: str) -> Strategy:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown strategy {name!r}; registered: {available_strategies()}"
+        ) from None
+
+
+def available_strategies() -> Tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+def strategies_for_format(format_name: str) -> Tuple[str, ...]:
+    return tuple(s.name for s in _REGISTRY.values()
+                 if s.supports_format(format_name))
+
+
+# ---------------------------------------------------------------------------
+# Split-K heuristic (paper Fig. 2) and core counting
+# ---------------------------------------------------------------------------
+
+def num_cores(backend: str = "cuda") -> int:
+    """Parallel units for the occupancy heuristics: the card's SM count
+    (132 on an H100) for CUDA problems; elsewhere the paper-model default
+    of 8 — a CPU host models the target chip, not itself."""
+    if backend == "cuda" and torch.cuda.is_available():
+        return torch.cuda.get_device_properties(0).multi_processor_count
+    return 8
+
+
+def choose_split_k(M: int, N: int, K: int, *, group_size: int = 128,
+                   block_m: int = 128, block_n: int = 256,
+                   cores: Optional[int] = None) -> int:
+    """Split when output tiles underfill the chip and K is deep (K ≫ N —
+    decode GEMMs), keeping K slices group-aligned."""
+    if group_size <= 0 or K % group_size:
+        return 1
+    cores = num_cores() if cores is None else cores
+    m_tiles = max(1, -(-M // block_m))
+    n_tiles = max(1, -(-N // block_n))
+    tiles = m_tiles * n_tiles
+    if tiles >= cores or K < 2 * group_size:
+        return 1
+    want = min(cores // tiles, K // group_size)
+    s = 1
+    while s * 2 <= want and K % (s * 2) == 0 \
+            and (K // (s * 2)) % group_size == 0:
+        s *= 2
+    return s
+
+
+# ---------------------------------------------------------------------------
+# Cost models (seconds, H100 roofline; lower wins)
+# ---------------------------------------------------------------------------
+
+def _act_bytes(problem: MatmulProblem) -> int:
+    return torch.finfo(getattr(torch, problem.act_dtype)).bits // 8
+
+
+def _cost_fused(problem: MatmulProblem, plan: KernelPlan) -> float:
+    return costmodel.w4a16_time_fused(
+        problem.M, problem.N, problem.K, group=problem.group_size,
+        act_bytes=_act_bytes(problem), has_zeros=problem.has_zeros) \
+        * problem.batch
+
+
+def _cost_reference(problem: MatmulProblem, plan: KernelPlan) -> float:
+    return costmodel.w4a16_time_dequant_matmul(
+        problem.M, problem.N, problem.K,
+        act_bytes=_act_bytes(problem)) * problem.batch
+
+
+def _exec_out_dtype(plan: KernelPlan, x: torch.Tensor):
+    return getattr(torch, plan.out_dtype) if plan.out_dtype else x.dtype
+
+
+@register_strategy("reference", cost=_cost_reference,
+                   supports=lambda problem: problem.backend != "cuda")
+def _run_reference(x2, qt, plan):
+    return ref.w4a16_ref(x2, qt, out_dtype=_exec_out_dtype(plan, x2))
+
+
+@register_strategy("fused", cost=_cost_fused,
+                   supports=lambda problem: problem.backend == "cuda",
+                   splittable=True)
+def _run_fused(x2, qt, plan):
+    return w4a16_fused(x2, qt, split_k=max(plan.split_k, 1),
+                       out_dtype=_exec_out_dtype(plan, x2))
+
+
+# ---------------------------------------------------------------------------
+# Plan cache (process-wide, in memory)
+# ---------------------------------------------------------------------------
+
+class PlanCache:
+    """Problem → plan memo with hit/miss stats. Only planner-chosen plans
+    are cached."""
+
+    def __init__(self) -> None:
+        self._plans: Dict[MatmulProblem, KernelPlan] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._plans)
+
+    def get(self, problem: MatmulProblem) -> Optional[KernelPlan]:
+        plan = self._plans.get(problem)
+        if plan is None:
+            self.misses += 1
+        else:
+            self.hits += 1
+        return plan
+
+    def put(self, problem: MatmulProblem, plan: KernelPlan) -> None:
+        self._plans[problem] = plan
+
+    def clear(self) -> None:
+        self._plans.clear()
+        self.hits = self.misses = 0
+
+
+PLAN_CACHE = PlanCache()
+
+
+# ---------------------------------------------------------------------------
+# Planner
+# ---------------------------------------------------------------------------
+
+def _default_plan(problem: MatmulProblem, strategy: str) -> KernelPlan:
+    split_k = 1
+    if get_strategy(strategy).splittable:
+        split_k = choose_split_k(problem.M, problem.N, problem.K,
+                                 group_size=problem.group_size,
+                                 cores=num_cores(problem.backend))
+    return KernelPlan(strategy=strategy, split_k=split_k,
+                      out_dtype=problem.out_dtype)
+
+
+def plan_matmul(problem: MatmulProblem, *, strategy: Optional[str] = None,
+                use_cache: bool = True,
+                cache: Optional[PlanCache] = None) -> KernelPlan:
+    """Choose a :class:`KernelPlan`: the cheapest registered strategy that
+    supports the problem's format and shape (memoized), or the named
+    ``strategy`` (a strategy/format mismatch raises)."""
+    if strategy is not None:
+        strat = get_strategy(strategy)
+        if not strat.supports_format(problem.format):
+            raise ValueError(
+                f"strategy {strat.name!r} does not support quantization "
+                f"format {problem.format!r} (it supports formats matching "
+                f"{list(strat.formats)}); strategies that do: "
+                f"{list(strategies_for_format(problem.format))}")
+        return _default_plan(problem, strat.name)
+
+    cache = cache if cache is not None else PLAN_CACHE
+    if use_cache:
+        hit = cache.get(problem)
+        if hit is not None:
+            return hit
+    best: Optional[Tuple[float, int, KernelPlan]] = None
+    for order, strat in enumerate(_REGISTRY.values()):
+        if not strat.supports_format(problem.format) \
+                or not strat.supports(problem):
+            continue
+        plan = _default_plan(problem, strat.name)
+        score = strat.cost(problem, plan)
+        if best is None or (score, order) < (best[0], best[1]):
+            best = (score, order, plan)
+    if best is None:
+        raise ValueError(
+            f"no registered strategy supports quantization format "
+            f"{problem.format!r} at M={problem.M}, N={problem.N}, "
+            f"K={problem.K} (strategies: {list(available_strategies())})")
+    plan = best[2]
+    if use_cache:
+        cache.put(problem, plan)
+    return plan
+
+
+def resolve_plan(problem: MatmulProblem, cfg=None) -> KernelPlan:
+    """Plan for a model-layer matmul, honouring ``cfg.w4a16_plan`` (a
+    ``{"KxN": KernelPlan}`` mapping, as :func:`plan_for_params` returns)
+    and then ``cfg.w4a16_strategy`` ("auto" defers to the planner)."""
+    plans = getattr(cfg, "w4a16_plan", None) if cfg is not None else None
+    if plans is not None and problem.layer_key in plans:
+        return plans[problem.layer_key]
+    strategy = getattr(cfg, "w4a16_strategy", "auto") if cfg is not None \
+        else "auto"
+    if strategy and strategy != "auto":
+        return plan_matmul(problem, strategy=strategy)
+    return plan_matmul(problem)
+
+
+def execute(plan: KernelPlan, x: torch.Tensor,
+            qt: QuantizedTensor) -> torch.Tensor:
+    """Run a planned quantized matmul: x (..., K) → (..., N)."""
+    strat = get_strategy(plan.strategy)
+    if not strat.supports_format(qt.format.name):
+        raise ValueError(
+            f"plan strategy {plan.strategy!r} cannot execute a "
+            f"{qt.format.name!r} tensor (it supports formats matching "
+            f"{list(strat.formats)})")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    out = strat.execute(x2, qt, plan)
+    return out.reshape(*lead, qt.N)
+
+
+def matmul(x: torch.Tensor, qt: QuantizedTensor, *, cfg=None) -> torch.Tensor:
+    """One-call convenience over the primary path (plan cache included)."""
+    problem = MatmulProblem.from_operands(x, qt)
+    return execute(resolve_plan(problem, cfg), x, qt)
+
+
+def quantized_leaves(tree):
+    if isinstance(tree, QuantizedTensor):
+        yield tree
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from quantized_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from quantized_leaves(v)
+
+
+def plan_for_params(params, M: int) -> Dict[str, KernelPlan]:
+    """Pre-plan every quantized layer GEMM in a param tree for ``M`` rows.
+    Returns ``{"KxN": plan}``; every decision lands in the plan cache."""
+    plans: Dict[str, KernelPlan] = {}
+    for leaf in quantized_leaves(params):
+        problem = MatmulProblem(
+            M=int(M), N=int(leaf.N), K=int(leaf.K),
+            group_size=leaf.group_size,
+            act_dtype=dtype_name(leaf.out_dtype),
+            out_dtype=dtype_name(leaf.out_dtype),
+            has_zeros=leaf.zeros is not None,
+            backend=leaf.packed.device.type,
+            format=leaf.format.name)
+        plans[problem.layer_key] = plan_matmul(problem)
+    return plans
+
+
+# ---------------------------------------------------------------------------
+# Paged-attention planning: gather vs fused
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttentionProblem:
+    """One paged-attention step: B rows of ``q_len`` queries each against a
+    ctx-token cached window; Hq query heads over Hkv KV heads of dim D.
+    ``backend`` is the device type the step runs on."""
+    B: int
+    Hq: int
+    Hkv: int
+    D: int
+    cache_len: int
+    page_size: int = 16
+    window: int = 0
+    kv_format: str = DEFAULT_KV_FORMAT
+    paged: bool = True
+    backend: str = "cpu"
+    act_bytes: int = 2
+    q_len: int = 1
+
+    @property
+    def ctx(self) -> int:
+        return self.window or self.cache_len
+
+    @property
+    def pages(self) -> int:
+        return max(1, -(-self.cache_len // max(self.page_size, 1)))
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    path: str                     # "gather" | "fused"
+    kv_partitions: int = 1        # Split-K degree over the page axis
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPath:
+    name: str
+    cost: Callable[["AttentionProblem", "AttentionPlan"], float]
+    supports: Callable[["AttentionProblem"], bool]
+
+
+_ATTN_REGISTRY: Dict[str, AttnPath] = {}
+
+
+def register_attn_path(name: str, *, cost, supports=None):
+    _ATTN_REGISTRY[name] = AttnPath(
+        name=name, cost=cost, supports=supports or (lambda p: True))
+
+
+def available_attn_paths() -> Tuple[str, ...]:
+    return tuple(_ATTN_REGISTRY)
+
+
+def choose_kv_partitions(B: int, Hkv: int, pages: int, *, q_tiles: int = 1,
+                         cores: Optional[int] = None) -> int:
+    """Split-K over the page axis until B·Hkv·q_tiles blocks fill the
+    card, on a power-of-2 divisor of the table length."""
+    cores = num_cores() if cores is None else cores
+    tiles = max(1, B * Hkv * max(1, q_tiles))
+    if tiles >= cores or pages < 2:
+        return 1
+    want = min(cores // tiles, pages)
+    s = 1
+    while s * 2 <= want and pages % (s * 2) == 0:
+        s *= 2
+    return s
+
+
+def choose_q_block(q_len: int, group: int, *, target: int = 128) -> int:
+    """Queries per Q tile: the largest divisor Tq of ``q_len`` with
+    Tq·group rows ≤ ``target``."""
+    cap = max(1, target // max(1, group))
+    t = max(1, min(q_len, cap))
+    while q_len % t:
+        t -= 1
+    return t
+
+
+def _attn_quantized(problem: AttentionProblem) -> bool:
+    return get_kv_format(problem.kv_format).quantized
+
+
+def _cost_attn_gather(problem: AttentionProblem,
+                      plan: AttentionPlan) -> float:
+    return costmodel.attn_time(
+        "gather", problem.B, problem.Hq, problem.Hkv, problem.D,
+        problem.ctx, quantized=_attn_quantized(problem),
+        act_bytes=problem.act_bytes, q_len=problem.q_len)
+
+
+def _cost_attn_fused(problem: AttentionProblem,
+                     plan: AttentionPlan) -> float:
+    return costmodel.attn_time(
+        "fused", problem.B, problem.Hq, problem.Hkv, problem.D,
+        problem.ctx, quantized=_attn_quantized(problem),
+        act_bytes=problem.act_bytes, q_len=problem.q_len,
+        kv_partitions=plan.kv_partitions)
+
+
+register_attn_path("gather", cost=_cost_attn_gather,
+                   supports=lambda p: p.paged)
+register_attn_path("fused", cost=_cost_attn_fused,
+                   supports=lambda p: p.paged and p.backend == "cuda")
+
+
+def _attn_plan_for(problem: AttentionProblem, name: str) -> AttentionPlan:
+    parts = 1
+    if name == "fused":
+        group = max(1, problem.Hq // max(1, problem.Hkv))
+        q_tiles = problem.q_len // choose_q_block(problem.q_len, group)
+        parts = choose_kv_partitions(problem.B, problem.Hkv, problem.pages,
+                                     q_tiles=q_tiles,
+                                     cores=num_cores(problem.backend))
+        # each partition flushes O(q_len·Hq·D) partials: cap S where those
+        # bytes would rival the window it splits
+        while parts > 1 and parts * problem.q_len * 2 > problem.ctx:
+            parts //= 2
+    return AttentionPlan(path=name, kv_partitions=parts)
+
+
+def plan_attention(problem: AttentionProblem, *,
+                   path: Optional[str] = None) -> AttentionPlan:
+    """Choose the paged-attention path: the cheapest supported one, or the
+    named ``path`` (validated against ``supports()``)."""
+    if path is not None and path != "auto":
+        entry = _ATTN_REGISTRY.get(path)
+        if entry is None:
+            raise ValueError(
+                f"unknown attention path {path!r} (registered: "
+                f"{list(available_attn_paths())})")
+        if not entry.supports(problem):
+            eligible = [e.name for e in _ATTN_REGISTRY.values()
+                        if e.supports(problem)]
+            raise ValueError(
+                f"attention path {path!r} does not support this problem "
+                f"(paged={problem.paged}, backend={problem.backend}); "
+                f"paths that do: {eligible}")
+        return _attn_plan_for(problem, path)
+
+    best: Optional[Tuple[float, int, AttentionPlan]] = None
+    for order, entry in enumerate(_ATTN_REGISTRY.values()):
+        if not entry.supports(problem):
+            continue
+        plan = _attn_plan_for(problem, entry.name)
+        score = entry.cost(problem, plan)
+        if best is None or (score, order) < (best[0], best[1]):
+            best = (score, order, plan)
+    if best is None:
+        raise ValueError(
+            f"no registered attention path supports this problem "
+            f"(paged={problem.paged}, backend={problem.backend}; "
+            f"registered: {list(available_attn_paths())})")
+    return best[2]

@@ -1,0 +1,148 @@
+"""Serving launcher: W4A16-quantized continuous-batching paged decode on the
+card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b
+
+Weights are drawn at random from ``--seed`` (a ``torch.Generator`` on the
+device), quantized to the paper's ``w4a16_g128`` at load time, and served
+by ``runtime/engine.py``: every quantized Linear runs the planned W4A16
+GEMM and paged attention runs on the planned path (on CUDA: the
+hand-written kernels). ``--device cpu`` runs the plain PyTorch paths; by
+default the launcher needs a CUDA card and fails without one.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core import quant
+from repro_torch.core.device import resolve_device
+from repro_torch.kernels import planning
+from repro_torch.launch.presets import serve_settings_for
+from repro_torch.models import transformer as T
+from repro_torch.runtime.engine import Request, ServingEngine
+
+
+def build_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", required=True, choices=list(configs.ARCHS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's small test config")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="engine slot count (max concurrent requests)")
+    ap.add_argument("--max-batch", type=int, default=None,
+                    help="alias for --batch")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16,
+                    help="tokens generated per request")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="requests to serve (default: the slot count)")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="KV tokens per block (default: the arch preset)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prompt tokens per slot per engine step "
+                         "(default: the arch preset)")
+    ap.add_argument("--kv-format", default=None,
+                    help="KV block format: kv_fp16 | kv8_channel "
+                         "(default: the arch preset)")
+    ap.add_argument("--attn-path", default=None,
+                    choices=["auto", "gather", "fused"],
+                    help="paged attention path (default: the arch preset, "
+                         "auto = planned: fused on CUDA, gather on CPU)")
+    ap.add_argument("--strategy", default="auto",
+                    choices=["auto"] + list(planning.available_strategies()),
+                    help="W4A16 GEMM strategy (auto = planned: fused on "
+                         "CUDA, reference on CPU)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; fails without a card) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    ap.add_argument("--verbose", action="store_true")
+    return ap.parse_args(argv)
+
+
+def make_requests(cfg, n: int, prompt_len: int, gen: int, seed: int):
+    """``n`` random prompts of ``prompt_len`` tokens (numpy, from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(n, prompt_len))
+    return [Request(rid=i, prompt=toks[i].astype(np.int32),
+                    max_new_tokens=gen) for i in range(n)]
+
+
+def build(args: argparse.Namespace):
+    """The engine and the requests that ``args`` describe (weights drawn
+    and quantized on the device); returns ``(engine, requests)``."""
+    device = resolve_device(args.device)
+    cfg = (configs.get_reduced if args.reduced else configs.get_config)(
+        args.arch)
+    sset = serve_settings_for(args.arch)
+    kv_format = quant.get_kv_format(args.kv_format or sset.kv_format).name
+    cfg = dataclasses.replace(cfg, w4a16_strategy=args.strategy)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = T.quantize_params(T.init_params(gen, cfg, device=device), cfg,
+                               min_size=0)
+    qbytes = sum(leaf.nbytes_packed()
+                 for leaf in planning.quantized_leaves(params))
+    print(f"[serve] {cfg.name} {cfg.quant_format} ({args.strategy}) on "
+          f"{device}; quantized weights {qbytes / 1e6:.1f} MB; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    B = args.max_batch or args.batch
+    R = args.requests or B
+    engine = ServingEngine(
+        cfg, params, max_batch=B, max_prompt_len=args.prompt_len,
+        max_new_tokens=args.gen,
+        page_size=args.page_size or sset.page_size,
+        prefill_chunk=args.prefill_chunk or sset.prefill_chunk,
+        kv_format=kv_format, attn_path=args.attn_path or sset.attn_path,
+        device=device)
+    print(f"[serve] engine: {B} slots, cache_len {engine.cache_len}, paged "
+          f"KV {engine.num_pages} blocks x {engine.page_size} tokens "
+          f"({engine.pages_slot}/slot), kv_format {engine.kv_format}, "
+          f"prefill_chunk {engine.prefill_chunk}")
+    print(f"[serve] attn path: decode {engine.attn_path} "
+          f"(kv_partitions={engine.kv_partitions}), prefill "
+          f"{engine.prefill_attn_path} "
+          f"(kv_partitions={engine.prefill_kv_partitions})")
+    for lk, plan in sorted(engine.plans.items()):
+        print(f"[serve]   plan {lk}: {plan.strategy} split_k={plan.split_k}")
+
+    return engine, make_requests(cfg, R, args.prompt_len, args.gen,
+                                 args.seed)
+
+
+def main(argv=None):
+    """Build, serve, print the report; returns the ``ServeReport``."""
+    args = build_args(argv)
+    engine, reqs = build(args)
+    R = len(reqs)
+    t0 = time.perf_counter()
+    report = engine.run(reqs, verbose=args.verbose)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    wall = time.perf_counter() - t0
+    ls, ts = report.latency_stats(), report.ttft_stats()
+    steps = max(len(report.step_records), 1)
+    print(f"[serve] {R} requests in {report.steps} steps / {wall:.2f} s "
+          f"wall; prefill {report.prefill_s * 1e3:.1f} ms total")
+    print(f"[serve] decode: {report.decode_tokens} tokens in "
+          f"{report.decode_s:.3f} s = {report.tokens_per_s:.1f} tok/s "
+          f"({report.decode_s / steps * 1e3:.2f} ms/step); latency p50 "
+          f"{ls['p50'] * 1e3:.1f} / p99 {ls['p99'] * 1e3:.1f} ms; time to "
+          f"first token p50 {ts['p50'] * 1e3:.1f} / p99 "
+          f"{ts['p99'] * 1e3:.1f} ms")
+    print(f"[serve] pages: peak {report.peak_pages} in use")
+    print(f"[serve] sample generation (request 0): {report.results[0]}")
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,73 @@
+"""Model configuration (port of ``repro/models/config.py``; dtype is a
+``torch.dtype``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | rwkv | hybrid | encdec
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: Optional[int] = None
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
+    ssm_state: int = 0
+    ssm_expand: int = 1
+    sliding_window: int = 0          # 0 = full attention
+    rope_theta: float = 1_000_000.0
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    vision_prefix: int = 0
+    mlp_type: str = "swiglu"         # swiglu | gelu
+    norm_type: str = "rmsnorm"       # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    dtype: Any = torch.bfloat16
+
+    # quantized serving
+    quantize_serve: bool = True
+    quant_format: str = "w4a16_g128"
+    group_size: int = 128
+    w4a16_strategy: str = "auto"     # "auto" = planner; or a strategy name
+    w4a16_plan: Any = None           # {"KxN": KernelPlan}
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def padded_vocab(self) -> int:
+        return _round_up(self.vocab_size, 256)
+
+    def param_count(self) -> int:
+        """Analytic parameter count of a dense model (embeddings included)."""
+        d, ff, V = self.d_model, self.d_ff, self.padded_vocab
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        mlp = (3 if self.mlp_type == "swiglu" else 2) * d * ff
+        total = self.num_layers * (attn + mlp) + V * d
+        if not self.tie_embeddings:
+            total += V * d
+        return total

@@ -1,0 +1,115 @@
+"""Base layers: (quantizable) Linear, RMSNorm, embedding, RoPE (port of
+``repro/models/layers.py``).
+
+Every matmul goes through :func:`linear`, which dispatches on the weight
+leaf type: a plain tensor runs the dense path, a ``QuantizedTensor`` runs
+the planned W4A16 path (``planning.matmul``). ``quantize_tree`` is the
+serve-time transform into W4A16 form.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quant
+from repro_torch.core.quant import QuantizedTensor, quantize
+from repro_torch.kernels import planning
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
+                device=None, layers: Optional[int] = None):
+    """{"kernel": (d_in, d_out)} with N(0, 1/d_in) entries (stacked over
+    ``layers`` when given), drawn from ``gen``."""
+    shape = (d_in, d_out) if layers is None else (layers, d_in, d_out)
+    w = torch.randn(shape, generator=gen, device=device) * d_in ** -0.5
+    return {"kernel": w.to(dtype)}
+
+
+def linear(p, x: torch.Tensor, cfg=None) -> torch.Tensor:
+    """y = x @ W; W may be dense or a QuantizedTensor (W4A16). The dense
+    path accumulates in fp32 and returns the activation dtype."""
+    w = p["kernel"]
+    if isinstance(w, QuantizedTensor):
+        return planning.matmul(x, w, cfg=cfg)
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
+                  symmetric: Optional[bool] = None, min_size: int = 1 << 16,
+                  skip_names=("embed", "lm_head")):
+    """Convert every eligible 2-D/3-D ``kernel`` leaf to a QuantizedTensor
+    (3-D = stacked layers, quantized slice-wise). ``embed``/``lm_head``
+    stay dense."""
+    base = quant.resolve_format(format)
+    if group_size is not None:
+        base = base.with_group_size(group_size)
+    if symmetric is not None:
+        base = base.with_symmetric(symmetric)
+
+    def pick_format(K: int):
+        if base.pack_factor > 1 and K % 2:
+            return None
+        if base.scale_granularity != "group":
+            return base
+        for g in (base.group_size, 64, 32):
+            if K % g == 0:
+                return base.with_group_size(g)
+        return None
+
+    def quantize_leaf(leaf: torch.Tensor):
+        if leaf.dim() < 2 or leaf.dtype == torch.int8 \
+                or leaf.shape[-2] * leaf.shape[-1] < min_size:
+            return leaf
+        fmt = pick_format(leaf.shape[-2])
+        if fmt is None:
+            return leaf
+        if leaf.dim() == 2:
+            return quantize(leaf, fmt, out_dtype=leaf.dtype)
+        parts = [quantize(w, fmt, out_dtype=leaf.dtype) for w in leaf]
+        return QuantizedTensor(
+            torch.stack([q.packed for q in parts]),
+            torch.stack([q.scales for q in parts]),
+            None if parts[0].zeros is None
+            else torch.stack([q.zeros for q in parts]),
+            parts[0].group_size, leaf.dtype, fmt)
+
+    def visit(tree, names):
+        if isinstance(tree, Mapping):
+            return {k: visit(v, names + (k,)) for k, v in tree.items()}
+        if any(s in names for s in skip_names) or "kernel" not in names:
+            return tree
+        if not isinstance(tree, torch.Tensor):
+            return tree
+        return quantize_leaf(tree)
+
+    return visit(params, ())
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    h = x.to(torch.float32)
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), p["table"])
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S). Split-halves RoPE in fp32."""
+    D = x.shape[-1]
+    freqs = rope_freqs(D, theta, device=x.device)
+    ang = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

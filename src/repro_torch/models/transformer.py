@@ -1,0 +1,247 @@
+"""Dense GQA decoder: init, quantize, paged decode step and chunked-prefill
+step (port of the dense family of ``repro/models/transformer.py``).
+
+Parameters keep the JAX package's tree: ``{"embed": {"table"},
+"final_norm": {"scale"}, "layers": {...stacked over L...}, "lm_head":
+{"kernel"}}``. ``params["layers"]`` may also be a list of per-layer dicts
+(:func:`unstack_layers`), which is what the serving engine holds so the
+layer loop does no slicing per step. The step functions update the paged
+KV pool in place (see ``runtime/kvcache.py``) and return the same state.
+
+Other families (moe, rwkv, hybrid, encdec) are not ported yet and are
+refused.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quant import (
+    DEFAULT_KV_FORMAT, QuantizedTensor, get_kv_format, kv_dequantize,
+    kv_quantize,
+)
+from repro_torch.models import attention, layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.runtime import kvcache as kvc
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.mlp_type != "swiglu" \
+            or cfg.norm_type != "rmsnorm" or cfg.tie_embeddings \
+            or cfg.vision_prefix:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense family (SwiGLU, RMSNorm, untied "
+            f"head, no vision prefix) is ported to PyTorch so far; "
+            f"{cfg.family!r} archs are still served by the JAX package")
+
+
+# ---------------------------------------------------------------------------
+# init / quantize
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
+    """Random dense parameters drawn from ``gen`` (stacked over L),
+    created in ``cfg.dtype`` on ``device``."""
+    check_family(cfg)
+    L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+
+    def lin(d_in, d_out, stacked=True):
+        return layers.init_linear(gen, d_in, d_out, cfg.dtype, device=device,
+                                  layers=L if stacked else None)
+
+    def ones(*shape):
+        return {"scale": torch.ones(shape, dtype=cfg.dtype, device=device)}
+
+    table = torch.randn(V, d, generator=gen, device=device) * 0.02
+    return {
+        "embed": {"table": table.to(cfg.dtype)},
+        "final_norm": ones(d),
+        "layers": {
+            "norm1": ones(L, d), "norm2": ones(L, d),
+            "attn": {"wq": lin(d, cfg.q_dim), "wk": lin(d, cfg.kv_dim),
+                     "wv": lin(d, cfg.kv_dim), "wo": lin(cfg.q_dim, d)},
+            "mlp": {"w_gate": lin(d, ff), "w_up": lin(d, ff),
+                    "w_down": lin(ff, d)},
+        },
+        "lm_head": lin(d, V, stacked=False),
+    }
+
+
+def quantize_params(params, cfg: ModelConfig, *, format=None,
+                    min_size: int = 1 << 16):
+    """Serve-time quantization (``cfg.quant_format``, the paper's W4A16 by
+    default; ``cfg.group_size`` re-groups the default format only)."""
+    from repro_torch.core import quant
+    fmt = quant.get_format(format or cfg.quant_format)
+    gs = cfg.group_size if fmt.name == quant.DEFAULT_FORMAT else None
+    return layers.quantize_tree(params, format=fmt.name, group_size=gs,
+                                min_size=min_size)
+
+
+def _layer_slice(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return tree.layer(i)
+    return tree[i]
+
+
+def unstack_layers(params) -> Dict[str, Any]:
+    """``params`` with ``"layers"`` as a list of per-layer dicts (views of
+    the stacked tensors)."""
+    stacked = params["layers"]
+    if isinstance(stacked, list):
+        return params
+    L = stacked["norm1"]["scale"].shape[0]
+    return dict(params, layers=[_layer_slice(stacked, i) for i in range(L)])
+
+
+def _layers(params) -> List[Dict[str, Any]]:
+    return unstack_layers(params)["layers"]
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _mlp(p, cfg: ModelConfig, x):
+    g = layers.linear(p["w_gate"], x, cfg)
+    u = layers.linear(p["w_up"], x, cfg)
+    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    return layers.linear(p["w_down"], h, cfg)
+
+
+def _logits_head(params, cfg: ModelConfig, h):
+    """Dense (unquantized) head; the activation-dtype product is returned
+    as fp32 logits."""
+    return layers.linear(params["lm_head"], h, cfg).to(torch.float32)
+
+
+def _last_valid_row(h, positions):
+    """h: (B, C, d); positions (B, C) with -1 padding → (B, d) at the last
+    valid position (row 0 for fully padded rows)."""
+    last = ((positions >= 0).sum(dim=1) - 1).clamp_min(0)
+    return h[torch.arange(h.shape[0], device=h.device), last]
+
+
+def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
+                pos: torch.Tensor, *, tables: torch.Tensor, cache_len: int,
+                kv_format: str = DEFAULT_KV_FORMAT,
+                attn_path: str = "gather", kv_partitions=None,
+                live_pages=None):
+    """One paged decode step. tokens/pos: (B,); tables: (B, pages_per_slot)
+    block tables (-1 rows are inactive: their writes go to the null
+    block). Each layer inserts the new token's K/V first, then attends
+    (insert before attend). Returns (logits (B, V) fp32, state)."""
+    check_family(cfg)
+    if tables is None:
+        raise NotImplementedError("the port serves from the paged KV "
+                                  "cache only (ring mode is not ported)")
+    fmt = get_kv_format(kv_format)
+    h = layers.embed(params["embed"], tokens)               # (B, d)
+    B = h.shape[0]
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pool_all = state["cache"]["kv"]
+    for i, lp in enumerate(_layers(params)):
+        pool = pool_all.layer(i)
+        ap = lp["attn"]
+        x = layers.rmsnorm(lp["norm1"], h)
+        q = layers.linear(ap["wq"], x, cfg).reshape(B, H, D)
+        k = layers.linear(ap["wk"], x, cfg).reshape(B, Hkv, D)
+        v = layers.linear(ap["wv"], x, cfg).reshape(B, Hkv, D)
+        q = layers.apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        k = layers.apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        kvc.paged_insert(pool, tables, k, v, pos, cache_len=cache_len,
+                         fmt=fmt)
+        o = kvc.paged_decode_attention(
+            q, pool, tables, pos, window=cfg.sliding_window, fmt=fmt,
+            out_dtype=cfg.dtype, attn_path=attn_path,
+            kv_partitions=kv_partitions, live_pages=live_pages)
+        h = h + layers.linear(ap["wo"], o.reshape(B, H * D), cfg)
+        h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
+    h = layers.rmsnorm(params["final_norm"], h)
+    return _logits_head(params, cfg, h), state
+
+
+def _paged_chunk_attn(ap, cfg: ModelConfig, x1, pool, tables, positions,
+                      safe_pos, *, fmt, cache_len: int,
+                      attn_path: str = "gather", kv_partitions=None,
+                      live_pages=None):
+    """Self-attention for a (1, C) chunk of one slot over the paged pool.
+    The window is read BEFORE the chunk is scattered (when the stream
+    wraps, the chunk overwrites in-window entries its earliest queries
+    still attend); the chunk's own K/V join as a segment after the same
+    quantize round-trip their stored copy takes."""
+    B, C, _ = x1.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = layers.linear(ap["wq"], x1, cfg).reshape(B, C, H, D)
+    k = layers.linear(ap["wk"], x1, cfg).reshape(B, C, Hkv, D)
+    v = layers.linear(ap["wv"], x1, cfg).reshape(B, C, Hkv, D)
+    q = layers.apply_rope(q, safe_pos, cfg.rope_theta)
+    k = layers.apply_rope(k, safe_pos, cfg.rope_theta)
+    kr = kv_dequantize(*kv_quantize(k, fmt), fmt=fmt, dtype=cfg.dtype)
+    vr = kv_dequantize(*kv_quantize(v, fmt), fmt=fmt, dtype=cfg.dtype)
+    if attn_path == "fused":
+        from repro_torch.kernels.paged_attention import fused_chunk_attention
+
+        o = fused_chunk_attention(
+            q, kr, vr, pool, tables, positions, window=cfg.sliding_window,
+            fmt=fmt, out_dtype=cfg.dtype, kv_partitions=kv_partitions)
+    elif attn_path == "gather":
+        win = kvc.gather_window(pool, tables, fmt=fmt, out_dtype=cfg.dtype,
+                                live_pages=live_pages)
+        start = positions[:, :1]
+        wpos = torch.where(win.pos < start, win.pos,
+                           torch.full_like(win.pos, -1))
+        seq = attention.KVCache(
+            k=torch.cat([win.k, kr.to(win.k.dtype)], dim=1),
+            v=torch.cat([win.v, vr.to(win.v.dtype)], dim=1),
+            pos=torch.cat([wpos, positions.to(wpos.dtype)], dim=1))
+        o = attention.prefix_chunk_attention(q, seq, positions,
+                                             window=cfg.sliding_window)
+    else:
+        raise ValueError(f"unknown attn_path {attn_path!r} "
+                         f"(expected gather | fused)")
+    kvc.scatter_chunk(pool, tables[0], k[0], v[0], positions[0],
+                      cache_len=cache_len, fmt=fmt)
+    return layers.linear(ap["wo"], o.reshape(B, C, H * D), cfg)
+
+
+def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
+                       positions: torch.Tensor, table: torch.Tensor, *,
+                       cache_len: int, kv_format: str = DEFAULT_KV_FORMAT,
+                       attn_path: str = "gather", kv_partitions=None,
+                       live_pages=None):
+    """One chunked-prefill step for one slot. h: (1, C, d) embedding chunk;
+    positions: (1, C) absolute, -1 = padding in the final chunk; table:
+    (1, T) the slot's block table. Returns (last-valid-position logits
+    (1, V) fp32, state)."""
+    check_family(cfg)
+    fmt = get_kv_format(kv_format)
+    safe_pos = positions.clamp_min(0)
+    pool_all = state["cache"]["kv"]
+    for i, lp in enumerate(_layers(params)):
+        x1 = layers.rmsnorm(lp["norm1"], h)
+        a = _paged_chunk_attn(
+            lp["attn"], cfg, x1, pool_all.layer(i), table, positions,
+            safe_pos, fmt=fmt, cache_len=cache_len, attn_path=attn_path,
+            kv_partitions=kv_partitions, live_pages=live_pages)
+        h = h + a
+        h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
+    h = layers.rmsnorm(params["final_norm"], h)
+    return _logits_head(params, cfg, _last_valid_row(h, positions)), state
+
+
+def init_paged_state(cfg: ModelConfig, batch: int, cache_len: int, *,
+                     page_size: int, num_blocks: int,
+                     kv_format: str = DEFAULT_KV_FORMAT, device=None):
+    """Paged decode state: one block pool stacked over L. Block tables
+    live outside the state (the engine passes them per step)."""
+    check_family(cfg)
+    kvc.pages_per_slot(cache_len, page_size)
+    pool = kvc.init_pool(num_blocks, page_size, cfg.num_kv_heads,
+                         cfg.head_dim, cfg.dtype, kv_format,
+                         num_layers=cfg.num_layers, device=device)
+    return {"cache": {"kv": pool}}

@@ -1,0 +1,161 @@
+"""The port's planner against the JAX package's: the Split-K, kv-partition
+and Q-block heuristics give the same decisions at a given core count (8,
+the JAX package's CPU default, and the H100's 132 SMs), and the port's own
+rules — ``fused`` only for CUDA operands and always for them,
+``reference``/``gather`` on the CPU, plans keyed ``"KxN"``, the in-memory
+plan cache, the H100 roofline."""
+import itertools
+
+import pytest
+import torch
+
+from repro.kernels import planning as jplanning
+
+from repro_torch.core import costmodel
+from repro_torch.core.quant import quantize
+from repro_torch.kernels import planning
+from repro_torch.kernels import w4a16_fused as wf
+
+GEMMS = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560),
+         (128, 64), (256, 128), (4096, 14336), (384, 96)]
+
+
+@pytest.mark.parametrize("cores", [8, 132])
+def test_choose_split_k_matches_jax(cores, monkeypatch):
+    monkeypatch.setattr(jplanning, "num_cores", lambda: cores)
+    for (K, N), M, g in itertools.product(GEMMS, (1, 8, 32, 256),
+                                          (128, 64, 32)):
+        assert planning.choose_split_k(M, N, K, group_size=g,
+                                       cores=cores) == \
+            jplanning.choose_split_k(M, N, K, group_size=g), (M, N, K, g)
+
+
+@pytest.mark.parametrize("cores", [8, 132])
+def test_choose_kv_partitions_and_q_block_match_jax(cores, monkeypatch):
+    monkeypatch.setattr(jplanning, "num_cores", lambda: cores)
+    for B, Hkv, pages, q_tiles in itertools.product(
+            (1, 2, 8, 64), (1, 2, 8), (1, 2, 4, 68, 512), (1, 2, 3)):
+        assert planning.choose_kv_partitions(
+            B, Hkv, pages, q_tiles=q_tiles, cores=cores) == \
+            jplanning.choose_kv_partitions(B, Hkv, pages, q_tiles=q_tiles)
+    for q_len, group in itertools.product((1, 5, 12, 32, 7), (1, 4, 6, 8,
+                                                              16, 64)):
+        assert planning.choose_q_block(q_len, group) == \
+            jplanning.choose_q_block(q_len, group)
+
+
+def _problem(backend, M=8, K=2560, N=2560, act="bfloat16"):
+    return planning.MatmulProblem(M=M, N=N, K=K, backend=backend,
+                                  act_dtype=act, out_dtype=act)
+
+
+def test_fused_only_for_cuda_operands():
+    cpu = planning.plan_matmul(_problem("cpu"), use_cache=False)
+    assert cpu.strategy == "reference" and cpu.split_k == 1
+    cuda = planning.plan_matmul(_problem("cuda"), use_cache=False)
+    assert cuda.strategy == "fused"
+    assert cuda.split_k == planning.choose_split_k(
+        8, 2560, 2560, cores=planning.num_cores("cuda"))
+    # forcing beats the ranking; a strategy/format mismatch is refused
+    assert planning.plan_matmul(_problem("cpu"), strategy="fused").strategy \
+        == "fused"
+    with pytest.raises(ValueError, match="unknown strategy"):
+        planning.plan_matmul(_problem("cpu"), strategy="xla")
+    with pytest.raises(ValueError, match="does not support"):
+        planning.plan_matmul(planning.MatmulProblem(
+            M=1, N=16, K=128, format="w8a16_channel"), strategy="fused")
+
+
+def test_plan_for_params_keys_and_resolve_plan():
+    w = quantize(torch.randn(256, 128, generator=torch.Generator()
+                             .manual_seed(0)))
+    params = {"layers": {"mlp": {"w_up": {"kernel": w}}},
+              "lm_head": {"kernel": torch.zeros(4, 4)}}
+    plans = planning.plan_for_params(params, M=8)
+    assert list(plans) == ["256x128"] and plans["256x128"].strategy == \
+        "reference"
+
+    class Cfg:
+        w4a16_plan = plans
+        w4a16_strategy = "auto"
+
+    x = torch.randn(32, 256)     # a chunk-sized M reuses the "KxN" plan
+    problem = planning.MatmulProblem.from_operands(x, w)
+    assert planning.resolve_plan(problem, Cfg) is plans["256x128"]
+    out = planning.matmul(x, w, cfg=Cfg)
+    assert out.shape == (32, 128)
+
+
+@pytest.mark.parametrize("act", ["bfloat16", "float16", "float32"])
+def test_auto_on_cuda_always_fused(act):
+    """On CUDA ``auto`` picks the kernel for every dtype and shape, the
+    reduced configurations' fp32 and shapes the kernel cannot take
+    included; it never routes a CUDA problem to the plain path. A shape
+    the kernel cannot take raises when it runs."""
+    for M, K, N in ((8, 2560, 2560), (4096, 2560, 6912), (1, 128, 40),
+                    (3, 96, 16)):
+        plan = planning.plan_matmul(_problem("cuda", M=M, K=K, N=N, act=act),
+                                    use_cache=False)
+        assert plan.strategy == "fused", (M, K, N, act)
+    assert not planning.get_strategy("reference").supports(_problem("cuda"))
+    # the wrapper's operand check (run for CUDA tensors) refuses N % 16
+    qt = quantize(torch.randn(128, 40, generator=torch.Generator()
+                              .manual_seed(0)), group_size=32)
+    with pytest.raises(ValueError, match="N % 16"):
+        wf._check_kernel_operands(torch.zeros(2, 128), qt, 1)
+    wf._check_kernel_operands(torch.zeros(2, 128),
+                              quantize(torch.zeros(128, 48)), 1)
+
+
+def test_plan_cache_memo():
+    cache = planning.PlanCache()
+    prob = _problem("cuda")
+    plan = planning.plan_matmul(prob, cache=cache)
+    assert len(cache) == 1 and cache.misses == 1
+    assert planning.plan_matmul(prob, cache=cache) is plan
+    assert cache.get(prob) == plan and cache.hits == 2
+    assert planning.plan_matmul(prob, cache=cache, strategy="reference") \
+        .strategy == "reference" and len(cache) == 1    # forced: not cached
+    cache.clear()
+    assert len(cache) == 0 and cache.hits == cache.misses == 0
+
+
+def _attn(**kw):
+    base = dict(B=8, Hq=32, Hkv=8, D=80, cache_len=544, page_size=8,
+                window=4096, kv_format="kv_fp16", backend="cuda")
+    base.update(kw)
+    return planning.AttentionProblem(**base)
+
+
+def test_plan_attention_fused_on_cuda_gather_on_cpu():
+    plan = planning.plan_attention(_attn())
+    assert plan.path == "fused"
+    assert plan.kv_partitions == planning.choose_kv_partitions(
+        8, 8, 68, cores=planning.num_cores("cuda"))
+    chunk = planning.plan_attention(_attn(B=1, q_len=32))
+    assert chunk.path == "fused"
+    assert planning.plan_attention(_attn(backend="cpu")).path == "gather"
+    with pytest.raises(ValueError, match="does not support"):
+        planning.plan_attention(_attn(backend="cpu"), path="fused")
+    with pytest.raises(ValueError, match="unknown attention path"):
+        planning.plan_attention(_attn(), path="ring")
+    assert planning.plan_attention(_attn(), path="gather").path == "gather"
+
+
+def test_h100_roofline():
+    """Decode GEMMs and paged attention are bound by bytes on the H100;
+    the fused paths move fewer bytes than the plain ones."""
+    nbytes = costmodel.w4a16_gemm_bytes(8, 6912, 2560)
+    flops = costmodel.w4a16_gemm_flops(8, 6912, 2560)
+    assert costmodel.bound_by(nbytes, flops) == "bytes"
+    assert costmodel.roofline_s(nbytes, flops) == nbytes / 3.35e12
+    assert costmodel.bound_by(0, 1e12) == "operations"
+    assert costmodel.w4a16_time_fused(8, 6912, 2560) < \
+        costmodel.w4a16_time_dequant_matmul(8, 6912, 2560)
+    for q_len in (1, 32):
+        assert costmodel.paged_attn_bytes(
+            "fused", 8, 32, 8, 80, 544, quantized=False, q_len=q_len,
+            kv_partitions=2) < costmodel.paged_attn_bytes(
+            "gather", 8, 32, 8, 80, 544, quantized=False, q_len=q_len)
+    with pytest.raises(ValueError, match="unknown attention path"):
+        costmodel.paged_attn_bytes("ring", 1, 1, 1, 1, 1, quantized=False)
