@@ -8,11 +8,17 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
 (or one line per case):
 
 1. device  — card name and power limit (nvidia-smi).
-2. build   — both CUDA kernels compiled from ``src/repro_torch/csrc`` with
-             one nvcc per source, started together.
+2. build   — every CUDA kernel compiled from ``src/repro_torch/csrc``
+             with one nvcc per source, all started together.
 3. kernels — each kernel against its plain PyTorch version on the card at
-             the serving path's shapes, bf16, with the tolerance stated;
-             the GEMM also in fp32 (the reduced configurations' dtype).
+             the serving path's shapes, with the tolerance stated: the
+             fused W4A16 GEMM (bf16, and fp32 — the reduced
+             configurations' dtype), paged attention, and the rest of the
+             paper's GEMM family in bf16 and fp32 at the four danube
+             (K, N) pairs, M = 8 and 32, the planner's split_k and 1: the
+             dense GEMM in both modes, the decoupled W4A16 pipeline whole
+             and phase by phase, W8A16, and W4A8 (its int8 activations
+             bit-equal to the CPU's).
 4. serve   — the port's main path through its launcher
              (``repro_torch.launch.serve``): h2o-danube-1.8b at full width
              (24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab
@@ -22,12 +28,24 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              kernels' launch counters must rise during that run. The same
              requests then run on the plain paths (``--strategy reference
              --attn-path gather``) to compare prefill logits and tokens.
+             Then, at the same width and depth with 8 requests of 128
+             prompt + 16 generated tokens: ``--strategy decoupled``,
+             ``--format w8a16_channel`` and ``--format w4a8_g128``, each
+             against its plain GEMM path (``--strategy reference``,
+             ``reference``, ``w4a8_xla``) with the path's kernels' counters
+             rising, and ``--no-quant`` (dense bf16 weights, the FP16×FP16
+             yardstick); the fused W4A16 path runs in that cell too. Each
+             path's device time per decode step is read from a short
+             ``torch.profiler`` window (decode steps are host-bound, so
+             tok/s hides the GEMMs).
 5. timing  — CUDA-event medians of each kernel, its plain version and one
              PyTorch library call for the same function, with the L2 cache
              flushed before every launch (the serving step reads every
              layer's weights and KV cold) and the host queued ahead of the
              card (device time only), beside the H100 roofline bound of
-             ``repro_torch.core.costmodel``.
+             ``repro_torch.core.costmodel``. The decoupled pipeline is also
+             timed phase by phase, and phase 2 once more right after phase
+             1 wrote its workspace (what the 50 MB L2 keeps of it).
 6. trace   — the main path once more, stepped through the engine's
              stepper API: a prefill window and a decode window under
              ``torch.profiler`` (device busy time per step, the kernels and
@@ -66,6 +84,23 @@ GEMM_F32_TOL = "|d| <= 1e-5*|plain| + 1e-4"
 ATTN_TOL = "|d| <= 2^-7*|plain| + 2e-3; m within 1e-4*(1+|m|), l within " \
     "1e-3*l where the partition has a live key, the same partitions masked"
 LOGIT_TOL = 0.25
+# the GEMM family's full-width serving runs (phase 4)
+FAMILY_GEN = 16
+FAMILY_ARGV = ["--arch", ARCH, "--batch", "8", "--requests", "8",
+               "--prompt-len", "128", "--gen", str(FAMILY_GEN),
+               "--page-size", "8", "--prefill-chunk", "32", "--kv-format",
+               "kv_fp16", "--seed", "0"]
+# (kernel path, its plain GEMM path, the kernels the path must launch)
+FAMILY_RUNS = [
+    (["--strategy", "decoupled"], ["--strategy", "reference"],
+     ("dequant_w4", "dense_gemm", "reduce_partials", "paged_attention")),
+    (["--format", "w8a16_channel"],
+     ["--format", "w8a16_channel", "--strategy", "reference"],
+     ("w8a16_gemm", "paged_attention")),
+    (["--format", "w4a8_g128"], ["--format", "w4a8_g128", "--strategy",
+                                 "w4a8_xla"],
+     ("w4a8_gemm", "paged_attention")),
+]
 
 
 def log(phase: str, msg: str) -> None:
@@ -96,6 +131,47 @@ def planned_split(x, qt):
     from repro_torch.kernels import planning
     return planning.plan_matmul(planning.MatmulProblem.from_operands(x, qt),
                                 use_cache=False).split_k
+
+
+def kernel_table():
+    """name → (CudaKernel, source, the Pallas function it replaces)."""
+    from repro_torch.kernels import gemm, paged_attention, w4a8_fused, \
+        w4a16_decoupled, w4a16_fused, w8a16_fused
+    return {
+        "w4a16_gemm": (w4a16_fused.W4A16_GEMM, "w4a16_gemm.cu",
+                       "src/repro/kernels/w4a16_fused.py:37"),
+        "paged_attention": (paged_attention.PAGED_ATTENTION,
+                            "paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:148"),
+        "dense_gemm": (gemm.DENSE_GEMM, "dense_gemm.cu",
+                       "src/repro/kernels/gemm.py:20"),
+        "dequant_w4": (w4a16_decoupled.DEQUANT_W4, "w4a16_decoupled.cu",
+                       "src/repro/kernels/w4a16_decoupled.py:52"),
+        "reduce_partials": (w4a16_decoupled.REDUCE_PARTIALS,
+                            "w4a16_decoupled.cu",
+                            "src/repro/kernels/w4a16_decoupled.py:139"),
+        "w8a16_gemm": (w8a16_fused.W8A16_GEMM, "w8a16_gemm.cu",
+                       "src/repro/kernels/w8a16_fused.py:29"),
+        "w4a8_gemm": (w4a8_fused.W4A8_GEMM, "w4a8_gemm.cu",
+                      "src/repro/kernels/w4a8_fused.py:37"),
+    }
+
+
+def reset_counts(table):
+    for kernel, _, _ in table.values():
+        kernel.launches = 0
+
+
+def read_counts(table):
+    return {name: kernel.launches for name, (kernel, _, _) in table.items()}
+
+
+def family_split(M, N, K):
+    """The planner's Split-K for a danube GEMM on this card (the fused,
+    decoupled and W4A8 strategies share it)."""
+    from repro_torch.kernels import planning
+    return planning.choose_split_k(M, N, K,
+                                   cores=planning.num_cores("cuda"))
 
 
 def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False):
@@ -279,13 +355,107 @@ def check_attention(torch, dev, gen):
     return worst
 
 
+def held(name, label, got, want, *, f32):
+    """Hold a kernel's output against its plain version's: same dtype and
+    shape, |d| <= 2^-7·|plain| + 1e-3 in bf16 (one ulp after a reordered
+    fp32 sum), 1e-5·|plain| + 1e-4 in fp32 (summation order). Returns
+    max |d|."""
+    err = (got.float() - want.float()).abs()
+    lim = want.float().abs() * (1e-5 if f32 else 2 ** -7) \
+        + (1e-4 if f32 else 1e-3)
+    bad = got.dtype != want.dtype or got.shape != want.shape \
+        or bool((err > lim).any())
+    log("kernels", f"{name} {label} max|d|={float(err.max()):.3e} "
+        f"{'FAIL' if bad else 'ok'} "
+        f"({GEMM_F32_TOL if f32 else GEMM_TOL})")
+    if bad:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{label}")
+    return float(err.max())
+
+
+def bit_equal(name, label, got, want):
+    ok = got.dtype == want.dtype and got.equal(want)
+    log("kernels", f"{name} {label} {'bit-equal' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} is not bit-equal to its plain "
+                             f"version at {label}")
+
+
+def check_family(torch, dev, gen):
+    """The rest of the GEMM family against their plain versions, bf16 and
+    fp32, the four danube (K, N) pairs, M = 8 and 32, the planner's
+    split_k and 1. Phase 1 and phase 3 of the decoupled pipeline repeat
+    their plain versions' fp32 operations in the same order: bit-equal.
+    W4A8: the int8 activations bit-equal to the CPU's (the CPU's are the
+    JAX package's, pinned by the CPU tests); its int32 group sums are
+    exact, so only the fp32 sum over groups differs. Returns each
+    kernel's worst |d| (the bf16 cases set it)."""
+    from repro_torch.core.quant import quantize, quantize_activations_int8
+    from repro_torch.kernels import gemm, w4a8_fused, w8a16_fused
+    from repro_torch.kernels import w4a16_decoupled as dec
+    worst = dict.fromkeys(("dense_gemm", "dequant_w4", "reduce_partials",
+                           "w4a16_decoupled", "w8a16_gemm", "w4a8_gemm"),
+                          0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        dt = "fp32" if f32 else "bf16"
+        for K, N in DANUBE_GEMMS:
+            w = (torch.randn(K, N, generator=gen, device=dev)
+                 * K ** -0.5).to(dtype)
+            qt4 = quantize(w)
+            qt8 = quantize(w, "w8a16_channel")
+            qta8 = quantize(w, "w4a8_g128")
+            ws = dec.dequant_w4(qt4, out_dtype=dtype)
+            bit_equal("dequant_w4", f"{dt} K={K} N={N}", ws,
+                      dec.dequant_w4_plain(qt4, out_dtype=dtype))
+            for M in (8, 32):
+                x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+                label = f"{dt} M={M} K={K} N={N}"
+                splits = sorted({family_split(M, N, K), 1})
+                e = held("dense_gemm", label + " direct", gemm.gemm(x, w),
+                         gemm.gemm_plain(x, w), f32=f32)
+                worst["dense_gemm"] = max(worst["dense_gemm"], e)
+                for sk in splits:
+                    lab = f"{label} split_k={sk}"
+                    parts = dec.splitk_gemm(x, w, split_k=sk)
+                    e = held("dense_gemm", lab + " partials", parts,
+                             dec.splitk_gemm_plain(x, w, split_k=sk),
+                             f32=True)
+                    worst["dense_gemm"] = max(worst["dense_gemm"], e)
+                    bit_equal("reduce_partials", lab,
+                              dec.reduce_partials(parts, out_dtype=dtype),
+                              dec.reduce_partials_plain(parts,
+                                                        out_dtype=dtype))
+                    e = held("w4a16_decoupled", lab,
+                             dec.w4a16_decoupled(x, qt4, split_k=sk),
+                             dec.w4a16_decoupled_plain(x, qt4, split_k=sk),
+                             f32=f32)
+                    worst["w4a16_decoupled"] = max(
+                        worst["w4a16_decoupled"], e)
+                    e = held("w4a8_gemm", lab,
+                             w4a8_fused.w4a8_fused(x, qta8, split_k=sk),
+                             w4a8_fused.w4a8_fused_plain(x, qta8,
+                                                         split_k=sk),
+                             f32=f32)
+                    worst["w4a8_gemm"] = max(worst["w4a8_gemm"], e)
+                bit_equal("w4a8 activations", label,
+                          quantize_activations_int8(x)[0].cpu(),
+                          quantize_activations_int8(x.cpu())[0])
+                e = held("w8a16_gemm", label + " split_k=1",
+                         w8a16_fused.w8a16_fused(x, qt8),
+                         w8a16_fused.w8a16_fused_plain(x, qt8), f32=f32)
+                worst["w8a16_gemm"] = max(worst["w8a16_gemm"], e)
+    return worst                # dequant_w4, reduce_partials: bit-equal
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
-def serve(torch, extra, card):
+def serve(torch, extra, card, base=SERVE_ARGV):
     from repro_torch.launch import serve as launcher
-    argv = SERVE_ARGV + extra
+    argv = base + extra
     log("serve", "python -m repro_torch.launch.serve " + " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -302,21 +472,9 @@ def serve(torch, extra, card):
     return report
 
 
-def check_serve(torch, card):
-    from repro_torch.kernels.paged_attention import PAGED_ATTENTION
-    from repro_torch.kernels.w4a16_fused import W4A16_GEMM
-    W4A16_GEMM.launches = 0
-    PAGED_ATTENTION.launches = 0
-    fused = serve(torch, [], card)
-    launches = {"w4a16_gemm": W4A16_GEMM.launches,
-                "paged_attention": PAGED_ATTENTION.launches}
-    log("serve", f"launches during the run: {launches}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
-    torch.cuda.empty_cache()
-    plain = serve(torch, ["--strategy", "reference", "--attn-path",
-                          "gather"], card)
+def compare_logits(fused, plain, what, gen_len):
+    """Prefill logits of a kernel path within LOGIT_TOL of its plain
+    path's; greedy streams of the expected length."""
     d = max(float((fused.prefill_logits[r] - plain.prefill_logits[r])
                   .abs().max()) for r in fused.results)
     scale = max(float(plain.prefill_logits[r].abs().max())
@@ -332,7 +490,7 @@ def check_serve(torch, card):
             for r in fused.results
             if fused.results[r][0] != plain.results[r][0]]
     ok = d <= LOGIT_TOL
-    log("serve", f"prefill logits kernels vs plain: max|d|={d:.3e} "
+    log("serve", f"{what}: prefill logits kernels vs plain: max|d|={d:.3e} "
         f"(max|logit| {scale:.2f}; tolerance {LOGIT_TOL}: bf16 rounding "
         f"of every activation, reordered sums, 24 layers) "
         f"{'ok' if ok else 'FAIL'}; greedy tokens equal "
@@ -340,12 +498,104 @@ def check_serve(torch, card):
         f"tokens {firsts}/{len(fused.results)}, plain-path logit gap of "
         f"each differing first token {[f'{g:.3e}' for g in gaps]}")
     if not ok:
-        raise AssertionError("prefill logits disagree between the kernel "
-                             "path and the plain path")
+        raise AssertionError(f"{what}: prefill logits disagree between the "
+                             f"kernel path and the plain path")
     for rid, out in fused.results.items():
-        if len(out) != GEN:
-            raise AssertionError(f"request {rid} produced {len(out)} tokens")
+        if len(out) != gen_len:
+            raise AssertionError(f"{what}: request {rid} produced "
+                                 f"{len(out)} tokens")
+
+
+def check_serve(torch, card, table):
+    reset_counts(table)
+    fused = serve(torch, [], card)
+    launches = read_counts(table)
+    log("serve", f"launches during the run: {launches}")
+    if not (launches["w4a16_gemm"] and launches["paged_attention"]):
+        raise AssertionError(f"a kernel of the main path never launched: "
+                             f"{launches}")
+    torch.cuda.empty_cache()
+    plain = serve(torch, ["--strategy", "reference", "--attn-path",
+                          "gather"], card)
+    compare_logits(fused, plain, "kernel path", GEN)
     return fused, plain, launches
+
+
+def decode_device_ms(torch, extra, card, steps=4):
+    """Device time per decode step of one GEMM path in the family's cell:
+    the requests are prefilled untraced, then ``steps`` decode steps run
+    under ``torch.profiler`` (device activity only). Decode steps are
+    host-bound, so this, not tok/s, is where a faster GEMM shows end to
+    end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve as launcher
+    engine, reqs = launcher.build(launcher.build_args(FAMILY_ARGV + extra))
+    engine.start()
+    for r in reqs:
+        engine.submit(r)
+    while engine.report.decode_tokens == 0:
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    ops = sum(e.count for e in dev) / steps
+    top = "; ".join(f"{e.self_device_time_total / 1e3 / steps:.3f} ms "
+                    f"x{e.count / steps:.0f} {e.key[:48]}" for e in dev[:3])
+    log("serve", f"{' '.join(extra) or 'fused w4a16'}: device busy "
+        f"{busy:.3f} ms per decode step ({ops:.0f} device ops; top: {top}) "
+        f"[{card}]")
+    del engine
+    torch.cuda.empty_cache()
+    return busy
+
+
+def serve_family(torch, card, table):
+    """The GEMM family's serving runs at full width and depth: the fused
+    W4A16 path as the cell's yardstick; each other kernel path against its
+    plain GEMM path (attention on its kernel in both), counters set to 0
+    just before each kernel-path run and read just after; then
+    ``--no-quant``. Each kernel path's device time per decode step is
+    traced too. Returns each kernel's launches from its run."""
+    t0 = time.perf_counter()
+    counts = {}
+    runs = [([], None, ("w4a16_gemm", "paged_attention"))] + FAMILY_RUNS
+    for kernel_argv, plain_argv, names in runs:
+        reset_counts(table)
+        got = serve(torch, kernel_argv, card, FAMILY_ARGV)
+        launched = read_counts(table)
+        log("serve", f"launches during the run: {launched}")
+        quiet = [n for n in table if n not in names and launched[n]]
+        if not all(launched[n] for n in names) or quiet:
+            raise AssertionError(f"{' '.join(kernel_argv)}: the path's "
+                                 f"kernels {names} must all launch and no "
+                                 f"other GEMM kernel: {launched}")
+        counts.update({n: launched[n] for n in names
+                       if n not in ("paged_attention", "w4a16_gemm")})
+        torch.cuda.empty_cache()
+        if plain_argv is not None:
+            want = serve(torch, plain_argv, card, FAMILY_ARGV)
+            compare_logits(got, want, " ".join(kernel_argv), FAMILY_GEN)
+            del want
+        del got
+        torch.cuda.empty_cache()
+        decode_device_ms(torch, kernel_argv, card)
+    dense = serve(torch, ["--no-quant"], card, FAMILY_ARGV)
+    for rid, out in dense.results.items():
+        if len(out) != FAMILY_GEN:
+            raise AssertionError(f"--no-quant request {rid} produced "
+                                 f"{len(out)} tokens")
+    del dense
+    torch.cuda.empty_cache()
+    decode_device_ms(torch, ["--no-quant"], card)
+    log("serve", f"GEMM-family runs took {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -364,10 +614,13 @@ class Timer:
         self.torch, self.iters, self.warmup = torch, iters, warmup
         self.flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, setup=None) -> float:
+        """``setup`` (untimed) runs after the flush and before ``fn``."""
         torch = self.torch
         for _ in range(self.warmup):
             self.flush.zero_()
+            if setup is not None:
+                setup()
             fn()
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True))
@@ -376,6 +629,8 @@ class Timer:
         torch.cuda._sleep(200_000_000)
         for s, e in ev:
             self.flush.zero_()
+            if setup is not None:
+                setup()
             s.record()
             fn()
             e.record()
@@ -409,6 +664,102 @@ def time_gemms(torch, dev, gen, timer, card):
                 f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of "
                 f"roofline), plain {r['plain_ms']:.4f} ms, dequant+matmul "
                 f"{r['library_ms']:.4f} ms [{card}]")
+    return rows
+
+
+def time_family(torch, dev, gen, timer, card):
+    """Phase 5 for the rest of the GEMM family at the danube shapes, bf16,
+    M = 8 and 32, the planner's split_k: kernel, plain version, one library
+    call (``torch.matmul`` for the dense GEMM; dequantize + ``torch.matmul``
+    for the decoupled pipeline, W8A16 and, as its float yardstick, W4A8),
+    and each kernel's bound. The decoupled pipeline's bound is given twice:
+    its function's (x · Dequant(W): the fused kernel's bytes) and its
+    design's (the sum of its three phases' bounds, workspace and partials
+    through device memory). Phase 2 is timed cold (workspace flushed from
+    the L2) and warm (right after phase 1 wrote it)."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import gemm, ref, w4a8_fused, w8a16_fused
+    from repro_torch.kernels import w4a16_decoupled as dec
+    rows = {}
+
+    def bound(nbytes, flops, int8=False):
+        return (cm.roofline_s(nbytes, flops, int8=int8) * 1e3,
+                cm.bound_by(nbytes, flops, int8=int8), nbytes, flops)
+
+    def row(name, M, K, N, fn, plain, library, b, extra=""):
+        r = dict(ms=timer(fn), plain_ms=timer(plain),
+                 library_ms=None if library is None else timer(library),
+                 bound_ms=b[0], bound_by=b[1], nbytes=b[2], flops=b[3])
+        rows[(name, M, K, N)] = r
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log("timing", f"{name} M={M} K={K} N={N}{extra}: kernel "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of "
+            f"roofline), plain {r['plain_ms']:.4f} ms, library {lib} "
+            f"[{card}]")
+        return r
+
+    bf16 = torch.bfloat16
+    for M in (8, 32):
+        for K, N in DANUBE_GEMMS:
+            w = (torch.randn(K, N, generator=gen, device=dev)
+                 * K ** -0.5).to(bf16)
+            x = torch.randn(M, K, generator=gen, device=dev).to(bf16)
+            qt4, qt8 = quantize(w), quantize(w, "w8a16_channel")
+            qta8 = quantize(w, "w4a8_g128")
+            sk = family_split(M, N, K)
+            flops = cm.w4a16_gemm_flops(M, N, K)
+            row("dense_gemm", M, K, N, lambda: gemm.gemm(x, w),
+                lambda: gemm.gemm_plain(x, w), lambda: torch.matmul(x, w),
+                bound(cm.dense_gemm_bytes(M, N, K), flops))
+            # the decoupled pipeline, whole and phase by phase
+            ws = dec.dequant_w4(qt4, out_dtype=bf16)
+            parts = dec.splitk_gemm(x, ws, split_k=sk)
+            fn_bound = bound(cm.w4a16_gemm_bytes(M, N, K), flops)
+            t1, t2, t3 = cm.w4a16_decoupled_phases(M, N, K, split_k=sk)
+            r = row("w4a16_decoupled", M, K, N,
+                    lambda: dec.w4a16_decoupled(x, qt4, split_k=sk),
+                    lambda: dec.w4a16_decoupled_plain(x, qt4, split_k=sk),
+                    lambda: ref.w4a16_ref(x, qt4), fn_bound,
+                    f" split_k={sk}")
+            r["design_bound_ms"] = (t1 + t2 + t3) * 1e3
+            log("timing", f"w4a16_decoupled M={M} K={K} N={N}: the design's "
+                f"bound (three phases through device memory) "
+                f"{r['design_bound_ms']:.4f} ms; the kernel at "
+                f"{r['design_bound_ms'] / r['ms']:.1%} of it [{card}]")
+            row("dequant_w4", M, K, N,
+                lambda: dec.dequant_w4(qt4, out_dtype=bf16),
+                lambda: dec.dequant_w4_plain(qt4, out_dtype=bf16), None,
+                bound(cm.dequant_w4_bytes(K, N), 0.0))
+            r = row("splitk_gemm", M, K, N,
+                    lambda: dec.splitk_gemm(x, ws, split_k=sk),
+                    lambda: dec.splitk_gemm_plain(x, ws, split_k=sk), None,
+                    bound(cm.dense_gemm_bytes(M, N, K, out_bytes=0)
+                          + 4 * sk * M * N, flops), f" split_k={sk}")
+            r["warm_ms"] = timer(
+                lambda: dec.splitk_gemm(x, ws, split_k=sk),
+                setup=lambda: dec.dequant_w4(qt4, out_dtype=bf16))
+            log("timing", f"splitk_gemm M={M} K={K} N={N}: right after "
+                f"phase 1 wrote the {K * N * 2 / 1e6:.1f} MB workspace "
+                f"{r['warm_ms']:.4f} ms (cold {r['ms']:.4f} ms) [{card}]")
+            row("reduce_partials", M, K, N,
+                lambda: dec.reduce_partials(parts, out_dtype=bf16),
+                lambda: dec.reduce_partials_plain(parts, out_dtype=bf16),
+                None, bound(cm.reduce_bytes(M, N, sk), 0.0),
+                f" split_k={sk}")
+            row("w8a16_gemm", M, K, N,
+                lambda: w8a16_fused.w8a16_fused(x, qt8),
+                lambda: w8a16_fused.w8a16_fused_plain(x, qt8),
+                lambda: ref.w4a16_ref(x, qt8),
+                bound(cm.w8a16_gemm_bytes(M, N, K), flops))
+            row("w4a8_gemm", M, K, N,
+                lambda: w4a8_fused.w4a8_fused(x, qta8, split_k=sk),
+                lambda: w4a8_fused.w4a8_fused_plain(x, qta8, split_k=sk),
+                lambda: ref.w4a16_ref(x, qta8),
+                bound(cm.w4a8_gemm_bytes(M, N, K, act_bytes=2), flops,
+                      int8=True), f" split_k={sk}")
+            del ws, parts
     return rows
 
 
@@ -542,6 +893,31 @@ def trace(torch, card):
     report("decode", dec_steps, dec_traced, dec_ms, dec_prof)
 
 
+def layer_totals(torch, gemm_rows, fam_rows, card):
+    """The paper's question per layer (its seven GEMMs) at M = 8 and 32:
+    fused W4A16 vs the decoupled pipeline vs the dense baseline, with W8A16
+    and W4A8 beside them, each against its bound."""
+    for M in (8, 32):
+        def total(name, key):
+            rows = gemm_rows if name == "w4a16_gemm" else fam_rows
+            return sum((rows[(M, K, N)] if name == "w4a16_gemm"
+                        else rows[(name, M, K, N)])[key]
+                       for K, N in LAYER_GEMMS)
+        parts = []
+        for name in ("w4a16_gemm", "w4a16_decoupled", "dense_gemm",
+                     "w8a16_gemm", "w4a8_gemm"):
+            parts.append(f"{name} {total(name, 'ms'):.4f} ms (bound "
+                         f"{total(name, 'bound_ms'):.4f})")
+        phases = sum(total(n, "ms") for n in ("dequant_w4", "splitk_gemm",
+                                              "reduce_partials"))
+        log("timing", f"one layer's 7 GEMMs at M={M}: " + "; ".join(parts)
+            + f"; decoupled design bound "
+            f"{total('w4a16_decoupled', 'design_bound_ms'):.4f} ms, its "
+            f"phases timed apart {phases:.4f} ms, phase 2 warm "
+            f"{total('splitk_gemm', 'warm_ms'):.4f} vs cold "
+            f"{total('splitk_gemm', 'ms'):.4f} ms [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -550,8 +926,6 @@ def main() -> int:
         return 2
     from repro_torch.core import costmodel
     from repro_torch.kernels import build
-    from repro_torch.kernels.paged_attention import PAGED_ATTENTION
-    from repro_torch.kernels.w4a16_fused import W4A16_GEMM
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 matmuls in fp32
@@ -561,54 +935,82 @@ def main() -> int:
     log("device", f"{card} ({torch.cuda.device_count()} visible; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda})")
 
+    table = kernel_table()
     t0 = time.perf_counter()
-    logs = build.build_all([W4A16_GEMM, PAGED_ATTENTION])
-    log("build", f"w4a16_gemm.cu + paged_attention.cu in "
-        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
-    for name, text in zip(("w4a16_gemm", "paged_attention"), logs):
+    logs = build.build_all(k for k, _, _ in table.values())
+    sources = list(dict.fromkeys(src for _, src, _ in table.values()))
+    log("build", f"{' + '.join(sources)} in {time.perf_counter() - t0:.1f} "
+        f"s (one nvcc each, in parallel)")
+    for name, text in zip(sources, logs):
         regs = sorted({line.split(":", 1)[1].strip()
                        for line in text.splitlines() if "registers" in line})
         log("build", f"{name}: {'; '.join(regs) or 'cached build'}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    gemm_err = check_gemm(torch, dev, gen)
+    t0 = time.perf_counter()
+    errs = {"w4a16_gemm": check_gemm(torch, dev, gen)}
     check_gemm_fp32(torch, dev, gen)
-    attn_err = check_attention(torch, dev, gen)
+    errs["paged_attention"] = check_attention(torch, dev, gen)
+    errs.update(check_family(torch, dev, gen))
     torch.cuda.synchronize()
+    log("kernels", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
-    fused, plain, launches = check_serve(torch, card)
+    t0 = time.perf_counter()
+    fused, plain, launches = check_serve(torch, card, table)
+    del fused, plain
+    torch.cuda.empty_cache()
+    launches.update(serve_family(torch, card, table))
+    log("serve", f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     timer = Timer(torch, dev)
     gemm_rows = time_gemms(torch, dev, gen, timer, card)
     attn_rows = time_attention(torch, dev, gen, timer, card)
+    fam_rows = time_family(torch, dev, gen, timer, card)
+    layer_totals(torch, gemm_rows, fam_rows, card)
     del timer
     torch.cuda.empty_cache()
+    log("timing", f"phase 5 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     trace(torch, card)
+    log("trace", f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
-    # one entry per kernel: the GEMM entry sums one decode step's seven
+    # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers);
     # the attention entry is one decode call at B=8 over the served window
-    def layer_sum(key):
-        return sum(gemm_rows[(8, K, N)][key] for K, N in LAYER_GEMMS)
+    def layer_sum(name, key):
+        if name == "w4a16_gemm":
+            vals = [gemm_rows[(8, K, N)][key] for K, N in LAYER_GEMMS]
+        else:
+            vals = [fam_rows[(name, 8, K, N)][key] for K, N in LAYER_GEMMS]
+        return None if None in vals else sum(vals)
+
+    def entry(name, **numbers):
+        _, src, replaces = table[name]
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": errs[name], **numbers}
+
+    def gemm_entry(name):
+        return entry(name, ms=layer_sum(name, "ms"),
+                     plain_ms=layer_sum(name, "plain_ms"),
+                     bound_ms=layer_sum(name, "bound_ms"),
+                     bound_by=costmodel.bound_by(
+                         layer_sum(name, "nbytes"), layer_sum(name, "flops"),
+                         int8=name == "w4a8_gemm"),
+                     library_ms=layer_sum(name, "library_ms"))
 
     a = attn_rows["decode"]
     record = {"kernels": [
-        {"name": "w4a16_gemm", "route": "cuda",
-         "source": "src/repro_torch/csrc/w4a16_gemm.cu",
-         "replaces": "src/repro/kernels/w4a16_fused.py:37",
-         "launches": launches["w4a16_gemm"], "max_abs_err": gemm_err,
-         "ms": layer_sum("ms"), "plain_ms": layer_sum("plain_ms"),
-         "bound_ms": layer_sum("bound_ms"),
-         "bound_by": costmodel.bound_by(layer_sum("nbytes"),
-                                        layer_sum("flops")),
-         "library_ms": layer_sum("library_ms")},
-        {"name": "paged_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention.py:148",
-         "launches": launches["paged_attention"], "max_abs_err": attn_err,
-         "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-         "bound_by": a["bound_by"], "library_ms": a["library_ms"]},
+        gemm_entry("w4a16_gemm"),
+        entry("paged_attention", ms=a["ms"], plain_ms=a["plain_ms"],
+              bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+              library_ms=a["library_ms"]),
+        gemm_entry("dense_gemm"), gemm_entry("dequant_w4"),
+        gemm_entry("reduce_partials"), gemm_entry("w8a16_gemm"),
+        gemm_entry("w4a8_gemm"),
     ]}
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))

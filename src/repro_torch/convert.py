@@ -3,8 +3,12 @@
 The caller hands over the JAX package's params as a nested dict of numpy
 arrays (the port never sees JAX): every array leaf becomes a tensor, and a
 ``QuantizedTensor`` leaf arrives as ``{"packed", "scales", "zeros",
-"group_size"}`` (stacked over L like the rest of ``layers``) and becomes the
-port's :class:`~repro_torch.core.quant.QuantizedTensor` with the same bytes.
+"group_size", "format"}`` (stacked over L like the rest of ``layers``;
+``format`` is the format's descriptor dict, ``QuantFormat.to_dict()``, or
+its registered name) and becomes the port's
+:class:`~repro_torch.core.quant.QuantizedTensor` with the same bytes and
+the same format. A quantized leaf without ``format`` is refused: the
+payload alone cannot tell a W4A16 leaf from a W4A8 one.
 numpy ``bfloat16`` arrays (``ml_dtypes``) are reinterpreted bit for bit.
 """
 from __future__ import annotations
@@ -14,9 +18,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch.core.quant import QuantizedTensor
+from repro_torch.core.quant import QuantizedTensor, resolve_format
 
-_QT_KEYS = {"packed", "scales", "zeros", "group_size"}
+_QT_KEYS = {"packed", "scales", "zeros", "group_size", "format"}
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -34,13 +38,19 @@ def from_jax_params(tree: Mapping[str, Any], *, dtype: torch.dtype,
     """Convert a numpy param tree to the port's tree. Float leaves are cast
     to ``dtype`` (the model's dtype); quantized leaves keep int8 payloads
     and fp32 scales and dequantize to ``dtype``."""
-    if isinstance(tree, Mapping) and set(tree) == _QT_KEYS:
+    if isinstance(tree, Mapping) and "packed" in tree:
+        if set(tree) != _QT_KEYS:
+            raise ValueError(
+                f"a quantized leaf needs exactly the keys {sorted(_QT_KEYS)}"
+                f", got {sorted(tree)}: its format must be given, not "
+                f"guessed")
         zeros = tree["zeros"]
         return QuantizedTensor(
             packed=to_tensor(tree["packed"], device).view(torch.int8),
             scales=to_tensor(tree["scales"], device),
             zeros=None if zeros is None else to_tensor(zeros, device),
-            group_size=int(tree["group_size"]), out_dtype=dtype)
+            group_size=int(tree["group_size"]), out_dtype=dtype,
+            format=resolve_format(tree["format"]))
     if isinstance(tree, Mapping):
         return {k: from_jax_params(v, dtype=dtype, device=device)
                 for k, v in tree.items()}

@@ -1,4 +1,5 @@
-"""Quantization core: the W4A16 weight format and the KV-cache formats.
+"""Quantization core: the weight formats (W4A16, W8A16, W4A8) and the
+KV-cache formats.
 
 Port of ``repro/core/quant.py``. A :class:`QuantFormat` is a frozen,
 JSON-serializable descriptor registered by name; every
@@ -79,6 +80,14 @@ class QuantFormat:
     def pack_factor(self) -> int:
         """K rows represented per packed row (2 for nibble pairs)."""
         return 2 if self.packing == "int4_pairs_k" else 1
+
+    @property
+    def quantized_activations(self) -> bool:
+        return self.act_dtype == "int8"
+
+    def scale_rows(self, K: int) -> int:
+        return K // self.group_size if self.scale_granularity == "group" \
+            else 1
 
     def with_group_size(self, group_size: int) -> "QuantFormat":
         """This format with another group size (registered on demand)."""
@@ -162,11 +171,21 @@ def w4a16_format_for(group_size: int, *, symmetric: bool = True
     return fmt.with_symmetric(symmetric)
 
 
-# The paper's format and the default.
+# The paper's format (the default) and the two other members of the family:
+# per-channel INT8 weights, and INT4 weights with dynamic per-token INT8
+# activations.
 W4A16_G128 = register_format(QuantFormat(
     name="w4a16_g128", weight_bits=4, packing="int4_pairs_k",
     scale_granularity="group", group_size=128, symmetric=True,
     act_dtype="bfloat16"))
+W8A16_CHANNEL = register_format(QuantFormat(
+    name="w8a16_channel", weight_bits=8, packing="int8_rows",
+    scale_granularity="channel", group_size=0, symmetric=True,
+    act_dtype="bfloat16"))
+W4A8_G128 = register_format(QuantFormat(
+    name="w4a8_g128", weight_bits=4, packing="int4_pairs_k",
+    scale_granularity="group", group_size=128, symmetric=True,
+    act_dtype="int8"))
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +244,14 @@ class QuantizedTensor:
 # packing
 # ---------------------------------------------------------------------------
 
+def _div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """``a / d`` as an IEEE division on every device. PyTorch's CUDA kernels
+    divide by a Python scalar by multiplying with its reciprocal, which can
+    differ in the last bit from the CPU's (and the JAX package's) division;
+    a 0-dim tensor on ``a``'s device keeps it a true division."""
+    return a / torch.full((), d, dtype=a.dtype, device=a.device)
+
+
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
     """Pack int4 values (int8 in [-8, 7]) pairwise along axis 0:
     (K, N) → (K//2, N) int8, even rows in the low nibble."""
@@ -246,6 +273,11 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).reshape(2 * k2, n)
 
 
+def unpack_int8_rows(packed: torch.Tensor) -> torch.Tensor:
+    """The ``int8_rows`` unpack: weight rows are stored as int8."""
+    return packed.view(torch.int8)
+
+
 def pack_weights(q: torch.Tensor, fmt: FormatLike = None) -> torch.Tensor:
     fmt = resolve_format(fmt)
     if fmt.packing == "int4_pairs_k":
@@ -258,7 +290,21 @@ def unpack_weights(packed: torch.Tensor, fmt: FormatLike = None
     fmt = resolve_format(fmt)
     if fmt.packing == "int4_pairs_k":
         return unpack_int4(packed)
-    return packed.view(torch.int8)
+    return unpack_int8_rows(packed)
+
+
+def per_channel_scales(qt: QuantizedTensor):
+    """``(scales, zeros)`` broadcast to the (1, N) per-channel layout
+    (tensor scales broadcast across N); group scales are refused."""
+    if qt.format.scale_granularity == "group":
+        raise ValueError(
+            f"format {qt.format.name!r} has group-granular scales; "
+            f"per-channel kernels need channel or tensor granularity")
+    N = qt.N
+    scales = torch.broadcast_to(qt.scales, (1, N))
+    zeros = None if qt.zeros is None \
+        else torch.broadcast_to(qt.zeros, (1, N))
+    return scales, zeros
 
 
 # ---------------------------------------------------------------------------
@@ -299,13 +345,13 @@ def quantize(w: torch.Tensor, format: FormatLike = None, *,
     dims = (1, 2) if fmt.scale_granularity == "tensor" else (1,)
     if fmt.symmetric:
         amax = gw.abs().amax(dim=dims, keepdim=True)
-        s = torch.clamp_min(amax / fmt.qmax, 1e-8)
+        s = torch.clamp_min(_div(amax, fmt.qmax), 1e-8)
         z = None
         q = torch.round(gw / s)
     else:
         gmax = gw.amax(dim=dims, keepdim=True)
         gmin = gw.amin(dim=dims, keepdim=True)
-        s = torch.clamp_min((gmax - gmin) / (fmt.qmax - fmt.qmin), 1e-8)
+        s = torch.clamp_min(_div(gmax - gmin, fmt.qmax - fmt.qmin), 1e-8)
         z = torch.round(-gmin / s) + fmt.qmin
         q = torch.round(gw / s) + z
     q = torch.clamp(q, fmt.qmin, fmt.qmax).to(torch.int8).reshape(K, N)
@@ -345,6 +391,56 @@ def w4a16_matmul_ref(x: torch.Tensor, qt: QuantizedTensor, *,
     acc = acc_dtype or w.dtype
     return torch.matmul(x.to(w.dtype).to(acc), w.to(acc)) \
         .to(out_dtype or x.dtype)
+
+
+def quantize_activations_int8(x: torch.Tensor):
+    """Dynamic per-token symmetric INT8 activations: ``(x_q int8, x_scale
+    fp32 (..., 1))``, one scale per row, ``s = max(amax / 127, 1e-8)``
+    divided in fp32 and rounded half to even, as the JAX package does."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp_min(_div(amax, 127.0), 1e-8)
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def w4a8_group_sums(xq: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """The W4A8 per-group terms ``(M, G, N)`` fp32: ``ws[G, n] · (Σ_g
+    xq[m, G, g]·wq[G, g, n] − z[G, n]·Σ_g xq[m, G, g])``. The integer dots
+    run as fp32 matmuls of integer values, which are exact: every partial
+    sum is an integer below 2^24 (|xq·wq| ≤ 127·8, at most a few thousand
+    terms), so the order of summation cannot change them — this is the
+    JAX package's int32 dot, on a device with no integer matmul."""
+    M, K = xq.shape
+    wq = unpack_weights(qt.packed, qt.format)
+    N, g = wq.shape[-1], qt.group_size
+    G = K // g
+    xg = xq.reshape(M, G, g).to(torch.float32)
+    acc = torch.einsum("mgk,gkn->mgn", xg,
+                       wq.reshape(G, g, N).to(torch.float32))
+    if qt.zeros is not None:
+        tok = xg.sum(dim=2)                                  # (M, G) exact
+        acc = acc - qt.zeros.to(torch.float32)[None] * tok[:, :, None]
+    return acc * qt.scales.to(torch.float32)[None]
+
+
+def w4a8_matmul_ref(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+    """W4A8 GEMM: dynamic INT8 activations × INT4 weights, exact integer
+    sums per K-group, scales applied at the group boundary:
+
+        y[m, n] = xs[m] · Σ_G ws[G, n] · Σ_g xq[m, G, g] · wq[G, g, n]
+
+    cast to x's dtype (the JAX package's ``w4a8_matmul_ref``)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    xq, xs = quantize_activations_int8(x2)
+    y = w4a8_group_sums(xq, qt).sum(dim=1)
+    return (y * xs).to(x.dtype).reshape(*lead, qt.N)
+
+
+def quantization_error_bound(qt: QuantizedTensor) -> torch.Tensor:
+    """Per-group max rounding error: |w - deq(q(w))| <= s/2."""
+    return qt.scales.to(torch.float32) / 2.0
 
 
 # ---------------------------------------------------------------------------
@@ -418,7 +514,7 @@ def kv_quantize(x: torch.Tensor, fmt: KVFormat):
         return x, None
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    s = torch.clamp_min(amax / 127.0, 1e-8)
+    s = torch.clamp_min(_div(amax, 127.0), 1e-8)
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return q, s[..., 0]
 

@@ -4,10 +4,11 @@ Each kernel source under ``src/repro_torch/csrc/`` has a plain C interface
 (pointers, ints and the stream; no PyTorch headers) and is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library
 under ``build/kernels/`` at the root of the checkout, at first use. The
-library name carries a hash of the source and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Libraries are bound with
-``ctypes``: every pointer and the stream are ``c_void_p``, every int
-``c_int``.
+library is named after its source and carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+is rebuilt and an unchanged one is loaded as it is. Kernels exported by one
+source share its library. Libraries are bound with ``ctypes``: every
+pointer and the stream are ``c_void_p``, every int ``c_int``.
 
 A :class:`CudaKernel` counts its successful launches in ``launches`` (a
 plain integer), so a run can show which kernels its main path went
@@ -67,8 +68,10 @@ class CudaKernel:
     # -- build --------------------------------------------------------------
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this kernel unless its library exists; the
@@ -126,13 +129,17 @@ class CudaKernel:
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[str]:
     """Build every kernel with one ``nvcc`` per source, all started
-    together; returns each kernel's compiler log (register and shared
-    memory use from ``-Xptxas -v``)."""
-    kernels = list(kernels)
-    procs = [k.start_build() for k in kernels]
-    for k, p in zip(kernels, procs):
+    together; returns each source's compiler log (register and shared
+    memory use from ``-Xptxas -v``), in the order the sources first
+    appear."""
+    by_lib = {}
+    for k in kernels:
+        by_lib.setdefault(k.library_path(), k)
+    firsts = list(by_lib.values())
+    procs = [k.start_build() for k in firsts]
+    for k, p in zip(firsts, procs):
         k.finish_build(p)
-    return [k.build_log for k in kernels]
+    return [k.build_log for k in firsts]
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

@@ -1,11 +1,45 @@
 """Block-size helpers shared with the JAX package's kernels (no VMEM model:
-the Hopper kernels pick their own tiles)."""
+the Hopper kernels pick their own tiles), and the operand checks every CUDA
+kernel wrapper makes before a launch."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 LANE = 128
+
+# activation dtypes the float GEMM kernels take, by the code their C
+# launchers expect
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def check_operands(device: torch.device, **tensors) -> None:
+    """Each given tensor (None skipped) lies on ``device``, is contiguous
+    and 16-byte aligned, as the kernels' 16-byte loads need."""
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def kernel_dtype(dtype: torch.dtype, what: str) -> int:
+    """The launcher's code for ``dtype``; raises for any other dtype."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the {what} kernel takes bf16/fp16/fp32 "
+                         f"activations, got {dtype}")
+    return KERNEL_DTYPES[dtype]
+
+
+def check_split(K: int, split_k: int, multiple: int = 32) -> None:
+    """K cut into ``split_k`` slices that are multiples of ``multiple``."""
+    if split_k < 1 or K % split_k or (K // split_k) % multiple:
+        raise ValueError(f"split_k={split_k} must leave K slices that are "
+                         f"multiples of {multiple} (K={K})")
 
 
 def largest_divisor(dim: int, target: int, multiple_of: int = 1) -> int:

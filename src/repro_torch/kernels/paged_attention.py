@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.quant import KVFormat
 from repro_torch.kernels import build, planning
+from repro_torch.kernels.common import KERNEL_DTYPES
 
 NEG_INF = -1e30
 
@@ -34,7 +35,6 @@ PAGED_ATTENTION = build.CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_partials",
     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
 
-_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _MAX_SMEM = 227 * 1024
 _KB = 32
 
@@ -103,7 +103,7 @@ def _launch_partials(qk, positions, start, pool, tables, *, Tq: int, G: int,
     T = tables.shape[1]
     ps = pool.page_pos.shape[-1]
     dev = qk.device
-    if qk.dtype not in _KERNEL_DTYPES:
+    if qk.dtype not in KERNEL_DTYPES:
         raise ValueError(f"paged attention kernel: unsupported compute "
                          f"dtype {qk.dtype}")
     want_pool = torch.int8 if fmt.quantized else qk.dtype
@@ -140,7 +140,7 @@ def _launch_partials(qk, positions, start, pool, tables, *, Tq: int, G: int,
         build.ptr(pool.page_pos), build.ptr(tables),
         build.ptr(acc), build.ptr(m), build.ptr(l),
         B, Hkv, C, Tq, G, D, ps, T, S, T // S, int(window),
-        int(fmt.quantized), _KERNEL_DTYPES[qk.dtype], build.stream_ptr(dev))
+        int(fmt.quantized), KERNEL_DTYPES[qk.dtype], build.stream_ptr(dev))
     return acc, m, l
 
 

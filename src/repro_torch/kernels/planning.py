@@ -1,20 +1,32 @@
-"""Plan-based W4A16 matmul and paged-attention planning: problem → plan →
-execute.
+"""Plan-based quantized matmul and paged-attention planning: problem → plan
+→ execute.
 
 Port of ``repro/kernels/planning.py``. Strategies and attention paths are
 registered entries with an H100 roofline cost (``core/costmodel.py``) and a
-``supports()`` gate; the planner ranks whatever is registered.
+``supports()`` gate; the planner ranks whatever is registered that takes
+the problem's quantization format.
 
-Matmul strategies: ``reference`` (dequantize + ``torch.matmul``, the plain
-path; the planner picks it only for CPU operands) and ``fused`` (the
-hand-written Hopper kernel, supported only for CUDA operands — which takes
-the place of the JAX package's interpret-mode penalty). Attention paths:
-``gather`` (materialize the window, plain attention; the CPU path) and
-``fused`` (the paged-attention kernel, CUDA only). On CUDA, ``auto`` picks
-``fused`` for both, whatever the shape or dtype: a CUDA problem the kernel
-cannot take raises when it runs, never routes to the plain path. A forced
-strategy or path skips the ranking, so the plain paths still run on the
-card when asked for by name (the comparisons of ``chip_smoke.py``).
+Matmul strategies, by format family:
+  * W4A16 (``w4a16_*``): ``reference`` (dequantize + ``torch.matmul``, the
+    plain path, also for ``w8a16_*``), ``fused`` (``csrc/w4a16_gemm.cu``)
+    and ``decoupled`` (the paper's three-phase pipeline through device
+    memory);
+  * W8A16 (``w8a16_channel*``): ``w8a16_fused`` (``csrc/w8a16_gemm.cu``);
+  * W4A8 (``w4a8_*``): ``w4a8_xla`` (the plain path; the JAX package's
+    name is kept so ``--strategy`` takes the same words) and
+    ``w4a8_fused`` (``csrc/w4a8_gemm.cu``).
+Plain strategies support only CPU operands and kernel strategies only CUDA
+ones, which takes the place of the JAX package's interpret-mode penalty.
+On CUDA the cost model makes ``auto`` pick ``fused`` for every W4A16
+shape and dtype; a CUDA problem a kernel cannot take raises when it runs
+(or, where no kernel supports the shape, when it is planned), never routes
+to a plain path. A forced strategy or path skips the ranking, so the plain
+paths still run on the card when asked for by name (the comparisons of
+``chip_smoke.py``). JAX's ``xla`` strategy is not ported: in eager PyTorch
+it is the same computation as ``reference``.
+
+Attention paths: ``gather`` (materialize the window, plain attention; the
+CPU path) and ``fused`` (the paged-attention kernel, CUDA only).
 
 A ``KernelPlan`` carries no tile sizes: the Hopper GEMM picks its own
 tiles and honours ``split_k`` only.
@@ -32,9 +44,13 @@ from repro_torch.core import costmodel
 from repro_torch.core.device import dtype_name
 from repro_torch.core.quant import (
     DEFAULT_FORMAT, DEFAULT_KV_FORMAT, QuantizedTensor, get_kv_format,
+    w4a8_matmul_ref,
 )
 from repro_torch.kernels import ref
+from repro_torch.kernels.w4a8_fused import w4a8_fused
+from repro_torch.kernels.w4a16_decoupled import w4a16_decoupled
 from repro_torch.kernels.w4a16_fused import w4a16_fused
+from repro_torch.kernels.w8a16_fused import w8a16_fused
 
 __all__ = [
     "MatmulProblem", "KernelPlan", "Strategy",
@@ -55,7 +71,7 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class MatmulProblem:
-    """One W4A16 GEMM: C[M, N] = A[M, K] · Dequant(W[K, N]). Hashable —
+    """One quantized GEMM: C[M, N] = A[M, K] · Dequant(W[K, N]). Hashable —
     the plan cache and the planner key on it. ``backend`` is the operands'
     device type (``cuda`` | ``cpu``)."""
 
@@ -223,22 +239,95 @@ def _cost_reference(problem: MatmulProblem, plan: KernelPlan) -> float:
         act_bytes=_act_bytes(problem)) * problem.batch
 
 
+def _cost_decoupled(problem: MatmulProblem, plan: KernelPlan) -> float:
+    return costmodel.w4a16_time_decoupled(
+        problem.M, problem.N, problem.K, split_k=max(plan.split_k, 1),
+        group=problem.group_size, act_bytes=_act_bytes(problem),
+        has_zeros=problem.has_zeros) * problem.batch
+
+
+def _cost_w8a16_fused(problem: MatmulProblem, plan: KernelPlan) -> float:
+    return costmodel.w8a16_time_fused(
+        problem.M, problem.N, problem.K, act_bytes=_act_bytes(problem),
+        has_zeros=problem.has_zeros) * problem.batch
+
+
+def _cost_w4a8_fused(problem: MatmulProblem, plan: KernelPlan) -> float:
+    return costmodel.w4a8_time_fused(
+        problem.M, problem.N, problem.K, group=problem.group_size,
+        has_zeros=problem.has_zeros) * problem.batch
+
+
+def _cost_w4a8_plain(problem: MatmulProblem, plan: KernelPlan) -> float:
+    return costmodel.w4a8_time_plain(
+        problem.M, problem.N, problem.K,
+        group=problem.group_size) * problem.batch
+
+
 def _exec_out_dtype(plan: KernelPlan, x: torch.Tensor):
     return getattr(torch, plan.out_dtype) if plan.out_dtype else x.dtype
 
 
-@register_strategy("reference", cost=_cost_reference,
-                   supports=lambda problem: problem.backend != "cuda")
+def _on_cuda(problem: MatmulProblem) -> bool:
+    return problem.backend == "cuda"
+
+
+def _off_cuda(problem: MatmulProblem) -> bool:
+    return problem.backend != "cuda"
+
+
+def _packable(problem: MatmulProblem) -> bool:
+    """Packed int4 pairs with group-aligned K."""
+    return (problem.group_size > 0 and problem.K % 2 == 0
+            and problem.K % problem.group_size == 0)
+
+
+_FLOAT_ACT_FORMATS = ("w4a16_*", "w8a16_*")   # anything dequantize handles
+
+
+@register_strategy("reference", cost=_cost_reference, supports=_off_cuda,
+                   formats=_FLOAT_ACT_FORMATS)
 def _run_reference(x2, qt, plan):
     return ref.w4a16_ref(x2, qt, out_dtype=_exec_out_dtype(plan, x2))
 
 
-@register_strategy("fused", cost=_cost_fused,
-                   supports=lambda problem: problem.backend == "cuda",
+@register_strategy("w4a8_xla", cost=_cost_w4a8_plain,
+                   supports=lambda problem: _off_cuda(problem)
+                   and _packable(problem), formats=("w4a8_*",))
+def _run_w4a8_plain(x2, qt, plan):
+    return w4a8_matmul_ref(x2, qt).to(_exec_out_dtype(plan, x2))
+
+
+@register_strategy("fused", cost=_cost_fused, supports=_on_cuda,
                    splittable=True)
 def _run_fused(x2, qt, plan):
     return w4a16_fused(x2, qt, split_k=max(plan.split_k, 1),
                        out_dtype=_exec_out_dtype(plan, x2))
+
+
+@register_strategy("decoupled", cost=_cost_decoupled, supports=_on_cuda,
+                   splittable=True)
+def _run_decoupled(x2, qt, plan):
+    return w4a16_decoupled(x2, qt, split_k=max(plan.split_k, 1),
+                           out_dtype=_exec_out_dtype(plan, x2))
+
+
+@register_strategy("w8a16_fused", cost=_cost_w8a16_fused,
+                   supports=lambda problem: _on_cuda(problem)
+                   and problem.group_size >= problem.K > 0,
+                   formats=("w8a16_channel*",), splittable=True)
+def _run_w8a16_fused(x2, qt, plan):
+    return w8a16_fused(x2, qt, split_k=max(plan.split_k, 1),
+                       out_dtype=_exec_out_dtype(plan, x2))
+
+
+@register_strategy("w4a8_fused", cost=_cost_w4a8_fused,
+                   supports=lambda problem: _on_cuda(problem)
+                   and _packable(problem), formats=("w4a8_*",),
+                   splittable=True)
+def _run_w4a8_fused(x2, qt, plan):
+    return w4a8_fused(x2, qt, split_k=max(plan.split_k, 1),
+                      out_dtype=_exec_out_dtype(plan, x2))
 
 
 # ---------------------------------------------------------------------------
@@ -321,10 +410,19 @@ def plan_matmul(problem: MatmulProblem, *, strategy: Optional[str] = None,
         if best is None or (score, order) < (best[0], best[1]):
             best = (score, order, plan)
     if best is None:
+        candidates = strategies_for_format(problem.format)
+        if candidates:
+            raise ValueError(
+                f"no strategy supporting format {problem.format!r} can "
+                f"execute this problem shape (M={problem.M}, N={problem.N}, "
+                f"K={problem.K}, group_size={problem.group_size}, "
+                f"backend={problem.backend}); {list(candidates)} rejected "
+                f"it — for packed-int4 formats K must be even and "
+                f"divisible by the group size")
         raise ValueError(
             f"no registered strategy supports quantization format "
-            f"{problem.format!r} at M={problem.M}, N={problem.N}, "
-            f"K={problem.K} (strategies: {list(available_strategies())})")
+            f"{problem.format!r} (strategies: "
+            f"{list(available_strategies())})")
     plan = best[2]
     if use_cache:
         cache.put(problem, plan)
@@ -377,9 +475,12 @@ def quantized_leaves(tree):
             yield from quantized_leaves(v)
 
 
-def plan_for_params(params, M: int) -> Dict[str, KernelPlan]:
-    """Pre-plan every quantized layer GEMM in a param tree for ``M`` rows.
-    Returns ``{"KxN": plan}``; every decision lands in the plan cache."""
+def plan_for_params(params, M: int, *,
+                    strategy: Optional[str] = None) -> Dict[str, KernelPlan]:
+    """Pre-plan every quantized layer GEMM in a param tree for ``M`` rows
+    (``strategy`` forces one, and a strategy/format mismatch raises here).
+    Returns ``{"KxN": plan}``; every planned decision lands in the plan
+    cache."""
     plans: Dict[str, KernelPlan] = {}
     for leaf in quantized_leaves(params):
         problem = MatmulProblem(
@@ -390,7 +491,7 @@ def plan_for_params(params, M: int) -> Dict[str, KernelPlan]:
             has_zeros=leaf.zeros is not None,
             backend=leaf.packed.device.type,
             format=leaf.format.name)
-        plans[problem.layer_key] = plan_matmul(problem)
+        plans[problem.layer_key] = plan_matmul(problem, strategy=strategy)
     return plans
 
 

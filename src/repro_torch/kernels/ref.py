@@ -1,4 +1,6 @@
-"""Plain PyTorch oracles for the W4A16 GEMM (port of ``repro/kernels/ref.py``)."""
+"""Plain PyTorch oracles for the GEMM kernels (port of
+``repro/kernels/ref.py``; ``attention_ref`` comes with the flash-attention
+kernel)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,6 +9,14 @@ import torch
 
 from repro_torch.core.quant import (QuantizedTensor, dequantize,
                                     w4a16_matmul_ref)
+
+
+def gemm_ref(x: torch.Tensor, w: torch.Tensor, out_dtype=None
+             ) -> torch.Tensor:
+    """Dense GEMM oracle: fp32 products and accumulation, cast to
+    ``out_dtype`` (default x's dtype)."""
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)) \
+        .to(out_dtype or x.dtype)
 
 
 def dequant_ref(packed: torch.Tensor, scales: torch.Tensor,
@@ -24,3 +34,38 @@ def w4a16_ref(x: torch.Tensor, qt: QuantizedTensor,
     ``qt.out_dtype`` and one ``torch.matmul`` in that dtype computes the
     product."""
     return w4a16_matmul_ref(x, qt, out_dtype=out_dtype, acc_dtype=None)
+
+
+def splitk_partials_ref(x: torch.Tensor, w: torch.Tensor,
+                        split_k: int) -> torch.Tensor:
+    """S fp32 partial GEMMs over K slices → (S, M, N) fp32 (paper Alg. 1
+    phase 2)."""
+    K = x.shape[1]
+    if split_k < 1 or K % split_k:
+        raise ValueError(f"split_k={split_k} must divide K={K}")
+    ks = K // split_k
+    xf, wf = x.to(torch.float32), w.to(torch.float32)
+    return torch.stack([torch.matmul(xf[:, i * ks:(i + 1) * ks],
+                                     wf[i * ks:(i + 1) * ks])
+                        for i in range(split_k)])
+
+
+def reduce_ref(partials: torch.Tensor, out_dtype=torch.bfloat16
+               ) -> torch.Tensor:
+    """Sum over S in fp32, slice 0 first, then the cast (paper Alg. 1
+    phase 3)."""
+    acc = partials[0].to(torch.float32)
+    for p in partials[1:]:
+        acc = acc + p
+    return acc.to(out_dtype)
+
+
+def splitk_matmul_plain(x: torch.Tensor, w: torch.Tensor, split_k: int,
+                        out_dtype) -> torch.Tensor:
+    """x · w with fp32 products and accumulation, K cut into ``split_k``
+    slices whose fp32 partials are summed before the cast: the arithmetic
+    of every float-contraction GEMM kernel (``w`` already rounded to the
+    compute dtype)."""
+    parts = splitk_partials_ref(x, w, split_k)
+    out = parts[0] if split_k == 1 else torch.sum(parts, dim=0)
+    return out.to(out_dtype)

@@ -19,51 +19,29 @@ import ctypes
 import torch
 
 from repro_torch.core.quant import QuantizedTensor
-from repro_torch.kernels import build
-from repro_torch.kernels.ref import dequant_ref
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.common import (check_operands, check_split,
+                                        kernel_dtype)
 
 W4A16_GEMM = build.CudaKernel(
     "w4a16_gemm", "w4a16_gemm.cu", "w4a16_gemm",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
-_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-
 
 def w4a16_fused_plain(x: torch.Tensor, qt: QuantizedTensor, *,
                       split_k: int = 1, out_dtype=None) -> torch.Tensor:
     """The plain PyTorch version of the kernel's function (x: (M, K))."""
-    out_dtype = out_dtype or x.dtype
-    K = x.shape[1]
-    if K % split_k:
-        raise ValueError(f"split_k={split_k} must divide K={K}")
-    w = dequant_ref(qt.packed, qt.scales, qt.zeros, qt.group_size,
-                    out_dtype=x.dtype).to(torch.float32)
-    xf = x.to(torch.float32)
-    if split_k == 1:
-        return torch.matmul(xf, w).to(out_dtype)
-    ks = K // split_k
-    parts = torch.stack([torch.matmul(xf[:, i * ks:(i + 1) * ks],
-                                      w[i * ks:(i + 1) * ks])
-                         for i in range(split_k)])
-    return torch.sum(parts, dim=0).to(out_dtype)
+    w = ref.dequant_ref(qt.packed, qt.scales, qt.zeros, qt.group_size,
+                        out_dtype=x.dtype)
+    return ref.splitk_matmul_plain(x, w, split_k, out_dtype or x.dtype)
 
 
 def _check_kernel_operands(x: torch.Tensor, qt: QuantizedTensor,
                            split_k: int) -> None:
     M, K = x.shape
-    tensors = [("x", x), ("packed", qt.packed), ("scales", qt.scales)]
-    if qt.zeros is not None:
-        tensors.append(("zeros", qt.zeros))
-    for name, t in tensors:
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    if x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"the W4A16 kernel takes bf16/fp16/fp32 "
-                         f"activations, got {x.dtype}")
+    check_operands(x.device, x=x, packed=qt.packed, scales=qt.scales,
+                   zeros=qt.zeros)
+    kernel_dtype(x.dtype, "W4A16")
     if qt.packed.dtype != torch.int8 or qt.format.packing != "int4_pairs_k":
         raise ValueError("the W4A16 kernel takes int4 pairs packed in int8")
     if qt.scales.dtype != torch.float32 or (
@@ -79,9 +57,7 @@ def _check_kernel_operands(x: torch.Tensor, qt: QuantizedTensor,
     if qt.group_size % 2 or K % qt.group_size:
         raise ValueError(f"group_size {qt.group_size} must be even and "
                          f"divide K={K}")
-    if split_k < 1 or K % split_k or (K // split_k) % 32:
-        raise ValueError(f"split_k={split_k} must leave K slices that are "
-                         f"multiples of 32 (K={K})")
+    check_split(K, split_k)
     if N % 16 or K % 8:
         raise ValueError(f"the W4A16 kernel needs N % 16 == 0 and "
                          f"K % 8 == 0, got N={N}, K={K}")
@@ -109,7 +85,7 @@ def w4a16_fused(x: torch.Tensor, qt: QuantizedTensor, *, split_k: int = 1,
     W4A16_GEMM.launch(
         build.ptr(x), build.ptr(qt.packed), build.ptr(qt.scales),
         build.ptr(qt.zeros), build.ptr(out), M, N, K, qt.group_size,
-        split_k, _KERNEL_DTYPES[x.dtype], int(direct),
+        split_k, kernel_dtype(x.dtype, "W4A16"), int(direct),
         build.stream_ptr(x.device))
     if direct:
         return out

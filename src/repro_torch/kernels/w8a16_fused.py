@@ -1,0 +1,80 @@
+"""Fused W8A16 GEMM: per-channel INT8 weights, dequantized on chip.
+
+Port of ``repro/kernels/w8a16_fused.py``. On a CUDA tensor the wrapper
+launches the hand-written Hopper kernel ``csrc/w8a16_gemm.cu``; on a CPU
+tensor it runs :func:`w8a16_fused_plain`. Both dequantize as the Pallas
+stage does — ``(q − z)·s`` in fp32, rounded to x's dtype before the
+product — accumulate in fp32 and, with ``split_k = S``, sum S fp32 partials
+outside the kernel before the cast.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.quant import QuantizedTensor, per_channel_scales
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.common import (check_operands, check_split,
+                                        kernel_dtype)
+
+W8A16_GEMM = build.CudaKernel(
+    "w8a16_gemm", "w8a16_gemm.cu", "w8a16_gemm",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def _channel_operands(x: torch.Tensor, qt: QuantizedTensor):
+    if x.dim() != 2 or x.shape[1] != qt.K:
+        raise ValueError(f"x {tuple(x.shape)} vs weight {qt.shape}")
+    if qt.format.packing != "int8_rows":
+        raise ValueError(f"w8a16_fused needs int8_rows packing, got format "
+                         f"{qt.format.name!r} ({qt.format.packing})")
+    return per_channel_scales(qt)
+
+
+def w8a16_fused_plain(x: torch.Tensor, qt: QuantizedTensor, *,
+                      split_k: int = 1, out_dtype=None) -> torch.Tensor:
+    """The plain PyTorch version of the kernel's function (x: (M, K))."""
+    scales, zeros = _channel_operands(x, qt)
+    q = qt.packed.view(torch.int8).to(torch.float32)
+    if zeros is not None:
+        q = q - zeros.to(torch.float32)
+    w = (q * scales.to(torch.float32)).to(x.dtype)
+    return ref.splitk_matmul_plain(x, w, split_k, out_dtype or x.dtype)
+
+
+def w8a16_fused(x: torch.Tensor, qt: QuantizedTensor, *, split_k: int = 1,
+                out_dtype=None) -> torch.Tensor:
+    """C = x · Dequant(W) for per-channel INT8 weights; x: (M, K) float."""
+    out_dtype = out_dtype or x.dtype
+    scales, zeros = _channel_operands(x, qt)
+    if x.device.type == "cpu":
+        return w8a16_fused_plain(x, qt, split_k=split_k, out_dtype=out_dtype)
+    scales = scales.contiguous()
+    zeros = None if zeros is None else zeros.contiguous()
+    M, K = x.shape
+    N = qt.N
+    check_operands(x.device, x=x, rows=qt.packed, scales=scales, zeros=zeros)
+    code = kernel_dtype(x.dtype, "W8A16")
+    if qt.packed.dtype != torch.int8 or qt.packed.shape != (K, N):
+        raise ValueError(f"the W8A16 kernel takes (K, N) int8 rows, got "
+                         f"{tuple(qt.packed.shape)} {qt.packed.dtype}")
+    if scales.dtype != torch.float32 or (
+            zeros is not None and zeros.dtype != torch.float32):
+        raise ValueError("the W8A16 kernel takes fp32 scales and zeros")
+    check_split(K, split_k)
+    if N % 16 or K % 8 or M < 1:
+        raise ValueError(f"the W8A16 kernel needs N % 16 == 0, K % 8 == 0 "
+                         f"and M >= 1, got M={M}, N={N}, K={K}")
+    direct = split_k == 1 and out_dtype == x.dtype
+    if direct:
+        out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    else:
+        out = torch.empty((split_k, M, N), dtype=torch.float32,
+                          device=x.device)
+    W8A16_GEMM.launch(build.ptr(x), build.ptr(qt.packed), build.ptr(scales),
+                      build.ptr(zeros), build.ptr(out), M, N, K, split_k,
+                      code, int(direct), build.stream_ptr(x.device))
+    if direct:
+        return out
+    return torch.sum(out, dim=0).to(out_dtype)

@@ -1,14 +1,17 @@
-"""Serving launcher: W4A16-quantized continuous-batching paged decode on the
-card.
+"""Serving launcher: quantized continuous-batching paged decode on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b
 
 Weights are drawn at random from ``--seed`` (a ``torch.Generator`` on the
-device), quantized to the paper's ``w4a16_g128`` at load time, and served
-by ``runtime/engine.py``: every quantized Linear runs the planned W4A16
-GEMM and paged attention runs on the planned path (on CUDA: the
-hand-written kernels). ``--device cpu`` runs the plain PyTorch paths; by
-default the launcher needs a CUDA card and fails without one.
+device), quantized at load time to ``--format`` (default the config's, the
+paper's ``w4a16_g128``; also ``w8a16_channel`` and ``w4a8_g128``), and
+served by ``runtime/engine.py``: every quantized Linear runs the planned
+GEMM (``--strategy`` forces one, e.g. ``decoupled``) and paged attention
+runs on the planned path (on CUDA: the hand-written kernels).
+``--no-quant`` serves the dense weights, every Linear a ``torch.matmul``:
+the FP16×FP16 yardstick, not a kernel path. ``--device cpu`` runs the
+plain PyTorch paths; by default the launcher needs a CUDA card and fails
+without one.
 """
 from __future__ import annotations
 
@@ -56,14 +59,29 @@ def build_args(argv=None) -> argparse.Namespace:
                          "auto = planned: fused on CUDA, gather on CPU)")
     ap.add_argument("--strategy", default="auto",
                     choices=["auto"] + list(planning.available_strategies()),
-                    help="W4A16 GEMM strategy (auto = planned: fused on "
-                         "CUDA, reference on CPU)")
+                    help="quantized GEMM strategy (auto = planned: the "
+                         "format's kernel on CUDA, its plain path on CPU)")
+    ap.add_argument("--format", default=None,
+                    help="weight quantization format (registered: "
+                         f"{' | '.join(quant.available_formats())}); "
+                         "default: the config's quant_format")
+    ap.add_argument("--no-quant", action="store_true",
+                    help="serve the dense weights (torch.matmul Linears)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; fails without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
     ap.add_argument("--verbose", action="store_true")
     return ap.parse_args(argv)
+
+
+def validate_kv_format(kv_format: str, weight_format: str) -> str:
+    """Resolve the ``--kv-format`` × ``--format`` pair up front, so a bad
+    name fails with the registries' vocabulary before any weight is
+    drawn. Every registered pair is executable (the port serves from the
+    paged cache only)."""
+    quant.get_format(weight_format)
+    return quant.get_kv_format(kv_format).name
 
 
 def make_requests(cfg, n: int, prompt_len: int, gen: int, seed: int):
@@ -81,19 +99,27 @@ def build(args: argparse.Namespace):
     cfg = (configs.get_reduced if args.reduced else configs.get_config)(
         args.arch)
     sset = serve_settings_for(args.arch)
-    kv_format = quant.get_kv_format(args.kv_format or sset.kv_format).name
-    cfg = dataclasses.replace(cfg, w4a16_strategy=args.strategy)
+    fmt = quant.get_format(args.format or cfg.quant_format)
+    kv_format = validate_kv_format(args.kv_format or sset.kv_format,
+                                   fmt.name)
+    cfg = dataclasses.replace(cfg, w4a16_strategy=args.strategy,
+                              quant_format=fmt.name)
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = T.quantize_params(T.init_params(gen, cfg, device=device), cfg,
-                               min_size=0)
-    qbytes = sum(leaf.nbytes_packed()
-                 for leaf in planning.quantized_leaves(params))
-    print(f"[serve] {cfg.name} {cfg.quant_format} ({args.strategy}) on "
-          f"{device}; quantized weights {qbytes / 1e6:.1f} MB; built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    params = T.init_params(gen, cfg, device=device)
+    if args.no_quant:
+        print(f"[serve] {cfg.name} dense {str(cfg.dtype).split('.')[-1]} "
+              f"weights (--no-quant) on {device}; built in "
+              f"{time.perf_counter() - t0:.1f} s")
+    else:
+        params = T.quantize_params(params, cfg, min_size=0)
+        qbytes = sum(leaf.nbytes_packed()
+                     for leaf in planning.quantized_leaves(params))
+        print(f"[serve] {cfg.name} {fmt.name} ({args.strategy}) on "
+              f"{device}; quantized weights {qbytes / 1e6:.1f} MB; built "
+              f"in {time.perf_counter() - t0:.1f} s")
 
     B = args.max_batch or args.batch
     R = args.requests or B

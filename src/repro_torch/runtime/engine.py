@@ -198,12 +198,17 @@ class ServingEngine:
         self.prefill_kv_partitions = pf_plan.kv_partitions
 
         self.plans: Dict[str, planning.KernelPlan] = {}
-        if cfg.w4a16_strategy == "auto" and cfg.w4a16_plan is None and any(
+        if cfg.w4a16_plan is None and any(
                 isinstance(leaf, QuantizedTensor)
                 for leaf in planning.quantized_leaves(params)):
             # decode-regime plans keyed "KxN": the M=prefill_chunk chunk
-            # GEMMs look up the same keys and reuse them
-            self.plans = planning.plan_for_params(params, M=self.max_batch)
+            # GEMMs look up the same keys and reuse them. A forced strategy
+            # is planned here too, so one that cannot run the weights'
+            # format is refused before serving starts.
+            strategy = None if cfg.w4a16_strategy == "auto" \
+                else cfg.w4a16_strategy
+            self.plans = planning.plan_for_params(params, M=self.max_batch,
+                                                  strategy=strategy)
             cfg = dataclasses.replace(cfg, w4a16_plan=self.plans)
         self.cfg = cfg
         self.params = T.unstack_layers(params)

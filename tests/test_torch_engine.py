@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
-from repro.core import quant as jquant
 from repro.models import layers as jlayers
 from repro.models import transformer as JT
 from repro.runtime import kvcache as jkvc
@@ -33,22 +32,10 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as T
 from repro_torch.runtime.engine import Request, ServingEngine
 
+from torch_parity_helpers import jax_to_numpy
+
 ARCH = "h2o-danube-1.8b"
 P, G, N_REQ = 12, 6, 2
-
-
-def jax_to_numpy(tree):
-    """The JAX side's flattening: arrays → numpy, QuantizedTensor leaves →
-    {packed, scales, zeros, group_size}."""
-    if isinstance(tree, jquant.QuantizedTensor):
-        return {"packed": np.asarray(tree.packed),
-                "scales": np.asarray(tree.scales),
-                "zeros": None if tree.zeros is None
-                else np.asarray(tree.zeros),
-                "group_size": tree.group_size}
-    if isinstance(tree, dict):
-        return {k: jax_to_numpy(v) for k, v in tree.items()}
-    return np.asarray(tree)
 
 
 @pytest.fixture(scope="module")

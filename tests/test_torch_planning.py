@@ -159,3 +159,32 @@ def test_h100_roofline():
             "gather", 8, 32, 8, 80, 544, quantized=False, q_len=q_len)
     with pytest.raises(ValueError, match="unknown attention path"):
         costmodel.paged_attn_bytes("ring", 1, 1, 1, 1, 1, quantized=False)
+
+
+def test_h100_gemm_family_bounds():
+    """One danube layer's seven GEMMs at M=8 on the H100 roofline: W4A8 ≈
+    fused W4A16 (0.53 bytes per weight) < W8A16 (1) < dense bf16 (2) <
+    the decoupled design (packed read, bf16 workspace written and read
+    back, S fp32 partials twice), all bound by bytes."""
+    layer = [(2560, 2560), (2560, 640), (2560, 640), (2560, 2560),
+             (2560, 6912), (2560, 6912), (6912, 2560)]
+    M = 8
+
+    def us(fn, **kw):
+        return sum(fn(M, N, K, **kw) for K, N in layer) * 1e6
+    fused = us(costmodel.w4a16_time_fused)
+    assert fused == pytest.approx(11.23, abs=0.01)
+    # int8 activations: half of x's bytes
+    assert us(costmodel.w4a8_time_fused) == pytest.approx(11.18, abs=0.01)
+    assert us(costmodel.w8a16_time_fused) == pytest.approx(20.98, abs=0.01)
+    assert us(costmodel.dense_time) == pytest.approx(41.69, abs=0.01)
+    decoupled = sum(costmodel.w4a16_time_decoupled(
+        M, N, K, split_k=planning.choose_split_k(M, N, K, cores=132))
+        for K, N in layer) * 1e6
+    assert decoupled == pytest.approx(95.82, abs=0.01)
+    assert costmodel.w4a8_time_plain(M, 2560, 2560) > \
+        costmodel.w4a8_time_fused(M, 2560, 2560)
+    for K, N in layer:
+        assert costmodel.bound_by(costmodel.w4a8_gemm_bytes(M, N, K),
+                                  costmodel.w4a16_gemm_flops(M, N, K),
+                                  int8=True) == "bytes"

@@ -137,7 +137,8 @@ def test_convert_keeps_quantized_bytes():
     tree = {"layers": {"wq": {"kernel": {
         "packed": np.stack([np.asarray(j.packed) for j in js]),
         "scales": np.stack([np.asarray(j.scales) for j in js]),
-        "zeros": None, "group_size": 128}}},
+        "zeros": None, "group_size": 128,
+        "format": js[0].format.to_dict()}}},
         "norm": {"scale": np.ones(4, np.float32)},
         "ids": np.arange(3, dtype=np.int32)}
     out = from_jax_params(tree, dtype=torch.bfloat16)
