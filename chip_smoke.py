@@ -18,7 +18,12 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              (K, N) pairs, M = 8 and 32, the planner's split_k and 1: the
              dense GEMM in both modes, the decoupled W4A16 pipeline whole
              and phase by phase, W8A16, and W4A8 (its int8 activations
-             bit-equal to the CPU's).
+             bit-equal to the CPU's); flash attention in bf16 and fp32 at
+             danube's heads (32/8 of 80) for 4 x 2048 causal, 1 x 4608
+             with the 4096 window biting, 2 x 96 unaligned, 64 queries over
+             192 keys non-causal, and D = 128 and 32; the FlashAttention
+             Function's gradients against autograd through the plain
+             version.
 4. serve   — the port's main path through its launcher
              (``repro_torch.launch.serve``): h2o-danube-1.8b at full width
              (24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab
@@ -45,13 +50,27 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              card (device time only), beside the H100 roofline bound of
              ``repro_torch.core.costmodel``. The decoupled pipeline is also
              timed phase by phase, and phase 2 once more right after phase
-             1 wrote its workspace (what the 50 MB L2 keeps of it).
+             1 wrote its workspace (what the 50 MB L2 keeps of it). Flash
+             attention at the two training shapes: the kernel forward, the
+             Function's forward + backward, the plain version and SDPA.
 6. trace   — the main path once more, stepped through the engine's
              stepper API: a prefill window and a decode window under
              ``torch.profiler`` (device busy time per step, the kernels and
              host ops that cost the most), and untraced steps of each kind
              timed to a sync, so the idle share is read against host time
              the profiler did not slow.
+7. train   — (a) two train steps of danube at full width and depth (B=4 x
+             2048 tokens, the same random weights and batches) through the
+             flash kernel and through the plain chunked attention: loss,
+             grad norm, parameters and moments compared; (b) the port's
+             training launcher (``repro_torch.launch.train``) at full width
+             and depth, 4 steps of 2 x 8192 tokens with checkpoints at
+             steps 0 and 3 (~18.3 GB each, in a temporary directory that is
+             removed; disk and host RAM are checked first): step time,
+             tokens/s, MFU, peak memory, 48 flash launches a step, and a
+             history of checkpoints only; (c) one step of (b)'s shape
+             under ``torch.profiler``: device time by kernel group, idle
+             share.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -135,8 +154,8 @@ def planned_split(x, qt):
 
 def kernel_table():
     """name → (CudaKernel, source, the Pallas function it replaces)."""
-    from repro_torch.kernels import gemm, paged_attention, w4a8_fused, \
-        w4a16_decoupled, w4a16_fused, w8a16_fused
+    from repro_torch.kernels import flash_attention, gemm, paged_attention, \
+        w4a8_fused, w4a16_decoupled, w4a16_fused, w8a16_fused
     return {
         "w4a16_gemm": (w4a16_fused.W4A16_GEMM, "w4a16_gemm.cu",
                        "src/repro/kernels/w4a16_fused.py:37"),
@@ -154,6 +173,9 @@ def kernel_table():
                        "src/repro/kernels/w8a16_fused.py:29"),
         "w4a8_gemm": (w4a8_fused.W4A8_GEMM, "w4a8_gemm.cu",
                       "src/repro/kernels/w4a8_fused.py:37"),
+        "flash_attention": (flash_attention.FLASH_ATTENTION,
+                            "flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:81"),
     }
 
 
@@ -447,6 +469,117 @@ def check_family(torch, dev, gen):
                          w8a16_fused.w8a16_fused_plain(x, qt8), f32=f32)
                 worst["w8a16_gemm"] = max(worst["w8a16_gemm"], e)
     return worst                # dequant_w4, reduce_partials: bit-equal
+
+
+FLASH_TOL = {"bf16": 2e-2, "fp32": 1e-5}
+FLASH_BF16_TOL = "|d| <= min(2e-2*(1+|plain|), 2^-7*|plain| + 2^-5*rms)"
+# (label, B, Sq, Skv, Hq, Hkv, D, causal, window): danube's heads (32/8 of
+# 80) at the training shapes (the launcher's 2 x 8192 with its window among
+# them) and the edge cases, then D = 128 and 32
+FLASH_CASES = [
+    ("4x2048 causal", 4, 2048, 2048, 32, 8, 80, True, 4096),
+    ("2x8192 window 4096", 2, 8192, 8192, 32, 8, 80, True, 4096),
+    ("1x4608 window 4096", 1, 4608, 4608, 32, 8, 80, True, 4096),
+    ("2x96 unaligned", 2, 96, 96, 32, 8, 80, True, 4096),
+    ("64 x 192 cross", 1, 64, 192, 32, 8, 80, False, 0),
+    ("D=128", 1, 320, 320, 8, 2, 128, True, 64),
+    ("D=32", 2, 200, 200, 4, 2, 32, True, 0),
+]
+
+
+def flash_inputs(torch, gen, dev, B, Sq, Skv, Hq, Hkv, D, dtype):
+    q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def flash_limit(torch, want, dt):
+    """The per-element bound on |kernel - plain| for a flash output.
+    fp32: 1e-5·(1 + |plain|) (summation order), the rtol and atol of
+    tests/test_flash_attention.py. bf16: that test's 2e-2·(1 + |plain|),
+    and also 2^-7·|plain| (one bf16 ulp of the final cast) + 2^-5 of the
+    row's RMS over D: p is rounded to bf16 against a running max in the
+    kernel and the final max in the plain version, two roundings of each
+    term that differ by up to 2^-8 of it, which sum as a random walk to
+    ~1e-3 of the row's RMS (a few 1e-3 at the tail of 4e7 elements). A
+    long row's |o| is only ~sqrt(e/N) (0.026 at N = 4096), so the 2e-2
+    form alone could not see an error in the PV product of late rows."""
+    w = want.float()
+    if dt == "fp32":
+        return 1e-5 * (1 + w.abs())
+    rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+    return torch.minimum(2e-2 * (1 + w.abs()),
+                         2 ** -7 * w.abs() + 2 ** -5 * rms)
+
+
+def check_flash(torch, dev, gen):
+    """The flash-attention kernel vs its plain version (one full softmax
+    per row in the kernel's rounding order) at every phase-3 shape: the
+    output within ``flash_limit`` of the plain output element by element;
+    the log-sum-exp within 1e-4·(1 + |lse|) (an fp32 sum of exps in
+    another order). Returns the worst bf16 |d| of the output."""
+    from repro_torch.kernels import flash_attention as fa
+    worst = 0.0
+    for label, B, Sq, Skv, Hq, Hkv, D, causal, window in FLASH_CASES:
+        for dt, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            q, k, v = flash_inputs(torch, gen, dev, B, Sq, Skv, Hq, Hkv, D,
+                                   dtype)
+            o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                                window=window)
+            o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                  window=window)
+            err = (o.float() - o_p.float()).abs()
+            share = float((err / flash_limit(torch, o_p, dt)).max())
+            dl = float(((lse - lse_p).abs() / (1 + lse_p.abs())).max())
+            bad = o.dtype != dtype or share > 1 or dl > 1e-4
+            if dt == "bf16":
+                worst = max(worst, float(err.max()))
+            tol = FLASH_BF16_TOL if dt == "bf16" else \
+                "|d| <= 1e-5*(1+|plain|)"
+            log("kernels", f"flash_attention {label} {dt} B={B} Sq={Sq} "
+                f"Skv={Skv} Hq={Hq} Hkv={Hkv} D={D} causal={causal} "
+                f"window={window}: max|d|={float(err.max()):.3e}, "
+                f"max |d|/limit={share:.3f}, "
+                f"max|dlse|/(1+|lse|)={dl:.2e} {'FAIL' if bad else 'ok'} "
+                f"({tol}; lse 1e-4)")
+            if bad:
+                raise AssertionError(f"flash_attention disagrees at {label} "
+                                     f"{dt}")
+            del q, k, v, o, o_p, lse, lse_p
+    return worst
+
+
+def check_flash_grads(torch, dev, gen):
+    """The FlashAttention Function's dq, dk, dv (kernel forward, PyTorch
+    backward from its lse) vs autograd through the plain version, at B=1,
+    S=256, danube heads, window 64. fp32: 1e-5 (two fp32 routes to one
+    gradient); bf16: 2e-2·(1 + |g|) on unit-scale gradients (bf16 outputs
+    and p rounded at different maxima)."""
+    from repro_torch.kernels import flash_attention as fa
+    for dt, dtype, tol in (("fp32", torch.float32, 1e-5),
+                           ("bf16", torch.bfloat16, 2e-2)):
+        q, k, v = flash_inputs(torch, gen, dev, 1, 256, 256, 32, 8, 80,
+                               dtype)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        got = torch.autograd.grad(
+            fa.flash_attention(q.requires_grad_(), k.requires_grad_(),
+                               v.requires_grad_(), causal=True, window=64),
+            (q, k, v), do)
+        want = torch.autograd.grad(
+            fa.flash_attention_plain(q, k, v, causal=True, window=64)[0],
+            (q, k, v), do)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = (g.float() - w.float()).abs()
+            bad = g.dtype != dtype or bool(
+                (err > tol * (1 + w.float().abs())).any())
+            log("kernels", f"flash_attention grad {dt} {name} B=1 S=256 "
+                f"window=64: max|d|={float(err.max()):.3e} (max|g| "
+                f"{float(w.float().abs().max()):.3f}) "
+                f"{'FAIL' if bad else 'ok'} (|d| <= {tol}*(1+|g|))")
+            if bad:
+                raise AssertionError(f"flash_attention {name} {dt} "
+                                     f"disagrees with autograd")
 
 
 # ---------------------------------------------------------------------------
@@ -825,6 +958,73 @@ def time_attention(torch, dev, gen, timer, card):
     return rows
 
 
+# the training shapes of the flash kernel: phase 7(a)'s and the launcher's
+FLASH_TIMED = [("4x2048 causal", 4, 2048), ("2x8192 window 4096", 2, 8192)]
+
+
+def time_flash(torch, dev, gen, timer, card):
+    """Phase 5's flash rows at the two training shapes (danube heads,
+    bf16, window 4096): the kernel forward, the Function's forward plus
+    backward, the plain version, and ``F.scaled_dot_product_attention``
+    (``enable_gqa``; ``is_causal`` where the window does not bite, an
+    explicit SWA mask where it does) forward and forward plus backward,
+    beside the forward's bound. The SDPA call is timed only: the port
+    never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.core import costmodel as cm
+    from repro_torch.kernels import flash_attention as fa
+    rows = {}
+    for label, B, S in FLASH_TIMED:
+        q, k, v = flash_inputs(torch, gen, dev, B, S, S, 32, 8, 80,
+                               torch.bfloat16)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        pos = torch.arange(S, device=dev)
+        mask = None if S <= 4096 else \
+            (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                              - 4096)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qg, kg, vg))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+
+        def sdpa_fb():
+            return torch.autograd.grad(sdpa(), (qg, kg, vg),
+                                       do.transpose(1, 2))
+
+        def fb():
+            return torch.autograd.grad(
+                fa.flash_attention(qg, kg, vg, causal=True, window=4096),
+                (qg, kg, vg), do)
+
+        pairs = cm.attn_pairs(S, S, causal=True, window=4096)
+        nbytes = cm.flash_attn_bytes(B, S, S, 32, 8, 80)
+        flops = cm.flash_attn_flops(B, 32, 80, pairs)
+        r = dict(ms=timer(lambda: fa.flash_attention_forward(
+                     q, k, v, causal=True, window=4096)),
+                 fb_ms=timer(fb),
+                 plain_ms=timer(lambda: fa.flash_attention_plain(
+                     q, k, v, causal=True, window=4096)),
+                 library_ms=timer(sdpa), library_fb_ms=timer(sdpa_fb),
+                 bound_ms=cm.roofline_s(nbytes, flops) * 1e3,
+                 bound_by=cm.bound_by(nbytes, flops))
+        rows[label] = r
+        log("timing", f"flash_attention {label} (B={B}, S={S}, 32/8 heads "
+            f"of 80, bf16): kernel forward {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of roofline, "
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s); Function forward + "
+            f"backward {r['fb_ms']:.4f} ms (backward ~"
+            f"{r['fb_ms'] - r['ms']:.4f}); plain {r['plain_ms']:.4f} ms; "
+            f"sdpa {r['library_ms']:.4f} ms forward, "
+            f"{r['library_fb_ms']:.4f} ms forward + backward [{card}]")
+        del q, k, v, do, qg, kg, vg, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return rows
+
+
 def trace(torch, card):
     """Phase 6: where a step's time goes. The phase-4 traffic once more,
     stepped through the engine's stepper API. Engine steps 0-3 (pure
@@ -893,6 +1093,275 @@ def trace(torch, card):
     report("decode", dec_steps, dec_traced, dec_ms, dec_prof)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: train
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 8192
+TRAIN_ARGV = ["--arch", ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+PEAK_BF16 = 989e12
+# phase 7(a): kernel path vs plain path over 2 steps. Loss and grad norm,
+# relative: the two attention orders (the kernel's online softmax vs the
+# chunked one's, p rounded at different maxima) differ by bf16 ulps of
+# each attention output, which average out in both (readings ~1e-5 and
+# ~1e-4, room of 10x). Moments after step 2, per leaf, max|d| normalized
+# by the leaf's largest |value|: the bf16 gradients differ by a few bf16
+# steps of each element; v squares them. The parameters are not held:
+# within warmup (lr scale 0, then 0.01) an update of ~1e-5 sits below a
+# bf16 step of the weights, so they could differ only by a rounding flip
+# whatever the gradients; m and v hold the gradients instead.
+TRAIN_TOL = {"loss": 2e-4, "grad_norm": 2e-3, "m": 5e-2, "v": 1e-1}
+
+
+def max_rel_diff(torch, got, want):
+    """max over leaves of max|got - want| / max|want| (leaves of ``got``
+    may lie on the host)."""
+    from repro_torch.core.tree import tree_flatten_with_keys
+    worst, where = 0.0, ""
+    g_leaves = dict(tree_flatten_with_keys(got))
+    for key, ref in tree_flatten_with_keys(want):
+        ref = ref.float()
+        g = g_leaves[key].to(ref.device).float()
+        d = float((g - ref).abs().max()) / max(float(ref.abs().max()),
+                                               1e-30)
+        if d > worst:
+            worst, where = d, "/".join(key)
+    return worst, where
+
+
+def train_compare(torch, dev, card, table):
+    """Phase 7(a): two train steps (``make_train_step``, B=4 x 2048 tokens,
+    full width and depth, the same parameters drawn once from seed 0, the
+    same batches) through the flash kernel and through the plain chunked
+    attention (the JAX trainer's). Any kernel error raises here, before
+    the launcher's runner would retry it."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import steps
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params0 = T.init_params(gen, cfg, device=dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=2048,
+                                  batch_size=4, device=dev)
+    runs = {}
+    for impl in ("flash", "chunked"):
+        step_fn = steps.make_train_step(
+            dataclasses.replace(cfg, attn_impl=impl), opt_cfg)
+        params, state = params0, adamw_init(params0, opt_cfg)
+        reset_counts(table)
+        metrics = []
+        for step in range(2):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state,
+                                       {"batch": stream.batch_at(step),
+                                        "step": step})
+            torch.cuda.synchronize()
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            time.perf_counter() - t0))
+        launched = read_counts(table)
+        log("train", f"attn_impl={impl}: " + "; ".join(
+            f"step {i} loss {l:.6f} grad-norm {g:.6f} ({t:.2f} s)"
+            for i, (l, g, t) in enumerate(metrics))
+            + f"; flash launches {launched['flash_attention']} [{card}]")
+        want = 2 * 2 * cfg.num_layers if impl == "flash" else 0
+        if launched["flash_attention"] != want or any(
+                launched[n] for n in table if n != "flash_attention"):
+            raise AssertionError(f"attn_impl={impl}: expected {want} flash "
+                                 f"launches and no other kernel: {launched}")
+        moments = {"m": state["m"], "v": state["v"]}
+        runs[impl] = (metrics, tree_to(torch, moments, "cpu")
+                      if impl == "flash" else moments)
+        del params, state
+        torch.cuda.empty_cache()
+    (mk, tk), (mp, tp) = runs["flash"], runs["chunked"]
+    bad = []
+    for i in range(2):
+        for j, name in enumerate(("loss", "grad_norm")):
+            d = abs(mk[i][j] - mp[i][j]) / abs(mp[i][j])
+            ok = d <= TRAIN_TOL[name]
+            bad += [] if ok else [f"step {i} {name}"]
+            log("train", f"step {i} {name}: kernel {mk[i][j]:.6f} vs plain "
+                f"{mp[i][j]:.6f}, |d|/|plain| {d:.2e} "
+                f"{'ok' if ok else 'FAIL'} ({TRAIN_TOL[name]})")
+    for name in ("m", "v"):
+        d, where = max_rel_diff(torch, tk[name], tp[name])
+        ok = d <= TRAIN_TOL[name]
+        bad += [] if ok else [name]
+        log("train", f"after step 2, {name}: max|d| / max|plain| per leaf "
+            f"{d:.3e} (worst {where}) {'ok' if ok else 'FAIL'} "
+            f"({TRAIN_TOL[name]:.3g})")
+    if bad:
+        raise AssertionError(f"kernel and plain training paths disagree: "
+                             f"{bad}")
+    del runs, tk, tp
+    torch.cuda.empty_cache()
+
+
+def tree_to(torch, tree, device):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _ckpt_bytes(cfg) -> int:
+    """One checkpoint of the launcher's run: bf16 params, fp32 m and v."""
+    n = cfg.param_count()
+    return n * 2 + 2 * n * 4
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("MemAvailable missing from /proc/meminfo")
+
+
+def train_launcher(torch, card, table):
+    """Phase 7(b): the port's training launcher at full width and depth,
+    2 x 8192 tokens (danube's long-context length: SWA bites), 4 steps,
+    checkpoints at steps 0 and 3 into a temporary directory that is
+    removed afterwards. Returns the flash kernel's launches in the run."""
+    import shutil
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.core import costmodel as cm
+    from repro_torch.launch import train as launcher
+    cfg = configs.get_config(ARCH)
+    ckpt = _ckpt_bytes(cfg)
+    tmp_root = tempfile.gettempdir()
+    free, avail = shutil.disk_usage(tmp_root).free, _mem_available()
+    log("train", f"checkpoints of {ckpt / 1e9:.2f} GB each: {free / 1e9:.1f} "
+        f"GB free under {tmp_root}, {avail / 1e9:.1f} GB host RAM available")
+    if free < 2.2 * ckpt or avail < 1.5 * ckpt:
+        raise RuntimeError(
+            f"phase 7 needs room for two {ckpt / 1e9:.1f} GB checkpoints "
+            f"({2.2 * ckpt / 1e9:.1f} GB free disk under {tmp_root}) and "
+            f"{1.5 * ckpt / 1e9:.1f} GB of host RAM to stage one; found "
+            f"{free / 1e9:.1f} GB and {avail / 1e9:.1f} GB")
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        argv = TRAIN_ARGV + ["--ckpt-dir", d]
+        log("train", "python -m repro_torch.launch.train " + " ".join(argv))
+        reset_counts(table)
+        torch.cuda.reset_peak_memory_stats()
+        report = launcher.main(argv)
+        peak = torch.cuda.max_memory_allocated()
+        launched = read_counts(table)
+        sizes = {name: sum(f.stat().st_size
+                           for f in os.scandir(os.path.join(d, name)))
+                 for name in sorted(os.listdir(d))}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    kinds = [h[0] for h in report.history]
+    per_step = launched["flash_attention"] / TRAIN_STEPS
+    log("train", f"history {report.history}; launches {launched} "
+        f"({per_step:.0f} flash launches per step: {cfg.num_layers} "
+        f"forward + {cfg.num_layers} remat recompute)")
+    if kinds != ["checkpoint", "checkpoint"] or \
+            per_step != 2 * cfg.num_layers or any(
+                launched[n] for n in table if n != "flash_attention"):
+        raise AssertionError("the launcher's run went other than planned: "
+                             "its history must hold only the two "
+                             "checkpoints, and the flash kernel alone must "
+                             "launch, 48 times a step")
+    if len(report.losses) != TRAIN_STEPS or not all(
+            l == l and abs(l) < 1e4 for l in report.losses):
+        raise AssertionError(f"losses {report.losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = sorted(report.step_s[1:])[len(report.step_s[1:]) // 2]
+    pairs = cm.attn_pairs(TRAIN_SEQ, TRAIN_SEQ, causal=True,
+                          window=cfg.sliding_window)
+    flops = 6.0 * cfg.param_count() * tokens + 12.0 * cfg.num_layers \
+        * TRAIN_BATCH * cfg.num_heads * cfg.head_dim * pairs
+    log("train", f"{cfg.param_count() / 1e9:.3f} B params, {tokens} tokens "
+        f"a step: step ms {[f'{t * 1e3:.1f}' for t in report.step_s]} "
+        f"(median of steps 1-3 {step_s * 1e3:.1f} ms) = "
+        f"{tokens / step_s:.0f} tokens/s, MFU {flops / step_s / PEAK_BF16:.1%}"
+        f" of 989 TFLOP/s (6·N·T + 12·L·B·Hq·D·pairs = {flops:.4g} FLOP, "
+        f"remat recompute not counted); peak device memory "
+        f"{peak / 2**30:.2f} GiB; loss per step "
+        f"{[f'{l:.4f}' for l in report.losses]}; grad norm "
+        f"{[f'{g:.3f}' for g in report.grad_norms]} [{card}]")
+    log("train", "checkpoints: " + "; ".join(
+        f"{name} {sizes[name] / 1e9:.3f} GB" for name in sizes)
+        + " (expected " + f"{ckpt / 1e9:.3f} GB); save to the next step's "
+        "start " + "; ".join(f"step {s} {report.after_step_s[s]:.1f} s"
+                             for _, s in report.history))
+    if set(sizes.values()) and min(sizes.values()) < ckpt:
+        raise AssertionError(f"a checkpoint is smaller than its "
+                             f"{ckpt} bytes: {sizes}")
+    return launched["flash_attention"]
+
+
+def trace_train(torch, dev, card):
+    """Phase 7(c): where a training step's time goes, at the launcher's
+    shape (full width and depth, 2 x 8192 tokens, flash attention): one
+    warm-up step, one step timed to a sync, one step under
+    ``torch.profiler`` (device activity only). Device time is grouped into
+    the flash kernel, matrix products (kernels named gemm / xmma /
+    cutlass) and the rest; the idle share is the traced busy time against
+    the untraced wall time."""
+    import dataclasses
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import steps
+    cfg = dataclasses.replace(configs.get_config(ARCH), attn_impl="flash")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg, device=dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    state = adamw_init(params, opt_cfg)
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
+                                  device=dev)
+
+    def one(i):
+        nonlocal params, state
+        params, state, _ = step_fn(params, state,
+                                   {"batch": stream.batch_at(i), "step": i})
+        torch.cuda.synchronize()
+
+    one(0)
+    t0 = time.perf_counter()
+    one(1)
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        one(2)
+    dev_ev = sorted((e for e in prof.key_averages()
+                     if e.device_type != DeviceType.CPU),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    groups = {"flash kernel": 0.0, "matrix products": 0.0, "other": 0.0}
+    for e in dev_ev:
+        key = e.key.lower()
+        g = "flash kernel" if "flash_fwd" in key else "matrix products" \
+            if any(w in key for w in ("gemm", "xmma", "cutlass")) \
+            else "other"
+        groups[g] += e.self_device_time_total / 1e3
+    ops = sum(e.count for e in dev_ev)
+    log("train", f"one step at {TRAIN_BATCH} x {TRAIN_SEQ}: device busy "
+        f"{busy:.1f} ms ({ops} device ops) against {wall:.1f} ms untraced "
+        f"-> device idle {1 - busy / wall:.1%}; " + "; ".join(
+            f"{g} {t:.1f} ms ({t / busy:.1%})" for g, t in groups.items())
+        + f" [{card}]")
+    for e in dev_ev[:10]:
+        log("train", f"  device {e.self_device_time_total / 1e3:9.2f} ms  "
+            f"x{e.count:<6d} {e.key[:90]}")
+    del params, state
+    torch.cuda.empty_cache()
+
+
 def layer_totals(torch, gemm_rows, fam_rows, card):
     """The paper's question per layer (its seven GEMMs) at M = 8 and 32:
     fused W4A16 vs the decoupled pipeline vs the dense baseline, with W8A16
@@ -953,6 +1422,8 @@ def main() -> int:
     check_gemm_fp32(torch, dev, gen)
     errs["paged_attention"] = check_attention(torch, dev, gen)
     errs.update(check_family(torch, dev, gen))
+    errs["flash_attention"] = check_flash(torch, dev, gen)
+    check_flash_grads(torch, dev, gen)
     torch.cuda.synchronize()
     log("kernels", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
@@ -969,16 +1440,25 @@ def main() -> int:
     attn_rows = time_attention(torch, dev, gen, timer, card)
     fam_rows = time_family(torch, dev, gen, timer, card)
     layer_totals(torch, gemm_rows, fam_rows, card)
+    flash_rows = time_flash(torch, dev, gen, timer, card)
     del timer
     torch.cuda.empty_cache()
     log("timing", f"phase 5 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trace(torch, card)
     log("trace", f"phase 6 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_compare(torch, dev, card, table)
+    launches["flash_attention"] = train_launcher(torch, card, table)
+    torch.cuda.empty_cache()
+    trace_train(torch, dev, card)
+    log("train", f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers);
-    # the attention entry is one decode call at B=8 over the served window
+    # the attention entry is one decode call at B=8 over the served window;
+    # the flash entry one forward call at the launcher's 2 x 8192 tokens
     def layer_sum(name, key):
         if name == "w4a16_gemm":
             vals = [gemm_rows[(8, K, N)][key] for K, N in LAYER_GEMMS]
@@ -1003,6 +1483,7 @@ def main() -> int:
                      library_ms=layer_sum(name, "library_ms"))
 
     a = attn_rows["decode"]
+    f = flash_rows[FLASH_TIMED[-1][0]]        # the launcher's shape
     record = {"kernels": [
         gemm_entry("w4a16_gemm"),
         entry("paged_attention", ms=a["ms"], plain_ms=a["plain_ms"],
@@ -1011,6 +1492,9 @@ def main() -> int:
         gemm_entry("dense_gemm"), gemm_entry("dequant_w4"),
         gemm_entry("reduce_partials"), gemm_entry("w8a16_gemm"),
         gemm_entry("w4a8_gemm"),
+        entry("flash_attention", ms=f["ms"], plain_ms=f["plain_ms"],
+              bound_ms=f["bound_ms"], bound_by=f["bound_by"],
+              library_ms=f["library_ms"]),
     ]}
     log("done", f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))

@@ -15,4 +15,4 @@ CONFIG = ModelConfig(
 REDUCED = dataclasses.replace(
     CONFIG, num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
     head_dim=32, d_ff=256, vocab_size=512, sliding_window=16,
-    dtype=torch.float32)
+    dtype=torch.float32, remat=False)

@@ -1,4 +1,4 @@
-"""JAX parameter trees → the port's parameter trees.
+"""JAX parameter and optimizer-state trees → the port's trees.
 
 The caller hands over the JAX package's params as a nested dict of numpy
 arrays (the port never sees JAX): every array leaf becomes a tensor, and a
@@ -56,3 +56,14 @@ def from_jax_params(tree: Mapping[str, Any], *, dtype: torch.dtype,
                 for k, v in tree.items()}
     t = to_tensor(tree, device)
     return t.to(dtype) if t.is_floating_point() else t
+
+
+def from_jax_opt_state(tree: Mapping[str, Any], *, device=None):
+    """Convert a numpy optimizer-state tree (AdamW's ``{"m", "v",
+    "count"}``) leaf for leaf, each in its own dtype: fp32 (or the state
+    dtype's) moments stay as they are and ``count`` stays int32 — never
+    cast to the model's dtype, as parameters are."""
+    if isinstance(tree, Mapping):
+        return {k: from_jax_opt_state(v, device=device)
+                for k, v in tree.items()}
+    return to_tensor(tree, device)

@@ -9,11 +9,13 @@ limit (see the ``hopper-kernels`` guide): 989 TFLOP/s dense bf16/fp16 and
 
 Modelled: the GEMM family (fused W4A16, the decoupled three-phase W4A16
 pipeline, dense, W8A16, W4A8 — the terms of the JAX package's TPU models
-with the H100's rates) and paged attention.
+with the H100's rates), paged attention and flash attention.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,3 +233,28 @@ def attn_time(path: str, B: int, Hq: int, Hkv: int, D: int, ctx: int, *,
                          act_bytes=act_bytes, kv_partitions=kv_partitions,
                          q_len=q_len),
         paged_attn_flops(B, Hq, D, ctx, q_len=q_len))
+
+
+# ---------------------------------------------------------------------------
+# flash attention (the training forward)
+# ---------------------------------------------------------------------------
+
+def attn_pairs(Sq: int, Skv: int, *, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of the mask (both positions from 0):
+    causal keeps k <= q, a window keeps k > q - window."""
+    q = np.arange(Sq)
+    hi = np.minimum(Skv, q + 1) if causal else np.full(Sq, Skv)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(Sq)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_attn_flops(B: int, Hq: int, D: int, pairs: int) -> float:
+    """QKᵀ and PV: 4·D FLOP per unmasked pair and query head."""
+    return 4.0 * B * Hq * D * pairs
+
+
+def flash_attn_bytes(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
+                     *, act_bytes: int = 2) -> float:
+    """q, k and v read once, o written once, plus the fp32 log-sum-exp."""
+    return act_bytes * D * (2 * B * Sq * Hq + 2 * B * Skv * Hkv) \
+        + 4 * B * Hq * Sq

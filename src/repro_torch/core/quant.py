@@ -244,7 +244,7 @@ class QuantizedTensor:
 # packing
 # ---------------------------------------------------------------------------
 
-def _div(a: torch.Tensor, d: float) -> torch.Tensor:
+def true_div(a: torch.Tensor, d: float) -> torch.Tensor:
     """``a / d`` as an IEEE division on every device. PyTorch's CUDA kernels
     divide by a Python scalar by multiplying with its reciprocal, which can
     differ in the last bit from the CPU's (and the JAX package's) division;
@@ -345,13 +345,13 @@ def quantize(w: torch.Tensor, format: FormatLike = None, *,
     dims = (1, 2) if fmt.scale_granularity == "tensor" else (1,)
     if fmt.symmetric:
         amax = gw.abs().amax(dim=dims, keepdim=True)
-        s = torch.clamp_min(_div(amax, fmt.qmax), 1e-8)
+        s = torch.clamp_min(true_div(amax, fmt.qmax), 1e-8)
         z = None
         q = torch.round(gw / s)
     else:
         gmax = gw.amax(dim=dims, keepdim=True)
         gmin = gw.amin(dim=dims, keepdim=True)
-        s = torch.clamp_min(_div(gmax - gmin, fmt.qmax - fmt.qmin), 1e-8)
+        s = torch.clamp_min(true_div(gmax - gmin, fmt.qmax - fmt.qmin), 1e-8)
         z = torch.round(-gmin / s) + fmt.qmin
         q = torch.round(gw / s) + z
     q = torch.clamp(q, fmt.qmin, fmt.qmax).to(torch.int8).reshape(K, N)
@@ -399,7 +399,7 @@ def quantize_activations_int8(x: torch.Tensor):
     divided in fp32 and rounded half to even, as the JAX package does."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    s = torch.clamp_min(_div(amax, 127.0), 1e-8)
+    s = torch.clamp_min(true_div(amax, 127.0), 1e-8)
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return q, s
 
@@ -514,7 +514,7 @@ def kv_quantize(x: torch.Tensor, fmt: KVFormat):
         return x, None
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    s = torch.clamp_min(_div(amax, 127.0), 1e-8)
+    s = torch.clamp_min(true_div(amax, 127.0), 1e-8)
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return q, s[..., 0]
 

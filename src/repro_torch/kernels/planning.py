@@ -35,8 +35,11 @@ from __future__ import annotations
 
 import dataclasses
 import fnmatch
+import json
 import math
-from typing import Callable, Dict, Mapping, Optional, Tuple
+import os
+import tempfile
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -44,7 +47,7 @@ from repro_torch.core import costmodel
 from repro_torch.core.device import dtype_name
 from repro_torch.core.quant import (
     DEFAULT_FORMAT, DEFAULT_KV_FORMAT, QuantizedTensor, get_kv_format,
-    w4a8_matmul_ref,
+    w4a16_format_for, w4a8_matmul_ref,
 )
 from repro_torch.kernels import ref
 from repro_torch.kernels.w4a8_fused import w4a8_fused
@@ -57,7 +60,7 @@ __all__ = [
     "register_strategy", "get_strategy", "available_strategies",
     "strategies_for_format",
     "plan_matmul", "resolve_plan", "execute", "matmul", "plan_for_params",
-    "PlanCache", "PLAN_CACHE",
+    "PlanCache", "PLAN_CACHE", "load_plan_cache", "save_plan_cache",
     "choose_split_k", "num_cores",
     "AttentionProblem", "AttentionPlan", "register_attn_path",
     "available_attn_paths", "plan_attention", "choose_kv_partitions",
@@ -108,6 +111,19 @@ class MatmulProblem:
         """Weight-shape key ("KxN") — one entry per model layer."""
         return f"{self.K}x{self.N}"
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "MatmulProblem":
+        d = dict(d)
+        if "format" not in d:
+            # a plan cache written before formats: every entry was W4A16
+            d["format"] = w4a16_format_for(
+                int(d.get("group_size", 128)),
+                symmetric=not d.get("has_zeros", False)).name
+        return cls(**d)
+
 
 # ---------------------------------------------------------------------------
 # Plan
@@ -122,6 +138,19 @@ class KernelPlan:
     strategy: str
     split_k: int = 1
     out_dtype: Optional[str] = None
+
+    # the JAX package's plans also carry Pallas tile sizes
+    _JAX_TILES = ("block_m", "block_n", "block_k")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "KernelPlan":
+        """A plan dict of either package (JAX's tile sizes are dropped:
+        the Hopper kernels pick their own tiles)."""
+        return cls(**{k: v for k, v in d.items()
+                      if k not in cls._JAX_TILES})
 
 
 # ---------------------------------------------------------------------------
@@ -335,8 +364,11 @@ def _run_w4a8_fused(x2, qt, plan):
 # ---------------------------------------------------------------------------
 
 class PlanCache:
-    """Problem → plan memo with hit/miss stats. Only planner-chosen plans
-    are cached."""
+    """Problem → plan memo with hit/miss stats and JSON persistence in the
+    JAX package's format (version 1), so either package warm-starts from
+    the other's file. Only planner-chosen plans are cached."""
+
+    _VERSION = 1
 
     def __init__(self) -> None:
         self._plans: Dict[MatmulProblem, KernelPlan] = {}
@@ -361,8 +393,68 @@ class PlanCache:
         self._plans.clear()
         self.hits = self.misses = 0
 
+    def save(self, path: str) -> int:
+        """Persist every cached decision; returns the entry count. The
+        write is atomic (a temp file, then ``os.replace``), so a crash
+        never truncates a file other runs warm-start from."""
+        entries = [{"problem": prob.to_dict(), "plan": plan.to_dict()}
+                   for prob, plan in self._plans.items()]
+        blob = json.dumps({"version": self._VERSION, "plans": entries},
+                          indent=1, sort_keys=True)
+        d = os.path.dirname(os.path.abspath(path)) or "."
+        fd, tmp = tempfile.mkstemp(
+            dir=d, prefix=os.path.basename(path) + ".", suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                f.write(blob)
+            os.replace(tmp, path)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        return len(entries)
+
+    def load(self, path: str) -> int:
+        """Load persisted decisions, merged over the current contents;
+        returns the number loaded. Malformed content raises
+        ValueError. Plans whose strategy this package cannot dispatch
+        (e.g. the JAX package's ``xla``) are dropped."""
+        with open(path) as f:
+            blob = json.load(f)      # JSONDecodeError is a ValueError
+        try:
+            if blob.get("version") != self._VERSION:
+                raise ValueError(
+                    f"unsupported plan-cache version in {path}: "
+                    f"{blob.get('version')!r}")
+            loaded = {MatmulProblem.from_dict(e["problem"]):
+                      KernelPlan.from_dict(e["plan"]) for e in blob["plans"]}
+        except (TypeError, AttributeError, KeyError) as e:
+            raise ValueError(f"malformed plan cache {path}: {e}") from e
+        loaded = {prob: plan for prob, plan in loaded.items()
+                  if plan.strategy in _REGISTRY}
+        self._plans.update(loaded)
+        return len(loaded)
+
 
 PLAN_CACHE = PlanCache()
+
+
+def load_plan_cache(path: str, *, tolerant: bool = False) -> int:
+    """Load ``path`` into the process cache. With ``tolerant=True`` a
+    missing or unreadable file is a no-op returning -1 (launchers
+    warm-starting from an optional cache never die on a stale file)."""
+    try:
+        return PLAN_CACHE.load(path)
+    except (OSError, ValueError):
+        if tolerant:
+            return -1
+        raise
+
+
+def save_plan_cache(path: str) -> int:
+    return PLAN_CACHE.save(path)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,4 @@
-"""Plain PyTorch oracles for the GEMM kernels (port of
-``repro/kernels/ref.py``; ``attention_ref`` comes with the flash-attention
-kernel)."""
+"""Plain PyTorch oracles for the kernels (port of ``repro/kernels/ref.py``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -69,3 +67,25 @@ def splitk_matmul_plain(x: torch.Tensor, w: torch.Tensor, split_k: int,
     parts = splitk_partials_ref(x, w, split_k)
     out = parts[0] if split_k == 1 else torch.sum(parts, dim=0)
     return out.to(out_dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Full-softmax GQA attention oracle in fp32. q: (B, Sq, Hq, D), k/v:
+    (B, Skv, Hkv, D); the output in q's dtype."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).to(torch.float32) * D ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window:
+        mask = mask & (kpos > qpos - window)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -71,6 +72,9 @@ def build_args(argv=None) -> argparse.Namespace:
                     help="cuda (default; fails without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
+    ap.add_argument("--plan-cache", default=None,
+                    help="plan-cache JSON (either package's): loaded before "
+                         "serving when it exists, written after")
     ap.add_argument("--verbose", action="store_true")
     return ap.parse_args(argv)
 
@@ -148,6 +152,14 @@ def build(args: argparse.Namespace):
 def main(argv=None):
     """Build, serve, print the report; returns the ``ServeReport``."""
     args = build_args(argv)
+    if args.plan_cache and os.path.exists(args.plan_cache):
+        n = planning.load_plan_cache(args.plan_cache, tolerant=True)
+        if n >= 0:
+            print(f"[serve] plan cache: loaded {n} plans "
+                  f"from {args.plan_cache}")
+        else:
+            print(f"[serve] plan cache {args.plan_cache} unreadable; "
+                  f"replanning from scratch")
     engine, reqs = build(args)
     R = len(reqs)
     t0 = time.perf_counter()
@@ -167,6 +179,11 @@ def main(argv=None):
           f"{ts['p99'] * 1e3:.1f} ms")
     print(f"[serve] pages: peak {report.peak_pages} in use")
     print(f"[serve] sample generation (request 0): {report.results[0]}")
+    if args.plan_cache:
+        n = planning.save_plan_cache(args.plan_cache)
+        c = planning.PLAN_CACHE
+        print(f"[serve] plan cache: {n} plans -> {args.plan_cache} "
+              f"({c.hits} hits / {c.misses} misses this run)")
     return report
 
 

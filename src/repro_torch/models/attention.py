@@ -1,5 +1,6 @@
-"""GQA attention over a pos-tagged KV window (port of the decode half of
-``repro/models/attention.py``).
+"""GQA attention: chunked online softmax (training) and attention over a
+pos-tagged KV window (decode, chunked prefill). Port of
+``repro/models/attention.py``.
 
 Masking is positional: an entry at position ``kpos`` is visible to a query
 at ``qpos`` iff ``kpos >= 0 & kpos <= qpos`` (and ``kpos > qpos - window``
@@ -18,6 +19,62 @@ class KVCache(NamedTuple):
     k: torch.Tensor          # (B, W, Hkv, D)
     v: torch.Tensor          # (B, W, Hkv, D)
     pos: torch.Tensor        # (B, W) int32 absolute position, -1 empty
+
+
+def _chunk(S: int, target: int) -> int:
+    """The largest divisor of S that is at most ``target``."""
+    for c in range(min(target, S), 0, -1):
+        if S % c == 0:
+            return c
+    return 1
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Blockwise online-softmax attention in plain PyTorch, differentiable
+    by autograd: the JAX trainer's attention. q: (B, S, Hq, D); k, v: (B,
+    S, Hkv, D). Query chunks become a batch dim and a loop walks the KV
+    chunks. q is scaled in fp32 and cast to k's dtype before the dot;
+    scores and the readout accumulate in fp32 (products of the input dtype,
+    exact in fp32); p is cast to v's dtype before the readout; the running
+    (m, l, acc) state is fp32; the output is ``acc / max(l, 1e-30)`` in
+    q's dtype."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    f32 = torch.float32
+    cq, ck = _chunk(Sq, q_chunk), _chunk(Skv, kv_chunk)
+    nq, nk = Sq // cq, Skv // ck
+    qc = (q.reshape(B, nq, cq, Hkv, G, D).to(f32) * (D ** -0.5)) \
+        .to(k.dtype).to(f32)
+    qpos = torch.arange(Sq, device=q.device).reshape(nq, cq)
+    m = torch.full((B, nq, Hkv, G, cq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, nq, Hkv, G, cq, D), dtype=f32, device=q.device)
+    for j in range(nk):
+        kj = k[:, j * ck:(j + 1) * ck].to(f32)           # (B, ck, Hkv, D)
+        vj = v[:, j * ck:(j + 1) * ck]
+        kpos = torch.arange(j * ck, (j + 1) * ck, device=q.device)
+        s = torch.einsum("bqchgd,bkhd->bqhgck", qc, kj)
+        mask = torch.ones((nq, cq, ck), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
+        if window:
+            mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
+        s = torch.where(mask[None, :, None, None], s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bqhgck,bkhd->bqhgcd", p.to(vj.dtype).to(f32),
+                          vj.to(f32))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(B, Sq, Hq, D).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, pos: torch.Tensor, *,

@@ -46,6 +46,13 @@ class ModelConfig:
     w4a16_strategy: str = "auto"     # "auto" = planner; or a strategy name
     w4a16_plan: Any = None           # {"KxN": KernelPlan}
 
+    # training
+    remat: bool = True               # recompute each layer in backward
+    attn_impl: str = "chunked"       # chunked (plain PyTorch, the JAX
+                                     # trainer's attention) | flash (the
+                                     # hand-written kernel, the deployment
+                                     # value the launcher sets)
+
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)

@@ -1,5 +1,6 @@
-"""Dense GQA decoder: init, quantize, paged decode step and chunked-prefill
-step (port of the dense family of ``repro/models/transformer.py``).
+"""Dense GQA decoder: init, quantize, the training forward and loss, the
+paged decode step and the chunked-prefill step (port of the dense family
+of ``repro/models/transformer.py``).
 
 Parameters keep the JAX package's tree: ``{"embed": {"table"},
 "final_norm": {"scale"}, "layers": {...stacked over L...}, "lm_head":
@@ -17,11 +18,13 @@ from typing import Any, Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quant import (
     DEFAULT_KV_FORMAT, QuantizedTensor, get_kv_format, kv_dequantize,
     kv_quantize,
 )
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import kvcache as kvc
@@ -98,6 +101,17 @@ def unstack_layers(params) -> Dict[str, Any]:
     return dict(params, layers=[_layer_slice(stacked, i) for i in range(L)])
 
 
+def _unbind_layers(stacked, L: int) -> List[Dict[str, Any]]:
+    """Per-layer views of the stacked leaves for the training forward: one
+    ``torch.unbind`` per leaf, so backward assembles each stacked leaf's
+    gradient once from its L slices (indexing would build a full-size
+    zero gradient for every layer)."""
+    if isinstance(stacked, dict):
+        parts = {k: _unbind_layers(v, L) for k, v in stacked.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(L)]
+    return list(torch.unbind(stacked))
+
+
 def _layers(params) -> List[Dict[str, Any]]:
     return unstack_layers(params)["layers"]
 
@@ -111,6 +125,68 @@ def _mlp(p, cfg: ModelConfig, x):
     u = layers.linear(p["w_up"], x, cfg)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     return layers.linear(p["w_down"], h, cfg)
+
+
+def _attn_seq(p, cfg: ModelConfig, x, positions):
+    """Causal (sliding-window) self-attention over a whole sequence: the
+    flash-attention Function when ``cfg.attn_impl == "flash"``, else the
+    plain chunked attention."""
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = layers.linear(p["wq"], x, cfg).reshape(B, S, H, D)
+    k = layers.linear(p["wk"], x, cfg).reshape(B, S, Hkv, D)
+    v = layers.linear(p["wv"], x, cfg).reshape(B, S, Hkv, D)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    w = cfg.sliding_window
+    if cfg.attn_impl == "flash":
+        o = flash_attention(q, k, v, causal=True, window=w)
+    elif cfg.attn_impl == "chunked":
+        o = attention.chunked_attention(q, k, v, causal=True, window=w)
+    else:
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} "
+                         f"(expected chunked | flash)")
+    return layers.linear(p["wo"], o.reshape(B, S, H * D), cfg)
+
+
+def _layer_seq(p, cfg: ModelConfig, h, positions):
+    """One decoder layer in sequence mode (the dense branch)."""
+    h = h + _attn_seq(p["attn"], cfg, layers.rmsnorm(p["norm1"], h),
+                      positions)
+    return h + _mlp(p["mlp"], cfg, layers.rmsnorm(p["norm2"], h))
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, padded_vocab) fp32. RoPE positions
+    are ``arange(S)`` for every row. With ``cfg.remat`` each layer runs
+    under ``torch.utils.checkpoint`` (recomputed in backward), the
+    counterpart of ``jax.checkpoint`` around the JAX layer scan. Gradients
+    reach the stacked ``layers`` leaves through the per-layer views."""
+    check_family(cfg)
+    h = layers.embed(params["embed"], tokens)
+    B, S, _ = h.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device).expand(B, S)
+    stacked = params["layers"]
+    for lp in _unbind_layers(stacked, stacked["norm1"]["scale"].shape[0]):
+        if cfg.remat:
+            h = checkpoint(_layer_seq, lp, cfg, h, positions,
+                           use_reentrant=False)
+        else:
+            h = _layer_seq(lp, cfg, h, positions)
+    h = layers.rmsnorm(params["final_norm"], h)
+    return _logits_head(params, cfg, h)
+
+
+def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Next-token cross entropy over the padded vocabulary (log-softmax in
+    fp32); labels < 0 are masked. batch: {tokens, labels}."""
+    logits = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _logits_head(params, cfg: ModelConfig, h):

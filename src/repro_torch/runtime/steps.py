@@ -1,13 +1,86 @@
-"""Serving steps as plain eager functions (port of the serve half of
+"""Train and serving steps as plain eager functions (port of
 ``repro/runtime/steps.py``). PyTorch runs eagerly: no ``torch.compile`` and
-no CUDA graphs yet. The greedy argmax runs on the device; the engine syncs
-one (B,) int array per step."""
+no CUDA graphs yet. The serving steps' greedy argmax runs on the device;
+the engine syncs one (B,) int array per step.
+
+``make_train_step`` runs on one device: the JAX package's FSDP and ZeRO-2
+shardings are not ported. Gradients are cast to ``grad_dtype`` (bf16) at
+every microbatch count, accumulated across microbatches in that dtype and
+divided by the count, then the fp32 AdamW update runs.
+"""
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 import torch
 
+from repro_torch.core.quant import true_div
+from repro_torch.core.tree import tree_map
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSettings:
+    """``fsdp`` and ``zero2`` (the JAX package's sharded settings, which
+    its presets use) are refused by :func:`make_train_step`."""
+
+    microbatches: int = 1
+    fsdp: bool = False
+    grad_dtype: Any = torch.bfloat16    # gradient compression
+    zero2: bool = False
+
+
+def _split_micro(batch, n: int):
+    """``n`` microbatches of ``batch`` (row i of microbatch j is row
+    j·B/n + i, as JAX's reshape to (n, B/n, ...))."""
+    return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[j]
+             for k, v in batch.items()} for j in range(n)]
+
+
+def value_and_grad(params, cfg: ModelConfig, batch):
+    """``(loss, grads)`` of ``T.loss_fn`` at ``params``; the grads in each
+    leaf's dtype, the loss detached."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss = T.loss_fn(leaves, cfg, batch)
+    loss.backward()
+    return loss.detach(), tree_map(
+        lambda t: torch.zeros_like(t) if t.grad is None else t.grad, leaves)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    settings: TrainSettings = TrainSettings()):
+    """train_step(params, opt_state, inputs) → (params, opt_state,
+    metrics); inputs = {"batch": {tokens, labels}, "step": int}."""
+    if settings.fsdp or settings.zero2:
+        raise NotImplementedError(
+            "make_train_step runs on one device: FSDP / ZeRO-2 sharding is "
+            "not ported")
+    gdt, n = settings.grad_dtype, settings.microbatches
+
+    def train_step(params, opt_state, inputs):
+        batch, step = inputs["batch"], inputs["step"]
+        if n > 1:
+            loss = None
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt,
+                                                   device=p.device), params)
+            for mb in _split_micro(batch, n):
+                l, g = value_and_grad(params, cfg, mb)
+                loss = l if loss is None else loss + l
+                grads = tree_map(lambda a, b: a + b.to(gdt), grads, g)
+                del g
+            loss = true_div(loss, n)
+            grads = tree_map(lambda g: true_div(g, n), grads)
+        else:
+            loss, grads = value_and_grad(params, cfg, batch)
+            grads = tree_map(lambda g: g.to(gdt), grads)
+        new_params, opt_state, om = adamw_update(
+            grads, opt_state, params, opt_cfg, cosine_schedule(step))
+        return new_params, opt_state, {"loss": loss, **om}
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig, *, cache_len: int,

@@ -15,6 +15,9 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import quant as tq
+from repro_torch.core.tree import tree_flatten_with_keys
+from repro_torch.data import SyntheticTokenStream
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import w4a8_fused as tw4a8
@@ -22,6 +25,8 @@ from repro_torch.kernels import w4a16_decoupled as tdec
 from repro_torch.kernels import w4a16_fused as wf
 from repro_torch.kernels import w8a16_fused as tw8a16
 from repro_torch.models import transformer as T
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.runtime import steps as tsteps
 from repro_torch.runtime import kvcache as kvc
 from repro_torch.runtime.engine import Request, ServingEngine
 
@@ -312,3 +317,93 @@ def test_engine_gemm_family_matches_plain_path(cuda_device, fmt, strategy,
         torch.testing.assert_close(got.prefill_logits[rid],
                                    want.prefill_logits[rid],
                                    rtol=1e-3, atol=1e-3)
+
+
+def _flash_inputs(dev, B, S, Hq, Hkv, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev, dtype)
+            for s in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,dtype,tol", [
+    (2, 320, 32, 8, 80, 128, torch.bfloat16, 2e-2),   # danube heads, SWA
+    (1, 200, 8, 2, 64, 0, torch.float32, 1e-5),       # ragged, fp32
+])
+def test_flash_kernel_matches_plain(cuda_device, B, S, Hq, Hkv, D, window,
+                                    dtype, tol):
+    """The kernel's output within the JAX flash test's tolerance of its
+    plain version (2e-2 in bf16, 1e-5 in fp32), in bf16 also within 2^-7 of
+    each element plus 2^-5 of its row's RMS over D (p rounded to bf16 at
+    two different maxima; a long row's |o| is far below 2e-2), and its
+    log-sum-exp within 1e-4; one launch per call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(cuda_device, B, S, Hq, Hkv, D, dtype)
+    before = tfa.FLASH_ATTENTION.launches
+    o, lse = tfa.flash_attention_forward(q, k, v, causal=True,
+                                         window=window)
+    assert tfa.FLASH_ATTENTION.launches == before + 1
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=True,
+                                           window=window)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype
+    torch.testing.assert_close(o.float(), o_p.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        w = o_p.float()
+        rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+        assert bool(((o.float() - w).abs()
+                     <= 2 ** -7 * w.abs() + 2 ** -5 * rms).all())
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_function_grads_match_autograd_of_plain(cuda_device):
+    """fp32, danube heads, S=256, window 64: the Function's dq, dk, dv
+    (kernel forward, PyTorch backward) within 1e-5 of autograd through the
+    plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (t.requires_grad_() for t in _flash_inputs(
+        cuda_device, 1, 256, 32, 8, 80, torch.float32, seed=1))
+    do = torch.randn(q.shape, device=cuda_device)
+    got = torch.autograd.grad(tfa.flash_attention(q, k, v, window=64),
+                              (q, k, v), do)
+    want = torch.autograd.grad(
+        tfa.flash_attention_plain(q, k, v, window=64)[0], (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_train_step_kernel_path_matches_plain_path(cuda_device):
+    """danube at full width and 2 layers, bf16, B=2 x 512 tokens, two
+    steps through the flash kernel and through the plain chunked
+    attention: losses within 2e-4, grad norms within 2e-3 (relative);
+    after step 2, per leaf, max|d| / max|plain| within 5e-2 for m and 1e-1
+    for v (bf16 gradients of two attention orders). The parameters are not
+    held: within warmup their updates sit below a bf16 step."""
+    cfg = dataclasses.replace(configs.get_config("h2o-danube-1.8b"),
+                              num_layers=2)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params0 = T.init_params(gen, cfg, device=cuda_device)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=512,
+                                  batch_size=2, device=cuda_device)
+    out = {}
+    for impl in ("flash", "chunked"):
+        step = tsteps.make_train_step(
+            dataclasses.replace(cfg, attn_impl=impl), opt_cfg)
+        params, state, metrics = params0, adamw_init(params0, opt_cfg), []
+        for i in range(2):
+            params, state, m = step(params, state,
+                                    {"batch": stream.batch_at(i), "step": i})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        out[impl] = metrics, {"m": state["m"], "v": state["v"]}
+    (mk, tk), (mp, tp) = out["flash"], out["chunked"]
+    for (lk, gk), (lp, gp) in zip(mk, mp):
+        assert abs(lk - lp) <= 2e-4 * abs(lp)
+        assert abs(gk - gp) <= 2e-3 * abs(gp)
+    for name, tol in (("m", 5e-2), ("v", 1e-1)):
+        want = dict(tree_flatten_with_keys(tp[name]))
+        for key, g in tree_flatten_with_keys(tk[name]):
+            w = want[key].float()
+            d = float((g.float() - w).abs().max())
+            assert d <= tol * float(w.abs().max()), (name, key, d)

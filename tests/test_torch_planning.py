@@ -188,3 +188,88 @@ def test_h100_gemm_family_bounds():
         assert costmodel.bound_by(costmodel.w4a8_gemm_bytes(M, N, K),
                                   costmodel.w4a16_gemm_flops(M, N, K),
                                   int8=True) == "bytes"
+
+
+def _problems():
+    """Problems of both packages' vocabularies: the port's CUDA kernels,
+    the CPU plain path, another format."""
+    return [planning.MatmulProblem(M=8, N=2560, K=2560, backend="cuda"),
+            planning.MatmulProblem(M=32, N=640, K=2560, backend="cpu",
+                                   act_dtype="float32",
+                                   out_dtype="float32"),
+            planning.MatmulProblem(M=8, N=6912, K=2560, backend="cuda",
+                                   format="w8a16_channel", group_size=2560)]
+
+
+def test_plan_cache_round_trip(tmp_path):
+    """save → load restores every decision; the write is atomic (no temp
+    file left); a bad version or malformed entry raises ValueError, which
+    ``tolerant`` loading turns into -1."""
+    path = str(tmp_path / "plans.json")
+    cache = planning.PlanCache()
+    for prob in _problems():
+        cache.put(prob, planning.plan_matmul(prob, use_cache=False))
+    assert cache.save(path) == 3
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["plans.json"]
+    fresh = planning.PlanCache()
+    assert fresh.load(path) == 3
+    assert fresh._plans == cache._plans
+    (tmp_path / "bad.json").write_text('{"version": 2, "plans": []}')
+    with pytest.raises(ValueError, match="version"):
+        fresh.load(str(tmp_path / "bad.json"))
+    (tmp_path / "bad.json").write_text('{"version": 1, "plans": [{}]}')
+    with pytest.raises(ValueError, match="malformed"):
+        fresh.load(str(tmp_path / "bad.json"))
+    assert planning.load_plan_cache(str(tmp_path / "missing.json"),
+                                    tolerant=True) == -1
+
+
+def test_plan_cache_files_cross_packages(tmp_path):
+    """The port reads a JAX-written file (tile sizes dropped, the ``xla``
+    plans it cannot dispatch dropped) and JAX's ``PlanCache.load`` reads a
+    port-written one (tile sizes defaulted)."""
+    jpath, tpath = str(tmp_path / "jax.json"), str(tmp_path / "port.json")
+    jcache = jplanning.PlanCache()
+    jp = jplanning.MatmulProblem(M=8, N=2560, K=2560, backend="tpu")
+    jcache.put(jp, jplanning.KernelPlan(strategy="fused", split_k=4,
+                                        block_m=16, block_n=512))
+    jcache.put(jplanning.MatmulProblem(M=8, N=640, K=2560, backend="cpu"),
+               jplanning.KernelPlan(strategy="xla"))
+    jcache.save(jpath)
+    tcache = planning.PlanCache()
+    assert tcache.load(jpath) == 1
+    (prob, plan), = tcache._plans.items()
+    assert prob == planning.MatmulProblem(M=8, N=2560, K=2560,
+                                          backend="tpu")
+    assert plan == planning.KernelPlan(strategy="fused", split_k=4)
+
+    tcache = planning.PlanCache()
+    for prob in _problems():
+        tcache.put(prob, planning.plan_matmul(prob, use_cache=False))
+    tcache.save(tpath)
+    jcache = jplanning.PlanCache()
+    assert jcache.load(tpath) == 3
+    got = {(p.M, p.N, p.K, p.backend, p.format): (pl.strategy, pl.split_k)
+           for p, pl in jcache._plans.items()}
+    want = {(p.M, p.N, p.K, p.backend, p.format): (pl.strategy, pl.split_k)
+            for p, pl in tcache._plans.items()}
+    assert got == want
+
+
+def test_serve_launcher_plan_cache(tmp_path, capsys):
+    """``--plan-cache`` is written after serving and loaded on the next
+    run, whose plans then hit the cache."""
+    from repro_torch.launch import serve as tserve
+    path = str(tmp_path / "plans.json")
+    argv = ["--arch", "h2o-danube-1.8b", "--reduced", "--batch", "2",
+            "--prompt-len", "6", "--gen", "2", "--page-size", "4",
+            "--device", "cpu", "--plan-cache", path]
+    planning.PLAN_CACHE.clear()
+    tserve.main(argv)
+    first = capsys.readouterr().out
+    planning.PLAN_CACHE.clear()
+    tserve.main(argv)
+    out = capsys.readouterr().out
+    assert f"4 plans -> {path} (3 hits / 4 misses this run)" in first
+    assert f"loaded 4 plans from {path}" in out
+    assert " / 0 misses this run)" in out
