@@ -13,17 +13,23 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
 3. kernels — each kernel against its plain PyTorch version on the card at
              the serving path's shapes, with the tolerance stated: the
              fused W4A16 GEMM (bf16, and fp32 — the reduced
-             configurations' dtype), paged attention, and the rest of the
-             paper's GEMM family in bf16 and fp32 at the four danube
-             (K, N) pairs, M = 8 and 32, the planner's split_k and 1: the
-             dense GEMM in both modes, the decoupled W4A16 pipeline whole
-             and phase by phase, W8A16, and W4A8 (its int8 activations
-             bit-equal to the CPU's); flash attention in bf16 and fp32 at
+             configurations' dtype), paged attention (decode and the
+             32-token chunk, both KV formats, partitions of 544, 272 and
+             136 keys, -1 table entries at the tail and inside a live
+             partition, a window that masks whole partitions, bf16 and
+             fp16), and the rest of the paper's GEMM family in bf16 and
+             fp32 at the four danube (K, N) pairs, M = 8 and 32, the
+             planner's split_k and 1: the dense GEMM in both modes, the
+             decoupled W4A16 pipeline whole and phase by phase, W8A16,
+             and W4A8 (its int8 activations bit-equal to the CPU's);
+             flash attention in bf16 and fp32 at
              danube's heads (32/8 of 80) for 4 x 2048 causal, 1 x 4608
              with the 4096 window biting, 2 x 96 unaligned, 64 queries over
-             192 keys non-causal, and D = 128 and 32; the FlashAttention
-             Function's gradients against autograd through the plain
-             version.
+             192 keys non-causal, D = 128 and 32, and the kernel's tile
+             edges (Skv or a 100-token window ending mid-tile, 40 queries,
+             q/k/v as strided views of a fused projection); the
+             FlashAttention Function's gradients against autograd through
+             the plain version.
 4. serve   — the port's main path through its launcher
              (``repro_torch.launch.serve``): h2o-danube-1.8b at full width
              (24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab
@@ -196,13 +202,17 @@ def family_split(M, N, K):
                                    cores=planning.num_cores("cuda"))
 
 
-def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False):
+def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
+              hole=False, dtype=None):
     """The serving pool at full danube width (545 blocks of 8 tokens, one
     layer) filled with random K/V; per-slot tables of 68 pages; position
     tags for every token a slot holds. Decode: B=8 slots at ragged
     positions around 700 (the 544-token window has wrapped), queries at
     the last position, ``start = pos + 1``. Chunk: B=1, C=32 queries at
-    positions 481..512 over a pool holding 0..480."""
+    positions 481..512 over a pool holding 0..480. ``hole``: slot 0's
+    table entry 5 becomes -1 inside its live pages (the null block's
+    tokens are masked). ``dtype``: the compute dtype (bf16 by default)."""
+    dtype = torch.bfloat16 if dtype is None else dtype
     from repro_torch.core.quant import get_kv_format
     from repro_torch.kernels import planning
     from repro_torch.runtime import kvcache as kvc
@@ -210,8 +220,8 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False):
     ctx_pos = 700 if kind == "decode" else 480
     cache_len = PAGES * PAGE
     fmt = get_kv_format(fmt_name)
-    pool = kvc.init_pool(1 + 8 * PAGES, PAGE, HKV, D, torch.bfloat16,
-                         fmt_name, device=dev)
+    pool = kvc.init_pool(1 + 8 * PAGES, PAGE, HKV, D, dtype, fmt_name,
+                         device=dev)
     if fmt.quantized:
         for t in (pool.k_pool, pool.v_pool):
             t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
@@ -236,6 +246,8 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False):
         bid = tables[b, off // PAGE].long()
         flat_pos[bid * PAGE + off % PAGE] = p.to(torch.int32)
         last.append(hi)
+    if hole:
+        tables[0, 5] = -1
     last = torch.tensor(last, device=dev, dtype=torch.int32)
     if kind == "decode":
         positions, start = last[:, None].contiguous(), last + 1
@@ -244,13 +256,13 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False):
             C, device=dev, dtype=torch.int32)).contiguous()
         start = positions[:, 0].contiguous()
     q = torch.randn(B, C, HKV * G, D, generator=gen, device=dev)
-    qg = (q.reshape(B, C, HKV, G, D) * D ** -0.5).to(torch.bfloat16)
+    qg = (q.reshape(B, C, HKV, G, D) * D ** -0.5).to(dtype)
     Tq = planning.choose_q_block(C, G)
     qk = qg.permute(0, 2, 1, 3, 4).reshape(B, HKV, C // Tq, Tq * G, D) \
         .contiguous()
     planned = planning.choose_kv_partitions(
         B, HKV, PAGES, q_tiles=C // Tq, cores=planning.num_cores("cuda"))
-    return dict(qk=qk, q=q.to(torch.bfloat16), positions=positions,
+    return dict(qk=qk, q=q.to(dtype), positions=positions,
                 start=start, pool=pool, tables=tables, fmt=fmt, Tq=Tq,
                 planned=planned, B=B, C=C)
 
@@ -319,13 +331,27 @@ def check_gemm_fp32(torch, dev, gen):
                                      f"split_k={s}")
 
 
+# paged-attention phase-3 variants beyond bf16 over whole tables:
+# (label, kind, KV format, compute dtype name, a -1 entry inside a live
+# partition)
+ATTN_EDGES = [("hole", kind, fmt, "bf16", True)
+              for kind in ("decode", "chunk")
+              for fmt in ("kv_fp16", "kv8_channel")] + [
+    ("fp16", "chunk", fmt, "fp16", False)
+    for fmt in ("kv_fp16", "kv8_channel")]
+
+
 def check_attention(torch, dev, gen):
     """Paged-attention kernel vs its plain version: decode (B=8) and chunk
     (B=1, C=32), both KV formats, the model's 4096 window and a 100-token
-    window that masks, kv_partitions 1 and the planner's pick, a slot with
-    -1 table entries. Both round dequantized K/V and the softmax weights to
-    bf16 and accumulate in fp32; exp and summation order differ, so a
-    weight may round to the neighbouring bf16 value (2^-8 of it). The
+    window that masks (whole partitions of it at kv_partitions 4),
+    kv_partitions 1 (68 pages, 544 keys a partition), 4 (17 pages, 136
+    keys: neither a multiple of the kernel's key stage) and the planner's
+    pick, a slot with -1 table entries; then ``ATTN_EDGES``: a -1 entry
+    inside a live partition, and fp16 compute at C=32. Both round
+    dequantized K/V and the softmax weights to bf16 and accumulate in
+    fp32; exp and summation order differ, so a weight may round to the
+    neighbouring bf16 value (2^-8 of it). The
     combined outputs are softmax averages over hundreds of keys, about
     0.05 in size, not unit scale: they are held to |d| <= 2^-7·|plain| +
     2e-3 (the worst error measured on the H100 is 1.44e-3; dropping or
@@ -337,43 +363,48 @@ def check_attention(torch, dev, gen):
     moves it by more)."""
     from repro_torch.kernels import paged_attention as pa
     worst = 0.0
-    for fmt_name in ("kv_fp16", "kv8_channel"):
-        for kind in ("decode", "chunk"):
-            c = attn_case(torch, gen, dev, fmt_name=fmt_name, kind=kind,
-                          null_slot=kind == "decode")
-            for window in (4096, 100):
-                for parts in sorted({1, c["planned"]}):
-                    kw = dict(Tq=c["Tq"], G=G, S=parts, window=window,
-                              fmt=c["fmt"])
-                    args = (c["qk"], c["positions"], c["start"], c["pool"],
-                            c["tables"])
-                    got = pa._launch_partials(*args, **kw)
-                    want = pa.pooled_partials_plain(*args, **kw)
-                    out_p = combine(torch, *want)
-                    d = (combine(torch, *got) - out_p).abs()
-                    err = float(d.max())
-                    worst = max(worst, err)
-                    (_, m_k, l_k), (_, m_p, l_p) = got, want
-                    live = m_p > -1e29
-                    dm = ((m_k - m_p).abs() / (1 + m_p.abs()))[live]
-                    dl = ((l_k - l_p).abs() / l_p)[live]
-                    dm_max = float(dm.max()) if dm.numel() else 0.0
-                    dl_max = float(dl.max()) if dl.numel() else 0.0
-                    bad = bool((d > out_p.abs() * 2 ** -7 + 2e-3).any()
-                               or (live != (m_k > -1e29)).any()
-                               or dm_max > 1e-4 or dl_max > 1e-3)
-                    log("kernels", f"paged_attention {kind} B={c['B']} "
-                        f"C={c['C']} {fmt_name} window={window} "
-                        f"kv_partitions={parts} max|d|={err:.3e} "
-                        f"(max|out| {float(out_p.abs().max()):.3f}) "
-                        f"max|dm|/(1+|m|)={dm_max:.2e} "
-                        f"max|dl|/l={dl_max:.2e} live partitions "
-                        f"{int(live.sum())}/{live.numel()} "
-                        f"{'FAIL' if bad else 'ok'} ({ATTN_TOL})")
-                    if bad:
-                        raise AssertionError(
-                            f"paged_attention disagrees: {kind} {fmt_name} "
-                            f"window={window} kv_partitions={parts}")
+    variants = [("", kind, fmt, "bf16", False)
+                for fmt in ("kv_fp16", "kv8_channel")
+                for kind in ("decode", "chunk")] + ATTN_EDGES
+    dtypes = {"bf16": torch.bfloat16, "fp16": torch.float16}
+    for label, kind, fmt_name, dt, hole in variants:
+        c = attn_case(torch, gen, dev, fmt_name=fmt_name, kind=kind,
+                      null_slot=kind == "decode", hole=hole,
+                      dtype=dtypes[dt])
+        name = f"{label} {kind}" if label else kind
+        for window in (4096, 100):
+            for parts in sorted({1, 4, c["planned"]}):
+                kw = dict(Tq=c["Tq"], G=G, S=parts, window=window,
+                          fmt=c["fmt"])
+                args = (c["qk"], c["positions"], c["start"], c["pool"],
+                        c["tables"])
+                got = pa._launch_partials(*args, **kw)
+                want = pa.pooled_partials_plain(*args, **kw)
+                out_p = combine(torch, *want)
+                d = (combine(torch, *got) - out_p).abs()
+                err = float(d.max())
+                worst = max(worst, err)
+                (_, m_k, l_k), (_, m_p, l_p) = got, want
+                live = m_p > -1e29
+                dm = ((m_k - m_p).abs() / (1 + m_p.abs()))[live]
+                dl = ((l_k - l_p).abs() / l_p)[live]
+                dm_max = float(dm.max()) if dm.numel() else 0.0
+                dl_max = float(dl.max()) if dl.numel() else 0.0
+                bad = bool((d > out_p.abs() * 2 ** -7 + 2e-3).any()
+                           or (live != (m_k > -1e29)).any()
+                           or dm_max > 1e-4 or dl_max > 1e-3)
+                log("kernels", f"paged_attention {name} B={c['B']} "
+                    f"C={c['C']} {fmt_name} {dt} window={window} "
+                    f"kv_partitions={parts} max|d|={err:.3e} "
+                    f"(max|out| {float(out_p.abs().max()):.3f}) "
+                    f"max|dm|/(1+|m|)={dm_max:.2e} "
+                    f"max|dl|/l={dl_max:.2e} live partitions "
+                    f"{int(live.sum())}/{live.numel()} "
+                    f"{'FAIL' if bad else 'ok'} ({ATTN_TOL})")
+                if bad:
+                    raise AssertionError(
+                        f"paged_attention disagrees: {name} {fmt_name} "
+                        f"{dt} window={window} kv_partitions={parts}")
     return worst
 
 
@@ -484,10 +515,26 @@ FLASH_CASES = [
     ("64 x 192 cross", 1, 64, 192, 32, 8, 80, False, 0),
     ("D=128", 1, 320, 320, 8, 2, 128, True, 64),
     ("D=32", 2, 200, 200, 4, 2, 32, True, 0),
+    # the edges of the kernel's 128-row query and 64-key tiles
+    ("Skv ends mid-tile", 1, 256, 300, 32, 8, 80, False, 0),
+    ("300 causal", 1, 300, 300, 32, 8, 80, True, 4096),
+    ("Sq=40", 2, 40, 40, 32, 8, 80, True, 4096),
+    ("window 100 ends mid-tile", 1, 512, 512, 32, 8, 80, True, 100),
+]
+# q, k, v as strided views of one fused (B, S, (Hq + 2·Hkv)·D) projection
+FLASH_VIEW_CASES = [
+    ("fused qkv view", 2, 256, 256, 32, 8, 80, True, 4096),
 ]
 
 
-def flash_inputs(torch, gen, dev, B, Sq, Skv, Hq, Hkv, D, dtype):
+def flash_inputs(torch, gen, dev, B, Sq, Skv, Hq, Hkv, D, dtype,
+                 fused=False):
+    if fused:
+        qkv = torch.randn(B, Sq, (Hq + 2 * Hkv) * D, generator=gen,
+                          device=dev).to(dtype)
+        q, k, v = qkv.split([Hq * D, Hkv * D, Hkv * D], dim=-1)
+        return (q.unflatten(-1, (Hq, D)), k.unflatten(-1, (Hkv, D)),
+                v.unflatten(-1, (Hkv, D)))
     q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, Skv, Hkv, D, generator=gen, device=dev).to(dtype)
@@ -515,16 +562,19 @@ def flash_limit(torch, want, dt):
 
 def check_flash(torch, dev, gen):
     """The flash-attention kernel vs its plain version (one full softmax
-    per row in the kernel's rounding order) at every phase-3 shape: the
+    per row in the kernel's rounding order) at every phase-3 shape
+    (``FLASH_CASES``, then ``FLASH_VIEW_CASES`` on strided views): the
     output within ``flash_limit`` of the plain output element by element;
     the log-sum-exp within 1e-4·(1 + |lse|) (an fp32 sum of exps in
     another order). Returns the worst bf16 |d| of the output."""
     from repro_torch.kernels import flash_attention as fa
     worst = 0.0
-    for label, B, Sq, Skv, Hq, Hkv, D, causal, window in FLASH_CASES:
+    cases = [(c, False) for c in FLASH_CASES] \
+        + [(c, True) for c in FLASH_VIEW_CASES]
+    for (label, B, Sq, Skv, Hq, Hkv, D, causal, window), fused in cases:
         for dt, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             q, k, v = flash_inputs(torch, gen, dev, B, Sq, Skv, Hq, Hkv, D,
-                                   dtype)
+                                   dtype, fused=fused)
             o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
                                                 window=window)
             o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=causal,
@@ -1362,6 +1412,38 @@ def trace_train(torch, dev, card):
     torch.cuda.empty_cache()
 
 
+# template arguments of the attention kernels as nvcc mangles them
+_MANGLED = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
+            "Lb0E": "", "Lb1E": " kv8"}
+
+
+def ptxas_summary(text):
+    """One line per attention-kernel instantiation of an ``-Xptxas -v``
+    log: ``paged_attn_kernel<bf16, D=80 kv8>: 128 registers, 16 bytes
+    spill stores, 24 bytes spill loads``."""
+    import re
+    rows = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"(paged_attn_kernel|flash_fwd_kernel)I"
+                      r"(f|13__nv_bfloat16|6__half)Li(\d+)E(Lb[01]E)?", line)
+        if "Compiling entry function" in line and m:
+            name = (f"{m.group(1)}<{_MANGLED[m.group(2)]}, D={m.group(3)}"
+                    f"{_MANGLED[m.group(4) or 'Lb0E']}>")
+            rows[name] = {}
+        elif name:
+            r = re.search(r"Used (\d+) registers", line)
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+            if r:
+                rows[name]["regs"] = r.group(1)
+            if sp:
+                rows[name]["spill"] = sp.groups()
+    return [f"{n}: {v.get('regs', '?')} registers, {v['spill'][0]} bytes "
+            f"spill stores, {v['spill'][1]} bytes spill loads"
+            for n, v in rows.items() if "spill" in v] or ["cached build"]
+
+
 def layer_totals(torch, gemm_rows, fam_rows, card):
     """The paper's question per layer (its seven GEMMs) at M = 8 and 32:
     fused W4A16 vs the decoupled pipeline vs the dense baseline, with W8A16
@@ -1411,6 +1493,10 @@ def main() -> int:
     log("build", f"{' + '.join(sources)} in {time.perf_counter() - t0:.1f} "
         f"s (one nvcc each, in parallel)")
     for name, text in zip(sources, logs):
+        if name in ("paged_attention.cu", "flash_attention.cu"):
+            for line in ptxas_summary(text):
+                log("build", f"{name}: {line}")
+            continue
         regs = sorted({line.split(":", 1)[1].strip()
                        for line in text.splitlines() if "registers" in line})
         log("build", f"{name}: {'; '.join(regs) or 'cached build'}")

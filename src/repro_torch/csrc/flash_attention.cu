@@ -13,44 +13,47 @@
 //
 // What bounds it on the H100: operations. At the training shapes (S 2048
 //   to 8192, D = 80, G = 4) a query tile reuses every K/V byte it stages
-//   for 64 query rows, so the QKᵀ and PV products (4·D FLOP per unmasked
+//   for 128 query rows, so the QKᵀ and PV products (4·D FLOP per unmasked
 //   (q, k) pair) are ~100x the bytes of q, k, v and o; the least time is
 //   those FLOPs over 989 TFLOP/s (bf16 tensor cores).
 //
-// What the design does about it (the simple first kernel):
-//   * One block of 4 warps per (b, query head, 64-row query tile) walks
-//     64-key tiles from the first one its window reaches to the last one
-//     causality lets it see; tiles masked for every row of the block are
-//     never loaded (half the work at S = 8192 with window 4096). Heavy
-//     causal tiles launch first.
-//   * Q, K and V tiles are staged in shared memory with 16-byte loads
-//     straight from the (B, S, H, D) layout through its strides (no
-//     transposed copies); ragged edges (S not a multiple of 64, Sq != Skv)
-//     load zeros and are masked by position.
-//   * bf16: QKᵀ and PV on WMMA 16x16x16 fragments with fp32 accumulators;
-//     each warp owns 16 query rows end to end (scores, softmax, rescale,
-//     PV), so only the K/V staging needs the whole block. The score tile
-//     and the output accumulator are fp32 in shared memory (~82 KB at
-//     D = 80, ~113 KB at D = 128: dynamic shared memory).
-//   * fp32 runs the same blocks on CUDA-core FMAs (the reduced configs).
-//   No TMA, no wgmma, no pipelining of the K/V loads yet.
+// What the design does about it (FlashAttention-2's shape on mma.sync):
+//   * One block of 8 warps per (b, query head, 128-row query tile), two
+//     blocks to an SM in bf16; each warp owns 16 query rows end to end.
+//     Its Q rows are mma A fragments in registers; QKᵀ and PV run on
+//     mma.sync.m16n8k16 (attn_tile.cuh) over 64-key tiles, and the scores,
+//     the softmax weights (repacked from the accumulator layout into A
+//     fragments) and the 16 x D fp32 output accumulator never leave
+//     registers.
+//   * K/V tiles arrive by 16-byte cp.async into a ring of 2-3
+//     shared-memory stages (padded rows: ldmatrix without bank conflicts),
+//     straight from the strided (B, S, H, D) layout, so the next tiles load
+//     while the current one is multiplied; ragged edges (S not a multiple
+//     of the tile, Sq != Skv) are zero-filled and masked by position, keys
+//     past Skv with -inf.
+//   * Only the key tiles that some row of the block can see are loaded
+//     (half the work at S = 8192 with window 4096), and a warp skips the
+//     tiles its own 16 rows cannot see; masks are applied only on tiles
+//     that straddle an edge. Heavy causal tiles launch first, and the G
+//     query heads of one KV head and query tile are neighbouring blocks, so
+//     their K/V come from L2 rather than four times from device memory.
+//   * fp32 (the reduced configurations) runs the same blocks, with the
+//     products on CUDA cores (attn_tile.cuh).
+//   Not yet: wgmma, TMA, a producer warp (see PERF.md). The shared-memory
+//   layout is mirrored by kernels/flash_attention.py (flash_geometry),
+//   which also picks the stage count; the launcher refuses a footprint that
+//   differs from it.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <math.h>
-#include <stdint.h>
-#include <type_traits>
+#include "attn_tile.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace attn;
 
-constexpr int THREADS = 128;     // 4 warps x 16 query rows
-constexpr int BQ = 64;           // query rows per block
+constexpr int THREADS = 256;     // 8 warps x 16 query rows
+constexpr int BQ = 128;          // query rows per block
 constexpr int BK = 64;           // keys per KV tile
-constexpr int MAX_D = 128;
-constexpr float NEG_INF = -1e30f;
+constexpr int NT = BK / 8;       // 8-key mma tiles per KV tile
 
 struct Args {
   const void* q;
@@ -59,275 +62,205 @@ struct Args {
   void* o;                        // (B, Sq, Hq, D), contiguous
   float* lse;                     // (B, Hq, Sq)
   long long qs[3], ks[3], vs[3];  // (b, s, h) strides in elements
-  int Sq, Skv, Hq, Hkv, D, causal, window;
+  int B, Sq, Skv, Hq, Hkv, causal, window, stages;
   float scale;
 };
 
-// shared-memory layout (byte offsets, 128-aligned); leading dimensions in
-// elements. fp32 tiles use odd strides (conflict-free column walks of the
-// FMA loops); 16-bit tiles pad by 8 elements (WMMA needs multiples of 8)
+// byte offsets: the Q tile, then the ring of (K, V) stages
 struct Layout {
-  int ldt, lds, ldp, ldo;
-  size_t q, k, v, s, p, o, m, l, bytes;
+  size_t q, ring, k, v, stage, bytes;
 };
 
-__host__ __device__ inline size_t align128(size_t x) {
-  return (x + 127) & ~static_cast<size_t>(127);
-}
-
-template <typename T>
-__host__ __device__ inline Layout layout(int D) {
-  constexpr bool F32 = std::is_same<T, float>::value;
-  Layout L;
-  L.ldt = F32 ? D + 1 : D + 8;
-  L.lds = F32 ? BK + 1 : BK + 4;
-  L.ldp = F32 ? BK + 1 : BK + 8;
-  L.ldo = F32 ? D + 1 : D + 4;
-  size_t off = 0;
-  L.q = off; off = align128(off + sizeof(T) * BQ * L.ldt);
-  L.k = off; off = align128(off + sizeof(T) * BK * L.ldt);
-  L.v = off; off = align128(off + sizeof(T) * BK * L.ldt);
-  L.s = off; off = align128(off + sizeof(float) * BQ * L.lds);
-  if (F32) {
-    L.p = L.s;                    // fp32 p overwrites its score in place
-  } else {
-    L.p = off; off = align128(off + sizeof(T) * BQ * L.ldp);
-  }
-  L.o = off; off = align128(off + sizeof(float) * BQ * L.ldo);
-  L.m = off; off = align128(off + sizeof(float) * BQ);
-  L.l = off; off = align128(off + sizeof(float) * BQ);
-  L.bytes = off;
+template <typename T, int D>
+__host__ __device__ inline Layout layout(int stages) {
+  constexpr int LD = tile_ld<T, D>();
+  const size_t tile = align128(sizeof(T) * (size_t)BK * LD);
+  Layout L{};
+  L.q = 0;
+  L.ring = align128(sizeof(T) * (size_t)BQ * LD);
+  L.k = 0;
+  L.v = tile;
+  L.stage = 2 * tile;
+  L.bytes = L.ring + stages * L.stage;
   return L;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// rows row0 .. row0+63 of one head into a (64, ld) tile; rows >= S are 0
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* base,
-                                           long long ss, int row0, int S,
-                                           int D) {
-  if constexpr (std::is_same<T, float>::value) {
-    for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
-      const int r = i / D, d = i - r * D, s = row0 + r;
-      dst[r * ld + d] = s < S ? base[s * ss + d] : 0.0f;
-    }
-  } else {
-    const int chunks = D / 8;                    // 16 bytes each
-    for (int i = threadIdx.x; i < 64 * chunks; i += THREADS) {
-      const int r = i / chunks, c = i - r * chunks, s = row0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (s < S)
-        val = *reinterpret_cast<const uint4*>(base + s * ss + c * 8);
-      *reinterpret_cast<uint4*>(dst + r * ld + c * 8) = val;
-    }
+// rows row0 .. row0 + n - 1 of one head into an (n, LD) tile, 16 bytes a
+// copy; rows >= S are zero-filled
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(T* dst, const T* base,
+                                          long long stride, int row0, int n,
+                                          int S) {
+  constexpr int LD = tile_ld<T, D>();
+  constexpr int CE = 16 / sizeof(T), CH = D / CE;
+  for (int i = threadIdx.x; i < n * CH; i += THREADS) {
+    const int r = i / CH, c = i - r * CH, s = row0 + r;
+    const bool ok = s < S;
+    cp_async16(dst + r * LD + c * CE, base + (ok ? s : 0) * stride + c * CE,
+               ok);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
-  constexpr bool F32 = std::is_same<T, float>::value;
+// two blocks to an SM where their shared memory fits (16-bit, D <= 96):
+// at most 128 registers a thread (a few bytes spill at D = 80), faster on
+// the H100 than one block of 164 registers; 32-row warps (two m-tiles,
+// each K/V fragment feeding two products) need 255 registers, spill
+// more and were slower still (PERF.md, PR 14)
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, (!is_f32<T>() && D <= 96) ? 2 : 1)
+    flash_fwd_kernel(const Args a) {
+  constexpr int LD = tile_ld<T, D>();
+  constexpr int DN = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = a.D;
-  const Layout L = layout<T>(D);
-  T* Qs = reinterpret_cast<T*>(smem + L.q);
-  T* Ks = reinterpret_cast<T*>(smem + L.k);
-  T* Vs = reinterpret_cast<T*>(smem + L.v);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);
-  float* Os = reinterpret_cast<float*>(smem + L.o);
-  float* Ms = reinterpret_cast<float*>(smem + L.m);
-  float* Ls = reinterpret_cast<float*>(smem + L.l);
+  const Layout L = layout<T, D>(a.stages);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
 
-  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
-  const int qt = gridDim.x - 1 - blockIdx.x;     // heavy causal tiles first
-  const int b = blockIdx.y / a.Hq, hq = blockIdx.y % a.Hq;
-  const int hk = hq / (a.Hq / a.Hkv);
+  // block order: query head within its KV group fastest, then KV head,
+  // batch, and query tiles from the heaviest (last) causal tile down
+  const int G = a.Hq / a.Hkv, QT = (a.Sq + BQ - 1) / BQ;
+  int idx = blockIdx.x;
+  const int gi = idx % G; idx /= G;
+  const int hk = idx % a.Hkv; idx /= a.Hkv;
+  const int b = idx % a.B;
+  const int qt = QT - 1 - idx / a.B;
+  const int hq = hk * G + gi;
   const int q0 = qt * BQ;
 
   const T* qb = static_cast<const T*>(a.q) + b * a.qs[0] + hq * a.qs[2];
   const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + hk * a.ks[2];
   const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + hk * a.vs[2];
-
-  stage_rows<T>(Qs, L.ldt, qb, a.qs[1], q0, a.Sq, D);
-  for (int i = tid; i < BQ * L.ldo; i += THREADS) Os[i] = 0.0f;
-  for (int r = tid; r < BQ; r += THREADS) {
-    Ms[r] = NEG_INF;
-    Ls[r] = 0.0f;
-  }
+  T* q_s = reinterpret_cast<T*>(smem + L.q);
 
   // the key tiles any row of this block can see
   const int q_last = min(q0 + BQ, a.Sq) - 1;
   const int k_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int k_hi = a.causal ? min(a.Skv, q_last + 1) : a.Skv;
-  const int kt_lo = k_lo / BK, kt_hi = (k_hi + BK - 1) / BK;
+  const int kt_lo = k_lo / BK;
+  const int ntiles = max(0, (k_hi + BK - 1) / BK - kt_lo);
 
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                 // the previous tile is consumed
-    stage_rows<T>(Ks, L.ldt, kb, a.ks[1], k0, a.Skv, D);
-    stage_rows<T>(Vs, L.ldt, vb, a.vs[1], k0, a.Skv, D);
-    __syncthreads();
+  auto load_tile = [&](int i) {
+    unsigned char* base = smem + L.ring + (size_t)(i % a.stages) * L.stage;
+    const int k0 = (kt_lo + i) * BK;
+    load_rows<T, D>(reinterpret_cast<T*>(base + L.k), kb, a.ks[1], k0, BK,
+                    a.Skv);
+    load_rows<T, D>(reinterpret_cast<T*>(base + L.v), vb, a.vs[1], k0, BK,
+                    a.Skv);
+  };
 
-    // raw scores q·kᵀ of this warp's 16 rows x 64 keys, fp32
-    if constexpr (F32) {
-      const int r = r0 + (lane & 15), c0 = (lane >> 4) * 32;
-      float acc[32];
-#pragma unroll
-      for (int j = 0; j < 32; ++j) acc[j] = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const float qv = Qs[r * L.ldt + d];
-#pragma unroll
-        for (int j = 0; j < 32; ++j)
-          acc[j] = fmaf(qv, Ks[(c0 + j) * L.ldt + d], acc[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 32; ++j) Ss[r * L.lds + c0 + j] = acc[j];
-    } else {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[BK / 16];
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(c[n], 0.0f);
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> qa;
-        wmma::load_matrix_sync(qa, Qs + r0 * L.ldt + kk * 16, L.ldt);
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kb_;
-          wmma::load_matrix_sync(kb_, Ks + n * 16 * L.ldt + kk * 16, L.ldt);
-          wmma::mma_sync(c[n], qa, kb_, c[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(Ss + r0 * L.lds + n * 16, c[n], L.lds,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time across the warp (2 keys a lane)
-    T* Ps = reinterpret_cast<T*>(smem + L.p);
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr, qpos = q0 + r;
-      float sv[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h, kpos = k0 + c;
-        const float s = Ss[r * L.lds + c] * a.scale;
-        bool ok = kpos < a.Skv;
-        if (a.causal) ok = ok && kpos <= qpos;
-        if (a.window > 0) ok = ok && kpos > qpos - a.window;
-        sv[h] = ok ? s : NEG_INF;
-      }
-      const float m_prev = Ms[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(sv[0], sv[1])));
-      const float p0 = expf(sv[0] - m_new), p1 = expf(sv[1] - m_new);
-      const float corr = expf(m_prev - m_new);
-      const float psum = warp_sum(p0 + p1);
-      if constexpr (F32) {
-        Ss[r * L.lds + lane] = p0;
-        Ss[r * L.lds + lane + 32] = p1;
-      } else {
-        Ps[r * L.ldp + lane] = from_f<T>(p0);        // p in v's dtype
-        Ps[r * L.ldp + lane + 32] = from_f<T>(p1);
-      }
-      for (int d = lane; d < D; d += 32) Os[r * L.ldo + d] *= corr;
-      __syncwarp();
-      if (lane == 0) {
-        Ms[r] = m_new;
-        Ls[r] = Ls[r] * corr + psum;
-      }
-    }
-    __syncwarp();
-
-    // acc += p · v for this warp's 16 rows
-    if constexpr (F32) {
-      const int r = r0 + (lane & 15), dh = lane >> 4;
-      float o[MAX_D / 2];
-#pragma unroll
-      for (int i = 0; i < MAX_D / 2; ++i) {
-        const int d = dh + 2 * i;
-        o[i] = d < D ? Os[r * L.ldo + d] : 0.0f;
-      }
-      for (int j = 0; j < BK; ++j) {
-        const float pj = Ss[r * L.lds + j];
-        const float* vr = Vs + j * L.ldt;
-#pragma unroll
-        for (int i = 0; i < MAX_D / 2; ++i) {
-          const int d = dh + 2 * i;
-          if (d < D) o[i] = fmaf(pj, vr[d], o[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MAX_D / 2; ++i) {
-        const int d = dh + 2 * i;
-        if (d < D) Os[r * L.ldo + d] = o[i];
-      }
-    } else {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
-          pa[BK / 16];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(pa[kk], Ps + r0 * L.ldp + kk * 16, L.ldp);
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-        wmma::load_matrix_sync(c, Os + r0 * L.ldo + n * 16, L.ldo,
-                               wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vf;
-          wmma::load_matrix_sync(vf, Vs + kk * 16 * L.ldt + n * 16, L.ldt);
-          wmma::mma_sync(c, pa[kk], vf, c);
-        }
-        wmma::store_matrix_sync(Os + r0 * L.ldo + n * 16, c, L.ldo,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
+  // group 0: the Q tile and KV tile 0; then tiles 1 .. stages - 2
+  load_rows<T, D>(q_s, qb, a.qs[1], q0, BQ, a.Sq);
+  for (int i = 0; i < a.stages - 1; ++i) {
+    if (i < ntiles) load_tile(i);
+    cp_async_commit();
   }
-  __syncthreads();
+
+  // this warp's rows and the key range they can see
+  const int r_first = q0 + warp * 16;
+  const int r_last = min(r_first + 15, a.Sq - 1);
+  const bool rows_live = r_first < a.Sq;
+  const int w_lo = a.window > 0 ? max(0, r_first - a.window + 1) : 0;
+  const int w_hi = a.causal ? min(a.Skv, r_last + 1) : a.Skv;
+  const int qpos[2] = {r_first + g, r_first + g + 8};
+
+  QFrag<T, D> qf;
+  float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};
+  float acc[DN][4];
+#pragma unroll
+  for (int i = 0; i < DN; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait(a.stages - 2);     // this thread's copies of tile i
+    __syncthreads();                 // everyone's; the oldest slot is free
+    if (i + a.stages - 1 < ntiles) load_tile(i + a.stages - 1);
+    cp_async_commit();
+    if (i == 0) qf.load(q_s + warp * 16 * LD, LD, lane);
+
+    const int k0 = (kt_lo + i) * BK;
+    if (!rows_live || k0 >= w_hi || k0 + BK <= w_lo) continue;
+    const unsigned char* base =
+        smem + L.ring + (size_t)(i % a.stages) * L.stage;
+    const T* k_t = reinterpret_cast<const T*>(base + L.k);
+    const T* v_t = reinterpret_cast<const T*>(base + L.v);
+
+    float s[NT][4];
+    warp_scores<T, D, NT>(s, qf, k_t, LD, lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] *= a.scale;
+    const bool edge = k0 + BK > a.Skv
+        || (a.causal && k0 + BK - 1 > r_first)
+        || (a.window > 0 && k0 <= r_last - a.window);
+    if (edge) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + nt * 8 + 2 * t + (e & 1);
+          const int qp = qpos[e >> 1];
+          bool ok = true;
+          if (a.causal) ok = kpos <= qp;
+          if (a.window > 0) ok = ok && kpos > qp - a.window;
+          s[nt][e] = kpos >= a.Skv ? -INFINITY : (ok ? s[nt][e] : MASKED);
+        }
+    }
+    softmax_step<NT, DN>(s, m, l, acc);
+    warp_pv<T, D, NT>(acc, s, v_t, LD, lane);
+  }
+  cp_async_wait(0);
 
   // o = acc / max(l, 1e-30) in q's dtype; lse = m + log(l)
   T* ob = static_cast<T*>(a.o);
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr, qpos = q0 + r;
-    if (qpos >= a.Sq) break;
-    const float l = Ls[r];
-    const float den = fmaxf(l, 1e-30f);
-    T* orow = ob + ((static_cast<long long>(b) * a.Sq + qpos) * a.Hq + hq) * D;
-    for (int d = lane; d < D; d += 32)
-      orow[d] = from_f<T>(Os[r * L.ldo + d] / den);
-    if (lane == 0)
-      a.lse[(static_cast<long long>(b) * a.Hq + hq) * a.Sq + qpos] =
-          Ms[r] + logf(l);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    const int qp = qpos[r];
+    if (qp >= a.Sq) continue;
+    const float den = fmaxf(lr, 1e-30f);
+    T* orow = ob + ((static_cast<long long>(b) * a.Sq + qp) * a.Hq + hq) * D
+              + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < DN; ++nt) {
+      const float x = acc[nt][2 * r] / den, y = acc[nt][2 * r + 1] / den;
+      if constexpr (is_f32<T>())
+        *reinterpret_cast<float2*>(orow + nt * 8) = make_float2(x, y);
+      else
+        *reinterpret_cast<uint32_t*>(orow + nt * 8) = pack2<T>(x, y);
+    }
+    if (t == 0)
+      a.lse[(static_cast<long long>(b) * a.Hq + hq) * a.Sq + qp] =
+          m[r] + logf(lr);
   }
 }
 
-template <typename T>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = layout<T>(a.D).bytes;
+template <typename T, int D>
+cudaError_t launch(const Args& a, int smem, cudaStream_t stream) {
+  if (layout<T, D>(a.stages).bytes != static_cast<size_t>(smem))
+    return cudaErrorInvalidValue;     // the wrapper's geometry disagrees
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + BQ - 1) / BQ, B * a.Hq);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(a);
+  const long long blocks =
+      (long long)((a.Sq + BQ - 1) / BQ) * a.B * a.Hq;
+  flash_fwd_kernel<T, D><<<static_cast<unsigned>(blocks), THREADS, smem,
+                           stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const Args& a, int D, int smem, cudaStream_t st) {
+  switch (D) {
+    case 32: return launch<T, 32>(a, smem, st);
+    case 64: return launch<T, 64>(a, smem, st);
+    case 80: return launch<T, 80>(a, smem, st);
+    case 96: return launch<T, 96>(a, smem, st);
+    case 128: return launch<T, 128>(a, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -335,20 +268,22 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 // q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D), all bf16 (dtype 0) or fp32
 // (dtype 2), given by their (b, s, h) strides in elements (the last dim
 // contiguous). Writes o (B, Sq, Hq, D) contiguous in that dtype and lse
-// (B, Hq, Sq) fp32. The caller guarantees D % 16 == 0, D <= 128,
-// Hq % Hkv == 0, 16-byte aligned rows and B·Hq <= 65535.
+// (B, Hq, Sq) fp32. stages and smem (bytes) come from the wrapper's
+// flash_geometry; D is one of 32, 64, 80, 96, 128, Hq % Hkv == 0, rows are
+// 16-byte aligned.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-    int causal, int window, float scale, int dtype, void* stream) {
+    int causal, int window, float scale, int dtype, int stages, int smem,
+    void* stream) {
   Args a{q, k, v, o, static_cast<float*>(lse),
          {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
-         Sq, Skv, Hq, Hkv, D, causal, window, scale};
+         B, Sq, Skv, Hq, Hkv, causal, window, stages, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? launch<__nv_bfloat16>(a, B, st)
-                               : launch<float>(a, B, st);
+  cudaError_t err = dtype == 0 ? launch_d<__nv_bfloat16>(a, D, smem, st)
+                               : launch_d<float>(a, D, smem, st);
   return static_cast<int>(err);
 }
 

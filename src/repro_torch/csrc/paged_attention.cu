@@ -16,232 +16,409 @@
 //   the referenced pages (K, V, scales, position tags) over 3.35 TB/s.
 //
 // What the design does about it:
-//   * The block table is walked inside the kernel: one block per
-//     (slot·kv-head, Q tile, page partition) reads its own table entries
-//     (there is no scalar prefetch on a GPU; a -1 entry is the null block 0)
-//     and streams its P pages through shared memory 32 tokens at a time.
-//     The gathered window never exists in device memory.
-//   * kv8_channel pages are dequantized while they are staged (int8 × fp32
-//     per-(token, head) scale, rounded to the compute dtype exactly like
-//     kv_dequantize), so int8 is what crosses device memory.
-//   * Split-K over pages (the planner's kv_partitions) puts B·Hkv·Q_tiles·S
-//     blocks on the SMs; each writes unnormalized (acc, m, l) partials.
+//   * One block of 8 warps per (slot·kv-head, Q tile, page partition), the
+//     planner's grid. The partition's table entries are read once into
+//     shared memory (a -1 entry is the null block 0), and its keys stream
+//     through a ring of shared-memory stages (`kb` keys each, 2-3 stages in
+//     flight) filled by 16-byte cp.async: a token's head slice is D·2 bytes
+//     (ten copies at D = 80). Every thread issues copies; no copy waits for
+//     compute. The gathered window never exists in device memory.
+//   * kv8_channel pages cross device memory as int8 with their fp32
+//     per-(token, head) scales and are converted in shared memory after
+//     they land (int8 × scale in fp32, rounded to the compute dtype, as
+//     kv_dequantize does).
+//   * Tensor cores (attn_tile.cuh): a warp owns 16 query rows, held as
+//     mma A fragments in registers; QKᵀ and PV run on mma.sync.m16n8k16
+//     over 16-key sub-tiles, with the scores, the softmax weights and the
+//     output accumulator in registers. Chunks (Tq·G = 128 rows) put one row
+//     group on each warp. Decode (G = 4 rows, padded to one 16-row tile)
+//     puts the warps on different sub-tiles of each stage instead and
+//     merges their (m, l, acc) in shared memory at the end; mixed shapes
+//     split the warps between row groups and key groups.
 //   * Masking is positional on the pool's page_pos tags: kpos >= 0,
 //     kpos <= qpos, kpos < start (and kpos > qpos - window), with masked
 //     scores set to -1e30 — not -inf — so fully masked tiles behave as in
 //     JAX: a partition with no live key keeps m = -1e30 and cancels in the
-//     combine through exp(-1e30 - m_max) = 0.
-//   * One warp per query row (Tq·G rows, up to 128 per block): lane j
-//     scores key j of the staged 32, the warp takes the batch max and sum by
-//     shuffles, and each lane accumulates the output dims d ≡ lane (mod 32).
-//     Query rows and their running (m, l, acc) live in shared memory.
-//   This is the simple first kernel (scalar FMA, no tensor cores, no TMA).
+//     combine through exp(-1e30 - m_max) = 0. Keys past the partition's end
+//     (its last stage is partial) are -inf and never enter l.
+//   * fp32 (the reduced configurations) runs the same blocks, with the
+//     products on CUDA cores (attn_tile.cuh).
+//   The shared-memory layout is mirrored by kernels/paged_attention.py
+//   (paged_geometry), which also picks kb, the stage count and the key
+//   groups; the launcher refuses a footprint that differs from it.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <math.h>
-#include <stdint.h>
+#include "attn_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int KB = 32;           // keys staged per batch (one per lane)
-constexpr int MAX_D = 256;       // head_dim limit: 8 output dims per lane
-constexpr float NEG_INF = -1e30f;
+using namespace attn;
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f(float v) { return v; }
-template <> __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f(__half v) {
-  return __half2float(v);
+constexpr int THREADS = 256;          // 8 warps
+
+struct Args {
+  const void* q;                  // (B, Hkv, QT, QG, D), compute dtype
+  const int* positions;           // (B, C)
+  const int* start;               // (B,)
+  const void* k_pool;             // (nb, ps, Hkv, D)
+  const void* v_pool;
+  const float* k_scale;           // (nb, ps, Hkv) when quantized
+  const float* v_scale;
+  const int* page_pos;            // (nb, ps)
+  const int* tables;              // (B, T_tab)
+  float* acc;                     // (B, Hkv, QT, S, QG, D)
+  float* m;                       // (B, Hkv, QT, S, QG)
+  float* l;
+  int Hkv, C, Tq, G, ps, T_tab, P, window, kb, stages, key_groups;
+};
+
+// byte offsets into dynamic shared memory, 128-aligned. Per stage (offsets
+// within a stage): K and V tiles in the compute dtype, or, quantized, raw
+// int8 K and V and their scales; then the stage's position tags. The
+// merge area of the key groups reuses the ring once the keys are done.
+struct Layout {
+  size_t tbl, q, ring, stage, k, v, ksc, vsc, kpos, deq_k, deq_v, merge,
+      bytes;
+};
+
+template <typename T, int D, bool QUANT>
+__host__ __device__ inline Layout layout(int QG, int kb, int stages, int P,
+                                         int key_groups) {
+  constexpr int LD = tile_ld<T, D>();
+  constexpr size_t E = sizeof(T);
+  const size_t rows = (QG + 15) / 16 * 16;
+  const size_t tile = align128(E * kb * LD);
+  Layout L{};
+  size_t off = 0;
+  L.tbl = off; off = align128(off + 4 * (size_t)P);
+  L.q = off; off = align128(off + E * rows * LD);
+  L.ring = off;
+  size_t so = 0;
+  if (QUANT) {
+    L.k = so; so = align128(so + (size_t)kb * D);
+    L.v = so; so = align128(so + (size_t)kb * D);
+    L.ksc = so; so = align128(so + 4 * (size_t)kb);
+    L.vsc = so; so = align128(so + 4 * (size_t)kb);
+  } else {
+    L.k = so; so += tile;
+    L.v = so; so += tile;
+  }
+  L.kpos = so; so = align128(so + 4 * (size_t)kb);
+  L.stage = so;
+  off += stages * so;
+  if (QUANT) {
+    L.deq_k = off; off += tile;
+    L.deq_v = off; off += tile;
+  }
+  L.merge = L.ring;
+  if (key_groups > 1) {
+    const size_t need = align128(4 * (size_t)key_groups * rows * (D + 2));
+    if (L.ring + need > off) off = L.ring + need;
+  }
+  L.bytes = off;
+  return L;
 }
 
-// round a float to T and back: the value a cast to the compute dtype keeps
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-template <> __device__ __forceinline__ float round_to<__half>(float v) {
-  return __half2float(__float2half_rn(v));
+// stage `st` of the partition's keys into ring slot `slot`: this thread's
+// share of the 16-byte copies (zero-filled past the partition's end)
+template <typename T, int D, bool QUANT>
+__device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
+                                           unsigned char* smem,
+                                           const int* tbl, int h, int st,
+                                           int slot, int nkeys) {
+  constexpr int LD = tile_ld<T, D>();
+  unsigned char* base = smem + L.ring + (size_t)slot * L.stage;
+  const int key0 = st * a.kb;
+  if constexpr (QUANT) {
+    constexpr int CH = D / 16;                        // 16 int8 a copy
+    const int8_t* kp = static_cast<const int8_t*>(a.k_pool);
+    const int8_t* vp = static_cast<const int8_t*>(a.v_pool);
+    for (int i = threadIdx.x; i < a.kb * CH; i += THREADS) {
+      const int j = i / CH, c = i - j * CH, key = key0 + j;
+      const bool ok = key < nkeys;
+      const size_t tok = ok ? (size_t)tbl[key / a.ps] * a.ps + key % a.ps : 0;
+      const size_t e = (tok * a.Hkv + h) * D + c * 16;
+      cp_async16(base + L.k + j * D + c * 16, kp + e, ok);
+      cp_async16(base + L.v + j * D + c * 16, vp + e, ok);
+    }
+    for (int j = threadIdx.x; j < a.kb; j += THREADS) {
+      const int key = key0 + j;
+      const bool ok = key < nkeys;
+      const size_t tok = ok ? (size_t)tbl[key / a.ps] * a.ps + key % a.ps : 0;
+      cp_async4(base + L.ksc + 4 * j, a.k_scale + tok * a.Hkv + h, ok);
+      cp_async4(base + L.vsc + 4 * j, a.v_scale + tok * a.Hkv + h, ok);
+      cp_async4(base + L.kpos + 4 * j, a.page_pos + tok, ok);
+    }
+  } else {
+    constexpr int CE = 16 / sizeof(T);                // elements a copy
+    constexpr int CH = D / CE;
+    const T* kp = static_cast<const T*>(a.k_pool);
+    const T* vp = static_cast<const T*>(a.v_pool);
+    T* ks = reinterpret_cast<T*>(base + L.k);
+    T* vs = reinterpret_cast<T*>(base + L.v);
+    for (int i = threadIdx.x; i < a.kb * CH; i += THREADS) {
+      const int j = i / CH, c = i - j * CH, key = key0 + j;
+      const bool ok = key < nkeys;
+      const size_t tok = ok ? (size_t)tbl[key / a.ps] * a.ps + key % a.ps : 0;
+      const size_t e = (tok * a.Hkv + h) * D + c * CE;
+      cp_async16(ks + j * LD + c * CE, kp + e, ok);
+      cp_async16(vs + j * LD + c * CE, vp + e, ok);
+    }
+    for (int j = threadIdx.x; j < a.kb; j += THREADS) {
+      const int key = key0 + j;
+      const bool ok = key < nkeys;
+      const size_t tok = ok ? (size_t)tbl[key / a.ps] * a.ps + key % a.ps : 0;
+      cp_async4(base + L.kpos + 4 * j, a.page_pos + tok, ok);
+    }
+  }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+// int8 × fp32 scale → T for one landed stage, eight elements a thread step
+template <typename T, int D>
+__device__ __forceinline__ void dequant_stage(const unsigned char* raw,
+                                              const float* scale, T* out,
+                                              int kb) {
+  constexpr int LD = tile_ld<T, D>();
+  constexpr int CH = D / 8;
+  for (int i = threadIdx.x; i < kb * CH; i += THREADS) {
+    const int j = i / CH, c = i - j * CH;
+    const uint2 w = *reinterpret_cast<const uint2*>(raw + j * D + c * 8);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&w);
+    const float sc = scale[j];
+    alignas(16) T v[8];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+    for (int e = 0; e < 8; ++e)
+      v[e] = from_f<T>(__fmul_rn(static_cast<float>(b[e]), sc));
+    T* dst = out + j * LD + c * 8;
+    if constexpr (sizeof(T) == 2) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+    } else {
+      reinterpret_cast<float4*>(dst)[0] = reinterpret_cast<const float4*>(v)[0];
+      reinterpret_cast<float4*>(dst)[1] = reinterpret_cast<const float4*>(v)[1];
+    }
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-paged_attn_kernel(const T* __restrict__ q, const int* __restrict__ positions,
-                  const int* __restrict__ start,
-                  const void* __restrict__ k_pool,
-                  const void* __restrict__ v_pool,
-                  const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale,
-                  const int* __restrict__ page_pos,
-                  const int* __restrict__ tables, float* __restrict__ acc_out,
-                  float* __restrict__ m_out, float* __restrict__ l_out,
-                  int Hkv, int C, int Tq, int G, int D, int ps, int T_tab,
-                  int P, int window, int quantized) {
-  extern __shared__ float smem[];
-  const int QG = Tq * G;
-  const int Dp = D | 1;                  // odd stride: conflict-free columns
-  float* q_s = smem;                     // QG x D
-  float* acc_s = q_s + QG * D;           // QG x D
-  float* m_s = acc_s + QG * D;           // QG
-  float* l_s = m_s + QG;                 // QG
-  float* k_s = l_s + QG;                 // KB x Dp
-  float* v_s = k_s + KB * Dp;            // KB x Dp
-  int* kpos_s = reinterpret_cast<int*>(v_s + KB * Dp);  // KB
-  int* qpos_s = kpos_s + KB;                            // QG
-
+template <typename T, int D, bool QUANT>
+__global__ void __launch_bounds__(THREADS) paged_attn_kernel(const Args a) {
+  constexpr int LD = tile_ld<T, D>();
+  constexpr int DN = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int QG = a.Tq * a.G;
+  const Layout L = layout<T, D, QUANT>(QG, a.kb, a.stages, a.P,
+                                       a.key_groups);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / a.Hkv, h = blockIdx.x % a.Hkv;
   const int qt = blockIdx.y, QT = gridDim.y;
   const int s = blockIdx.z, S = gridDim.z;
+  const int RW = (QG + 15) / 16, KW = a.key_groups;
+  const int rows = RW * 16;
+  const int rg = warp % RW, kw = warp / RW;
+  const bool active = warp < RW * KW;
+  const int nkeys = a.P * a.ps;
+  const int nstages = (nkeys + a.kb - 1) / a.kb;
 
-  const size_t row0 = ((size_t)(b * Hkv + h) * QT + qt) * QG;
-  for (int i = tid; i < QG * D; i += THREADS) {
-    q_s[i] = to_f(q[row0 * D + i]);
-    acc_s[i] = 0.0f;
+  int* tbl = reinterpret_cast<int*>(smem + L.tbl);
+  const int* trow = a.tables + (size_t)b * a.T_tab + (size_t)s * a.P;
+  for (int i = tid; i < a.P; i += THREADS) {
+    const int page = trow[i];
+    tbl[i] = page < 0 ? 0 : page;                       // null block
   }
-  for (int r = tid; r < QG; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.0f;
-    qpos_s[r] = positions[(size_t)b * C + qt * Tq + r / G];
+  __syncthreads();
+
+  // group 0: the Q tile (rows past QG zero-filled) and stage 0
+  T* q_s = reinterpret_cast<T*>(smem + L.q);
+  {
+    constexpr int CE = 16 / sizeof(T), CH = D / CE;
+    const size_t row0 = ((size_t)(b * a.Hkv + h) * QT + qt) * QG;
+    const T* qsrc = static_cast<const T*>(a.q) + row0 * D;
+    for (int i = tid; i < rows * CH; i += THREADS) {
+      const int r = i / CH, c = i - r * CH;
+      cp_async16(q_s + r * LD + c * CE, qsrc + (r < QG ? r : 0) * D + c * CE,
+                 r < QG);
+    }
   }
-  const int st = start[b];
-  const int* tbl = tables + (size_t)b * T_tab + (size_t)s * P;
-  const int nkeys = P * ps;
+  for (int st = 0; st < a.stages - 1; ++st) {
+    if (st < nstages) load_stage<T, D, QUANT>(a, L, smem, tbl, h, st, st,
+                                              nkeys);
+    cp_async_commit();
+  }
 
-  for (int kb0 = 0; kb0 < nkeys; kb0 += KB) {
-    const int nk = min(KB, nkeys - kb0);
-    __syncthreads();   // the previous batch is consumed (and init is done)
-    for (int idx = tid; idx < nk * D; idx += THREADS) {
-      const int j = idx / D, d = idx - j * D;
-      const int key = kb0 + j;
-      int page = tbl[key / ps];
-      page = page < 0 ? 0 : page;                       // null block
-      const size_t tok = (size_t)page * ps + key % ps;
-      const size_t e = (tok * Hkv + h) * D + d;
-      float kv, vv;
-      if (quantized) {
-        const float ks = k_scale[tok * Hkv + h], vs = v_scale[tok * Hkv + h];
-        kv = round_to<T>(
-            static_cast<float>(static_cast<const int8_t*>(k_pool)[e]) * ks);
-        vv = round_to<T>(
-            static_cast<float>(static_cast<const int8_t*>(v_pool)[e]) * vs);
-      } else {
-        kv = to_f(static_cast<const T*>(k_pool)[e]);
-        vv = to_f(static_cast<const T*>(v_pool)[e]);
-      }
-      k_s[j * Dp + d] = kv;
-      v_s[j * Dp + d] = vv;
-    }
-    for (int j = tid; j < nk; j += THREADS) {
-      const int key = kb0 + j;
-      int page = tbl[key / ps];
-      page = page < 0 ? 0 : page;
-      kpos_s[j] = page_pos[(size_t)page * ps + key % ps];
-    }
-    __syncthreads();
+  // this lane's two query rows and their positions
+  int qpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rg * 16 + g + 8 * r;
+    qpos[r] = row < QG ? a.positions[(size_t)b * a.C + qt * a.Tq + row / a.G]
+                       : -1;
+  }
+  const int st_pos = a.start[b];
 
-    for (int r = warp; r < QG; r += WARPS) {
-      const int qp = qpos_s[r];
-      float sc = -INFINITY;                  // lanes past the batch: no key
-      if (lane < nk) {
-        const float* qr = q_s + r * D;
-        const float* kr = k_s + lane * Dp;
-        float dot = 0.0f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        const int kp = kpos_s[lane];
-        bool valid = kp >= 0 && kp <= qp && kp < st;
-        if (window) valid = valid && kp > qp - window;
-        sc = valid ? dot : NEG_INF;
-      }
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(sc));
-      const float p = expf(sc - m_new);
-      const float corr = expf(m_prev - m_new);
-      const float psum = warp_sum(p);
-      const float pc = round_to<T>(p);       // p cast to the V dtype
-      float a[MAX_D / 32];
+  QFrag<T, D> qf;
+  float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};
+  float acc[DN][4];
 #pragma unroll
-      for (int i = 0; i < MAX_D / 32; ++i) {
-        const int d = lane + 32 * i;
-        a[i] = d < D ? acc_s[r * D + d] * corr : 0.0f;
-      }
-      for (int j = 0; j < nk; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pc, j);
-        const float* vr = v_s + j * Dp;
+  for (int i = 0; i < DN; ++i)
 #pragma unroll
-        for (int i = 0; i < MAX_D / 32; ++i) {
-          const int d = lane + 32 * i;
-          if (d < D) a[i] = fmaf(pj, vr[d], a[i]);
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  const int nsub = a.kb / 16;
+  for (int st = 0; st < nstages; ++st) {
+    cp_async_wait(a.stages - 2);     // this thread's copies of stage st
+    __syncthreads();                 // everyone's; slot (st - 1) is free
+    const int nxt = st + a.stages - 1;
+    if (nxt < nstages)
+      load_stage<T, D, QUANT>(a, L, smem, tbl, h, nxt, nxt % a.stages,
+                              nkeys);
+    cp_async_commit();
+
+    unsigned char* base = smem + L.ring + (size_t)(st % a.stages) * L.stage;
+    const int* kpos = reinterpret_cast<const int*>(base + L.kpos);
+    const T* k_t;
+    const T* v_t;
+    if constexpr (QUANT) {
+      T* dk = reinterpret_cast<T*>(smem + L.deq_k);
+      T* dv = reinterpret_cast<T*>(smem + L.deq_v);
+      dequant_stage<T, D>(base + L.k,
+                          reinterpret_cast<const float*>(base + L.ksc), dk,
+                          a.kb);
+      dequant_stage<T, D>(base + L.v,
+                          reinterpret_cast<const float*>(base + L.vsc), dv,
+                          a.kb);
+      __syncthreads();
+      k_t = dk;
+      v_t = dv;
+    } else {
+      k_t = reinterpret_cast<const T*>(base + L.k);
+      v_t = reinterpret_cast<const T*>(base + L.v);
+    }
+    if (st == 0) qf.load(q_s + rg * 16 * LD, LD, lane);
+    if (!active) continue;
+
+    for (int sub = kw; sub < nsub; sub += KW) {
+      const int key0 = st * a.kb + sub * 16;
+      if (key0 >= nkeys) break;
+      float sc[2][4];
+      warp_scores<T, D, 2>(sc, qf, k_t + sub * 16 * LD, LD, lane);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = sub * 16 + nt * 8 + 2 * t + c;
+          const int kp = kpos[j];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int qp = qpos[r];
+            bool ok = kp >= 0 && kp <= qp && kp < st_pos;
+            if (a.window) ok = ok && kp > qp - a.window;
+            float& x = sc[nt][2 * r + c];
+            x = st * a.kb + j >= nkeys ? -INFINITY : (ok ? x : MASKED);
+          }
         }
-      }
+      softmax_step<2, DN>(sc, m, l, acc);
+      warp_pv<T, D, 2>(acc, sc, v_t + sub * 16 * LD, LD, lane);
+    }
+  }
+  cp_async_wait(0);
 #pragma unroll
-      for (int i = 0; i < MAX_D / 32; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) acc_s[r * D + d] = a[i];
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+
+  const size_t out0 = (((size_t)(b * a.Hkv + h) * QT + qt) * S + s) * QG;
+  if (KW == 1) {
+    if (!active) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rg * 16 + g + 8 * r;
+      if (row >= QG) continue;
+      float* dst = a.acc + (out0 + row) * D + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < DN; ++nt)
+        *reinterpret_cast<float2*>(dst + nt * 8) =
+            make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+      if (t == 0) {
+        a.m[out0 + row] = m[r];
+        a.l[out0 + row] = l[r];
       }
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * corr + psum;
+    }
+    return;
+  }
+
+  // key groups: merge the partial (m, l, acc) of each row group's warps
+  __syncthreads();                   // the ring is no longer read
+  float* mg_acc = reinterpret_cast<float*>(smem + L.merge);
+  float* mg_m = mg_acc + (size_t)KW * rows * D;
+  float* mg_l = mg_m + (size_t)KW * rows;
+  if (active) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rg * 16 + g + 8 * r;
+      float* dst = mg_acc + ((size_t)kw * rows + row) * D + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < DN; ++nt)
+        *reinterpret_cast<float2*>(dst + nt * 8) =
+            make_float2(acc[nt][2 * r], acc[nt][2 * r + 1]);
+      if (t == 0) {
+        mg_m[kw * rows + row] = m[r];
+        mg_l[kw * rows + row] = l[r];
       }
     }
   }
   __syncthreads();
-
-  const size_t out0 = (((size_t)(b * Hkv + h) * QT + qt) * S + s) * QG;
-  for (int i = tid; i < QG * D; i += THREADS) acc_out[out0 * D + i] = acc_s[i];
-  for (int r = tid; r < QG; r += THREADS) {
-    m_out[out0 + r] = m_s[r];
-    l_out[out0 + r] = l_s[r];
+  for (int i = tid; i < QG * D; i += THREADS) {
+    const int row = i / D, d = i - row * D;
+    float mx = MASKED;
+    for (int k = 0; k < KW; ++k) mx = fmaxf(mx, mg_m[k * rows + row]);
+    float sum = 0.0f;
+    for (int k = 0; k < KW; ++k)
+      sum += mg_acc[((size_t)k * rows + row) * D + d]
+             * expf(mg_m[k * rows + row] - mx);
+    a.acc[(out0 + row) * D + d] = sum;
+  }
+  for (int row = tid; row < QG; row += THREADS) {
+    float mx = MASKED;
+    for (int k = 0; k < KW; ++k) mx = fmaxf(mx, mg_m[k * rows + row]);
+    float sum = 0.0f;
+    for (int k = 0; k < KW; ++k)
+      sum += mg_l[k * rows + row] * expf(mg_m[k * rows + row] - mx);
+    a.m[out0 + row] = mx;
+    a.l[out0 + row] = sum;
   }
 }
 
-size_t smem_bytes(int QG, int D) {
-  const int Dp = D | 1;
-  return sizeof(float) * (2 * (size_t)QG * D + 2 * QG + 2 * (size_t)KB * Dp)
-         + sizeof(int) * (KB + QG);
+template <typename T, int D, bool QUANT>
+cudaError_t launch(const Args& a, int B, int QT, int S, int smem,
+                   cudaStream_t stream) {
+  const Layout L = layout<T, D, QUANT>(a.Tq * a.G, a.kb, a.stages, a.P,
+                                       a.key_groups);
+  if (L.bytes != static_cast<size_t>(smem))   // the wrapper's geometry
+    return cudaErrorInvalidValue;             // disagrees with this layout
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attn_kernel<T, D, QUANT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * a.Hkv, QT, S);
+  paged_attn_kernel<T, D, QUANT><<<grid, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_q(const Args& a, int quantized, int B, int QT, int S,
+                     int smem, cudaStream_t st) {
+  return quantized ? launch<T, D, true>(a, B, QT, S, smem, st)
+                   : launch<T, D, false>(a, B, QT, S, smem, st);
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const int* positions, const int* start,
-                   const void* k_pool, const void* v_pool,
-                   const float* k_scale, const float* v_scale,
-                   const int* page_pos, const int* tables, float* acc,
-                   float* m, float* l, int B, int Hkv, int C, int Tq, int G,
-                   int D, int ps, int T_tab, int S, int P, int window,
-                   int quantized, cudaStream_t stream) {
-  const size_t smem = smem_bytes(Tq * G, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * Hkv, C / Tq, S);
-  paged_attn_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), positions, start, k_pool, v_pool, k_scale,
-      v_scale, page_pos, tables, acc, m, l, Hkv, C, Tq, G, D, ps, T_tab, P,
-      window, quantized);
-  return cudaGetLastError();
+cudaError_t launch_d(const Args& a, int D, int quantized, int B, int QT,
+                     int S, int smem, cudaStream_t st) {
+  switch (D) {
+    case 32: return launch_q<T, 32>(a, quantized, B, QT, S, smem, st);
+    case 64: return launch_q<T, 64>(a, quantized, B, QT, S, smem, st);
+    case 80: return launch_q<T, 80>(a, quantized, B, QT, S, smem, st);
+    case 96: return launch_q<T, 96>(a, quantized, B, QT, S, smem, st);
+    case 128: return launch_q<T, 128>(a, quantized, B, QT, S, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -251,38 +428,33 @@ cudaError_t launch(const void* q, const int* positions, const int* start,
 // compute dtype, or int8 with fp32 scales (nb, ps, Hkv) when quantized;
 // page_pos (nb, ps) int32; tables (B, T_tab) int32 (-1 = null block) with
 // T_tab = S·P. Writes acc (B, Hkv, C/Tq, S, Tq·G, D) and m, l
-// (B, Hkv, C/Tq, S, Tq·G), fp32. The caller guarantees D <= 256 and a
-// shared-memory footprint the card can hold.
+// (B, Hkv, C/Tq, S, Tq·G), fp32. kb (keys a stage), stages, key_groups and
+// smem (bytes) come from the wrapper's paged_geometry; D is one of 32, 64,
+// 80, 96, 128 and Tq·G <= 128.
 extern "C" int paged_attention_partials(
     const void* q, const void* positions, const void* start,
     const void* k_pool, const void* v_pool, const void* k_scale,
     const void* v_scale, const void* page_pos, const void* tables, void* acc,
     void* m, void* l, int B, int Hkv, int C, int Tq, int G, int D, int ps,
-    int T_tab, int S, int P, int window, int quantized, int dtype,
-    void* stream) {
+    int T_tab, int S, int P, int window, int quantized, int dtype, int kb,
+    int stages, int key_groups, int smem, void* stream) {
+  Args a{q, static_cast<const int*>(positions),
+         static_cast<const int*>(start), k_pool, v_pool,
+         static_cast<const float*>(k_scale),
+         static_cast<const float*>(v_scale),
+         static_cast<const int*>(page_pos), static_cast<const int*>(tables),
+         static_cast<float*>(acc), static_cast<float*>(m),
+         static_cast<float*>(l), Hkv, C, Tq, G, ps, T_tab, P, window, kb,
+         stages, key_groups};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* pos = static_cast<const int*>(positions);
-  const int* sta = static_cast<const int*>(start);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* pp = static_cast<const int*>(page_pos);
-  const int* tb = static_cast<const int*>(tables);
-  float* a = static_cast<float*>(acc);
-  float* mm = static_cast<float*>(m);
-  float* ll = static_cast<float*>(l);
+  const int QT = C / Tq;
   cudaError_t err;
   if (dtype == 0)
-    err = launch<__nv_bfloat16>(q, pos, sta, k_pool, v_pool, ks, vs, pp, tb,
-                                a, mm, ll, B, Hkv, C, Tq, G, D, ps, T_tab, S,
-                                P, window, quantized, st);
+    err = launch_d<__nv_bfloat16>(a, D, quantized, B, QT, S, smem, st);
   else if (dtype == 1)
-    err = launch<__half>(q, pos, sta, k_pool, v_pool, ks, vs, pp, tb, a, mm,
-                         ll, B, Hkv, C, Tq, G, D, ps, T_tab, S, P, window,
-                         quantized, st);
+    err = launch_d<__half>(a, D, quantized, B, QT, S, smem, st);
   else
-    err = launch<float>(q, pos, sta, k_pool, v_pool, ks, vs, pp, tb, a, mm,
-                        ll, B, Hkv, C, Tq, G, D, ps, T_tab, S, P, window,
-                        quantized, st);
+    err = launch_d<float>(a, D, quantized, B, QT, S, smem, st);
   return static_cast<int>(err);
 }
 

@@ -7,10 +7,18 @@ import torch
 import torch.nn.functional as F
 
 LANE = 128
+# dynamic shared memory a block may use on an H100 (227 KB)
+MAX_SMEM = 227 * 1024
 
 # activation dtypes the float GEMM kernels take, by the code their C
 # launchers expect
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def align128(n: int) -> int:
+    """``n`` rounded up to a multiple of 128 (the kernels' shared-memory
+    alignment)."""
+    return (n + 127) // 128 * 128
 
 
 def check_operands(device: torch.device, **tensors) -> None:

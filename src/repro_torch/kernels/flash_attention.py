@@ -19,13 +19,17 @@ real-valued gradient.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import MAX_SMEM, align128
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+# head dims the kernel is built for (one instantiation each)
+HEAD_DIMS = (32, 64, 80, 96, 128)
+BLOCK_Q, BLOCK_K = 128, 64      # query rows a block (8 warps), keys a tile
 # largest score-shaped fp32 tensor the backward (and the plain forward)
 # holds at once: ~138 MB per tensor at danube width (2 x 8192, window 4096),
 # two of them live, so about 0.3 GB of transient memory per tile
@@ -36,7 +40,43 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 2}
 FLASH_ATTENTION = build.CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_fwd",
     [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 8
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+@dataclass(frozen=True)
+class FlashGeometry:
+    """How ``csrc/flash_attention.cu`` lays out one block: ``stages`` K/V
+    tiles in the cp.async ring, ``smem`` bytes of shared memory, and
+    ``blocks`` in the grid (one per (b, query head, BLOCK_Q-row tile))."""
+    stages: int
+    smem: int
+    blocks: int
+
+
+def flash_geometry(B: int, Sq: int, Hq: int, D: int,
+                   dtype: torch.dtype) -> FlashGeometry:
+    """The kernel's launch for these shapes; raises ValueError for a head
+    dim or dtype it is not built for. The shared memory is the kernel's
+    ``layout`` byte for byte: the Q tile, then ``stages`` (K, V) tiles of
+    rows padded by 16 bytes (8 elements; fp32 by 4). Three stages where
+    two blocks still fit on an SM (bf16, D <= 96), else two."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"the flash-attention kernel takes bf16 or fp32 q, "
+                         f"k, v; got {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the flash-attention kernel needs head_dim a "
+                         f"multiple of 16 and at most {max(HEAD_DIMS)} that "
+                         f"it is built for {HEAD_DIMS}, got {D}")
+    elem = torch.finfo(dtype).bits // 8
+    ld = D + (4 if elem == 4 else 8)
+    stages = 3 if elem == 2 and D <= 96 else 2
+    smem = align128(elem * BLOCK_Q * ld) \
+        + stages * 2 * align128(elem * BLOCK_K * ld)
+    blocks = -(-Sq // BLOCK_Q) * B * Hq
+    if smem > MAX_SMEM or blocks >= 2 ** 31:
+        raise ValueError(f"the flash-attention kernel cannot take D={D} "
+                         f"over {blocks} blocks ({smem} B of shared memory)")
+    return FlashGeometry(stages, smem, blocks)
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -152,12 +192,7 @@ def _launch(q, k, v, *, causal: bool, window: int):
         raise ValueError(f"the flash-attention kernel takes bf16 or fp32 q, "
                          f"k, v of one dtype; got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if D % 16 or D > MAX_HEAD_DIM:
-        raise ValueError(f"the flash-attention kernel needs head_dim a "
-                         f"multiple of 16 and at most {MAX_HEAD_DIM}, got "
-                         f"{D}")
-    if B * Hq > 65535:
-        raise ValueError(f"B·Hq={B * Hq} exceeds the kernel's grid")
+    geo = flash_geometry(B, Sq, Hq, D, q.dtype)
     align = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -175,7 +210,7 @@ def _launch(q, k, v, *, causal: bool, window: int):
         build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
         build.ptr(lse), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         B, Sq, Skv, Hq, Hkv, D, int(causal), int(window),
-        ctypes.c_float(D ** -0.5), _DTYPES[q.dtype],
+        ctypes.c_float(D ** -0.5), _DTYPES[q.dtype], geo.stages, geo.smem,
         build.stream_ptr(q.device))
     return o, lse
 

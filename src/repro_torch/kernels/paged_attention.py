@@ -21,22 +21,95 @@ before scatter), and decode inserts its token before attending, so
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from repro_torch.core.quant import KVFormat
 from repro_torch.kernels import build, planning
-from repro_torch.kernels.common import KERNEL_DTYPES
+from repro_torch.kernels.common import KERNEL_DTYPES, MAX_SMEM, align128
 
 NEG_INF = -1e30
+# head dims the kernel is built for (one instantiation each)
+HEAD_DIMS = (32, 64, 80, 96, 128)
+MAX_ROWS = 128          # Tq·G query rows of a block: 8 warps x 16
+_WARPS = 8
 
 PAGED_ATTENTION = build.CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_partials",
-    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p])
 
-_MAX_SMEM = 227 * 1024
-_KB = 32
+
+@dataclass(frozen=True)
+class PagedGeometry:
+    """How ``csrc/paged_attention.cu`` lays out one block: ``row_groups``
+    16-row mma tiles of query rows, ``key_groups`` warps per row group
+    taking different 16-key sub-tiles of a stage, ``kb`` keys a stage,
+    ``stages`` in the cp.async ring, ``smem`` bytes of shared memory."""
+    row_groups: int
+    key_groups: int
+    kb: int
+    stages: int
+    smem: int
+
+
+def paged_smem_bytes(QG: int, D: int, elem: int, quantized: bool, kb: int,
+                     stages: int, P: int, key_groups: int) -> int:
+    """The kernel's shared-memory footprint (its ``layout``, byte for
+    byte): the partition's table entries, the padded Q tile, ``stages``
+    ring slots (K and V tiles in the compute dtype, or raw int8 K and V
+    with their scales, and the position tags), the dequantized K and V
+    tiles when quantized; the key groups' merge area reuses the ring."""
+    ld = D + (4 if elem == 4 else 8)
+    rows = -(-QG // 16) * 16
+    tile = align128(elem * kb * ld)
+    off = align128(4 * P)
+    off = align128(off + elem * rows * ld)
+    ring = off
+    if quantized:
+        stage = 2 * align128(kb * D) + 2 * align128(4 * kb)
+    else:
+        stage = 2 * tile
+    stage += align128(4 * kb)
+    off += stages * stage
+    if quantized:
+        off += 2 * tile
+    if key_groups > 1:
+        off = max(off, ring + align128(4 * key_groups * rows * (D + 2)))
+    return off
+
+
+def paged_geometry(QG: int, D: int, dtype: torch.dtype, quantized: bool,
+                   P: int) -> PagedGeometry:
+    """The block layout for ``QG`` query rows of dim ``D`` over partitions
+    of ``P`` pages; raises ValueError for a shape the kernel does not take.
+    The warps split into ceil(QG/16) row groups and, for few rows (decode),
+    key groups; a stage holds 16 keys per sub-tile, at least four
+    sub-tiles and one per key group. fp32 tiles are twice as wide, so fp32
+    keeps two stages and at most four key groups."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"paged attention kernel: unsupported compute "
+                         f"dtype {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"paged attention kernel: head_dim {D} is not one "
+                         f"it is built for {HEAD_DIMS}")
+    if not 1 <= QG <= MAX_ROWS:
+        raise ValueError(f"paged attention kernel: {QG} query rows per "
+                         f"block (Tq·G) exceed {MAX_ROWS}")
+    elem = torch.finfo(dtype).bits // 8
+    rows = -(-QG // 16)
+    kw = 1
+    while kw * 2 * rows <= _WARPS and kw * 2 <= (4 if elem == 4 else 8):
+        kw *= 2
+    kb = 16 * max(4, kw)
+    stages = 2 if elem == 4 else 3
+    smem = paged_smem_bytes(QG, D, elem, quantized, kb, stages, P, kw)
+    if smem > MAX_SMEM:
+        raise ValueError(f"paged attention kernel: {QG} query rows of dim "
+                         f"{D} over {P}-page partitions need {smem} B of "
+                         f"shared memory (> {MAX_SMEM})")
+    return PagedGeometry(rows, kw, kb, stages, smem)
 
 
 def _check_pool(pool, fmt: KVFormat) -> None:
@@ -103,20 +176,11 @@ def _launch_partials(qk, positions, start, pool, tables, *, Tq: int, G: int,
     T = tables.shape[1]
     ps = pool.page_pos.shape[-1]
     dev = qk.device
-    if qk.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"paged attention kernel: unsupported compute "
-                         f"dtype {qk.dtype}")
+    geo = paged_geometry(QG, D, qk.dtype, fmt.quantized, T // S)
     want_pool = torch.int8 if fmt.quantized else qk.dtype
     if pool.k_pool.dtype != want_pool or pool.v_pool.dtype != want_pool:
         raise ValueError(f"pool dtype {pool.k_pool.dtype} does not match "
                          f"{fmt.name} at compute dtype {qk.dtype}")
-    if D > 256:
-        raise ValueError(f"paged attention kernel: head_dim {D} > 256")
-    Dp = D | 1
-    smem = 4 * (2 * QG * D + 2 * QG + 2 * _KB * Dp) + 4 * (_KB + QG)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"paged attention kernel: {QG} query rows of "
-                         f"dim {D} need {smem} B of shared memory")
     operands = [qk, positions, start, pool.k_pool, pool.v_pool,
                 pool.page_pos, tables]
     if fmt.quantized:
@@ -125,6 +189,10 @@ def _launch_partials(qk, positions, start, pool, tables, *, Tq: int, G: int,
         if t.device != dev or not t.is_contiguous():
             raise ValueError("paged attention kernel: every operand must be "
                              f"contiguous on {dev}")
+    for t in (qk, pool.k_pool, pool.v_pool):       # 16-byte cp.async
+        if t.data_ptr() % 16:
+            raise ValueError("paged attention kernel: q and the K/V pools "
+                             "must be 16-byte aligned")
     for t in (positions, start, pool.page_pos, tables):
         if t.dtype != torch.int32:
             raise ValueError("positions, start, page_pos and tables must "
@@ -140,7 +208,8 @@ def _launch_partials(qk, positions, start, pool, tables, *, Tq: int, G: int,
         build.ptr(pool.page_pos), build.ptr(tables),
         build.ptr(acc), build.ptr(m), build.ptr(l),
         B, Hkv, C, Tq, G, D, ps, T, S, T // S, int(window),
-        int(fmt.quantized), KERNEL_DTYPES[qk.dtype], build.stream_ptr(dev))
+        int(fmt.quantized), KERNEL_DTYPES[qk.dtype], geo.kb, geo.stages,
+        geo.key_groups, geo.smem, build.stream_ptr(dev))
     return acc, m, l
 
 

@@ -168,3 +168,41 @@ def test_kernel_refuses_shapes_it_cannot_take():
         tfa._launch(q, k.float(), v, causal=True, window=0)
     with pytest.raises(ValueError, match="not a multiple"):
         tfa.flash_attention_forward(*qkv(Hq=6, Hkv=4), causal=True)
+
+
+@pytest.mark.parametrize("D,dtype,stages", [
+    (80, torch.bfloat16, 3), (80, torch.float32, 2),
+    (128, torch.bfloat16, 2), (128, torch.float32, 2),
+    (32, torch.bfloat16, 3), (64, torch.float32, 2)])
+def test_kernel_geometry_fits_the_card(D, dtype, stages):
+    """The kernel's shared memory: a 128-row Q tile and ``stages`` (K, V)
+    64-key tiles, rows padded by 16 bytes; under the card's 227 KB at
+    danube's D = 80 and at D = 128, and two blocks to an SM in bf16 at
+    D <= 96. One block per (b, query head, 128-row tile)."""
+    geo = tfa.flash_geometry(2, 8192, 32, D, dtype)
+    elem = torch.finfo(dtype).bits // 8
+    ld = D + (4 if elem == 4 else 8)
+    assert geo.stages == stages
+    assert geo.smem == 128 * ld * elem + stages * 2 * 64 * ld * elem
+    assert geo.smem <= 227 * 1024
+    if elem == 2 and D <= 96:
+        assert 2 * geo.smem <= 228 * 1024
+    assert geo.blocks == 64 * 2 * 32
+    assert tfa.flash_geometry(3, 200, 8, D, dtype).blocks == 2 * 3 * 8
+
+
+def test_kernel_geometry_refuses_before_any_launch():
+    """Head dims the kernel is not built for (48 and 112 are multiples of
+    16 without an instantiation) and fp16 raise ValueError from the
+    geometry, and the wrapper raises before a launch is counted."""
+    for D in (48, 112, 144, 24):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            tfa.flash_geometry(1, 64, 8, D, torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        tfa.flash_geometry(1, 64, 8, 80, torch.float16)
+    before = tfa.FLASH_ATTENTION.launches
+    q, k, v = (torch.zeros(1, 64, h, 48, dtype=torch.bfloat16)
+               for h in (8, 2, 2))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tfa._launch(q, k, v, causal=True, window=0)
+    assert tfa.FLASH_ATTENTION.launches == before

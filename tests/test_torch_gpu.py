@@ -407,3 +407,141 @@ def test_train_step_kernel_path_matches_plain_path(cuda_device):
             w = want[key].float()
             d = float((g.float() - w).abs().max())
             assert d <= tol * float(w.abs().max()), (name, key, d)
+
+
+def _paged_pool_case(dev, *, kind, fmt_name, dtype, seed):
+    """danube's head dim over 68-page tables of 8-token pages, 2 KV heads
+    of G = 4: decode B=2 at ragged positions past the 544-token window
+    (slot 1 holds 10 pages, its table tail -1), or a 32-token chunk B=1
+    after 480 cached tokens; slot 0's table entry 5 is -1 inside its live
+    pages."""
+    Hkv, G_, D_, ps, T_ = 2, 4, 80, 8, 68
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    B, C = (2, 1) if kind == "decode" else (1, 32)
+    fmt = tq.get_kv_format(fmt_name)
+    pool = kvc.init_pool(1 + B * T_, ps, Hkv, D_, dtype, fmt_name,
+                         device=dev)
+    if fmt.quantized:
+        for t in (pool.k_pool, pool.v_pool):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=dev))
+        for t in (pool.k_scale, pool.v_scale):
+            t.copy_(torch.rand(t.shape, generator=gen, device=dev) / 64)
+    else:
+        for t in (pool.k_pool, pool.v_pool):
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    tables = (1 + torch.arange(B * T_, device=dev, dtype=torch.int32)
+              ).reshape(B, T_)
+    flat = pool.page_pos.view(-1)
+    last = []
+    for b in range(B):
+        hi = (700 if kind == "decode" else 480) - 3 * b
+        lo = max(0, hi - T_ * ps + 1)
+        if kind == "decode" and b == 1:
+            hi, lo = 10 * ps - 1, 0
+            tables[b, 10:] = -1
+        p = torch.arange(lo, hi + 1, device=dev)
+        off = p % (T_ * ps)
+        bid = tables[b, off // ps].long()
+        flat[bid * ps + off % ps] = p.to(torch.int32)
+        last.append(hi)
+    tables[0, 5] = -1
+    last = torch.tensor(last, device=dev, dtype=torch.int32)
+    if kind == "decode":
+        positions, start = last[:, None].contiguous(), last + 1
+    else:
+        positions = (last[:, None] + 1 + torch.arange(
+            C, device=dev, dtype=torch.int32)).contiguous()
+        start = positions[:, 0].contiguous()
+    q = torch.randn(B, C, Hkv, G_, D_, generator=gen, device=dev)
+    Tq = C if kind == "chunk" else 1
+    qk = (q * D_ ** -0.5).to(dtype).permute(0, 2, 1, 3, 4) \
+        .reshape(B, Hkv, C // Tq, Tq * G_, D_).contiguous()
+    return qk, positions, start, pool, tables, fmt, Tq, G_
+
+
+def _combine_partials(acc, m, l):
+    alpha = torch.exp(m - m.amax(dim=3, keepdim=True))
+    return (acc * alpha[..., None]).sum(dim=3) \
+        / (l * alpha).sum(dim=3).clamp_min(1e-30)[..., None]
+
+
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+@pytest.mark.parametrize("fmt_name", ["kv_fp16", "kv8_channel"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_paged_attention_kernel_edges(cuda_device, kind, fmt_name, dtype):
+    """The kernel's own edges at danube's head dim: partitions of 68 and
+    17 pages (544 and 136 keys, neither a multiple of the kernel's key
+    stage), a -1 entry inside a live partition, a null slot (decode), a
+    100-token window that masks whole partitions, both KV formats, bf16
+    and fp16. Held as phase 3 of chip_smoke.py holds them: the combined
+    output within 2^-7·|plain| + 2e-3, the same partitions fully masked,
+    elsewhere m within 1e-4·(1 + |m|) and l within 1e-3·l."""
+    qk, positions, start, pool, tables, fmt, Tq, G_ = _paged_pool_case(
+        cuda_device, kind=kind, fmt_name=fmt_name, dtype=dtype, seed=7)
+    for window in (4096, 100):
+        for S in (1, 4):
+            kw = dict(Tq=Tq, G=G_, S=S, window=window, fmt=fmt)
+            args = (qk, positions, start, pool, tables)
+            before = tpa.PAGED_ATTENTION.launches
+            got = tpa._launch_partials(*args, **kw)
+            assert tpa.PAGED_ATTENTION.launches == before + 1
+            want = tpa.pooled_partials_plain(*args, **kw)
+            torch.cuda.synchronize()
+            out_p = _combine_partials(*want)
+            d = (_combine_partials(*got) - out_p).abs()
+            assert bool((d <= out_p.abs() * 2 ** -7 + 2e-3).all()), \
+                (window, S, float(d.max()))
+            (_, m_k, l_k), (_, m_p, l_p) = got, want
+            live = m_p > -1e29
+            assert torch.equal(live, m_k > -1e29)
+            assert float(((m_k - m_p).abs() / (1 + m_p.abs()))[live]
+                         .max()) <= 1e-4
+            assert float(((l_k - l_p).abs() / l_p)[live].max()) <= 1e-3
+
+
+@pytest.mark.parametrize("B,Sq,Skv,causal,window,fused", [
+    (1, 256, 300, False, 0, False),     # Skv ends mid key tile
+    (2, 40, 40, True, 4096, False),     # Sq below one query tile
+    (1, 512, 512, True, 100, False),    # a window ending mid key tile
+    (2, 256, 256, True, 4096, True),    # q, k, v as fused-projection views
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_edges(cuda_device, B, Sq, Skv, causal, window, fused,
+                            dtype):
+    """danube's heads (32/8 of 80) at the kernel's tile edges and on
+    strided inputs, against the plain version: bf16 within min(2e-2·(1 +
+    |o|), 2^-7·|o| + 2^-5 of the row's RMS), fp32 within 1e-5·(1 + |o|),
+    the log-sum-exp within 1e-4·(1 + |lse|) (chip_smoke.py's
+    flash_limit)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Hq, Hkv, D_ = 32, 8, 80
+    rng = np.random.default_rng(11)
+    if fused:
+        qkv = torch.from_numpy(rng.standard_normal(
+            (B, Sq, (Hq + 2 * Hkv) * D_)).astype(np.float32)) \
+            .to(cuda_device, dtype)
+        q, k, v = qkv.split([Hq * D_, Hkv * D_, Hkv * D_], dim=-1)
+        q, k, v = (q.unflatten(-1, (Hq, D_)), k.unflatten(-1, (Hkv, D_)),
+                   v.unflatten(-1, (Hkv, D_)))
+        assert not k.is_contiguous()
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(cuda_device, dtype)
+            for s in ((B, Sq, Hq, D_), (B, Skv, Hkv, D_), (B, Skv, Hkv, D_)))
+    o, lse = tfa.flash_attention_forward(q, k, v, causal=causal,
+                                         window=window)
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    torch.cuda.synchronize()
+    w = o_p.float()
+    if dtype == torch.float32:
+        lim = 1e-5 * (1 + w.abs())
+    else:
+        rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+        lim = torch.minimum(2e-2 * (1 + w.abs()),
+                            2 ** -7 * w.abs() + 2 ** -5 * rms)
+    assert o.dtype == dtype
+    assert bool(((o.float() - w).abs() <= lim).all())
+    assert bool(((lse - lse_p).abs() <= 1e-4 * (1 + lse_p.abs())).all())

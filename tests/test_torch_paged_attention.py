@@ -192,3 +192,71 @@ def test_chunk_masks_pool_entries_at_chunk_positions():
     duplicate, stale rejected drafts) stay masked; only the in-flight
     segment supplies those positions."""
     _chunk("kv_fp16", C=3, start=6, window=0, poison=True)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's launch geometry (pure Python; the kernel runs on the card)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("QG,D,P", [(4, 80, 34), (128, 80, 17),
+                                    (4, 128, 68), (128, 128, 68),
+                                    (20, 32, 4)])
+def test_kernel_geometry_fits_the_card(dtype, quantized, QG, D, P):
+    """Danube's decode (G = 4 rows) and chunk (Tq·G = 128) blocks at D = 80
+    and 128, and a ragged 20-row tile at D = 32: the warps split into
+    16-row groups and key groups (at most 8 warps), a stage holds whole
+    16-key sub-tiles for every key group, and the footprint is the
+    layout's and fits the card's 227 KB."""
+    geo = tpa.paged_geometry(QG, D, dtype, quantized, P)
+    assert geo.row_groups == -(-QG // 16)
+    assert geo.row_groups * geo.key_groups <= 8
+    assert geo.kb % (16 * geo.key_groups) == 0 and geo.kb >= 64
+    assert geo.stages == (2 if dtype == torch.float32 else 3)
+    elem = torch.finfo(dtype).bits // 8
+    assert geo.smem == tpa.paged_smem_bytes(QG, D, elem, quantized, geo.kb,
+                                            geo.stages, P, geo.key_groups)
+    assert geo.smem <= 227 * 1024
+
+
+def test_kernel_geometry_at_danube_shapes():
+    """The planner's shapes at danube width: decode puts all 8 warps on
+    one 16-row tile as key groups over 128-key stages; the 32-token chunk
+    puts one 16-row group on each warp over 64-key stages. The bf16
+    decode layout: 34 table entries, a 16 x 88 Q tile, three stages of
+    (K, V) 128 x 88 tiles and 128 position tags."""
+    dec = tpa.paged_geometry(4, 80, torch.bfloat16, False, 34)
+    assert (dec.row_groups, dec.key_groups, dec.kb, dec.stages) == \
+        (1, 8, 128, 3)
+    assert dec.smem == 256 + 16 * 88 * 2 + 3 * (2 * 128 * 88 * 2 + 512)
+    chunk = tpa.paged_geometry(128, 80, torch.bfloat16, False, 17)
+    assert (chunk.row_groups, chunk.key_groups, chunk.kb, chunk.stages) == \
+        (8, 1, 64, 3)
+    assert chunk.smem == 128 + 128 * 88 * 2 + 3 * (2 * 64 * 88 * 2 + 256)
+
+
+def test_kernel_refuses_shapes_before_any_launch():
+    """A head dim the kernel is not built for, more than 128 query rows a
+    block, a dtype it has no variant for, or a table too long for shared
+    memory raise ValueError in the wrapper, before anything reaches the
+    card (the operands here lie on the CPU, so any launch would fail
+    otherwise)."""
+    for QG, D, dtype, P, match in ((4, 72, torch.bfloat16, 17, "head_dim"),
+                                   (4, 256, torch.bfloat16, 17, "head_dim"),
+                                   (132, 80, torch.bfloat16, 17, "rows"),
+                                   (4, 80, torch.float64, 17, "dtype"),
+                                   (4, 80, torch.bfloat16, 30000,
+                                    "shared memory")):
+        with pytest.raises(ValueError, match=match):
+            tpa.paged_geometry(QG, D, dtype, False, P)
+    pool = tkvc.init_pool(3, PS, HKV, 72, torch.bfloat16, "kv_fp16")
+    qk = torch.zeros(1, HKV, 1, G, 72, dtype=torch.bfloat16)
+    before = tpa.PAGED_ATTENTION.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa._launch_partials(qk, torch.zeros(1, 1, dtype=torch.int32),
+                             torch.ones(1, dtype=torch.int32), pool,
+                             torch.ones(1, 2, dtype=torch.int32), Tq=1, G=G,
+                             S=1, window=0, fmt=tq.get_kv_format("kv_fp16"))
+    assert tpa.PAGED_ATTENTION.launches == before
