@@ -12,8 +12,9 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              with one nvcc per source, all started together.
 3. kernels — each kernel against its plain PyTorch version on the card at
              the serving path's shapes, with the tolerance stated: the
-             fused W4A16 GEMM (bf16, and fp32 — the reduced
-             configurations' dtype), paged attention (decode and the
+             fused W4A16 GEMM (bf16 at M = 1, 8, 32 and 256 and a K slice
+             that is not a multiple of the ring's stage, and fp32 — the
+             reduced configurations' dtype), paged attention (decode and the
              32-token chunk, both KV formats, partitions of 544, 272 and
              136 keys, -1 table entries at the tail and inside a live
              partition, a window that masks whole partitions, bf16 and
@@ -21,7 +22,8 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              fp32 at the four danube (K, N) pairs, M = 8 and 32, the
              planner's split_k and 1: the dense GEMM in both modes, the
              decoupled W4A16 pipeline whole and phase by phase, W8A16,
-             and W4A8 (its int8 activations bit-equal to the CPU's);
+             and W4A8 (its int8 activations bit-equal to the CPU's); the
+             dense GEMM and W8A16 also at M = 1 and 256 and at a ragged K;
              flash attention in bf16 and fp32 at
              danube's heads (32/8 of 80) for 4 x 2048 causal, 1 x 4608
              with the 4096 window biting, 2 x 96 unaligned, 64 queries over
@@ -54,15 +56,19 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              flushed before every launch (the serving step reads every
              layer's weights and KV cold) and the host queued ahead of the
              card (device time only), beside the H100 roofline bound of
-             ``repro_torch.core.costmodel``. The decoupled pipeline is also
-             timed phase by phase, and phase 2 once more right after phase
-             1 wrote its workspace (what the 50 MB L2 keeps of it). Flash
+             ``repro_torch.core.costmodel``, and each GEMM's achieved GB/s
+             (its bound's bytes over its time), beside the timer's own
+             floor (one trivial kernel between the events). The
+             decoupled pipeline is also timed phase by phase, and phase 2
+             once more right after phase 1 wrote its workspace (what the
+             50 MB L2 keeps of it). Flash
              attention at the two training shapes: the kernel forward, the
              Function's forward + backward, the plain version and SDPA.
 6. trace   — the main path once more, stepped through the engine's
              stepper API: a prefill window and a decode window under
-             ``torch.profiler`` (device busy time per step, the kernels and
-             host ops that cost the most), and untraced steps of each kind
+             ``torch.profiler`` (device busy time and device ops per step,
+             the fused W4A16 kernel's share, the kernels and host ops that
+             cost the most), and untraced steps of each kind
              timed to a sync, so the idle share is read against host time
              the profiler did not slow.
 7. train   — (a) two train steps of danube at full width and depth (B=4 x
@@ -279,29 +285,49 @@ def combine(torch, acc, m, l):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# K cases whose slices are multiples of 32 but not of the int rings'
+# 128-row stage (2592 = 81 x 32; split 3 leaves 864-row slices in a
+# 3-block cluster); group 32 divides them
+RAGGED_K = [(2592, 640, 32, (1, 3))]
+
+
 def check_gemm(torch, dev, gen):
     """W4A16 kernel vs its plain version. Both round the dequantized tile
     to bf16 and accumulate exact bf16 products in fp32; they differ only
     in fp32 summation order, after which the bf16 output can round either
-    way: tolerance one bf16 ulp, |d| <= 2^-7·|plain| + 1e-3."""
+    way: tolerance one bf16 ulp, |d| <= 2^-7·|plain| + 1e-3. The danube
+    shapes at M = 1, 8, 32 and 256 with the planner's split_k and 1, then
+    the ragged K cases."""
+    from repro_torch.core.quant import quantize
     from repro_torch.kernels.w4a16_fused import (w4a16_fused,
                                                  w4a16_fused_plain)
-    worst = 0.0
+    cases = []
     for K, N in DANUBE_GEMMS:
-        for M in (8, 32):
+        for M in (1, 8, 32, 256):
             x, qt = gemm_case(torch, K, N, M, gen, dev)
-            for s in sorted({planned_split(x, qt), 1}):
-                got = w4a16_fused(x, qt, split_k=s).float()
-                want = w4a16_fused_plain(x, qt, split_k=s).float()
-                err = (got - want).abs()
-                bad = bool((err > want.abs() * 2 ** -7 + 1e-3).any())
-                worst = max(worst, float(err.max()))
-                log("kernels", f"w4a16_gemm M={M} K={K} N={N} split_k={s} "
-                    f"max|d|={float(err.max()):.3e} "
-                    f"{'FAIL' if bad else 'ok'} ({GEMM_TOL})")
-                if bad:
-                    raise AssertionError(f"w4a16_gemm disagrees at M={M} "
-                                         f"K={K} N={N} split_k={s}")
+            cases.append((M, K, N, x, qt,
+                          sorted({planned_split(x, qt), 1})))
+    for K, N, group, splits in RAGGED_K:
+        w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+        qt = quantize(w.to(torch.bfloat16), group_size=group)
+        for M in (8, 32):
+            x = torch.randn(M, K, generator=gen, device=dev) \
+                .to(torch.bfloat16)
+            cases.append((M, K, N, x, qt, splits))
+    worst = 0.0
+    for M, K, N, x, qt, splits in cases:
+        for s in splits:
+            got = w4a16_fused(x, qt, split_k=s).float()
+            want = w4a16_fused_plain(x, qt, split_k=s).float()
+            err = (got - want).abs()
+            bad = bool((err > want.abs() * 2 ** -7 + 1e-3).any())
+            worst = max(worst, float(err.max()))
+            log("kernels", f"w4a16_gemm M={M} K={K} N={N} split_k={s} "
+                f"max|d|={float(err.max()):.3e} "
+                f"{'FAIL' if bad else 'ok'} ({GEMM_TOL})")
+            if bad:
+                raise AssertionError(f"w4a16_gemm disagrees at M={M} "
+                                     f"K={K} N={N} split_k={s}")
     return worst
 
 
@@ -438,7 +464,8 @@ def bit_equal(name, label, got, want):
 def check_family(torch, dev, gen):
     """The rest of the GEMM family against their plain versions, bf16 and
     fp32, the four danube (K, N) pairs, M = 8 and 32, the planner's
-    split_k and 1. Phase 1 and phase 3 of the decoupled pipeline repeat
+    split_k and 1; the dense GEMM and W8A16 also at M = 1 and 256 and at
+    the ragged K cases. Phase 1 and phase 3 of the decoupled pipeline repeat
     their plain versions' fp32 operations in the same order: bit-equal.
     W4A8: the int8 activations bit-equal to the CPU's (the CPU's are the
     JAX package's, pinned by the CPU tests); its int32 group sums are
@@ -499,7 +526,30 @@ def check_family(torch, dev, gen):
                          w8a16_fused.w8a16_fused(x, qt8),
                          w8a16_fused.w8a16_fused_plain(x, qt8), f32=f32)
                 worst["w8a16_gemm"] = max(worst["w8a16_gemm"], e)
+            for M in (1, 256):
+                x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+                check_tile_edges(worst, dt, M, K, N, x, w, qt8, f32)
+        for K, N, _, _ in RAGGED_K:
+            w = (torch.randn(K, N, generator=gen, device=dev)
+                 * K ** -0.5).to(dtype)
+            qt8 = quantize(w, "w8a16_channel")
+            for M in (8, 32):
+                x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+                check_tile_edges(worst, dt, M, K, N, x, w, qt8, f32)
     return worst                # dequant_w4, reduce_partials: bit-equal
+
+
+def check_tile_edges(worst, dt, M, K, N, x, w, qt8, f32):
+    """The dense GEMM (direct) and W8A16 at one edge shape of the tile
+    loop (M = 1 or 256, or a ragged K), held as in check_family."""
+    from repro_torch.kernels import gemm, w8a16_fused
+    label = f"{dt} M={M} K={K} N={N}"
+    worst["dense_gemm"] = max(worst["dense_gemm"], held(
+        "dense_gemm", label + " direct", gemm.gemm(x, w),
+        gemm.gemm_plain(x, w), f32=f32))
+    worst["w8a16_gemm"] = max(worst["w8a16_gemm"], held(
+        "w8a16_gemm", label + " split_k=1", w8a16_fused.w8a16_fused(x, qt8),
+        w8a16_fused.w8a16_fused_plain(x, qt8), f32=f32))
 
 
 FLASH_TOL = {"bf16": 2e-2, "fp32": 1e-5}
@@ -822,12 +872,23 @@ class Timer:
         return ts[len(ts) // 2]
 
 
+def gbs(nbytes, ms):
+    """Achieved rate: the bytes the function must move over its time."""
+    return f"{nbytes / ms / 1e6:.0f} GB/s"
+
+
 def time_gemms(torch, dev, gen, timer, card):
     from repro_torch.core import costmodel
     from repro_torch.kernels import ref
     from repro_torch.kernels.w4a16_fused import (w4a16_fused,
                                                  w4a16_fused_plain)
     rows = {}
+    # the timer's floor: one trivial kernel (a 4-byte fill) between the
+    # events; each of a layer's seven GEMMs carries it
+    sink = torch.empty(1, dtype=torch.int32, device=dev)
+    rows["floor_ms"] = timer(sink.zero_)
+    log("timing", f"the timer's floor, one 4-byte fill kernel: "
+        f"{rows['floor_ms']:.4f} ms [{card}]")
     for M in (8, 32):
         for K, N in DANUBE_GEMMS:
             x, qt = gemm_case(torch, K, N, M, gen, dev)
@@ -843,9 +904,10 @@ def time_gemms(torch, dev, gen, timer, card):
                      bound_by=costmodel.bound_by(nbytes, flops), split_k=s)
             rows[(M, K, N)] = r
             log("timing", f"w4a16_gemm M={M} K={K} N={N} split_k={s}: "
-                f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of "
-                f"roofline), plain {r['plain_ms']:.4f} ms, dequant+matmul "
+                f"kernel {r['ms']:.4f} ms, {gbs(nbytes, r['ms'])}, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"{r['bound_ms'] / r['ms']:.1%} of roofline), plain "
+                f"{r['plain_ms']:.4f} ms, dequant+matmul "
                 f"{r['library_ms']:.4f} ms [{card}]")
     return rows
 
@@ -877,10 +939,10 @@ def time_family(torch, dev, gen, timer, card):
         rows[(name, M, K, N)] = r
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log("timing", f"{name} M={M} K={K} N={N}{extra}: kernel "
-            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of "
-            f"roofline), plain {r['plain_ms']:.4f} ms, library {lib} "
-            f"[{card}]")
+            f"{r['ms']:.4f} ms, {gbs(r['nbytes'], r['ms'])}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of roofline), plain "
+            f"{r['plain_ms']:.4f} ms, library {lib} [{card}]")
         return r
 
     bf16 = torch.bfloat16
@@ -1117,10 +1179,16 @@ def trace(torch, card):
                       key=lambda e: e.self_cpu_time_total, reverse=True)
         busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
         launches = sum(e.count for e in dev) / steps
+        w4 = [e for e in dev if "tc_gemm_kernel" in e.key
+              and "Int4Ring" in e.key]
+        w4_ms = sum(e.self_device_time_total for e in w4) / 1e3 / steps
+        w4_n = sum(e.count for e in w4) / steps
         log("trace", f"{name}: device busy {busy:.3f} ms/step over {steps} "
             f"traced steps ({launches:.0f} device ops/step); wall "
             f"{untraced_ms:.3f} ms/step untraced ({traced_ms:.3f} traced) "
-            f"-> device idle {1 - busy / untraced_ms:.1%} [{card}]")
+            f"-> device idle {1 - busy / untraced_ms:.1%}; the fused W4A16 "
+            f"kernel {w4_ms:.3f} ms/step ({w4_ms / busy:.1%} of device "
+            f"time, {w4_n:.0f} of the device ops) [{card}]")
         for e in dev[:6]:
             log("trace", f"  {name} device "
                 f"{e.self_device_time_total / 1e3 / steps:8.3f} ms/step  "
@@ -1412,33 +1480,44 @@ def trace_train(torch, dev, card):
     torch.cuda.empty_cache()
 
 
-# template arguments of the attention kernels as nvcc mangles them
+# template arguments of the attention and GEMM kernels as nvcc mangles
+# them
 _MANGLED = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
             "Lb0E": "", "Lb1E": " kv8"}
 
 
 def ptxas_summary(text):
-    """One line per attention-kernel instantiation of an ``-Xptxas -v``
-    log: ``paged_attn_kernel<bf16, D=80 kv8>: 128 registers, 16 bytes
-    spill stores, 24 bytes spill loads``."""
+    """One line per attention-kernel or tensor-core GEMM instantiation of
+    an ``-Xptxas -v`` log: ``paged_attn_kernel<bf16, D=80 kv8>: 128
+    registers, 16 bytes spill stores, 24 bytes spill loads``,
+    ``tc_gemm_kernel<bf16, BM=8, Int4Ring>: ...``."""
     import re
     rows = {}
     name = None
     for line in text.splitlines():
+        if "Compiling entry function" not in line:
+            if name:
+                r = re.search(r"Used (\d+) registers", line)
+                sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)
+                if r:
+                    rows[name]["regs"] = r.group(1)
+                if sp:
+                    rows[name]["spill"] = sp.groups()
+            continue
+        name = None
         m = re.search(r"(paged_attn_kernel|flash_fwd_kernel)I"
                       r"(f|13__nv_bfloat16|6__half)Li(\d+)E(Lb[01]E)?", line)
-        if "Compiling entry function" in line and m:
+        g = re.search(r"tc_gemm_kernelI(13__nv_bfloat16|6__half)Li(\d+)"
+                      r"ENS_\d+(\w+?Ring)E", line)
+        if m:
             name = (f"{m.group(1)}<{_MANGLED[m.group(2)]}, D={m.group(3)}"
                     f"{_MANGLED[m.group(4) or 'Lb0E']}>")
+        elif g:
+            name = (f"tc_gemm_kernel<{_MANGLED[g.group(1)]}, "
+                    f"BM={g.group(2)}, {g.group(3)}>")
+        if name:
             rows[name] = {}
-        elif name:
-            r = re.search(r"Used (\d+) registers", line)
-            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                           r"loads", line)
-            if r:
-                rows[name]["regs"] = r.group(1)
-            if sp:
-                rows[name]["spill"] = sp.groups()
     return [f"{n}: {v.get('regs', '?')} registers, {v['spill'][0]} bytes "
             f"spill stores, {v['spill'][1]} bytes spill loads"
             for n, v in rows.items() if "spill" in v] or ["cached build"]
@@ -1458,10 +1537,12 @@ def layer_totals(torch, gemm_rows, fam_rows, card):
         for name in ("w4a16_gemm", "w4a16_decoupled", "dense_gemm",
                      "w8a16_gemm", "w4a8_gemm"):
             parts.append(f"{name} {total(name, 'ms'):.4f} ms (bound "
-                         f"{total(name, 'bound_ms'):.4f})")
+                         f"{total(name, 'bound_ms'):.4f}, "
+                         f"{gbs(total(name, 'nbytes'), total(name, 'ms'))})")
         phases = sum(total(n, "ms") for n in ("dequant_w4", "splitk_gemm",
                                               "reduce_partials"))
         log("timing", f"one layer's 7 GEMMs at M={M}: " + "; ".join(parts)
+            + f"; 7 x the timer's floor {7 * gemm_rows['floor_ms']:.4f} ms"
             + f"; decoupled design bound "
             f"{total('w4a16_decoupled', 'design_bound_ms'):.4f} ms, its "
             f"phases timed apart {phases:.4f} ms, phase 2 warm "
@@ -1493,7 +1574,8 @@ def main() -> int:
     log("build", f"{' + '.join(sources)} in {time.perf_counter() - t0:.1f} "
         f"s (one nvcc each, in parallel)")
     for name, text in zip(sources, logs):
-        if name in ("paged_attention.cu", "flash_attention.cu"):
+        if name in ("paged_attention.cu", "flash_attention.cu",
+                    "w4a16_gemm.cu", "dense_gemm.cu", "w8a16_gemm.cu"):
             for line in ptxas_summary(text):
                 log("build", f"{name}: {line}")
             continue

@@ -35,6 +35,8 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "sm90_tile.cuh"
+
 namespace attn {
 
 constexpr float MASKED = -1e30f;
@@ -58,104 +60,16 @@ __host__ __device__ inline size_t align128(size_t x) {
   return (x + 127) & ~static_cast<size_t>(127);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------------------
-// asynchronous copies
-// ---------------------------------------------------------------------------
-
-// 16 bytes global → shared; when !pred nothing is read and the 16 bytes
-// are zero-filled (src stays a valid address all the same)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most n of this thread's committed groups are in flight
-__device__ __forceinline__ void cp_async_wait(int n) {
-  if (n <= 0)
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  else if (n == 1)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-}
-
-// ---------------------------------------------------------------------------
-// tensor-core operands and products
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a · b for one m16n8k16 tile, fp32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1);
-
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(
-    float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <>
-__device__ __forceinline__ void mma16816<__half>(
-    float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to T, packed low | high (the A-fragment pair order)
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo,
-                                                                float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// cp.async, ldmatrix, mma.sync and the operand packing (sm90_tile.cuh)
+using sm90::cp_async16;
+using sm90::cp_async4;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
+using sm90::ldsm_x4;
+using sm90::ldsm_x4_t;
+using sm90::mma16816;
+using sm90::pack2;
+using sm90::smem_u32;
 
 // a float rounded to T
 template <typename T> __device__ __forceinline__ T from_f(float v);

@@ -19,10 +19,10 @@
 //
 // What the design does about it:
 //   * dequant_w4: one thread per 16 packed bytes (32 weights, one 16-byte
-//     load), the same sign extension, zero-point and scale as the fused
-//     kernel's PackedChunk (gemm_tile.cuh), rounded to the activation
-//     dtype and written with 16-byte stores; neighbouring threads cover
-//     neighbouring columns, so loads and stores coalesce.
+//     load), the sign extension, zero-point and scale of PackedChunk
+//     (gemm_tile.cuh; the plain version's arithmetic), rounded to the
+//     activation dtype and written with 16-byte stores; neighbouring
+//     threads cover neighbouring columns, so loads and stores coalesce.
 //   * reduce_partials: one thread per 4 outputs, float4 loads of each
 //     partial slice, summed in fp32 from slice 0 upward (the order of the
 //     plain version), then one cast.

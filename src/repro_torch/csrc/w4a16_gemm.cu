@@ -10,52 +10,58 @@
 //   M multiply-adds per nibble: about 4·M FLOP per byte read, far below the
 //   ~295 FLOP/byte the card needs before its tensor cores are the limit. The
 //   least time is the packed weights (K·N/2 bytes) plus the fp32 group scales
-//   over 3.35 TB/s.
+//   over 3.35 TB/s: 0.3 to 3 µs per danube GEMM, so launch and load latency
+//   weigh as much as bandwidth.
 //
-// What the design does about it:
-//   * INT4 crosses device memory once, packed: each thread loads 16 packed
-//     bytes (32 weights) with one 16-byte load, sign-extends both nibbles
-//     ((b << 4) >> 4 low, b >> 4 high), applies the fp32 group scale (and
-//     zero-point), rounds to the activation dtype and writes the tile to
-//     shared memory. The dequantized weight never exists in device memory.
-//   * One block per (M tile, N tile, K slice). The K slice is the planner's
-//     Split-K degree (choose_split_k with the card's 132 SMs): a decode GEMM
-//     has few N tiles, so splitting K is what puts enough blocks on the SMs.
-//     With split_k > 1 the block writes fp32 partials (S, M, N) that the
-//     wrapper sums, as the JAX package leaves the sum to XLA.
-//   * Ragged M is masked in the kernel (rows >= M load zeros and are never
-//     stored) instead of padding M in device memory.
-//   * The tile product runs on the tensor cores through WMMA (bf16 or fp16
-//     inputs, fp32 accumulation) from shared memory. fp32 activations (the
-//     reduced test configurations) take a CUDA-core FMA variant of the same
-//     blocks, since the tensor cores have no full-precision fp32 product.
-//   * The next step's packed bytes, scales and x tile are loaded into
-//     registers while the tensor cores work on the current step, so global
-//     latency overlaps the math (a two-stage register pipeline).
-//   This is the simple first kernel: no TMA, no wgmma, no warp
-//   specialisation yet. The tile loop, the packed-chunk dequant
-//   (PackedChunk) and the fp32 variant live in gemm_tile.cuh, shared with
-//   the dense and W8A16 GEMMs; this file is the int4-group weight stage's
-//   entry point.
+// What the design does about it (the tile loop of gemm_tile.cuh with its
+// Int4Ring stage):
+//   * INT4 crosses device memory once, packed, through a 4-stage cp.async
+//     ring in shared memory (128 K rows of 64 columns a stage, with the
+//     stage's group scales and zero-points), so up to three stages of
+//     packed bytes per block are in flight while the warps work.
+//   * The dequant happens in registers, straight into mma.sync A fragments:
+//     a packed byte holds rows 2p and 2p+1 of one column, the K pair of one
+//     32-bit A register ("swap AB": the weight is the 16-row operand, the
+//     tokens the 8-wide one). Each nibble becomes an exact fp32 by the 2^23
+//     magic-number trick; (q - z)·s in fp32 and one round to the activation
+//     dtype per pair, as the plain version does. No dequantized tile is
+//     written anywhere.
+//   * Split-K inside the kernel: the plan's split_k slices, cut further
+//     while the card has fewer than two blocks per SM, run as one
+//     thread-block cluster along K whose blocks sum their tiles through
+//     distributed shared memory in slice order and write the output in the
+//     activation dtype once (direct mode, split_k ≤ 8), so a GEMM is one
+//     device op. With direct=0 the kernel writes the plan slices' fp32
+//     partials (split_k, M, N) instead.
+//   * Ragged M and N tails are masked in the kernel; fp32 activations (the
+//     reduced test configurations) take the CUDA-core FMA variant.
 
 #include "gemm_tile.cuh"
 
 // x (M, K) bf16 (dtype 0), fp16 (dtype 1) or fp32 (dtype 2); packed
 // (K/2, N) int8; scales and optional zeros (K/group, N) fp32. direct=1
-// writes out (M, N) in the x dtype (split_k must be 1); direct=0 writes fp32
-// partials (split_k, M, N). The caller guarantees K % split_k == 0,
-// (K/split_k) % 32 == 0, K % 8 == 0, N % 16 == 0, an even group size and
-// 16-byte aligned pointers.
+// writes out (M, N) in the x dtype (split_k ≤ 8; 1 in fp32); direct=0
+// writes fp32 partials (split_k, M, N). bm .. smem: the wrapper's
+// gemm_geometry. The caller guarantees K % split_k == 0,
+// (K/split_k) % 32 == 0, K % 8 == 0, N % 16 == 0, an even group size
+// dividing K and 16-byte aligned pointers.
 extern "C" int w4a16_gemm(const void* x, const void* packed,
                           const void* scales, const void* zeros, void* out,
                           int M, int N, int K, int group, int split_k,
-                          int dtype, int direct, void* stream) {
+                          int dtype, int direct, int bm, int bk, int stages,
+                          int ks, int cluster, int smem, void* stream) {
+  int shift = -1;
+  for (int s = 0; s < 31; ++s)
+    if (group == (1 << s)) shift = s;
   const gemm_tile::Int4GroupArgs a{static_cast<const int8_t*>(packed),
                                    static_cast<const float*>(scales),
-                                   static_cast<const float*>(zeros), group};
-  return static_cast<int>(gemm_tile::run<gemm_tile::Int4GroupStage>(
-      dtype, x, a, out, M, N, K, split_k, direct,
-      static_cast<cudaStream_t>(stream)));
+                                   static_cast<const float*>(zeros), group,
+                                   shift};
+  const gemm_tile::Launch want{bm, bk, stages, ks, cluster, smem};
+  return static_cast<int>(
+      gemm_tile::run<gemm_tile::Int4Ring, gemm_tile::Int4GroupStage>(
+          gemm_tile::INT4, dtype, x, a, out, M, N, K, split_k, direct, group,
+          zeros != nullptr, want, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -7,7 +7,10 @@ Port of ``repro/kernels/w4a16_decoupled.py``:
             device memory (``csrc/w4a16_decoupled.cu``);
   phase 2 — :func:`splitk_gemm`: S fp32 partial products over the
             workspace, (S, M, N) even at S = 1 (``csrc/dense_gemm.cu`` in
-            its partials mode);
+            its partials mode: the tile loop of ``gemm_tile.cuh`` may cut
+            each plan slice into a cluster of blocks that sum through
+            distributed shared memory, but it writes one fp32 partial per
+            plan slice, since the sum over slices is phase 3's);
   phase 3 — :func:`reduce_partials`: the sum over S in fp32, then the cast
             (``csrc/w4a16_decoupled.cu``).
 

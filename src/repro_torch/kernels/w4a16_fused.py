@@ -9,8 +9,12 @@ is no fallback between the two: a CUDA tensor the kernel cannot take raises.
 Both compute exactly what the Pallas kernel does: the dequantized weight
 tile is rounded to ``x.dtype`` before the product, products accumulate in
 fp32, and ``split_k = S`` produces S fp32 partials over K slices that are
-summed outside the kernel (``torch.sum``, as the JAX package leaves the sum
-to XLA) before the cast to ``out_dtype``.
+summed in fp32, in slice order, before one cast to ``out_dtype``. The
+kernel takes the sum itself when one thread-block cluster holds the S
+slices and the output is in x's dtype (:func:`gemm.sums_in_kernel`: S ≤ 8
+in bf16/fp16), so a GEMM is one device op; otherwise it writes the (S, M,
+N) partials and the wrapper sums them (``torch.sum``, as the JAX package
+leaves the sum to XLA) and casts.
 """
 from __future__ import annotations
 
@@ -22,10 +26,11 @@ from repro_torch.core.quant import QuantizedTensor
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.common import (check_operands, check_split,
                                         kernel_dtype)
+from repro_torch.kernels.gemm import gemm_geometry, sm_count, sums_in_kernel
 
 W4A16_GEMM = build.CudaKernel(
     "w4a16_gemm", "w4a16_gemm.cu", "w4a16_gemm",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
 
 
 def w4a16_fused_plain(x: torch.Tensor, qt: QuantizedTensor, *,
@@ -76,7 +81,12 @@ def w4a16_fused(x: torch.Tensor, qt: QuantizedTensor, *, split_k: int = 1,
     _check_kernel_operands(x, qt, split_k)
     M, K = x.shape
     N = qt.N
-    direct = split_k == 1 and out_dtype == x.dtype
+    # the shape rule: one launch when a cluster holds the split_k slices
+    # and the output is in x's dtype; else partials, summed here
+    direct = sums_in_kernel(split_k, x.dtype, out_dtype)
+    geo = gemm_geometry("int4", M, N, K, split_k, x.dtype, direct=direct,
+                        group=qt.group_size, has_zeros=qt.zeros is not None,
+                        sms=sm_count(x.device))
     if direct:
         out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     else:
@@ -86,7 +96,7 @@ def w4a16_fused(x: torch.Tensor, qt: QuantizedTensor, *, split_k: int = 1,
         build.ptr(x), build.ptr(qt.packed), build.ptr(qt.scales),
         build.ptr(qt.zeros), build.ptr(out), M, N, K, qt.group_size,
         split_k, kernel_dtype(x.dtype, "W4A16"), int(direct),
-        build.stream_ptr(x.device))
+        *geo.launch_args(), build.stream_ptr(x.device))
     if direct:
         return out
     return torch.sum(out, dim=0).to(out_dtype)

@@ -5,7 +5,9 @@ launches the hand-written Hopper kernel ``csrc/w8a16_gemm.cu``; on a CPU
 tensor it runs :func:`w8a16_fused_plain`. Both dequantize as the Pallas
 stage does — ``(q − z)·s`` in fp32, rounded to x's dtype before the
 product — accumulate in fp32 and, with ``split_k = S``, sum S fp32 partials
-outside the kernel before the cast.
+in slice order before one cast: inside the kernel when one cluster holds
+the S slices and the output is in x's dtype (:func:`gemm.sums_in_kernel`),
+else in the wrapper (``torch.sum``).
 """
 from __future__ import annotations
 
@@ -17,10 +19,11 @@ from repro_torch.core.quant import QuantizedTensor, per_channel_scales
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.common import (check_operands, check_split,
                                         kernel_dtype)
+from repro_torch.kernels.gemm import gemm_geometry, sm_count, sums_in_kernel
 
 W8A16_GEMM = build.CudaKernel(
     "w8a16_gemm", "w8a16_gemm.cu", "w8a16_gemm",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 
 
 def _channel_operands(x: torch.Tensor, qt: QuantizedTensor):
@@ -66,7 +69,11 @@ def w8a16_fused(x: torch.Tensor, qt: QuantizedTensor, *, split_k: int = 1,
     if N % 16 or K % 8 or M < 1:
         raise ValueError(f"the W8A16 kernel needs N % 16 == 0, K % 8 == 0 "
                          f"and M >= 1, got M={M}, N={N}, K={K}")
-    direct = split_k == 1 and out_dtype == x.dtype
+    # the shape rule: one launch when a cluster holds the split_k slices
+    # and the output is in x's dtype; else partials, summed here
+    direct = sums_in_kernel(split_k, x.dtype, out_dtype)
+    geo = gemm_geometry("int8", M, N, K, split_k, x.dtype, direct=direct,
+                        sms=sm_count(x.device))
     if direct:
         out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     else:
@@ -74,7 +81,8 @@ def w8a16_fused(x: torch.Tensor, qt: QuantizedTensor, *, split_k: int = 1,
                           device=x.device)
     W8A16_GEMM.launch(build.ptr(x), build.ptr(qt.packed), build.ptr(scales),
                       build.ptr(zeros), build.ptr(out), M, N, K, split_k,
-                      code, int(direct), build.stream_ptr(x.device))
+                      code, int(direct), *geo.launch_args(),
+                      build.stream_ptr(x.device))
     if direct:
         return out
     return torch.sum(out, dim=0).to(out_dtype)

@@ -1,0 +1,146 @@
+"""The launch geometry of the port's float-contraction GEMM tile loop
+(``csrc/gemm_tile.cuh``), computed in pure Python by
+``kernels/gemm.py:gemm_geometry`` and mirrored field for field by the C
+launcher, which refuses a launch whose sizes differ. The kernels run on
+the card only (``tests/test_torch_gpu.py``, ``chip_smoke.py``); here the
+geometry is held to what the kernel needs: shared memory within the
+card's 227 KB, clusters of at most 8 blocks, and a grid that covers M, N
+and K exactly, at every danube shape and every reduced shape the CPU tests
+use.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import gemm as tgemm
+from repro_torch.kernels.common import MAX_SMEM
+from repro_torch.kernels.planning import choose_split_k
+
+# (K, N): danube's four GEMM shapes, the REDUCED danube's (d_model 128,
+# 4/2 heads of 32, d_ff 256) and the CPU and card tests' edge shapes
+SHAPES = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560),
+          (128, 128), (128, 64), (128, 256), (256, 128),
+          (256, 384), (512, 256), (1024, 640), (1024, 144), (96, 16),
+          (1056, 48)]
+M_VALUES = (1, 8, 9, 32, 33, 256)
+DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _splits(M, N, K):
+    """The planner's split_k on the H100 (132 SMs) and 1."""
+    return sorted({choose_split_k(M, N, K, cores=132), 1})
+
+
+def _check_covers(geo, kind, M, N, K, split_k, dtype, direct):
+    gx, gy, gz = geo.grid
+    assert gx * tgemm.GEMM_BN >= N > (gx - 1) * tgemm.GEMM_BN
+    assert gy * geo.bm >= M > (gy - 1) * geo.bm
+    assert gz == geo.ks == split_k * geo.sub
+    assert K % geo.ks == 0 and (K // geo.ks) % 32 == 0
+    assert 1 <= geo.cluster <= tgemm.MAX_CLUSTER and gz % geo.cluster == 0
+    assert geo.smem <= MAX_SMEM
+    if dtype == torch.float32:
+        assert (geo.cluster, geo.sub, geo.stages, geo.smem) == (1, 1, 1, 0)
+        assert geo.bm == (16 if M <= 16 else 32)
+        return
+    assert geo.bm == (8 if M <= 8 else 16 if M <= 16 else 32)
+    assert geo.bk == (64 if kind == "dense" else 128)
+    assert geo.stages == tgemm.GEMM_STAGES
+    # direct: one cluster holds every K block of a tile; partials: one
+    # cluster per plan slice
+    assert geo.cluster == (geo.ks if direct else geo.sub)
+    # the ring's stages and the warps' sums both fit the footprint
+    assert geo.smem >= geo.stages * geo.stage_bytes
+    assert geo.smem >= tgemm.GEMM_WARPS * geo.bm * (tgemm.GEMM_BN + 4) * 4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,N", SHAPES)
+def test_geometry_fits_and_covers(K, N, dtype):
+    """Every weight stage, M from 1 to 256, the planner's split_k and 1,
+    direct and partials mode, with and without zero-points."""
+    group = 32 if K % 128 else 128
+    for kind in tgemm.GEMM_KINDS:
+        for M in M_VALUES:
+            for split_k in _splits(M, N, K):
+                for direct in ({False, split_k == 1} if dtype ==
+                               torch.float32 else (False, True)):
+                    for zeros in (False, True):
+                        geo = tgemm.gemm_geometry(
+                            kind, M, N, K, split_k, dtype, direct=direct,
+                            group=group, has_zeros=zeros)
+                        _check_covers(geo, kind, M, N, K, split_k, dtype,
+                                      direct)
+
+
+def test_geometry_at_danube_decode():
+    """Decode (M = 8) at danube width: one n8 token tile, 64-column blocks,
+    K cut until the card holds about two blocks per SM. wq (K 2560, N 2560,
+    split_k 4) runs 40 x 8 blocks in clusters of 8; the W4A16 stage is
+    64 packed rows + 2 group-scale rows + an 8 x 136 x tile, four deep.
+    w_gate (N 6912) already has 432 blocks at split_k 4, so it is not cut
+    further; the dense GEMM of wk (split_k 1) cuts K eight ways."""
+    bf16 = torch.bfloat16
+    wq = tgemm.gemm_geometry("int4", 8, 2560, 2560, 4, bf16, direct=True,
+                             group=128)
+    assert (wq.bm, wq.bk, wq.stages, wq.ks, wq.sub, wq.cluster) == \
+        (8, 128, 4, 8, 2, 8)
+    assert wq.grid == (40, 1, 8) and wq.scale_rows == 2
+    assert wq.smem == 4 * (64 * 64 + 2 * 64 * 4 + 8 * 136 * 2)
+    gate = tgemm.gemm_geometry("int4", 8, 6912, 2560, 4, bf16, direct=True,
+                               group=128)
+    assert gate.grid == (108, 1, 4) and gate.cluster == 4
+    wk = tgemm.gemm_geometry("dense", 8, 640, 2560, 1, bf16, direct=True)
+    assert wk.grid == (10, 1, 8) and (wk.bk, wk.cluster) == (64, 8)
+    assert wk.smem == 4 * (64 * 72 * 2 + 8 * 72 * 2)
+    # decoupled phase 2 (partials): clusters of the blocks of one slice
+    p2 = tgemm.gemm_geometry("dense", 8, 640, 2560, 4, bf16, direct=False)
+    assert (p2.ks, p2.sub, p2.cluster) == (16, 4, 4)
+    # a 32-token prefill chunk: four n8 tiles, the warps' sums set no floor
+    w8 = tgemm.gemm_geometry("int8", 32, 2560, 2560, 1, bf16, direct=True)
+    assert (w8.bm, w8.ks) == (32, 8)
+    assert w8.smem == 4 * (128 * 80 + 32 * 136 * 2)
+
+
+def test_geometry_follows_the_card():
+    """``sub`` stops once the card has two blocks per SM: a card with half
+    the SMs gets half the K cut."""
+    bf16 = torch.bfloat16
+    big = tgemm.gemm_geometry("int4", 8, 2560, 2560, 1, bf16, direct=True,
+                              group=128, sms=132)
+    small = tgemm.gemm_geometry("int4", 8, 2560, 2560, 1, bf16, direct=True,
+                                group=128, sms=66)
+    assert (big.ks, small.ks) == (8, 4)
+
+
+def test_sums_in_kernel_is_a_shape_rule():
+    """One launch when the output is in x's dtype and a cluster holds the
+    split_k slices; the fp32 variant sums only split_k == 1 itself."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert tgemm.sums_in_kernel(1, bf16, bf16)
+    assert tgemm.sums_in_kernel(8, bf16, bf16)
+    assert not tgemm.sums_in_kernel(16, bf16, bf16)
+    assert not tgemm.sums_in_kernel(2, bf16, f32)
+    assert tgemm.sums_in_kernel(1, f32, f32)
+    assert not tgemm.sums_in_kernel(2, f32, f32)
+
+
+def test_geometry_refuses_what_the_kernels_do_not_take():
+    bf16 = torch.bfloat16
+    for args, kw, match in (
+            (("int4", 8, 40, 256, 1, bf16), {}, "N % 16"),
+            (("int4", 0, 64, 256, 1, bf16), {}, "M >= 1"),
+            (("int4", 8, 64, 256, 16, bf16), {}, "multiples of 32"),
+            (("int4", 8, 64, 512, 16, bf16), {"direct": True},
+             "at most 8"),
+            (("int4", 8, 64, 256, 1, bf16), {"group": 3}, "even"),
+            (("int4", 8, 64, 256, 2, torch.float32), {"direct": True},
+             "split_k == 1"),
+            (("int2", 8, 64, 256, 1, bf16), {}, "weight stage"),
+            (("dense", 8, 64, 256, 1, torch.float64), {}, "bf16/fp16/fp32")):
+        kw = {"direct": False, "group": 128, **kw}
+        with pytest.raises(ValueError, match=match):
+            tgemm.gemm_geometry(*args, **kw)
+    # beyond a cluster the partials route still takes the split
+    geo = tgemm.gemm_geometry("int4", 8, 64, 512, 16, bf16, direct=False,
+                              group=32)
+    assert geo.ks == 16 and geo.cluster == 1

@@ -545,3 +545,88 @@ def test_flash_kernel_edges(cuda_device, B, Sq, Skv, causal, window, fused,
     assert o.dtype == dtype
     assert bool(((o.float() - w).abs() <= lim).all())
     assert bool(((lse - lse_p).abs() <= 1e-4 * (1 + lse_p.abs())).all())
+
+
+# ---------------------------------------------------------------------------
+# the GEMM tile loop's edges (csrc/gemm_tile.cuh)
+# ---------------------------------------------------------------------------
+
+# (K, split_k, group size): a K slice shorter than one 128-row stage of the
+# int rings (96); slices that are multiples of 32 but not of the stage
+# (1056, and 1056 / 3 = 352 rows, a 3-block cluster); split_k 2, 4 and 8,
+# each held by one cluster
+_TILE_K = [(96, 1, 32), (1056, 1, 32), (1056, 3, 32), (1024, 2, 128),
+           (1024, 4, 128), (2048, 8, 128)]
+
+
+@pytest.mark.parametrize("M", [1, 8, 9, 32, 33, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kind", ["int4", "int8", "dense"])
+def test_gemm_tile_edges(cuda_device, kind, dtype, M):
+    """The fused W4A16 (int4), W8A16 (int8) and dense kernels against their
+    plain versions: ragged M around the 8/16/32-token tiles, N = 16, 48 and
+    144 (column tails of the 64-column block) and 640, the K cases above,
+    with and without zero-points. Outputs: rtol 2^-7, atol 1e-3 (one ulp
+    after a reordered fp32 sum); the dense partials (decoupled phase 2) and
+    the decoupled pipeline too: fp32 partials at rtol 1e-5, atol 1e-4."""
+    rng = np.random.default_rng(100 + M)
+    for N in (16, 48, 144, 640):
+        for i, (K, split_k, group) in enumerate(_TILE_K):
+            symmetric = bool(i % 2)
+            x, w = _operands(rng, cuda_device, M, K, N, dtype)
+            w = w.to(dtype)
+            if kind == "int4":
+                qt = tq.quantize(w, group_size=group, symmetric=symmetric)
+                got = wf.w4a16_fused(x, qt, split_k=split_k)
+                want = wf.w4a16_fused_plain(x, qt, split_k=split_k)
+                torch.testing.assert_close(
+                    tdec.w4a16_decoupled(x, qt, split_k=split_k).float(),
+                    tdec.w4a16_decoupled_plain(x, qt, split_k=split_k)
+                    .float(), rtol=2 ** -7, atol=1e-3)
+            elif kind == "int8":
+                qt = tq.quantize(w, "w8a16_channel", symmetric=symmetric)
+                got = tw8a16.w8a16_fused(x, qt, split_k=split_k)
+                want = tw8a16.w8a16_fused_plain(x, qt, split_k=split_k)
+            else:
+                got, want = tgemm.gemm(x, w), tgemm.gemm_plain(x, w)
+                torch.testing.assert_close(
+                    tdec.splitk_gemm(x, w, split_k=split_k),
+                    tdec.splitk_gemm_plain(x, w, split_k=split_k),
+                    rtol=1e-5, atol=1e-4)
+            assert got.dtype == dtype and got.shape == (M, N)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=1e-3)
+    torch.cuda.synchronize()
+
+
+def test_fused_gemms_sum_split_k_in_the_kernel(cuda_device, monkeypatch):
+    """In direct mode with split_k a cluster holds (≤ 8), the W4A16 and
+    W8A16 wrappers launch the kernel alone: no torch.sum, no cast. Beyond
+    a cluster (split_k 16) the wrapper's partials route sums in fp32 and
+    casts, and both routes agree with the plain version."""
+    rng = np.random.default_rng(11)
+    x, w = _operands(rng, cuda_device, 8, 2048, 640, torch.bfloat16)
+    w = w.to(torch.bfloat16)
+    q4 = tq.quantize(w)
+    q8 = tq.quantize(w, "w8a16_channel")
+    cases = [(wf.w4a16_fused, wf.w4a16_fused_plain, q4, s)
+             for s in (1, 2, 4, 8, 16)]
+    cases += [(tw8a16.w8a16_fused, tw8a16.w8a16_fused_plain, q8, s)
+              for s in (1, 4, 16)]
+    wants = [plain(x, qt, split_k=s) for _, plain, qt, s in cases]
+    sums = []
+    real_sum = torch.sum
+
+    def counted_sum(*args, **kwargs):
+        sums.append(1)
+        return real_sum(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "sum", counted_sum)
+    for (kernel, _, qt, s), want in zip(cases, wants):
+        before = len(sums)
+        got = kernel(x, qt, split_k=s)
+        assert len(sums) - before == (1 if s > 8 else 0)
+        assert got.dtype == torch.bfloat16 and got.shape == (8, 640)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-3)
+    torch.cuda.synchronize()
