@@ -22,7 +22,11 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              fp32 at the four danube (K, N) pairs, M = 8 and 32, the
              planner's split_k and 1: the dense GEMM in both modes, the
              decoupled W4A16 pipeline whole and phase by phase, W8A16,
-             and W4A8 (its int8 activations bit-equal to the CPU's); the
+             and W4A8 (its quantize kernel's int8 activations and row
+             scales bit-equal to the CPU's, its group sums exact), W4A8
+             also at M = 1, 8, 32, 40 and 256, N = 144, groups 32, 64 and
+             128, zero-points, split_k 1, 4 and 16, and rows at the
+             quantizer's edges (all zero, ±amax, exact .5 ties); the
              dense GEMM and W8A16 also at M = 1 and 256 and at a ragged K;
              flash attention in bf16 and fp32 at
              danube's heads (32/8 of 80) for 4 x 2048 causal, 1 x 4608
@@ -61,7 +65,8 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              floor (one trivial kernel between the events). The
              decoupled pipeline is also timed phase by phase, and phase 2
              once more right after phase 1 wrote its workspace (what the
-             50 MB L2 keeps of it). Flash
+             50 MB L2 keeps of it); W4A8 also with its two launches one
+             after the other. Flash
              attention at the two training shapes: the kernel forward, the
              Function's forward + backward, the plain version and SDPA.
 6. trace   — the main path once more, stepped through the engine's
@@ -130,7 +135,7 @@ FAMILY_RUNS = [
      ("w8a16_gemm", "paged_attention")),
     (["--format", "w4a8_g128"], ["--format", "w4a8_g128", "--strategy",
                                  "w4a8_xla"],
-     ("w4a8_gemm", "paged_attention")),
+     ("w4a8_gemm", "w4a8_quantize", "paged_attention")),
 ]
 
 
@@ -185,6 +190,8 @@ def kernel_table():
                        "src/repro/kernels/w8a16_fused.py:29"),
         "w4a8_gemm": (w4a8_fused.W4A8_GEMM, "w4a8_gemm.cu",
                       "src/repro/kernels/w4a8_fused.py:37"),
+        "w4a8_quantize": (w4a8_fused.W4A8_QUANTIZE, "w4a8_gemm.cu",
+                          "src/repro/kernels/w4a8_fused.py:37"),
         "flash_attention": (flash_attention.FLASH_ATTENTION,
                             "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:81"),
@@ -467,12 +474,10 @@ def check_family(torch, dev, gen):
     split_k and 1; the dense GEMM and W8A16 also at M = 1 and 256 and at
     the ragged K cases. Phase 1 and phase 3 of the decoupled pipeline repeat
     their plain versions' fp32 operations in the same order: bit-equal.
-    W4A8: the int8 activations bit-equal to the CPU's (the CPU's are the
-    JAX package's, pinned by the CPU tests); its int32 group sums are
-    exact, so only the fp32 sum over groups differs. Returns each
-    kernel's worst |d| (the bf16 cases set it)."""
-    from repro_torch.core.quant import quantize, quantize_activations_int8
-    from repro_torch.kernels import gemm, w4a8_fused, w8a16_fused
+    W4A8: see check_w4a8. Returns each kernel's worst |d| (the bf16 cases
+    set it)."""
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import gemm, w8a16_fused
     from repro_torch.kernels import w4a16_decoupled as dec
     worst = dict.fromkeys(("dense_gemm", "dequant_w4", "reduce_partials",
                            "w4a16_decoupled", "w8a16_gemm", "w4a8_gemm"),
@@ -513,15 +518,8 @@ def check_family(torch, dev, gen):
                              f32=f32)
                     worst["w4a16_decoupled"] = max(
                         worst["w4a16_decoupled"], e)
-                    e = held("w4a8_gemm", lab,
-                             w4a8_fused.w4a8_fused(x, qta8, split_k=sk),
-                             w4a8_fused.w4a8_fused_plain(x, qta8,
-                                                         split_k=sk),
-                             f32=f32)
+                    e = check_w4a8(torch, lab, x, qta8, sk, f32=f32)
                     worst["w4a8_gemm"] = max(worst["w4a8_gemm"], e)
-                bit_equal("w4a8 activations", label,
-                          quantize_activations_int8(x)[0].cpu(),
-                          quantize_activations_int8(x.cpu())[0])
                 e = held("w8a16_gemm", label + " split_k=1",
                          w8a16_fused.w8a16_fused(x, qt8),
                          w8a16_fused.w8a16_fused_plain(x, qt8), f32=f32)
@@ -537,6 +535,73 @@ def check_family(torch, dev, gen):
                 x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
                 check_tile_edges(worst, dt, M, K, N, x, w, qt8, f32)
     return worst                # dequant_w4, reduce_partials: bit-equal
+
+
+def check_w4a8(torch, label, x, qt, split_k, *, f32):
+    """The W4A8 kernels against their plain versions: the quantize kernel's
+    x_q and row scales bit-equal to the CPU's quantize_activations_int8
+    (the JAX package's, pinned by the CPU tests), its Σx_q per group equal
+    to the sums of the CPU's x_q; the GEMM's int32 group sums are exact, so
+    only the fp32 sum over groups differs (held as every GEMM). Returns
+    max |d|."""
+    from repro_torch.core.quant import quantize_activations_int8
+    from repro_torch.kernels import w4a8_fused
+    M, K = x.shape
+    g = qt.group_size
+    xq, xs, tok = w4a8_fused.w4a8_quantize(x, g)
+    wq, ws = quantize_activations_int8(x.cpu())
+    bit_equal("w4a8_quantize", f"{label} x_q", xq.cpu(), wq)
+    bit_equal("w4a8_quantize", f"{label} row scales", xs.cpu(), ws)
+    bit_equal("w4a8_quantize", f"{label} group sums", tok.cpu(),
+              wq.reshape(M, K // g, g).sum(dim=2, dtype=torch.int32))
+    return held("w4a8_gemm", label,
+                w4a8_fused.w4a8_fused(x, qt, split_k=split_k),
+                w4a8_fused.w4a8_fused_plain(x, qt, split_k=split_k), f32=f32)
+
+
+# the W4A8 kernel's edges: (M, K, N, group, zero-points, split_k): every
+# tile height, a ragged column tile (N = 144), each group, one cluster and
+# the partials route beyond it
+W4A8_EDGES = [(M, 1024 if sk < 16 else 512, 144, group, zeros, sk)
+              for M in (1, 8, 32, 40, 256)
+              for group, zeros, sk in ((32, True, 16), (64, False, 4),
+                                       (128, True, 1), (128, False, 4))]
+
+
+def w4a8_edge_rows(torch, x):
+    """Rows 0-2 of x (M >= 3) at the quantizer's edges: an all-zero row
+    (s = 1e-8), a row holding +amax and -amax, and a row with amax 127/16
+    (s = 1/16 exactly) whose other values are exact .5 ties of x / s (round
+    half to even)."""
+    K = x.shape[1]
+    x[0] = 0
+    x[1, 0], x[1, 1] = x[1].abs().max(), -x[1].abs().max()
+    ties = (2 * (torch.arange(K, device=x.device) % 254 - 127) + 1) / 32.0
+    x[2] = ties.to(x.dtype)
+    x[2, 0] = 127 / 16
+    return x
+
+
+def check_w4a8_edges(torch, dev, gen):
+    """check_w4a8 at W4A8_EDGES in bf16 and fp32, edge rows included."""
+    from repro_torch.core.quant import quantize
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "fp32" if dtype == torch.float32 else "bf16"
+        for M, K, N, group, zeros, sk in W4A8_EDGES:
+            w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+            qt = quantize(w.to(dtype), "w4a8_g128", group_size=group,
+                          symmetric=not zeros)
+            x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+            if M >= 3:
+                x = w4a8_edge_rows(torch, x)
+            e = check_w4a8(torch, f"{dt} M={M} K={K} N={N} group={group} "
+                           f"{'zeros' if zeros else 'symmetric'} "
+                           f"split_k={sk}", x, qt, sk,
+                           f32=dtype == torch.float32)
+            if dtype == torch.bfloat16:
+                worst = max(worst, e)
+    return worst
 
 
 def check_tile_edges(worst, dt, M, K, N, x, w, qt8, f32):
@@ -923,7 +988,7 @@ def time_family(torch, dev, gen, timer, card):
     through device memory). Phase 2 is timed cold (workspace flushed from
     the L2) and warm (right after phase 1 wrote it)."""
     from repro_torch.core import costmodel as cm
-    from repro_torch.core.quant import quantize
+    from repro_torch.core.quant import quantize, quantize_activations_int8
     from repro_torch.kernels import gemm, ref, w4a8_fused, w8a16_fused
     from repro_torch.kernels import w4a16_decoupled as dec
     rows = {}
@@ -982,9 +1047,14 @@ def time_family(torch, dev, gen, timer, card):
                     lambda: dec.splitk_gemm_plain(x, ws, split_k=sk), None,
                     bound(cm.dense_gemm_bytes(M, N, K, out_bytes=0)
                           + 4 * sk * M * N, flops), f" split_k={sk}")
+            # warm: phase 2 reads the workspace that phase 1 has just
+            # written after the flush (the setup's own output)
+            hold = {}
             r["warm_ms"] = timer(
-                lambda: dec.splitk_gemm(x, ws, split_k=sk),
-                setup=lambda: dec.dequant_w4(qt4, out_dtype=bf16))
+                lambda: dec.splitk_gemm(x, hold["ws"], split_k=sk),
+                setup=lambda: hold.__setitem__(
+                    "ws", dec.dequant_w4(qt4, out_dtype=bf16)))
+            del hold
             log("timing", f"splitk_gemm M={M} K={K} N={N}: right after "
                 f"phase 1 wrote the {K * N * 2 / 1e6:.1f} MB workspace "
                 f"{r['warm_ms']:.4f} ms (cold {r['ms']:.4f} ms) [{card}]")
@@ -998,12 +1068,26 @@ def time_family(torch, dev, gen, timer, card):
                 lambda: w8a16_fused.w8a16_fused_plain(x, qt8),
                 lambda: ref.w4a16_ref(x, qt8),
                 bound(cm.w8a16_gemm_bytes(M, N, K), flops))
-            row("w4a8_gemm", M, K, N,
-                lambda: w4a8_fused.w4a8_fused(x, qta8, split_k=sk),
-                lambda: w4a8_fused.w4a8_fused_plain(x, qta8, split_k=sk),
-                lambda: ref.w4a16_ref(x, qta8),
-                bound(cm.w4a8_gemm_bytes(M, N, K, act_bytes=2), flops,
-                      int8=True), f" split_k={sk}")
+            r = row("w4a8_gemm", M, K, N,
+                    lambda: w4a8_fused.w4a8_fused(x, qta8, split_k=sk),
+                    lambda: w4a8_fused.w4a8_fused_plain(x, qta8,
+                                                        split_k=sk),
+                    lambda: ref.w4a16_ref(x, qta8),
+                    bound(cm.w4a8_gemm_bytes(M, N, K, act_bytes=2), flops,
+                          int8=True), f" split_k={sk}")
+            # the two launches without the GEMM's early start, then the
+            # quantize kernel alone
+            r["serial_ms"] = timer(lambda: w4a8_fused._launch(
+                x, qta8, sk, bf16, overlap=False))
+            row("w4a8_quantize", M, K, N,
+                lambda: w4a8_fused.w4a8_quantize(x, qta8.group_size),
+                lambda: quantize_activations_int8(x), None,
+                bound(cm.w4a8_quantize_bytes(M, K, qta8.group_size,
+                                             act_bytes=2), 0.0))
+            log("timing", f"w4a8_gemm M={M} K={K} N={N}: "
+                f"{r['ms']:.4f} ms with the GEMM started while "
+                f"the quantize runs, {r['serial_ms']:.4f} ms one after the "
+                f"other [{card}]")
             del ws, parts
     return rows
 
@@ -1510,7 +1594,18 @@ def ptxas_summary(text):
                       r"(f|13__nv_bfloat16|6__half)Li(\d+)E(Lb[01]E)?", line)
         g = re.search(r"tc_gemm_kernelI(13__nv_bfloat16|6__half)Li(\d+)"
                       r"ENS_\d+(\w+?Ring)E", line)
-        if m:
+        q = re.search(r"w4a8_gemm_kernelI(f|13__nv_bfloat16|6__half)"
+                      r"Li(\d+)E", line)
+        o = re.search(r"(quantize_rows_kernel|dequant_w4_kernel|"
+                      r"reduce_partials_kernel)I(f|13__nv_bfloat16|6__half)"
+                      r"(Li(\d+)E)?", line)
+        if q:
+            name = (f"w4a8_gemm_kernel<{_MANGLED[q.group(1)]}, "
+                    f"BM={q.group(2)}>")
+        elif o:
+            cpt = f", CPT={o.group(4)}" if o.group(4) else ""
+            name = f"{o.group(1)}<{_MANGLED[o.group(2)]}{cpt}>"
+        elif m:
             name = (f"{m.group(1)}<{_MANGLED[m.group(2)]}, D={m.group(3)}"
                     f"{_MANGLED[m.group(4) or 'Lb0E']}>")
         elif g:
@@ -1545,9 +1640,15 @@ def layer_totals(torch, gemm_rows, fam_rows, card):
             + f"; 7 x the timer's floor {7 * gemm_rows['floor_ms']:.4f} ms"
             + f"; decoupled design bound "
             f"{total('w4a16_decoupled', 'design_bound_ms'):.4f} ms, its "
-            f"phases timed apart {phases:.4f} ms, phase 2 warm "
+            f"phases timed apart {phases:.4f} ms (phase 1 "
+            f"{total('dequant_w4', 'ms'):.4f}, phase 3 "
+            f"{total('reduce_partials', 'ms'):.4f}), phase 2 warm "
             f"{total('splitk_gemm', 'warm_ms'):.4f} vs cold "
-            f"{total('splitk_gemm', 'ms'):.4f} ms [{card}]")
+            f"{total('splitk_gemm', 'ms'):.4f} ms; W4A8 "
+            f"{total('w4a8_gemm', 'ms'):.4f} ms (its quantize kernel "
+            f"alone {total('w4a8_quantize', 'ms'):.4f}), "
+            f"{total('w4a8_gemm', 'serial_ms'):.4f} ms without the GEMM's "
+            f"early start [{card}]")
 
 
 def main() -> int:
@@ -1575,7 +1676,8 @@ def main() -> int:
         f"s (one nvcc each, in parallel)")
     for name, text in zip(sources, logs):
         if name in ("paged_attention.cu", "flash_attention.cu",
-                    "w4a16_gemm.cu", "dense_gemm.cu", "w8a16_gemm.cu"):
+                    "w4a16_gemm.cu", "dense_gemm.cu", "w8a16_gemm.cu",
+                    "w4a8_gemm.cu", "w4a16_decoupled.cu"):
             for line in ptxas_summary(text):
                 log("build", f"{name}: {line}")
             continue
@@ -1590,6 +1692,9 @@ def main() -> int:
     check_gemm_fp32(torch, dev, gen)
     errs["paged_attention"] = check_attention(torch, dev, gen)
     errs.update(check_family(torch, dev, gen))
+    errs["w4a8_gemm"] = max(errs["w4a8_gemm"],
+                            check_w4a8_edges(torch, dev, gen))
+    errs["w4a8_quantize"] = 0.0         # bit-equal, or phase 3 failed
     errs["flash_attention"] = check_flash(torch, dev, gen)
     check_flash_grads(torch, dev, gen)
     torch.cuda.synchronize()
@@ -1659,7 +1764,7 @@ def main() -> int:
               library_ms=a["library_ms"]),
         gemm_entry("dense_gemm"), gemm_entry("dequant_w4"),
         gemm_entry("reduce_partials"), gemm_entry("w8a16_gemm"),
-        gemm_entry("w4a8_gemm"),
+        gemm_entry("w4a8_gemm"), gemm_entry("w4a8_quantize"),
         entry("flash_attention", ms=f["ms"], plain_ms=f["plain_ms"],
               bound_ms=f["bound_ms"], bound_by=f["bound_by"],
               library_ms=f["library_ms"]),

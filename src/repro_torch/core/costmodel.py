@@ -164,6 +164,13 @@ def w4a8_gemm_bytes(M: int, N: int, K: int, *, group: int = 128,
                             out_bytes=out_bytes, has_zeros=has_zeros)
 
 
+def w4a8_quantize_bytes(M: int, K: int, group: int = 128, *,
+                        act_bytes: int = 2) -> float:
+    """The W4A8 activation quantize: x in; x_q, the row scales and Σx_q per
+    (token, group) out."""
+    return M * K * act_bytes + M * K + 4 * M + 4 * M * (K // max(group, 1))
+
+
 def w4a8_time_fused(M: int, N: int, K: int, *, group: int = 128,
                     has_zeros: bool = False) -> float:
     """int8 activations, int8×int8 tensor-core dots at the int8 rate."""

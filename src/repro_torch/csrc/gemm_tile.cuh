@@ -57,6 +57,9 @@
 //   * The block geometry (tile rows, stage depth, sub, cluster, shared
 //     memory) is make_geometry(), mirrored by the wrappers' gemm_geometry
 //     (kernels/gemm.py); the launcher refuses a launch whose sizes differ.
+//     The W4A8 kernel (w4a8_gemm.cu) takes its geometry from there too, and
+//     its end (the warps' sum, the cluster's K sum, the output) from
+//     finish_tile.
 // Ragged edges stay in the kernel: rows past M and columns past N load
 // zeros and are never stored; a K slice that is a multiple of 32 but not of
 // BK ends in a zero-filled stage whose empty 16-row steps are skipped.
@@ -72,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90_tile.cuh"
 
@@ -311,7 +316,9 @@ struct DenseStage {
 // gemm_geometry, field for field)
 // ---------------------------------------------------------------------------
 
-enum Kind { INT4 = 0, INT8 = 1, DENSE = 2 };
+// INT4, INT8, DENSE: the float-contraction rings below. W4A8: the integer
+// contraction of w4a8_gemm.cu.
+enum Kind { INT4 = 0, INT8 = 1, DENSE = 2, W4A8 = 3 };
 
 constexpr int STAGES = 4;         // ring depth
 constexpr int MAX_CLUSTER = 8;    // portable thread-block cluster size
@@ -349,6 +356,19 @@ __host__ __device__ constexpr int x_bytes(int bm, int bk, int elem) {
   return align128(bm * (bk + 8) * elem);
 }
 
+// the W4A8 kernel's units: 128 K rows of packed int4 weights, their group
+// scales (and zero-points), the int8 x tile (144-byte rows) and its Σx_q
+// per group; each warp runs its own W4A8_STAGES of them
+constexpr int W4A8_BK = 128;
+constexpr int W4A8_STAGES = 2;
+constexpr int XQ_LD = W4A8_BK + 16;
+
+__host__ __device__ constexpr int w4a8_stage_bytes(int bm, int sr,
+                                                   int zeros) {
+  return align128(W4A8_BK / 2 * BN) + align128(sr * BN * 4) * (zeros ? 2 : 1)
+         + align128(bm * XQ_LD) + align128(bm * sr * 4);
+}
+
 struct Geometry {
   int bm, bk, stages;
   int ks;        // blocks along K per output tile: split_k * sub
@@ -369,6 +389,35 @@ inline bool make_geometry(Geometry& g, int kind, int M, int N, int K, int S,
                           int sms) {
   if (M < 1 || N < 16 || N % 16 || S < 1 || K % S || (K / S) % 32)
     return false;
+  if (kind == W4A8) {
+    // every dtype on the int8 tensor cores; a group is whole in one block's
+    // K rows and one warp's unit, so its int32 sum is exact
+    if ((group != 32 && group != 64 && group != 128) || (K / S) % group ||
+        (direct && S > MAX_CLUSTER))
+      return false;
+    g.gx = (N + BN - 1) / BN;
+    g.bm = M <= 8 ? 8 : M <= 16 ? 16 : 32;
+    g.bk = W4A8_BK;
+    g.stages = W4A8_STAGES;
+    const int tiles = g.gx * ((M + g.bm - 1) / g.bm);
+    const int cap = direct ? MAX_CLUSTER / S : MAX_CLUSTER;
+    int sub = 1;
+    while (sub * 2 <= cap && K % (S * sub * 2) == 0 &&
+           (K / (S * sub * 2)) % group == 0 && tiles * S * sub < 2 * sms)
+      sub *= 2;
+    g.sub = sub;
+    g.ks = S * sub;
+    g.cluster = direct ? g.ks : sub;
+    g.sr = W4A8_BK / group;
+    g.stage_bytes = w4a8_stage_bytes(g.bm, g.sr, zeros);
+    const int ring = WARPS * g.stages * g.stage_bytes;
+    const int red = WARPS * g.bm * RED_LD * 4;
+    g.smem = (ring > red ? ring : red) + align128(2 * g.bm * 4);
+    if (g.smem > MAX_SMEM) return false;
+    g.gy = (M + g.bm - 1) / g.bm;
+    g.gz = g.ks;
+    return true;
+  }
   if (kind == INT4 && (group < 2 || group % 2 || K % group)) return false;
   g.gx = (N + BN - 1) / BN;
   if (elem == 4) {
@@ -729,6 +778,115 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// The end of a tensor-core block: acc[tile][nt][i] is each warp's fp32
+// tile (accumulator row r of a column tile is block column col(tile, r), its
+// column 2t (+1) of n8 tile nt is token 8nt + 2t (+1)). The four warps' tiles
+// are summed in shared memory in warp order (smem: at least WARPS·BM·RED_LD
+// floats, free), then the cluster's K slices: each plan slice the sum of its
+// sub blocks in rank order; direct mode sums the slices in slice order,
+// multiplies row m by row_scale[m] when given (shared memory) and casts once
+// to T; partials mode writes its one plan slice in fp32. Each block of the
+// cluster takes an equal share of the tile's float4s.
+template <typename T, int BM, class R>
+__device__ __forceinline__ void finish_tile(const float (&acc)[4][BM / 8][4],
+                                            uint8_t* smem, const TcParams& p,
+                                            int n0, int m0, int kz,
+                                            T* __restrict__ out,
+                                            float* __restrict__ partials,
+                                            const float* row_scale) {
+  constexpr int NT = BM / 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* red = reinterpret_cast<float*>(smem);
+  {
+    const int g = lane >> 2, t = lane & 3;
+    float* mine = red + warp * BM * RED_LD;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {             // token 8nt + 2t + e
+        float* row = mine + (8 * nt + 2 * t + e) * RED_LD;
+        if constexpr (R::INT_COLS) {
+          // columns 8g + 2·tile + (i >> 1): eight in a row
+          float v[8];
+#pragma unroll
+          for (int tile = 0; tile < 4; ++tile) {
+            v[2 * tile] = acc[tile][nt][e];
+            v[2 * tile + 1] = acc[tile][nt][2 + e];
+          }
+          *reinterpret_cast<float4*>(row + 8 * g) =
+              make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(row + 8 * g + 4) =
+              make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+#pragma unroll
+          for (int tile = 0; tile < 4; ++tile) {
+            row[R::col(tile, g)] = acc[tile][nt][e];
+            row[R::col(tile, g + 8)] = acc[tile][nt][2 + e];
+          }
+        }
+      }
+  }
+  __syncthreads();
+  for (int f = tid; f < BM * BN / 4; f += TC_THREADS) {
+    float* v = red + (f / (BN / 4)) * RED_LD + (f % (BN / 4)) * 4;
+    float4 sum = *reinterpret_cast<const float4*>(v);
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w)
+      sum = add4(sum, *reinterpret_cast<const float4*>(v + w * BM * RED_LD));
+    *reinterpret_cast<float4*>(v) = sum;
+  }
+  __syncthreads();
+
+  cg::cluster_group cluster = cg::this_cluster();
+  if (p.cluster > 1) cluster.sync();
+  const int rank = p.cluster > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  constexpr int F = BM * BN / 4;                 // float4s of the tile
+  const int share = (F + p.cluster - 1) / p.cluster;
+  const int f_end = min(F, (rank + 1) * share);
+  for (int f = rank * share + tid; f < f_end; f += TC_THREADS) {
+    const int m = f / (BN / 4), c = (f % (BN / 4)) * 4;
+    if (m0 + m >= p.M || n0 + c >= p.N) continue;
+    float* mine = red + m * RED_LD + c;
+    // every block's float4 at once, then the sum: each plan slice the sum
+    // of its sub blocks in rank order (sub is a power of two), the slices
+    // in slice order
+    float4 q[MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+      if (r < p.cluster)
+        q[r] = *reinterpret_cast<const float4*>(
+            p.cluster > 1 ? cluster.map_shared_rank(mine, r) : mine);
+    float4 v = q[0], part = q[0];
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+      if (r < p.cluster) {
+        const int j = r & (p.sub - 1);           // block j of its slice
+        part = j == 0 ? q[r] : add4(part, q[r]);
+        if (j == p.sub - 1) v = r == p.sub - 1 ? part : add4(v, part);
+      }
+    const size_t o = (size_t)(m0 + m) * p.N + n0 + c;
+    if (p.direct) {
+      if (row_scale != nullptr) {
+        const float rs = row_scale[m];
+        v = make_float4(__fmul_rn(v.x, rs), __fmul_rn(v.y, rs),
+                        __fmul_rn(v.z, rs), __fmul_rn(v.w, rs));
+      }
+      if constexpr (std::is_same<T, float>::value) {
+        *reinterpret_cast<float4*>(out + o) = v;
+      } else {
+        uint2 packed;
+        packed.x = pack2<T>(v.x, v.y);
+        packed.y = pack2<T>(v.z, v.w);
+        *reinterpret_cast<uint2*>(out + o) = packed;
+      }
+    } else {
+      *reinterpret_cast<float4*>(
+          partials + (size_t)(kz / p.sub) * p.M * p.N + o) = v;
+    }
+  }
+  if (p.cluster > 1) cluster.sync();  // no block leaves while read
+}
+
 // ---------------------------------------------------------------------------
 // the tensor-core tile loop
 // ---------------------------------------------------------------------------
@@ -814,94 +972,7 @@ tc_gemm_kernel(const T* __restrict__ x, typename Ring<T>::Args wa,
   }
   cp_async_wait<0>();
   __syncthreads();                // the ring is free: reuse it
-
-  // each warp's tile (accumulator row r of a column tile is block column
-  // col(tile, r), its column 2t (+1) of n8 tile nt is token 8nt + 2t (+1)),
-  // then the block's tile as the sum of the four in warp order
-  float* red = reinterpret_cast<float*>(smem);
-  {
-    const int g = lane >> 2, t = lane & 3;
-    float* mine = red + warp * BM * RED_LD;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {             // token 8nt + 2t + e
-        float* row = mine + (8 * nt + 2 * t + e) * RED_LD;
-        if constexpr (R::INT_COLS) {
-          // columns 8g + 2·tile + (i >> 1): eight in a row
-          float v[8];
-#pragma unroll
-          for (int tile = 0; tile < 4; ++tile) {
-            v[2 * tile] = acc[tile][nt][e];
-            v[2 * tile + 1] = acc[tile][nt][2 + e];
-          }
-          *reinterpret_cast<float4*>(row + 8 * g) =
-              make_float4(v[0], v[1], v[2], v[3]);
-          *reinterpret_cast<float4*>(row + 8 * g + 4) =
-              make_float4(v[4], v[5], v[6], v[7]);
-        } else {
-#pragma unroll
-          for (int tile = 0; tile < 4; ++tile) {
-            row[R::col(tile, g)] = acc[tile][nt][e];
-            row[R::col(tile, g + 8)] = acc[tile][nt][2 + e];
-          }
-        }
-      }
-  }
-  __syncthreads();
-  for (int f = tid; f < BM * BN / 4; f += TC_THREADS) {
-    float* v = red + (f / (BN / 4)) * RED_LD + (f % (BN / 4)) * 4;
-    float4 sum = *reinterpret_cast<const float4*>(v);
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w)
-      sum = add4(sum, *reinterpret_cast<const float4*>(v + w * BM * RED_LD));
-    *reinterpret_cast<float4*>(v) = sum;
-  }
-  __syncthreads();
-
-  // the cluster's K slices: each plan slice the sum of its sub blocks in
-  // rank order; direct mode sums the slices in slice order and casts once,
-  // partials mode writes its one plan slice. Each block takes an equal
-  // share of the tile's float4s.
-  cg::cluster_group cluster = cg::this_cluster();
-  if (p.cluster > 1) cluster.sync();
-  const int rank = p.cluster > 1 ? static_cast<int>(cluster.block_rank()) : 0;
-  constexpr int F = BM * BN / 4;                 // float4s of the tile
-  const int share = (F + p.cluster - 1) / p.cluster;
-  const int f_end = min(F, (rank + 1) * share);
-  for (int f = rank * share + tid; f < f_end; f += TC_THREADS) {
-    const int m = f / (BN / 4), c = (f % (BN / 4)) * 4;
-    if (m0 + m >= p.M || n0 + c >= p.N) continue;
-    float* mine = red + m * RED_LD + c;
-    // every block's float4 at once, then the sum: each plan slice the sum
-    // of its sub blocks in rank order (sub is a power of two), the slices
-    // in slice order
-    float4 q[MAX_CLUSTER];
-#pragma unroll
-    for (int r = 0; r < MAX_CLUSTER; ++r)
-      if (r < p.cluster)
-        q[r] = *reinterpret_cast<const float4*>(
-            p.cluster > 1 ? cluster.map_shared_rank(mine, r) : mine);
-    float4 v = q[0], part = q[0];
-#pragma unroll
-    for (int r = 0; r < MAX_CLUSTER; ++r)
-      if (r < p.cluster) {
-        const int j = r & (p.sub - 1);           // block j of its slice
-        part = j == 0 ? q[r] : add4(part, q[r]);
-        if (j == p.sub - 1) v = r == p.sub - 1 ? part : add4(v, part);
-      }
-    const size_t o = (size_t)(m0 + m) * p.N + n0 + c;
-    if (p.direct) {
-      uint2 packed;
-      packed.x = pack2<T>(v.x, v.y);
-      packed.y = pack2<T>(v.z, v.w);
-      *reinterpret_cast<uint2*>(out + o) = packed;
-    } else {
-      *reinterpret_cast<float4*>(
-          partials + (size_t)(kz / p.sub) * p.M * p.N + o) = v;
-    }
-  }
-  if (p.cluster > 1) cluster.sync();  // no block leaves while read
+  finish_tile<T, BM, R>(acc, smem, p, n0, m0, kz, out, partials, nullptr);
 }
 
 // fp32 activations: the same blocks and weight stages, with the product

@@ -1,8 +1,9 @@
 // Warp-level building blocks shared by the port's tensor-core kernels (the
 // attention tiles of attn_tile.cuh and the GEMM tile loop of gemm_tile.cuh):
 // 16-byte cp.async copies with zero-fill and their commit/wait groups,
-// ldmatrix operand loads, mma.sync.m16n8k16 with fp32 accumulators, and the
-// fp32 -> 16-bit pair packing of an mma operand register.
+// ldmatrix operand loads, mma.sync.m16n8k16 with fp32 accumulators and
+// mma.sync.m16n8k32 on int8 with int32 accumulators, and the fp32 -> 16-bit
+// pair packing of an mma operand register.
 //
 // Fragment layout of mma.sync.m16n8k16 (row.col), g = lane / 4, t = lane % 4:
 //   A (16 x 16): a[0] = (row g, cols 2t, 2t+1), a[1] = (row g + 8, same),
@@ -11,6 +12,13 @@
 //   C (16 x 8):  c[0], c[1] = (row g, cols 2t, 2t+1), c[2], c[3] = row g + 8.
 // Each 32-bit operand register holds two 16-bit values, the lower column
 // (A) or row (B) in its low half.
+//
+// mma.sync.m16n8k32 (s8, row.col): each register holds four int8 values of
+// consecutive K, the lowest K in the low byte:
+//   A (16 x 32): a[0] = (row g, k 4t .. 4t+3), a[1] = (row g + 8, same),
+//                a[2] = (row g, k 16+4t .. 16+4t+3), a[3] = (row g + 8, same);
+//   B (32 x 8):  b0 = (k 4t .. 4t+3, col g), b1 = (k 16+4t .. 16+4t+3, col g);
+//   C (16 x 8):  int32, as for m16n8k16.
 
 #pragma once
 
@@ -118,6 +126,19 @@ __device__ __forceinline__ void mma16816<__half>(
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a · b for one m16n8k32 tile of signed int8, int32 accumulators
+// (exact: no saturation is asked for, and int32 sums of int8 products do not
+// overflow within a scale group)
+__device__ __forceinline__ void mma16832_s8(int (&c)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

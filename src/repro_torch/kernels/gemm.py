@@ -30,14 +30,19 @@ DENSE_GEMM = build.CudaKernel(
     "dense_gemm", "dense_gemm.cu", "dense_gemm",
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 
-# the tile loop's constants (csrc/gemm_tile.cuh)
-GEMM_KINDS = ("int4", "int8", "dense")
+# the tile loop's constants (csrc/gemm_tile.cuh); "w4a8" is the integer
+# contraction of csrc/w4a8_gemm.cu
+GEMM_KINDS = ("int4", "int8", "dense", "w4a8")
 GEMM_BN = 64            # output columns a block: four m16 column tiles
 GEMM_WARPS = 4
 GEMM_STAGES = 4         # depth of the cp.async ring
 MAX_CLUSTER = 8         # blocks of a thread-block cluster (portable limit)
 _RED_LD = GEMM_BN + 4   # row stride (floats) of the warps' sums
 _INT8_LD = GEMM_BN + 16  # row stride (bytes) of an int8 stage
+W4A8_BK = 128           # K rows of a W4A8 unit
+W4A8_STAGES = 2         # units in flight a warp
+W4A8_GROUPS = (32, 64, 128)
+_XQ_LD = W4A8_BK + 16   # row stride (bytes) of a unit's int8 x tile
 
 
 @dataclass(frozen=True)
@@ -86,11 +91,12 @@ def gemm_geometry(kind: str, M: int, N: int, K: int, split_k: int,
                   dtype: torch.dtype, *, direct: bool, group: int = 0,
                   has_zeros: bool = False, sms: int = 132) -> GemmGeometry:
     """The block layout of ``csrc/gemm_tile.cuh`` (its make_geometry, field
-    for field) for weight stage ``kind`` ("int4", "int8" or "dense") on a
-    card with ``sms`` SMs; raises ValueError for a launch the kernels do
-    not take. Tile rows follow M (8, 16 or 32 tokens); ``sub`` doubles
-    while the card has fewer than two blocks per SM, K slices stay
-    multiples of 32 and a cluster stays within MAX_CLUSTER blocks."""
+    for field) for weight stage ``kind`` ("int4", "int8", "dense", or the
+    W4A8 kernel's "w4a8") on a card with ``sms`` SMs; raises ValueError for
+    a launch the kernels do not take. Tile rows follow M (8, 16 or 32
+    tokens); ``sub`` doubles while the card has fewer than two blocks per
+    SM, K slices stay multiples of 32 and a cluster stays within
+    MAX_CLUSTER blocks."""
     if kind not in GEMM_KINDS:
         raise ValueError(f"unknown GEMM weight stage {kind!r}")
     code = kernel_dtype(dtype, "GEMM")
@@ -98,6 +104,9 @@ def gemm_geometry(kind: str, M: int, N: int, K: int, split_k: int,
         raise ValueError(f"the GEMM kernels need M >= 1 and N % 16 == 0, "
                          f"got M={M}, N={N}")
     check_split(K, split_k)
+    if kind == "w4a8":
+        return _w4a8_geometry(M, N, K, split_k, direct, group, has_zeros,
+                              sms)
     if kind == "int4" and (group < 2 or group % 2 or K % group):
         raise ValueError(f"group_size {group} must be even and divide K={K}")
     gx = -(-N // GEMM_BN)
@@ -136,6 +145,44 @@ def gemm_geometry(kind: str, M: int, N: int, K: int, split_k: int,
         raise ValueError(f"the GEMM tile needs {smem} B of shared memory "
                          f"(> {MAX_SMEM})")
     return GemmGeometry(bm, bk, GEMM_STAGES, ks, sub,
+                        ks if direct else sub, (gx, -(-M // bm), ks), sr,
+                        stage, smem)
+
+
+def _w4a8_geometry(M, N, K, split_k, direct, group, has_zeros,
+                   sms) -> GemmGeometry:
+    """The W4A8 kernel's layout (make_geometry's W4A8 branch): every dtype
+    on the int8 tensor cores; each block's K rows whole scale groups; a
+    stage is one warp's unit (packed weights, group scales and zero-points,
+    the int8 x tile, Σx_q per group), ``stages`` of them a warp, then the
+    block's row scales."""
+    if group not in W4A8_GROUPS or (K // split_k) % group:
+        raise ValueError(f"the W4A8 kernel takes group 32, 64 or 128 "
+                         f"dividing K / split_k, got group {group}, K={K}, "
+                         f"split_k={split_k}")
+    if direct and split_k > MAX_CLUSTER:
+        raise ValueError(f"a cluster sums at most {MAX_CLUSTER} K slices, "
+                         f"got split_k={split_k}")
+    bm = 8 if M <= 8 else 16 if M <= 16 else 32
+    gx = -(-N // GEMM_BN)
+    tiles = gx * -(-M // bm)
+    cap = MAX_CLUSTER // split_k if direct else MAX_CLUSTER
+    sub = 1
+    while (sub * 2 <= cap and K % (split_k * sub * 2) == 0
+           and (K // (split_k * sub * 2)) % group == 0
+           and tiles * split_k * sub < 2 * sms):
+        sub *= 2
+    ks = split_k * sub
+    sr = W4A8_BK // group
+    stage = (align128(W4A8_BK // 2 * GEMM_BN)
+             + align128(sr * GEMM_BN * 4) * (2 if has_zeros else 1)
+             + align128(bm * _XQ_LD) + align128(bm * sr * 4))
+    ring = GEMM_WARPS * W4A8_STAGES * stage
+    smem = max(ring, GEMM_WARPS * bm * _RED_LD * 4) + align128(2 * bm * 4)
+    if smem > MAX_SMEM:
+        raise ValueError(f"the W4A8 tile needs {smem} B of shared memory "
+                         f"(> {MAX_SMEM})")
+    return GemmGeometry(bm, W4A8_BK, W4A8_STAGES, ks, sub,
                         ks if direct else sub, (gx, -(-M // bm), ks), sr,
                         stage, smem)
 

@@ -227,6 +227,34 @@ def test_w4a8_fused_matches_jax(M, K, N, split_k, symmetric):
         **FP32)
 
 
+@pytest.mark.parametrize("split_k", [4, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_w4a8_fused_splits_and_bf16_match_jax(split_k, dtype, symmetric):
+    """Group 32 over K = 512: split_k 4 is summed inside one cluster on the
+    card, 16 (beyond MAX_CLUSTER) takes the partials route; the output in
+    x's dtype, fp32 or bf16 (one bf16 ulp after the reordered fp32 sum)."""
+    K, N, M = 512, 128, 5
+    w = _rand((K, N), 18, K ** -0.5)
+    j = jq.quantize(jnp.asarray(w), "w4a8_g128", group_size=32,
+                    symmetric=symmetric)
+    t = tq.QuantizedTensor(
+        torch.from_numpy(np.array(j.packed)),
+        torch.from_numpy(np.array(j.scales)),
+        None if j.zeros is None else torch.from_numpy(np.array(j.zeros)),
+        j.group_size, torch.float32, tq.resolve_format(j.format.to_dict()))
+    assert t.group_size == 32
+    x = _rand((M, K), 19)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    want = np.asarray(jax_w4a8_fused(jx, j, split_k=split_k,
+                                     interpret=True).astype(jnp.float32))
+    got = tw4a8.w4a8_fused(torch.from_numpy(x).to(getattr(torch, dtype)), t,
+                           split_k=split_k)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **(FP32 if dtype == "float32" else BF16))
+
+
 def test_w4a8_fused_refusals():
     _, t = _quantized(256, 128, "w4a8_g128")
     x = torch.zeros(2, 256)

@@ -1,12 +1,12 @@
 """The launch geometry of the port's float-contraction GEMM tile loop
-(``csrc/gemm_tile.cuh``), computed in pure Python by
-``kernels/gemm.py:gemm_geometry`` and mirrored field for field by the C
-launcher, which refuses a launch whose sizes differ. The kernels run on
-the card only (``tests/test_torch_gpu.py``, ``chip_smoke.py``); here the
-geometry is held to what the kernel needs: shared memory within the
-card's 227 KB, clusters of at most 8 blocks, and a grid that covers M, N
-and K exactly, at every danube shape and every reduced shape the CPU tests
-use.
+(``csrc/gemm_tile.cuh``) and of the W4A8 kernel (``csrc/w4a8_gemm.cu``),
+computed in pure Python by ``kernels/gemm.py:gemm_geometry`` and mirrored
+field for field by the C launchers, which refuse a launch whose sizes
+differ. The kernels run on the card only (``tests/test_torch_gpu.py``,
+``chip_smoke.py``); here the geometry is held to what the kernel needs:
+shared memory within the card's 227 KB, clusters of at most 8 blocks, and a
+grid that covers M, N and K exactly, at every danube shape and every
+reduced shape the CPU tests use.
 """
 import pytest
 import torch
@@ -23,6 +23,7 @@ SHAPES = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560),
           (1056, 48)]
 M_VALUES = (1, 8, 9, 32, 33, 256)
 DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+FLOAT_KINDS = ("int4", "int8", "dense")
 
 
 def _splits(M, N, K):
@@ -59,7 +60,7 @@ def test_geometry_fits_and_covers(K, N, dtype):
     """Every weight stage, M from 1 to 256, the planner's split_k and 1,
     direct and partials mode, with and without zero-points."""
     group = 32 if K % 128 else 128
-    for kind in tgemm.GEMM_KINDS:
+    for kind in FLOAT_KINDS:
         for M in M_VALUES:
             for split_k in _splits(M, N, K):
                 for direct in ({False, split_k == 1} if dtype ==
@@ -143,4 +144,108 @@ def test_geometry_refuses_what_the_kernels_do_not_take():
     # beyond a cluster the partials route still takes the split
     geo = tgemm.gemm_geometry("int4", 8, 64, 512, 16, bf16, direct=False,
                               group=32)
+    assert geo.ks == 16 and geo.cluster == 1
+
+
+# ---------------------------------------------------------------------------
+# the W4A8 kernel: every dtype on the int8 tensor cores, whole scale groups
+# in every block's K rows and every warp's 128-row unit
+# ---------------------------------------------------------------------------
+
+def _w4a8_cases(K):
+    for group in tgemm.W4A8_GROUPS:
+        if K % group == 0:
+            yield group
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,N", SHAPES)
+def test_w4a8_geometry_fits_and_covers(K, N, dtype):
+    """M from 1 to 256, every group that divides K, the planner's split_k,
+    1 and 16 where they keep groups whole, direct (up to a cluster) and
+    partials, with and without zero-points."""
+    for kind in ("w4a8",):
+        for group in _w4a8_cases(K):
+            for M in M_VALUES:
+                for split_k in sorted(set(_splits(M, N, K)) | {16}):
+                    if K % split_k or (K // split_k) % group:
+                        continue
+                    for direct in {False, split_k <= tgemm.MAX_CLUSTER}:
+                        for zeros in (False, True):
+                            geo = tgemm.gemm_geometry(
+                                kind, M, N, K, split_k, dtype,
+                                direct=direct, group=group, has_zeros=zeros)
+                            gx, gy, gz = geo.grid
+                            assert gx * 64 >= N > (gx - 1) * 64
+                            assert gy * geo.bm >= M > (gy - 1) * geo.bm
+                            assert geo.bm == (8 if M <= 8 else 16 if M <= 16
+                                              else 32)
+                            assert gz == geo.ks == split_k * geo.sub
+                            assert (K // geo.ks) % group == 0
+                            assert geo.cluster == (geo.ks if direct
+                                                   else geo.sub)
+                            assert 1 <= geo.cluster <= tgemm.MAX_CLUSTER
+                            assert (geo.bk, geo.stages) == (128, 2)
+                            assert geo.scale_rows == 128 // group
+                            assert geo.smem <= MAX_SMEM
+                            assert geo.smem >= 4 * geo.stages \
+                                * geo.stage_bytes + 2 * geo.bm * 4
+                            assert geo.smem >= 4 * geo.bm * 68 * 4
+
+
+def test_w4a8_geometry_at_danube_decode():
+    """Decode (M = 8) at danube width, group 128. wq (K 2560 = 20 groups,
+    split_k 4) cannot be cut further with whole groups: 40 x 4 blocks in
+    clusters of 4. w_down (K 6912 = 54 groups, split_k 2) neither: 27
+    groups, 27 units a block. A unit holds 4 KB of packed weights, one
+    scale row, an 8 x 144 int8 x tile and 8 group sums; eight units a
+    block, then the row scales."""
+    bf16 = torch.bfloat16
+    wq = tgemm.gemm_geometry("w4a8", 8, 2560, 2560, 4, bf16, direct=True,
+                             group=128)
+    assert (wq.bm, wq.bk, wq.stages, wq.ks, wq.sub, wq.cluster) == \
+        (8, 128, 2, 4, 1, 4)
+    assert wq.grid == (40, 1, 4) and wq.scale_rows == 1
+    stage = 4096 + 256 + 1152 + 128
+    assert wq.stage_bytes == stage and wq.smem == 8 * stage + 128
+    down = tgemm.gemm_geometry("w4a8", 8, 2560, 6912, 2, bf16, direct=True,
+                               group=128)
+    assert down.grid == (40, 1, 2) and down.cluster == 2
+    # group 32: K blocks cut while whole groups and the card allow it
+    g32 = tgemm.gemm_geometry("w4a8", 8, 640, 2560, 1, bf16, direct=True,
+                              group=32)
+    assert (g32.ks, g32.cluster, g32.scale_rows) == (8, 8, 4)
+    # fp32 activations run the same tensor-core kernel: a 32-token chunk,
+    # the same layout as bf16
+    f32 = tgemm.gemm_geometry("w4a8", 32, 2560, 2560, 4, torch.float32,
+                              direct=True, group=128, has_zeros=True)
+    assert (f32.bm, f32.cluster) == (32, 4)
+    assert f32.stage_bytes == 4096 + 2 * 256 + 32 * 144 + 128
+
+
+@pytest.mark.parametrize("args,kw,match", [
+    (("w4a8", 8, 64, 256, 1, torch.bfloat16), {"group": 48}, "group 32"),
+    (("w4a8", 8, 64, 384, 1, torch.bfloat16), {"group": 96}, "group 32"),
+    (("w4a8", 8, 64, 256, 4, torch.bfloat16), {"group": 128}, "dividing"),
+    (("w4a8", 8, 40, 256, 1, torch.bfloat16), {}, "N % 16"),
+    (("w4a8", 0, 64, 256, 1, torch.bfloat16), {}, "M >= 1"),
+    (("w4a8", 8, 64, 512, 16, torch.bfloat16), {"group": 32,
+                                                "direct": True},
+     "at most 8"),
+    (("w4a8", 8, 64, 512, 16, torch.float32), {"group": 32,
+                                                "direct": True},
+     "at most 8"),
+])
+def test_w4a8_geometry_refuses_what_the_kernel_does_not_take(args, kw,
+                                                             match):
+    kw = {"direct": False, "group": 128, **kw}
+    with pytest.raises(ValueError, match=match):
+        tgemm.gemm_geometry(*args, **kw)
+
+
+def test_w4a8_partials_beyond_a_cluster():
+    """Beyond MAX_CLUSTER slices the partials route takes the split: one
+    cluster per plan slice (sub blocks), here none."""
+    geo = tgemm.gemm_geometry("w4a8", 8, 64, 512, 16, torch.bfloat16,
+                              direct=False, group=32)
     assert geo.ks == 16 and geo.cluster == 1

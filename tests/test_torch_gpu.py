@@ -146,14 +146,17 @@ def test_dense_gemm_kernel_matches_plain(cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decoupled_kernels_match_plain(cuda_device, dtype):
     """Phase 1 and phase 3 repeat their plain versions' fp32 operations in
-    the same order, so they agree exactly; the pipeline within the GEMM's
-    tolerance."""
+    the same order, so they agree exactly (phase 1 also with groups of 4 K
+    rows, two in a thread's 8, and phase 3 at 16 slices); the
+    pipeline within the GEMM's tolerance."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(3)
-    for M, N, split_k, symmetric in ((8, 640, 4, True), (32, 144, 2, False),
-                                     (3, 640, 1, False)):
+    for M, N, split_k, symmetric, group in ((8, 640, 4, True, 128),
+                                            (32, 144, 2, False, 128),
+                                            (3, 640, 1, False, 4),
+                                            (5, 144, 16, True, 32)):
         x, w = _operands(rng, cuda_device, M, 1024, N, dtype)
-        qt = tq.quantize(w, symmetric=symmetric)
+        qt = tq.quantize(w, symmetric=symmetric, group_size=group)
         ws = tdec.dequant_w4(qt, out_dtype=dtype)
         assert torch.equal(ws, tdec.dequant_w4_plain(qt, out_dtype=dtype))
         parts = tdec.splitk_gemm_plain(x, ws, split_k=split_k)
@@ -182,24 +185,71 @@ def test_w8a16_kernel_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
 
 
+def _w4a8_edge_rows(x):
+    """Rows 0-2 of x (M >= 3) set to the quantizer's edges: an all-zero row
+    (s = 1e-8), a row holding +amax and -amax, and a row whose amax is
+    127/16 (s = 1/16 exactly) and whose other values are exact .5 ties of
+    x / s, which round half to even."""
+    K = x.shape[1]
+    x[0] = 0
+    x[1, 0], x[1, 1] = x[1].abs().max(), -x[1].abs().max()
+    ties = (2 * (torch.arange(K, device=x.device) % 254 - 127) + 1) / 32.0
+    x[2] = ties.to(x.dtype)
+    x[2, 0] = 127 / 16
+    return x
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_w4a8_kernel_matches_plain(cuda_device, dtype):
     """Exact int32 group sums on both sides: only the fp32 sum over groups
-    is reordered. Group 64 takes the 32-row tile."""
+    is reordered. M = 1 to 256, N = 144 (a ragged column tile), groups 32,
+    64 and 128, zero-points, split_k 1, 4 (one cluster) and 16 (partials),
+    the quantizer's edge rows; the quantize kernel's x_q and row scales
+    bit-equal to quantize_activations_int8 on the CPU, its Σx_q per group
+    the sums of those x_q."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(5)
     for M, N, split_k, symmetric, group in ((1, 640, 1, True, 128),
                                             (8, 144, 4, False, 128),
                                             (40, 640, 2, True, 64),
-                                            (32, 144, 1, False, 32)):
-        x, w = _operands(rng, cuda_device, M, 1024, N, dtype)
+                                            (32, 144, 1, False, 32),
+                                            (256, 144, 4, True, 64),
+                                            (8, 144, 16, False, 32),
+                                            (40, 144, 16, True, 32)):
+        K = 1024 if split_k < 16 else 512
+        x, w = _operands(rng, cuda_device, M, K, N, dtype)
+        if M >= 3:
+            x = _w4a8_edge_rows(x)
         qt = tq.quantize(w, "w4a8_g128", group_size=group,
                          symmetric=symmetric)
-        torch.testing.assert_close(
-            tw4a8.w4a8_fused(x, qt, split_k=split_k).float(),
-            tw4a8.w4a8_fused_plain(x, qt, split_k=split_k).float(),
-            **_tol(dtype))
+        got = tw4a8.w4a8_fused(x, qt, split_k=split_k)
+        want = tw4a8.w4a8_fused_plain(x, qt, split_k=split_k)
+        assert got.dtype == dtype and got.shape == (M, N)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+        xq, xs, tok = tw4a8.w4a8_quantize(x, group)
+        wq, ws = tq.quantize_activations_int8(x.cpu())
+        assert torch.equal(xq.cpu(), wq) and torch.equal(xs.cpu(), ws)
+        assert torch.equal(tok.cpu(), wq.reshape(M, K // group, group)
+                           .sum(dim=2, dtype=torch.int32))
     torch.cuda.synchronize()
+
+
+def test_w4a8_kernel_is_two_device_ops(cuda_device):
+    """Two device ops a call within a cluster's slices (the quantize kernel
+    and the GEMM, which sums, scales and casts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(7)
+    x, w = _operands(rng, cuda_device, 8, 1024, 640, torch.bfloat16)
+    qt = tq.quantize(w, "w4a8_g128")
+    tw4a8.w4a8_fused(x, qt, split_k=4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tw4a8.w4a8_fused(x, qt, split_k=4)
+        torch.cuda.synchronize()
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU)
+    assert ops == 2
 
 
 @pytest.mark.parametrize("fmt_name", ["kv_fp16", "kv8_channel"])
