@@ -18,7 +18,11 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              32-token chunk, both KV formats, partitions of 544, 272 and
              136 keys, -1 table entries at the tail and inside a live
              partition, a window that masks whole partitions, bf16 and
-             fp16), and the rest of the paper's GEMM family in bf16 and
+             fp16; and the speculative verify step's B = 8 rows of 5
+             queries with padded rows, an inactive row and stale
+             rejected-draft tags, only live queries held; the W4A16 GEMM
+             also at its M = 40), and the rest of the paper's GEMM family
+             in bf16 and
              fp32 at the four danube (K, N) pairs, M = 8 and 32, the
              planner's split_k and 1: the dense GEMM in both modes, the
              decoupled W4A16 pipeline whole and phase by phase, W8A16,
@@ -88,6 +92,22 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              history of checkpoints only; (c) one step of (b)'s shape
              under ``torch.profiler``: device time by kernel group, idle
              share.
+8. features — the serving features at full width and depth (W4A16,
+             kv_fp16, 8 slots, 8 prompts of 512 tokens sharing a 384-token
+             prefix, 16 generated each): (a) ngram speculation at k = 4
+             (both kernels' counters must rise), exact acceptance (every
+             emitted token the verify step's own argmax), its verify
+             logits within LOGIT_TOL of a plain decode teacher-forced onto
+             its streams, a draft proposer holding the target's weights
+             (acceptance >= 90 %), and one verify step against one decode
+             step (``torch.profiler``); (b) prefix sharing against an
+             unshared run, for the 384-token prefix and a 392-token one
+             off the 32-token chunk grid (pages and prefill steps saved
+             equal to the CPU count of the same schedule, first-token
+             logits within LOGIT_TOL), and a warm readmit with zero
+             prefill chunks; (c) the HTTP front door on 127.0.0.1: SSE clients
+             against ``engine.run``, one hanging up mid-stream, one 429,
+             ``GET /metrics`` against the report.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -120,6 +140,9 @@ GEMM_F32_TOL = "|d| <= 1e-5*|plain| + 1e-4"
 ATTN_TOL = "|d| <= 2^-7*|plain| + 2e-3; m within 1e-4*(1+|m|), l within " \
     "1e-3*l where the partition has a live key, the same partitions masked"
 LOGIT_TOL = 0.25
+# the speculative verify step of phase 8: k = 4 drafts, 8 slots x 5 rows
+SPEC_K = 4
+VERIFY_M = 8 * (SPEC_K + 1)
 # the GEMM family's full-width serving runs (phase 4)
 FAMILY_GEN = 16
 FAMILY_ARGV = ["--arch", ARCH, "--batch", "8", "--requests", "8",
@@ -222,15 +245,21 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
     tags for every token a slot holds. Decode: B=8 slots at ragged
     positions around 700 (the 544-token window has wrapped), queries at
     the last position, ``start = pos + 1``. Chunk: B=1, C=32 queries at
-    positions 481..512 over a pool holding 0..480. ``hole``: slot 0's
-    table entry 5 becomes -1 inside its live pages (the null block's
-    tokens are masked). ``dtype``: the compute dtype (bf16 by default)."""
+    positions 481..512 over a pool holding 0..480. Verify (the speculative
+    step at k = 4): B=8 rows of C=5 queries from each slot's frontier,
+    ``start`` the first of them; slot b keeps 1 + b % 5 live queries and
+    pads the rest with -1, the last slot is inactive (positions and table
+    all -1), and every slot's pool holds stale tags of three rejected
+    drafts at and above ``start`` (masked by ``kpos < start``). ``hole``:
+    slot 0's table entry 5 becomes -1 inside its live pages (the null
+    block's tokens are masked). ``dtype``: the compute dtype (bf16 by
+    default). ``rows`` marks the live queries."""
     dtype = torch.bfloat16 if dtype is None else dtype
     from repro_torch.core.quant import get_kv_format
     from repro_torch.kernels import planning
     from repro_torch.runtime import kvcache as kvc
-    B, C = (8, 1) if kind == "decode" else (1, 32)
-    ctx_pos = 700 if kind == "decode" else 480
+    B, C = {"decode": (8, 1), "chunk": (1, 32), "verify": (8, 5)}[kind]
+    ctx_pos = 480 if kind == "chunk" else 700
     cache_len = PAGES * PAGE
     fmt = get_kv_format(fmt_name)
     pool = kvc.init_pool(1 + 8 * PAGES, PAGE, HKV, D, dtype, fmt_name,
@@ -254,7 +283,8 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
         if null_slot and b == B - 1:       # 10 live pages, the rest -1
             hi, lo = 10 * PAGE - 1, 0
             tables[b, 10:] = -1
-        p = torch.arange(lo, hi + 1, device=dev)
+        stale = 3 if kind == "verify" else 0     # rejected drafts
+        p = torch.arange(lo, hi + 1 + stale, device=dev)
         off = p % cache_len
         bid = tables[b, off // PAGE].long()
         flat_pos[bid * PAGE + off % PAGE] = p.to(torch.int32)
@@ -267,6 +297,11 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
     else:
         positions = (last[:, None] + 1 + torch.arange(
             C, device=dev, dtype=torch.int32)).contiguous()
+        if kind == "verify":
+            for b in range(B):
+                positions[b, 1 + b % C:] = -1
+            positions[B - 1] = -1
+            tables[B - 1] = -1
         start = positions[:, 0].contiguous()
     q = torch.randn(B, C, HKV * G, D, generator=gen, device=dev)
     qg = (q.reshape(B, C, HKV, G, D) * D ** -0.5).to(dtype)
@@ -277,7 +312,16 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
         B, HKV, PAGES, q_tiles=C // Tq, cores=planning.num_cores("cuda"))
     return dict(qk=qk, q=q.to(dtype), positions=positions,
                 start=start, pool=pool, tables=tables, fmt=fmt, Tq=Tq,
-                planned=planned, B=B, C=C)
+                planned=planned, B=B, C=C, rows=positions >= 0)
+
+
+def partial_rows(c):
+    """The live-query mask of a case laid out as the kernel's partials
+    (B, 1, QT, 1, QG): padded queries are garbage the caller discards, on
+    both sides."""
+    B, C, Tq = c["B"], c["C"], c["Tq"]
+    return c["rows"].reshape(B, C // Tq, Tq, 1).expand(B, C // Tq, Tq, G) \
+        .reshape(B, 1, C // Tq, 1, Tq * G)
 
 
 def combine(torch, acc, m, l):
@@ -303,14 +347,15 @@ def check_gemm(torch, dev, gen):
     to bf16 and accumulate exact bf16 products in fp32; they differ only
     in fp32 summation order, after which the bf16 output can round either
     way: tolerance one bf16 ulp, |d| <= 2^-7·|plain| + 1e-3. The danube
-    shapes at M = 1, 8, 32 and 256 with the planner's split_k and 1, then
-    the ragged K cases."""
+    shapes at M = 1, 8, 32, 40 (the speculative verify step: 8 slots x 5
+    positions) and 256 with the planner's split_k and 1, then the ragged K
+    cases."""
     from repro_torch.core.quant import quantize
     from repro_torch.kernels.w4a16_fused import (w4a16_fused,
                                                  w4a16_fused_plain)
     cases = []
     for K, N in DANUBE_GEMMS:
-        for M in (1, 8, 32, 256):
+        for M in (1, 8, 32, VERIFY_M, 256):
             x, qt = gemm_case(torch, K, N, M, gen, dev)
             cases.append((M, K, N, x, qt,
                           sorted({planned_split(x, qt), 1})))
@@ -375,8 +420,10 @@ ATTN_EDGES = [("hole", kind, fmt, "bf16", True)
 
 
 def check_attention(torch, dev, gen):
-    """Paged-attention kernel vs its plain version: decode (B=8) and chunk
-    (B=1, C=32), both KV formats, the model's 4096 window and a 100-token
+    """Paged-attention kernel vs its plain version: decode (B=8), chunk
+    (B=1, C=32) and the speculative verify step (B=8, C=5: padded queries,
+    an inactive row, stale rejected-draft tags; only live queries are
+    held), both KV formats, the model's 4096 window and a 100-token
     window that masks (whole partitions of it at kv_partitions 4),
     kv_partitions 1 (68 pages, 544 keys a partition), 4 (17 pages, 136
     keys: neither a multiple of the kernel's key stage) and the planner's
@@ -398,7 +445,7 @@ def check_attention(torch, dev, gen):
     worst = 0.0
     variants = [("", kind, fmt, "bf16", False)
                 for fmt in ("kv_fp16", "kv8_channel")
-                for kind in ("decode", "chunk")] + ATTN_EDGES
+                for kind in ("decode", "chunk", "verify")] + ATTN_EDGES
     dtypes = {"bf16": torch.bfloat16, "fp16": torch.float16}
     for label, kind, fmt_name, dt, hole in variants:
         c = attn_case(torch, gen, dev, fmt_name=fmt_name, kind=kind,
@@ -413,12 +460,15 @@ def check_attention(torch, dev, gen):
                         c["tables"])
                 got = pa._launch_partials(*args, **kw)
                 want = pa.pooled_partials_plain(*args, **kw)
+                rows = partial_rows(c)
                 out_p = combine(torch, *want)
-                d = (combine(torch, *got) - out_p).abs()
+                d = torch.where(rows[:, :, :, 0, :, None],
+                                (combine(torch, *got) - out_p).abs(), 0.0)
                 err = float(d.max())
                 worst = max(worst, err)
                 (_, m_k, l_k), (_, m_p, l_p) = got, want
-                live = m_p > -1e29
+                live = (m_p > -1e29) & rows
+                m_k = torch.where(rows, m_k, torch.full_like(m_k, -1e30))
                 dm = ((m_k - m_p).abs() / (1 + m_p.abs()))[live]
                 dl = ((l_k - l_p).abs() / l_p)[live]
                 dm_max = float(dm.max()) if dm.numel() else 0.0
@@ -954,7 +1004,7 @@ def time_gemms(torch, dev, gen, timer, card):
     rows["floor_ms"] = timer(sink.zero_)
     log("timing", f"the timer's floor, one 4-byte fill kernel: "
         f"{rows['floor_ms']:.4f} ms [{card}]")
-    for M in (8, 32):
+    for M in (8, 32, VERIFY_M):
         for K, N in DANUBE_GEMMS:
             x, qt = gemm_case(torch, K, N, M, gen, dev)
             s = planned_split(x, qt)
@@ -974,6 +1024,13 @@ def time_gemms(torch, dev, gen, timer, card):
                 f"{r['bound_ms'] / r['ms']:.1%} of roofline), plain "
                 f"{r['plain_ms']:.4f} ms, dequant+matmul "
                 f"{r['library_ms']:.4f} ms [{card}]")
+    for M in (8, 32, VERIFY_M):
+        def total(key):
+            return sum(rows[(M, K, N)][key] for K, N in LAYER_GEMMS)
+        log("timing", f"w4a16_gemm, one layer's 7 GEMMs at M={M}: kernel "
+            f"{total('ms'):.4f} ms, bound {total('bound_ms'):.4f} ms, plain "
+            f"{total('plain_ms'):.4f} ms, dequant+matmul "
+            f"{total('library_ms'):.4f} ms [{card}]")
     return rows
 
 
@@ -1117,7 +1174,7 @@ def time_attention(torch, dev, gen, timer, card):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.runtime import kvcache as kvc
     rows = {}
-    for kind in ("decode", "chunk"):
+    for kind in ("decode", "chunk", "verify"):
         c = attn_case(torch, gen, dev, fmt_name="kv_fp16", kind=kind)
         kw = dict(Tq=c["Tq"], G=G, S=c["planned"], window=4096, fmt=c["fmt"])
         args = (c["qk"], c["positions"], c["start"], c["pool"], c["tables"])
@@ -1564,6 +1621,581 @@ def trace_train(torch, dev, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serve features (speculation, prefix sharing, the front door)
+# ---------------------------------------------------------------------------
+
+FEAT_GEN = 16
+FEAT_KW = dict(max_batch=8, max_prompt_len=512, max_new_tokens=FEAT_GEN,
+               page_size=8, prefill_chunk=32, kv_format="kv_fp16")
+
+
+def feature_prompts(shared=384):
+    """8 prompts of 512 tokens: a ``shared``-token prefix they all share
+    (one 64-token sequence repeated) and a tail of each one's own (a
+    64-token sequence repeated). The repeats give the ngram proposer its
+    matches, the prefix gives sharing its pages. 384 lies on the 32-token
+    chunk grid; 392 does not, so a slot adopting the prefix starts its
+    first chunk mid-grid."""
+    import numpy as np
+    rng = np.random.default_rng(8)
+    prefix = np.resize(rng.integers(0, 32000, 64), shared)
+    return [np.concatenate([prefix, np.resize(rng.integers(0, 32000, 64),
+                                              512 - shared)])
+            .astype(np.int32) for _ in range(8)]
+
+
+def feature_requests(prompts, gen=FEAT_GEN):
+    from repro_torch.runtime.engine import Request
+    return [Request(rid=i, prompt=p, max_new_tokens=gen)
+            for i, p in enumerate(prompts)]
+
+
+def capture_verify(engine, table):
+    """Record each verify step the engine runs: the active rows' rids, the
+    step's tokens, positions, argmax and logits. Returns ``(records,
+    quiet)``: ``quiet`` lists the verify steps during which the W4A16 or
+    the paged-attention launch count did not rise (the verify step itself,
+    not the prefill chunks around it, must run both kernels)."""
+    records, quiet = [], []
+    make = engine._verify_step
+
+    def verify_step(live_pages=None):
+        fn = make(live_pages)
+
+        def call(params, state, inputs):
+            before = read_counts(table)
+            out = fn(params, state, inputs)
+            after = read_counts(table)
+            idle = [k for k in ("w4a16_gemm", "paged_attention")
+                    if after[k] == before[k]]
+            if idle:
+                quiet.append((len(records), idle))
+            rids = [s.req.rid if s is not None and s.phase == "active"
+                    else None for s in engine._slots]
+            records.append((rids, inputs["tokens"].cpu(),
+                            inputs["positions"].cpu(), out["next"].cpu(),
+                            out["logits"]))
+            return out
+        return call
+
+    engine._verify_step = verify_step
+    return records, quiet
+
+
+def check_verify_path(engine, records, quiet, what):
+    """The verify steps ran the fused attention kernel and the W4A16 GEMM,
+    every one of them."""
+    log("features", f"{what}: verify attention {engine.verify_attn_path}; "
+        f"{len(records) - len(quiet)}/{len(records)} verify steps launched "
+        f"both w4a16_gemm and paged_attention "
+        f"{'FAIL' if quiet or engine.verify_attn_path != 'fused' else 'ok'}")
+    if engine.verify_attn_path != "fused":
+        raise AssertionError(f"{what}: verify attention planned "
+                             f"{engine.verify_attn_path!r}, not 'fused'")
+    if quiet or not records:
+        raise AssertionError(f"{what}: verify steps that launched no "
+                             f"kernel of the path: {quiet[:8]}")
+
+
+def capture_draft(engine):
+    """Keep the draft proposer's logits by (rid, input position), the
+    newest round's winning: the draft's token for position q + 1 is the
+    argmax of its row at q."""
+    kept = {}
+    fn = engine.proposer._step_fn
+
+    def step(params, inputs):
+        res = fn(params, inputs)
+        pos = inputs["pos"].cpu()
+        for i, s in enumerate(engine._slots):
+            if s is not None and s.phase == "active":
+                kept[(s.req.rid, int(pos[i]))] = res["logits"][i].float()
+        return res
+
+    engine.proposer._step_fn = step
+    return kept
+
+
+def explain_rejects(records, draft_logits, what):
+    """At every rejected draft, how far apart the two choices were: the
+    verify step's margin of its own argmax over the draft's token, the
+    draft's margin of its token over the verify step's choice, and the
+    largest difference between the two logit rows. A reject with both
+    margins within LOGIT_TOL is a near-tie that bf16 rounding on either
+    path can flip."""
+    rows = []
+    for rids, tok, pos, nxt, logits in records:
+        for i, rid in enumerate(rids):
+            if rid is None:
+                continue
+            n = int((pos[i] >= 0).sum()) - 1
+            a = 0
+            while a < n and int(tok[i, a + 1]) == int(nxt[i, a]):
+                a += 1
+            if a == n:
+                continue
+            q, d, v = int(pos[i, a]), int(tok[i, a + 1]), int(nxt[i, a])
+            vl = logits[i, a].float()
+            dl = draft_logits[(rid, q)]
+            rows.append((rid, q, float(vl[v] - vl[d]), float(dl[d] - dl[v]),
+                         float((dl - vl).abs().max())))
+    for rid, q, vm, dm, gap in rows[:16]:
+        log("features", f"{what} reject at rid {rid} position {q}: verify "
+            f"margin {vm:.4f}, draft margin {dm:.4f}, draft vs verify row "
+            f"max|d| {gap:.4f}")
+    ties = sum(vm <= LOGIT_TOL and dm <= LOGIT_TOL for _, _, vm, dm, _ in rows)
+    log("features", f"{what}: {len(rows)} rejects, {ties} of them near-ties "
+        f"(both margins <= {LOGIT_TOL}); largest verify margin "
+        f"{max((r[2] for r in rows), default=0.0):.4f}, largest draft "
+        f"margin {max((r[3] for r in rows), default=0.0):.4f}")
+
+
+def check_acceptance(records, results, pos0, what):
+    """Exact greedy acceptance: every token a request emitted after its
+    first (which prefill gives) is the verify step's own argmax at the
+    position before it, reached through drafts that each equal the argmax
+    before them. Returns {(rid, position): logits} of every cell whose
+    inputs were committed tokens (the accepted drafts and the bonus)."""
+    argmax, cells = {}, {}
+    for rids, tok, pos, nxt, logits in records:
+        for i, rid in enumerate(rids):
+            if rid is None:
+                continue
+            n = int((pos[i] >= 0).sum()) - 1          # drafts scored
+            a = 0
+            while a < n and int(tok[i, a + 1]) == int(nxt[i, a]):
+                a += 1
+            for c in range(a + 1):
+                q = int(pos[i, c])
+                argmax[(rid, q + 1 - pos0)] = int(nxt[i, c])
+                cells[(rid, q)] = logits[i, c]
+    bad = [(rid, j) for rid, out in results.items()
+           for j in range(1, len(out)) if argmax.get((rid, j)) != out[j]]
+    extra = len(argmax) - sum(len(out) - 1 for out in results.values())
+    log("features", f"{what}: exact acceptance over {len(records)} verify "
+        f"steps: {len(argmax)} emitted tokens each the verify step's argmax "
+        f"at its position, {len(bad)} not, {extra} unaccounted "
+        f"{'ok' if not bad and not extra else 'FAIL'}")
+    if bad or extra:
+        raise AssertionError(f"{what}: tokens that are not the verify "
+                             f"step's argmax: {bad[:8]}")
+    return cells
+
+
+def force_streams(torch, engine, streams):
+    """Teacher-force a plain engine onto ``streams`` (rid → tokens): its
+    first tokens and each decode step's choices are replaced by the
+    streams', and each step's logits kept by (rid, input position)."""
+    kept = {}
+    flush = engine._flush_first_tokens
+
+    def flush_forced(pending):
+        flush(pending)
+        for slot, _ in pending:
+            slot.tokens[0] = int(streams[slot.req.rid][0])
+
+    make = engine._serve_step
+
+    def serve_step(live_pages=None):
+        fn = make(live_pages)
+
+        def call(params, inputs):
+            out = fn(params, inputs)
+            forced = out["next"].cpu()
+            pos = inputs["pos"].cpu()
+            for i, s in enumerate(engine._slots):
+                if s is not None and s.phase == "active":
+                    kept[(s.req.rid, int(pos[i]))] = out["logits"][i]
+                    forced[i] = int(streams[s.req.rid][len(s.tokens)])
+            out["next"] = forced.to(out["next"].device)
+            return out
+        return call
+
+    engine._flush_first_tokens = flush_forced
+    engine._serve_step = serve_step
+    return kept
+
+
+def logit_gap(cells, kept):
+    """max |d| between verify-cell logits and the replayed decode's."""
+    return max(float((cells[key].float() - kept[key].float()).abs().max())
+               for key in cells)
+
+
+def check_sharing(torch, shared, unshared, prompts, what):
+    """Shared against unshared runs of the same requests: pages and
+    prefill steps saved equal to the CPU count of the same schedule,
+    first-token logits within LOGIT_TOL."""
+    d = max(float((shared.prefill_logits[r] - unshared.prefill_logits[r])
+                  .abs().max()) for r in shared.results)
+    saved = (unshared.peak_pages - shared.peak_pages,
+             shared.prefill_steps_saved)
+    cpu = cpu_page_counts(torch, prompts)
+    want = (cpu[False][0] - cpu[True][0], cpu[True][1])
+    ok = d <= LOGIT_TOL and saved == want and saved[0] > 0
+    log("features", f"prefix sharing, {what}: pages saved {saved[0]} (peak "
+        f"{shared.peak_pages} vs {unshared.peak_pages}), prefill steps "
+        f"saved {saved[1]}; the CPU count of the same schedule {want}; "
+        f"first-token logits shared vs unshared max|d|={d:.3e} "
+        f"(tolerance {LOGIT_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"prefix sharing disagrees ({what})")
+
+
+def cpu_page_counts(torch, prompts):
+    """The phase's sharing schedule on the CPU at a tiny width (danube's
+    window and serving settings, 1 layer, d_model 64): page bookkeeping
+    depends on positions and prompt content, not on width or generated
+    tokens. Returns {share_prefix: (peak pages, prefill steps saved)}."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import ServingEngine
+    cfg = dataclasses.replace(configs.get_config(ARCH), num_layers=1,
+                              d_model=64, num_heads=4, num_kv_heads=2,
+                              head_dim=16, d_ff=128, dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = T.quantize_params(T.init_params(gen, cfg, device="cpu"), cfg,
+                               min_size=0)
+    out = {}
+    for share in (True, False):
+        rep = ServingEngine(cfg, params, share_prefix=share, device="cpu",
+                            **FEAT_KW).run(feature_requests(prompts))
+        out[share] = (rep.peak_pages, rep.prefill_steps_saved)
+    return out
+
+
+def step_times(torch, spec_engine, plain_engine, card):
+    """One verify step (8 slots x 5 positions, the GEMMs at M = 40)
+    against one decode step (8 x 1, M = 8) at position 512, every slot's
+    66 pages mapped on a fresh pool: the device busy time and device ops
+    a step from ``torch.profiler`` (phase 6's method), and the median
+    time between CUDA events around a step after the card slept ~1.5 s
+    while the host queued 5 steps. A step is ~2400–3300 launches, more
+    than the host can queue ahead of a sleeping card, so where the event
+    time exceeds the busy time the card waited on the host's launches:
+    that number is the step's launch-bound time, not device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import steps as rsteps
+    dev = spec_engine.device
+    B, C = 8, SPEC_K + 1
+    state = spec_engine._init_state()
+    tables = (1 + torch.arange(B * spec_engine.pages_slot, device=dev,
+                               dtype=torch.int32)
+              ).reshape(B, spec_engine.pages_slot)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    tok = torch.randint(0, 32000, (B, C), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pos = 512 + torch.arange(C, device=dev, dtype=torch.int32).expand(B, C)
+    # the engines' own step functions, built afresh (the runs wrapped
+    # theirs with host-side recording)
+    verify = rsteps.make_verify_step(
+        spec_engine.cfg, spec_engine.cache_len, kv_format="kv_fp16",
+        attn_path=spec_engine.verify_attn_path,
+        kv_partitions=spec_engine.verify_kv_partitions)
+    decode = rsteps.make_serve_step(
+        plain_engine.cfg, cache_len=plain_engine.cache_len,
+        kv_format="kv_fp16", attn_path=plain_engine.attn_path,
+        kv_partitions=plain_engine.kv_partitions)
+    vin = {"tokens": tok, "positions": pos.contiguous(), "tables": tables}
+    din = {"state": state, "tokens": tok[:, 0].contiguous(),
+           "pos": pos[:, 0].contiguous(), "tables": tables}
+    steps = {"verify": lambda: verify(spec_engine.params, state, vin),
+             "decode": lambda: decode(plain_engine.params, din)}
+    rows = {}
+    with torch.no_grad():
+        for name, fn in steps.items():
+            for _ in range(2):
+                fn()
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(5)]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(3_000_000_000)
+            for s, e in ev:
+                s.record()
+                fn()
+                e.record()
+            torch.cuda.synchronize()
+            ms = sorted(s.elapsed_time(e) for s, e in ev)[2]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            devs = [e for e in prof.key_averages()
+                    if e.device_type != DeviceType.CPU]
+            busy = sum(e.self_device_time_total for e in devs) / 1e3 / 3
+            ops = sum(e.count for e in devs) / 3
+            rows[name] = (ms, busy, ops)
+            log("features", f"{name} step ({B} slots x "
+                f"{C if name == 'verify' else 1} positions at 512): device "
+                f"busy {busy:.3f} ms, {ops:.0f} device ops; "
+                f"{ms:.3f} ms between CUDA events"
+                f"{' (launch-bound)' if ms > 1.2 * busy else ''} [{card}]")
+    (vm, vb, vo), (dm, db, do) = rows["verify"], rows["decode"]
+    log("features", f"verify / decode step: {vb / db:.2f}x the busy time, "
+        f"{vo / do:.2f}x the ops, {vm / dm:.2f}x the event time; busy per "
+        f"position scored {vb / (B * C):.3f} vs {db / B:.3f} ms [{card}]")
+    return rows
+
+
+async def _post_sse(port, prompt, gen, *, hang_up=False):
+    """One client: POST a prompt, read the SSE stream (or hang up after
+    the first token event); returns (status, payload)."""
+    import asyncio
+    body = json.dumps({"prompt": [int(t) for t in prompt],
+                       "max_new_tokens": gen}).encode()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write((f"POST /v1/generate HTTP/1.1\r\nHost: smoke\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+    await writer.drain()
+    if hang_up:
+        head = await reader.readuntil(b"\r\n\r\n")
+        first = await reader.readuntil(b"\r\n\r\n")
+        writer.close()
+        await writer.wait_closed()
+        return int(head.split(b" ", 2)[1]), head + first
+    payload = await reader.read()
+    writer.close()
+    return int(payload.split(b" ", 2)[1]), payload
+
+
+def front_door(torch, dev, cfg, params, card):
+    """(c): the HTTP front door on 127.0.0.1 over a full-width engine: 5
+    SSE clients queued before the driver starts (the 4 that stay must
+    stream ``engine.run``'s tokens, compared by prefill logits where they
+    do not), one hanging up after its first token, a sixth refused with
+    429 (queue depth 5), and ``GET /metrics`` against the report."""
+    import asyncio
+    import numpy as np
+    from repro_torch.runtime.engine import Request, ServingEngine
+    from repro_torch.runtime.frontdoor import (FrontDoor, QueueSettings,
+                                               sse_decode_tokens)
+    gen_len, plen = 8, 64
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 32000, plen).astype(np.int32)
+               for _ in range(5)]
+    engine = ServingEngine(cfg, params, max_batch=8, max_prompt_len=plen,
+                           max_new_tokens=gen_len, page_size=8,
+                           prefill_chunk=32, admission="priority",
+                           device=dev)
+    ref = engine.run([Request(rid=i, prompt=p, max_new_tokens=gen_len)
+                      for i, p in enumerate(prompts)])
+    ref_logits = dict(ref.prefill_logits)
+    fd = FrontDoor(engine, settings=QueueSettings(queue_depth=5))
+
+    async def main():
+        await fd.serve(start_driver=False)
+        tasks = [asyncio.create_task(_post_sse(fd.port, p, gen_len,
+                                               hang_up=i == 4))
+                 for i, p in enumerate(prompts)]
+        while len(fd.queue) < 5:
+            await asyncio.sleep(0.01)
+        refused = await _post_sse(fd.port, prompts[0], gen_len)
+        fd.start_driver()
+        outs = await asyncio.gather(*tasks)
+        while fd._streams or engine.has_work():
+            await asyncio.sleep(0.02)
+        metrics = await _post_metrics(fd.port)
+        return outs, refused, metrics, await fd.shutdown()
+
+    outs, refused, metrics, report = asyncio.run(
+        asyncio.wait_for(main(), 300))
+    streams = [sse_decode_tokens(p) for _, p in outs[:4]]
+    same = [s == ref.results[i] for i, s in enumerate(streams)]
+    log("features", f"front door: {sum(same)}/4 streams equal engine.run's "
+        f"tokens; statuses {[s for s, _ in outs]} and {refused[0]} for the "
+        f"sixth client; the client that hung up got "
+        f"{[len(t) for t in report.cancelled.values()]} tokens")
+    if [s for s, _ in outs] != [200] * 5 or refused[0] != 429:
+        raise AssertionError(f"front door statuses {outs!r} {refused[0]}")
+    for i, ok in enumerate(same):
+        if ok:
+            continue
+        # admission order differs from run's: compare by logits instead
+        rid = next(r for r, t in report.results.items()
+                   if t == streams[i])
+        d = float((report.prefill_logits[rid] - ref_logits[i]).abs().max())
+        log("features", f"front door stream {i} differs from run's tokens; "
+            f"prefill logits max|d|={d:.3e} (tolerance {LOGIT_TOL})")
+        if d > LOGIT_TOL:
+            raise AssertionError(f"front door stream {i} disagrees")
+    values = {line.split()[0]: float(line.split()[1])
+              for line in metrics.splitlines()
+              if line and not line.startswith("#") and "{" not in line}
+    want = {"engine_admitted_total": report.admitted,
+            "frontdoor_rejected_429_total": report.rejected_429,
+            "engine_cancelled_total": len(report.cancelled),
+            "frontdoor_cancelled_total": len(report.cancelled),
+            "engine_tokens_total": sum(map(len, report.results.values()))
+            + sum(map(len, report.cancelled.values())),
+            "engine_pages_in_use": 0,
+            "engine_e2e_seconds_count": len(report.results)}
+    off = {k: (values.get(k), v) for k, v in want.items()
+           if values.get(k) != v}
+    log("features", f"GET /metrics against the report: "
+        f"{len(want) - len(off)}/{len(want)} series agree "
+        f"{'ok' if not off else f'FAIL {off}'}; admitted {report.admitted}, "
+        f"429 x {report.rejected_429}, cancelled {len(report.cancelled)}, "
+        f"e2e p50 {report.latency_stats()['p50'] * 1e3:.1f} ms [{card}]")
+    if off or report.rejected_429 != 1 or len(report.cancelled) != 1:
+        raise AssertionError(f"/metrics disagrees with the report: {off}")
+    del engine, fd
+
+
+async def _post_metrics(port):
+    import asyncio
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(b"GET /metrics HTTP/1.1\r\nHost: smoke\r\n\r\n")
+    await writer.drain()
+    payload = await reader.read()
+    writer.close()
+    return payload.split(b"\r\n\r\n", 1)[1].decode()
+
+
+def serve_features(torch, dev, card, table):
+    """Phase 8 at full width and depth (W4A16, kv_fp16, 8 slots, 8-token
+    pages, 32-token chunks), the 8 prompts of ``feature_prompts``, 16
+    generated tokens each:
+    (a) ngram speculation at k = 4 (counters set to 0 just before and read
+    just after; both kernels must launch), exact acceptance, and its
+    verify logits against a plain decode teacher-forced onto its streams
+    (that run is (b)'s shared run); then a draft proposer holding the
+    target's own weights (acceptance >= 90 %); one verify step against
+    one decode step;
+    (b) prefix sharing against an unshared run, for the 384-token prefix
+    and for a 392-token one off the chunk grid: pages and prefill steps
+    saved equal to the CPU count of the same schedule, prefill logits
+    within LOGIT_TOL; a warm readmit running zero prefill chunks;
+    (c) the front door."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import speculative as spec
+    from repro_torch.runtime.engine import Request, ServingEngine
+    t0 = time.perf_counter()
+    cfg = configs.get_config(ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.quantize_params(T.init_params(gen, cfg, device=dev), cfg,
+                               min_size=0)
+    prompts = feature_prompts()
+    P = len(prompts[0])
+    log("features", f"danube full width, w4a16_g128, 8 prompts of {P} "
+        f"tokens sharing a 384-token prefix, {FEAT_GEN} generated each; "
+        f"weights built in {time.perf_counter() - t0:.1f} s")
+
+    def run(engine, what, gen_len=FEAT_GEN):
+        t = time.perf_counter()
+        rep = engine.run(feature_requests(prompts, gen_len))
+        torch.cuda.synchronize()
+        log("features", f"{what}: {rep.steps} steps, {rep.decode_tokens} "
+            f"decode tokens in {rep.decode_s:.3f} s, prefill "
+            f"{rep.prefill_s:.3f} s, run {time.perf_counter() - t:.1f} s; "
+            f"peak pages {rep.peak_pages}, prefill steps saved "
+            f"{rep.prefill_steps_saved} [{card}]")
+        for rid, out in rep.results.items():
+            if len(out) != gen_len:
+                raise AssertionError(f"{what}: request {rid} produced "
+                                     f"{len(out)} tokens")
+        return rep
+
+    # (a) ngram speculation
+    ngram = ServingEngine(cfg, params, speculate="ngram", spec_k=SPEC_K,
+                          device=dev, **FEAT_KW)
+    vplans = sorted({(p.strategy, p.split_k) for p in ngram.plans.values()})
+    log("features", f"speculative engine: verify attention "
+        f"{ngram.verify_attn_path} (kv_partitions="
+        f"{ngram.verify_kv_partitions}), GEMM plans at M={VERIFY_M}: "
+        f"{vplans}")
+    records, quiet = capture_verify(ngram, table)
+    reset_counts(table)
+    a1 = run(ngram, "ngram k=4")
+    launched = read_counts(table)
+    log("features", f"launches during the ngram run: {launched}")
+    check_verify_path(ngram, records, quiet, "ngram")
+    log("features", f"ngram: proposed {a1.proposed_tokens}, accepted "
+        f"{a1.accepted_tokens} ({a1.acceptance_rate:.1%}), "
+        f"{len(records)} verify steps for {a1.decode_tokens} tokens")
+    cells = check_acceptance(records, a1.results, P, "ngram")
+
+    # (b) shared plain run, teacher-forced onto the ngram streams
+    shared = ServingEngine(cfg, params, device=dev, **FEAT_KW)
+    kept = force_streams(torch, shared, a1.results)
+    b1 = run(shared, "plain decode, prefix shared, forced onto the ngram "
+             "streams")
+    gap = logit_gap(cells, kept)
+    log("features", f"ngram verify logits vs plain decode replayed on the "
+        f"same streams: max|d|={gap:.3e} over {len(cells)} cells "
+        f"(tolerance {LOGIT_TOL}) {'ok' if gap <= LOGIT_TOL else 'FAIL'}")
+    if gap > LOGIT_TOL or b1.results != a1.results:
+        raise AssertionError("verify logits disagree with plain decode")
+    step_times(torch, ngram, shared, card)
+    del records, cells, kept, ngram
+    torch.cuda.empty_cache()
+
+    unshared = ServingEngine(cfg, params, share_prefix=False, device=dev,
+                             **FEAT_KW)
+    b2 = run(unshared, "plain decode, no sharing")
+    check_sharing(torch, b1, b2, prompts, "384-token prefix")
+    # a prefix off the chunk grid: adopters' first chunks start mid-grid
+    off_grid = feature_prompts(shared=392)
+    b3, b4 = (ServingEngine(cfg, params, share_prefix=share, device=dev,
+                            **FEAT_KW).run(feature_requests(off_grid))
+              for share in (True, False))
+    check_sharing(torch, b3, b4, off_grid, "392-token prefix")
+    del unshared, b3, b4
+
+    warm = ServingEngine(cfg, params, warm_cache_mb=64, device=dev, **FEAT_KW)
+    chunks = []
+    advance = warm._advance_prefill
+
+    def counted(i, slot, pending):
+        chunks.append(slot.req.rid)
+        advance(i, slot, pending)
+
+    warm._advance_prefill = counted
+    wrep = warm.run([Request(rid=0, prompt=prompts[0], max_new_tokens=4),
+                     Request(rid=1, prompt=prompts[0], max_new_tokens=4,
+                             arrival_step=40)])
+    log("features", f"warm readmit: {chunks.count(0)} prefill chunks for "
+        f"the first admit, {chunks.count(1)} for the readmit; warm hits "
+        f"{wrep.warm_hits}, misses {wrep.warm_misses}; readmit tokens "
+        f"{'equal' if wrep.results[1] == wrep.results[0] else 'DIFFER'}")
+    if chunks.count(1) or wrep.warm_hits != 1 \
+            or wrep.results[1] != wrep.results[0]:
+        raise AssertionError("the warm readmit ran prefill or differs")
+    del warm, shared
+    torch.cuda.empty_cache()
+
+    # (a) the draft proposer with the target's own weights
+    oracle = ServingEngine(cfg, params,
+                           speculate=spec.DraftModelProposer(cfg, params),
+                           spec_k=SPEC_K, device=dev, **FEAT_KW)
+    records, quiet = capture_verify(oracle, table)
+    draft_logits = capture_draft(oracle)
+    a2 = run(oracle, "draft (the target's own weights) k=4")
+    check_verify_path(oracle, records, quiet, "draft")
+    check_acceptance(records, a2.results, P, "draft")
+    explain_rejects(records, draft_logits, "draft")
+    log("features", f"draft: proposed {a2.proposed_tokens}, accepted "
+        f"{a2.accepted_tokens} ({a2.acceptance_rate:.1%}; at least 90 % "
+        f"required), {len(records)} verify steps against "
+        f"{len(b1.step_records)} plain decode steps")
+    if a2.acceptance_rate < 0.9:
+        raise AssertionError(f"the target's own weights as the draft "
+                             f"accepted {a2.acceptance_rate:.1%}")
+    del oracle, records, draft_logits
+    torch.cuda.empty_cache()
+
+    front_door(torch, dev, cfg, params, card)
+    del params
+    torch.cuda.empty_cache()
+    log("features", f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+
 # template arguments of the attention and GEMM kernels as nvcc mangles
 # them
 _MANGLED = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
@@ -1727,6 +2359,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     trace_train(torch, dev, card)
     log("train", f"phase 7 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    serve_features(torch, dev, card, table)
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers);

@@ -12,11 +12,22 @@ runs on the planned path (on CUDA: the hand-written kernels).
 the FP16×FP16 yardstick, not a kernel path. ``--device cpu`` runs the
 plain PyTorch paths; by default the launcher needs a CUDA card and fails
 without one.
+
+``--speculate ngram|draft[:layers=N]`` with ``--spec-k`` turns on
+speculative decoding (a batched verify step of ``batch x (k+1)``
+positions), ``--warm-cache-mb`` keeps released prompt prefixes warm, and
+``--arrival-every`` spaces the requests' arrivals. ``--http PORT`` serves
+the same requests through the asyncio front door
+(``runtime/frontdoor.py``): one real-socket client per request on
+127.0.0.1 streaming SSE tokens, through a bounded queue (``--queue-depth``
+→ 429, ``--deadline-s`` → 408), with ``GET /metrics`` live.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
+import json
 import os
 import time
 
@@ -29,6 +40,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.kernels import planning
 from repro_torch.launch.presets import serve_settings_for
 from repro_torch.models import transformer as T
+from repro_torch.runtime import speculative
 from repro_torch.runtime.engine import Request, ServingEngine
 
 
@@ -41,16 +53,34 @@ def build_args(argv=None) -> argparse.Namespace:
                     help="engine slot count (max concurrent requests)")
     ap.add_argument("--max-batch", type=int, default=None,
                     help="alias for --batch")
-    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--prompt-len", default="32",
+                    help="prompt tokens per request: N, or MIN:MAX for "
+                         "uniformly drawn lengths")
     ap.add_argument("--gen", type=int, default=16,
                     help="tokens generated per request")
     ap.add_argument("--requests", type=int, default=None,
                     help="requests to serve (default: the slot count)")
+    ap.add_argument("--arrival-every", type=int, default=0,
+                    help="one request arrives every K engine steps (0 = "
+                         "all at step 0; with --http, every K x 10 ms)")
     ap.add_argument("--page-size", type=int, default=None,
                     help="KV tokens per block (default: the arch preset)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prompt tokens per slot per engine step "
                          "(default: the arch preset)")
+    ap.add_argument("--ring", action="store_true",
+                    help="per-slot ring KV caches instead of the paged "
+                         "pool: not ported, refused (with --speculate, by "
+                         "the proposer check)")
+    ap.add_argument("--warm-cache-mb", type=float, default=0.0,
+                    help="warm prefix retention budget in MiB: released "
+                         "page-aligned prefixes stay adoptable and a "
+                         "returning prompt skips its prefill; 0 = off")
+    ap.add_argument("--speculate", default=None,
+                    help="speculative decoding proposer: off (default) | "
+                         "ngram[:max_n] | draft[:layers=N]")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens scored per verify step")
     ap.add_argument("--kv-format", default=None,
                     help="KV block format: kv_fp16 | kv8_channel "
                          "(default: the arch preset)")
@@ -75,8 +105,33 @@ def build_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--plan-cache", default=None,
                     help="plan-cache JSON (either package's): loaded before "
                          "serving when it exists, written after")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve through the HTTP front door on 127.0.0.1:"
+                         "PORT (0 = any free port), one SSE client per "
+                         "request")
+    ap.add_argument("--queue-depth", type=int, default=64,
+                    help="front-door admission queue bound before 429 "
+                         "(--http only)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="default per-request deadline in seconds, 408 "
+                         "once expired (--http only; default and 0: none)")
     ap.add_argument("--verbose", action="store_true")
     return ap.parse_args(argv)
+
+
+def parse_prompt_len(spec) -> "tuple[int, int]":
+    """``N`` (fixed) or ``MIN:MAX`` (uniform variable length) → bounds."""
+    s = str(spec)
+    try:
+        lo, hi = (int(x) for x in s.split(":", 1)) if ":" in s \
+            else (int(s),) * 2
+    except ValueError:
+        raise ValueError(
+            f"--prompt-len must be N or MIN:MAX, got {spec!r}") from None
+    if not 0 < lo <= hi:
+        raise ValueError(
+            f"--prompt-len needs 0 < MIN <= MAX, got {spec!r}")
+    return lo, hi
 
 
 def validate_kv_format(kv_format: str, weight_format: str) -> str:
@@ -88,12 +143,20 @@ def validate_kv_format(kv_format: str, weight_format: str) -> str:
     return quant.get_kv_format(kv_format).name
 
 
-def make_requests(cfg, n: int, prompt_len: int, gen: int, seed: int):
-    """``n`` random prompts of ``prompt_len`` tokens (numpy, from ``seed``)."""
+def make_requests(cfg, n: int, prompt_len, gen: int, seed: int, *,
+                  arrival_every: int = 0):
+    """``n`` random prompts (numpy, from ``seed``) of ``prompt_len``
+    tokens — an int, or (MIN, MAX) for uniformly drawn lengths — one
+    arriving every ``arrival_every`` engine steps."""
+    lo, hi = (prompt_len, prompt_len) if isinstance(prompt_len, int) \
+        else prompt_len
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, size=(n, prompt_len))
-    return [Request(rid=i, prompt=toks[i].astype(np.int32),
-                    max_new_tokens=gen) for i in range(n)]
+    toks = rng.integers(0, cfg.vocab_size, size=(n, hi))
+    lens = [hi] * n if lo == hi else \
+        [int(x) for x in rng.integers(lo, hi + 1, size=n)]
+    return [Request(rid=i, prompt=toks[i, :lens[i]].astype(np.int32),
+                    max_new_tokens=gen, arrival_step=i * arrival_every)
+            for i in range(n)]
 
 
 def build(args: argparse.Namespace):
@@ -106,6 +169,11 @@ def build(args: argparse.Namespace):
     fmt = quant.get_format(args.format or cfg.quant_format)
     kv_format = validate_kv_format(args.kv_format or sset.kv_format,
                                    fmt.name)
+    pmin, pmax = parse_prompt_len(args.prompt_len)
+    speculate = None if args.speculate == "off" else args.speculate
+    # a bad proposer / spec-k pair fails here, before any weight is drawn
+    speculative.validate_speculate(speculate, args.spec_k, cfg=cfg,
+                                   paged=not args.ring)
     cfg = dataclasses.replace(cfg, w4a16_strategy=args.strategy,
                               quant_format=fmt.name)
 
@@ -128,25 +196,82 @@ def build(args: argparse.Namespace):
     B = args.max_batch or args.batch
     R = args.requests or B
     engine = ServingEngine(
-        cfg, params, max_batch=B, max_prompt_len=args.prompt_len,
+        cfg, params, max_batch=B, max_prompt_len=pmax,
         max_new_tokens=args.gen,
         page_size=args.page_size or sset.page_size,
         prefill_chunk=args.prefill_chunk or sset.prefill_chunk,
-        kv_format=kv_format, attn_path=args.attn_path or sset.attn_path,
-        device=device)
+        kv_format=kv_format, paged=not args.ring,
+        warm_cache_mb=args.warm_cache_mb,
+        speculate=speculate, spec_k=args.spec_k,
+        admission="priority" if args.http is not None else "fifo",
+        attn_path=args.attn_path or sset.attn_path, device=device)
     print(f"[serve] engine: {B} slots, cache_len {engine.cache_len}, paged "
           f"KV {engine.num_pages} blocks x {engine.page_size} tokens "
           f"({engine.pages_slot}/slot), kv_format {engine.kv_format}, "
-          f"prefill_chunk {engine.prefill_chunk}")
+          f"prefill_chunk {engine.prefill_chunk}"
+          + (f", warm cache {args.warm_cache_mb:g} MiB"
+             if engine.alloc.warm_bytes else ""))
     print(f"[serve] attn path: decode {engine.attn_path} "
           f"(kv_partitions={engine.kv_partitions}), prefill "
           f"{engine.prefill_attn_path} "
-          f"(kv_partitions={engine.prefill_kv_partitions})")
+          f"(kv_partitions={engine.prefill_kv_partitions})"
+          + (f", verify {engine.verify_attn_path} "
+             f"(kv_partitions={engine.verify_kv_partitions})"
+             if engine.proposer is not None else ""))
+    if engine.proposer is not None:
+        k = args.spec_k
+        print(f"[serve] speculative: proposer {engine.proposer.name!r}, "
+              f"k={k} (verify scores {B}x{k + 1} positions a step; GEMMs "
+              f"planned at M={B * (k + 1)})")
     for lk, plan in sorted(engine.plans.items()):
         print(f"[serve]   plan {lk}: {plan.strategy} split_k={plan.split_k}")
 
-    return engine, make_requests(cfg, R, args.prompt_len, args.gen,
-                                 args.seed)
+    reqs = make_requests(cfg, R, (pmin, pmax), args.gen, args.seed,
+                         arrival_every=args.arrival_every)
+    if pmin != pmax:
+        print(f"[serve] prompts: variable length {pmin}:{pmax} (mean "
+              f"{sum(len(r.prompt) for r in reqs) / R:.1f})")
+    return engine, reqs
+
+
+def serve_http(engine, reqs, *, port: int, queue_depth: int,
+               deadline_s, arrival_every: int):
+    """Serve ``reqs`` through the front door on 127.0.0.1: one socket
+    client per request, arrivals ``arrival_every`` x 10 ms apart, tokens
+    streamed back as SSE. Returns (generations, report); a request the
+    door rejected (429/408) comes back as None."""
+    from repro_torch.runtime.frontdoor import (FrontDoor, QueueSettings,
+                                               sse_decode_tokens)
+
+    async def client(port, req, delay):
+        await asyncio.sleep(delay)
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        body = json.dumps({"prompt": [int(t) for t in req.prompt],
+                           "max_new_tokens": req.max_new_tokens,
+                           "priority": req.priority}).encode()
+        writer.write((f"POST /v1/generate HTTP/1.1\r\nHost: serve\r\n"
+                      f"Content-Length: {len(body)}\r\n\r\n").encode()
+                     + body)
+        await writer.drain()
+        payload = await reader.read()
+        writer.close()
+        if b" 200 " not in payload.split(b"\r\n", 1)[0]:
+            return None
+        return sse_decode_tokens(payload)
+
+    async def run():
+        fd = FrontDoor(engine, settings=QueueSettings(
+            queue_depth=queue_depth, default_deadline_s=deadline_s))
+        await fd.serve(port=port)
+        print(f"[serve] front door: http://{fd.host}:{fd.port} "
+              f"(queue_depth {queue_depth}, deadline "
+              f"{'none' if deadline_s is None else f'{deadline_s:g} s'})")
+        got = await asyncio.gather(*(
+            client(fd.port, r, i * arrival_every * 0.01)
+            for i, r in enumerate(reqs)))
+        return got, await fd.shutdown()
+
+    return asyncio.run(run())
 
 
 def main(argv=None):
@@ -163,7 +288,14 @@ def main(argv=None):
     engine, reqs = build(args)
     R = len(reqs)
     t0 = time.perf_counter()
-    report = engine.run(reqs, verbose=args.verbose)
+    if args.http is not None:
+        got, report = serve_http(
+            engine, reqs, port=args.http, queue_depth=args.queue_depth,
+            deadline_s=args.deadline_s or None,
+            arrival_every=args.arrival_every)
+    else:
+        report = engine.run(reqs, verbose=args.verbose)
+        got = [report.results[r.rid] for r in reqs]
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     wall = time.perf_counter() - t0
@@ -177,8 +309,22 @@ def main(argv=None):
           f"{ls['p50'] * 1e3:.1f} / p99 {ls['p99'] * 1e3:.1f} ms; time to "
           f"first token p50 {ts['p50'] * 1e3:.1f} / p99 "
           f"{ts['p99'] * 1e3:.1f} ms")
-    print(f"[serve] pages: peak {report.peak_pages} in use")
-    print(f"[serve] sample generation (request 0): {report.results[0]}")
+    if args.http is not None:
+        print(f"[serve] front door: {sum(g is not None for g in got)}/{R} "
+              f"served, {report.rejected_429} x 429, {report.rejected_408} "
+              f"x 408; peak queue {report.peak_queue_depth}")
+    print(f"[serve] pages: peak {report.peak_pages} in use (worst case "
+          f"{engine.pages_slot * min(engine.max_batch, R)} without "
+          f"sharing); prefill steps saved by shared or warm prefixes "
+          f"{report.prefill_steps_saved}"
+          + (f"; warm hits {report.warm_hits} / misses "
+             f"{report.warm_misses}" if engine.alloc.warm_bytes else ""))
+    if engine.proposer is not None:
+        print(f"[serve] speculative: {report.accepted_tokens}/"
+              f"{report.proposed_tokens} drafts accepted "
+              f"({report.acceptance_rate:.0%}); tok/s above counts "
+              f"accepted tokens only")
+    print(f"[serve] sample generation (request 0): {got[0]}")
     if args.plan_cache:
         n = planning.save_plan_cache(args.plan_cache)
         c = planning.PLAN_CACHE

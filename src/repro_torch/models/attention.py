@@ -1,5 +1,6 @@
-"""GQA attention: chunked online softmax (training) and attention over a
-pos-tagged KV window (decode, chunked prefill). Port of
+"""GQA attention: chunked online softmax (training), attention over a
+pos-tagged KV window (decode, chunked prefill) and the per-slot ring cache
+the speculative draft model decodes on. Port of
 ``repro/models/attention.py``.
 
 Masking is positional: an entry at position ``kpos`` is visible to a query
@@ -19,6 +20,55 @@ class KVCache(NamedTuple):
     k: torch.Tensor          # (B, W, Hkv, D)
     v: torch.Tensor          # (B, W, Hkv, D)
     pos: torch.Tensor        # (B, W) int32 absolute position, -1 empty
+
+
+def init_cache(batch: int, window: int, num_kv_heads: int, head_dim: int,
+               dtype, *, device=None) -> KVCache:
+    """An empty ring cache of ``window`` entries per batch row."""
+    shape = (batch, window, num_kv_heads, head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((batch, window), -1, dtype=torch.int32,
+                       device=device))
+
+
+def cache_insert(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: torch.Tensor) -> KVCache:
+    """Insert one token's K/V per row at ring slot ``pos % W``, in place
+    (k_new/v_new: (B, Hkv, D); pos: (B,) absolute)."""
+    W = cache.k.shape[1]
+    b = torch.arange(cache.k.shape[0], device=pos.device)
+    slot = (pos % W).long()
+    cache.k[b, slot] = k_new.to(cache.k.dtype)
+    cache.v[b, slot] = v_new.to(cache.v.dtype)
+    cache.pos[b, slot] = pos.to(torch.int32)
+    return cache
+
+
+def cache_reset_slots(cache: KVCache, slots) -> KVCache:
+    """Evict batch row(s) in place: mark every ring entry empty (-1 tags;
+    the stale K/V bytes are unreachable). Works on a per-layer (B, W) or a
+    layer-stacked (L, B, W) cache: the batch dim is ``pos``'s second to
+    last."""
+    cache.pos[..., slots, :] = -1
+    return cache
+
+
+def cache_prefill(cache: KVCache, k_seq: torch.Tensor,
+                  v_seq: torch.Tensor) -> KVCache:
+    """Fill the ring with the last W tokens of a prefilled sequence at
+    positions 0..S-1, in place (k_seq/v_seq: (B, S, Hkv, D))."""
+    B, S = k_seq.shape[:2]
+    W = cache.k.shape[1]
+    T = min(S, W)
+    tail_pos = torch.arange(S - T, S, dtype=torch.int32,
+                            device=k_seq.device)
+    slot = (tail_pos % W).long()
+    cache.k[:, slot] = k_seq[:, S - T:].to(cache.k.dtype)
+    cache.v[:, slot] = v_seq[:, S - T:].to(cache.v.dtype)
+    cache.pos[:, slot] = tail_pos.expand(B, T)
+    return cache
 
 
 def _chunk(S: int, target: int) -> int:

@@ -1,6 +1,7 @@
 """Dense GQA decoder: init, quantize, the training forward and loss, the
-paged decode step and the chunked-prefill step (port of the dense family
-of ``repro/models/transformer.py``).
+paged decode step, the chunked-prefill step, the batched speculative
+verify step, and the ring-cache prefill and decode that a draft model runs
+on (port of the dense family of ``repro/models/transformer.py``).
 
 Parameters keep the JAX package's tree: ``{"embed": {"table"},
 "final_norm": {"scale"}, "layers": {...stacked over L...}, "lm_head":
@@ -10,7 +11,7 @@ layer loop does no slicing per step. The step functions update the paged
 KV pool in place (see ``runtime/kvcache.py``) and return the same state.
 
 Other families (moe, rwkv, hybrid, encdec) are not ported yet and are
-refused.
+refused; so are the verify step's carry checkpoints, which only they need.
 """
 from __future__ import annotations
 
@@ -28,6 +29,12 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import kvcache as kvc
+
+
+# Families whose decode state carries per-slot recurrent leaves (the JAX
+# package threads them through chunked prefill and checkpoints them in
+# verify; a draft model of such a family cannot rewind rejected drafts).
+CARRY_FAMILIES = ("rwkv", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -127,10 +134,11 @@ def _mlp(p, cfg: ModelConfig, x):
     return layers.linear(p["w_down"], h, cfg)
 
 
-def _attn_seq(p, cfg: ModelConfig, x, positions):
+def _attn_seq(p, cfg: ModelConfig, x, positions, *, return_kv=False):
     """Causal (sliding-window) self-attention over a whole sequence: the
     flash-attention Function when ``cfg.attn_impl == "flash"``, else the
-    plain chunked attention."""
+    plain chunked attention. ``return_kv`` also returns the roped (k, v)
+    (ring-cache prefill)."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = layers.linear(p["wq"], x, cfg).reshape(B, S, H, D)
@@ -146,7 +154,8 @@ def _attn_seq(p, cfg: ModelConfig, x, positions):
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} "
                          f"(expected chunked | flash)")
-    return layers.linear(p["wo"], o.reshape(B, S, H * D), cfg)
+    out = layers.linear(p["wo"], o.reshape(B, S, H * D), cfg)
+    return (out, (k, v)) if return_kv else out
 
 
 def _layer_seq(p, cfg: ModelConfig, h, positions):
@@ -207,21 +216,19 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
                 kv_format: str = DEFAULT_KV_FORMAT,
                 attn_path: str = "gather", kv_partitions=None,
                 live_pages=None):
-    """One paged decode step. tokens/pos: (B,); tables: (B, pages_per_slot)
-    block tables (-1 rows are inactive: their writes go to the null
-    block). Each layer inserts the new token's K/V first, then attends
-    (insert before attend). Returns (logits (B, V) fp32, state)."""
+    """One decode step. tokens/pos: (B,). With ``tables`` (B,
+    pages_per_slot) the state is the paged pool (-1 rows are inactive:
+    their writes go to the null block); with ``tables=None`` it is the
+    per-slot ring cache of :func:`init_decode_state` (the draft model's).
+    Each layer inserts the new token's K/V first, then attends (insert
+    before attend). Returns (logits (B, V) fp32, state)."""
     check_family(cfg)
-    if tables is None:
-        raise NotImplementedError("the port serves from the paged KV "
-                                  "cache only (ring mode is not ported)")
     fmt = get_kv_format(kv_format)
     h = layers.embed(params["embed"], tokens)               # (B, d)
     B = h.shape[0]
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    pool_all = state["cache"]["kv"]
+    cache_all = state["cache"]["kv"]
     for i, lp in enumerate(_layers(params)):
-        pool = pool_all.layer(i)
         ap = lp["attn"]
         x = layers.rmsnorm(lp["norm1"], h)
         q = layers.linear(ap["wq"], x, cfg).reshape(B, H, D)
@@ -229,12 +236,19 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
         v = layers.linear(ap["wv"], x, cfg).reshape(B, Hkv, D)
         q = layers.apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         k = layers.apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-        kvc.paged_insert(pool, tables, k, v, pos, cache_len=cache_len,
-                         fmt=fmt)
-        o = kvc.paged_decode_attention(
-            q, pool, tables, pos, window=cfg.sliding_window, fmt=fmt,
-            out_dtype=cfg.dtype, attn_path=attn_path,
-            kv_partitions=kv_partitions, live_pages=live_pages)
+        if tables is None:
+            ring = _ring_layer(cache_all, i)
+            attention.cache_insert(ring, k, v, pos)
+            o = attention.decode_attention(q, ring, pos,
+                                           window=cfg.sliding_window)
+        else:
+            pool = cache_all.layer(i)
+            kvc.paged_insert(pool, tables, k, v, pos, cache_len=cache_len,
+                             fmt=fmt)
+            o = kvc.paged_decode_attention(
+                q, pool, tables, pos, window=cfg.sliding_window, fmt=fmt,
+                out_dtype=cfg.dtype, attn_path=attn_path,
+                kv_partitions=kv_partitions, live_pages=live_pages)
         h = h + layers.linear(ap["wo"], o.reshape(B, H * D), cfg)
         h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
     h = layers.rmsnorm(params["final_norm"], h)
@@ -245,11 +259,14 @@ def _paged_chunk_attn(ap, cfg: ModelConfig, x1, pool, tables, positions,
                       safe_pos, *, fmt, cache_len: int,
                       attn_path: str = "gather", kv_partitions=None,
                       live_pages=None):
-    """Self-attention for a (1, C) chunk of one slot over the paged pool.
-    The window is read BEFORE the chunk is scattered (when the stream
-    wraps, the chunk overwrites in-window entries its earliest queries
-    still attend); the chunk's own K/V join as a segment after the same
-    quantize round-trip their stored copy takes."""
+    """Self-attention for (B, C) chunks over the paged pool: one slot's
+    prefill chunk (B = 1), or every slot's verify window, written with
+    :func:`kvcache.scatter_chunks`. Each row attends the
+    pool entries below its own first position. The window is read BEFORE
+    the chunk is scattered (when the stream wraps, the chunk overwrites
+    in-window entries its earliest queries still attend); the chunk's own
+    K/V join as a segment after the same quantize round-trip their stored
+    copy takes."""
     B, C, _ = x1.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = layers.linear(ap["wq"], x1, cfg).reshape(B, C, H, D)
@@ -280,8 +297,8 @@ def _paged_chunk_attn(ap, cfg: ModelConfig, x1, pool, tables, positions,
     else:
         raise ValueError(f"unknown attn_path {attn_path!r} "
                          f"(expected gather | fused)")
-    kvc.scatter_chunk(pool, tables[0], k[0], v[0], positions[0],
-                      cache_len=cache_len, fmt=fmt)
+    kvc.scatter_chunks(pool, tables, k, v, positions, cache_len=cache_len,
+                       fmt=fmt)
     return layers.linear(ap["wo"], o.reshape(B, C, H * D), cfg)
 
 
@@ -308,6 +325,84 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
         h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
     h = layers.rmsnorm(params["final_norm"], h)
     return _logits_head(params, cfg, _last_valid_row(h, positions)), state
+
+
+def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
+                positions: torch.Tensor, tables: torch.Tensor, *,
+                cache_len: int, kv_format: str = DEFAULT_KV_FORMAT,
+                attn_path: str = "gather", kv_partitions=None,
+                live_pages=None):
+    """Batched speculative-verify step (the dense branch of JAX's).
+
+    tokens: (B, C) — per slot, the last emitted token followed by up to
+    C-1 drafts; positions: (B, C) absolute, -1 = padding (short proposals,
+    inactive rows, whose tables are -1 too); tables: (B, T). One forward
+    pass scores every position of every slot with the chunked-prefill
+    math, each row attending the pool below its ``positions[:, 0]``, then
+    scatters the window's K/V. Rejected drafts leave stale pool entries
+    above a slot's accepted frontier; their tags exceed every later query
+    position until the next window overwrites them, so the masks keep
+    them invisible (the engine rolls pages back at the allocator).
+    Returns (logits (B, C, V) fp32, state)."""
+    check_family(cfg)
+    fmt = get_kv_format(kv_format)
+    h = layers.embed(params["embed"], tokens.clamp_min(0))   # (B, C, d)
+    safe_pos = positions.clamp_min(0)
+    pool_all = state["cache"]["kv"]
+    for i, lp in enumerate(_layers(params)):
+        x1 = layers.rmsnorm(lp["norm1"], h)
+        h = h + _paged_chunk_attn(
+            lp["attn"], cfg, x1, pool_all.layer(i), tables, positions,
+            safe_pos, fmt=fmt, cache_len=cache_len, attn_path=attn_path,
+            kv_partitions=kv_partitions, live_pages=live_pages)
+        h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
+    h = layers.rmsnorm(params["final_norm"], h)
+    return _logits_head(params, cfg, h), state
+
+
+# ---------------------------------------------------------------------------
+# ring cache: whole-prompt prefill and the state the draft model decodes on
+# ---------------------------------------------------------------------------
+
+def _ring_layer(cache: attention.KVCache, i: int) -> attention.KVCache:
+    """Layer ``i`` of a layer-stacked ring cache (views)."""
+    return attention.KVCache(cache.k[i], cache.v[i], cache.pos[i])
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
+                      device=None):
+    """Empty per-slot ring decode state: one KV ring of ``cache_len``
+    entries per slot, stacked over L."""
+    check_family(cfg)
+    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    kv = attention.KVCache(
+        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        pos=torch.full(shape[:3], -1, dtype=torch.int32, device=device))
+    return {"cache": {"kv": kv}}
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            cache_len: int):
+    """Run a whole prompt (tokens (B, S) at positions 0..S-1); returns
+    (last-position logits (B, V) fp32, a ring decode state holding each
+    layer's last ``cache_len`` K/V)."""
+    check_family(cfg)
+    h = layers.embed(params["embed"], tokens)
+    B, S, _ = h.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device).expand(B, S)
+    state = init_decode_state(cfg, B, cache_len, device=h.device)
+    for i, lp in enumerate(_layers(params)):
+        a, (k, v) = _attn_seq(lp["attn"], cfg,
+                              layers.rmsnorm(lp["norm1"], h), positions,
+                              return_kv=True)
+        attention.cache_prefill(_ring_layer(state["cache"]["kv"], i), k, v)
+        h = h + a
+        h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
+    h = layers.rmsnorm(params["final_norm"], h[:, -1])
+    return _logits_head(params, cfg, h), state
 
 
 def init_paged_state(cfg: ModelConfig, batch: int, cache_len: int, *,

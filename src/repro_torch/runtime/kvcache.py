@@ -38,7 +38,8 @@ from repro_torch.models import attention
 __all__ = [
     "PagedKVCache", "BlockAllocator", "NULL_BLOCK", "init_pool",
     "pages_per_slot", "paged_insert", "paged_decode_attention",
-    "gather_window", "scatter_chunk", "copy_blocks", "reset_blocks",
+    "gather_window", "scatter_chunk", "scatter_chunks", "copy_blocks",
+    "reset_blocks",
     "position_units", "page_keys",
 ]
 
@@ -177,17 +178,33 @@ def scatter_chunk(pool: PagedKVCache, table: torch.Tensor, k_chunk, v_chunk,
     """Chunked-prefill scatter, in place: C tokens of one slot (k_chunk:
     (C, Hkv, D); positions (C,), -1 = padding; table (T,)). Requires
     C <= cache_len so offsets within one chunk are distinct."""
-    C = positions.shape[0]
+    return scatter_chunks(pool, table[None], k_chunk[None], v_chunk[None],
+                          positions[None], cache_len=cache_len, fmt=fmt)
+
+
+def scatter_chunks(pool: PagedKVCache, tables: torch.Tensor, k_chunk,
+                   v_chunk, positions: torch.Tensor, *, cache_len: int,
+                   fmt: KVFormat) -> PagedKVCache:
+    """Batched :func:`scatter_chunk`, in place: C tokens for each of B
+    slots at once (the speculative-verify write). k_chunk/v_chunk: (B, C,
+    Hkv, D); positions: (B, C), -1 = padding (short proposals, inactive
+    rows); tables: (B, T). Rows with ``-1`` positions or unmapped pages
+    write ``-1`` tags into the null block; a slot's writable pages are
+    exclusively its own after the engine's copy-on-write pass, so two
+    slots never write one real page."""
+    B, C = positions.shape
     ps = pool.page_size
     safe = positions.clamp_min(0).long()
     offset = safe % cache_len
-    bid = table.long()[offset // ps]
+    bid = torch.gather(tables.long(), 1, offset // ps)          # (B, C)
     ok = (positions >= 0) & (bid >= 0)
-    flat = torch.where(ok, bid * ps + offset % ps,
-                       torch.arange(C, device=positions.device) % ps)
+    spread = torch.arange(B * C, device=positions.device).reshape(B, C) % ps
+    flat = torch.where(ok, bid * ps + offset % ps, spread)
     tag = torch.where(ok, positions.to(torch.int32),
                       torch.full_like(positions, -1, dtype=torch.int32))
-    return _scatter(pool, flat, k_chunk, v_chunk, tag, fmt)
+    Hkv, D = k_chunk.shape[-2:]
+    return _scatter(pool, flat.reshape(-1), k_chunk.reshape(B * C, Hkv, D),
+                    v_chunk.reshape(B * C, Hkv, D), tag.reshape(-1), fmt)
 
 
 def paged_decode_attention(q: torch.Tensor, pool: PagedKVCache,

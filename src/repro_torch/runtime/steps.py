@@ -83,15 +83,24 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig, *, cache_len: int,
+def make_prefill_step(cfg: ModelConfig, cache_len: int):
+    """prefill_step(params, inputs={tokens}) — a whole prompt into a ring
+    decode state (the draft model's admit); returns (logits, state)."""
+    def prefill_step(params, inputs):
+        return T.prefill(params, cfg, inputs["tokens"], cache_len=cache_len)
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *, cache_len: int = 0,
                     kv_format: str = "kv_fp16", attn_path: str = "gather",
                     kv_partitions=None, live_pages=None):
-    """serve_step(params, inputs={state, tokens, pos, tables}) — one paged
-    decode step; returns {"next", "logits", "state"}."""
+    """serve_step(params, inputs={state, tokens, pos, [tables]}) — one
+    decode step, paged when ``inputs`` carries block tables, else on the
+    ring state; returns {"next", "logits", "state"}."""
     def serve_step(params, inputs):
         logits, state = T.decode_step(
             params, cfg, inputs["state"], inputs["tokens"], inputs["pos"],
-            tables=inputs["tables"], cache_len=cache_len,
+            tables=inputs.get("tables"), cache_len=cache_len,
             kv_format=kv_format, attn_path=attn_path,
             kv_partitions=kv_partitions, live_pages=live_pages)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -113,3 +122,23 @@ def make_prefill_chunk_step(cfg: ModelConfig, cache_len: int, *,
             live_pages=live_pages)
         return {"logits": logits, "state": state}
     return chunk_step
+
+
+def make_verify_step(cfg: ModelConfig, cache_len: int, *,
+                     kv_format: str = "kv_fp16", attn_path: str = "gather",
+                     kv_partitions=None, live_pages=None):
+    """verify(params, state, inputs={tokens, positions, tables}) — one
+    batched speculative-verify step (see ``T.verify_step``): the last
+    emitted token plus up to C-1 drafts for every slot in one forward
+    pass; ``next`` is the device-side argmax of every (slot, position)
+    cell, so the host syncs one (B, C) int array per step. Returns
+    {"next", "logits", "state"}."""
+    def verify(params, state, inputs):
+        logits, state = T.verify_step(
+            params, cfg, state, inputs["tokens"], inputs["positions"],
+            inputs["tables"], cache_len=cache_len, kv_format=kv_format,
+            attn_path=attn_path, kv_partitions=kv_partitions,
+            live_pages=live_pages)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return {"next": next_tok, "logits": logits, "state": state}
+    return verify

@@ -209,16 +209,24 @@ def test_engine_requires_cuda_unless_cpu_is_asked(weights, monkeypatch):
 
 
 def test_engine_refuses_what_the_slice_left_out(weights):
+    from repro_torch.runtime import speculative as spec
     _, _, cfg, tparams = weights
     kw = dict(max_batch=2, max_prompt_len=8, max_new_tokens=2, page_size=4,
               device="cpu")
-    for bad, match in ((dict(speculate="ngram"), "speculative"),
-                       (dict(mesh=object()), "mesh"),
+    for bad, match in ((dict(mesh=object()), "mesh"),
                        (dict(paged=False), "ring"),
-                       (dict(share_prefix=True), "prefix sharing"),
-                       (dict(attn_path="fused"), "does not support")):
+                       (dict(attn_path="fused"), "does not support"),
+                       # a draft overhang as long as the window (16)
+                       (dict(speculate="ngram", spec_k=16),
+                        "sliding window")):
         with pytest.raises((NotImplementedError, ValueError), match=match):
             ServingEngine(cfg, tparams, **kw, **bad)
+    # a recurrent draft cannot rewind rejected drafts
+    with pytest.raises(ValueError, match="rewind"):
+        spec.DraftModelProposer(dataclasses.replace(cfg, family="rwkv"))
+    # speculation rolls back at the allocator: the paged engine only
+    with pytest.raises(ValueError, match="paged"):
+        spec.validate_speculate("ngram", 4, cfg=cfg, paged=False)
     with pytest.raises(NotImplementedError, match="dense family"):
         ServingEngine(dataclasses.replace(cfg, family="moe"), tparams, **kw)
 

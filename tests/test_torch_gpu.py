@@ -680,3 +680,129 @@ def test_fused_gemms_sum_split_k_in_the_kernel(cuda_device, monkeypatch):
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                    atol=1e-3)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("fmt_name", ["kv_fp16", "kv8_channel"])
+def test_paged_attention_verify_regime_matches_plain(cuda_device, fmt_name):
+    """The speculative verify step's shape at danube's head dim: B = 4
+    rows of 5 queries (Tq = 5, 20 query rows a block), row b keeping
+    1 + b live queries and -1 padding after them, the last row inactive
+    (positions and table -1), and stale tags of rejected drafts at and
+    above each row's start, which ``kpos < start`` must mask. Live
+    queries only (padded ones are garbage both sides discard), held as
+    ``test_paged_attention_kernel_edges`` holds its cases."""
+    Hkv, G_, D_, ps, T_, B, C = 2, 4, 80, 8, 68, 4, 5
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(11)
+    fmt = tq.get_kv_format(fmt_name)
+    pool = kvc.init_pool(1 + B * T_, ps, Hkv, D_, torch.bfloat16, fmt_name,
+                         device=cuda_device)
+    if fmt.quantized:
+        for t in (pool.k_pool, pool.v_pool):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=cuda_device))
+        for t in (pool.k_scale, pool.v_scale):
+            t.copy_(torch.rand(t.shape, generator=gen, device=cuda_device)
+                    / 64)
+    else:
+        for t in (pool.k_pool, pool.v_pool):
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda_device))
+    tables = (1 + torch.arange(B * T_, device=cuda_device,
+                               dtype=torch.int32)).reshape(B, T_)
+    flat = pool.page_pos.view(-1)
+    positions = torch.full((B, C), -1, dtype=torch.int32, device=cuda_device)
+    for b in range(B):
+        hi = 700 - 3 * b
+        p = torch.arange(hi - T_ * ps + 1, hi + 4, device=cuda_device)
+        off = p % (T_ * ps)
+        flat[tables[b, off // ps].long() * ps + off % ps] = p.to(torch.int32)
+        positions[b, :1 + b] = hi + 1 + torch.arange(
+            1 + b, device=cuda_device, dtype=torch.int32)
+    positions[B - 1] = -1
+    tables[B - 1] = -1
+    start = positions[:, 0].contiguous()
+    q = torch.randn(B, C, Hkv, G_, D_, generator=gen, device=cuda_device)
+    qk = (q * D_ ** -0.5).to(torch.bfloat16).permute(0, 2, 1, 3, 4) \
+        .reshape(B, Hkv, 1, C * G_, D_).contiguous()
+    rows = (positions >= 0)[:, None, None, None, :, None] \
+        .expand(B, 1, 1, 1, C, G_).reshape(B, 1, 1, 1, C * G_)
+    for S in (1, 4):
+        kw = dict(Tq=C, G=G_, S=S, window=4096, fmt=fmt)
+        args = (qk, positions, start, pool, tables)
+        got = tpa._launch_partials(*args, **kw)
+        want = tpa.pooled_partials_plain(*args, **kw)
+        torch.cuda.synchronize()
+        out_p = _combine_partials(*want)
+        live_q = rows[:, :, :, 0].expand(B, Hkv, 1, C * G_)
+        d = (_combine_partials(*got) - out_p).abs()[live_q]
+        assert bool((d <= out_p.abs()[live_q] * 2 ** -7 + 2e-3).all()), \
+            (S, float(d.max()))
+        (_, m_k, l_k), (_, m_p, l_p) = got, want
+        live = (m_p > -1e29) & rows
+        assert torch.equal(live, (m_k > -1e29) & rows)
+        assert float(((m_k - m_p).abs() / (1 + m_p.abs()))[live]
+                     .max()) <= 1e-4
+        assert float(((l_k - l_p).abs() / l_p)[live].max()) <= 1e-3
+
+
+@pytest.mark.parametrize("proposer", ["ngram", "oracle"])
+def test_speculative_engine_exact_acceptance_on_card(cuda_device, proposer):
+    """REDUCED danube in bf16 served speculatively on the kernels (the
+    verify step through the paged-attention kernel at q_len = 4, its
+    GEMMs planned at M = 12): every emitted token after the first is the
+    verify step's own argmax at its position, reached through accepted
+    drafts (chip_smoke phase 8's invariant); the target's own weights as
+    the draft accept at least 90 % of their proposals."""
+    from repro_torch.runtime import speculative as spec
+    cfg = dataclasses.replace(configs.get_reduced("h2o-danube-1.8b"),
+                              dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = T.quantize_params(T.init_params(gen, cfg, device=cuda_device),
+                               cfg, min_size=0)
+    rng = np.random.default_rng(2)
+    seg = rng.integers(0, cfg.vocab_size, size=(3, 4))
+    prompts = [np.tile(s, 3).astype(np.int32) for s in seg]     # P = 12
+    speculate = "ngram" if proposer == "ngram" else \
+        spec.DraftModelProposer(cfg, params)
+    eng = ServingEngine(cfg, params, max_batch=3, max_prompt_len=12,
+                        max_new_tokens=8, page_size=8, prefill_chunk=8,
+                        speculate=speculate, spec_k=3, device=cuda_device)
+    assert eng.verify_attn_path == "fused"
+    records = []
+    make = eng._verify_step
+
+    def verify_step(live_pages=None):
+        fn = make(live_pages)
+
+        def call(params_, state, inputs):
+            out = fn(params_, state, inputs)
+            rids = [s.req.rid if s is not None and s.phase == "active"
+                    else None for s in eng._slots]
+            records.append((rids, inputs["tokens"].cpu(),
+                            inputs["positions"].cpu(), out["next"].cpu()))
+            return out
+        return call
+
+    eng._verify_step = verify_step
+    before = tpa.PAGED_ATTENTION.launches
+    rep = eng.run([Request(rid=i, prompt=p, max_new_tokens=8)
+                   for i, p in enumerate(prompts)])
+    assert tpa.PAGED_ATTENTION.launches > before and records
+    argmax = {}
+    for rids, tok, pos, nxt in records:
+        for i, rid in enumerate(rids):
+            if rid is None:
+                continue
+            n, a = int((pos[i] >= 0).sum()) - 1, 0
+            while a < n and int(tok[i, a + 1]) == int(nxt[i, a]):
+                a += 1
+            for c in range(a + 1):
+                argmax[(rid, int(pos[i, c]) + 1 - 12)] = int(nxt[i, c])
+    for rid, out in rep.results.items():
+        assert len(out) == 8
+        assert all(argmax[(rid, j)] == out[j] for j in range(1, 8))
+    assert len(argmax) == 3 * 7
+    assert eng.alloc.pages_in_use == 0
+    if proposer == "oracle":
+        assert rep.proposed_tokens > 0 and rep.acceptance_rate >= 0.9
