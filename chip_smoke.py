@@ -39,7 +39,14 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              edges (Skv or a 100-token window ending mid-tile, 40 queries,
              q/k/v as strided views of a fused projection); the
              FlashAttention Function's gradients against autograd through
-             the plain version.
+             the plain version; the expert-batched W4A16 kernel (one launch
+             for an MoE layer's expert stack) at olmoe's (E = 64, 2048 ->
+             1024 and 1024 -> 2048, M = 8 and 10) and mixtral's (E = 8,
+             4096 -> 14336 and 14336 -> 4096, M = 2 and 10) shapes, the
+             planned split_k, 1 and 2 into fp32 partials, one expert's
+             rows all zero, and fp32; W8A16 batched at olmoe's shapes;
+             the decoupled pipeline and W4A8 on olmoe's w_gate stack,
+             expert by expert through their 2-D kernels.
 4. serve   — the port's main path through its launcher
              (``repro_torch.launch.serve``): h2o-danube-1.8b at full width
              (24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab
@@ -73,6 +80,11 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              after the other. Flash
              attention at the two training shapes: the kernel forward, the
              Function's forward + backward, the plain version and SDPA.
+             The expert-batched W4A16 kernel: one olmoe layer's three
+             expert stacks at M = 8 and mixtral's w_down at E = 8, M = 2,
+             beside E GEMMs' bound, dequant + ``torch.bmm`` and the 2-D
+             kernel looped over the experts; the decoupled pipeline's and
+             W4A8's expert-by-expert runs on olmoe's w_gate stack.
 6. trace   — the main path once more, stepped through the engine's
              stepper API: a prefill window and a decode window under
              ``torch.profiler`` (device busy time and device ops per step,
@@ -108,6 +120,28 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              prefill chunks; (c) the HTTP front door on 127.0.0.1: SSE clients
              against ``engine.run``, one hanging up mid-stream, one 429,
              ``GET /metrics`` against the report.
+9. moe     — the MoE family: (a) olmoe-1b-7b at full width and depth (16
+             layers, d_model 2048, 16/16 heads of 128, 64 experts top-8 of
+             d_ff 1024, vocab 50304, bf16) through the serve launcher,
+             W4A16, kv_fp16, 8 slots, 8 requests of 256 + 32 tokens,
+             16-token pages, 32-token chunks: every expert stack one
+             launch of the W4A16 kernel (counters rise), prefill logits
+             within LOGIT_TOL of the plain paths on the same weights
+             with the kernel run's expert choices replayed (a bf16
+             difference flips near-tied top-k choices, which a
+             free-running comparison would measure instead of the
+             kernels; every replayed choice the plain path would not
+             make itself must be a near-tie, gate margin <= 2^-5), 4
+             traced decode steps (device ms, ops, idle share) with every
+             decode step launching the W4A16 kernel exactly 16 x (4 + 3)
+             = 112 times, an ngram-speculative run (verify routes 8 x 5
+             rows), and the dense bf16 weights (``--no-quant``, the
+             paper's FP16 yardstick) traced the same way; (b) mixtral-8x7b
+             at full width, the first 2 of its 32 layers, W4A16, 8
+             requests of 64 + 8 tokens, against its plain paths the same
+             way. Phase 3 also holds paged attention at both archs' head
+             shapes (16 over 16 heads of 128; 32 over 8 of 128, window
+             4096).
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -115,6 +149,7 @@ contract's JSON object.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -199,6 +234,11 @@ def kernel_table():
     return {
         "w4a16_gemm": (w4a16_fused.W4A16_GEMM, "w4a16_gemm.cu",
                        "src/repro/kernels/w4a16_fused.py:37"),
+        # the same kernel's expert-batched launch (JAX vmaps the pallas_call
+        # over an MoE layer's experts)
+        "w4a16_gemm_experts": (w4a16_fused.W4A16_GEMM_EXPERTS,
+                               "w4a16_gemm.cu",
+                               "src/repro/kernels/w4a16_fused.py:37"),
         "paged_attention": (paged_attention.PAGED_ATTENTION,
                             "paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:148"),
@@ -239,7 +279,8 @@ def family_split(M, N, K):
 
 
 def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
-              hole=False, dtype=None):
+              hole=False, dtype=None, heads=(HKV, G, D), page=PAGE,
+              pages=PAGES):
     """The serving pool at full danube width (545 blocks of 8 tokens, one
     layer) filled with random K/V; per-slot tables of 68 pages; position
     tags for every token a slot holds. Decode: B=8 slots at ragged
@@ -253,16 +294,19 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
     drafts at and above ``start`` (masked by ``kpos < start``). ``hole``:
     slot 0's table entry 5 becomes -1 inside its live pages (the null
     block's tokens are masked). ``dtype``: the compute dtype (bf16 by
-    default). ``rows`` marks the live queries."""
+    default). ``heads``: (KV heads, group, head dim), danube's by default;
+    ``page``/``pages``: the block size and a slot's table length. ``rows``
+    marks the live queries."""
     dtype = torch.bfloat16 if dtype is None else dtype
+    hkv, g, d = heads
     from repro_torch.core.quant import get_kv_format
     from repro_torch.kernels import planning
     from repro_torch.runtime import kvcache as kvc
     B, C = {"decode": (8, 1), "chunk": (1, 32), "verify": (8, 5)}[kind]
     ctx_pos = 480 if kind == "chunk" else 700
-    cache_len = PAGES * PAGE
+    cache_len = pages * page
     fmt = get_kv_format(fmt_name)
-    pool = kvc.init_pool(1 + 8 * PAGES, PAGE, HKV, D, dtype, fmt_name,
+    pool = kvc.init_pool(1 + 8 * pages, page, hkv, d, dtype, fmt_name,
                          device=dev)
     if fmt.quantized:
         for t in (pool.k_pool, pool.v_pool):
@@ -273,21 +317,21 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
     else:
         for t in (pool.k_pool, pool.v_pool):
             t.copy_(torch.randn(t.shape, generator=gen, device=dev))
-    tables = (1 + torch.arange(B * PAGES, device=dev, dtype=torch.int32)
-              ).reshape(B, PAGES)
+    tables = (1 + torch.arange(B * pages, device=dev, dtype=torch.int32)
+              ).reshape(B, pages)
     flat_pos = pool.page_pos.view(-1)
     last = []
     for b in range(B):
         hi = ctx_pos - 3 * b
         lo = max(0, hi - cache_len + 1)
         if null_slot and b == B - 1:       # 10 live pages, the rest -1
-            hi, lo = 10 * PAGE - 1, 0
+            hi, lo = 10 * page - 1, 0
             tables[b, 10:] = -1
         stale = 3 if kind == "verify" else 0     # rejected drafts
         p = torch.arange(lo, hi + 1 + stale, device=dev)
         off = p % cache_len
-        bid = tables[b, off // PAGE].long()
-        flat_pos[bid * PAGE + off % PAGE] = p.to(torch.int32)
+        bid = tables[b, off // page].long()
+        flat_pos[bid * page + off % page] = p.to(torch.int32)
         last.append(hi)
     if hole:
         tables[0, 5] = -1
@@ -303,25 +347,25 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
             positions[B - 1] = -1
             tables[B - 1] = -1
         start = positions[:, 0].contiguous()
-    q = torch.randn(B, C, HKV * G, D, generator=gen, device=dev)
-    qg = (q.reshape(B, C, HKV, G, D) * D ** -0.5).to(dtype)
-    Tq = planning.choose_q_block(C, G)
-    qk = qg.permute(0, 2, 1, 3, 4).reshape(B, HKV, C // Tq, Tq * G, D) \
+    q = torch.randn(B, C, hkv * g, d, generator=gen, device=dev)
+    qg = (q.reshape(B, C, hkv, g, d) * d ** -0.5).to(dtype)
+    Tq = planning.choose_q_block(C, g)
+    qk = qg.permute(0, 2, 1, 3, 4).reshape(B, hkv, C // Tq, Tq * g, d) \
         .contiguous()
     planned = planning.choose_kv_partitions(
-        B, HKV, PAGES, q_tiles=C // Tq, cores=planning.num_cores("cuda"))
+        B, hkv, pages, q_tiles=C // Tq, cores=planning.num_cores("cuda"))
     return dict(qk=qk, q=q.to(dtype), positions=positions,
                 start=start, pool=pool, tables=tables, fmt=fmt, Tq=Tq,
-                planned=planned, B=B, C=C, rows=positions >= 0)
+                planned=planned, B=B, C=C, G=g, rows=positions >= 0)
 
 
 def partial_rows(c):
     """The live-query mask of a case laid out as the kernel's partials
     (B, 1, QT, 1, QG): padded queries are garbage the caller discards, on
     both sides."""
-    B, C, Tq = c["B"], c["C"], c["Tq"]
-    return c["rows"].reshape(B, C // Tq, Tq, 1).expand(B, C // Tq, Tq, G) \
-        .reshape(B, 1, C // Tq, 1, Tq * G)
+    B, C, Tq, G_ = c["B"], c["C"], c["Tq"], c["G"]
+    return c["rows"].reshape(B, C // Tq, Tq, 1).expand(B, C // Tq, Tq, G_) \
+        .reshape(B, 1, C // Tq, 1, Tq * G_)
 
 
 def combine(torch, acc, m, l):
@@ -441,7 +485,6 @@ def check_attention(torch, dev, gen):
     same bf16 values in another order — within 1e-4·(1 + |m|), and the
     softmax sum l within 1e-3 of itself (one dropped key of a live page
     moves it by more)."""
-    from repro_torch.kernels import paged_attention as pa
     worst = 0.0
     variants = [("", kind, fmt, "bf16", False)
                 for fmt in ("kv_fp16", "kv8_channel")
@@ -454,40 +497,68 @@ def check_attention(torch, dev, gen):
         name = f"{label} {kind}" if label else kind
         for window in (4096, 100):
             for parts in sorted({1, 4, c["planned"]}):
-                kw = dict(Tq=c["Tq"], G=G, S=parts, window=window,
-                          fmt=c["fmt"])
-                args = (c["qk"], c["positions"], c["start"], c["pool"],
-                        c["tables"])
-                got = pa._launch_partials(*args, **kw)
-                want = pa.pooled_partials_plain(*args, **kw)
-                rows = partial_rows(c)
-                out_p = combine(torch, *want)
-                d = torch.where(rows[:, :, :, 0, :, None],
-                                (combine(torch, *got) - out_p).abs(), 0.0)
-                err = float(d.max())
-                worst = max(worst, err)
-                (_, m_k, l_k), (_, m_p, l_p) = got, want
-                live = (m_p > -1e29) & rows
-                m_k = torch.where(rows, m_k, torch.full_like(m_k, -1e30))
-                dm = ((m_k - m_p).abs() / (1 + m_p.abs()))[live]
-                dl = ((l_k - l_p).abs() / l_p)[live]
-                dm_max = float(dm.max()) if dm.numel() else 0.0
-                dl_max = float(dl.max()) if dl.numel() else 0.0
-                bad = bool((d > out_p.abs() * 2 ** -7 + 2e-3).any()
-                           or (live != (m_k > -1e29)).any()
-                           or dm_max > 1e-4 or dl_max > 1e-3)
-                log("kernels", f"paged_attention {name} B={c['B']} "
-                    f"C={c['C']} {fmt_name} {dt} window={window} "
-                    f"kv_partitions={parts} max|d|={err:.3e} "
-                    f"(max|out| {float(out_p.abs().max()):.3f}) "
-                    f"max|dm|/(1+|m|)={dm_max:.2e} "
-                    f"max|dl|/l={dl_max:.2e} live partitions "
-                    f"{int(live.sum())}/{live.numel()} "
-                    f"{'FAIL' if bad else 'ok'} ({ATTN_TOL})")
-                if bad:
-                    raise AssertionError(
-                        f"paged_attention disagrees: {name} {fmt_name} "
-                        f"{dt} window={window} kv_partitions={parts}")
+                worst = max(worst, hold_partials(torch, c, name, fmt_name,
+                                                 dt, window, parts))
+    return worst
+
+
+def hold_partials(torch, c, name, fmt_name, dt, window, parts):
+    """One case of ``check_attention``: the kernel's raw partials against
+    the plain version's (the combined output, m and l); returns max |d|
+    of the combined output."""
+    from repro_torch.kernels import paged_attention as pa
+    kw = dict(Tq=c["Tq"], G=c["G"], S=parts, window=window, fmt=c["fmt"])
+    args = (c["qk"], c["positions"], c["start"], c["pool"], c["tables"])
+    got = pa._launch_partials(*args, **kw)
+    want = pa.pooled_partials_plain(*args, **kw)
+    rows = partial_rows(c)
+    out_p = combine(torch, *want)
+    d = torch.where(rows[:, :, :, 0, :, None],
+                    (combine(torch, *got) - out_p).abs(), 0.0)
+    err = float(d.max())
+    (_, m_k, l_k), (_, m_p, l_p) = got, want
+    live = (m_p > -1e29) & rows
+    m_k = torch.where(rows, m_k, torch.full_like(m_k, -1e30))
+    dm = ((m_k - m_p).abs() / (1 + m_p.abs()))[live]
+    dl = ((l_k - l_p).abs() / l_p)[live]
+    dm_max = float(dm.max()) if dm.numel() else 0.0
+    dl_max = float(dl.max()) if dl.numel() else 0.0
+    bad = bool((d > out_p.abs() * 2 ** -7 + 2e-3).any()
+               or (live != (m_k > -1e29)).any()
+               or dm_max > 1e-4 or dl_max > 1e-3)
+    log("kernels", f"paged_attention {name} B={c['B']} C={c['C']} "
+        f"{fmt_name} {dt} window={window} kv_partitions={parts} "
+        f"max|d|={err:.3e} (max|out| {float(out_p.abs().max()):.3f}) "
+        f"max|dm|/(1+|m|)={dm_max:.2e} max|dl|/l={dl_max:.2e} live "
+        f"partitions {int(live.sum())}/{live.numel()} "
+        f"{'FAIL' if bad else 'ok'} ({ATTN_TOL})")
+    if bad:
+        raise AssertionError(f"paged_attention disagrees: {name} {fmt_name} "
+                             f"{dt} window={window} kv_partitions={parts}")
+    return err
+
+
+# the MoE archs' paged attention as served in phase 9: (arch, (KV heads,
+# group, head dim), page, a slot's pages, window)
+MOE_ATTN = [("olmoe", (16, 1, 128), 16, 18, 0),
+            ("mixtral", (8, 4, 128), 16, 5, 4096)]
+
+
+def check_moe_attention(torch, dev, gen):
+    """Paged attention at the MoE archs' head shapes (olmoe: 16 query
+    over 16 KV heads of 128, full attention, an 18-page table of 16-token
+    pages; mixtral: 32 over 8 of 128, window 4096, a 5-page table): decode,
+    the 32-token chunk and the verify step, at one partition and the
+    planner's pick, held as ``check_attention`` holds danube's."""
+    worst = 0.0
+    for arch, heads, page, pages, window in MOE_ATTN:
+        for kind in ("decode", "chunk", "verify"):
+            c = attn_case(torch, gen, dev, fmt_name="kv_fp16", kind=kind,
+                          heads=heads, page=page, pages=pages)
+            for parts in sorted({1, c["planned"]}):
+                worst = max(worst, hold_partials(
+                    torch, c, f"{arch} {kind}", "kv_fp16", "bf16", window,
+                    parts))
     return worst
 
 
@@ -840,7 +911,7 @@ def compare_logits(fused, plain, what, gen_len):
     ok = d <= LOGIT_TOL
     log("serve", f"{what}: prefill logits kernels vs plain: max|d|={d:.3e} "
         f"(max|logit| {scale:.2f}; tolerance {LOGIT_TOL}: bf16 rounding "
-        f"of every activation, reordered sums, 24 layers) "
+        f"of every activation, reordered sums, every layer) "
         f"{'ok' if ok else 'FAIL'}; greedy tokens equal "
         f"{sum(toks)}/{len(toks)} ({sum(toks) / len(toks):.1%}), first "
         f"tokens {firsts}/{len(fused.results)}, plain-path logit gap of "
@@ -1280,14 +1351,14 @@ def time_flash(torch, dev, gen, timer, card):
 
 def trace(torch, card):
     """Phase 6: where a step's time goes. The phase-4 traffic once more,
-    stepped through the engine's stepper API. Engine steps 0-3 (pure
+    stepped through the engine's stepper API. Engine steps 0-1 (pure
     prefill: one 32-token chunk for each of 8 slots) run under
-    ``torch.profiler``; steps 4-11 (prefill) run untraced, timed to a
+    ``torch.profiler``; steps 2-9 (prefill) run untraced, timed to a
     sync; then, after the first decode, 10 untraced decode steps are timed
-    and the remaining decode steps are traced. The profiler slows the
-    host but not the device, so the idle share is the traced device busy
-    time per step against the untraced wall time per step."""
-    import contextlib
+    and the next 8 decode steps are traced; the rest run untraced. The
+    profiler slows the host but not the device, so the idle share is the
+    traced device busy time per step against the untraced wall time per
+    step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve as launcher
@@ -1339,15 +1410,16 @@ def trace(torch, card):
                 f"{e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step  "
                 f"x{e.count / steps:<6.0f} {e.key[:80]}")
 
-    pf_steps, pf_traced, pf_prof = run(4, traced=True)
+    pf_steps, pf_traced, pf_prof = run(2, traced=True)
     _, pf_ms, _ = run(8)
     while engine.report.decode_tokens == 0:
         engine.step()
     _, dec_ms, _ = run(10)
-    dec_steps, dec_traced, dec_prof = run(1 << 30, traced=True)
-    if dec_steps == 0 or engine.has_work():
-        raise AssertionError("the traced decode window did not drain the "
-                             "engine")
+    dec_steps, dec_traced, dec_prof = run(8, traced=True)
+    if dec_steps != 8:
+        raise AssertionError(f"the traced decode window ran {dec_steps} "
+                             f"steps, not 8")
+    engine.drain()
     report("prefill", pf_steps, pf_traced, pf_ms, pf_prof)
     report("decode", dec_steps, dec_traced, dec_ms, dec_prof)
 
@@ -2196,6 +2268,486 @@ def serve_features(torch, dev, card, table):
     log("features", f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the MoE family: phase 3's and phase 5's expert-batched GEMM rows, phase 9
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+MOE_GEN = 32
+MOE_ARGV = ["--arch", MOE_ARCH, "--batch", "8", "--requests", "8",
+            "--prompt-len", "256", "--gen", str(MOE_GEN), "--prefill-chunk",
+            "32", "--kv-format", "kv_fp16", "--seed", "0"]
+# (label, E, M, K, N): olmoe's stacks at its capacity (8 at decode, at the
+# 32-token chunk and at the k = 4 verify step: top-8 sets the floor) and a
+# 16-row tile, then mixtral's at its decode and chunk capacities 2 and 10
+OLMOE_STACKS = [("w_gate/w_up", 64, 2048, 1024), ("w_down", 64, 1024, 2048)]
+MIXTRAL_STACKS = [("w_gate/w_up", 8, 4096, 14336), ("w_down", 8, 14336, 4096)]
+MOE_CASES = [(lbl, E, M, K, N) for lbl, E, K, N in OLMOE_STACKS
+             for M in (8, 10)] + \
+    [(lbl, E, M, K, N) for lbl, E, K, N in MIXTRAL_STACKS for M in (2, 10)]
+# phase 9(b): mixtral-8x7b at full width, the first 2 of its 32 layers
+MIXTRAL_LAYERS = 2
+MIXTRAL_PROMPT, MIXTRAL_GEN = 64, 8
+
+
+def expert_stack(torch, E, K, N, gen, dev, fmt="w4a16_g128"):
+    """An (E, K, N) random bf16 expert stack quantized slice-wise."""
+    from repro_torch.models import layers
+    w = (torch.randn(E, K, N, generator=gen, device=dev) * K ** -0.5) \
+        .to(torch.bfloat16)
+    return layers.quantize_tree({"moe": {"w": {"kernel": w}}}, format=fmt,
+                                min_size=0)["moe"]["w"]["kernel"]
+
+
+def stack_split(x, qt):
+    """The planner's split_k for the whole stack (batch = E)."""
+    from repro_torch.kernels import planning
+    return planning.plan_matmul(planning.MatmulProblem.from_operands(
+        x[0], qt.layer(0), batch=x.shape[0]), use_cache=False).split_k
+
+
+def check_moe_gemms(torch, dev, gen):
+    """Phase 3, the expert-batched kernels against their plain versions
+    (expert by expert): W4A16 at olmoe's and mixtral's expert shapes, the
+    planned split_k and 1, and split 2 into fp32 partials (the wrapper's
+    slice-order sum); one expert's rows all zero in every stack (an expert
+    no token chose); W8A16 at olmoe's shapes; the fp32 variant at a reduced
+    stack. Each launch must count once on the kernel and once on its
+    expert-batched form. Returns (W4A16 worst |d|, W8A16 worst |d|)."""
+    from repro_torch.kernels import w4a16_fused as wf
+    from repro_torch.kernels import w8a16_fused as w8
+    worst = 0.0
+    for lbl, E, M, K, N in MOE_CASES:
+        qt = expert_stack(torch, E, K, N, gen, dev)
+        x = torch.randn(E, M, K, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        x[E // 2] = 0
+        s = stack_split(x, qt)
+        for split, out_dtype in sorted({(s, None), (1, None),
+                                        (2, torch.float32)},
+                                       key=lambda c: (c[0], str(c[1]))):
+            n0 = (wf.W4A16_GEMM.launches, wf.W4A16_GEMM_EXPERTS.launches)
+            got = wf.w4a16_fused(x, qt, split_k=split, out_dtype=out_dtype)
+            if (wf.W4A16_GEMM.launches - n0[0],
+                    wf.W4A16_GEMM_EXPERTS.launches - n0[1]) != (1, 1):
+                raise AssertionError("an expert stack must be one launch")
+            want = wf.w4a16_fused_plain(x, qt, split_k=split,
+                                        out_dtype=out_dtype)
+            worst = max(worst, held(
+                "w4a16_gemm_experts", f"{lbl} E={E} M={M} K={K} N={N} "
+                f"split_k={split}{' fp32 partials' if out_dtype else ''} "
+                f"(planned {s})", got, want, f32=False))
+            if torch.count_nonzero(got[E // 2]):
+                raise AssertionError("an expert with zero rows gave "
+                                     "non-zero outputs")
+        del qt, x
+    w8_worst = 0.0
+    for lbl, E, K, N in OLMOE_STACKS:
+        qt = expert_stack(torch, E, K, N, gen, dev, "w8a16_channel")
+        x = torch.randn(E, 8, K, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        w8_worst = max(w8_worst, held(
+            "w8a16_gemm", f"expert stack {lbl} E={E} M=8 K={K} N={N}",
+            w8.w8a16_fused(x, qt), w8.w8a16_fused_plain(x, qt), f32=False))
+    w = torch.randn(8, 128, 64, generator=gen, device=dev)
+    from repro_torch.models import layers
+    qt = layers.quantize_tree({"moe": {"w": {"kernel": w}}},
+                              min_size=0)["moe"]["w"]["kernel"]
+    x = torch.randn(8, 5, 128, generator=gen, device=dev)
+    held("w4a16_gemm_experts", "fp32 E=8 M=5 K=128 N=64",
+         wf.w4a16_fused(x, qt), wf.w4a16_fused_plain(x, qt), f32=True)
+    return worst, w8_worst
+
+
+# the GEMM strategies that take an expert stack expert by expert through
+# their 2-D kernels (planning.execute): (format, strategy)
+EXPERT_LOOPS = [("w4a16_g128", "decoupled"), ("w4a8_g128", "w4a8_fused")]
+
+
+def expert_loop_case(torch, dev, gen, fmt, strategy):
+    """olmoe's w_gate stack (E = 64, 2048 -> 1024) in ``fmt``, x at M = 8,
+    and the stack's plan for ``strategy``."""
+    from repro_torch.kernels import planning
+    qt = expert_stack(torch, 64, 2048, 1024, gen, dev, fmt)
+    x = torch.randn(64, 8, 2048, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    plan = planning.plan_matmul(planning.MatmulProblem.from_operands(
+        x[0], qt.layer(0), batch=64), strategy=strategy, use_cache=False)
+    return qt, x, plan
+
+
+def check_expert_loops(torch, dev, gen):
+    """The decoupled pipeline and W4A8 on an expert stack (E launches of
+    their 2-D kernels through ``planning.execute``), once at olmoe's
+    w_gate stack, against their plain versions expert by expert."""
+    from repro_torch.kernels import planning, w4a8_fused, w4a16_decoupled
+    plains = {"decoupled": w4a16_decoupled.w4a16_decoupled_plain,
+              "w4a8_fused": w4a8_fused.w4a8_fused_plain}
+    for fmt, strategy in EXPERT_LOOPS:
+        plain = plains[strategy]
+        qt, x, plan = expert_loop_case(torch, dev, gen, fmt, strategy)
+        held(strategy, f"expert stack, expert by expert: E=64 M=8 K=2048 "
+             f"N=1024 split_k={plan.split_k}",
+             planning.execute(plan, x, qt),
+             torch.stack([plain(x[e], qt.layer(e), split_k=plan.split_k)
+                          for e in range(x.shape[0])]), f32=False)
+
+
+def dequant_bmm(torch, x, qt):
+    """The library yardstick for an expert stack: the whole stack
+    dequantized in PyTorch (vectorized over the experts), then one
+    ``torch.bmm``."""
+    u = qt.packed.view(torch.uint8)
+    lo = (u << 4).view(torch.int8) >> 4
+    hi = qt.packed.view(torch.int8) >> 4
+    E, K2, N = qt.packed.shape
+    q = torch.stack([lo, hi], dim=2).reshape(E, 2 * K2, N)
+    s = qt.scales.repeat_interleave(qt.group_size, dim=1)
+    return torch.bmm(x, (q.float() * s).to(x.dtype))
+
+
+def time_moe_gemms(torch, dev, gen, timer, card):
+    """Phase 5, the expert-batched W4A16 GEMM: one olmoe layer's three
+    expert stacks at M = 8 (the decode capacity) and mixtral's w_down at E
+    = 8, M = 2, L2 flushed: the kernel, its bound (E GEMMs' bytes), the
+    plain version (expert by expert), dequant + ``torch.bmm``, and the
+    per-expert loop of the 2-D kernel (E launches). Returns the olmoe
+    layer's sums."""
+    from repro_torch.core import costmodel
+    from repro_torch.kernels import w4a16_fused as wf
+    rows = {}
+    cases = [("olmoe " + lbl, E, 8, K, N) for lbl, E, K, N in OLMOE_STACKS] \
+        + [("mixtral w_down", 8, 2, 14336, 4096)]
+    for lbl, E, M, K, N in cases:
+        qt = expert_stack(torch, E, K, N, gen, dev)
+        x = torch.randn(E, M, K, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        s = stack_split(x, qt)
+        s2 = planned_split(x[0], qt.layer(0))
+        lib = dequant_bmm(torch, x, qt)
+        held("dequant+bmm", f"{lbl} (the yardstick computes the same "
+             f"function)", lib, wf.w4a16_fused_plain(x, qt), f32=False)
+        nbytes = E * costmodel.w4a16_gemm_bytes(M, N, K)
+        flops = E * costmodel.w4a16_gemm_flops(M, N, K)
+        r = dict(nbytes=nbytes, flops=flops,
+                 ms=timer(lambda: wf.w4a16_fused(x, qt, split_k=s)),
+                 plain_ms=timer(lambda: wf.w4a16_fused_plain(x, qt)),
+                 library_ms=timer(lambda: dequant_bmm(torch, x, qt)),
+                 loop_ms=timer(lambda: [wf.w4a16_fused(x[e], qt.layer(e),
+                                                       split_k=s2)
+                                        for e in range(E)]),
+                 bound_ms=costmodel.roofline_s(nbytes, flops) * 1e3,
+                 bound_by=costmodel.bound_by(nbytes, flops))
+        rows[lbl] = r
+        log("timing", f"w4a16_gemm_experts {lbl} E={E} M={M} K={K} N={N} "
+            f"split_k={s}: one launch {r['ms']:.4f} ms, "
+            f"{gbs(nbytes, r['ms'])}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of roofline); "
+            f"the 2-D kernel looped over the {E} experts (split_k={s2}) "
+            f"{r['loop_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
+            f"dequant+bmm {r['library_ms']:.4f} ms [{card}]")
+        del qt, x, lib
+    from repro_torch.kernels import planning
+    for fmt, strategy in EXPERT_LOOPS:
+        qt, x, plan = expert_loop_case(torch, dev, gen, fmt, strategy)
+        ms = timer(lambda: planning.execute(plan, x, qt))
+        rows[strategy] = ms
+        log("timing", f"{strategy} on olmoe's w_gate stack, expert by "
+            f"expert (E=64 M=8 K=2048 N=1024 split_k={plan.split_k}): "
+            f"{ms:.4f} ms, against {rows['olmoe w_gate/w_up']['ms']:.4f} "
+            f"ms for the batched W4A16 launch [{card}]")
+        del qt, x
+    layer = ["olmoe w_gate/w_up", "olmoe w_gate/w_up", "olmoe w_down"]
+    tot = {k: sum(rows[n][k] for n in layer)
+           for k in ("ms", "plain_ms", "library_ms", "loop_ms", "bound_ms",
+                     "nbytes", "flops")}
+    rate = gbs(tot["nbytes"], tot["ms"])
+    log("timing", f"w4a16_gemm_experts, one olmoe layer's 3 expert stacks "
+        f"at M=8: {tot['ms']:.4f} ms in 3 launches ({rate}), bound "
+        f"{tot['bound_ms']:.4f} ms, the 2-D kernel "
+        f"per expert {tot['loop_ms']:.4f} ms in 192 launches, plain "
+        f"{tot['plain_ms']:.4f} ms, dequant+bmm {tot['library_ms']:.4f} ms "
+        f"[{card}]")
+    return tot
+
+
+# a replayed expert choice may differ from the plain path's own only at a
+# near-tie: its k-th and (k+1)-th gates (fp32 softmax outputs) within this
+ROUTE_TIE = 2 ** -5
+
+
+class Routing:
+    """The expert choices of one serving run, dispatch call by call
+    (``models/moe.py:stable_top_k``), and their replay in a run of the
+    same schedule on the other path. The kernel and plain paths' hidden
+    states differ by bf16 rounding, so a token whose k-th and (k+1)-th
+    gates nearly tie can take another expert on each path; one such flip
+    moves that token's FFN output by a whole expert's share, and later
+    tokens route on the changed states, so a free-running comparison
+    measures the ties rather than the kernels. The replaying run computes
+    its own gates, keeps them as the weights of the replayed experts, and
+    counts the rows whose own choice differs, with its margin there."""
+
+    def __init__(self):
+        self.calls, self.next = [], 0
+        self.rows = self.differ = 0
+        self.margin = 0.0
+
+    @contextlib.contextmanager
+    def _patched(self, pick):
+        from repro_torch.models import moe
+        orig = moe.stable_top_k
+        moe.stable_top_k = lambda gates, k: pick(orig, gates, k)
+        try:
+            yield self
+        finally:
+            moe.stable_top_k = orig
+
+    def recording(self):
+        def pick(orig, gates, k):
+            vals, idx = orig(gates, k)
+            self.calls.append(idx)
+            return vals, idx
+        return self._patched(pick)
+
+    def replaying(self):
+        import torch
+
+        def pick(orig, gates, k):
+            if self.next >= len(self.calls):
+                raise AssertionError("the replaying run routes more often "
+                                     "than the recorded one")
+            idx = self.calls[self.next]
+            self.next += 1
+            if tuple(idx.shape) != (gates.shape[0], k):
+                raise AssertionError(f"routing call {self.next}: recorded "
+                                     f"{tuple(idx.shape)}, replaying "
+                                     f"{(gates.shape[0], k)}")
+            _, own = orig(gates, k)
+            differ = (torch.sort(own, -1).values
+                      != torch.sort(idx, -1).values).any(-1)
+            self.rows += differ.numel()
+            n = int(differ.sum())
+            if n:
+                self.differ += n
+                top = torch.topk(gates[differ], k + 1, dim=-1).values
+                self.margin = max(self.margin,
+                                  float((top[:, k - 1] - top[:, k]).max()))
+            return torch.gather(gates, -1, idx), idx
+        return self._patched(pick)
+
+    def check(self, what):
+        ok = self.margin <= ROUTE_TIE
+        log("moe", f"{what}: the plain path replayed the kernel path's "
+            f"expert choices over {self.next} dispatch calls; its own top-k "
+            f"set differs in {self.differ} of {self.rows} rows, largest "
+            f"own gate margin there {self.margin:.3e} (near-ties: <= "
+            f"{ROUTE_TIE}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what}: a replayed expert choice is not "
+                                 f"a near-tie on the plain path")
+
+
+def moe_engine(torch, cfg, params, dev, **kw):
+    """A serving engine as the launcher builds it (the arch's presets:
+    16-token pages), over ``params``."""
+    from repro_torch.runtime.engine import ServingEngine
+    base = dict(max_batch=8, max_prompt_len=256, max_new_tokens=MOE_GEN,
+                page_size=16, prefill_chunk=32, kv_format="kv_fp16",
+                device=dev)
+    base.update(kw)
+    return ServingEngine(cfg, params, **base)
+
+
+def moe_decode_trace(torch, engine, reqs, card, what, *, per_step=None):
+    """Serve ``reqs`` on ``engine``; once every slot has prefilled, 8
+    decode steps run untraced, timed to a sync, then 4 under
+    ``torch.profiler`` (device busy ms and device ops a step; the idle
+    share is busy against the untraced wall time), then the rest.
+    ``per_step``: the W4A16 kernel launches every one of those 12 steps
+    must make. Returns the run's report."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import w4a16_fused as wf
+    engine.start()
+    for r in reqs:
+        engine.submit(r)
+    while engine.report.decode_tokens == 0:
+        engine.step()
+    counts = []
+
+    def step():
+        n0 = wf.W4A16_GEMM.launches
+        engine.step()
+        counts.append(wf.W4A16_GEMM.launches - n0)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 8
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            step()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / 4
+    ops = sum(e.count for e in dev) / 4
+    gemm = [e for e in dev if "Int4Ring" in e.key]
+    gemm_ms = sum(e.self_device_time_total for e in gemm) / 1e3 / 4
+    log("moe", f"{what}: decode device busy {busy:.3f} ms/step "
+        f"({ops:.0f} device ops/step), wall {wall:.3f} ms/step untraced -> "
+        f"device idle {1 - busy / wall:.1%}; W4A16 kernel {gemm_ms:.3f} "
+        f"ms/step; W4A16 launches per decode step {sorted(set(counts))} "
+        f"[{card}]")
+    for e in dev[:5]:
+        log("moe", f"  {what} device "
+            f"{e.self_device_time_total / 1e3 / 4:8.3f} ms/step  "
+            f"x{e.count / 4:<6.0f} {e.key[:80]}")
+    if per_step is not None and set(counts) != {per_step}:
+        raise AssertionError(f"{what}: decode steps launched the W4A16 "
+                             f"kernel {counts} times, not {per_step} each")
+    rep = engine.drain()
+    for rid, out in rep.results.items():
+        if len(out) != reqs[0].max_new_tokens:
+            raise AssertionError(f"{what}: request {rid} produced "
+                                 f"{len(out)} tokens")
+    return rep
+
+
+def moe_serve(torch, dev, card, table):
+    """Phase 9. (a) olmoe-1b-7b at full width and depth through the serve
+    launcher (W4A16, kv_fp16, 8 slots, 8 requests of 256 + 32 tokens,
+    32-token chunks, random weights from seed 0), counters set to 0 just
+    before and read just after; the same weights on the plain paths,
+    replaying the kernel run's expert choices (``Routing``: every choice
+    the plain path would make otherwise is a near-tie), prefill logits
+    within LOGIT_TOL; decode steps traced, each launching
+    the W4A16 kernel 16 x (4 + 3) = 112 times (the router and the head
+    stay dense); ngram speculation (verify routes B·(k+1) rows); the dense
+    bf16 weights (``--no-quant``, the paper's FP16 yardstick). (b)
+    mixtral-8x7b at full width, its first 2 layers, W4A16, 8 requests of
+    64 + 8 tokens, against its plain paths the same way. Returns the
+    launches of (a)'s main-path run."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import w4a16_fused as wf
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg = configs.get_config(MOE_ARCH)
+    log("moe", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_experts} experts top-"
+        f"{cfg.experts_per_token} of d_ff {cfg.d_ff}, "
+        f"{cfg.param_count() / 1e9:.2f} B params "
+        f"({cfg.active_param_count() / 1e9:.2f} B active)")
+    route = Routing()
+    reset_counts(table)
+    with route.recording():
+        kernel_rep = serve(torch, [], card, MOE_ARGV)
+    launches = read_counts(table)
+    log("moe", f"launches during the run: {launches}")
+    if not all(launches[n] for n in ("w4a16_gemm", "w4a16_gemm_experts",
+                                     "paged_attention")):
+        raise AssertionError(f"a kernel of the MoE path never launched: "
+                             f"{launches}")
+    torch.cuda.empty_cache()
+
+    # the launcher's weights once more (the same generator and seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t1 = time.perf_counter()
+    dense = T.init_params(gen, cfg, device=dev)
+    params = T.quantize_params(dense, cfg, min_size=0)
+    torch.cuda.synchronize()
+    log("moe", f"weights drawn and quantized on the card in "
+        f"{time.perf_counter() - t1:.1f} s")
+    reqs = lambda: launcher.make_requests(cfg, 8, 256, MOE_GEN, 0)  # noqa
+    plain_cfg = dataclasses.replace(cfg, w4a16_strategy="reference")
+    t1 = time.perf_counter()
+    # the plain paths are compared on prefill logits: 2 tokens suffice
+    with route.replaying():
+        plain = moe_engine(torch, plain_cfg, params, dev,
+                           attn_path="gather") \
+            .run(launcher.make_requests(cfg, 8, 256, 2, 0))
+    torch.cuda.synchronize()
+    log("moe", f"plain paths (--strategy reference --attn-path gather) "
+        f"served in {time.perf_counter() - t1:.1f} s")
+    route.check(cfg.name)
+    compare_logits(kernel_rep, plain, f"{cfg.name} kernel path", MOE_GEN)
+    del plain
+    layer_launches = cfg.num_layers * (4 + 3)
+    moe_decode_trace(torch, moe_engine(torch, cfg, params, dev), reqs(),
+                     card, f"{cfg.name} w4a16", per_step=layer_launches)
+    torch.cuda.empty_cache()
+
+    spec = moe_engine(torch, cfg, params, dev, speculate="ngram",
+                      spec_k=SPEC_K)
+    n0 = (wf.W4A16_GEMM_EXPERTS.launches, wf.W4A16_GEMM.launches)
+    t1 = time.perf_counter()
+    rep = spec.run(reqs())
+    torch.cuda.synchronize()
+    vsteps = sum(1 for r in rep.step_records if "emitted" in r)
+    log("moe", f"{cfg.name} ngram k={SPEC_K}: {rep.accepted_tokens}/"
+        f"{rep.proposed_tokens} drafts accepted, {vsteps} verify steps "
+        f"(each routes {8 * (SPEC_K + 1)} rows), {rep.decode_tokens} "
+        f"tokens in {rep.decode_s:.3f} s; W4A16 launches "
+        f"{wf.W4A16_GEMM.launches - n0[1]} (expert stacks "
+        f"{wf.W4A16_GEMM_EXPERTS.launches - n0[0]}); run "
+        f"{time.perf_counter() - t1:.1f} s [{card}]")
+    if not vsteps or any(len(v) != MOE_GEN for v in rep.results.values()):
+        raise AssertionError(f"{cfg.name} ngram: {vsteps} verify steps, "
+                             f"lengths {[len(v) for v in rep.results.values()]}")
+    del spec, rep, params
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    rep = moe_decode_trace(torch, moe_engine(torch, cfg, dense, dev), reqs(),
+                           card, f"{cfg.name} --no-quant", per_step=0)
+    log("moe", f"{cfg.name} --no-quant (dense bf16 experts, torch.bmm): "
+        f"{rep.decode_tokens} decode tokens in {rep.decode_s:.3f} s = "
+        f"{rep.tokens_per_s:.1f} tok/s (4 of its steps traced); run "
+        f"{time.perf_counter() - t1:.1f} s [{card}]")
+    del dense, rep
+    torch.cuda.empty_cache()
+
+    # (b) mixtral at full width, depth cut to 2 layers
+    mcfg = dataclasses.replace(configs.get_config("mixtral-8x7b"),
+                               num_layers=MIXTRAL_LAYERS)
+    gen.manual_seed(0)
+    t1 = time.perf_counter()
+    mparams = T.quantize_params(T.init_params(gen, mcfg, device=dev), mcfg,
+                                min_size=0)
+    torch.cuda.synchronize()
+    log("moe", f"mixtral-8x7b, {MIXTRAL_LAYERS} of 32 layers at full width "
+        f"(d_model 4096, 8 experts top-2 of d_ff 14336, SWA 4096): weights "
+        f"built in {time.perf_counter() - t1:.1f} s")
+    mreqs = lambda: launcher.make_requests(  # noqa
+        mcfg, 8, MIXTRAL_PROMPT, MIXTRAL_GEN, 0)
+    kw = dict(max_prompt_len=MIXTRAL_PROMPT, max_new_tokens=MIXTRAL_GEN)
+    n0 = wf.W4A16_GEMM_EXPERTS.launches
+    route = Routing()
+    with route.recording():
+        got = moe_engine(torch, mcfg, mparams, dev, **kw).run(mreqs())
+    if wf.W4A16_GEMM_EXPERTS.launches == n0:
+        raise AssertionError("mixtral: the expert-batched kernel never "
+                             "launched")
+    with route.replaying():
+        want = moe_engine(torch, dataclasses.replace(
+            mcfg, w4a16_strategy="reference"), mparams, dev,
+            attn_path="gather", **kw).run(mreqs())
+    route.check(f"mixtral-8x7b ({MIXTRAL_LAYERS} layers)")
+    compare_logits(got, want, f"mixtral-8x7b ({MIXTRAL_LAYERS} layers) "
+                   f"kernel path", MIXTRAL_GEN)
+    del mparams, got, want
+    torch.cuda.empty_cache()
+    log("moe", f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # template arguments of the attention and GEMM kernels as nvcc mangles
 # them
 _MANGLED = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
@@ -2329,6 +2881,11 @@ def main() -> int:
     errs["w4a8_quantize"] = 0.0         # bit-equal, or phase 3 failed
     errs["flash_attention"] = check_flash(torch, dev, gen)
     check_flash_grads(torch, dev, gen)
+    errs["w4a16_gemm_experts"], w8_err = check_moe_gemms(torch, dev, gen)
+    errs["paged_attention"] = max(errs["paged_attention"],
+                                  check_moe_attention(torch, dev, gen))
+    check_expert_loops(torch, dev, gen)
+    errs["w8a16_gemm"] = max(errs["w8a16_gemm"], w8_err)
     torch.cuda.synchronize()
     log("kernels", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
@@ -2346,6 +2903,7 @@ def main() -> int:
     fam_rows = time_family(torch, dev, gen, timer, card)
     layer_totals(torch, gemm_rows, fam_rows, card)
     flash_rows = time_flash(torch, dev, gen, timer, card)
+    moe_rows = time_moe_gemms(torch, dev, gen, timer, card)
     del timer
     torch.cuda.empty_cache()
     log("timing", f"phase 5 took {time.perf_counter() - t0:.1f} s")
@@ -2361,9 +2919,14 @@ def main() -> int:
     log("train", f"phase 7 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     serve_features(torch, dev, card, table)
+    torch.cuda.empty_cache()
+    launches["w4a16_gemm_experts"] = moe_serve(
+        torch, dev, card, table)["w4a16_gemm_experts"]
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
-    # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers);
+    # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),
+    # the expert-batched W4A16 entry one olmoe layer's three expert stacks
+    # at M=8 (launches: phase 9's olmoe run);
     # the attention entry is one decode call at B=8 over the served window;
     # the flash entry one forward call at the launcher's 2 x 8192 tokens
     def layer_sum(name, key):
@@ -2393,6 +2956,11 @@ def main() -> int:
     f = flash_rows[FLASH_TIMED[-1][0]]        # the launcher's shape
     record = {"kernels": [
         gemm_entry("w4a16_gemm"),
+        entry("w4a16_gemm_experts", ms=moe_rows["ms"],
+              plain_ms=moe_rows["plain_ms"], bound_ms=moe_rows["bound_ms"],
+              bound_by=costmodel.bound_by(moe_rows["nbytes"],
+                                          moe_rows["flops"]),
+              library_ms=moe_rows["library_ms"]),
         entry("paged_attention", ms=a["ms"], plain_ms=a["plain_ms"],
               bound_ms=a["bound_ms"], bound_by=a["bound_by"],
               library_ms=a["library_ms"]),

@@ -264,13 +264,14 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pack_int4` → (K, N) int8 in [-8, 7], by
-    shift-based sign extension: ``(b << 4) >> 4`` low, ``b >> 4`` high."""
+    """Inverse of :func:`pack_int4` → (..., K, N) int8 in [-8, 7], by
+    shift-based sign extension: ``(b << 4) >> 4`` low, ``b >> 4`` high
+    (leading stack axes are kept)."""
     b = packed.view(torch.int8)
     lo = (b.view(torch.uint8) << 4).view(torch.int8) >> 4
     hi = b >> 4
-    k2, n = packed.shape
-    return torch.stack([lo, hi], dim=1).reshape(2 * k2, n)
+    *lead, k2, n = packed.shape
+    return torch.stack([lo, hi], dim=-2).reshape(*lead, 2 * k2, n)
 
 
 def unpack_int8_rows(packed: torch.Tensor) -> torch.Tensor:
@@ -369,12 +370,13 @@ def quantize(w: torch.Tensor, format: FormatLike = None, *,
 
 
 def dequantize(qt: QuantizedTensor) -> torch.Tensor:
-    """Materialize the full (K, N) weight in ``qt.out_dtype`` (Eq. 2)."""
+    """Materialize the full (K, N) weight in ``qt.out_dtype`` (Eq. 2); a
+    stack (an MoE layer's experts) gives (..., K, N) at once."""
     q = unpack_weights(qt.packed, qt.format).to(torch.float32)
     g = qt.group_size
 
     def expand(a):                       # scale rows → per-element (K, .)
-        return torch.repeat_interleave(a.to(torch.float32), g, dim=0)
+        return torch.repeat_interleave(a.to(torch.float32), g, dim=-2)
     if qt.zeros is not None:
         q = q - expand(qt.zeros)
     return (q * expand(qt.scales)).to(qt.out_dtype)

@@ -60,6 +60,11 @@
 //     The W4A8 kernel (w4a8_gemm.cu) takes its geometry from there too, and
 //     its end (the warps' sum, the cluster's K sum, the output) from
 //     finish_tile.
+//   * An expert stack (an MoE layer's E GEMMs of one shape) is one launch:
+//     the expert index is folded into gridDim.y (M tiles x E; gridDim.z
+//     keeps the K blocks of a cluster, so the blocks of one cluster always
+//     share an expert), and each block moves its operands by the expert's
+//     strides (Batch). Partials are then (split_k, E, M, N).
 // Ragged edges stay in the kernel: rows past M and columns past N load
 // zeros and are never stored; a K slice that is a multiple of 32 but not of
 // BK ends in a zero-filled stage whose empty 16-row steps are skipped.
@@ -312,6 +317,47 @@ struct DenseStage {
 };
 
 // ---------------------------------------------------------------------------
+// an expert stack: ``count`` GEMMs of one shape in one launch. Operand e
+// lies e strides past operand 0: elements of x, of the weight payload
+// (bytes of int4 pairs or int8 rows, elements of a dense weight), of the
+// scales and zero-points, and of the output (direct or one partials slice)
+// ---------------------------------------------------------------------------
+
+struct Batch {
+  int count;
+  long long x, w, s, out;
+};
+
+constexpr Batch ONE_GEMM{1, 0, 0, 0, 0};
+
+template <typename T>
+__device__ __forceinline__ Int4GroupArgs at_batch(Int4GroupArgs a,
+                                                  long long e,
+                                                  const Batch& b) {
+  a.packed += e * b.w;
+  a.scales += e * b.s;
+  if (a.zeros != nullptr) a.zeros += e * b.s;
+  return a;
+}
+
+template <typename T>
+__device__ __forceinline__ Int8ChannelArgs at_batch(Int8ChannelArgs a,
+                                                    long long e,
+                                                    const Batch& b) {
+  a.rows += e * b.w;
+  a.scales += e * b.s;
+  if (a.zeros != nullptr) a.zeros += e * b.s;
+  return a;
+}
+
+template <typename T>
+__device__ __forceinline__ DenseArgs at_batch(DenseArgs a, long long e,
+                                              const Batch& b) {
+  a.w = static_cast<const T*>(a.w) + e * b.w;
+  return a;
+}
+
+// ---------------------------------------------------------------------------
 // the geometry of a tensor-core launch (mirrored by kernels/gemm.py
 // gemm_geometry, field for field)
 // ---------------------------------------------------------------------------
@@ -374,7 +420,7 @@ struct Geometry {
   int ks;        // blocks along K per output tile: split_k * sub
   int sub;       // blocks per plan slice
   int cluster;   // blocks per cluster along K (ks direct, sub partials)
-  int gx, gy, gz;
+  int gx, gy, gz;  // gy: M tiles x the batch's GEMMs
   int sr;        // int4 group-scale rows per stage
   int stage_bytes, smem;
 };
@@ -382,12 +428,14 @@ struct Geometry {
 // false for a launch the kernels do not take. fp32 (elem 4) takes the
 // CUDA-core variant: its fixed blocks, no ring, no cluster. Otherwise M
 // picks the tile rows (8, 16 or 32 tokens); sub doubles while the card has
-// fewer than two blocks per SM, the K slices stay multiples of 32 and a
-// cluster stays within MAX_CLUSTER blocks.
+// fewer than two blocks per SM (counting the tiles of all ``batch`` GEMMs),
+// the K slices stay multiples of 32 and a cluster stays within MAX_CLUSTER
+// blocks. The batch's GEMMs stack along gridDim.y.
 inline bool make_geometry(Geometry& g, int kind, int M, int N, int K, int S,
                           int elem, int direct, int group, int zeros,
-                          int sms) {
-  if (M < 1 || N < 16 || N % 16 || S < 1 || K % S || (K / S) % 32)
+                          int sms, int batch = 1) {
+  if (M < 1 || N < 16 || N % 16 || S < 1 || K % S || (K / S) % 32 ||
+      batch < 1 || (kind == W4A8 && batch != 1))
     return false;
   if (kind == W4A8) {
     // every dtype on the int8 tensor cores; a group is whole in one block's
@@ -436,7 +484,8 @@ inline bool make_geometry(Geometry& g, int kind, int M, int N, int K, int S,
     g.bm = M <= 8 ? 8 : M <= 16 ? 16 : 32;
     g.bk = ring_bk(kind);
     g.stages = STAGES;
-    const int tiles = g.gx * ((M + g.bm - 1) / g.bm);
+    const long long tiles =
+        (long long)g.gx * ((M + g.bm - 1) / g.bm) * batch;
     const int cap = direct ? MAX_CLUSTER / S : MAX_CLUSTER;
     int sub = 1;
     while (sub * 2 <= cap && K % (S * sub * 2) == 0 &&
@@ -453,7 +502,8 @@ inline bool make_geometry(Geometry& g, int kind, int M, int N, int K, int S,
     g.smem = ring > red ? ring : red;
     if (g.smem > MAX_SMEM) return false;
   }
-  g.gy = (M + g.bm - 1) / g.bm;
+  if ((long long)((M + g.bm - 1) / g.bm) * batch > 65535) return false;
+  g.gy = (M + g.bm - 1) / g.bm * batch;
   g.gz = g.ks;
   return true;
 }
@@ -464,6 +514,9 @@ struct TcParams {
   int L;            // K rows per block (K / ks)
   int sub, cluster, direct;
   int sr, stage_bytes, wbytes;
+  Batch batch;      // the stack's strides (ONE_GEMM: a single GEMM)
+  int m_tiles;      // M tiles of one GEMM: blockIdx.y = e * m_tiles + tile
+  long long slice;  // output elements between plan slices of the partials
 };
 
 // ---------------------------------------------------------------------------
@@ -881,7 +934,7 @@ __device__ __forceinline__ void finish_tile(const float (&acc)[4][BM / 8][4],
       }
     } else {
       *reinterpret_cast<float4*>(
-          partials + (size_t)(kz / p.sub) * p.M * p.N + o) = v;
+          partials + (size_t)(kz / p.sub) * p.slice + o) = v;
     }
   }
   if (p.cluster > 1) cluster.sync();  // no block leaves while read
@@ -904,10 +957,17 @@ tc_gemm_kernel(const T* __restrict__ x, typename Ring<T>::Args wa,
   extern __shared__ __align__(128) uint8_t smem[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN, m0 = (blockIdx.y % p.m_tiles) * BM;
   const int kz = blockIdx.z;
   const int kb = kz * p.L;
   const int steps = (p.L + BK - 1) / BK;
+  if (p.batch.count > 1) {       // this block's GEMM of the stack
+    const long long e = blockIdx.y / p.m_tiles;
+    x += e * p.batch.x;
+    wa = at_batch<T>(wa, e, p.batch);
+    if (out != nullptr) out += e * p.batch.out;
+    if (partials != nullptr) partials += e * p.batch.out;
+  }
 
   R ring;
   ring.start(wa, p, n0, kb, tid);
@@ -985,7 +1045,8 @@ template <int BM, template <typename, int> class Stage>
 __global__ void __launch_bounds__(THREADS)
 f32_gemm_kernel(const float* __restrict__ x,
                 typename Stage<float, 32>::Args wa, float* __restrict__ out,
-                int M, int N, int K, int k_slice) {
+                int M, int N, int K, int k_slice, Batch batch, int m_tiles,
+                long long slice) {
   constexpr int BK = 32;
   constexpr int RSTEP = THREADS / BN;
   constexpr int RPT = BM / RSTEP;
@@ -996,9 +1057,15 @@ f32_gemm_kernel(const float* __restrict__ x,
   const int tid = threadIdx.x;
   const int col = tid % BN, row0 = tid / BN;
   const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = (blockIdx.y % m_tiles) * BM;
   const int split = blockIdx.z;
   const int k_begin = split * k_slice;
+  if (batch.count > 1) {
+    const long long e = blockIdx.y / m_tiles;
+    x += e * batch.x;
+    wa = at_batch<float>(wa, e, batch);
+    out += e * batch.out;
+  }
 
   Stage<float, BK> st;
   st.init(wa, N, n0, tid);
@@ -1024,17 +1091,20 @@ f32_gemm_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < RPT; ++j) {
     const int m = m0 + row0 + j * RSTEP;
-    if (m < M && n < N) out[((size_t)split * M + m) * N + n] = acc[j];
+    if (m < M && n < N) out[(size_t)split * slice + (size_t)m * N + n] =
+        acc[j];
   }
 }
 
 template <int BM, template <typename, int> class Stage, typename Args>
 cudaError_t launch_f32(const void* x, const Args& wa, void* out, int M, int N,
-                       int K, int split_k, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split_k);
+                       int K, int split_k, const Batch& batch,
+                       long long slice, cudaStream_t stream) {
+  const int m_tiles = (M + BM - 1) / BM;
+  dim3 grid((N + BN - 1) / BN, m_tiles * batch.count, split_k);
   f32_gemm_kernel<BM, Stage><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(x), wa, static_cast<float*>(out), M, N, K,
-      K / split_k);
+      K / split_k, batch, m_tiles, slice);
   return cudaGetLastError();
 }
 
@@ -1061,7 +1131,8 @@ inline int sm_count() {
 template <typename T, int BM, template <typename> class Ring>
 cudaError_t launch_tc(const void* x, const typename Ring<T>::Args& wa,
                       void* out, const Geometry& g, int M, int N, int K,
-                      int direct, cudaStream_t stream) {
+                      int direct, const Batch& batch, long long slice,
+                      cudaStream_t stream) {
   auto kernel = tc_gemm_kernel<T, BM, Ring>;
   static int allowed = 48 * 1024;       // dynamic shared memory set so far
   if (g.smem > allowed) {
@@ -1072,7 +1143,8 @@ cudaError_t launch_tc(const void* x, const typename Ring<T>::Args& wa,
   }
   const TcParams p{M, N, K, K / g.ks, g.sub, g.cluster, direct, g.sr,
                    g.stage_bytes,
-                   g.stage_bytes - x_bytes(BM, Ring<T>::BK, sizeof(T))};
+                   g.stage_bytes - x_bytes(BM, Ring<T>::BK, sizeof(T)),
+                   batch, g.gy / batch.count, slice};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
@@ -1096,14 +1168,18 @@ cudaError_t launch_tc(const void* x, const typename Ring<T>::Args& wa,
 template <typename T, template <typename> class Ring>
 cudaError_t dispatch_tc(const void* x, const typename Ring<T>::Args& wa,
                         void* out, const Geometry& g, int M, int N, int K,
-                        int direct, cudaStream_t stream) {
+                        int direct, const Batch& batch, long long slice,
+                        cudaStream_t stream) {
   switch (g.bm) {
     case 8:
-      return launch_tc<T, 8, Ring>(x, wa, out, g, M, N, K, direct, stream);
+      return launch_tc<T, 8, Ring>(x, wa, out, g, M, N, K, direct, batch,
+                                   slice, stream);
     case 16:
-      return launch_tc<T, 16, Ring>(x, wa, out, g, M, N, K, direct, stream);
+      return launch_tc<T, 16, Ring>(x, wa, out, g, M, N, K, direct, batch,
+                                    slice, stream);
     case 32:
-      return launch_tc<T, 32, Ring>(x, wa, out, g, M, N, K, direct, stream);
+      return launch_tc<T, 32, Ring>(x, wa, out, g, M, N, K, direct, batch,
+                                    slice, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1111,32 +1187,39 @@ cudaError_t dispatch_tc(const void* x, const typename Ring<T>::Args& wa,
 
 // x (M, K) bf16 (dtype 0), fp16 (dtype 1) or fp32 (dtype 2). direct=1
 // writes out (M, N) in the x dtype (split_k ≤ MAX_CLUSTER for bf16/fp16,
-// 1 for fp32); direct=0 writes fp32 partials (split_k, M, N). The caller
-// guarantees K % split_k == 0, (K/split_k) % 32 == 0, K % 8 == 0,
-// N % 16 == 0 and 16-byte aligned pointers, and passes the geometry of its
+// 1 for fp32); direct=0 writes fp32 partials (split_k, M, N). A batch of
+// count > 1 runs count such GEMMs in the one launch, each operand at its
+// stride (out: each GEMM's (M, N) output or one partials slice of it, the
+// partials then (split_k, count, M, N)). The caller guarantees
+// K % split_k == 0, (K/split_k) % 32 == 0, K % 8 == 0, N % 16 == 0 and
+// 16-byte aligned pointers and strides, and passes the geometry of its
 // gemm_geometry, which must equal make_geometry's.
 template <template <typename> class Ring,
           template <typename, int> class Stage, typename Args>
 cudaError_t run(int kind, int dtype, const void* x, const Args& wa,
                 void* out, int M, int N, int K, int split_k, int direct,
                 int group, int zeros, const Launch& want,
-                cudaStream_t stream) {
+                cudaStream_t stream, Batch batch = ONE_GEMM) {
   Geometry g;
   if (dtype < 0 || dtype > 2 ||
       !make_geometry(g, kind, M, N, K, split_k, dtype == 2 ? 4 : 2, direct,
-                     group, zeros, sm_count()))
+                     group, zeros, sm_count(), batch.count))
     return cudaErrorInvalidValue;
   if (g.bm != want.bm || g.bk != want.bk || g.stages != want.stages ||
       g.ks != want.ks || g.cluster != want.cluster || g.smem != want.smem)
     return cudaErrorInvalidValue;       // the wrapper's geometry disagrees
+  if (batch.count == 1) batch.out = (long long)M * N;
+  const long long slice = batch.count * batch.out;
   if (dtype == 0)
     return dispatch_tc<__nv_bfloat16, Ring>(x, wa, out, g, M, N, K, direct,
-                                            stream);
+                                            batch, slice, stream);
   if (dtype == 1)
-    return dispatch_tc<__half, Ring>(x, wa, out, g, M, N, K, direct, stream);
-  return g.bm == 16
-             ? launch_f32<16, Stage>(x, wa, out, M, N, K, split_k, stream)
-             : launch_f32<32, Stage>(x, wa, out, M, N, K, split_k, stream);
+    return dispatch_tc<__half, Ring>(x, wa, out, g, M, N, K, direct, batch,
+                                     slice, stream);
+  return g.bm == 16 ? launch_f32<16, Stage>(x, wa, out, M, N, K, split_k,
+                                            batch, slice, stream)
+                    : launch_f32<32, Stage>(x, wa, out, M, N, K, split_k,
+                                            batch, slice, stream);
 }
 
 }  // namespace

@@ -33,6 +33,14 @@
 //     activation dtype once (direct mode, split_k ≤ 8), so a GEMM is one
 //     device op. With direct=0 the kernel writes the plan slices' fp32
 //     partials (split_k, M, N) instead.
+//   * An MoE layer's expert stack (E GEMMs of one shape: x (E, M, K) against
+//     packed (E, K/2, N); JAX vmaps the planned execute over the experts,
+//     one pallas_call with an extra grid axis) is one launch: the expert
+//     index rides gridDim.y beside the M tiles, each block moves its
+//     operands by the expert's strides, and the sub heuristic counts all
+//     E·tiles, so olmoe's 64 experts fill the card without a K split.
+//     Capacity rows of an expert that no token took are zero rows of x,
+//     computed like any other.
 //   * Ragged M and N tails are masked in the kernel; fp32 activations (the
 //     reduced test configurations) take the CUDA-core FMA variant.
 
@@ -41,15 +49,21 @@
 // x (M, K) bf16 (dtype 0), fp16 (dtype 1) or fp32 (dtype 2); packed
 // (K/2, N) int8; scales and optional zeros (K/group, N) fp32. direct=1
 // writes out (M, N) in the x dtype (split_k ≤ 8; 1 in fp32); direct=0
-// writes fp32 partials (split_k, M, N). bm .. smem: the wrapper's
-// gemm_geometry. The caller guarantees K % split_k == 0,
-// (K/split_k) % 32 == 0, K % 8 == 0, N % 16 == 0, an even group size
-// dividing K and 16-byte aligned pointers.
+// writes fp32 partials (split_k, M, N). batch > 1 runs an expert stack in
+// the one launch: GEMM e reads x + e·x_stride (elements), packed +
+// e·w_stride (bytes), scales and zeros + e·s_stride (floats) and writes
+// out + e·out_stride (elements; the partials are then (split_k, batch, M,
+// N)). bm .. smem: the wrapper's gemm_geometry. The caller guarantees
+// K % split_k == 0, (K/split_k) % 32 == 0, K % 8 == 0, N % 16 == 0, an
+// even group size dividing K and 16-byte aligned pointers and strides.
 extern "C" int w4a16_gemm(const void* x, const void* packed,
                           const void* scales, const void* zeros, void* out,
                           int M, int N, int K, int group, int split_k,
                           int dtype, int direct, int bm, int bk, int stages,
-                          int ks, int cluster, int smem, void* stream) {
+                          int ks, int cluster, int smem, int batch,
+                          long long x_stride, long long w_stride,
+                          long long s_stride, long long out_stride,
+                          void* stream) {
   int shift = -1;
   for (int s = 0; s < 31; ++s)
     if (group == (1 << s)) shift = s;
@@ -58,10 +72,11 @@ extern "C" int w4a16_gemm(const void* x, const void* packed,
                                    static_cast<const float*>(zeros), group,
                                    shift};
   const gemm_tile::Launch want{bm, bk, stages, ks, cluster, smem};
+  const gemm_tile::Batch b{batch, x_stride, w_stride, s_stride, out_stride};
   return static_cast<int>(
       gemm_tile::run<gemm_tile::Int4Ring, gemm_tile::Int4GroupStage>(
           gemm_tile::INT4, dtype, x, a, out, M, N, K, split_k, direct, group,
-          zeros != nullptr, want, static_cast<cudaStream_t>(stream)));
+          zeros != nullptr, want, static_cast<cudaStream_t>(stream), b));
 }
 
 extern "C" const char* kernel_error_string(int code) {

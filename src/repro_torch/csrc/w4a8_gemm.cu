@@ -394,7 +394,8 @@ cudaError_t launch(const void* xq, const void* tok, const void* xs,
   }
   Params p;
   p.tc = gemm_tile::TcParams{M, N, K, K / g.ks, g.sub, g.cluster, direct,
-                             g.sr, g.stage_bytes, 0};
+                             g.sr, g.stage_bytes, 0, gemm_tile::ONE_GEMM,
+                             g.gy, (long long)M * N};
   p.gshift = group == 32 ? 5 : group == 64 ? 6 : 7;
   p.sr = g.sr;
   p.stage_bytes = g.stage_bytes;

@@ -33,22 +33,27 @@
 // x (M, K) bf16 (dtype 0), fp16 (1) or fp32 (2); rows (K, N) int8; scales
 // and optional zeros (1, N) fp32. direct=1 writes out (M, N) in the x
 // dtype (split_k ≤ 8; 1 in fp32); direct=0 writes fp32 partials
-// (split_k, M, N). bm .. smem: the wrapper's gemm_geometry. The caller
-// guarantees (K/split_k) % 32 == 0, K % 8 == 0, N % 16 == 0 and 16-byte
-// aligned pointers.
+// (split_k, M, N). batch > 1 runs an expert stack in the one launch, as
+// w4a16_gemm does (w_stride in bytes of rows, s_stride in floats). bm ..
+// smem: the wrapper's gemm_geometry. The caller guarantees
+// (K/split_k) % 32 == 0, K % 8 == 0, N % 16 == 0 and 16-byte aligned
+// pointers and strides.
 extern "C" int w8a16_gemm(const void* x, const void* rows, const void* scales,
                           const void* zeros, void* out, int M, int N, int K,
                           int split_k, int dtype, int direct, int bm, int bk,
                           int stages, int ks, int cluster, int smem,
+                          int batch, long long x_stride, long long w_stride,
+                          long long s_stride, long long out_stride,
                           void* stream) {
   const gemm_tile::Int8ChannelArgs a{static_cast<const int8_t*>(rows),
                                      static_cast<const float*>(scales),
                                      static_cast<const float*>(zeros)};
   const gemm_tile::Launch want{bm, bk, stages, ks, cluster, smem};
+  const gemm_tile::Batch b{batch, x_stride, w_stride, s_stride, out_stride};
   return static_cast<int>(
       gemm_tile::run<gemm_tile::Int8Ring, gemm_tile::Int8ChannelStage>(
           gemm_tile::INT8, dtype, x, a, out, M, N, K, split_k, direct, 0,
-          zeros != nullptr, want, static_cast<cudaStream_t>(stream)));
+          zeros != nullptr, want, static_cast<cudaStream_t>(stream), b));
 }
 
 extern "C" const char* kernel_error_string(int code) {

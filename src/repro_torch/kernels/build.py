@@ -12,7 +12,8 @@ pointer and the stream are ``c_void_p``, every int ``c_int``.
 
 A :class:`CudaKernel` counts its successful launches in ``launches`` (a
 plain integer), so a run can show which kernels its main path went
-through. A launch whose C function returns a non-zero ``cudaError_t`` (the
+through; a :class:`KernelForm` counts one form of them apart. A launch
+whose C function returns a non-zero ``cudaError_t`` (the
 ``cudaGetLastError()`` right after the launch) raises.
 """
 from __future__ import annotations
@@ -125,6 +126,23 @@ class CudaKernel:
             raise RuntimeError(f"{self.name} launch failed: "
                                f"cudaError {rc} ({msg})")
         self.launches += 1
+
+
+class KernelForm:
+    """One launch form of a kernel (the W4A16 GEMM's expert-batched
+    launch): launching it launches the kernel, and the launch counts on
+    both. Building and binding go through the kernel."""
+
+    def __init__(self, kernel: CudaKernel, name: str):
+        self.kernel, self.name = kernel, name
+        self.launches = 0
+
+    def launch(self, *args) -> None:
+        self.kernel.launch(*args)
+        self.launches += 1
+
+    def __getattr__(self, attr):
+        return getattr(self.kernel, attr)
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[str]:

@@ -51,7 +51,8 @@ class GemmGeometry:
     block, ``bk`` K rows a ring stage, ``stages`` stages; ``ks`` blocks
     along K per output tile (the plan's split_k times ``sub``), ``cluster``
     of them summing through distributed shared memory; ``grid`` (column
-    tiles, M tiles, ks); ``scale_rows`` int4 group-scale rows a stage;
+    tiles, M tiles x the batch's GEMMs, ks); ``scale_rows`` int4
+    group-scale rows a stage;
     ``smem`` bytes of dynamic shared memory. fp32 activations take the
     CUDA-core variant: fixed 16- or 32-row blocks, one block per plan
     slice, no ring (stages 1, smem 0)."""
@@ -89,14 +90,17 @@ def sums_in_kernel(split_k: int, dtype: torch.dtype,
 @functools.lru_cache(maxsize=1024)          # on every launch's host path
 def gemm_geometry(kind: str, M: int, N: int, K: int, split_k: int,
                   dtype: torch.dtype, *, direct: bool, group: int = 0,
-                  has_zeros: bool = False, sms: int = 132) -> GemmGeometry:
+                  has_zeros: bool = False, sms: int = 132,
+                  batch: int = 1) -> GemmGeometry:
     """The block layout of ``csrc/gemm_tile.cuh`` (its make_geometry, field
     for field) for weight stage ``kind`` ("int4", "int8", "dense", or the
     W4A8 kernel's "w4a8") on a card with ``sms`` SMs; raises ValueError for
     a launch the kernels do not take. Tile rows follow M (8, 16 or 32
     tokens); ``sub`` doubles while the card has fewer than two blocks per
     SM, K slices stay multiples of 32 and a cluster stays within
-    MAX_CLUSTER blocks."""
+    MAX_CLUSTER blocks. ``batch`` GEMMs of one shape (an expert stack) run
+    in the one launch, stacked along the grid's y axis, and count their
+    tiles together (the float rings only)."""
     if kind not in GEMM_KINDS:
         raise ValueError(f"unknown GEMM weight stage {kind!r}")
     code = kernel_dtype(dtype, "GEMM")
@@ -104,6 +108,9 @@ def gemm_geometry(kind: str, M: int, N: int, K: int, split_k: int,
         raise ValueError(f"the GEMM kernels need M >= 1 and N % 16 == 0, "
                          f"got M={M}, N={N}")
     check_split(K, split_k)
+    if batch < 1 or (kind == "w4a8" and batch != 1):
+        raise ValueError(f"batch={batch}: the float rings take a batch of "
+                         f">= 1 GEMMs, the W4A8 kernel one")
     if kind == "w4a8":
         return _w4a8_geometry(M, N, K, split_k, direct, group, has_zeros,
                               sms)
@@ -116,14 +123,14 @@ def gemm_geometry(kind: str, M: int, N: int, K: int, split_k: int,
                              "directly only at split_k == 1")
         bm = 16 if M <= 16 else 32
         return GemmGeometry(bm, 32, 1, split_k, 1, 1,
-                            (gx, -(-M // bm), split_k), 0, 0, 0)
+                            (gx, _grid_y(M, bm, batch), split_k), 0, 0, 0)
     if direct and split_k > MAX_CLUSTER:
         raise ValueError(f"a cluster sums at most {MAX_CLUSTER} K slices, "
                          f"got split_k={split_k}")
     elem = torch.finfo(dtype).bits // 8
     bm = 8 if M <= 8 else 16 if M <= 16 else 32
     bk = 64 if kind == "dense" else 128
-    tiles = gx * -(-M // bm)
+    tiles = gx * -(-M // bm) * batch
     cap = MAX_CLUSTER // split_k if direct else MAX_CLUSTER
     sub = 1
     while (sub * 2 <= cap and K % (split_k * sub * 2) == 0
@@ -145,8 +152,16 @@ def gemm_geometry(kind: str, M: int, N: int, K: int, split_k: int,
         raise ValueError(f"the GEMM tile needs {smem} B of shared memory "
                          f"(> {MAX_SMEM})")
     return GemmGeometry(bm, bk, GEMM_STAGES, ks, sub,
-                        ks if direct else sub, (gx, -(-M // bm), ks), sr,
-                        stage, smem)
+                        ks if direct else sub, (gx, _grid_y(M, bm, batch), ks),
+                        sr, stage, smem)
+
+
+def _grid_y(M: int, bm: int, batch: int) -> int:
+    gy = -(-M // bm) * batch
+    if gy > 65535:
+        raise ValueError(f"{batch} GEMMs of {M} rows need {gy} blocks along "
+                         f"the grid's y axis (> 65535)")
+    return gy
 
 
 def _w4a8_geometry(M, N, K, split_k, direct, group, has_zeros,

@@ -76,7 +76,9 @@ __all__ = [
 class MatmulProblem:
     """One quantized GEMM: C[M, N] = A[M, K] · Dequant(W[K, N]). Hashable —
     the plan cache and the planner key on it. ``backend`` is the operands'
-    device type (``cuda`` | ``cpu``)."""
+    device type (``cuda`` | ``cpu``); ``batch`` counts the GEMMs of one
+    shape that share the plan (an MoE layer's E experts: x (E, M, K)
+    against an (E, K/2, N) stack, one launch on the card)."""
 
     M: int
     N: int
@@ -161,7 +163,9 @@ class KernelPlan:
 class Strategy:
     """execute(x2, qt, plan) -> (M, N); cost(problem, plan) -> seconds;
     supports(problem) -> eligibility; formats -> fnmatch patterns over
-    QuantFormat names; splittable -> honours plan.split_k."""
+    QuantFormat names; splittable -> honours plan.split_k; batched ->
+    execute also takes an expert stack whole (x (E, M, K), one launch),
+    else :func:`execute` runs it expert by expert."""
 
     name: str
     execute: Callable[..., torch.Tensor]
@@ -169,6 +173,7 @@ class Strategy:
     supports: Callable[[MatmulProblem], bool]
     formats: Tuple[str, ...] = ("w4a16_*",)
     splittable: bool = False
+    batched: bool = False
 
     def supports_format(self, format_name: str) -> bool:
         return any(fnmatch.fnmatchcase(format_name, pat)
@@ -180,7 +185,7 @@ _REGISTRY: Dict[str, Strategy] = {}
 
 def register_strategy(name: str, *, cost=None, supports=None,
                       formats: Tuple[str, ...] = ("w4a16_*",),
-                      splittable: bool = False):
+                      splittable: bool = False, batched: bool = False):
     """Register an execute fn under ``name``; the planner picks it up with
     no dispatcher edits."""
 
@@ -189,7 +194,8 @@ def register_strategy(name: str, *, cost=None, supports=None,
             name=name, execute=fn,
             cost=cost or (lambda problem, plan: float("inf")),
             supports=supports or (lambda problem: True),
-            formats=tuple(formats), splittable=splittable)
+            formats=tuple(formats), splittable=splittable,
+            batched=batched)
         return fn
 
     return deco
@@ -228,15 +234,16 @@ def num_cores(backend: str = "cuda") -> int:
 
 def choose_split_k(M: int, N: int, K: int, *, group_size: int = 128,
                    block_m: int = 128, block_n: int = 256,
-                   cores: Optional[int] = None) -> int:
+                   cores: Optional[int] = None, batch: int = 1) -> int:
     """Split when output tiles underfill the chip and K is deep (K ≫ N —
-    decode GEMMs), keeping K slices group-aligned."""
+    decode GEMMs), keeping K slices group-aligned. The ``batch`` GEMMs of
+    one launch (an expert stack) count their tiles together."""
     if group_size <= 0 or K % group_size:
         return 1
     cores = num_cores() if cores is None else cores
     m_tiles = max(1, -(-M // block_m))
     n_tiles = max(1, -(-N // block_n))
-    tiles = m_tiles * n_tiles
+    tiles = m_tiles * n_tiles * batch
     if tiles >= cores or K < 2 * group_size:
         return 1
     want = min(cores // tiles, K // group_size)
@@ -315,7 +322,7 @@ _FLOAT_ACT_FORMATS = ("w4a16_*", "w8a16_*")   # anything dequantize handles
 
 
 @register_strategy("reference", cost=_cost_reference, supports=_off_cuda,
-                   formats=_FLOAT_ACT_FORMATS)
+                   formats=_FLOAT_ACT_FORMATS, batched=True)
 def _run_reference(x2, qt, plan):
     return ref.w4a16_ref(x2, qt, out_dtype=_exec_out_dtype(plan, x2))
 
@@ -328,7 +335,7 @@ def _run_w4a8_plain(x2, qt, plan):
 
 
 @register_strategy("fused", cost=_cost_fused, supports=_on_cuda,
-                   splittable=True)
+                   splittable=True, batched=True)
 def _run_fused(x2, qt, plan):
     return w4a16_fused(x2, qt, split_k=max(plan.split_k, 1),
                        out_dtype=_exec_out_dtype(plan, x2))
@@ -344,7 +351,8 @@ def _run_decoupled(x2, qt, plan):
 @register_strategy("w8a16_fused", cost=_cost_w8a16_fused,
                    supports=lambda problem: _on_cuda(problem)
                    and problem.group_size >= problem.K > 0,
-                   formats=("w8a16_channel*",), splittable=True)
+                   formats=("w8a16_channel*",), splittable=True,
+                   batched=True)
 def _run_w8a16_fused(x2, qt, plan):
     return w8a16_fused(x2, qt, split_k=max(plan.split_k, 1),
                        out_dtype=_exec_out_dtype(plan, x2))
@@ -466,7 +474,8 @@ def _default_plan(problem: MatmulProblem, strategy: str) -> KernelPlan:
     if get_strategy(strategy).splittable:
         split_k = choose_split_k(problem.M, problem.N, problem.K,
                                  group_size=problem.group_size,
-                                 cores=num_cores(problem.backend))
+                                 cores=num_cores(problem.backend),
+                                 batch=problem.batch)
     return KernelPlan(strategy=strategy, split_k=split_k,
                       out_dtype=problem.out_dtype)
 
@@ -537,13 +546,30 @@ def resolve_plan(problem: MatmulProblem, cfg=None) -> KernelPlan:
 
 def execute(plan: KernelPlan, x: torch.Tensor,
             qt: QuantizedTensor) -> torch.Tensor:
-    """Run a planned quantized matmul: x (..., K) → (..., N)."""
+    """Run a planned quantized matmul: x (..., K) → (..., N). An expert
+    stack (packed (E, K/pack, N)) takes x (E, M, K) → (E, M, N): whole for
+    a batched strategy (the W4A16 and W8A16 kernels, one launch; the plain
+    ``reference``, one dequant and one batched matmul), else one expert at
+    a time through the strategy's 2-D path (the decoupled pipeline and
+    W4A8)."""
     strat = get_strategy(plan.strategy)
     if not strat.supports_format(qt.format.name):
         raise ValueError(
             f"plan strategy {plan.strategy!r} cannot execute a "
             f"{qt.format.name!r} tensor (it supports formats matching "
             f"{list(strat.formats)})")
+    if qt.packed.dim() == 3:
+        E = qt.packed.shape[0]
+        if x.dim() != 3 or x.shape[0] != E or x.shape[-1] != qt.K:
+            raise ValueError(f"an expert stack of {E} takes x (E, M, "
+                             f"{qt.K}), got {tuple(x.shape)}")
+        if strat.batched:
+            return strat.execute(x, qt, plan)
+        return torch.stack([strat.execute(x[e], qt.layer(e), plan)
+                            for e in range(E)])
+    if qt.packed.dim() != 2:
+        raise ValueError(f"execute takes one layer's weight or expert "
+                         f"stack, got packed {tuple(qt.packed.shape)}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     out = strat.execute(x2, qt, plan)
@@ -556,32 +582,38 @@ def matmul(x: torch.Tensor, qt: QuantizedTensor, *, cfg=None) -> torch.Tensor:
     return execute(resolve_plan(problem, cfg), x, qt)
 
 
-def quantized_leaves(tree):
+def _quantized_paths(tree, names=()):
     if isinstance(tree, QuantizedTensor):
-        yield tree
+        yield names, tree
     elif isinstance(tree, Mapping):
-        for v in tree.values():
-            yield from quantized_leaves(v)
+        for k, v in tree.items():
+            yield from _quantized_paths(v, names + (k,))
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from quantized_leaves(v)
+            yield from _quantized_paths(v, names)
+
+
+def quantized_leaves(tree):
+    return (leaf for _, leaf in _quantized_paths(tree))
 
 
 def plan_for_params(params, M: int, *,
                     strategy: Optional[str] = None) -> Dict[str, KernelPlan]:
     """Pre-plan every quantized layer GEMM in a param tree for ``M`` rows
     (``strategy`` forces one, and a strategy/format mismatch raises here).
-    Returns ``{"KxN": plan}``; every planned decision lands in the plan
-    cache."""
+    An MoE expert stack (a leaf under ``moe``, experts on the axis before
+    K) is planned as one batched problem of E GEMMs. Returns ``{"KxN":
+    plan}``; every planned decision lands in the plan cache."""
     plans: Dict[str, KernelPlan] = {}
-    for leaf in quantized_leaves(params):
+    for names, leaf in _quantized_paths(params):
+        batch = leaf.packed.shape[-3] if "moe" in names else 1
         problem = MatmulProblem(
             M=int(M), N=int(leaf.N), K=int(leaf.K),
             group_size=leaf.group_size,
             act_dtype=dtype_name(leaf.out_dtype),
             out_dtype=dtype_name(leaf.out_dtype),
             has_zeros=leaf.zeros is not None,
-            backend=leaf.packed.device.type,
+            backend=leaf.packed.device.type, batch=int(batch),
             format=leaf.format.name)
         plans[problem.layer_key] = plan_matmul(problem, strategy=strategy)
     return plans

@@ -70,11 +70,29 @@ class ModelConfig:
         return _round_up(self.vocab_size, 256)
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense model (embeddings included)."""
+        """Analytic parameter count (embeddings included) of the dense and
+        moe families: a moe layer holds E experts of 3·d·ff and a d×E
+        router in place of the MLP."""
         d, ff, V = self.d_model, self.d_ff, self.padded_vocab
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         mlp = (3 if self.mlp_type == "swiglu" else 2) * d * ff
-        total = self.num_layers * (attn + mlp) + V * d
+        if self.family == "moe":
+            per_layer = attn + self.num_experts * 3 * d * ff \
+                + d * self.num_experts
+        else:
+            per_layer = attn + mlp
+        total = self.num_layers * per_layer + V * d
         if not self.tie_embeddings:
             total += V * d
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters one token touches: a moe token runs the top-k of
+        its layer's experts."""
+        if self.family != "moe":
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        dense_part = (self.param_count()
+                      - self.num_layers * self.num_experts * 3 * d * ff)
+        return dense_part \
+            + self.num_layers * self.experts_per_token * 3 * d * ff

@@ -38,10 +38,14 @@ def linear(p, x: torch.Tensor, cfg=None) -> torch.Tensor:
 
 def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
                   symmetric: Optional[bool] = None, min_size: int = 1 << 16,
-                  skip_names=("embed", "lm_head")):
-    """Convert every eligible 2-D/3-D ``kernel`` leaf to a QuantizedTensor
-    (3-D = stacked layers, quantized slice-wise). ``embed``/``lm_head``
-    stay dense."""
+                  skip_names=("embed", "lm_head", "router", "bc_proj")):
+    """Convert every eligible ``kernel`` leaf of two or more axes to a
+    QuantizedTensor. Leading axes (stacked layers, MoE experts: an (L, E,
+    K, N) stack) are quantized slice by slice, so scales are per (layer,
+    expert, K group, N) and the stack stays one QuantizedTensor of packed
+    shape (..., K/2, N). ``embed``, ``lm_head``, the MoE ``router`` and
+    ``bc_proj`` stay dense, as in the JAX package; ``min_size`` is per
+    matrix, not per stack."""
     base = quant.resolve_format(format)
     if group_size is not None:
         base = base.with_group_size(group_size)
@@ -67,12 +71,18 @@ def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
             return leaf
         if leaf.dim() == 2:
             return quantize(leaf, fmt, out_dtype=leaf.dtype)
-        parts = [quantize(w, fmt, out_dtype=leaf.dtype) for w in leaf]
+        lead = leaf.shape[:-2]
+        parts = [quantize(w, fmt, out_dtype=leaf.dtype)
+                 for w in leaf.reshape(-1, *leaf.shape[-2:])]
+
+        def stack(ts):
+            t = torch.stack(ts)
+            return t.reshape(*lead, *t.shape[1:])
+
         return QuantizedTensor(
-            torch.stack([q.packed for q in parts]),
-            torch.stack([q.scales for q in parts]),
+            stack([q.packed for q in parts]), stack([q.scales for q in parts]),
             None if parts[0].zeros is None
-            else torch.stack([q.zeros for q in parts]),
+            else stack([q.zeros for q in parts]),
             parts[0].group_size, leaf.dtype, fmt)
 
     def visit(tree, names):

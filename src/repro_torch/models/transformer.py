@@ -1,7 +1,10 @@
-"""Dense GQA decoder: init, quantize, the training forward and loss, the
-paged decode step, the chunked-prefill step, the batched speculative
-verify step, and the ring-cache prefill and decode that a draft model runs
-on (port of the dense family of ``repro/models/transformer.py``).
+"""GQA decoder of the dense and moe families: init, quantize, the training
+forward and loss, the paged decode step, the chunked-prefill step, the
+batched speculative verify step, and the ring-cache prefill and decode
+that a draft model runs on (port of the dense and moe families of
+``repro/models/transformer.py``). A moe layer holds ``"moe"`` (router and
+expert stacks, ``models/moe.py``) in place of ``"mlp"``; one FFN switch
+(:func:`_ffn`) serves every step.
 
 Parameters keep the JAX package's tree: ``{"embed": {"table"},
 "final_norm": {"scale"}, "layers": {...stacked over L...}, "lm_head":
@@ -10,8 +13,8 @@ Parameters keep the JAX package's tree: ``{"embed": {"table"},
 layer loop does no slicing per step. The step functions update the paged
 KV pool in place (see ``runtime/kvcache.py``) and return the same state.
 
-Other families (moe, rwkv, hybrid, encdec) are not ported yet and are
-refused; so are the verify step's carry checkpoints, which only they need.
+Other families (rwkv, hybrid, encdec) are not ported yet and are refused;
+so are the verify step's carry checkpoints, which only they need.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from repro_torch.core.quant import (
     kv_quantize,
 )
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import kvcache as kvc
 
@@ -38,12 +41,12 @@ CARRY_FAMILIES = ("rwkv", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mlp_type != "swiglu" \
+    if cfg.family not in ("dense", "moe") or cfg.mlp_type != "swiglu" \
             or cfg.norm_type != "rmsnorm" or cfg.tie_embeddings \
             or cfg.vision_prefix:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family (SwiGLU, RMSNorm, untied "
-            f"head, no vision prefix) is ported to PyTorch so far; "
+            f"{cfg.name}: only the dense and moe families (SwiGLU, RMSNorm, "
+            f"untied head, no vision prefix) are ported to PyTorch so far; "
             f"{cfg.family!r} archs are still served by the JAX package")
 
 
@@ -52,8 +55,9 @@ def check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
-    """Random dense parameters drawn from ``gen`` (stacked over L),
-    created in ``cfg.dtype`` on ``device``."""
+    """Random parameters drawn from ``gen`` (stacked over L), created in
+    ``cfg.dtype`` on ``device``: each layer's FFN is the SwiGLU ``mlp``
+    (dense) or the router and expert stacks of ``moe``."""
     check_family(cfg)
     L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
 
@@ -65,16 +69,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
         return {"scale": torch.ones(shape, dtype=cfg.dtype, device=device)}
 
     table = torch.randn(V, d, generator=gen, device=device) * 0.02
+    stack = {
+        "norm1": ones(L, d), "norm2": ones(L, d),
+        "attn": {"wq": lin(d, cfg.q_dim), "wk": lin(d, cfg.kv_dim),
+                 "wv": lin(d, cfg.kv_dim), "wo": lin(cfg.q_dim, d)},
+    }
+    if cfg.family == "moe":
+        stack["moe"] = moe.init_moe(gen, d, ff, cfg.num_experts, cfg.dtype,
+                                    device=device, stacked=L)
+    else:
+        stack["mlp"] = {"w_gate": lin(d, ff), "w_up": lin(d, ff),
+                        "w_down": lin(ff, d)}
     return {
         "embed": {"table": table.to(cfg.dtype)},
         "final_norm": ones(d),
-        "layers": {
-            "norm1": ones(L, d), "norm2": ones(L, d),
-            "attn": {"wq": lin(d, cfg.q_dim), "wk": lin(d, cfg.kv_dim),
-                     "wv": lin(d, cfg.kv_dim), "wo": lin(cfg.q_dim, d)},
-            "mlp": {"w_gate": lin(d, ff), "w_up": lin(d, ff),
-                    "w_down": lin(ff, d)},
-        },
+        "layers": stack,
         "lm_head": lin(d, V, stacked=False),
     }
 
@@ -134,6 +143,20 @@ def _mlp(p, cfg: ModelConfig, x):
     return layers.linear(p["w_down"], h, cfg)
 
 
+def _ffn(lp, cfg: ModelConfig, h):
+    """The post-attention FFN tail of every layer body (JAX's
+    ``_ffn_seq``): h + FFN(norm2(h)), the FFN being the SwiGLU MLP or the
+    MoE (every row of h routed; its aux loss dropped)."""
+    x = layers.rmsnorm(lp["norm2"], h)
+    if cfg.family == "moe":
+        y, _aux = moe.moe_ffn(
+            lp["moe"], x, num_experts=cfg.num_experts,
+            top_k=cfg.experts_per_token,
+            capacity_factor=cfg.moe_capacity_factor, cfg=cfg)
+        return h + y
+    return h + _mlp(lp["mlp"], cfg, x)
+
+
 def _attn_seq(p, cfg: ModelConfig, x, positions, *, return_kv=False):
     """Causal (sliding-window) self-attention over a whole sequence: the
     flash-attention Function when ``cfg.attn_impl == "flash"``, else the
@@ -159,10 +182,10 @@ def _attn_seq(p, cfg: ModelConfig, x, positions, *, return_kv=False):
 
 
 def _layer_seq(p, cfg: ModelConfig, h, positions):
-    """One decoder layer in sequence mode (the dense branch)."""
+    """One decoder layer in sequence mode."""
     h = h + _attn_seq(p["attn"], cfg, layers.rmsnorm(p["norm1"], h),
                       positions)
-    return h + _mlp(p["mlp"], cfg, layers.rmsnorm(p["norm2"], h))
+    return _ffn(p, cfg, h)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -250,7 +273,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
                 out_dtype=cfg.dtype, attn_path=attn_path,
                 kv_partitions=kv_partitions, live_pages=live_pages)
         h = h + layers.linear(ap["wo"], o.reshape(B, H * D), cfg)
-        h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
+        h = _ffn(lp, cfg, h)
     h = layers.rmsnorm(params["final_norm"], h)
     return _logits_head(params, cfg, h), state
 
@@ -321,8 +344,7 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
             lp["attn"], cfg, x1, pool_all.layer(i), table, positions,
             safe_pos, fmt=fmt, cache_len=cache_len, attn_path=attn_path,
             kv_partitions=kv_partitions, live_pages=live_pages)
-        h = h + a
-        h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
+        h = _ffn(lp, cfg, h + a)
     h = layers.rmsnorm(params["final_norm"], h)
     return _logits_head(params, cfg, _last_valid_row(h, positions)), state
 
@@ -332,7 +354,8 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
                 cache_len: int, kv_format: str = DEFAULT_KV_FORMAT,
                 attn_path: str = "gather", kv_partitions=None,
                 live_pages=None):
-    """Batched speculative-verify step (the dense branch of JAX's).
+    """Batched speculative-verify step (the dense and moe branches of
+    JAX's; a moe layer routes all B·C rows together).
 
     tokens: (B, C) — per slot, the last emitted token followed by up to
     C-1 drafts; positions: (B, C) absolute, -1 = padding (short proposals,
@@ -355,7 +378,7 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
             lp["attn"], cfg, x1, pool_all.layer(i), tables, positions,
             safe_pos, fmt=fmt, cache_len=cache_len, attn_path=attn_path,
             kv_partitions=kv_partitions, live_pages=live_pages)
-        h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
+        h = _ffn(lp, cfg, h)
     h = layers.rmsnorm(params["final_norm"], h)
     return _logits_head(params, cfg, h), state
 
@@ -399,8 +422,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                               layers.rmsnorm(lp["norm1"], h), positions,
                               return_kv=True)
         attention.cache_prefill(_ring_layer(state["cache"]["kv"], i), k, v)
-        h = h + a
-        h = h + _mlp(lp["mlp"], cfg, layers.rmsnorm(lp["norm2"], h))
+        h = _ffn(lp, cfg, h + a)
     h = layers.rmsnorm(params["final_norm"], h[:, -1])
     return _logits_head(params, cfg, h), state
 

@@ -31,7 +31,9 @@ max_batch·(spec_k + 1)``; the other steps' GEMMs reuse them.
 
 Not ported, and refused: meshes, the ring cache as the serving state
 (``paged=False``; the draft model keeps a ring of its own), and families
-other than dense.
+other than dense and moe. A moe layer routes every row of a step (inactive
+decode slots, a chunk's padding, every verify position) as the JAX engine
+does, since which pairs overflow an expert's capacity depends on it.
 """
 from __future__ import annotations
 

@@ -249,3 +249,52 @@ def test_w4a8_partials_beyond_a_cluster():
     geo = tgemm.gemm_geometry("w4a8", 8, 64, 512, 16, torch.bfloat16,
                               direct=False, group=32)
     assert geo.ks == 16 and geo.cluster == 1
+
+
+# an MoE layer's expert stacks, (E, M, K, N): olmoe's at its decode (and
+# chunk) capacity 8, mixtral's at decode capacity 2 and chunk capacity 10,
+# and the REDUCED configs'
+EXPERT_STACKS = [(64, 8, 2048, 1024), (64, 8, 1024, 2048),
+                 (8, 2, 4096, 14336), (8, 10, 14336, 4096),
+                 (8, 2, 128, 64), (4, 5, 256, 128)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("E,M,K,N", EXPERT_STACKS)
+def test_expert_batch_stacks_along_grid_y(E, M, K, N, dtype):
+    """A batch of E GEMMs is the single GEMM's layout with E times the
+    grid's y extent; its K split counts the tiles of all E, so a stack
+    that fills the card is not cut along K."""
+    for kind in ("int4", "int8"):
+        split = choose_split_k(M, N, K, cores=132, batch=E)
+        for direct in (True, False):
+            if direct and dtype == torch.float32 and split != 1:
+                continue
+            one = tgemm.gemm_geometry(kind, M, N, K, split, dtype,
+                                      direct=direct, group=128)
+            geo = tgemm.gemm_geometry(kind, M, N, K, split, dtype,
+                                      direct=direct, group=128, batch=E)
+            gx, gy, gz = geo.grid
+            assert (gx, gy, gz) == (one.grid[0], one.grid[1] * E, geo.ks)
+            assert (geo.bm, geo.bk, geo.smem) == (one.bm, one.bk, one.smem)
+            assert geo.sub <= one.sub
+            if dtype != torch.float32:
+                tiles = gx * gy
+                assert geo.sub == 1 or tiles * split * geo.sub // 2 \
+                    < 2 * 132
+    # olmoe's stacks hold 1024 and 2048 output tiles: no split, no sub
+    geo = tgemm.gemm_geometry("int4", 8, 1024, 2048, 1, torch.bfloat16,
+                              direct=True, group=128, batch=64)
+    assert (geo.grid, geo.ks, geo.cluster) == ((16, 64, 1), 1, 1)
+
+
+def test_expert_batch_refusals():
+    with pytest.raises(ValueError, match="65535"):
+        tgemm.gemm_geometry("int4", 32, 1024, 2048, 1, torch.bfloat16,
+                            direct=True, group=128, batch=65536)
+    with pytest.raises(ValueError, match="W4A8 kernel one"):
+        tgemm.gemm_geometry("w4a8", 8, 1024, 2048, 1, torch.bfloat16,
+                            direct=True, group=128, batch=8)
+    with pytest.raises(ValueError, match="batch=0"):
+        tgemm.gemm_geometry("int4", 8, 1024, 2048, 1, torch.bfloat16,
+                            direct=True, group=128, batch=0)

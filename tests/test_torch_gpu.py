@@ -806,3 +806,113 @@ def test_speculative_engine_exact_acceptance_on_card(cuda_device, proposer):
     assert eng.alloc.pages_in_use == 0
     if proposer == "oracle":
         assert rep.proposed_tokens > 0 and rep.acceptance_rate >= 0.9
+
+
+def _expert_stack(rng, dev, E, K, N, fmt="w4a16_g128"):
+    """(E, K, N) random weights quantized slice-wise into one stack."""
+    from repro_torch.models import layers as tlayers
+    w = torch.from_numpy((rng.standard_normal((E, K, N)) * K ** -0.5)
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    return tlayers.quantize_tree({"moe": {"w": {"kernel": w}}}, format=fmt,
+                                 min_size=0)["moe"]["w"]["kernel"]
+
+
+# (E, M, K, N): olmoe's expert GEMMs at their capacity 8, mixtral's at its
+# decode and chunk capacities 2 and 10
+EXPERT_CASES = [(64, 8, 2048, 1024), (64, 8, 1024, 2048),
+                (8, 2, 4096, 14336), (8, 10, 14336, 4096)]
+
+
+@pytest.mark.parametrize("E,M,K,N", EXPERT_CASES)
+def test_expert_batched_w4a16_matches_plain(cuda_device, E, M, K, N):
+    """One launch for the whole stack, at the planned split_k and at 2
+    (partials (2, E, M, N) summed in slice order), with one expert's rows
+    all zero; the plain version runs expert by expert. Tolerance one bf16
+    ulp after a reordered fp32 sum (rtol 2^-7, atol 1e-3)."""
+    from repro_torch.kernels import planning
+    rng = np.random.default_rng(7)
+    qt = _expert_stack(rng, cuda_device, E, K, N)
+    x = torch.from_numpy(rng.standard_normal((E, M, K)).astype(np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    x[E // 2] = 0
+    plan = planning.plan_matmul(planning.MatmulProblem.from_operands(
+        x[0], qt.layer(0), batch=E), use_cache=False)
+    for split_k, out_dtype in ((plan.split_k, None), (2, torch.float32)):
+        n0 = (wf.W4A16_GEMM.launches, wf.W4A16_GEMM_EXPERTS.launches)
+        got = wf.w4a16_fused(x, qt, split_k=split_k, out_dtype=out_dtype)
+        assert (wf.W4A16_GEMM.launches - n0[0],
+                wf.W4A16_GEMM_EXPERTS.launches - n0[1]) == (1, 1)
+        want = wf.w4a16_fused_plain(x, qt, split_k=split_k,
+                                    out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.shape == (E, M, N)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-3)
+        assert torch.count_nonzero(got[E // 2]) == 0
+
+
+def test_expert_batched_w8a16_matches_plain(cuda_device):
+    rng = np.random.default_rng(8)
+    for E, M, K, N in EXPERT_CASES[:2]:
+        qt = _expert_stack(rng, cuda_device, E, K, N, "w8a16_channel")
+        x = torch.from_numpy(rng.standard_normal((E, M, K))
+                             .astype(np.float32)).to(cuda_device,
+                                                     torch.bfloat16)
+        n0 = tw8a16.W8A16_GEMM.launches
+        got = tw8a16.w8a16_fused(x, qt)
+        assert tw8a16.W8A16_GEMM.launches == n0 + 1
+        torch.testing.assert_close(
+            got.float(), tw8a16.w8a16_fused_plain(x, qt).float(),
+            rtol=2 ** -7, atol=1e-3)
+    torch.cuda.synchronize()
+
+
+def test_expert_batched_kernel_refuses_what_it_cannot_take(cuda_device):
+    """A stack whose N is not a multiple of 16, and x whose expert count
+    differs from the stack's, raise before any launch: no plain path on
+    the card."""
+    rng = np.random.default_rng(9)
+    qt = _expert_stack(rng, cuda_device, 4, 256, 72)
+    x = torch.zeros((4, 8, 256), dtype=torch.bfloat16, device=cuda_device)
+    n0 = wf.W4A16_GEMM.launches
+    with pytest.raises(ValueError, match="N % 16"):
+        wf.w4a16_fused(x, qt)
+    with pytest.raises(ValueError, match="does not chain"):
+        wf.w4a16_fused(x[:3], qt)
+    assert wf.W4A16_GEMM.launches == n0
+
+
+def test_moe_engine_kernel_path_matches_plain_path(cuda_device):
+    """REDUCED olmoe in fp32 served through the expert-batched kernel: each
+    decode step launches the W4A16 kernel 4 + 3 times a layer (the router
+    and the head stay dense), and prefill logits match the plain path
+    within fp32 summation order over two layers (1e-3)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_reduced("olmoe-1b-7b")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = T.quantize_params(T.init_params(gen, cfg, device=cuda_device),
+                               cfg, min_size=0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             size=(2, 12)).astype(np.int32)
+
+    def run(strategy, path):
+        eng = ServingEngine(dataclasses.replace(cfg,
+                                                w4a16_strategy=strategy),
+                            params, max_batch=2, max_prompt_len=12,
+                            max_new_tokens=4, page_size=8, prefill_chunk=8,
+                            attn_path=path, device=cuda_device)
+        return eng.run([Request(rid=i, prompt=toks[i], max_new_tokens=4)
+                        for i in range(2)])
+
+    n0 = (wf.W4A16_GEMM.launches, wf.W4A16_GEMM_EXPERTS.launches)
+    fused = run("auto", "auto")
+    steps = fused.steps
+    assert wf.W4A16_GEMM_EXPERTS.launches - n0[1] > 0
+    assert (wf.W4A16_GEMM.launches - n0[0]) % (cfg.num_layers * 7) == 0
+    plain = run("reference", "gather")
+    assert steps == plain.steps
+    for rid in (0, 1):
+        torch.testing.assert_close(fused.prefill_logits[rid],
+                                   plain.prefill_logits[rid],
+                                   rtol=1e-3, atol=1e-3)
