@@ -142,6 +142,37 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              way. Phase 3 also holds paged attention at both archs' head
              shapes (16 over 16 heads of 128; 32 over 8 of 128, window
              4096).
+10. carry  — the recurrent-carry families at full width and depth, each
+             through the serve launcher (W4A16, kv_fp16, 8 slots, 8
+             requests of 256 + 32 tokens, 16-token pages, 32-token chunks,
+             random weights from seed 0) and against its plain paths on
+             the same weights (the first 4 requests' prefill logits within
+             LOGIT_TOL): (a)
+             rwkv6-7b (32 layers, d_model 4096, 64 heads of 64, d_ff 14336,
+             vocab 65536; no KV cache), every decode step launching the
+             W4A16 kernel exactly 32 x 8 = 256 times and paged attention
+             never; its random-weight logits move past LOGIT_TOL under
+             bf16 rounding alone (the bf16 plain path against an fp32 one,
+             printed), so its paths are held with fp32 activations on the
+             same quantized weights (the kernel's fp32 variant); (b) hymba-1.5b (32 layers, d_model 1600, 25/5 heads of
+             64, SSM d_inner 3200 state 16, d_ff 5504, vocab 32001, SWA
+             1024; the K = 1600 leaves at group 64), 32 x 10 = 320 W4A16
+             and 32 paged-attention launches every decode step, and one
+             request of 1200 + 8 tokens (the window bites) against its
+             plain path. For each: a traced prefill chunk and 4 traced
+             decode steps (device ms, ops, idle share), speculation at k =
+             4 with drafts that are the plain decode's own tokens (4
+             requests) and with ngram (64-token prompts; exact acceptance; the verify logits at each row's first
+             position against a decode step replayed from the same carry;
+             every carry commit equal to checkpoint 1 + accepted of the
+             stack its verify step returned, 0 for inactive rows), and
+             ``--no-quant`` traced the same way. Phase 3 also holds the
+             W4A16 kernel at every carry-family (K, N) (M = 1, 8, 40; bf16
+             and fp32; hymba's K = 1600 at group 64) and paged attention at
+             hymba's heads (G = 5, D = 64: decode, chunk and verify, both
+             KV formats, the 1024 window biting and a 100-token one, -1
+             table entries, fp32); phase 5 times both there, and the
+             sequential recurrences of a prefill chunk alone.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -280,7 +311,7 @@ def family_split(M, N, K):
 
 def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
               hole=False, dtype=None, heads=(HKV, G, D), page=PAGE,
-              pages=PAGES):
+              pages=PAGES, ctx=None):
     """The serving pool at full danube width (545 blocks of 8 tokens, one
     layer) filled with random K/V; per-slot tables of 68 pages; position
     tags for every token a slot holds. Decode: B=8 slots at ragged
@@ -295,15 +326,17 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
     slot 0's table entry 5 becomes -1 inside its live pages (the null
     block's tokens are masked). ``dtype``: the compute dtype (bf16 by
     default). ``heads``: (KV heads, group, head dim), danube's by default;
-    ``page``/``pages``: the block size and a slot's table length. ``rows``
-    marks the live queries."""
+    ``page``/``pages``: the block size and a slot's table length; ``ctx``:
+    the last context position (a decode or verify slot's, less 3 a slot)
+    in place of 700 (480 for the chunk). ``rows`` marks the live
+    queries."""
     dtype = torch.bfloat16 if dtype is None else dtype
     hkv, g, d = heads
     from repro_torch.core.quant import get_kv_format
     from repro_torch.kernels import planning
     from repro_torch.runtime import kvcache as kvc
     B, C = {"decode": (8, 1), "chunk": (1, 32), "verify": (8, 5)}[kind]
-    ctx_pos = 480 if kind == "chunk" else 700
+    ctx_pos = ctx if ctx is not None else 480 if kind == "chunk" else 700
     cache_len = pages * page
     fmt = get_kv_format(fmt_name)
     pool = kvc.init_pool(1 + 8 * pages, page, hkv, d, dtype, fmt_name,
@@ -356,7 +389,8 @@ def attn_case(torch, gen, dev, *, fmt_name, kind, null_slot=False,
         B, hkv, pages, q_tiles=C // Tq, cores=planning.num_cores("cuda"))
     return dict(qk=qk, q=q.to(dtype), positions=positions,
                 start=start, pool=pool, tables=tables, fmt=fmt, Tq=Tq,
-                planned=planned, B=B, C=C, G=g, rows=positions >= 0)
+                planned=planned, B=B, C=C, G=g, rows=positions >= 0,
+                heads=heads, page=page)
 
 
 def partial_rows(c):
@@ -1227,58 +1261,64 @@ def attn_bytes_flops(torch, c):
     pages, per query row."""
     from repro_torch.core import costmodel
     tables, fmt, qk = c["tables"], c["fmt"], c["qk"]
+    hkv, _, d = c["heads"]
+    page = c["page"]
     mapped = int((tables >= 0).sum())               # (slot, page) pairs
-    per_tok = costmodel.kv_bytes_per_token(HKV, D, quantized=fmt.quantized)
-    kv = mapped * PAGE * per_tok
+    per_tok = costmodel.kv_bytes_per_token(hkv, d, quantized=fmt.quantized)
+    kv = mapped * page * per_tok
     B, _, QT, QG, _ = qk.shape
     q_in = qk.numel() * qk.element_size() + tables.numel() * 4 \
         + c["positions"].numel() * 4
     parts = c["planned"]
-    out = B * HKV * QT * parts * QG * (D + 2) * 4
-    flops = 4.0 * mapped * PAGE * QT * QG * D * HKV
+    out = B * hkv * QT * parts * QG * (d + 2) * 4
+    flops = 4.0 * mapped * page * QT * QG * d * hkv
     return kv + q_in + out, flops
 
 
-def time_attention(torch, dev, gen, timer, card):
+def time_attn_case(torch, timer, c, window, label, card):
+    """Phase 5's row for one paged-attention case at the planned
+    kv_partitions: the kernel, its plain version, and gather_window +
+    SDPA (one library call over the gathered window), beside the bound."""
     import torch.nn.functional as F
     from repro_torch.core import costmodel
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.runtime import kvcache as kvc
+    kw = dict(Tq=c["Tq"], G=c["G"], S=c["planned"], window=window,
+              fmt=c["fmt"])
+    args = (c["qk"], c["positions"], c["start"], c["pool"], c["tables"])
+    q = c["q"].permute(0, 2, 1, 3)                       # (B, Hq, C, D)
+
+    def library():
+        win = kvc.gather_window(c["pool"], c["tables"], fmt=c["fmt"],
+                                out_dtype=torch.bfloat16)
+        kp, qp = win.pos[:, None, None, :], c["positions"][:, None, :, None]
+        mask = (kp >= 0) & (kp <= qp) \
+            & (kp < c["start"][:, None, None, None]) & (kp > qp - window)
+        return F.scaled_dot_product_attention(
+            q, win.k.permute(0, 2, 1, 3), win.v.permute(0, 2, 1, 3),
+            attn_mask=mask, enable_gqa=True)
+
+    nbytes, flops = attn_bytes_flops(torch, c)
+    r = dict(ms=timer(lambda: pa._launch_partials(*args, **kw)),
+             plain_ms=timer(lambda: pa.pooled_partials_plain(*args, **kw)),
+             library_ms=timer(library),
+             bound_ms=costmodel.roofline_s(nbytes, flops) * 1e3,
+             bound_by=costmodel.bound_by(nbytes, flops),
+             kv_partitions=c["planned"])
+    log("timing", f"paged_attention {label} B={c['B']} C={c['C']} "
+        f"{c['fmt'].name} kv_partitions={c['planned']}: kernel "
+        f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        f"{r['bound_ms'] / r['ms']:.1%} of roofline), plain "
+        f"{r['plain_ms']:.4f} ms, gather+sdpa {r['library_ms']:.4f} ms "
+        f"[{card}]")
+    return r
+
+
+def time_attention(torch, dev, gen, timer, card):
     rows = {}
     for kind in ("decode", "chunk", "verify"):
         c = attn_case(torch, gen, dev, fmt_name="kv_fp16", kind=kind)
-        kw = dict(Tq=c["Tq"], G=G, S=c["planned"], window=4096, fmt=c["fmt"])
-        args = (c["qk"], c["positions"], c["start"], c["pool"], c["tables"])
-        B, C = c["B"], c["C"]
-        q = c["q"].permute(0, 2, 1, 3)                   # (B, Hq, C, D)
-
-        def library():
-            win = kvc.gather_window(c["pool"], c["tables"], fmt=c["fmt"],
-                                    out_dtype=torch.bfloat16)
-            kp, qp = win.pos[:, None, None, :], \
-                c["positions"][:, None, :, None]
-            mask = (kp >= 0) & (kp <= qp) & (kp < c["start"][:, None, None,
-                                                              None]) \
-                & (kp > qp - 4096)
-            return F.scaled_dot_product_attention(
-                q, win.k.permute(0, 2, 1, 3), win.v.permute(0, 2, 1, 3),
-                attn_mask=mask, enable_gqa=True)
-
-        nbytes, flops = attn_bytes_flops(torch, c)
-        r = dict(ms=timer(lambda: pa._launch_partials(*args, **kw)),
-                 plain_ms=timer(lambda: pa.pooled_partials_plain(*args,
-                                                                 **kw)),
-                 library_ms=timer(library),
-                 bound_ms=costmodel.roofline_s(nbytes, flops) * 1e3,
-                 bound_by=costmodel.bound_by(nbytes, flops),
-                 kv_partitions=c["planned"])
-        rows[kind] = r
-        log("timing", f"paged_attention {kind} B={B} C={C} kv_fp16 "
-            f"kv_partitions={c['planned']}: kernel {r['ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
-            f"{r['bound_ms'] / r['ms']:.1%} of roofline), plain "
-            f"{r['plain_ms']:.4f} ms, gather+sdpa {r['library_ms']:.4f} ms "
-            f"[{card}]")
+        rows[kind] = time_attn_case(torch, timer, c, 4096, kind, card)
     return rows
 
 
@@ -1723,12 +1763,13 @@ def feature_requests(prompts, gen=FEAT_GEN):
             for i, p in enumerate(prompts)]
 
 
-def capture_verify(engine, table):
+def capture_verify(engine, table, kernels=("w4a16_gemm", "paged_attention")):
     """Record each verify step the engine runs: the active rows' rids, the
     step's tokens, positions, argmax and logits. Returns ``(records,
-    quiet)``: ``quiet`` lists the verify steps during which the W4A16 or
-    the paged-attention launch count did not rise (the verify step itself,
-    not the prefill chunks around it, must run both kernels)."""
+    quiet)``: ``quiet`` lists the verify steps during which the launch
+    count of one of ``kernels`` (the W4A16 GEMM and paged attention) did
+    not rise (the verify step itself, not the prefill chunks around it,
+    must run them)."""
     records, quiet = [], []
     make = engine._verify_step
 
@@ -1739,8 +1780,7 @@ def capture_verify(engine, table):
             before = read_counts(table)
             out = fn(params, state, inputs)
             after = read_counts(table)
-            idle = [k for k in ("w4a16_gemm", "paged_attention")
-                    if after[k] == before[k]]
+            idle = [k for k in kernels if after[k] == before[k]]
             if idle:
                 quiet.append((len(records), idle))
             rids = [s.req.rid if s is not None and s.phase == "active"
@@ -1823,7 +1863,7 @@ def explain_rejects(records, draft_logits, what):
         f"margin {max((r[3] for r in rows), default=0.0):.4f}")
 
 
-def check_acceptance(records, results, pos0, what):
+def check_acceptance(records, results, pos0, what, phase="features"):
     """Exact greedy acceptance: every token a request emitted after its
     first (which prefill gives) is the verify step's own argmax at the
     position before it, reached through drafts that each equal the argmax
@@ -1845,7 +1885,7 @@ def check_acceptance(records, results, pos0, what):
     bad = [(rid, j) for rid, out in results.items()
            for j in range(1, len(out)) if argmax.get((rid, j)) != out[j]]
     extra = len(argmax) - sum(len(out) - 1 for out in results.values())
-    log("features", f"{what}: exact acceptance over {len(records)} verify "
+    log(phase, f"{what}: exact acceptance over {len(records)} verify "
         f"steps: {len(argmax)} emitted tokens each the verify step's argmax "
         f"at its position, {len(bad)} not, {extra} unaccounted "
         f"{'ok' if not bad and not extra else 'FAIL'}")
@@ -2559,27 +2599,65 @@ def moe_engine(torch, cfg, params, dev, **kw):
     return ServingEngine(cfg, params, **base)
 
 
-def moe_decode_trace(torch, engine, reqs, card, what, *, per_step=None):
+def device_rows(prof, n):
+    """A profiler window's device events, costliest first, and its device
+    busy ms and device ops, per one of its ``n`` steps."""
+    from torch.autograd import DeviceType
+    dev = sorted((e for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / n
+    return dev, busy, sum(e.count for e in dev) / n
+
+
+def decode_trace(torch, engine, reqs, card, what, *, phase="moe",
+                 expect=None, trace_prefill=False):
     """Serve ``reqs`` on ``engine``; once every slot has prefilled, 8
     decode steps run untraced, timed to a sync, then 4 under
     ``torch.profiler`` (device busy ms and device ops a step; the idle
     share is busy against the untraced wall time), then the rest.
-    ``per_step``: the W4A16 kernel launches every one of those 12 steps
-    must make. Returns the run's report."""
-    from torch.autograd import DeviceType
+    ``expect``: {kernel name: launches} that every one of those 12 steps
+    must make. ``trace_prefill``: first, one prefill chunk of the first
+    request alone runs under the profiler (the engine is then restarted).
+    Returns the run's report."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import w4a16_fused as wf
+    table = kernel_table()
+    expect = expect or {}
+    if trace_prefill:
+        engine.start()
+        engine.submit(reqs[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            engine.step()
+            torch.cuda.synchronize()
+        rows, busy, ops = device_rows(prof, 1)
+        log(phase, f"{what}: one prefill chunk of {engine.prefill_chunk} "
+            f"tokens: device busy {busy:.3f} ms in {ops:.0f} device ops "
+            f"[{card}]")
+        for e in rows[:3]:
+            log(phase, f"  {what} prefill device "
+                f"{e.self_device_time_total / 1e3:8.3f} ms/chunk  "
+                f"x{e.count:<6.0f} {e.key[:80]}")
     engine.start()
     for r in reqs:
         engine.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     while engine.report.decode_tokens == 0:
         engine.step()
+    torch.cuda.synchronize()
+    pf_steps = -(-len(reqs[0].prompt) // engine.prefill_chunk) * len(reqs)
+    log(phase, f"{what}: prefill of {len(reqs)} requests "
+        f"{time.perf_counter() - t0:.2f} s wall, "
+        f"{engine.report.prefill_s:.2f} s in {pf_steps} prefill chunks "
+        f"({engine.report.prefill_s / pf_steps * 1e3:.1f} ms a chunk) "
+        f"[{card}]")
     counts = []
 
     def step():
-        n0 = wf.W4A16_GEMM.launches
+        n0 = {k: table[k][0].launches for k in expect}
         engine.step()
-        counts.append(wf.W4A16_GEMM.launches - n0)
+        counts.append(tuple(table[k][0].launches - n0[k] for k in expect))
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2591,25 +2669,22 @@ def moe_decode_trace(torch, engine, reqs, card, what, *, per_step=None):
         for _ in range(4):
             step()
         torch.cuda.synchronize()
-    dev = sorted((e for e in prof.key_averages()
-                  if e.device_type != DeviceType.CPU),
-                 key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in dev) / 1e3 / 4
-    ops = sum(e.count for e in dev) / 4
+    dev, busy, ops = device_rows(prof, 4)
     gemm = [e for e in dev if "Int4Ring" in e.key]
     gemm_ms = sum(e.self_device_time_total for e in gemm) / 1e3 / 4
-    log("moe", f"{what}: decode device busy {busy:.3f} ms/step "
+    log(phase, f"{what}: decode device busy {busy:.3f} ms/step "
         f"({ops:.0f} device ops/step), wall {wall:.3f} ms/step untraced -> "
         f"device idle {1 - busy / wall:.1%}; W4A16 kernel {gemm_ms:.3f} "
-        f"ms/step; W4A16 launches per decode step {sorted(set(counts))} "
-        f"[{card}]")
+        f"ms/step; launches per decode step of {list(expect)}: "
+        f"{sorted(set(counts))} [{card}]")
     for e in dev[:5]:
-        log("moe", f"  {what} device "
+        log(phase, f"  {what} device "
             f"{e.self_device_time_total / 1e3 / 4:8.3f} ms/step  "
             f"x{e.count / 4:<6.0f} {e.key[:80]}")
-    if per_step is not None and set(counts) != {per_step}:
-        raise AssertionError(f"{what}: decode steps launched the W4A16 "
-                             f"kernel {counts} times, not {per_step} each")
+    if expect and set(counts) != {tuple(expect.values())}:
+        raise AssertionError(f"{what}: decode steps launched {list(expect)} "
+                             f"{counts} times, not {list(expect.values())} "
+                             f"each")
     rep = engine.drain()
     for rid, out in rep.results.items():
         if len(out) != reqs[0].max_new_tokens:
@@ -2680,8 +2755,8 @@ def moe_serve(torch, dev, card, table):
     compare_logits(kernel_rep, plain, f"{cfg.name} kernel path", MOE_GEN)
     del plain
     layer_launches = cfg.num_layers * (4 + 3)
-    moe_decode_trace(torch, moe_engine(torch, cfg, params, dev), reqs(),
-                     card, f"{cfg.name} w4a16", per_step=layer_launches)
+    decode_trace(torch, moe_engine(torch, cfg, params, dev), reqs(), card,
+                 f"{cfg.name} w4a16", expect={"w4a16_gemm": layer_launches})
     torch.cuda.empty_cache()
 
     spec = moe_engine(torch, cfg, params, dev, speculate="ngram",
@@ -2705,8 +2780,9 @@ def moe_serve(torch, dev, card, table):
     torch.cuda.empty_cache()
 
     t1 = time.perf_counter()
-    rep = moe_decode_trace(torch, moe_engine(torch, cfg, dense, dev), reqs(),
-                           card, f"{cfg.name} --no-quant", per_step=0)
+    rep = decode_trace(torch, moe_engine(torch, cfg, dense, dev), reqs(),
+                       card, f"{cfg.name} --no-quant",
+                       expect={"w4a16_gemm": 0})
     log("moe", f"{cfg.name} --no-quant (dense bf16 experts, torch.bmm): "
         f"{rep.decode_tokens} decode tokens in {rep.decode_s:.3f} s = "
         f"{rep.tokens_per_s:.1f} tok/s (4 of its steps traced); run "
@@ -2746,6 +2822,530 @@ def moe_serve(torch, dev, card, table):
     torch.cuda.empty_cache()
     log("moe", f"phase 9 took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the carry families: phase 3's and phase 5's rows at their shapes, phase 10
+# ---------------------------------------------------------------------------
+
+# (arch, K, N, group, leaves a layer) of every W4A16 GEMM shape of a
+# carry-family decode step: rwkv6-7b's six 4096 x 4096 time-mix projections
+# and its channel-mix pair; hymba-1.5b's attention, SSM and MLP projections,
+# the K = 1600 leaves at group 64 (1600 is not a multiple of 128)
+CARRY_GEMMS = [("rwkv", 4096, 4096, 128, 6), ("rwkv", 4096, 14336, 128, 1),
+               ("rwkv", 14336, 4096, 128, 1),
+               ("hymba", 1600, 1600, 64, 2), ("hymba", 1600, 320, 64, 2),
+               ("hymba", 1600, 3200, 64, 2), ("hymba", 1600, 5504, 64, 2),
+               ("hymba", 3200, 1600, 128, 1), ("hymba", 5504, 1600, 128, 1)]
+# hymba's paged attention: 5 KV heads, a group of 5, head dim 64, 16-token
+# pages, a 64-page (1024-token) slot window; context at 1500, so the ring
+# has wrapped and the 1024 window masks the oldest keys of a chunk's
+# later queries
+HYMBA_HEADS, HYMBA_PAGE, HYMBA_PAGES, HYMBA_WINDOW = (5, 5, 64), 16, 64, 1024
+HYMBA_CTX = 1500
+CARRY_PROMPT, CARRY_GEN = 256, 32
+CARRY_ARGV = ["--batch", "8", "--requests", "8", "--prompt-len",
+              str(CARRY_PROMPT), "--gen", str(CARRY_GEN), "--page-size", "16",
+              "--prefill-chunk", "32", "--kv-format", "kv_fp16", "--seed",
+              "0"]
+HYMBA_LONG = (1200, 8)          # one request whose context passes 1024
+# the launcher's first 4 requests are held against the plain paths and
+# drive the oracle-draft run: their prefill is the phase's slowest step
+CARRY_HELD = 4
+
+
+def carry_gemm_case(torch, K, N, group, M, gen, dev, dtype):
+    from repro_torch.core.quant import quantize
+    w = torch.randn(K, N, generator=gen, device=dev) * K ** -0.5
+    qt = quantize(w.to(dtype), group_size=group, out_dtype=dtype)
+    x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+    return x, qt
+
+
+def check_carry_gemms(torch, dev, gen):
+    """The W4A16 kernel against its plain version at every carry-family
+    shape (hymba's K = 1600 at group 64: a 128-row stage holds parts of
+    three groups, and 1600 is not a multiple of the stage), M = 1, 8, 32
+    (a prefill chunk) and 40 (the k = 4 verify step), bf16 and fp32, the
+    planner's split_k at that M, the engine's plans (made at M = 8, or 40
+    when speculating, and reused by every step) and 1; ``held``'s
+    tolerances. Returns the worst bf16 |d|."""
+    from repro_torch.kernels.w4a16_fused import (w4a16_fused,
+                                                 w4a16_fused_plain)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        for arch, K, N, group, _ in CARRY_GEMMS:
+            plans = set()
+            for M in (1, 8, 32, VERIFY_M):
+                x, qt = carry_gemm_case(torch, K, N, group, M, gen, dev,
+                                        dtype)
+                if M in (8, VERIFY_M):
+                    plans.add(planned_split(x, qt))
+                dt = "fp32" if f32 else "bf16"
+                for s in sorted(plans | {planned_split(x, qt), 1}):
+                    err = held("w4a16_gemm", f"{arch} {dt} M={M} K={K} "
+                               f"N={N} group={group} split_k={s}",
+                               w4a16_fused(x, qt, split_k=s),
+                               w4a16_fused_plain(x, qt, split_k=s), f32=f32)
+                    if not f32:
+                        worst = max(worst, err)
+    return worst
+
+
+def check_carry_attention(torch, dev, gen):
+    """Paged attention at hymba's heads (25 query over 5 KV heads of 64,
+    G = 5: 5 rows a decode block, 80 for the 32-token chunk, 25 for the
+    verify step), 16-token pages, a 64-page table, context past the 1024
+    window: decode, chunk and verify in both KV formats, the 1024 window
+    and a 100-token one, one partition and the planner's pick; a -1 table
+    entry at the tail (decode's last slot) and inside a live partition;
+    fp32 compute at the chunk. Held as ``check_attention`` holds
+    danube's."""
+    worst = 0.0
+    variants = [("", kind, fmt, "bf16", False)
+                for fmt in ("kv_fp16", "kv8_channel")
+                for kind in ("decode", "chunk", "verify")] + [
+        ("hole", "decode", "kv_fp16", "bf16", True),
+        ("hole", "chunk", "kv8_channel", "bf16", True),
+        ("fp32", "chunk", "kv_fp16", "fp32", False)]
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for label, kind, fmt_name, dt, hole in variants:
+        c = attn_case(torch, gen, dev, fmt_name=fmt_name, kind=kind,
+                      null_slot=kind == "decode", hole=hole,
+                      dtype=dtypes[dt], heads=HYMBA_HEADS, page=HYMBA_PAGE,
+                      pages=HYMBA_PAGES, ctx=HYMBA_CTX)
+        name = f"hymba {label} {kind}" if label else f"hymba {kind}"
+        for window in (HYMBA_WINDOW, 100):
+            for parts in sorted({1, c["planned"]}):
+                worst = max(worst, hold_partials(torch, c, name, fmt_name,
+                                                 dt, window, parts))
+    return worst
+
+
+def time_carry(torch, dev, gen, timer, card, floor_ms):
+    """Phase 5's carry-family rows: the W4A16 kernel at rwkv's three
+    shapes and hymba's six (M = 8, bf16, the planner's split_k) beside its
+    bound, the timer's floor, its plain version and dequant +
+    ``torch.matmul``; each arch's decode-step sum (every layer's GEMMs);
+    paged attention at hymba's decode and chunk shapes beside gather +
+    SDPA."""
+    from repro_torch.core import costmodel
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a16_fused import (w4a16_fused,
+                                                 w4a16_fused_plain)
+    rows = {}
+    for arch, K, N, group, n in CARRY_GEMMS:
+        x, qt = carry_gemm_case(torch, K, N, group, 8, gen, dev,
+                                torch.bfloat16)
+        s = planned_split(x, qt)
+        nbytes = costmodel.w4a16_gemm_bytes(8, N, K, group=group)
+        flops = costmodel.w4a16_gemm_flops(8, N, K)
+        r = dict(ms=timer(lambda: w4a16_fused(x, qt, split_k=s)),
+                 plain_ms=timer(lambda: w4a16_fused_plain(x, qt, split_k=s)),
+                 library_ms=timer(lambda: ref.w4a16_ref(x, qt)),
+                 bound_ms=costmodel.roofline_s(nbytes, flops) * 1e3,
+                 nbytes=nbytes, n=n)
+        rows[(arch, K, N)] = r
+        log("timing", f"w4a16_gemm {arch} M=8 K={K} N={N} group={group} "
+            f"split_k={s}: kernel {r['ms']:.4f} ms, {gbs(nbytes, r['ms'])}, "
+            f"bound {r['bound_ms']:.4f} ms ({costmodel.bound_by(nbytes, flops)}"
+            f"; {r['bound_ms'] / r['ms']:.1%} of roofline; the timer's floor "
+            f"{floor_ms:.4f}), plain {r['plain_ms']:.4f} ms, dequant+matmul "
+            f"{r['library_ms']:.4f} ms [{card}]")
+    for arch, L in (("rwkv", 32), ("hymba", 32)):
+        def total(key):
+            return L * sum(r[key] * r["n"] for (a, _, _), r in rows.items()
+                           if a == arch)
+        log("timing", f"w4a16_gemm, {arch}'s decode step ({L} layers' "
+            f"GEMMs at M=8): kernel {total('ms'):.3f} ms, bound "
+            f"{total('bound_ms'):.3f} ms ({total('nbytes') / 1e9:.2f} GB), "
+            f"plain {total('plain_ms'):.3f} ms, dequant+matmul "
+            f"{total('library_ms'):.3f} ms [{card}]")
+    for kind in ("decode", "chunk"):
+        c = attn_case(torch, gen, dev, fmt_name="kv_fp16", kind=kind,
+                      heads=HYMBA_HEADS, page=HYMBA_PAGE, pages=HYMBA_PAGES,
+                      ctx=HYMBA_CTX)
+        rows[("attn", kind)] = time_attn_case(
+            torch, timer, c, HYMBA_WINDOW, f"hymba {kind}", card)
+    time_scans(torch, dev, gen, timer, card)
+    return rows
+
+
+def time_scans(torch, dev, gen, timer, card):
+    """The sequential recurrences of a 32-token prefill chunk, one layer
+    (``rwkv.wkv_scan`` over 64 heads of 64 x 64, ``ssm.ssm_scan`` over
+    3200 x 16; fp32, every position valid): the card's time (``Timer``)
+    and the wall time of a call ended by a sync, each also x 32 layers,
+    beside the chunk step's own times (the ``one prefill chunk`` and
+    ``ms a chunk`` lines of phase 10)."""
+    from repro_torch.models import rwkv, ssm
+    f32 = dict(device=dev, dtype=torch.float32)
+    cases = {
+        "rwkv wkv_scan": (rwkv.wkv_scan, (
+            torch.zeros(1, 64, 64, 64, **f32),
+            torch.rand(1, 32, 64, 64, generator=gen, **f32),
+            torch.randn(1, 32, 64, 64, 64, generator=gen, **f32))),
+        "hymba ssm_scan": (ssm.ssm_scan, (
+            torch.zeros(1, 3200, 16, **f32),
+            torch.rand(1, 32, 3200, 16, generator=gen, **f32),
+            torch.randn(1, 32, 3200, 16, generator=gen, **f32)))}
+    valid = torch.ones(1, 32, dtype=torch.bool, device=dev)
+    for label, (fn, args) in cases.items():
+        ms = timer(lambda: fn(*args, valid))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn(*args, valid)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 10
+        log("timing", f"{label}, a 32-token chunk, one layer: device "
+            f"{ms:.4f} ms, wall {wall:.3f} ms to a sync; x 32 layers: device "
+            f"{32 * ms:.3f} ms, wall {32 * wall:.1f} ms [{card}]")
+
+
+def clone_state(tree):
+    """A deep copy of a decode state (dicts, the pool's named tuples,
+    tensors)."""
+    if isinstance(tree, dict):
+        return {k: clone_state(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(clone_state(t) for t in tree))
+    return None if tree is None else tree.clone()
+
+
+def accepted_drafts(tok, pos, nxt, i):
+    n = int((pos[i] >= 0).sum()) - 1
+    a = 0
+    while a < n and int(tok[i, a + 1]) == int(nxt[i, a]):
+        a += 1
+    return a
+
+
+def capture_carry_verify(torch, engine, table, kernels):
+    """``capture_verify``, and for each verify step: (i) before it runs, a
+    decode step of the engine's own path replayed on a copy of the state
+    the step starts from, at each active row's first position (its last
+    emitted token): the largest |d| between its logits and the verify
+    step's there; (ii) the carry commit held to checkpoint 1 + accepted
+    drafts (0 for inactive rows) of the stack the step returned, row by
+    row, exactly. Returns (records, quiet, stats)."""
+    records, quiet = capture_verify(engine, table, kernels)
+    stats = {"replay_max": 0.0, "replayed": 0, "commits": 0, "bad": [],
+             "sel": {}}
+    capture = engine._verify_step
+
+    def verify_step(live_pages=None):
+        fn = capture(live_pages)
+
+        def call(params, state, inputs):
+            positions = inputs["positions"]
+            live = positions[:, 0] >= 0
+            dec = {"state": clone_state(state),
+                   "tokens": inputs["tokens"][:, 0].contiguous(),
+                   "pos": positions[:, 0].clamp_min(0).contiguous(),
+                   "active": live}
+            if "tables" in inputs:
+                dec["tables"] = inputs["tables"]
+            want = engine._serve_step(None)(params, dec)["logits"]
+            del dec
+            out = fn(params, state, inputs)
+            d = (out["logits"][:, 0] - want).abs().amax(-1)[live]
+            stats["replay_max"] = max(stats["replay_max"], float(d.max()))
+            stats["replayed"] += int(live.sum())
+            return out
+        return call
+
+    orig = engine._apply_carry_selection
+
+    def commit(carries, sel):
+        rids, tok, pos, nxt, _ = records[-1]
+        want = [0 if rid is None else 1 + accepted_drafts(tok, pos, nxt, i)
+                for i, rid in enumerate(rids)]
+        if [int(v) for v in sel] != want:
+            stats["bad"].append(("selection", list(sel), want))
+        for c in want:
+            stats["sel"][c] = stats["sel"].get(c, 0) + 1
+        orig(carries, sel)
+        cache = engine._state["cache"]
+        for name, stack in carries.items():
+            for b, c in enumerate(want):
+                if not torch.equal(cache[name][:, b], stack[:, b, c]):
+                    stats["bad"].append((name, b, c))
+        stats["commits"] += 1
+
+    engine._verify_step = verify_step
+    engine._apply_carry_selection = commit
+    return records, quiet, stats
+
+
+def oracle_proposer(torch, reqs, streams):
+    """A proposer whose drafts are a plain decode's own tokens (``streams``:
+    rid → tokens of ``reqs``), the next k after what the slot has emitted,
+    while the slot's stream still equals the plain one (a near-tie the two
+    steps round apart ends it): a verify step accepts them unless its
+    argmax differs there."""
+    from repro_torch.runtime import speculative as spec
+    prompts = [[int(t) for t in r.prompt] for r in reqs]
+
+    class Oracle(spec.Proposer):
+        name = "ngram"
+
+        def propose(self, views, k):
+            out = {}
+            for v in views:
+                ctx = list(v.context)
+                rid = next(i for i, p in enumerate(prompts)
+                           if ctx[:len(p)] == p)
+                done = len(ctx) - len(prompts[rid])
+                if ctx[len(prompts[rid]):] == list(streams[rid][:done]):
+                    out[v.slot] = list(streams[rid][done:done + k])
+            return out
+
+    return Oracle()
+
+
+def speculate_checked(torch, engine, reqs, table, kernels, what, card):
+    """Serve ``reqs`` speculatively on ``engine`` (k = SPEC_K) with every
+    verify step wrapped by ``capture_carry_verify``: exact acceptance, the
+    replayed decode's logits within LOGIT_TOL, every carry commit equal to
+    its checkpoint. Returns {checkpoint: commits} over the rows."""
+    records, quiet, stats = capture_carry_verify(torch, engine, table,
+                                                 kernels)
+    t1 = time.perf_counter()
+    rep = engine.run(reqs)
+    torch.cuda.synchronize()
+    gen = reqs[0].max_new_tokens
+    log("carry", f"{what} k={SPEC_K}: {rep.accepted_tokens}/"
+        f"{rep.proposed_tokens} drafts accepted, {len(records)} verify "
+        f"steps ({len(records) - len(quiet)} launching {list(kernels)}), "
+        f"{rep.decode_tokens} tokens in {rep.decode_s:.3f} s; run "
+        f"{time.perf_counter() - t1:.1f} s [{card}]")
+    if quiet or not records or any(len(v) != gen
+                                   for v in rep.results.values()):
+        raise AssertionError(f"{what}: {len(records)} verify steps, quiet "
+                             f"{quiet[:4]}, lengths "
+                             f"{[len(v) for v in rep.results.values()]}")
+    check_acceptance(records, rep.results, len(reqs[0].prompt), what,
+                     phase="carry")
+    ok = not stats["bad"] and stats["commits"] == len(records) \
+        and stats["replay_max"] <= LOGIT_TOL
+    log("carry", f"{what}: {stats['commits']} carry commits, each row's "
+        f"carry checkpoint 1 + accepted of its verify step's stack (0 for "
+        f"inactive rows; rows per checkpoint {dict(sorted(stats['sel'].items()))}"
+        f"), mismatches {stats['bad'][:4]}; verify logits at each row's "
+        f"first position vs a decode step replayed from the same carry: "
+        f"max|d|={stats['replay_max']:.3e} over {stats['replayed']} rows "
+        f"(tolerance {LOGIT_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: verify carries or logits disagree")
+    return stats["sel"]
+
+
+def repeat_prompts(vocab, n=8, plen=64, period=16, seed=9):
+    """``n`` requests' prompts of ``plen`` tokens, each a ``period``-token
+    random sequence repeated: prompt lookup has matches to propose (64
+    tokens, not the cell's 256: the run checks the verify path, and its
+    prefill is the carry families' slowest step)."""
+    import numpy as np
+    from repro_torch.runtime.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=np.resize(rng.integers(0, vocab, period),
+                                            plen).astype(np.int32),
+                    max_new_tokens=CARRY_GEN) for i in range(n)]
+
+
+def first_requests(rep, n):
+    """``rep``'s results and prefill logits of its first ``n`` requests."""
+    import types
+    keep = sorted(rep.results)[:n]
+    return types.SimpleNamespace(
+        results={r: rep.results[r] for r in keep},
+        prefill_logits={r: rep.prefill_logits[r] for r in keep})
+
+
+def fp32_params(torch, tree):
+    """``tree`` with fp32 activations: quantized leaves keep their bytes
+    and dequantize to fp32, dense leaves are cast."""
+    from repro_torch.core.quant import QuantizedTensor
+    if isinstance(tree, dict):
+        return {k: fp32_params(torch, v) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(tree.packed, tree.scales, tree.zeros,
+                               tree.group_size, torch.float32, tree.format)
+    return tree.float()
+
+
+def max_gap(a, b):
+    return max(float((a.prefill_logits[r].float()
+                      - b.prefill_logits[r].float()).abs().max())
+               for r in a.results)
+
+
+def rwkv_fp32_logits(torch, engine, cfg, params, kernel16, plain16, reqs):
+    """rwkv6-7b's paths held in fp32. With random weights its bf16 logits
+    move by more than LOGIT_TOL under bf16 rounding alone: the bf16 plain
+    path sits as far from the fp32 plain path as the bf16 kernel path
+    does, both printed here. So the same quantized weights run with fp32
+    activations (the W4A16 kernel's fp32 variant against the plain path in
+    fp32), and those logits are held within LOGIT_TOL."""
+    import dataclasses
+    p32 = fp32_params(torch, params)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    t1 = time.perf_counter()
+    n0 = kernel_table()["w4a16_gemm"][0].launches
+    k32 = engine(c32, p32).run(reqs())
+    launched = kernel_table()["w4a16_gemm"][0].launches - n0
+    p32r = engine(dataclasses.replace(c32, w4a16_strategy="reference"),
+                  p32, attn_path="gather").run(reqs())
+    torch.cuda.synchronize()
+    log("carry", f"{cfg.name}: bf16 rounding alone: kernel vs plain path "
+        f"max|d|={max_gap(kernel16, plain16):.3e}, plain bf16 vs plain fp32 "
+        f"{max_gap(plain16, p32r):.3e}, kernel bf16 vs plain fp32 "
+        f"{max_gap(kernel16, p32r):.3e} (LOGIT_TOL {LOGIT_TOL}); the fp32 "
+        f"paths ({launched} W4A16 launches) served in "
+        f"{time.perf_counter() - t1:.1f} s")
+    if not launched:
+        raise AssertionError("rwkv fp32: the W4A16 kernel never launched")
+    compare_logits(k32, p32r, f"{cfg.name} kernel path in fp32", 2)
+
+
+def carry_arch(torch, dev, card, table, arch):
+    """Phase 10 for one arch at full width and depth: the serve launcher
+    (W4A16, 8 slots, 8 requests of 256 + 32 tokens, 32-token chunks;
+    counters set to 0 just before and read just after), the same weights
+    on the plain paths (the first CARRY_HELD requests' prefill logits
+    within LOGIT_TOL; rwkv's in fp32, ``rwkv_fp32_logits``), hymba's one
+    request of 1200 + 8 tokens (its window bites) against its plain path,
+    a traced prefill chunk and 4 traced decode steps with every decode step
+    launching each kernel its exact count, speculation at k = 4 with
+    drafts that are the plain decode's own tokens (carries committed past
+    checkpoint 1; the first CARRY_HELD requests) and with ngram on 64-token
+    prompts (``speculate_checked``: exact acceptance,
+    the verify logits at each row's first position against a replayed
+    decode step, every carry commit against its checkpoint), and the dense
+    bf16 weights (``--no-quant``). Returns the launches of the launcher's
+    run."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import ServingEngine
+    t0 = time.perf_counter()
+    cfg = configs.get_config(arch)
+    L = cfg.num_layers
+    gemms = sum(n for a, _, _, _, n in CARRY_GEMMS if arch.startswith(a))
+    attn = 0 if cfg.attn_free else L
+    log("carry", f"{cfg.name}: {L} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}" + (f", SSM d_inner {cfg.d_inner} state "
+                         f"{cfg.ssm_state}, SWA {cfg.sliding_window}"
+                         if cfg.family == "hybrid" else "")
+        + f", vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.2f} B "
+        f"params; {gemms} W4A16 GEMMs and {attn // L} paged-attention "
+        f"launch a layer")
+    reset_counts(table)
+    kernel_rep = serve(torch, [], card, ["--arch", arch] + CARRY_ARGV)
+    launches = read_counts(table)
+    log("carry", f"launches during the run: {launches}")
+    others = [k for k, v in launches.items()
+              if v and k not in ("w4a16_gemm", "paged_attention")]
+    if not launches["w4a16_gemm"] or bool(launches["paged_attention"]) \
+            != bool(attn) or others:
+        raise AssertionError(f"{arch}: the path's kernels did not launch as "
+                             f"they must: {launches}")
+    torch.cuda.empty_cache()
+
+    def engine(config, weights, **kw):
+        base = dict(max_batch=8, max_prompt_len=CARRY_PROMPT,
+                    max_new_tokens=CARRY_GEN, page_size=16, prefill_chunk=32,
+                    kv_format="kv_fp16", device=dev)
+        base.update(kw)
+        return ServingEngine(config, weights, **base)
+
+    # the launcher's weights once more (the same generator and seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t1 = time.perf_counter()
+    dense = T.init_params(gen, cfg, device=dev)
+    params = T.quantize_params(dense, cfg, min_size=0)
+    torch.cuda.synchronize()
+    log("carry", f"weights drawn and quantized on the card in "
+        f"{time.perf_counter() - t1:.1f} s")
+    plain_cfg = dataclasses.replace(cfg, w4a16_strategy="reference")
+    t1 = time.perf_counter()
+    # the plain paths are compared on prefill logits: 2 tokens suffice
+    reqs2 = lambda: launcher.make_requests(  # noqa
+        cfg, CARRY_HELD, CARRY_PROMPT, 2, 0)
+    plain = engine(plain_cfg, params, attn_path="gather").run(reqs2())
+    torch.cuda.synchronize()
+    log("carry", f"plain paths (--strategy reference --attn-path gather) "
+        f"served the first {CARRY_HELD} requests in "
+        f"{time.perf_counter() - t1:.1f} s")
+    held = first_requests(kernel_rep, CARRY_HELD)
+    if cfg.attn_free:
+        rwkv_fp32_logits(torch, engine, cfg, params, held, plain, reqs2)
+    else:
+        compare_logits(held, plain, f"{cfg.name} kernel path", CARRY_GEN)
+    del plain, kernel_rep
+    if cfg.family == "hybrid":
+        P, G_ = HYMBA_LONG
+        kw = dict(max_prompt_len=P, max_new_tokens=G_)
+        reqs = lambda: launcher.make_requests(cfg, 1, P, G_, 1)  # noqa
+        long_k = engine(cfg, params, **kw)
+        got = long_k.run(reqs())
+        want = engine(plain_cfg, params, attn_path="gather", **kw).run(reqs())
+        log("carry", f"{cfg.name}: one request of {P} + {G_} tokens, "
+            f"cache_len {long_k.cache_len} (window {cfg.sliding_window}): "
+            f"{got.steps} steps")
+        compare_logits(got, want, f"{cfg.name} {P}-token prompt", G_)
+        del long_k, got, want
+    torch.cuda.empty_cache()
+
+    reqs = lambda: launcher.make_requests(  # noqa
+        cfg, 8, CARRY_PROMPT, CARRY_GEN, 0)
+    plain_rep = decode_trace(
+        torch, engine(cfg, params), reqs(), card, f"{cfg.name} w4a16",
+        phase="carry", expect={"w4a16_gemm": L * gemms,
+                               "paged_attention": attn},
+        trace_prefill=True)
+    torch.cuda.empty_cache()
+
+    kernels = ("w4a16_gemm", "paged_attention") if attn else ("w4a16_gemm",)
+    # drafts that mostly pass: the plain decode's own tokens; the verify
+    # steps commit carries past checkpoint 1
+    oracle_reqs = reqs()[:CARRY_HELD]
+    oracle = engine(cfg, params, speculate=oracle_proposer(
+        torch, oracle_reqs, plain_rep.results), spec_k=SPEC_K)
+    sel = speculate_checked(torch, oracle, oracle_reqs, table, kernels,
+                            f"{cfg.name} oracle drafts", card)
+    if not any(c > 1 for c in sel):
+        raise AssertionError(f"{cfg.name}: no verify step accepted a draft")
+    del oracle
+    spec = engine(cfg, params, speculate="ngram", spec_k=SPEC_K)
+    speculate_checked(torch, spec, repeat_prompts(cfg.vocab_size), table,
+                      kernels, f"{cfg.name} ngram", card)
+    del spec, params, plain_rep
+    torch.cuda.empty_cache()
+
+    rep = decode_trace(torch, engine(cfg, dense), reqs(), card,
+                       f"{cfg.name} --no-quant", phase="carry",
+                       expect={"w4a16_gemm": 0, "paged_attention": attn})
+    log("carry", f"{cfg.name} --no-quant (dense bf16 weights, torch.matmul):"
+        f" {rep.decode_tokens} decode tokens in {rep.decode_s:.3f} s = "
+        f"{rep.tokens_per_s:.1f} tok/s (4 of its steps traced)")
+    del dense, rep
+    torch.cuda.empty_cache()
+    log("carry", f"{cfg.name} took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def carry_serve(torch, dev, card, table):
+    """Phase 10: rwkv6-7b, then hymba-1.5b (``carry_arch``)."""
+    t0 = time.perf_counter()
+    for arch in ("rwkv6-7b", "hymba-1.5b"):
+        carry_arch(torch, dev, card, table, arch)
+    log("carry", f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
 # template arguments of the attention and GEMM kernels as nvcc mangles
@@ -2886,6 +3486,10 @@ def main() -> int:
                                   check_moe_attention(torch, dev, gen))
     check_expert_loops(torch, dev, gen)
     errs["w8a16_gemm"] = max(errs["w8a16_gemm"], w8_err)
+    errs["w4a16_gemm"] = max(errs["w4a16_gemm"],
+                             check_carry_gemms(torch, dev, gen))
+    errs["paged_attention"] = max(errs["paged_attention"],
+                                  check_carry_attention(torch, dev, gen))
     torch.cuda.synchronize()
     log("kernels", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
@@ -2904,6 +3508,7 @@ def main() -> int:
     layer_totals(torch, gemm_rows, fam_rows, card)
     flash_rows = time_flash(torch, dev, gen, timer, card)
     moe_rows = time_moe_gemms(torch, dev, gen, timer, card)
+    time_carry(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
     del timer
     torch.cuda.empty_cache()
     log("timing", f"phase 5 took {time.perf_counter() - t0:.1f} s")
@@ -2922,6 +3527,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["w4a16_gemm_experts"] = moe_serve(
         torch, dev, card, table)["w4a16_gemm_experts"]
+    torch.cuda.empty_cache()
+    carry_serve(torch, dev, card, table)
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),

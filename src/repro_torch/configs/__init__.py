@@ -9,7 +9,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("h2o-danube-1.8b", "olmoe-1b-7b", "mixtral-8x7b")
+ARCHS = ("h2o-danube-1.8b", "olmoe-1b-7b", "mixtral-8x7b", "rwkv6-7b",
+         "hymba-1.5b")
 
 
 def _module(arch: str):

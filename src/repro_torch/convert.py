@@ -10,6 +10,8 @@ its registered name) and becomes the port's
 the same format. A quantized leaf without ``format`` is refused: the
 payload alone cannot tell a W4A16 leaf from a W4A8 one.
 numpy ``bfloat16`` arrays (``ml_dtypes``) are reinterpreted bit for bit.
+The leaves the JAX package keeps in fp32 whatever the model's dtype
+(rwkv's ``w_bias``, the SSM's ``A_log`` and ``D``) stay fp32.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ import torch
 from repro_torch.core.quant import QuantizedTensor, resolve_format
 
 _QT_KEYS = {"packed", "scales", "zeros", "group_size", "format"}
+# float leaves that stay fp32 at any model dtype (the JAX package's init
+# creates them in fp32)
+FP32_LEAVES = ("w_bias", "A_log", "D")
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -36,8 +41,13 @@ def to_tensor(a, device=None) -> torch.Tensor:
 def from_jax_params(tree: Mapping[str, Any], *, dtype: torch.dtype,
                     device=None):
     """Convert a numpy param tree to the port's tree. Float leaves are cast
-    to ``dtype`` (the model's dtype); quantized leaves keep int8 payloads
-    and fp32 scales and dequantize to ``dtype``."""
+    to ``dtype`` (the model's dtype), those named in ``FP32_LEAVES`` to
+    fp32; quantized leaves keep int8 payloads and fp32 scales and
+    dequantize to ``dtype``."""
+    return _convert(tree, "", dtype, device)
+
+
+def _convert(tree, name: str, dtype: torch.dtype, device):
     if isinstance(tree, Mapping) and "packed" in tree:
         if set(tree) != _QT_KEYS:
             raise ValueError(
@@ -52,10 +62,11 @@ def from_jax_params(tree: Mapping[str, Any], *, dtype: torch.dtype,
             group_size=int(tree["group_size"]), out_dtype=dtype,
             format=resolve_format(tree["format"]))
     if isinstance(tree, Mapping):
-        return {k: from_jax_params(v, dtype=dtype, device=device)
-                for k, v in tree.items()}
+        return {k: _convert(v, k, dtype, device) for k, v in tree.items()}
     t = to_tensor(tree, device)
-    return t.to(dtype) if t.is_floating_point() else t
+    if not t.is_floating_point():
+        return t
+    return t.to(torch.float32 if name in FP32_LEAVES else dtype)
 
 
 def from_jax_opt_state(tree: Mapping[str, Any], *, device=None):

@@ -23,6 +23,10 @@ class ServeSettings:
 SERVE_PRESETS = {
     # SWA: window-bounded windows are short — small pages
     "h2o-danube-1.8b": ServeSettings(page_size=8, prefill_chunk=32),
+    # recurrent carries thread through the chunk step; 32-token chunks
+    # bound a chunk's sequential recurrence
+    "rwkv6-7b": ServeSettings(prefill_chunk=32),
+    "hymba-1.5b": ServeSettings(prefill_chunk=32),
 }
 
 

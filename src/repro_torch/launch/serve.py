@@ -9,7 +9,8 @@ served by ``runtime/engine.py``: every quantized Linear runs the planned
 GEMM (``--strategy`` forces one, e.g. ``decoupled``) and paged attention
 runs on the planned path (on CUDA: the hand-written kernels).
 ``--no-quant`` serves the dense weights, every Linear a ``torch.matmul``:
-the FP16×FP16 yardstick, not a kernel path. ``--device cpu`` runs the
+the FP16×FP16 yardstick, not a kernel path. The attention-free rwkv archs
+hold no KV cache (no pages, no attention path). ``--device cpu`` runs the
 plain PyTorch paths; by default the launcher needs a CUDA card and fails
 without one.
 
@@ -134,13 +135,20 @@ def parse_prompt_len(spec) -> "tuple[int, int]":
     return lo, hi
 
 
-def validate_kv_format(kv_format: str, weight_format: str) -> str:
+def validate_kv_format(kv_format: str, weight_format: str, *,
+                       attn_free: bool = False) -> str:
     """Resolve the ``--kv-format`` × ``--format`` pair up front, so a bad
     name fails with the registries' vocabulary before any weight is
     drawn. Every registered pair is executable (the port serves from the
-    paged cache only)."""
+    paged cache only); attention-free archs (rwkv) hold no KV cache for a
+    quantized format to apply to."""
     quant.get_format(weight_format)
-    return quant.get_kv_format(kv_format).name
+    kf = quant.get_kv_format(kv_format)
+    if kf.quantized and attn_free:
+        raise ValueError(
+            f"--kv-format {kf.name!r} does not apply to attention-free "
+            f"archs — there is no KV cache to quantize; use kv_fp16")
+    return kf.name
 
 
 def make_requests(cfg, n: int, prompt_len, gen: int, seed: int, *,
@@ -168,7 +176,7 @@ def build(args: argparse.Namespace):
     sset = serve_settings_for(args.arch)
     fmt = quant.get_format(args.format or cfg.quant_format)
     kv_format = validate_kv_format(args.kv_format or sset.kv_format,
-                                   fmt.name)
+                                   fmt.name, attn_free=cfg.attn_free)
     pmin, pmax = parse_prompt_len(args.prompt_len)
     speculate = None if args.speculate == "off" else args.speculate
     # a bad proposer / spec-k pair fails here, before any weight is drawn
@@ -205,19 +213,24 @@ def build(args: argparse.Namespace):
         speculate=speculate, spec_k=args.spec_k,
         admission="priority" if args.http is not None else "fifo",
         attn_path=args.attn_path or sset.attn_path, device=device)
-    print(f"[serve] engine: {B} slots, cache_len {engine.cache_len}, paged "
-          f"KV {engine.num_pages} blocks x {engine.page_size} tokens "
-          f"({engine.pages_slot}/slot), kv_format {engine.kv_format}, "
-          f"prefill_chunk {engine.prefill_chunk}"
-          + (f", warm cache {args.warm_cache_mb:g} MiB"
-             if engine.alloc.warm_bytes else ""))
-    print(f"[serve] attn path: decode {engine.attn_path} "
-          f"(kv_partitions={engine.kv_partitions}), prefill "
-          f"{engine.prefill_attn_path} "
-          f"(kv_partitions={engine.prefill_kv_partitions})"
-          + (f", verify {engine.verify_attn_path} "
-             f"(kv_partitions={engine.verify_kv_partitions})"
-             if engine.proposer is not None else ""))
+    if engine.paged:
+        print(f"[serve] engine: {B} slots, cache_len {engine.cache_len}, "
+              f"paged KV {engine.num_pages} blocks x {engine.page_size} "
+              f"tokens ({engine.pages_slot}/slot), kv_format "
+              f"{engine.kv_format}, prefill_chunk {engine.prefill_chunk}"
+              + (f", warm cache {args.warm_cache_mb:g} MiB"
+                 if engine.alloc.warm_bytes else ""))
+        print(f"[serve] attn path: decode {engine.attn_path} "
+              f"(kv_partitions={engine.kv_partitions}), prefill "
+              f"{engine.prefill_attn_path} "
+              f"(kv_partitions={engine.prefill_kv_partitions})"
+              + (f", verify {engine.verify_attn_path} "
+                 f"(kv_partitions={engine.verify_kv_partitions})"
+                 if engine.proposer is not None else ""))
+    else:
+        print(f"[serve] engine: {B} slots, cache_len {engine.cache_len}, "
+              f"recurrent carries only (no KV cache), prefill_chunk "
+              f"{engine.prefill_chunk}")
     if engine.proposer is not None:
         k = args.spec_k
         print(f"[serve] speculative: proposer {engine.proposer.name!r}, "
@@ -313,12 +326,13 @@ def main(argv=None):
         print(f"[serve] front door: {sum(g is not None for g in got)}/{R} "
               f"served, {report.rejected_429} x 429, {report.rejected_408} "
               f"x 408; peak queue {report.peak_queue_depth}")
-    print(f"[serve] pages: peak {report.peak_pages} in use (worst case "
-          f"{engine.pages_slot * min(engine.max_batch, R)} without "
-          f"sharing); prefill steps saved by shared or warm prefixes "
-          f"{report.prefill_steps_saved}"
-          + (f"; warm hits {report.warm_hits} / misses "
-             f"{report.warm_misses}" if engine.alloc.warm_bytes else ""))
+    if engine.paged:
+        print(f"[serve] pages: peak {report.peak_pages} in use (worst case "
+              f"{engine.pages_slot * min(engine.max_batch, R)} without "
+              f"sharing); prefill steps saved by shared or warm prefixes "
+              f"{report.prefill_steps_saved}"
+              + (f"; warm hits {report.warm_hits} / misses "
+                 f"{report.warm_misses}" if engine.alloc.warm_bytes else ""))
     if engine.proposer is not None:
         print(f"[serve] speculative: {report.accepted_tokens}/"
               f"{report.proposed_tokens} drafts accepted "

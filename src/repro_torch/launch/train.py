@@ -91,6 +91,12 @@ def main(argv=None) -> TrainReport:
             f"comes with the multi-GPU slice that brings its FSDP/ZeRO-2 "
             f"presets and the load-balancing loss); the port serves it: "
             f"python -m repro_torch.launch.serve --arch {cfg.name}")
+    if cfg.family in ("rwkv", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family is not ported "
+            f"yet (its FSDP/ZeRO-2 presets come with the multi-GPU slice); "
+            f"the port serves it: python -m repro_torch.launch.serve "
+            f"--arch {cfg.name}")
     cfg = dataclasses.replace(cfg, attn_impl="flash")
     settings = rsteps.TrainSettings(microbatches=args.microbatches)
     opt_cfg = AdamWConfig(lr=1e-3)

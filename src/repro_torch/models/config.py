@@ -66,19 +66,39 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def padded_vocab(self) -> int:
         return _round_up(self.vocab_size, 256)
 
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "rwkv"
+
+    def supports_long_context(self) -> bool:
+        """True if the decode state is O(window) or O(1)."""
+        return self.family in ("rwkv", "hybrid") or self.sliding_window > 0
+
     def param_count(self) -> int:
-        """Analytic parameter count (embeddings included) of the dense and
-        moe families: a moe layer holds E experts of 3·d·ff and a d×E
-        router in place of the MLP."""
+        """Analytic parameter count (embeddings included, norms, decay
+        biases and SSM A/D left out, as in the JAX package): a moe layer
+        holds E experts of 3·d·ff and a d×E router in place of the MLP, an
+        rwkv layer six d×d time-mix and two channel-mix linears, a hybrid
+        layer the SSM's four projections beside attention and the MLP."""
         d, ff, V = self.d_model, self.d_ff, self.padded_vocab
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         mlp = (3 if self.mlp_type == "swiglu" else 2) * d * ff
         if self.family == "moe":
             per_layer = attn + self.num_experts * 3 * d * ff \
                 + d * self.num_experts
+        elif self.family == "rwkv":
+            per_layer = 6 * d * d + 2 * d * ff
+        elif self.family == "hybrid":
+            ssm = d * self.d_inner * 2 + d * 2 * self.ssm_state \
+                + d * self.d_inner
+            per_layer = attn + ssm + mlp
         else:
             per_layer = attn + mlp
         total = self.num_layers * per_layer + V * d

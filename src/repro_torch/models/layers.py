@@ -1,5 +1,5 @@
-"""Base layers: (quantizable) Linear, RMSNorm, embedding, RoPE (port of
-``repro/models/layers.py``).
+"""Base layers: (quantizable) Linear, RMSNorm, softplus, embedding, RoPE
+(port of ``repro/models/layers.py``).
 
 Every matmul goes through :func:`linear`, which dispatches on the weight
 leaf type: a plain tensor runs the dense path, a ``QuantizedTensor`` runs
@@ -95,6 +95,12 @@ def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
         return quantize_leaf(tree)
 
     return visit(params, ())
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it, ``logaddexp(x,
+    0)``: ``F.softplus`` returns x itself above its threshold of 20."""
+    return torch.logaddexp(x, x.new_zeros(()))
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -1,20 +1,26 @@
-"""GQA decoder of the dense and moe families: init, quantize, the training
-forward and loss, the paged decode step, the chunked-prefill step, the
-batched speculative verify step, and the ring-cache prefill and decode
-that a draft model runs on (port of the dense and moe families of
-``repro/models/transformer.py``). A moe layer holds ``"moe"`` (router and
-expert stacks, ``models/moe.py``) in place of ``"mlp"``; one FFN switch
-(:func:`_ffn`) serves every step.
+"""The decoder of the dense, moe, rwkv and hybrid families: init,
+quantize, the training forward and loss, the paged decode step, the
+chunked-prefill step, the batched speculative verify step with its carry
+checkpoints, and the ring-cache prefill and decode that a draft model runs
+on (port of those families of ``repro/models/transformer.py``). A moe
+layer holds ``"moe"`` (router and expert stacks, ``models/moe.py``) in
+place of ``"mlp"``; one FFN switch (:func:`_ffn`) serves every step. An
+rwkv layer holds the time-mix and channel-mix leaves of ``models/rwkv.py``
+and no attention; a hybrid layer runs attention and the selective SSM of
+``models/ssm.py`` side by side on the same input, then the MLP.
 
 Parameters keep the JAX package's tree: ``{"embed": {"table"},
 "final_norm": {"scale"}, "layers": {...stacked over L...}, "lm_head":
 {"kernel"}}``. ``params["layers"]`` may also be a list of per-layer dicts
 (:func:`unstack_layers`), which is what the serving engine holds so the
 layer loop does no slicing per step. The step functions update the paged
-KV pool in place (see ``runtime/kvcache.py``) and return the same state.
+KV pool and the recurrent carries (rwkv ``wkv``/``shift``/``cm_shift``,
+hybrid ``ssm``, stacked over L with one row per slot) in place and return
+the same state; the verify step alone leaves the carries as they are and
+returns their checkpoints.
 
-Other families (rwkv, hybrid, encdec) are not ported yet and are refused;
-so are the verify step's carry checkpoints, which only they need.
+The encdec family, GELU MLPs, LayerNorm, tied heads and vision prefixes
+are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -29,25 +35,27 @@ from repro_torch.core.quant import (
     kv_quantize,
 )
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, rwkv, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import kvcache as kvc
 
 
-# Families whose decode state carries per-slot recurrent leaves (the JAX
-# package threads them through chunked prefill and checkpoints them in
-# verify; a draft model of such a family cannot rewind rejected drafts).
+# Families whose decode state carries per-slot recurrent leaves, which
+# chunked prefill threads through and the verify step checkpoints per
+# position (a draft model of such a family cannot rewind rejected drafts).
 CARRY_FAMILIES = ("rwkv", "hybrid")
+CARRY_LEAVES = ("wkv", "shift", "cm_shift", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.mlp_type != "swiglu" \
-            or cfg.norm_type != "rmsnorm" or cfg.tie_embeddings \
-            or cfg.vision_prefix:
+    if cfg.family not in ("dense", "moe", "rwkv", "hybrid") \
+            or cfg.mlp_type != "swiglu" or cfg.norm_type != "rmsnorm" \
+            or cfg.tie_embeddings or cfg.vision_prefix:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and moe families (SwiGLU, RMSNorm, "
-            f"untied head, no vision prefix) are ported to PyTorch so far; "
-            f"{cfg.family!r} archs are still served by the JAX package")
+            f"{cfg.name}: only the dense, moe, rwkv and hybrid families "
+            f"(SwiGLU, RMSNorm, untied head, no vision prefix) are ported to "
+            f"PyTorch so far; {cfg.family!r} archs are still served by the "
+            f"JAX package")
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +64,10 @@ def check_family(cfg: ModelConfig) -> None:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
     """Random parameters drawn from ``gen`` (stacked over L), created in
-    ``cfg.dtype`` on ``device``: each layer's FFN is the SwiGLU ``mlp``
-    (dense) or the router and expert stacks of ``moe``."""
+    ``cfg.dtype`` on ``device`` (rwkv's ``w_bias`` and the SSM's ``A_log``
+    and ``D`` in fp32): each layer holds attention (not rwkv), then the
+    SwiGLU ``mlp`` (dense, hybrid) or the router and expert stacks of
+    ``moe``, rwkv's time-mix and channel-mix leaves, or hybrid's ``ssm``."""
     check_family(cfg)
     L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
 
@@ -69,17 +79,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
         return {"scale": torch.ones(shape, dtype=cfg.dtype, device=device)}
 
     table = torch.randn(V, d, generator=gen, device=device) * 0.02
-    stack = {
-        "norm1": ones(L, d), "norm2": ones(L, d),
-        "attn": {"wq": lin(d, cfg.q_dim), "wk": lin(d, cfg.kv_dim),
-                 "wv": lin(d, cfg.kv_dim), "wo": lin(cfg.q_dim, d)},
-    }
+    stack = {"norm1": ones(L, d), "norm2": ones(L, d)}
+    if cfg.family == "rwkv":
+        stack.update(rwkv.init_rwkv_block(gen, d, ff, cfg.num_heads,
+                                          cfg.dtype, device=device,
+                                          stacked=L))
+    else:
+        stack["attn"] = {"wq": lin(d, cfg.q_dim), "wk": lin(d, cfg.kv_dim),
+                         "wv": lin(d, cfg.kv_dim), "wo": lin(cfg.q_dim, d)}
     if cfg.family == "moe":
         stack["moe"] = moe.init_moe(gen, d, ff, cfg.num_experts, cfg.dtype,
                                     device=device, stacked=L)
-    else:
+    elif cfg.family in ("dense", "hybrid"):
         stack["mlp"] = {"w_gate": lin(d, ff), "w_up": lin(d, ff),
                         "w_down": lin(ff, d)}
+    if cfg.family == "hybrid":
+        stack["ssm"] = ssm.init_ssm(gen, d, cfg.d_inner, cfg.ssm_state,
+                                    cfg.dtype, device=device, stacked=L)
     return {
         "embed": {"table": table.to(cfg.dtype)},
         "final_norm": ones(d),
@@ -181,11 +197,51 @@ def _attn_seq(p, cfg: ModelConfig, x, positions, *, return_kv=False):
     return (out, (k, v)) if return_kv else out
 
 
+def _rwkv_layer(lp, cfg: ModelConfig, h, carry, *, valid=None,
+                collect_states: bool = False):
+    """One rwkv layer over (B, S) tokens from ``carry`` ({"wkv", "shift",
+    "cm_shift"}, one row per h row; not written). ``valid`` (B, S) masks
+    right-padded positions out of the carry. Returns (h, new carry) and,
+    with ``collect_states``, the carry after each position: the post-mask
+    wkv states and the x1/x2 rows that the decode step latches as
+    ``shift`` and ``cm_shift`` (each (B, S, ...))."""
+    x1 = layers.rmsnorm(lp["norm1"], h)
+    res = rwkv.time_mix_seq(lp, x1, carry, num_heads=cfg.num_heads,
+                            cfg=cfg, valid=valid,
+                            collect_states=collect_states)
+    h = h + res[0]
+    x2 = layers.rmsnorm(lp["norm2"], h)
+    prev = torch.cat([carry["cm_shift"].to(x2.dtype)[:, None], x2[:, :-1]],
+                     1)
+    h = h + rwkv.channel_mix(lp, x2, prev, cfg)
+    if valid is None:
+        cm = x2[:, -1].to(torch.float32)
+    else:
+        cm = torch.where(valid.any(1)[:, None],
+                         _last_valid_row(x2, valid).to(torch.float32),
+                         carry["cm_shift"])
+    new = dict(res[1], cm_shift=cm)
+    if collect_states:
+        return h, new, {"wkv": res[2], "shift": x1.to(torch.float32),
+                        "cm_shift": x2.to(torch.float32)}
+    return h, new
+
+
 def _layer_seq(p, cfg: ModelConfig, h, positions):
-    """One decoder layer in sequence mode."""
-    h = h + _attn_seq(p["attn"], cfg, layers.rmsnorm(p["norm1"], h),
-                      positions)
-    return _ffn(p, cfg, h)
+    """One decoder layer in sequence mode, every carry starting at zero."""
+    B = h.shape[0]
+    if cfg.family == "rwkv":
+        carry = rwkv.rwkv_state_init(B, cfg.d_model, cfg.num_heads,
+                                     device=h.device)
+        return _rwkv_layer(p, cfg, h, carry)[0]
+    x1 = layers.rmsnorm(p["norm1"], h)
+    a = _attn_seq(p["attn"], cfg, x1, positions)
+    if cfg.family == "hybrid":
+        s0 = ssm.ssm_state_init(B, cfg.d_inner, cfg.ssm_state,
+                                device=h.device)
+        s_out, _ = ssm.ssm_seq(p["ssm"], x1, s0, cfg)
+        return _ffn(p, cfg, h + 0.5 * (a + s_out))
+    return _ffn(p, cfg, h + a)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -227,52 +283,98 @@ def _logits_head(params, cfg: ModelConfig, h):
     return layers.linear(params["lm_head"], h, cfg).to(torch.float32)
 
 
-def _last_valid_row(h, positions):
-    """h: (B, C, d); positions (B, C) with -1 padding → (B, d) at the last
-    valid position (row 0 for fully padded rows)."""
-    last = ((positions >= 0).sum(dim=1) - 1).clamp_min(0)
+def _last_valid_row(h, valid):
+    """h: (B, C, ...); valid (B, C) bool, True on a right-padded row's
+    leading positions → (B, ...) at the last valid position (position 0
+    for fully padded rows)."""
+    last = (valid.to(torch.int32).sum(dim=1) - 1).clamp_min(0)
     return h[torch.arange(h.shape[0], device=h.device), last]
 
 
+def _commit(dst: torch.Tensor, new: torch.Tensor, active) -> None:
+    """Write a carry leaf's new rows into ``dst`` in place, keeping the
+    rows whose ``active`` (B,) entry is False (None: every row)."""
+    if active is not None:
+        new = torch.where(active.reshape(-1, *(1,) * (new.dim() - 1)), new,
+                          dst)
+    dst.copy_(new)
+
+
+def _carry_rows(cache, i: int, rows=slice(None)):
+    """Layer ``i``'s recurrent carry leaves (views), the batch rows
+    ``rows`` of each."""
+    return {k: cache[k][i, rows] for k in CARRY_LEAVES if k in cache}
+
+
+def _attn_step(ap, cfg: ModelConfig, x, kv_all, i: int, pos, tables, *,
+               cache_len: int, fmt, attn_path: str, kv_partitions,
+               live_pages):
+    """Decode self-attention of one layer for one token a row: insert the
+    token's K/V (into the paged pool, or the ring when ``tables`` is
+    None), then attend (insert before attend)."""
+    B = x.shape[0]
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = layers.linear(ap["wq"], x, cfg).reshape(B, H, D)
+    k = layers.linear(ap["wk"], x, cfg).reshape(B, Hkv, D)
+    v = layers.linear(ap["wv"], x, cfg).reshape(B, Hkv, D)
+    q = layers.apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    k = layers.apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    if tables is None:
+        ring = _ring_layer(kv_all, i)
+        attention.cache_insert(ring, k, v, pos)
+        o = attention.decode_attention(q, ring, pos,
+                                       window=cfg.sliding_window)
+    else:
+        pool = kv_all.layer(i)
+        kvc.paged_insert(pool, tables, k, v, pos, cache_len=cache_len,
+                         fmt=fmt)
+        o = kvc.paged_decode_attention(
+            q, pool, tables, pos, window=cfg.sliding_window, fmt=fmt,
+            out_dtype=cfg.dtype, attn_path=attn_path,
+            kv_partitions=kv_partitions, live_pages=live_pages)
+    return layers.linear(ap["wo"], o.reshape(B, H * D), cfg)
+
+
 def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
-                pos: torch.Tensor, *, tables: torch.Tensor, cache_len: int,
+                pos: torch.Tensor, *, tables=None, cache_len: int = 0,
                 kv_format: str = DEFAULT_KV_FORMAT,
                 attn_path: str = "gather", kv_partitions=None,
-                live_pages=None):
+                live_pages=None, active=None):
     """One decode step. tokens/pos: (B,). With ``tables`` (B,
     pages_per_slot) the state is the paged pool (-1 rows are inactive:
     their writes go to the null block); with ``tables=None`` it is the
-    per-slot ring cache of :func:`init_decode_state` (the draft model's).
-    Each layer inserts the new token's K/V first, then attends (insert
-    before attend). Returns (logits (B, V) fp32, state)."""
+    per-slot ring cache of :func:`init_decode_state` (the draft model's,
+    and rwkv's carry-only state). ``active`` (B,) bool keeps the recurrent
+    carries of rows that are not decoding (a slot mid chunked prefill
+    shares the batch; its carry would be advanced by the dummy token).
+    Returns (logits (B, V) fp32, state)."""
     check_family(cfg)
     fmt = get_kv_format(kv_format)
     h = layers.embed(params["embed"], tokens)               # (B, d)
-    B = h.shape[0]
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    cache_all = state["cache"]["kv"]
+    cache = state["cache"]
     for i, lp in enumerate(_layers(params)):
-        ap = lp["attn"]
+        if cfg.family == "rwkv":
+            x1 = layers.rmsnorm(lp["norm1"], h)
+            tm, st = rwkv.time_mix_step(
+                lp, x1, _carry_rows(cache, i), num_heads=cfg.num_heads,
+                cfg=cfg)
+            h = h + tm
+            x2 = layers.rmsnorm(lp["norm2"], h)
+            h = h + rwkv.channel_mix(lp, x2, cache["cm_shift"][i], cfg)
+            st["cm_shift"] = x2.to(torch.float32)
+            for k, new in st.items():
+                _commit(cache[k][i], new, active)
+            continue
         x = layers.rmsnorm(lp["norm1"], h)
-        q = layers.linear(ap["wq"], x, cfg).reshape(B, H, D)
-        k = layers.linear(ap["wk"], x, cfg).reshape(B, Hkv, D)
-        v = layers.linear(ap["wv"], x, cfg).reshape(B, Hkv, D)
-        q = layers.apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-        k = layers.apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-        if tables is None:
-            ring = _ring_layer(cache_all, i)
-            attention.cache_insert(ring, k, v, pos)
-            o = attention.decode_attention(q, ring, pos,
-                                           window=cfg.sliding_window)
+        a = _attn_step(lp["attn"], cfg, x, cache["kv"], i, pos, tables,
+                       cache_len=cache_len, fmt=fmt, attn_path=attn_path,
+                       kv_partitions=kv_partitions, live_pages=live_pages)
+        if cfg.family == "hybrid":
+            s_out, s_new = ssm.ssm_step(lp["ssm"], x, cache["ssm"][i], cfg)
+            _commit(cache["ssm"][i], s_new, active)
+            h = h + 0.5 * (a + s_out)
         else:
-            pool = cache_all.layer(i)
-            kvc.paged_insert(pool, tables, k, v, pos, cache_len=cache_len,
-                             fmt=fmt)
-            o = kvc.paged_decode_attention(
-                q, pool, tables, pos, window=cfg.sliding_window, fmt=fmt,
-                out_dtype=cfg.dtype, attn_path=attn_path,
-                kv_partitions=kv_partitions, live_pages=live_pages)
-        h = h + layers.linear(ap["wo"], o.reshape(B, H * D), cfg)
+            h = h + a
         h = _ffn(lp, cfg, h)
     h = layers.rmsnorm(params["final_norm"], h)
     return _logits_head(params, cfg, h), state
@@ -326,61 +428,111 @@ def _paged_chunk_attn(ap, cfg: ModelConfig, x1, pool, tables, positions,
 
 
 def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
-                       positions: torch.Tensor, table: torch.Tensor, *,
+                       positions: torch.Tensor, table=None, slot=None, *,
                        cache_len: int, kv_format: str = DEFAULT_KV_FORMAT,
                        attn_path: str = "gather", kv_partitions=None,
                        live_pages=None):
     """One chunked-prefill step for one slot. h: (1, C, d) embedding chunk;
     positions: (1, C) absolute, -1 = padding in the final chunk; table:
-    (1, T) the slot's block table. Returns (last-valid-position logits
+    (1, T) the slot's block table (None for attention-free rwkv); slot:
+    the slot's row of the recurrent carries (rwkv, hybrid), which step
+    their masked recurrences so that a right-padded final chunk leaves
+    the carry at the last real token. Returns (last-valid-position logits
     (1, V) fp32, state)."""
     check_family(cfg)
+    if cfg.family in CARRY_FAMILIES and slot is None:
+        raise ValueError(f"a {cfg.family!r} prefill chunk needs the slot "
+                         f"whose recurrent carry it advances")
     fmt = get_kv_format(kv_format)
+    valid = positions >= 0
     safe_pos = positions.clamp_min(0)
-    pool_all = state["cache"]["kv"]
+    cache = state["cache"]
+    rows = slice(slot, None if slot is None else slot + 1)
     for i, lp in enumerate(_layers(params)):
+        carry = _carry_rows(cache, i, rows)
+        if cfg.family == "rwkv":
+            h, new = _rwkv_layer(lp, cfg, h, carry, valid=valid)
+            for k, t in new.items():
+                carry[k].copy_(t)
+            continue
         x1 = layers.rmsnorm(lp["norm1"], h)
         a = _paged_chunk_attn(
-            lp["attn"], cfg, x1, pool_all.layer(i), table, positions,
+            lp["attn"], cfg, x1, cache["kv"].layer(i), table, positions,
             safe_pos, fmt=fmt, cache_len=cache_len, attn_path=attn_path,
             kv_partitions=kv_partitions, live_pages=live_pages)
-        h = _ffn(lp, cfg, h + a)
+        if cfg.family == "hybrid":
+            s_out, s_fin = ssm.ssm_seq(lp["ssm"], x1, carry["ssm"], cfg,
+                                       valid=valid)
+            carry["ssm"].copy_(s_fin)
+            h = _ffn(lp, cfg, h + 0.5 * (a + s_out))
+        else:
+            h = _ffn(lp, cfg, h + a)
     h = layers.rmsnorm(params["final_norm"], h)
-    return _logits_head(params, cfg, _last_valid_row(h, positions)), state
+    return _logits_head(params, cfg, _last_valid_row(h, valid)), state
 
 
 def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
-                positions: torch.Tensor, tables: torch.Tensor, *,
+                positions: torch.Tensor, tables=None, *,
                 cache_len: int, kv_format: str = DEFAULT_KV_FORMAT,
                 attn_path: str = "gather", kv_partitions=None,
                 live_pages=None):
-    """Batched speculative-verify step (the dense and moe branches of
-    JAX's; a moe layer routes all B·C rows together).
+    """Batched speculative-verify step (a moe layer routes all B·C rows
+    together).
 
     tokens: (B, C) — per slot, the last emitted token followed by up to
     C-1 drafts; positions: (B, C) absolute, -1 = padding (short proposals,
-    inactive rows, whose tables are -1 too); tables: (B, T). One forward
-    pass scores every position of every slot with the chunked-prefill
-    math, each row attending the pool below its ``positions[:, 0]``, then
-    scatters the window's K/V. Rejected drafts leave stale pool entries
-    above a slot's accepted frontier; their tags exceed every later query
-    position until the next window overwrites them, so the masks keep
-    them invisible (the engine rolls pages back at the allocator).
-    Returns (logits (B, C, V) fp32, state)."""
+    inactive rows, whose tables are -1 too); tables: (B, T) (None for
+    attention-free rwkv). One forward pass scores every position of every
+    slot with the chunked-prefill math, each row attending the pool below
+    its ``positions[:, 0]``, then scatters the window's K/V. Rejected
+    drafts leave stale pool entries above a slot's accepted frontier;
+    their tags exceed every later query position until the next window
+    overwrites them, so the masks keep them invisible (the engine rolls
+    pages back at the allocator).
+
+    A recurrence cannot be rolled back by masking, so the carries of the
+    rwkv and hybrid families are checkpointed: per leaf, C+1 snapshots
+    along a new axis 2 (index 0 the incoming carry, index n the carry after
+    n consumed positions; rwkv's shift/cm_shift checkpoints are the x1/x2
+    rows the decode step would have latched). The state's own carries are
+    returned unchanged: the engine writes back checkpoint ``1 + accepted``
+    per row (0 for inactive rows). Returns (logits (B, C, V) fp32, state,
+    the checkpoints or None)."""
     check_family(cfg)
     fmt = get_kv_format(kv_format)
     h = layers.embed(params["embed"], tokens.clamp_min(0))   # (B, C, d)
+    B, C, _ = h.shape
+    valid = positions >= 0
     safe_pos = positions.clamp_min(0)
-    pool_all = state["cache"]["kv"]
+    cache = state["cache"]
+    carries = {k: torch.empty((v.shape[0], B, C + 1, *v.shape[2:]),
+                              dtype=v.dtype, device=v.device)
+               for k, v in cache.items() if k in CARRY_LEAVES} or None
     for i, lp in enumerate(_layers(params)):
-        x1 = layers.rmsnorm(lp["norm1"], h)
-        h = h + _paged_chunk_attn(
-            lp["attn"], cfg, x1, pool_all.layer(i), tables, positions,
-            safe_pos, fmt=fmt, cache_len=cache_len, attn_path=attn_path,
-            kv_partitions=kv_partitions, live_pages=live_pages)
-        h = _ffn(lp, cfg, h)
+        carry = _carry_rows(cache, i)
+        if cfg.family == "rwkv":
+            h, _, steps = _rwkv_layer(lp, cfg, h, carry, valid=valid,
+                                      collect_states=True)
+        else:
+            x1 = layers.rmsnorm(lp["norm1"], h)
+            a = _paged_chunk_attn(
+                lp["attn"], cfg, x1, cache["kv"].layer(i), tables,
+                positions, safe_pos, fmt=fmt, cache_len=cache_len,
+                attn_path=attn_path, kv_partitions=kv_partitions,
+                live_pages=live_pages)
+            if cfg.family == "hybrid":
+                s_out, _, s_steps = ssm.ssm_seq(
+                    lp["ssm"], x1, carry["ssm"], cfg, valid=valid,
+                    collect_states=True)
+                steps = {"ssm": s_steps}
+                h = _ffn(lp, cfg, h + 0.5 * (a + s_out))
+            else:
+                h = _ffn(lp, cfg, h + a)
+        for k in carry:
+            carries[k][i, :, 0] = carry[k]
+            carries[k][i, :, 1:] = steps[k]
     h = layers.rmsnorm(params["final_norm"], h)
-    return _logits_head(params, cfg, h), state
+    return _logits_head(params, cfg, h), state, carries
 
 
 # ---------------------------------------------------------------------------
@@ -392,37 +544,67 @@ def _ring_layer(cache: attention.KVCache, i: int) -> attention.KVCache:
     return attention.KVCache(cache.k[i], cache.v[i], cache.pos[i])
 
 
+def _init_carries(cfg: ModelConfig, batch: int, device=None):
+    """The family's recurrent carries at zero, stacked over L: rwkv's
+    ``wkv``, ``shift`` and ``cm_shift``, hybrid's ``ssm``; none else."""
+    if cfg.family == "rwkv":
+        one = rwkv.rwkv_state_init(batch, cfg.d_model, cfg.num_heads,
+                                   device="meta")
+    elif cfg.family == "hybrid":
+        one = {"ssm": ssm.ssm_state_init(batch, cfg.d_inner, cfg.ssm_state,
+                                         device="meta")}
+    else:
+        return {}
+    return {k: torch.zeros((cfg.num_layers, *v.shape), dtype=v.dtype,
+                           device=device) for k, v in one.items()}
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
                       device=None):
     """Empty per-slot ring decode state: one KV ring of ``cache_len``
-    entries per slot, stacked over L."""
+    entries per slot (none for rwkv) and the family's carries, stacked
+    over L."""
     check_family(cfg)
-    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
-             cfg.head_dim)
-    kv = attention.KVCache(
-        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        pos=torch.full(shape[:3], -1, dtype=torch.int32, device=device))
-    return {"cache": {"kv": kv}}
+    cache = _init_carries(cfg, batch, device)
+    if cfg.family != "rwkv":
+        shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["kv"] = attention.KVCache(
+            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+            v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+            pos=torch.full(shape[:3], -1, dtype=torch.int32, device=device))
+    return {"cache": cache}
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache_len: int):
     """Run a whole prompt (tokens (B, S) at positions 0..S-1); returns
     (last-position logits (B, V) fp32, a ring decode state holding each
-    layer's last ``cache_len`` K/V)."""
+    layer's last ``cache_len`` K/V and the carries after the prompt)."""
     check_family(cfg)
     h = layers.embed(params["embed"], tokens)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
     state = init_decode_state(cfg, B, cache_len, device=h.device)
+    cache = state["cache"]
     for i, lp in enumerate(_layers(params)):
-        a, (k, v) = _attn_seq(lp["attn"], cfg,
-                              layers.rmsnorm(lp["norm1"], h), positions,
+        carry = _carry_rows(cache, i)
+        if cfg.family == "rwkv":
+            h, new = _rwkv_layer(lp, cfg, h, carry)
+            for k, t in new.items():
+                carry[k].copy_(t)
+            continue
+        x1 = layers.rmsnorm(lp["norm1"], h)
+        a, (k, v) = _attn_seq(lp["attn"], cfg, x1, positions,
                               return_kv=True)
-        attention.cache_prefill(_ring_layer(state["cache"]["kv"], i), k, v)
-        h = _ffn(lp, cfg, h + a)
+        attention.cache_prefill(_ring_layer(cache["kv"], i), k, v)
+        if cfg.family == "hybrid":
+            s_out, s_fin = ssm.ssm_seq(lp["ssm"], x1, carry["ssm"], cfg)
+            carry["ssm"].copy_(s_fin)
+            h = _ffn(lp, cfg, h + 0.5 * (a + s_out))
+        else:
+            h = _ffn(lp, cfg, h + a)
     h = layers.rmsnorm(params["final_norm"], h[:, -1])
     return _logits_head(params, cfg, h), state
 
@@ -430,11 +612,16 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 def init_paged_state(cfg: ModelConfig, batch: int, cache_len: int, *,
                      page_size: int, num_blocks: int,
                      kv_format: str = DEFAULT_KV_FORMAT, device=None):
-    """Paged decode state: one block pool stacked over L. Block tables
-    live outside the state (the engine passes them per step)."""
+    """Paged decode state: one block pool stacked over L, and the family's
+    per-slot carries. Block tables live outside the state (the engine
+    passes them per step). rwkv holds no KV cache: its state is the
+    carry-only state of :func:`init_decode_state`."""
     check_family(cfg)
+    if cfg.family == "rwkv":
+        return init_decode_state(cfg, batch, cache_len, device=device)
     kvc.pages_per_slot(cache_len, page_size)
-    pool = kvc.init_pool(num_blocks, page_size, cfg.num_kv_heads,
-                         cfg.head_dim, cfg.dtype, kv_format,
-                         num_layers=cfg.num_layers, device=device)
-    return {"cache": {"kv": pool}}
+    cache = _init_carries(cfg, batch, device)
+    cache["kv"] = kvc.init_pool(num_blocks, page_size, cfg.num_kv_heads,
+                                cfg.head_dim, cfg.dtype, kv_format,
+                                num_layers=cfg.num_layers, device=device)
+    return {"cache": cache}

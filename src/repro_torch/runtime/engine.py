@@ -1,6 +1,14 @@
 """Serving engine: continuous batched decode over request slots on the
 paged, prefix-shared KV cache (port of ``repro/runtime/engine.py``).
 
+The rwkv family holds no KV cache: its engine runs the same chunked
+prefill and batched decode on the carry-only state, with no allocator,
+block tables, prefix sharing or warm LRU. The rwkv and hybrid families'
+recurrent carries are per-slot rows of the state: zeroed when a slot
+admits a request, advanced only for the rows that decode (``active``),
+and, after each verify step, set to the checkpoint at the row's accepted
+frontier.
+
 Slot lifecycle:
 
   admit   — a free slot takes the next admissible request (FIFO, or by
@@ -30,10 +38,10 @@ prefill_chunk``), a verify plan when speculating (``B = max_batch``,
 max_batch·(spec_k + 1)``; the other steps' GEMMs reuse them.
 
 Not ported, and refused: meshes, the ring cache as the serving state
-(``paged=False``; the draft model keeps a ring of its own), and families
-other than dense and moe. A moe layer routes every row of a step (inactive
-decode slots, a chunk's padding, every verify position) as the JAX engine
-does, since which pairs overflow an expert's capacity depends on it.
+(``paged=False``; the draft model keeps a ring of its own), and the encdec
+family. A moe layer routes every row of a step (inactive decode slots, a
+chunk's padding, every verify position) as the JAX engine does, since
+which pairs overflow an expert's capacity depends on it.
 """
 from __future__ import annotations
 
@@ -182,6 +190,8 @@ class ServingEngine:
     in the JAX package) maps identical page-aligned prompt prefixes onto
     the same blocks; ``warm_cache_mb`` keeps released prefix chains warm
     up to that many MiB. ``admission`` is ``fifo`` or ``priority``.
+    rwkv arrives with ``paged=True`` and serves from its carry-only state
+    (``self.paged`` is False); the carry families share no prefix.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
@@ -211,56 +221,80 @@ class ServingEngine:
         self.max_batch = int(max_batch)
         self.max_prompt_len = int(max_prompt_len)
         self.max_new_tokens = int(max_new_tokens)
+        # rwkv holds no KV cache: nothing to page
+        self.paged = cfg.family != "rwkv"
         self.page_size = int(page_size)
         self.kv_format = kv_format or DEFAULT_KV_FORMAT
-        get_kv_format(self.kv_format)
+        if get_kv_format(self.kv_format).quantized and cfg.attn_free:
+            raise ValueError(
+                f"kv_format {self.kv_format!r} does not apply to "
+                f"{cfg.family!r} archs — they hold no KV cache to "
+                f"quantize; use kv_fp16")
+        ps = self.page_size if self.paged else None
         if cache_len is None:
             self.cache_len = serve_cache_len(cfg, max_prompt_len,
-                                             max_new_tokens, self.page_size)
+                                             max_new_tokens, ps)
         else:
-            self.cache_len = -(-int(cache_len) // self.page_size) \
-                * self.page_size
-        self.share_prefix = bool(share_prefix)
-        self.pages_slot = self.cache_len // self.page_size
-        self.num_pages = int(
-            num_pages if num_pages is not None
-            else serve_num_pages(cfg, max_prompt_len, max_new_tokens,
-                                 page_size=self.page_size,
-                                 max_batch=self.max_batch))
-        if self.num_pages < self.pages_slot + 1:
-            raise ValueError(
-                f"num_pages={self.num_pages} cannot hold even one slot's "
-                f"window ({self.pages_slot} pages + the null block); size "
-                f"the pool with configs.shapes.serve_num_pages")
-        # bytes one block occupies across every layer's pool leaves (scales
-        # and pos tags included): the warm budget's unit
-        one = kvc.init_pool(1, self.page_size, cfg.num_kv_heads,
-                            cfg.head_dim, cfg.dtype, self.kv_format,
-                            device="meta")
-        self.block_bytes = cfg.num_layers * sum(
-            t.numel() * t.element_size() for t in one if t is not None)
+            self.cache_len = int(cache_len) if ps is None \
+                else -(-int(cache_len) // ps) * ps
+        # a recurrent carry must consume every prompt token: no prefix is
+        # ever skipped
+        self.share_prefix = bool(share_prefix) and self.paged \
+            and cfg.family not in T.CARRY_FAMILIES
         self.warm_bytes = int(float(warm_cache_mb) * (1 << 20)) \
             if self.share_prefix else 0
+        if self.paged:
+            self.pages_slot = self.cache_len // self.page_size
+            self.num_pages = int(
+                num_pages if num_pages is not None
+                else serve_num_pages(cfg, max_prompt_len, max_new_tokens,
+                                     page_size=self.page_size,
+                                     max_batch=self.max_batch))
+            if self.num_pages < self.pages_slot + 1:
+                raise ValueError(
+                    f"num_pages={self.num_pages} cannot hold even one "
+                    f"slot's window ({self.pages_slot} pages + the null "
+                    f"block); size the pool with "
+                    f"configs.shapes.serve_num_pages")
+            # bytes one block occupies across every layer's pool leaves
+            # (scales and pos tags included): the warm budget's unit
+            one = kvc.init_pool(1, self.page_size, cfg.num_kv_heads,
+                                cfg.head_dim, cfg.dtype, self.kv_format,
+                                device="meta")
+            self.block_bytes = cfg.num_layers * sum(
+                t.numel() * t.element_size() for t in one if t is not None)
+        else:
+            self.pages_slot = self.num_pages = self.block_bytes = 0
         self.alloc = self._new_allocator()
         self.prefill_chunk = max(
             1, min(int(prefill_chunk) if prefill_chunk is not None else 32,
                    self.cache_len))
+        # decode steps must not advance the carries of rows that are free
+        # or still mid chunked prefill
+        self._needs_active = cfg.family in T.CARRY_FAMILIES
 
-        act_bytes = torch.finfo(cfg.dtype).bits // 8
-        attn_problem = planning.AttentionProblem(
-            B=self.max_batch, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
-            D=cfg.head_dim, cache_len=self.cache_len,
-            page_size=self.page_size, window=cfg.sliding_window,
-            kv_format=self.kv_format, paged=True,
-            backend=self.device.type, act_bytes=act_bytes)
+        # attention plans per regime (none for attention-free rwkv, whose
+        # paths stay None)
         forced = None if attn_path == "auto" else attn_path
-        plan = planning.plan_attention(attn_problem, path=forced)
-        self.attn_path, self.kv_partitions = plan.path, plan.kv_partitions
-        pf_plan = planning.plan_attention(
-            dataclasses.replace(attn_problem, B=1, q_len=self.prefill_chunk),
-            path=forced)
-        self.prefill_attn_path = pf_plan.path
-        self.prefill_kv_partitions = pf_plan.kv_partitions
+        attn_problem = None
+        self.attn_path = self.prefill_attn_path = None
+        self.kv_partitions = self.prefill_kv_partitions = None
+        if self.paged:
+            attn_problem = planning.AttentionProblem(
+                B=self.max_batch, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                D=cfg.head_dim, cache_len=self.cache_len,
+                page_size=self.page_size, window=cfg.sliding_window,
+                kv_format=self.kv_format, paged=True,
+                backend=self.device.type,
+                act_bytes=torch.finfo(cfg.dtype).bits // 8)
+            plan = planning.plan_attention(attn_problem, path=forced)
+            self.attn_path, self.kv_partitions = plan.path, \
+                plan.kv_partitions
+            pf_plan = planning.plan_attention(
+                dataclasses.replace(attn_problem, B=1,
+                                    q_len=self.prefill_chunk), path=forced)
+            self.prefill_attn_path = pf_plan.path
+            self.prefill_kv_partitions = pf_plan.kv_partitions
 
         self.spec_k = int(spec_k)
         self.proposer: Optional[spec.Proposer] = None
@@ -273,7 +307,7 @@ class ServingEngine:
                 self.proposer = spec.make_proposer(str(speculate),
                                                    target_cfg=cfg)
         # verify: q_len = k+1 queries per slot over the full batch
-        if self.proposer is not None:
+        if self.proposer is not None and attn_problem is not None:
             vf_plan = planning.plan_attention(
                 dataclasses.replace(attn_problem, q_len=self.spec_k + 1),
                 path=forced)
@@ -320,7 +354,9 @@ class ServingEngine:
         self._step_no = 0
         self._events: Optional[StepEvents] = None
 
-    def _new_allocator(self) -> kvc.BlockAllocator:
+    def _new_allocator(self) -> Optional[kvc.BlockAllocator]:
+        if not self.paged:
+            return None
         return kvc.BlockAllocator(self.num_pages, self.page_size,
                                   warm_bytes=self.warm_bytes,
                                   block_bytes=self.block_bytes)
@@ -376,6 +412,25 @@ class ServingEngine:
             page_size=self.page_size, num_blocks=self.num_pages,
             kv_format=self.kv_format, device=self.device)
 
+    def _reset_carry(self, i: int) -> None:
+        """Zero slot ``i``'s recurrent carry rows before its chunked
+        prefill streams the prompt through them."""
+        for name, leaf in self._state["cache"].items():
+            if name in T.CARRY_LEAVES:
+                leaf[:, i] = 0
+
+    def _apply_carry_selection(self, carries, sel) -> None:
+        """Commit the verify step's carry checkpoints: row b takes
+        checkpoint ``sel[b]`` (0 restores the pre-verify carry of an
+        inactive row, n the carry after n consumed positions, 1 +
+        accepted drafts for an active one). The verify step leaves the
+        state's carries untouched, so this is their only writer."""
+        idx = torch.as_tensor(sel, device=self.device).long()
+        rows = torch.arange(self.max_batch, device=self.device)
+        cache = self._state["cache"]
+        for name, stack in carries.items():
+            cache[name].copy_(stack[:, rows, idx])
+
     # -- paged block bookkeeping ------------------------------------------
 
     def _pool(self) -> kvc.PagedKVCache:
@@ -398,6 +453,8 @@ class ServingEngine:
         first divergent write of prefix sharing). With ``txn`` (a list)
         every reversible mapping change is recorded — ("alloc", page, bid)
         / ("cow", page, old, new) — for :meth:`_rollback_pages`."""
+        if not self.paged:
+            return
         tbl = self._tables[i]
         for p in sorted({o // self.page_size for o in offsets}):
             bid = int(tbl[p])
@@ -429,6 +486,8 @@ class ServingEngine:
         so a shared prefix never points at rejected-draft bytes. In-place
         unpublishes stay unpublished. Entries at or below ``last_page``
         stay: tag masking keeps a kept page's stale tail invisible."""
+        if not self.paged:
+            return
         tbl = self._tables[i]
         freed = []
         for op in reversed(txn):
@@ -533,6 +592,8 @@ class ServingEngine:
         Live shared prefix pages are discounted, minus one for a possible
         divergent-write copy — only when decode cannot wrap the window (a
         wrapping decode may copy every shared page)."""
+        if not self.paged:
+            return 0
         S_total, (full_keys, partial) = self._prefix_keys(req)
         if S_total + req.max_new_tokens > self.cache_len:
             return self.pages_slot
@@ -552,6 +613,8 @@ class ServingEngine:
 
     def _evict(self, i: int) -> None:
         self._reserve.pop(i, None)
+        if not self.paged:
+            return
         # decref may retain published prefix blocks warm instead of freeing
         # them; blocks the retention displaced land on the reclaimed list
         freed = [bid for bid in map(int, self._tables[i])
@@ -619,6 +682,8 @@ class ServingEngine:
                                      device=self.device)
             slot.pf_stream = layers.embed(self.params["embed"], prompt)
             slot.pf_next = shared
+        if self.cfg.family in T.CARRY_FAMILIES:
+            self._reset_carry(i)
         if self.share_prefix:
             self.report.prefill_steps_saved += saved
             if self.metrics is not None:
@@ -645,9 +710,11 @@ class ServingEngine:
             "h": seg[None],
             "positions": torch.as_tensor(positions,
                                          device=self.device)[None],
-            "table": torch.as_tensor(self._tables[i:i + 1],
-                                     device=self.device),
+            "slot": i,
         }
+        if self.paged:
+            inputs["table"] = torch.as_tensor(self._tables[i:i + 1],
+                                              device=self.device)
         lp = None
         if self.prefill_attn_path == "gather" and start < self.cache_len:
             # gather reads pool entries < start only
@@ -841,25 +908,27 @@ class ServingEngine:
                 "requests waiting for a slot").set(len(self._waiting))
         m.gauge("engine_active_slots", "slots decoding or prefilling").set(
             sum(1 for s in self._slots if s is not None))
-        m.gauge("engine_pages_in_use",
-                "live KV blocks").set(self.alloc.pages_in_use)
-        m.gauge("engine_warm_pages",
-                "refcount-0 prefix blocks retained warm").set(
-            self.alloc.warm_pages)
-        m.gauge("engine_attn_path",
-                "decode attention path (0=ring 1=gather 2=fused)").set(
-            _PATH_CODE.get(self.attn_path, -1))
-        m.counter(f"engine_attn_path_steps_{self.attn_path}",
-                  "scheduler steps served by this attention path").inc()
-        m.gauge("engine_prefill_attn_path",
-                "chunked-prefill attention path "
-                "(0=ring 1=gather 2=fused)").set(
-            _PATH_CODE.get(self.prefill_attn_path, -1))
-        if self.proposer is not None:
-            m.gauge("engine_verify_attn_path",
-                    "speculative-verify attention path "
+        if self.paged:
+            m.gauge("engine_pages_in_use",
+                    "live KV blocks").set(self.alloc.pages_in_use)
+            m.gauge("engine_warm_pages",
+                    "refcount-0 prefix blocks retained warm").set(
+                self.alloc.warm_pages)
+            m.gauge("engine_attn_path",
+                    "decode attention path (0=ring 1=gather 2=fused)").set(
+                _PATH_CODE.get(self.attn_path, -1))
+            m.counter(f"engine_attn_path_steps_{self.attn_path}",
+                      "scheduler steps served by this attention path").inc()
+            m.gauge("engine_prefill_attn_path",
+                    "chunked-prefill attention path "
                     "(0=ring 1=gather 2=fused)").set(
-                _PATH_CODE.get(self.verify_attn_path, -1))
+                _PATH_CODE.get(self.prefill_attn_path, -1))
+            if self.proposer is not None:
+                m.gauge("engine_verify_attn_path",
+                        "speculative-verify attention path "
+                        "(0=ring 1=gather 2=fused)").set(
+                    _PATH_CODE.get(self.verify_attn_path, -1))
+        if self.proposer is not None:
             m.gauge("engine_acceptance_rate",
                     "accepted/proposed draft tokens").set(
                 self.report.acceptance_rate)
@@ -886,6 +955,11 @@ class ServingEngine:
         self._sample_metrics(ev, decode_dt)
         return ev
 
+    def _note_peak_pages(self) -> None:
+        if self.paged:
+            self.report.peak_pages = max(self.report.peak_pages,
+                                         self.alloc.pages_in_use)
+
     def _step_tables(self) -> torch.Tensor:
         """Block tables with every non-active row masked to -1 (its stale
         writes redirect to the null block)."""
@@ -908,7 +982,8 @@ class ServingEngine:
             if slots[i] is not None:
                 continue
             cand = self._waiting[idx]
-            if self._required_pages(cand) + sum(self._reserve.values()) \
+            if self.paged and self._required_pages(cand) \
+                    + sum(self._reserve.values()) \
                     > self.alloc.pages_free + self.alloc.warm_pages:
                 break               # pool too full — wait for evictions
             del self._waiting[idx]
@@ -964,14 +1039,19 @@ class ServingEngine:
         tok, pos = self._tok, self._pos
         for i in active:
             self._ensure_pages(i, [int(pos[i]) % self.cache_len])
-        report.peak_pages = max(report.peak_pages, self.alloc.pages_in_use)
+        self._note_peak_pages()
         t0 = time.perf_counter()
         inputs = {
             "state": self._state,
             "tokens": torch.as_tensor(tok, device=self.device),
             "pos": torch.as_tensor(pos, device=self.device),
-            "tables": self._step_tables(),
         }
+        if self.paged:
+            inputs["tables"] = self._step_tables()
+        if self._needs_active:
+            act = np.zeros(self.max_batch, bool)
+            act[active] = True
+            inputs["active"] = torch.as_tensor(act, device=self.device)
         lp = None
         if self.attn_path == "gather":
             mx = max(int(pos[i]) for i in active)
@@ -1036,12 +1116,13 @@ class ServingEngine:
                 i, [p % self.cache_len
                     for p in range(int(pos[i]), int(pos[i]) + n + 1)],
                 txn=txns[i])
-        report.peak_pages = max(report.peak_pages, self.alloc.pages_in_use)
+        self._note_peak_pages()
         inputs = {
             "tokens": torch.as_tensor(ptok, device=self.device),
             "positions": torch.as_tensor(ppos, device=self.device),
-            "tables": self._step_tables(),
         }
+        if self.paged:
+            inputs["tables"] = self._step_tables()
         lp = None
         if self.verify_attn_path == "gather":
             mx = max(int(pos[i]) for i in active)
@@ -1054,14 +1135,28 @@ class ServingEngine:
         dt = time.perf_counter() - t0
         report.decode_s += dt
         emitted_total = 0
+        # exact greedy acceptance: draft j survives iff it equals the
+        # target's argmax at position j-1; the first mismatch adds the
+        # target's own choice
+        accepted: Dict[int, int] = {}
         for i in active:
-            s = slots[i]
-            # exact greedy acceptance: draft j survives iff it equals the
-            # target's argmax at position j-1; the first mismatch adds the
-            # target's own choice
             a = 0
             while a < n_drafts[i] and int(ptok[i, a + 1]) == int(nxt[i, a]):
                 a += 1
+            accepted[i] = a
+        carries = res.get("carries")
+        del res
+        if carries is not None:
+            # the carry after the last emitted token's input: checkpoint
+            # 1 + accepted (0 keeps an inactive row's carry)
+            sel = np.zeros(self.max_batch, np.int64)
+            for i in active:
+                sel[i] = accepted[i] + 1
+            self._apply_carry_selection(carries, sel)
+            del carries
+        for i in active:
+            s = slots[i]
+            a = accepted[i]
             emitted = [int(nxt[i, j]) for j in range(a + 1)]
             report.accepted_tokens += a
             self._rollback_pages(

@@ -94,15 +94,17 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
 def make_serve_step(cfg: ModelConfig, *, cache_len: int = 0,
                     kv_format: str = "kv_fp16", attn_path: str = "gather",
                     kv_partitions=None, live_pages=None):
-    """serve_step(params, inputs={state, tokens, pos, [tables]}) — one
-    decode step, paged when ``inputs`` carries block tables, else on the
-    ring state; returns {"next", "logits", "state"}."""
+    """serve_step(params, inputs={state, tokens, pos, [tables], [active]})
+    — one decode step, paged when ``inputs`` carries block tables, else on
+    the ring (or rwkv's carry-only) state; ``active`` keeps the carries of
+    rows that are not decoding. Returns {"next", "logits", "state"}."""
     def serve_step(params, inputs):
         logits, state = T.decode_step(
             params, cfg, inputs["state"], inputs["tokens"], inputs["pos"],
             tables=inputs.get("tables"), cache_len=cache_len,
             kv_format=kv_format, attn_path=attn_path,
-            kv_partitions=kv_partitions, live_pages=live_pages)
+            kv_partitions=kv_partitions, live_pages=live_pages,
+            active=inputs.get("active"))
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return {"next": next_tok, "logits": logits, "state": state}
     return serve_step
@@ -112,12 +114,14 @@ def make_prefill_chunk_step(cfg: ModelConfig, cache_len: int, *,
                             kv_format: str = "kv_fp16",
                             attn_path: str = "gather", kv_partitions=None,
                             live_pages=None):
-    """chunk_step(params, state, inputs={h, positions, table}) — one
-    chunked-prefill step for one slot; returns {"logits", "state"}."""
+    """chunk_step(params, state, inputs={h, positions, table, slot}) — one
+    chunked-prefill step for one slot (``table`` None for rwkv); returns
+    {"logits", "state"}."""
     def chunk_step(params, state, inputs):
         logits, state = T.prefill_chunk_step(
             params, cfg, state, inputs["h"], inputs["positions"],
-            inputs["table"], cache_len=cache_len, kv_format=kv_format,
+            inputs.get("table"), inputs.get("slot"), cache_len=cache_len,
+            kv_format=kv_format,
             attn_path=attn_path, kv_partitions=kv_partitions,
             live_pages=live_pages)
         return {"logits": logits, "state": state}
@@ -127,18 +131,20 @@ def make_prefill_chunk_step(cfg: ModelConfig, cache_len: int, *,
 def make_verify_step(cfg: ModelConfig, cache_len: int, *,
                      kv_format: str = "kv_fp16", attn_path: str = "gather",
                      kv_partitions=None, live_pages=None):
-    """verify(params, state, inputs={tokens, positions, tables}) — one
+    """verify(params, state, inputs={tokens, positions, [tables]}) — one
     batched speculative-verify step (see ``T.verify_step``): the last
     emitted token plus up to C-1 drafts for every slot in one forward
     pass; ``next`` is the device-side argmax of every (slot, position)
     cell, so the host syncs one (B, C) int array per step. Returns
-    {"next", "logits", "state"}."""
+    {"next", "logits", "state", "carries"} (the carry checkpoints of the
+    rwkv and hybrid families, else None)."""
     def verify(params, state, inputs):
-        logits, state = T.verify_step(
+        logits, state, carries = T.verify_step(
             params, cfg, state, inputs["tokens"], inputs["positions"],
-            inputs["tables"], cache_len=cache_len, kv_format=kv_format,
+            inputs.get("tables"), cache_len=cache_len, kv_format=kv_format,
             attn_path=attn_path, kv_partitions=kv_partitions,
             live_pages=live_pages)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return {"next": next_tok, "logits": logits, "state": state}
+        return {"next": next_tok, "logits": logits, "state": state,
+                "carries": carries}
     return verify

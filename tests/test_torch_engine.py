@@ -227,8 +227,10 @@ def test_engine_refuses_what_the_slice_left_out(weights):
     # speculation rolls back at the allocator: the paged engine only
     with pytest.raises(ValueError, match="paged"):
         spec.validate_speculate("ngram", 4, cfg=cfg, paged=False)
-    with pytest.raises(NotImplementedError, match="dense and moe families"):
-        ServingEngine(dataclasses.replace(cfg, family="rwkv"), tparams, **kw)
+    with pytest.raises(NotImplementedError,
+                       match="dense, moe, rwkv and hybrid families"):
+        ServingEngine(dataclasses.replace(cfg, family="encdec"), tparams,
+                      **kw)
 
 
 def test_serve_launcher_on_cpu():

@@ -73,6 +73,43 @@ def test_geometry_fits_and_covers(K, N, dtype):
                                       direct)
 
 
+# (K, N, group): the carry families' served W4A16 shapes; hymba's K = 1600
+# leaves quantize at group 64 (quantize_tree's pick: 1600 % 128 != 0)
+CARRY_SHAPES = [(4096, 4096, 128), (4096, 14336, 128), (14336, 4096, 128),
+                (1600, 1600, 64), (1600, 320, 64), (1600, 3200, 64),
+                (1600, 5504, 64), (3200, 1600, 128), (5504, 1600, 128)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,N,group", CARRY_SHAPES)
+def test_geometry_at_carry_shapes(K, N, group, dtype):
+    """rwkv6-7b's and hymba-1.5b's W4A16 shapes at decode (M = 1, 8), the
+    k = 4 verify step (40) and a 32-token chunk, the planner's split_k at
+    the leaf's group and 1, direct and partials: the layout fits and
+    covers. At group 64 a 128-row stage holds parts of three groups, so
+    it carries three scale rows; K = 1600 is 12.5 stages."""
+    for M in (1, 8, 32, 40):
+        splits = sorted({choose_split_k(M, N, K, group_size=group,
+                                        cores=132), 1})
+        for split_k in splits:
+            for direct in ({False, split_k == 1} if dtype == torch.float32
+                           else (False, True)):
+                geo = tgemm.gemm_geometry("int4", M, N, K, split_k, dtype,
+                                          direct=direct, group=group)
+                _check_covers(geo, "int4", M, N, K, split_k, dtype, direct)
+                if dtype != torch.float32:
+                    assert geo.scale_rows == (3 if group == 64 else 2)
+    # K = 1600 at group 64: the planner keeps it whole (a 2-way split
+    # leaves 800 rows, not a multiple of 64), the tile loop cuts it in two
+    # 800-row slices (25 x 32), no further (400 is not a multiple of 32)
+    if K == 1600:
+        assert choose_split_k(8, N, K, group_size=64, cores=132) == 1
+        if dtype != torch.float32:
+            geo = tgemm.gemm_geometry("int4", 8, N, K, 1, dtype,
+                                      direct=True, group=64)
+            assert (geo.ks, geo.cluster) == (2, 2)
+
+
 def test_geometry_at_danube_decode():
     """Decode (M = 8) at danube width: one n8 token tile, 64-column blocks,
     K cut until the card holds about two blocks per SM. wq (K 2560, N 2560,

@@ -19,6 +19,7 @@ from repro_torch.core.tree import tree_flatten_with_keys
 from repro_torch.data import SyntheticTokenStream
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import gemm as tgemm
+from repro_torch.kernels import planning
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import w4a8_fused as tw4a8
 from repro_torch.kernels import w4a16_decoupled as tdec
@@ -459,16 +460,21 @@ def test_train_step_kernel_path_matches_plain_path(cuda_device):
             assert d <= tol * float(w.abs().max()), (name, key, d)
 
 
-def _paged_pool_case(dev, *, kind, fmt_name, dtype, seed):
+def _paged_pool_case(dev, *, kind, fmt_name, dtype, seed, heads=(2, 4, 80),
+                     ps=8, T_=68, ctx=None):
     """danube's head dim over 68-page tables of 8-token pages, 2 KV heads
     of G = 4: decode B=2 at ragged positions past the 544-token window
     (slot 1 holds 10 pages, its table tail -1), or a 32-token chunk B=1
-    after 480 cached tokens; slot 0's table entry 5 is -1 inside its live
-    pages."""
-    Hkv, G_, D_, ps, T_ = 2, 4, 80, 8, 68
+    after 480 cached tokens, or a verify step of B=2 rows of 5 queries
+    (row 1 with 2 live ones, the rest -1) over pools holding three stale
+    rejected-draft tags at and above each row's start; slot 0's table
+    entry 5 is -1 inside its live pages. ``heads`` (KV heads, group, head
+    dim), ``ps``, ``T_`` (a slot's pages) and ``ctx`` (the last cached
+    position, 700 / 480 by default) set other shapes."""
+    Hkv, G_, D_ = heads
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    B, C = (2, 1) if kind == "decode" else (1, 32)
+    B, C = {"decode": (2, 1), "chunk": (1, 32), "verify": (2, 5)}[kind]
     fmt = tq.get_kv_format(fmt_name)
     pool = kvc.init_pool(1 + B * T_, ps, Hkv, D_, dtype, fmt_name,
                          device=dev)
@@ -486,12 +492,13 @@ def _paged_pool_case(dev, *, kind, fmt_name, dtype, seed):
     flat = pool.page_pos.view(-1)
     last = []
     for b in range(B):
-        hi = (700 if kind == "decode" else 480) - 3 * b
+        hi = (ctx or (480 if kind == "chunk" else 700)) - 3 * b
         lo = max(0, hi - T_ * ps + 1)
         if kind == "decode" and b == 1:
             hi, lo = 10 * ps - 1, 0
             tables[b, 10:] = -1
-        p = torch.arange(lo, hi + 1, device=dev)
+        stale = 3 if kind == "verify" else 0
+        p = torch.arange(lo, hi + 1 + stale, device=dev)
         off = p % (T_ * ps)
         bid = tables[b, off // ps].long()
         flat[bid * ps + off % ps] = p.to(torch.int32)
@@ -503,9 +510,11 @@ def _paged_pool_case(dev, *, kind, fmt_name, dtype, seed):
     else:
         positions = (last[:, None] + 1 + torch.arange(
             C, device=dev, dtype=torch.int32)).contiguous()
+        if kind == "verify":
+            positions[1, 2:] = -1
         start = positions[:, 0].contiguous()
     q = torch.randn(B, C, Hkv, G_, D_, generator=gen, device=dev)
-    Tq = C if kind == "chunk" else 1
+    Tq = planning.choose_q_block(C, G_)
     qk = (q * D_ ** -0.5).to(dtype).permute(0, 2, 1, 3, 4) \
         .reshape(B, Hkv, C // Tq, Tq * G_, D_).contiguous()
     return qk, positions, start, pool, tables, fmt, Tq, G_
@@ -912,6 +921,130 @@ def test_moe_engine_kernel_path_matches_plain_path(cuda_device):
     assert (wf.W4A16_GEMM.launches - n0[0]) % (cfg.num_layers * 7) == 0
     plain = run("reference", "gather")
     assert steps == plain.steps
+    for rid in (0, 1):
+        torch.testing.assert_close(fused.prefill_logits[rid],
+                                   plain.prefill_logits[rid],
+                                   rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the carry families (rwkv6-7b, hymba-1.5b)
+# ---------------------------------------------------------------------------
+
+# (K, N, group): rwkv6-7b's three W4A16 shapes, hymba-1.5b's six; its
+# K = 1600 leaves quantize at group 64 (1600 is not a multiple of 128)
+CARRY_GEMMS = [(4096, 4096, 128), (4096, 14336, 128), (14336, 4096, 128),
+               (1600, 1600, 64), (1600, 320, 64), (1600, 3200, 64),
+               (1600, 5504, 64), (3200, 1600, 128), (5504, 1600, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N,group", CARRY_GEMMS)
+def test_w4a16_kernel_at_carry_shapes(cuda_device, K, N, group, dtype):
+    """The served carry-family shapes, M = 1, 8 and 40, the planner's
+    split_k and 1: at group 64 a 128-row ring stage holds parts of three
+    groups and K = 1600 ends in a partial stage. Tolerance: one bf16 ulp
+    after a reordered fp32 sum (2^-7·|plain| + 1e-3); fp32, summation order
+    (1e-5·|plain| + 1e-4)."""
+    rng = np.random.default_rng(K + N)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * K ** -0.5)
+                         .astype(np.float32)).to(cuda_device)
+    qt = tq.quantize(w.to(dtype), group_size=group, out_dtype=dtype)
+    assert qt.group_size == group
+    rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-3)
+    for M in (1, 8, 40):
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)) \
+            .to(cuda_device).to(dtype)
+        plan = planning.plan_matmul(
+            planning.MatmulProblem.from_operands(x, qt), use_cache=False)
+        for s in sorted({plan.split_k, 1}):
+            before = wf.W4A16_GEMM.launches
+            got = wf.w4a16_fused(x, qt, split_k=s)
+            assert wf.W4A16_GEMM.launches == before + 1
+            want = wf.w4a16_fused_plain(x, qt, split_k=s)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype == dtype
+            d = (got.float() - want.float()).abs()
+            assert bool((d <= want.float().abs() * rtol + atol).all()), \
+                (M, s, float(d.max()))
+
+
+@pytest.mark.parametrize("kind", ["decode", "chunk", "verify"])
+@pytest.mark.parametrize("fmt_name", ["kv_fp16", "kv8_channel"])
+def test_paged_attention_at_hymba_heads(cuda_device, kind, fmt_name):
+    """hymba's attention half: 5 KV heads of G = 5 at D = 64 (5 query rows
+    a decode block, two Q tiles of 80 rows for a 32-token chunk, 25 rows
+    for a k = 4 verify window), 16-token pages, 64-page tables, context at
+    1500 (the ring has wrapped), the 1024 window and a 100-token one, 1
+    and 4 partitions, -1 table entries. Held as the danube edges are; a
+    verify row's padded queries are garbage on both sides and not held."""
+    qk, positions, start, pool, tables, fmt, Tq, G_ = _paged_pool_case(
+        cuda_device, kind=kind, fmt_name=fmt_name, dtype=torch.bfloat16,
+        seed=11, heads=(5, 5, 64), ps=16, T_=64, ctx=1500)
+    B, C = positions.shape
+    rows = (positions >= 0).reshape(B, C // Tq, Tq, 1) \
+        .expand(B, C // Tq, Tq, G_).reshape(B, 1, C // Tq, Tq * G_)
+    for window in (1024, 100):
+        for S in (1, 4):
+            kw = dict(Tq=Tq, G=G_, S=S, window=window, fmt=fmt)
+            args = (qk, positions, start, pool, tables)
+            before = tpa.PAGED_ATTENTION.launches
+            got = tpa._launch_partials(*args, **kw)
+            assert tpa.PAGED_ATTENTION.launches == before + 1
+            want = tpa.pooled_partials_plain(*args, **kw)
+            torch.cuda.synchronize()
+            out_p = _combine_partials(*want)
+            d = torch.where(rows[..., None],
+                            (_combine_partials(*got) - out_p).abs(), 0.0)
+            assert bool((d <= out_p.abs() * 2 ** -7 + 2e-3).all()), \
+                (window, S, float(d.max()))
+            (_, m_k, l_k), (_, m_p, l_p) = got, want
+            r = rows[:, :, :, None]
+            live = (m_p > -1e29) & r
+            assert torch.equal(live, (m_k > -1e29) & r)
+            assert float(((m_k - m_p).abs() / (1 + m_p.abs()))[live]
+                         .max()) <= 1e-4
+            assert float(((l_k - l_p).abs() / l_p)[live].max()) <= 1e-3
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "hymba-1.5b"])
+def test_carry_engine_kernel_path_matches_plain_path(cuda_device, arch):
+    """REDUCED rwkv6-7b and hymba-1.5b in fp32 through the kernels: every
+    decode step launches the W4A16 kernel once for each quantized linear
+    (8 a layer for rwkv, 10 for hymba) and paged attention once a layer
+    (hymba only); prefill logits match the plain path within fp32
+    summation order over two layers (1e-3), and so do greedy tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_reduced(arch)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = T.quantize_params(T.init_params(gen, cfg, device=cuda_device),
+                               cfg, min_size=0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             size=(2, 12)).astype(np.int32)
+    per_layer, attn = (8, 0) if cfg.family == "rwkv" else (10, 1)
+
+    def run(strategy, path):
+        eng = ServingEngine(dataclasses.replace(cfg,
+                                                w4a16_strategy=strategy),
+                            params, max_batch=2, max_prompt_len=12,
+                            max_new_tokens=4, page_size=8, prefill_chunk=8,
+                            attn_path=path, device=cuda_device)
+        eng.start()
+        for i in range(2):
+            eng.submit(Request(rid=i, prompt=toks[i], max_new_tokens=4))
+        while eng.report.decode_tokens == 0:
+            eng.step()
+        n0 = (wf.W4A16_GEMM.launches, tpa.PAGED_ATTENTION.launches)
+        eng.step()
+        n1 = (wf.W4A16_GEMM.launches - n0[0],
+              tpa.PAGED_ATTENTION.launches - n0[1])
+        return eng.drain(), n1
+
+    fused, n = run("auto", "auto")
+    assert n == (cfg.num_layers * per_layer, cfg.num_layers * attn)
+    plain, n = run("reference", "gather")
+    assert n == (0, 0)
     for rid in (0, 1):
         torch.testing.assert_close(fused.prefill_logits[rid],
                                    plain.prefill_logits[rid],

@@ -178,10 +178,11 @@ def test_verify_step_matches_jax(weights, fmt):
                 torch.arange(6, dtype=torch.int32)[None],
                 torch.from_numpy(table[b:b + 1]), cache_len=cache_len,
                 kv_format=fmt, attn_path=path)
-        got, st = T.verify_step(
+        got, st, carries = T.verify_step(
             tparams, cfg, st, torch.from_numpy(tok), torch.from_numpy(pos),
             torch.from_numpy(table), cache_len=cache_len, kv_format=fmt,
             attn_path=path)
+        assert carries is None
         assert got.shape == (2, C, cfg.padded_vocab)
         live = pos >= 0
         np.testing.assert_allclose(got.numpy()[live], want[live],
