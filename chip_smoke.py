@@ -173,6 +173,39 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              KV formats, the 1024 window biting and a 100-token one, -1
              table entries, fp32); phase 5 times both there, and the
              sequential recurrences of a prefill chunk alone.
+11. encdec/vision — (a) whisper-small at full width and depth (12 + 12
+             layers, d_model 768, 12 heads of 64, d_ff 3072, vocab 51865,
+             1500 frames, LayerNorm and GELU) through the serve launcher's
+             engine (W4A16, kv_fp16, 8 slots, 8 requests of 128 + 32
+             tokens, each with its own 1500 x 768 frames, 16-token pages,
+             32-token chunks; the encoder's attention on the flash kernel):
+             counters set to 0 just before and read just after, every
+             traced decode step launching 96 W4A16 GEMMs and 12 paged
+             attention calls; the first 4 requests' prefill logits against
+             the plain paths within LOGIT_TOL; the flash encoder's output
+             and cross K/V against the chunked encoder's; the encoder's
+             time a request at admit; prefix sharing (the same audio shares
+             a 64-token prefix's pages, different audio none; block tables
+             read, pages saved against a CPU replica); ngram at k = 4 with
+             exact acceptance. (b) internvl2-1b at full width and depth (24
+             layers, d_model 896, 14/2 heads of 64, d_ff 4864, vocab 151655)
+             the same way with 256 patch embeddings ahead of 128 + 32
+             tokens (168 W4A16 and 24 paged-attention launches a decode
+             step; a request differing in patch row 100 shares pages 0-5
+             only), ngram, and one request with ``prefix_embeds`` through
+             the front door. (c) starcoder2-7b (GELU) and granite-20b (one
+             KV head for 48) at full width, depth cut to their first 4
+             layers, 8 requests of 128 + 16 tokens, against their plain
+             paths. Phase 3 also holds the W4A16 kernel at whisper's M =
+             1500 encoder shapes and at (896, 128), (896, 151808), (6144,
+             128) at every split the planner may pick, (24576, 6144) and
+             (18432, 4608); paged attention at G = 1, 7, 9 and 48 (decode,
+             chunk, verify); the flash kernel non-causal at 1 x 1500, D =
+             64. Phase 5 times those GEMMs, Split-K against data-parallel
+             at (6144, 128) for M = 1, 8, 16, paged attention at G = 48 and
+             1, the flash encoder, and whisper's decode-step
+             cross-attention (plain PyTorch, as the JAX package leaves it to
+             XLA).
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -181,6 +214,7 @@ contract's JSON object.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -790,6 +824,8 @@ FLASH_CASES = [
     ("300 causal", 1, 300, 300, 32, 8, 80, True, 4096),
     ("Sq=40", 2, 40, 40, 32, 8, 80, True, 4096),
     ("window 100 ends mid-tile", 1, 512, 512, 32, 8, 80, True, 100),
+    # whisper-small's encoder: 1500 frames, 12 heads of 64, non-causal
+    ("1x1500 non-causal", 1, 1500, 1500, 12, 12, 64, False, 0),
 ]
 # q, k, v as strided views of one fused (B, S, (Hq + 2·Hkv)·D) projection
 FLASH_VIEW_CASES = [
@@ -1299,6 +1335,7 @@ def time_attn_case(torch, timer, c, window, label, card):
             attn_mask=mask, enable_gqa=True)
 
     nbytes, flops = attn_bytes_flops(torch, c)
+    window = window or 1 << 30          # 0: full attention (the mask's)
     r = dict(ms=timer(lambda: pa._launch_partials(*args, **kw)),
              plain_ms=timer(lambda: pa.pooled_partials_plain(*args, **kw)),
              library_ms=timer(library),
@@ -2646,7 +2683,7 @@ def decode_trace(torch, engine, reqs, card, what, *, phase="moe",
     while engine.report.decode_tokens == 0:
         engine.step()
     torch.cuda.synchronize()
-    pf_steps = -(-len(reqs[0].prompt) // engine.prefill_chunk) * len(reqs)
+    pf_steps = -(-engine.pos0(reqs[0]) // engine.prefill_chunk) * len(reqs)
     log(phase, f"{what}: prefill of {len(reqs)} requests "
         f"{time.perf_counter() - t0:.2f} s wall, "
         f"{engine.report.prefill_s:.2f} s in {pf_steps} prefill chunks "
@@ -3348,6 +3385,783 @@ def carry_serve(torch, dev, card, table):
     log("carry", f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder and vision-prefix families and the remaining dense
+# configs: phase 3's and phase 5's rows at their shapes, phase 11
+# ---------------------------------------------------------------------------
+
+# phase 11's archs; (c)'s depth cut keeps every layer shape as served
+P11_ARCHS = ("whisper-small", "internvl2-1b", "starcoder2-7b", "granite-20b")
+# whisper's encoder layers and cross-K/V projections run at admit over the
+# 1500 frames of one request
+ENCODER_M = 1500
+# the rows every served W4A16 leaf is held at: 1 (a lone decode row), 8
+# (decode), 32 (a prefill chunk), 40 (the k = 4 verify step)
+P11_M = (1, 8, 32, VERIFY_M)
+# a vocab-wide N off the served path (internvl2-1b's padded vocab: its
+# lm_head stays dense, as in the JAX package), held and timed at M = 8
+OFF_PATH_GEMM = ("internvl2 vocab, off-path", 896, 151808)
+# granite's K >> N projection: the kernel at every Split-K the planner may
+# pick (group-aligned powers of two) against data-parallel (split_k 1)
+SPLITK_SHAPE, SPLITK_M = (6144, 128), (1, 8, 16)
+# paged attention at the phase-11 archs' heads, as served: (arch, (KV
+# heads, group, head dim), page, a slot's pages); whisper 160 tokens a
+# slot (128 + 32), internvl2 416 (256 patches + 128 + 32), starcoder2 and
+# granite 144 (128 + 16); full attention (no window)
+P11_ATTN = [("whisper", (12, 1, 64), 16, 10),
+            ("internvl2", (2, 7, 64), 16, 26),
+            ("starcoder2", (4, 9, 128), 16, 9),
+            ("granite", (1, 48, 128), 16, 9)]
+# phase 11's serving cells: 8 slots, 8 requests, 16-token pages, 32-token
+# chunks, kv_fp16, W4A16 weights from seed 0
+P11_ARGV = ["--batch", "8", "--requests", "8", "--page-size", "16",
+            "--prefill-chunk", "32", "--kv-format", "kv_fp16", "--seed", "0"]
+P11_PROMPT, P11_GEN = 128, 32
+# (c): starcoder2-7b and granite-20b at full width, the first 4 layers
+DENSE_CUT_LAYERS, DENSE_CUT_GEN = 4, 16
+# the first requests held against the plain paths
+P11_HELD = 4
+# the flash encoder (kernel attention) against the chunked encoder (plain
+# attention), the same W4A16 GEMMs: both round every activation to bf16
+# in a different order for 12 residual layers, then a LayerNorm; held
+# within a bf16-scale share of the output's largest value
+ENC_TOL = 2 ** -5
+
+
+def p11_attn_ctx(kind, pages, page):
+    """The last context position of an ``attn_case`` at a slot window of
+    ``pages`` pages: decode and verify near the window's end, the chunk's
+    32 queries ending 8 before it."""
+    cache_len = pages * page
+    return cache_len - 40 if kind == "chunk" else cache_len - 12
+
+
+def p11_splits(K, N, M):
+    """The Split-K degrees the planner may pick for (M, K, N): every
+    group-aligned power of two up to its pick at M = 1, with the pick at
+    M and at the engine's M = 8 and 40 plans (which the encoder's M = 1500
+    GEMMs reuse)."""
+    from repro_torch.kernels import planning
+    top = planning.choose_split_k(1, N, K, cores=planning.num_cores("cuda"))
+    picks = {planning.choose_split_k(m, N, K,
+                                     cores=planning.num_cores("cuda"))
+             for m in (M, 8, VERIFY_M)}
+    return sorted({1 << i for i in range(top.bit_length())} | picks)
+
+
+def served_gemms(torch, arch):
+    """Every W4A16 GEMM phase 11's engine launches for ``arch``, read from
+    the quantized leaves of its full config as the launcher quantizes them
+    (the tree built on the meta device: shapes only, no memory):
+    {(K, N, group): runs at admit}, the last True for whisper's encoder
+    layers and cross K/V projections (M = 1500 as well)."""
+    from repro_torch import configs
+    from repro_torch.kernels.planning import _quantized_paths
+    from repro_torch.models import transformer as T
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=1,
+                              encoder_layers=min(full.encoder_layers, 1))
+    gen = torch.Generator()
+    params = T.quantize_params(T.init_params(gen, cfg, device="meta"), cfg,
+                               min_size=0)
+    out = {}
+    for names, leaf in _quantized_paths(params):
+        admit = names[0] == "encoder" or (
+            "cross" in names and names[-2] in ("wk", "wv"))
+        key = (int(leaf.K), int(leaf.N), int(leaf.group_size))
+        out[key] = out.get(key, False) or admit
+    return out
+
+
+def check_p11_gemms(torch, dev, gen):
+    """The W4A16 kernel against its plain version (``held``'s tolerances)
+    at every shape phase 11's engines launch (``served_gemms``): M = 1, 8,
+    32 and 40, and 1500 for the leaves whisper runs at admit; bf16 and
+    fp32; at the engine's plans (made at M = 8, or 40 when speculating,
+    and reused at every M), the planner's split_k at M and 1, and at
+    granite's (6144, 128) every split the planner may pick. Then the
+    vocab-wide ``OFF_PATH_GEMM`` at M = 8. Returns the worst bf16 |d|."""
+    from repro_torch.kernels.w4a16_fused import (w4a16_fused,
+                                                 w4a16_fused_plain)
+    worst, n = 0.0, 0
+    for arch in P11_ARCHS:
+        for (K, N, group), admit in served_gemms(torch, arch).items():
+            Ms = P11_M + ((ENCODER_M,) if admit else ())
+            for dtype in (torch.bfloat16, torch.float32):
+                f32 = dtype == torch.float32
+                dt = "fp32" if f32 else "bf16"
+                x, qt = carry_gemm_case(torch, K, N, group, max(Ms), gen,
+                                        dev, dtype)
+                plans = {planned_split(x[:m], qt) for m in (8, VERIFY_M)}
+                for M in Ms:
+                    xm = x[:M].contiguous()
+                    splits = plans | {planned_split(xm, qt), 1}
+                    if (K, N) == SPLITK_SHAPE:
+                        splits |= set(p11_splits(K, N, M))
+                    for s in sorted(splits):
+                        err = held("w4a16_gemm", f"{arch} {dt} M={M} K={K} "
+                                   f"N={N} group={group} split_k={s}",
+                                   w4a16_fused(xm, qt, split_k=s),
+                                   w4a16_fused_plain(xm, qt, split_k=s),
+                                   f32=f32)
+                        n += 1
+                        if not f32:
+                            worst = max(worst, err)
+                del x, qt
+    what, K, N = OFF_PATH_GEMM
+    x, qt = gemm_case(torch, K, N, 8, gen, dev)
+    for s in p11_splits(K, N, 8):
+        worst = max(worst, held(
+            "w4a16_gemm", f"{what} M=8 K={K} N={N} split_k={s}",
+            w4a16_fused(x, qt, split_k=s),
+            w4a16_fused_plain(x, qt, split_k=s), f32=False))
+        n += 1
+    del x, qt
+    torch.cuda.empty_cache()
+    log("kernels", f"w4a16_gemm at phase 11's served shapes: {n} cases "
+        f"held, worst bf16 max|d|={worst:.3e} ok")
+    return worst
+
+
+def check_p11_attention(torch, dev, gen):
+    """Paged attention at the phase-11 archs' heads (G = 1, 7, 9 and 48;
+    D = 64 and 128): decode, the 32-token chunk and the k = 4 verify step,
+    full attention, one partition and the planner's pick, kv_fp16 (and
+    kv8_channel at granite's G = 48); held as ``check_attention`` holds
+    danube's."""
+    worst = 0.0
+    for arch, heads, page, pages in P11_ATTN:
+        fmts = ("kv_fp16", "kv8_channel") if arch == "granite" \
+            else ("kv_fp16",)
+        for fmt_name in fmts:
+            for kind in ("decode", "chunk", "verify"):
+                c = attn_case(torch, gen, dev, fmt_name=fmt_name, kind=kind,
+                              heads=heads, page=page, pages=pages,
+                              ctx=p11_attn_ctx(kind, pages, page))
+                for parts in sorted({1, c["planned"]}):
+                    worst = max(worst, hold_partials(
+                        torch, c, f"{arch} G={heads[1]} D={heads[2]} {kind}",
+                        fmt_name, "bf16", 0, parts))
+    return worst
+
+
+def time_p11(torch, dev, gen, timer, card, floor_ms):
+    """Phase 5's rows of phase 11 (bf16, L2 flushed): the W4A16 kernel at
+    every served shape (``served_gemms``) at M = 8, whisper's admit shapes
+    at M = 1500 and ``OFF_PATH_GEMM`` at M = 8, at the planned split_k,
+    beside its bound, the timer's floor,
+    its plain version and dequant + ``torch.matmul`` (row 1d); Split-K
+    against data-parallel at granite's (6144, 128), M = 1, 8 and 16 (the
+    paper's K >> N regime); paged attention at granite's G = 48 (decode and
+    chunk) and whisper's G = 1 decode (rows 4c) beside gather + SDPA; the
+    flash kernel non-causal at whisper's encoder shape (row 7b) beside its
+    plain version and SDPA; and whisper's decode-step cross-attention (12
+    layers of 8 queries over 1500 frames, plain PyTorch as in the JAX
+    package) beside its bound and SDPA. Returns the rows."""
+    import torch.nn.functional as F
+    from repro_torch.core import costmodel as cm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm import (gemm_geometry, sm_count,
+                                          sums_in_kernel)
+    from repro_torch.kernels.w4a16_fused import (w4a16_fused,
+                                                 w4a16_fused_plain)
+    from repro_torch.models import attention
+    rows = {}
+    cases = []
+    for arch in P11_ARCHS:
+        gemms = served_gemms(torch, arch)
+        cases += [(arch, K, N, 8) for K, N, _ in gemms]
+        cases += [(f"{arch} encoder", K, N, ENCODER_M)
+                  for (K, N, _), admit in gemms.items() if admit]
+    what, K, N = OFF_PATH_GEMM
+    cases.append((what, K, N, 8))
+    for arch, K, N, M in cases:
+        x, qt = gemm_case(torch, K, N, M, gen, dev)
+        s = planned_split(x, qt)
+        nbytes = cm.w4a16_gemm_bytes(M, N, K)
+        flops = cm.w4a16_gemm_flops(M, N, K)
+        r = dict(ms=timer(lambda: w4a16_fused(x, qt, split_k=s)),
+                 plain_ms=timer(lambda: w4a16_fused_plain(x, qt, split_k=s)),
+                 library_ms=timer(lambda: ref.w4a16_ref(x, qt)),
+                 bound_ms=cm.roofline_s(nbytes, flops) * 1e3,
+                 bound_by=cm.bound_by(nbytes, flops), split_k=s)
+        rows[(arch, M, K, N)] = r
+        log("timing", f"w4a16_gemm {arch} M={M} K={K} N={N} split_k={s}: "
+            f"kernel {r['ms']:.4f} ms, {gbs(nbytes, r['ms'])}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{r['bound_ms'] / r['ms']:.1%} of roofline; the timer's floor "
+            f"{floor_ms:.4f}), plain {r['plain_ms']:.4f} ms, dequant+matmul "
+            f"{r['library_ms']:.4f} ms [{card}]")
+        del x, qt
+    K, N = SPLITK_SHAPE
+    for M in SPLITK_M:
+        x, qt = gemm_case(torch, K, N, M, gen, dev)
+        nbytes = cm.w4a16_gemm_bytes(M, N, K)
+        bound = cm.roofline_s(nbytes, cm.w4a16_gemm_flops(M, N, K)) * 1e3
+        # the launch each split makes: the kernel splits K further inside a
+        # cluster while the grid is small, so several plan splits can share
+        # one launch; each distinct launch is timed once
+        launches = {}
+        for s in p11_splits(K, N, M):
+            geo = gemm_geometry("int4", M, N, K, s, torch.bfloat16,
+                                direct=sums_in_kernel(s, torch.bfloat16,
+                                                      torch.bfloat16),
+                                group=128, sms=sm_count(dev))
+            launches.setdefault((geo.ks, geo.cluster, geo.grid), []).append(s)
+        times = {}
+        for (ks, cl, grid), splits in launches.items():
+            t = timer(lambda: w4a16_fused(x, qt, split_k=splits[0]))
+            times[splits[0]] = t
+            log("timing", f"w4a16_gemm granite K={K} N={N} M={M} split_k "
+                f"{splits}: one launch of {grid[0] * grid[1] * grid[2]} "
+                f"blocks (grid {grid}), {ks} along K in clusters of {cl}"
+                f"{'' if cl == ks else ', fp32 partials summed after'}: "
+                f"{t:.4f} ms, bound {bound:.4f} ms ({bound / t:.1%}) "
+                f"[{card}]")
+        pick = planned_split(x, qt)
+        rows[("splitk", M)] = dict(times=times, pick=pick, bound_ms=bound)
+        log("timing", f"w4a16_gemm granite K={K} N={N} M={M}: the planner "
+            f"picks split_k={pick}; split_k=1 (the narrowest launch the "
+            f"kernel makes: 2 column tiles with K split 8 ways in one "
+            f"cluster) over the widest Split-K "
+            f"{times[1] / times[max(times)]:.2f}x [{card}]")
+        del x, qt
+    for arch, heads, page, pages in P11_ATTN:
+        kinds = ("decode", "chunk") if arch == "granite" else \
+            ("decode",) if arch == "whisper" else ()
+        for kind in kinds:
+            c = attn_case(torch, gen, dev, fmt_name="kv_fp16", kind=kind,
+                          heads=heads, page=page, pages=pages,
+                          ctx=p11_attn_ctx(kind, pages, page))
+            rows[("attn", arch, kind)] = time_attn_case(
+                torch, timer, c, 0, f"{arch} G={heads[1]} D={heads[2]} "
+                f"{kind}", card)
+    # flash non-causal at whisper's encoder: B = 1, 1500 frames, 12 heads
+    S, H, D = 1500, 12, 64
+    q, k, v = flash_inputs(torch, gen, dev, 1, S, S, H, H, D, torch.bfloat16)
+    pairs = cm.attn_pairs(S, S, causal=False, window=0)
+    nbytes = cm.flash_attn_bytes(1, S, S, H, H, D)
+    flops = cm.flash_attn_flops(1, H, D, pairs)
+    qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    r = dict(ms=timer(lambda: fa.flash_attention_forward(
+                 q, k, v, causal=False, window=0)),
+             plain_ms=timer(lambda: fa.flash_attention_plain(
+                 q, k, v, causal=False, window=0)),
+             library_ms=timer(lambda: F.scaled_dot_product_attention(
+                 qt_, kt, vt)),
+             bound_ms=cm.roofline_s(nbytes, flops) * 1e3,
+             bound_by=cm.bound_by(nbytes, flops))
+    rows["flash encoder"] = r
+    log("timing", f"flash_attention whisper encoder (B=1, S={S}, {H} heads "
+        f"of {D}, non-causal, bf16): kernel {r['ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        f"{r['bound_ms'] / r['ms']:.1%} of roofline), plain "
+        f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms [{card}]")
+    # whisper's decode-step cross-attention, one layer, x 12
+    L, B = 12, 8
+    q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes = cm.flash_attn_bytes(B, 1, S, H, H, D)
+    flops = cm.flash_attn_flops(B, H, D, S)
+    r = dict(ms=L * timer(lambda: attention.chunked_attention(
+                 q, k, v, causal=False, window=0)),
+             library_ms=L * timer(lambda: F.scaled_dot_product_attention(
+                 qt_, kt, vt)),
+             bound_ms=L * cm.roofline_s(nbytes, flops) * 1e3,
+             nbytes=L * nbytes)
+    rows["cross"] = r
+    log("timing", f"whisper cross-attention a decode step ({L} layers x "
+        f"{B} queries over {S} frames, {H} heads of {D}; plain PyTorch "
+        f"chunked_attention as served): {r['ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['nbytes'] / 1e6:.0f} MB of K/V; "
+        f"{r['bound_ms'] / r['ms']:.1%} of roofline), sdpa "
+        f"{r['library_ms']:.4f} ms [{card}]")
+    del q, k, v, qt_, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def p11_engine(torch, cfg, params, dev, **kw):
+    """A serving engine as phase 11's launcher runs build it (8 slots,
+    16-token pages, 32-token chunks, kv_fp16), over ``params``."""
+    from repro_torch.runtime.engine import ServingEngine
+    base = dict(max_batch=8, max_prompt_len=P11_PROMPT,
+                max_new_tokens=P11_GEN, page_size=16, prefill_chunk=32,
+                kv_format="kv_fp16", device=dev)
+    base.update(kw)
+    return ServingEngine(cfg, params, **base)
+
+
+def launcher_engine(torch, argv, what):
+    """The serve launcher's engine and requests for ``argv``
+    (``launch.serve.build``: weights drawn from the seed and quantized on
+    the card). Returns (engine, requests, its config without the engine's
+    plans, for the phase's other engines to plan their own)."""
+    from repro_torch.launch import serve as launcher
+    log("phase11", f"{what}: python -m repro_torch.launch.serve "
+        + " ".join(argv))
+    engine, reqs = launcher.build(launcher.build_args(argv))
+    return engine, reqs, dataclasses.replace(engine.cfg, w4a16_plan=None)
+
+
+def served_run(torch, engine, reqs, table, card, what, expect):
+    """Phase 11's counted run: every count set to 0 just before, read just
+    after; the requests served with 4 decode steps traced
+    (``decode_trace``, each step launching ``expect``; one prefill chunk
+    traced first, except for encdec, whose first step also runs the
+    encoder at admit: ``encoder_check`` times that); only the path's
+    kernels may launch. Returns (report, launches)."""
+    reset_counts(table)
+    rep = decode_trace(torch, engine, reqs, card, what, phase="phase11",
+                       expect=expect,
+                       trace_prefill=engine.cfg.family != "encdec")
+    launches = read_counts(table)
+    log("phase11", f"{what}: launches during the run: {launches}")
+    want = {k for k, v in expect.items() if v}
+    if engine.cfg.family == "encdec":
+        want.add("flash_attention")
+    got = {k for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: launched {sorted(got)}, the path's "
+                             f"kernels are {sorted(want)}")
+    return rep, launches
+
+
+def plain_held(torch, dev, cfg, params, reqs, rep, what, gen_len, **kw):
+    """The first P11_HELD requests on the plain paths (``--strategy
+    reference --attn-path gather``, chunked attention), 2 tokens each,
+    their prefill logits held within LOGIT_TOL of ``rep``'s."""
+    plain_cfg = dataclasses.replace(cfg, w4a16_strategy="reference",
+                                    attn_impl="chunked")
+    t0 = time.perf_counter()
+    held_reqs = [dataclasses.replace(r, max_new_tokens=2)
+                 for r in reqs[:P11_HELD]]
+    plain = p11_engine(torch, plain_cfg, params, dev, attn_path="gather",
+                       **kw).run(held_reqs)
+    torch.cuda.synchronize()
+    log("phase11", f"{what}: plain paths served the first {P11_HELD} requests "
+        f"in {time.perf_counter() - t0:.1f} s")
+    compare_logits(first_requests(rep, P11_HELD), plain, what, gen_len)
+
+
+def speculate_ngram(torch, engine, reqs, table, what, card, accept=False):
+    """Speculation at k = 4 (ngram, or ``engine``'s own proposer): every
+    verify step launches the W4A16 kernel and paged attention (planned
+    fused), every emitted token the verify step's own argmax
+    (``check_acceptance``); with ``accept``, at least one draft accepted."""
+    records, quiet = capture_verify(engine, table)
+    t0 = time.perf_counter()
+    rep = engine.run(reqs)
+    torch.cuda.synchronize()
+    check_verify_path(engine, records, quiet, what)
+    check_acceptance(records, rep.results, engine.pos0(reqs[0]), what,
+                     phase="phase11")
+    log("phase11", f"{what}: {rep.accepted_tokens}/{rep.proposed_tokens} "
+        f"drafts accepted over {len(records)} verify steps, "
+        f"{rep.decode_tokens} tokens in {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    if accept and not rep.accepted_tokens:
+        raise AssertionError(f"{what}: no verify step accepted a draft")
+    return rep
+
+
+def sharing_tables(torch, engine, reqs):
+    """Serve ``reqs`` (all admitted at step 0) and return each slot's block
+    table as it stands when every slot has prefilled, and the report."""
+    engine.start()
+    for r in reqs:
+        engine.submit(r)
+    while engine.report.decode_tokens < len(reqs):
+        engine.step()
+    tables = engine._tables.copy()
+    return tables, engine.drain()
+
+
+def shared_pages(a, b):
+    """Leading table entries two slots share (the same live block)."""
+    n = 0
+    while n < len(a) and a[n] >= 0 and a[n] == b[n]:
+        n += 1
+    return n
+
+
+def check_shared(tables, pairs, what):
+    """``pairs``: (slot, slot, pages they must share); beyond those pages
+    the two tables hold no common block."""
+    out = []
+    for i, j, want in pairs:
+        n = shared_pages(tables[i], tables[j])
+        later = set(int(x) for x in tables[i][n:] if x >= 0) \
+            & set(int(x) for x in tables[j] if x >= 0)
+        out.append((i, j, n, want, sorted(later)))
+    ok = all(n == want and not later for _, _, n, want, later in out)
+    log("phase11", f"{what}: pages shared (slot, slot, shared, required, "
+        f"common blocks past them): {out} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: prefix sharing differs: {out}")
+
+
+def whisper_requests(cfg, prompts, audios, gen):
+    from repro_torch.runtime.engine import Request
+    return [Request(rid=i, prompt=p, max_new_tokens=gen, audio_embeds=a)
+            for i, (p, a) in enumerate(zip(prompts, audios))]
+
+
+def encoder_check(torch, cfg, engine, req, card):
+    """The flash encoder against the chunked one on one request's frames
+    (the same W4A16 GEMMs): the encoder output and the cross K/V within
+    ENC_TOL of the largest chunked value; and the encoder's time a request
+    at admit (``_insert_enc_kv``: the encoder and 12 layers' cross K/V),
+    host clock to a sync and device time under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    audio = engine._audio_embeds(req)[None]
+    chunked = dataclasses.replace(engine.cfg, attn_impl="chunked")
+    flash = dataclasses.replace(engine.cfg, attn_impl="flash")
+    gaps = []
+    for name, f, c in (
+            ("encoder output", T._encoder_forward(engine.params, flash, audio),
+             T._encoder_forward(engine.params, chunked, audio)),
+            ("cross K", *[T.encode_cross_kv(engine.params, m, audio)[0]
+                          for m in (flash, chunked)]),
+            ("cross V", *[T.encode_cross_kv(engine.params, m, audio)[1]
+                          for m in (flash, chunked)])):
+        d = float((f.float() - c.float()).abs().max())
+        scale = float(c.float().abs().max())
+        gaps.append((name, d, scale))
+    ok = all(d <= ENC_TOL * s for _, d, s in gaps)
+    log("phase11", f"whisper encoder, flash vs chunked attention: "
+        + "; ".join(f"{n} max|d|={d:.3e} (max|chunked| {s:.2f})"
+                    for n, d, s in gaps)
+        + f" {'ok' if ok else 'FAIL'} (|d| <= 2^-5 x max|chunked|: bf16 "
+        f"rounding of every activation in another order over 12 layers)")
+    if not ok:
+        raise AssertionError("whisper: the flash encoder disagrees with the "
+                             "chunked encoder")
+    engine.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        engine._insert_enc_kv(0, req)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine._insert_enc_kv(0, req)
+        torch.cuda.synchronize()
+    rows, busy, ops = device_rows(prof, 1)
+    log("phase11", f"whisper encoder a request at admit (12 layers over 1500 "
+        f"frames, then 12 layers' cross K/V): {wall:.2f} ms wall to a sync, "
+        f"device busy {busy:.3f} ms in {ops:.0f} device ops [{card}]")
+    for e in rows[:4]:
+        log("phase11", f"  encoder device "
+            f"{e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5.0f} "
+            f"{e.key[:80]}")
+
+
+def cpu_share_replica(torch, arch, reqs_fn):
+    """The page bookkeeping of a sharing schedule on the CPU at a tiny
+    width (``arch``'s family and serving settings, 1 layer, d_model 64,
+    fp32): it depends on positions and the content's equality pattern, not
+    on width. ``reqs_fn(cfg)`` gives the requests. Returns {share: (peak
+    pages, prefill steps saved)}."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import ServingEngine
+    cfg = dataclasses.replace(
+        configs.get_config(arch), num_layers=1, d_model=64, num_heads=4,
+        num_kv_heads=2 if arch != "whisper-small" else 4, head_dim=16,
+        d_ff=128, encoder_layers=1, dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = T.quantize_params(T.init_params(gen, cfg, device="cpu"), cfg,
+                               min_size=0)
+    out = {}
+    for share in (True, False):
+        rep = p11_engine(torch, cfg, params, "cpu", share_prefix=share,
+                         max_new_tokens=8).run(reqs_fn(cfg))
+        out[share] = (rep.peak_pages, rep.prefill_steps_saved)
+    return out
+
+
+def whisper_sharing(torch, engine, cfg, card):
+    """Two pairs of 128-token prompts sharing a 64-token prefix: pair A over
+    one audio must share the prefix's 4 pages, pair B over two audios none
+    (the audio seeds the page keys). Against ``share_prefix=False``: first-
+    token logits within LOGIT_TOL, pages and prefill steps saved equal to a
+    CPU replica of the schedule."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 64)])
+               .astype(np.int32) for _ in range(4)]
+
+    def audios(c):
+        a = [np.random.default_rng([12, i]).standard_normal(
+            (c.encoder_seq, c.d_model), dtype=np.float32) for i in range(3)]
+        return [a[0], a[0], a[1], a[2]]
+
+    def reqs(c):
+        return whisper_requests(c, prompts, audios(c), 8)
+
+    kw = dict(max_new_tokens=8)
+    tables, shared = sharing_tables(torch, p11_engine(
+        torch, cfg, engine.params, engine.device, **kw), reqs(cfg))
+    check_shared(tables, [(0, 1, 4), (2, 3, 0), (0, 2, 0)], "whisper, "
+                 "the same audio (slots 0, 1) and different audio (slots 2, "
+                 "3; 0 and 2)")
+    unshared = p11_engine(torch, cfg, engine.params, engine.device,
+                          share_prefix=False, **kw).run(reqs(cfg))
+    check_replica(torch, shared, unshared, cpu_share_replica(
+        torch, "whisper-small", reqs), "whisper")
+
+
+def check_replica(torch, shared, unshared, cpu, what):
+    d = max(float((shared.prefill_logits[r] - unshared.prefill_logits[r])
+                  .abs().max()) for r in shared.results)
+    saved = (unshared.peak_pages - shared.peak_pages,
+             shared.prefill_steps_saved)
+    want = (cpu[False][0] - cpu[True][0], cpu[True][1])
+    ok = d <= LOGIT_TOL and saved == want and saved[0] > 0
+    log("phase11", f"{what} prefix sharing: pages saved {saved[0]} (peak "
+        f"{shared.peak_pages} vs {unshared.peak_pages}), prefill steps "
+        f"saved {saved[1]}; the CPU replica {want}; first-token logits "
+        f"shared vs unshared max|d|={d:.3e} (tolerance {LOGIT_TOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: prefix sharing disagrees")
+
+
+def whisper_serve(torch, dev, card, table):
+    """Phase 11(a): whisper-small at full width and depth (12 + 12 layers,
+    d_model 768, 12 heads of 64, d_ff 3072, vocab 51865, 1500 frames)
+    through the serve launcher's engine (W4A16, 8 slots, 8 requests of 128
+    + 32 tokens, each with its own 1500 x 768 frames): the counted run
+    with 4 traced decode steps each launching 96 W4A16 GEMMs (8 a layer:
+    q, k, v, o, cross q and o, w_up, w_down) and 12 paged-attention calls,
+    the encoder's flash launches at admit; the plain paths on the first
+    requests; the flash encoder against the chunked one and its time a
+    request; sharing over the same and different audio; ngram at k = 4."""
+    import numpy as np
+    t0 = time.perf_counter()
+    argv = ["--arch", "whisper-small", "--prompt-len", str(P11_PROMPT),
+            "--gen", str(P11_GEN)] + P11_ARGV
+    engine, reqs, cfg = launcher_engine(torch, argv, "whisper-small")
+    log("phase11", f"whisper-small: {cfg.num_layers} + {cfg.encoder_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.encoder_seq} frames; {cfg.param_count() / 1e9:.3f} B params; "
+        f"attention {cfg.attn_impl}")
+    rep, launches = served_run(torch, engine, reqs, table, card,
+                               "whisper-small w4a16",
+                               {"w4a16_gemm": 8 * cfg.num_layers,
+                                "paged_attention": cfg.num_layers})
+    plain_held(torch, dev, cfg, engine.params, reqs, rep, "whisper-small "
+               "kernel path", P11_GEN)
+    encoder_check(torch, cfg, engine, reqs[0], card)
+    whisper_sharing(torch, engine, cfg, card)
+    rng = np.random.default_rng(13)
+    prompts = [np.resize(rng.integers(0, cfg.vocab_size, 16), 64)
+               .astype(np.int32) for _ in range(8)]
+    spec = p11_engine(torch, cfg, engine.params, dev,
+                      speculate="ngram", spec_k=SPEC_K)
+    speculate_ngram(torch, spec, whisper_requests(
+        cfg, prompts, [r.audio_embeds for r in reqs], P11_GEN), table,
+        "whisper-small ngram", card)
+    del spec, engine
+    torch.cuda.empty_cache()
+    log("phase11", f"whisper-small took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def vision_requests(cfg, prompts, patches, gen):
+    from repro_torch.runtime.engine import Request
+    return [Request(rid=i, prompt=p, max_new_tokens=gen, prefix_embeds=pe)
+            for i, (p, pe) in enumerate(zip(prompts, patches))]
+
+
+def vision_sharing(torch, engine, cfg, card):
+    """Three requests over one 128-token prompt prefix: slots 0 and 1 with
+    identical patches and the same 64-token prompt prefix share the 16
+    patch pages and the prefix's 4; slot 2's patches differ from slot 0's
+    in row 100 (page 6), so it shares pages 0-5 only. Against
+    ``share_prefix=False``, as ``whisper_sharing``."""
+    import numpy as np
+    rng = np.random.default_rng(14)
+    prefix = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 64)])
+               .astype(np.int32) for _ in range(2)]
+    prompts.append(prompts[0])
+
+    def patches(c):
+        p = np.random.default_rng(15).standard_normal(
+            (c.vision_prefix, c.d_model), dtype=np.float32)
+        q = p.copy()
+        q[100] += 1.0
+        return [p, p, q]
+
+    def reqs(c):
+        return vision_requests(c, prompts, patches(c), 8)
+
+    kw = dict(max_new_tokens=8)
+    tables, shared = sharing_tables(torch, p11_engine(
+        torch, cfg, engine.params, engine.device, **kw), reqs(cfg))
+    check_shared(tables, [(0, 1, 20), (0, 2, 6)], "internvl2, the same "
+                 "patches and prompt prefix (slots 0, 1), patch row 100 "
+                 "differing (slots 0, 2)")
+    unshared = p11_engine(torch, cfg, engine.params, engine.device,
+                          share_prefix=False, **kw).run(reqs(cfg))
+    check_replica(torch, shared, unshared, cpu_share_replica(
+        torch, "internvl2-1b", reqs), "internvl2")
+
+
+def vision_front_door(torch, engine, req, card):
+    """One request with its 256 x 896 patches as ``prefix_embeds`` over
+    HTTP on 127.0.0.1: the SSE stream equals ``engine.run``'s tokens for
+    the same request."""
+    import asyncio
+    import numpy as np
+    from repro_torch.runtime.frontdoor import FrontDoor, sse_decode_tokens
+    ref = engine.run([req])
+
+    async def main():
+        fd = FrontDoor(engine)
+        await fd.serve()
+        body = json.dumps({
+            "prompt": [int(t) for t in req.prompt],
+            "max_new_tokens": req.max_new_tokens,
+            "prefix_embeds": np.asarray(req.prefix_embeds,
+                                        np.float32).tolist()}).encode()
+        reader, writer = await asyncio.open_connection("127.0.0.1", fd.port)
+        writer.write((f"POST /v1/generate HTTP/1.1\r\nHost: smoke\r\n"
+                      f"Content-Length: {len(body)}\r\n\r\n").encode()
+                     + body)
+        await writer.drain()
+        payload = await reader.read()
+        writer.close()
+        await fd.shutdown()
+        return int(payload.split(b" ", 2)[1]), payload, len(body)
+
+    status, payload, nbytes = asyncio.run(asyncio.wait_for(main(), 300))
+    got = sse_decode_tokens(payload)
+    ok = status == 200 and got == ref.results[req.rid]
+    log("phase11", f"internvl2 front door: one request with prefix_embeds "
+        f"({nbytes / 1e6:.1f} MB of JSON): status {status}, "
+        f"{len(got)} tokens, equal to engine.run's "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError(f"internvl2 front door: {status} {got} vs "
+                             f"{ref.results[req.rid]}")
+
+
+def vision_serve(torch, dev, card, table):
+    """Phase 11(b): internvl2-1b at full width and depth (24 layers,
+    d_model 896, 14/2 heads of 64, d_ff 4864, vocab 151655 padded to
+    151808) through the serve launcher's engine (W4A16, 8 slots, 8
+    requests of 256 patches + 128 + 32 tokens): the counted run with 4
+    traced decode steps each launching 168 W4A16 GEMMs and 24
+    paged-attention calls; the plain paths on the first requests;
+    sharing by patches; ngram at k = 4, and oracle drafts (the counted
+    run's tokens) that must be accepted; one request through the front
+    door."""
+    import numpy as np
+    t0 = time.perf_counter()
+    argv = ["--arch", "internvl2-1b", "--prompt-len", str(P11_PROMPT),
+            "--gen", str(P11_GEN)] + P11_ARGV
+    engine, reqs, cfg = launcher_engine(torch, argv, "internvl2-1b")
+    log("phase11", f"internvl2-1b: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+        f"{cfg.padded_vocab}), {cfg.vision_prefix} patches; "
+        f"{cfg.param_count() / 1e9:.3f} B params")
+    rep, launches = served_run(torch, engine, reqs, table, card,
+                               "internvl2-1b w4a16",
+                               {"w4a16_gemm": 7 * cfg.num_layers,
+                                "paged_attention": cfg.num_layers})
+    plain_held(torch, dev, cfg, engine.params, reqs, rep, "internvl2-1b "
+               "kernel path", P11_GEN)
+    vision_sharing(torch, engine, cfg, card)
+    rng = np.random.default_rng(16)
+    prompts = [np.resize(rng.integers(0, cfg.vocab_size, 16), 64)
+               .astype(np.int32) for _ in range(8)]
+    spec = p11_engine(torch, cfg, engine.params, dev,
+                      speculate="ngram", spec_k=SPEC_K)
+    speculate_ngram(torch, spec, vision_requests(
+        cfg, prompts, [r.prefix_embeds for r in reqs], P11_GEN), table,
+        "internvl2-1b ngram", card)
+    # drafts that mostly pass (random weights continue no prompt): the
+    # counted run's own tokens, so accepted drafts are committed at
+    # positions past the 256 patches
+    oracle_reqs = reqs[:P11_HELD]
+    spec = p11_engine(torch, cfg, engine.params, dev,
+                      speculate=oracle_proposer(torch, oracle_reqs,
+                                                rep.results),
+                      spec_k=SPEC_K)
+    speculate_ngram(torch, spec, oracle_reqs, table,
+                    "internvl2-1b oracle drafts", card, accept=True)
+    del spec
+    vision_front_door(torch, p11_engine(torch, cfg, engine.params,
+                                        dev, max_new_tokens=8,
+                                        admission="priority"),
+                      dataclasses.replace(reqs[0], max_new_tokens=8), card)
+    del engine
+    torch.cuda.empty_cache()
+    log("phase11", f"internvl2-1b took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def dense_cut_serve(torch, dev, card, table, arch):
+    """Phase 11(c): ``arch`` at full width with its depth cut to the first
+    DENSE_CUT_LAYERS layers (W4A16, 8 slots, 8 requests of 128 + 16):
+    the counted run with 4 traced decode steps, the plain paths on the
+    first requests."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=DENSE_CUT_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.quantize_params(T.init_params(gen, cfg, device=dev), cfg,
+                               min_size=0)
+    torch.cuda.synchronize()
+    per_layer = 7 if cfg.mlp_type == "swiglu" else 6
+    log("phase11", f"{arch}: the first {cfg.num_layers} of {full.num_layers} "
+        f"layers at full width (d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}, {cfg.mlp_type} d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}); {cfg.param_count() / 1e9:.2f}"
+        f" B params drawn and quantized on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(max_new_tokens=DENSE_CUT_GEN)
+    reqs = launcher.make_requests(cfg, 8, P11_PROMPT, DENSE_CUT_GEN, 0)
+    engine = p11_engine(torch, cfg, params, dev, **kw)
+    rep, launches = served_run(torch, engine, reqs, table, card,
+                               f"{arch} {cfg.num_layers}L w4a16",
+                               {"w4a16_gemm": per_layer * cfg.num_layers,
+                                "paged_attention": cfg.num_layers})
+    plain_held(torch, dev, cfg, params, reqs, rep, f"{arch} "
+               f"{cfg.num_layers}L kernel path", DENSE_CUT_GEN, **kw)
+    del engine, params
+    torch.cuda.empty_cache()
+    log("phase11", f"{arch} took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def p11_serve(torch, dev, card, table):
+    """Phase 11: (a) whisper-small, (b) internvl2-1b, (c) starcoder2-7b and
+    granite-20b cut to 4 layers."""
+    t0 = time.perf_counter()
+    launches = whisper_serve(torch, dev, card, table)
+    vision_serve(torch, dev, card, table)
+    for arch in ("starcoder2-7b", "granite-20b"):
+        dense_cut_serve(torch, dev, card, table, arch)
+    log("phase11", f"phase 11 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # template arguments of the attention and GEMM kernels as nvcc mangles
 # them
 _MANGLED = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
@@ -3490,6 +4304,10 @@ def main() -> int:
                              check_carry_gemms(torch, dev, gen))
     errs["paged_attention"] = max(errs["paged_attention"],
                                   check_carry_attention(torch, dev, gen))
+    errs["w4a16_gemm"] = max(errs["w4a16_gemm"],
+                             check_p11_gemms(torch, dev, gen))
+    errs["paged_attention"] = max(errs["paged_attention"],
+                                  check_p11_attention(torch, dev, gen))
     torch.cuda.synchronize()
     log("kernels", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
@@ -3509,6 +4327,7 @@ def main() -> int:
     flash_rows = time_flash(torch, dev, gen, timer, card)
     moe_rows = time_moe_gemms(torch, dev, gen, timer, card)
     time_carry(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
+    time_p11(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
     del timer
     torch.cuda.empty_cache()
     log("timing", f"phase 5 took {time.perf_counter() - t0:.1f} s")
@@ -3529,6 +4348,8 @@ def main() -> int:
         torch, dev, card, table)["w4a16_gemm_experts"]
     torch.cuda.empty_cache()
     carry_serve(torch, dev, card, table)
+    torch.cuda.empty_cache()
+    p11_serve(torch, dev, card, table)
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),

@@ -1,5 +1,5 @@
-"""Per-architecture paged-serving defaults (port of the serving presets of
-``repro/launch/presets.py`` for the archs ported so far)."""
+"""Per-architecture paged-serving defaults (port of the page and chunk
+settings of the serving presets of ``repro/launch/presets.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,10 +23,15 @@ class ServeSettings:
 SERVE_PRESETS = {
     # SWA: window-bounded windows are short — small pages
     "h2o-danube-1.8b": ServeSettings(page_size=8, prefill_chunk=32),
-    # recurrent carries thread through the chunk step; 32-token chunks
-    # bound a chunk's sequential recurrence
+    # vision prefix: chunks cover patch embeds + tokens uniformly
+    "internvl2-1b": ServeSettings(page_size=8, prefill_chunk=32),
+    # recurrent carries (and whisper's cross-attention) thread through the
+    # chunk step; 32-token chunks bound a chunk's sequential recurrence
     "rwkv6-7b": ServeSettings(prefill_chunk=32),
+    "whisper-small": ServeSettings(prefill_chunk=32),
     "hymba-1.5b": ServeSettings(prefill_chunk=32),
+    # 405B-class: big pages keep the block tables short
+    "llama3-405b": ServeSettings(page_size=64, prefill_chunk=256),
 }
 
 

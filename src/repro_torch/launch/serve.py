@@ -10,7 +10,11 @@ GEMM (``--strategy`` forces one, e.g. ``decoupled``) and paged attention
 runs on the planned path (on CUDA: the hand-written kernels).
 ``--no-quant`` serves the dense weights, every Linear a ``torch.matmul``:
 the FP16×FP16 yardstick, not a kernel path. The attention-free rwkv archs
-hold no KV cache (no pages, no attention path). ``--device cpu`` runs the
+hold no KV cache (no pages, no attention path). Each request of a
+vision-prefix arch (internvl2-1b) carries random patch embeddings, and of
+an encdec arch (whisper-small) random audio frames, drawn from ``--seed``
+and the request's index; on CUDA the encoder's self-attention runs the
+flash kernel (``attn_impl = "flash"``). ``--device cpu`` runs the
 plain PyTorch paths; by default the launcher needs a CUDA card and fails
 without one.
 
@@ -151,11 +155,27 @@ def validate_kv_format(kv_format: str, weight_format: str, *,
     return kf.name
 
 
+def request_embeds(cfg, seed: int, i: int) -> dict:
+    """Request ``i``'s frontend embeddings, drawn from (``seed``, ``i``) as
+    fp32 numpy: (vision_prefix, d) patches and (encoder_seq, d) audio
+    frames where the arch takes them."""
+    rng = np.random.default_rng([seed, i])
+    out = {}
+    if cfg.vision_prefix:
+        out["prefix_embeds"] = rng.standard_normal(
+            (cfg.vision_prefix, cfg.d_model), dtype=np.float32)
+    if cfg.family == "encdec":
+        out["audio_embeds"] = rng.standard_normal(
+            (cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+    return out
+
+
 def make_requests(cfg, n: int, prompt_len, gen: int, seed: int, *,
                   arrival_every: int = 0):
     """``n`` random prompts (numpy, from ``seed``) of ``prompt_len``
     tokens — an int, or (MIN, MAX) for uniformly drawn lengths — one
-    arriving every ``arrival_every`` engine steps."""
+    arriving every ``arrival_every`` engine steps, each with its
+    :func:`request_embeds`."""
     lo, hi = (prompt_len, prompt_len) if isinstance(prompt_len, int) \
         else prompt_len
     rng = np.random.default_rng(seed)
@@ -163,7 +183,8 @@ def make_requests(cfg, n: int, prompt_len, gen: int, seed: int, *,
     lens = [hi] * n if lo == hi else \
         [int(x) for x in rng.integers(lo, hi + 1, size=n)]
     return [Request(rid=i, prompt=toks[i, :lens[i]].astype(np.int32),
-                    max_new_tokens=gen, arrival_step=i * arrival_every)
+                    max_new_tokens=gen, arrival_step=i * arrival_every,
+                    **request_embeds(cfg, seed, i))
             for i in range(n)]
 
 
@@ -184,6 +205,8 @@ def build(args: argparse.Namespace):
                                    paged=not args.ring)
     cfg = dataclasses.replace(cfg, w4a16_strategy=args.strategy,
                               quant_format=fmt.name)
+    if cfg.family == "encdec" and device.type == "cuda":
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device)
@@ -213,6 +236,11 @@ def build(args: argparse.Namespace):
         speculate=speculate, spec_k=args.spec_k,
         admission="priority" if args.http is not None else "fifo",
         attn_path=args.attn_path or sset.attn_path, device=device)
+    print(f"[serve] streams: prompt {pmax} + prefix {cfg.vision_prefix} + "
+          f"gen {args.gen}"
+          + (f"; {cfg.encoder_layers}-layer encoder over "
+             f"{cfg.encoder_seq} frames a request at admit (attention "
+             f"{cfg.attn_impl})" if cfg.family == "encdec" else ""))
     if engine.paged:
         print(f"[serve] engine: {B} slots, cache_len {engine.cache_len}, "
               f"paged KV {engine.num_pages} blocks x {engine.page_size} "
@@ -259,9 +287,14 @@ def serve_http(engine, reqs, *, port: int, queue_depth: int,
     async def client(port, req, delay):
         await asyncio.sleep(delay)
         reader, writer = await asyncio.open_connection("127.0.0.1", port)
-        body = json.dumps({"prompt": [int(t) for t in req.prompt],
-                           "max_new_tokens": req.max_new_tokens,
-                           "priority": req.priority}).encode()
+        spec = {"prompt": [int(t) for t in req.prompt],
+                "max_new_tokens": req.max_new_tokens,
+                "priority": req.priority}
+        for name in ("prefix_embeds", "audio_embeds"):
+            value = getattr(req, name)
+            if value is not None:
+                spec[name] = np.asarray(value, np.float32).tolist()
+        body = json.dumps(spec).encode()
         writer.write((f"POST /v1/generate HTTP/1.1\r\nHost: serve\r\n"
                       f"Content-Length: {len(body)}\r\n\r\n").encode()
                      + body)

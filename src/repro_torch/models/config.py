@@ -51,7 +51,7 @@ class ModelConfig:
     attn_impl: str = "chunked"       # chunked (plain PyTorch, the JAX
                                      # trainer's attention) | flash (the
                                      # hand-written kernel, the deployment
-                                     # value the launcher sets)
+                                     # value the launchers set)
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -82,11 +82,13 @@ class ModelConfig:
         return self.family in ("rwkv", "hybrid") or self.sliding_window > 0
 
     def param_count(self) -> int:
-        """Analytic parameter count (embeddings included, norms, decay
-        biases and SSM A/D left out, as in the JAX package): a moe layer
-        holds E experts of 3·d·ff and a d×E router in place of the MLP, an
-        rwkv layer six d×d time-mix and two channel-mix linears, a hybrid
-        layer the SSM's four projections beside attention and the MLP."""
+        """Analytic parameter count (embeddings included, norms, biases,
+        decay biases and SSM A/D left out, as in the JAX package): a moe
+        layer holds E experts of 3·d·ff and a d×E router in place of the
+        MLP, an rwkv layer six d×d time-mix and two channel-mix linears, a
+        hybrid layer the SSM's four projections beside attention and the
+        MLP, an encdec decoder layer a cross-attention beside them, and
+        the encoder's layers attention and the MLP each."""
         d, ff, V = self.d_model, self.d_ff, self.padded_vocab
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         mlp = (3 if self.mlp_type == "swiglu" else 2) * d * ff
@@ -99,9 +101,13 @@ class ModelConfig:
             ssm = d * self.d_inner * 2 + d * 2 * self.ssm_state \
                 + d * self.d_inner
             per_layer = attn + ssm + mlp
+        elif self.family == "encdec":
+            per_layer = 2 * attn + mlp
         else:
             per_layer = attn + mlp
         total = self.num_layers * per_layer + V * d
+        if self.family == "encdec":
+            total += self.encoder_layers * (attn + mlp)
         if not self.tie_embeddings:
             total += V * d
         return total

@@ -1,5 +1,6 @@
-"""Base layers: (quantizable) Linear, RMSNorm, softplus, embedding, RoPE
-(port of ``repro/models/layers.py``).
+"""Base layers: (quantizable) Linear, RMSNorm, LayerNorm, GELU, softplus,
+the embedding and its tied unembedding, RoPE (port of
+``repro/models/layers.py``).
 
 Every matmul goes through :func:`linear`, which dispatches on the weight
 leaf type: a plain tensor runs the dense path, a ``QuantizedTensor`` runs
@@ -19,21 +20,32 @@ from repro_torch.kernels import planning
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
-                device=None, layers: Optional[int] = None):
+                device=None, layers: Optional[int] = None,
+                bias: bool = False):
     """{"kernel": (d_in, d_out)} with N(0, 1/d_in) entries (stacked over
-    ``layers`` when given), drawn from ``gen``."""
-    shape = (d_in, d_out) if layers is None else (layers, d_in, d_out)
-    w = torch.randn(shape, generator=gen, device=device) * d_in ** -0.5
-    return {"kernel": w.to(dtype)}
+    ``layers`` when given), drawn from ``gen``; with ``bias`` also a zero
+    {"bias": (d_out,)}."""
+    lead = () if layers is None else (layers,)
+    w = torch.randn(lead + (d_in, d_out), generator=gen,
+                    device=device) * d_in ** -0.5
+    p = {"kernel": w.to(dtype)}
+    if bias:
+        p["bias"] = torch.zeros(lead + (d_out,), dtype=dtype, device=device)
+    return p
 
 
 def linear(p, x: torch.Tensor, cfg=None) -> torch.Tensor:
-    """y = x @ W; W may be dense or a QuantizedTensor (W4A16). The dense
-    path accumulates in fp32 and returns the activation dtype."""
+    """y = x @ W (+ b); W may be dense or a QuantizedTensor (W4A16). The
+    dense path accumulates in fp32 and returns the activation dtype; the
+    bias is added in that dtype, as in the JAX package."""
     w = p["kernel"]
     if isinstance(w, QuantizedTensor):
-        return planning.matmul(x, w, cfg=cfg)
-    return torch.matmul(x, w.to(x.dtype))
+        y = planning.matmul(x, w, cfg=cfg)
+    else:
+        y = torch.matmul(x, w.to(x.dtype))
+    if "bias" in p:
+        y = y + p["bias"].to(y.dtype)
+    return y
 
 
 def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
@@ -109,8 +121,32 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (h * p["scale"].to(torch.float32)).to(x.dtype)
 
 
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32: the centred input over its biased variance, then
+    scale and bias."""
+    h = x.to(torch.float32)
+    mu = torch.mean(h, dim=-1, keepdim=True)
+    var = torch.mean((h - mu) ** 2, dim=-1, keepdim=True)
+    h = (h - mu) * torch.rsqrt(var + eps)
+    return (h * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, in fp32; returns
+    x's dtype."""
+    return F.gelu(x.to(torch.float32), approximate="tanh").to(x.dtype)
+
+
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens.long(), p["table"])
+
+
+def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    """The tied head: fp32 logits ``x @ table.T``, the table in x's dtype
+    (products of that dtype are exact in fp32)."""
+    return torch.matmul(x.to(torch.float32),
+                        p["table"].to(x.dtype).to(torch.float32).T)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

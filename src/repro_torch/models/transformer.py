@@ -1,26 +1,39 @@
-"""The decoder of the dense, moe, rwkv and hybrid families: init,
-quantize, the training forward and loss, the paged decode step, the
-chunked-prefill step, the batched speculative verify step with its carry
-checkpoints, and the ring-cache prefill and decode that a draft model runs
-on (port of those families of ``repro/models/transformer.py``). A moe
-layer holds ``"moe"`` (router and expert stacks, ``models/moe.py``) in
-place of ``"mlp"``; one FFN switch (:func:`_ffn`) serves every step. An
-rwkv layer holds the time-mix and channel-mix leaves of ``models/rwkv.py``
-and no attention; a hybrid layer runs attention and the selective SSM of
-``models/ssm.py`` side by side on the same input, then the MLP.
+"""Every family of the JAX package — dense, moe, rwkv, hybrid and encdec —
+with its layer variants: init, quantize, the training forward and loss,
+the paged decode step, the chunked-prefill step, the batched speculative
+verify step with its carry checkpoints, and the ring-cache prefill and
+decode that a draft model runs on (port of ``repro/models/
+transformer.py``). A moe layer holds ``"moe"`` (router and expert stacks,
+``models/moe.py``) in place of ``"mlp"``; one FFN switch (:func:`_ffn`)
+serves every step. An rwkv layer holds the time-mix and channel-mix
+leaves of ``models/rwkv.py`` and no attention; a hybrid layer runs
+attention and the selective SSM of ``models/ssm.py`` side by side on the
+same input, then the MLP. An encdec (whisper) decoder layer adds
+cross-attention (``"cross"``, after ``"norm3"``) to the encoder's output:
+:func:`encode_cross_kv` runs the encoder over a request's audio frames
+once and projects each decoder layer's cross K/V, which the steps read
+from the state's per-slot ``enc_kv`` rows. Cross-attention is plain
+PyTorch (``attention.chunked_attention``), as the JAX package leaves it to
+XLA; cross q and K/V take no RoPE. A vision-prefix model (internvl2)
+prepends a request's patch embeddings to its token embeddings: the engine
+builds that stream, and the forward takes ``prefix_embeds``.
+
+``cfg.mlp_type`` picks the SwiGLU MLP or the GELU one (tanh form, with
+biases); ``cfg.norm_type`` RMSNorm or LayerNorm (eps 1e-5, with a bias);
+``cfg.tie_embeddings`` the tied head (``layers.unembed``) in place of
+``lm_head``.
 
 Parameters keep the JAX package's tree: ``{"embed": {"table"},
-"final_norm": {"scale"}, "layers": {...stacked over L...}, "lm_head":
-{"kernel"}}``. ``params["layers"]`` may also be a list of per-layer dicts
+"final_norm": {"scale"[, "bias"]}, "layers": {...stacked over L...},
+"lm_head": {"kernel"}, "encoder": {"layers", "final_norm"}}`` (no
+``lm_head`` when tied; ``encoder`` for encdec only). ``params["layers"]``
+and the encoder's may also be lists of per-layer dicts
 (:func:`unstack_layers`), which is what the serving engine holds so the
 layer loop does no slicing per step. The step functions update the paged
 KV pool and the recurrent carries (rwkv ``wkv``/``shift``/``cm_shift``,
 hybrid ``ssm``, stacked over L with one row per slot) in place and return
 the same state; the verify step alone leaves the carries as they are and
 returns their checkpoints.
-
-The encdec family, GELU MLPs, LayerNorm, tied heads and vision prefixes
-are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -45,17 +58,14 @@ from repro_torch.runtime import kvcache as kvc
 # position (a draft model of such a family cannot rewind rejected drafts).
 CARRY_FAMILIES = ("rwkv", "hybrid")
 CARRY_LEAVES = ("wkv", "shift", "cm_shift", "ssm")
+FAMILIES = ("dense", "moe", "rwkv", "hybrid", "encdec")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "rwkv", "hybrid") \
-            or cfg.mlp_type != "swiglu" or cfg.norm_type != "rmsnorm" \
-            or cfg.tie_embeddings or cfg.vision_prefix:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, moe, rwkv and hybrid families "
-            f"(SwiGLU, RMSNorm, untied head, no vision prefix) are ported to "
-            f"PyTorch so far; {cfg.family!r} archs are still served by the "
-            f"JAX package")
+            f"{cfg.name}: unknown family {cfg.family!r}; the port runs the "
+            f"dense, moe, rwkv, hybrid and encdec families")
 
 
 # ---------------------------------------------------------------------------
@@ -66,42 +76,66 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
     """Random parameters drawn from ``gen`` (stacked over L), created in
     ``cfg.dtype`` on ``device`` (rwkv's ``w_bias`` and the SSM's ``A_log``
     and ``D`` in fp32): each layer holds attention (not rwkv), then the
-    SwiGLU ``mlp`` (dense, hybrid) or the router and expert stacks of
-    ``moe``, rwkv's time-mix and channel-mix leaves, or hybrid's ``ssm``."""
+    ``mlp`` (dense, hybrid, encdec) or the router and expert stacks of
+    ``moe``, rwkv's time-mix and channel-mix leaves, hybrid's ``ssm``, or
+    encdec's ``cross`` attention and ``norm3``; encdec adds the encoder's
+    layers (attention and the MLP) and its final norm. LayerNorms and the
+    GELU MLP's biases start at zero, as in the JAX package."""
     check_family(cfg)
     L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
 
-    def lin(d_in, d_out, stacked=True):
+    def lin(d_in, d_out, n=L, bias=False):
         return layers.init_linear(gen, d_in, d_out, cfg.dtype, device=device,
-                                  layers=L if stacked else None)
+                                  layers=n, bias=bias)
 
-    def ones(*shape):
-        return {"scale": torch.ones(shape, dtype=cfg.dtype, device=device)}
+    def norm(*lead):
+        p = {"scale": torch.ones(lead + (d,), dtype=cfg.dtype,
+                                 device=device)}
+        if cfg.norm_type == "layernorm":
+            p["bias"] = torch.zeros(lead + (d,), dtype=cfg.dtype,
+                                    device=device)
+        return p
+
+    def attn(n=L):
+        return {"wq": lin(d, cfg.q_dim, n), "wk": lin(d, cfg.kv_dim, n),
+                "wv": lin(d, cfg.kv_dim, n), "wo": lin(cfg.q_dim, d, n)}
+
+    def mlp(n=L):
+        if cfg.mlp_type == "swiglu":
+            return {"w_gate": lin(d, ff, n), "w_up": lin(d, ff, n),
+                    "w_down": lin(ff, d, n)}
+        return {"w_up": lin(d, ff, n, bias=True),
+                "w_down": lin(ff, d, n, bias=True)}
 
     table = torch.randn(V, d, generator=gen, device=device) * 0.02
-    stack = {"norm1": ones(L, d), "norm2": ones(L, d)}
+    stack = {"norm1": norm(L), "norm2": norm(L)}
     if cfg.family == "rwkv":
         stack.update(rwkv.init_rwkv_block(gen, d, ff, cfg.num_heads,
                                           cfg.dtype, device=device,
                                           stacked=L))
     else:
-        stack["attn"] = {"wq": lin(d, cfg.q_dim), "wk": lin(d, cfg.kv_dim),
-                         "wv": lin(d, cfg.kv_dim), "wo": lin(cfg.q_dim, d)}
+        stack["attn"] = attn()
     if cfg.family == "moe":
         stack["moe"] = moe.init_moe(gen, d, ff, cfg.num_experts, cfg.dtype,
                                     device=device, stacked=L)
-    elif cfg.family in ("dense", "hybrid"):
-        stack["mlp"] = {"w_gate": lin(d, ff), "w_up": lin(d, ff),
-                        "w_down": lin(ff, d)}
+    elif cfg.family in ("dense", "hybrid", "encdec"):
+        stack["mlp"] = mlp()
     if cfg.family == "hybrid":
         stack["ssm"] = ssm.init_ssm(gen, d, cfg.d_inner, cfg.ssm_state,
                                     cfg.dtype, device=device, stacked=L)
-    return {
-        "embed": {"table": table.to(cfg.dtype)},
-        "final_norm": ones(d),
-        "layers": stack,
-        "lm_head": lin(d, V, stacked=False),
-    }
+    params = {"embed": {"table": table.to(cfg.dtype)},
+              "final_norm": norm(), "layers": stack}
+    if cfg.family == "encdec":
+        stack["cross"] = attn()
+        stack["norm3"] = norm(L)
+        E = cfg.encoder_layers
+        params["encoder"] = {
+            "layers": {"norm1": norm(E), "norm2": norm(E), "attn": attn(E),
+                       "mlp": mlp(E)},
+            "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = lin(d, V, None)
+    return params
 
 
 def quantize_params(params, cfg: ModelConfig, *, format=None,
@@ -123,14 +157,21 @@ def _layer_slice(tree, i: int):
     return tree[i]
 
 
-def unstack_layers(params) -> Dict[str, Any]:
-    """``params`` with ``"layers"`` as a list of per-layer dicts (views of
-    the stacked tensors)."""
-    stacked = params["layers"]
+def _unstack(stacked):
     if isinstance(stacked, list):
-        return params
+        return stacked
     L = stacked["norm1"]["scale"].shape[0]
-    return dict(params, layers=[_layer_slice(stacked, i) for i in range(L)])
+    return [_layer_slice(stacked, i) for i in range(L)]
+
+
+def unstack_layers(params) -> Dict[str, Any]:
+    """``params`` with ``"layers"`` (and the encoder's) as lists of
+    per-layer dicts (views of the stacked tensors)."""
+    out = dict(params, layers=_unstack(params["layers"]))
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = dict(enc, layers=_unstack(enc["layers"]))
+    return out
 
 
 def _unbind_layers(stacked, L: int) -> List[Dict[str, Any]]:
@@ -141,29 +182,51 @@ def _unbind_layers(stacked, L: int) -> List[Dict[str, Any]]:
     if isinstance(stacked, dict):
         parts = {k: _unbind_layers(v, L) for k, v in stacked.items()}
         return [{k: parts[k][i] for k in parts} for i in range(L)]
+    if isinstance(stacked, QuantizedTensor):
+        return [stacked.layer(i) for i in range(L)]
     return list(torch.unbind(stacked))
 
 
 def _layers(params) -> List[Dict[str, Any]]:
-    return unstack_layers(params)["layers"]
+    return _unstack(params["layers"])
+
+
+def _layer_views(stacked) -> List[Dict[str, Any]]:
+    """Per-layer views for the forward and the encoder:
+    :func:`_unbind_layers` of a stacked tree (gradients assemble once per
+    leaf), a list (the engine's unstacked params) as it is."""
+    if isinstance(stacked, list):
+        return stacked
+    return _unbind_layers(stacked, stacked["norm1"]["scale"].shape[0])
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
+def _norm(cfg: ModelConfig, p, x):
+    if cfg.norm_type == "layernorm":
+        return layers.layernorm(p, x)
+    return layers.rmsnorm(p, x)
+
+
 def _mlp(p, cfg: ModelConfig, x):
-    g = layers.linear(p["w_gate"], x, cfg)
-    u = layers.linear(p["w_up"], x, cfg)
-    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    """The SwiGLU MLP, or the GELU one (``w_up``, GELU in fp32, ``w_down``;
+    both with biases)."""
+    if cfg.mlp_type == "swiglu":
+        g = layers.linear(p["w_gate"], x, cfg)
+        u = layers.linear(p["w_up"], x, cfg)
+        h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+        return layers.linear(p["w_down"], h, cfg)
+    h = layers.gelu(layers.linear(p["w_up"], x, cfg))
     return layers.linear(p["w_down"], h, cfg)
 
 
 def _ffn(lp, cfg: ModelConfig, h):
     """The post-attention FFN tail of every layer body (JAX's
-    ``_ffn_seq``): h + FFN(norm2(h)), the FFN being the SwiGLU MLP or the
-    MoE (every row of h routed; its aux loss dropped)."""
-    x = layers.rmsnorm(lp["norm2"], h)
+    ``_ffn_seq``): h + FFN(norm2(h)), the FFN being the MLP or the MoE
+    (every row of h routed; its aux loss dropped)."""
+    x = _norm(cfg, lp["norm2"], h)
     if cfg.family == "moe":
         y, _aux = moe.moe_ffn(
             lp["moe"], x, num_experts=cfg.num_experts,
@@ -173,8 +236,10 @@ def _ffn(lp, cfg: ModelConfig, h):
     return h + _mlp(lp["mlp"], cfg, x)
 
 
-def _attn_seq(p, cfg: ModelConfig, x, positions, *, return_kv=False):
-    """Causal (sliding-window) self-attention over a whole sequence: the
+def _attn_seq(p, cfg: ModelConfig, x, positions, *, causal=True,
+              window=None, return_kv=False):
+    """Self-attention over a whole sequence, causal (with the config's
+    sliding window, or ``window``) or not (the encoder's): the
     flash-attention Function when ``cfg.attn_impl == "flash"``, else the
     plain chunked attention. ``return_kv`` also returns the roped (k, v)
     (ring-cache prefill)."""
@@ -185,16 +250,36 @@ def _attn_seq(p, cfg: ModelConfig, x, positions, *, return_kv=False):
     v = layers.linear(p["wv"], x, cfg).reshape(B, S, Hkv, D)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    w = cfg.sliding_window
+    w = cfg.sliding_window if window is None else window
     if cfg.attn_impl == "flash":
-        o = flash_attention(q, k, v, causal=True, window=w)
+        o = flash_attention(q, k, v, causal=causal, window=w)
     elif cfg.attn_impl == "chunked":
-        o = attention.chunked_attention(q, k, v, causal=True, window=w)
+        o = attention.chunked_attention(q, k, v, causal=causal, window=w)
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} "
                          f"(expected chunked | flash)")
     out = layers.linear(p["wo"], o.reshape(B, S, H * D), cfg)
     return (out, (k, v)) if return_kv else out
+
+
+def _cross_attn_seq(p, cfg: ModelConfig, x, enc_kv):
+    """Cross-attention of x (B, S, d) to the encoder's (k, v), each (B, T,
+    Hkv, D): no RoPE, no mask, plain PyTorch."""
+    B, S, _ = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    q = layers.linear(p["wq"], x, cfg).reshape(B, S, H, D)
+    k, v = enc_kv
+    o = attention.chunked_attention(q, k, v, causal=False, window=0)
+    return layers.linear(p["wo"], o.reshape(B, S, H * D), cfg)
+
+
+def _cross(lp, cfg: ModelConfig, h, enc_kv):
+    """h + the encdec layer's cross-attention block (norm3, then
+    cross-attention); h as it is for the other families."""
+    if cfg.family != "encdec":
+        return h
+    return h + _cross_attn_seq(lp["cross"], cfg, _norm(cfg, lp["norm3"], h),
+                               enc_kv)
 
 
 def _rwkv_layer(lp, cfg: ModelConfig, h, carry, *, valid=None,
@@ -205,12 +290,12 @@ def _rwkv_layer(lp, cfg: ModelConfig, h, carry, *, valid=None,
     with ``collect_states``, the carry after each position: the post-mask
     wkv states and the x1/x2 rows that the decode step latches as
     ``shift`` and ``cm_shift`` (each (B, S, ...))."""
-    x1 = layers.rmsnorm(lp["norm1"], h)
+    x1 = _norm(cfg, lp["norm1"], h)
     res = rwkv.time_mix_seq(lp, x1, carry, num_heads=cfg.num_heads,
                             cfg=cfg, valid=valid,
                             collect_states=collect_states)
     h = h + res[0]
-    x2 = layers.rmsnorm(lp["norm2"], h)
+    x2 = _norm(cfg, lp["norm2"], h)
     prev = torch.cat([carry["cm_shift"].to(x2.dtype)[:, None], x2[:, :-1]],
                      1)
     h = h + rwkv.channel_mix(lp, x2, prev, cfg)
@@ -227,50 +312,125 @@ def _rwkv_layer(lp, cfg: ModelConfig, h, carry, *, valid=None,
     return h, new
 
 
-def _layer_seq(p, cfg: ModelConfig, h, positions):
-    """One decoder layer in sequence mode, every carry starting at zero."""
+def _layer_seq(p, cfg: ModelConfig, h, positions, enc_kv=None):
+    """One decoder layer in sequence mode, every carry starting at zero;
+    ``enc_kv`` this layer's cross K/V (encdec)."""
     B = h.shape[0]
     if cfg.family == "rwkv":
         carry = rwkv.rwkv_state_init(B, cfg.d_model, cfg.num_heads,
                                      device=h.device)
         return _rwkv_layer(p, cfg, h, carry)[0]
-    x1 = layers.rmsnorm(p["norm1"], h)
+    x1 = _norm(cfg, p["norm1"], h)
     a = _attn_seq(p["attn"], cfg, x1, positions)
     if cfg.family == "hybrid":
         s0 = ssm.ssm_state_init(B, cfg.d_inner, cfg.ssm_state,
                                 device=h.device)
         s_out, _ = ssm.ssm_seq(p["ssm"], x1, s0, cfg)
         return _ffn(p, cfg, h + 0.5 * (a + s_out))
-    return _ffn(p, cfg, h + a)
+    return _ffn(p, cfg, _cross(p, cfg, h + a, enc_kv))
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) → logits (B, S, padded_vocab) fp32. RoPE positions
-    are ``arange(S)`` for every row. With ``cfg.remat`` each layer runs
-    under ``torch.utils.checkpoint`` (recomputed in backward), the
-    counterpart of ``jax.checkpoint`` around the JAX layer scan. Gradients
-    reach the stacked ``layers`` leaves through the per-layer views."""
-    check_family(cfg)
+def _enc_layer(lp, cfg: ModelConfig, h, positions):
+    x1 = _norm(cfg, lp["norm1"], h)
+    h = h + _attn_seq(lp["attn"], cfg, x1, positions, causal=False, window=0)
+    return h + _mlp(lp["mlp"], cfg, _norm(cfg, lp["norm2"], h))
+
+
+def _encoder_forward(params, cfg: ModelConfig, audio_embeds):
+    """The whisper-style encoder over frame embeddings (B, T, d): RoPE at
+    frame positions 0..T-1, non-causal self-attention with no window (the
+    flash kernel when ``cfg.attn_impl == "flash"``), the MLP, then the
+    encoder's final norm. Each layer runs under ``torch.utils.checkpoint``
+    with ``cfg.remat``."""
+    enc = params["encoder"]
+    h = audio_embeds.to(cfg.dtype)
+    B, T, _ = h.shape
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=h.device).expand(B, T)
+    for lp in _layer_views(enc["layers"]):
+        if cfg.remat:
+            h = checkpoint(_enc_layer, lp, cfg, h, positions,
+                           use_reentrant=False)
+        else:
+            h = _enc_layer(lp, cfg, h, positions)
+    return _norm(cfg, enc["final_norm"], h)
+
+
+def _cross_kv(lp, cfg: ModelConfig, enc_out):
+    """One decoder layer's cross K/V, each (B, T, Hkv, D), from the
+    encoder's output."""
+    B, T, _ = enc_out.shape
+    shape = (B, T, cfg.num_kv_heads, cfg.head_dim)
+    return (layers.linear(lp["cross"]["wk"], enc_out, cfg).reshape(shape),
+            layers.linear(lp["cross"]["wv"], enc_out, cfg).reshape(shape))
+
+
+def encode_cross_kv(params, cfg: ModelConfig, audio_embeds):
+    """The encoder forward, then every decoder layer's cross K/V: audio
+    (B, T, d) → two (L, B, T, Hkv, D) stacks. The serving engine runs it
+    once a request at admit and writes the slot's rows of the state's
+    ``enc_kv``; the forward consumes it inline."""
+    enc_out = _encoder_forward(params, cfg, audio_embeds)
+    kv = [_cross_kv(lp, cfg, enc_out) for lp in _layers(params)]
+    return (torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
+
+
+def _embed_stream(params, tokens, prefix_embeds):
+    """Token embeddings, after the vision-prefix embeds when given."""
     h = layers.embed(params["embed"], tokens)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    return h
+
+
+def _check_audio(cfg: ModelConfig, audio_embeds) -> None:
+    if cfg.family == "encdec" and audio_embeds is None:
+        raise ValueError(f"{cfg.name}: an encdec forward needs the audio "
+                         f"frames (audio_embeds)")
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            prefix_embeds=None, audio_embeds=None) -> torch.Tensor:
+    """tokens (B, S_text) → logits (B, S_total, padded_vocab) fp32.
+    ``prefix_embeds`` (B, P, d): vision patches prepended to the token
+    embeddings (S_total = P + S_text); ``audio_embeds`` (B, T, d): the
+    encdec family's audio frames. RoPE positions are ``arange(S_total)``
+    for every row. With ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (recomputed in backward), the counterpart of
+    ``jax.checkpoint`` around the JAX layer scan. Gradients reach the
+    stacked ``layers`` leaves through the per-layer views."""
+    check_family(cfg)
+    _check_audio(cfg, audio_embeds)
+    h = _embed_stream(params, tokens, prefix_embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
-    stacked = params["layers"]
-    for lp in _unbind_layers(stacked, stacked["norm1"]["scale"].shape[0]):
+    lps = _layer_views(params["layers"])
+    enc_out = None if cfg.family != "encdec" \
+        else _encoder_forward(params, cfg, audio_embeds)
+    for lp in lps:
+        ekv = None if enc_out is None else _cross_kv(lp, cfg, enc_out)
         if cfg.remat:
-            h = checkpoint(_layer_seq, lp, cfg, h, positions,
+            h = checkpoint(_layer_seq, lp, cfg, h, positions, ekv,
                            use_reentrant=False)
         else:
-            h = _layer_seq(lp, cfg, h, positions)
-    h = layers.rmsnorm(params["final_norm"], h)
+            h = _layer_seq(lp, cfg, h, positions, ekv)
+    h = _norm(cfg, params["final_norm"], h)
     return _logits_head(params, cfg, h)
 
 
 def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
     """Next-token cross entropy over the padded vocabulary (log-softmax in
-    fp32); labels < 0 are masked. batch: {tokens, labels}."""
-    logits = forward(params, cfg, batch["tokens"])
+    fp32); labels < 0 are masked. batch: {tokens, labels, [vision_embeds],
+    [audio_embeds]}; the vision prefix's positions carry no label and are
+    dropped."""
+    logits = forward(params, cfg, batch["tokens"],
+                     prefix_embeds=batch.get("vision_embeds"),
+                     audio_embeds=batch.get("audio_embeds"))
     labels = batch["labels"].long()
+    P = logits.shape[1] - labels.shape[1]
+    if P > 0:
+        logits = logits[:, P:]
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
@@ -278,8 +438,11 @@ def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
 
 
 def _logits_head(params, cfg: ModelConfig, h):
-    """Dense (unquantized) head; the activation-dtype product is returned
-    as fp32 logits."""
+    """The tied head (``layers.unembed``, fp32) or the dense (unquantized)
+    ``lm_head``, whose activation-dtype product is returned as fp32
+    logits."""
+    if cfg.tie_embeddings:
+        return layers.unembed(params["embed"], h)
     return layers.linear(params["lm_head"], h, cfg).to(torch.float32)
 
 
@@ -346,7 +509,8 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
     per-slot ring cache of :func:`init_decode_state` (the draft model's,
     and rwkv's carry-only state). ``active`` (B,) bool keeps the recurrent
     carries of rows that are not decoding (a slot mid chunked prefill
-    shares the batch; its carry would be advanced by the dummy token).
+    shares the batch; its carry would be advanced by the dummy token). An
+    encdec layer's cross-attention reads the state's ``enc_kv`` rows.
     Returns (logits (B, V) fp32, state)."""
     check_family(cfg)
     fmt = get_kv_format(kv_format)
@@ -354,18 +518,18 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
     cache = state["cache"]
     for i, lp in enumerate(_layers(params)):
         if cfg.family == "rwkv":
-            x1 = layers.rmsnorm(lp["norm1"], h)
+            x1 = _norm(cfg, lp["norm1"], h)
             tm, st = rwkv.time_mix_step(
                 lp, x1, _carry_rows(cache, i), num_heads=cfg.num_heads,
                 cfg=cfg)
             h = h + tm
-            x2 = layers.rmsnorm(lp["norm2"], h)
+            x2 = _norm(cfg, lp["norm2"], h)
             h = h + rwkv.channel_mix(lp, x2, cache["cm_shift"][i], cfg)
             st["cm_shift"] = x2.to(torch.float32)
             for k, new in st.items():
                 _commit(cache[k][i], new, active)
             continue
-        x = layers.rmsnorm(lp["norm1"], h)
+        x = _norm(cfg, lp["norm1"], h)
         a = _attn_step(lp["attn"], cfg, x, cache["kv"], i, pos, tables,
                        cache_len=cache_len, fmt=fmt, attn_path=attn_path,
                        kv_partitions=kv_partitions, live_pages=live_pages)
@@ -374,10 +538,19 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
             _commit(cache["ssm"][i], s_new, active)
             h = h + 0.5 * (a + s_out)
         else:
-            h = h + a
+            h = _cross(lp, cfg, (h + a)[:, None], _enc_rows(state, i))[:, 0]
         h = _ffn(lp, cfg, h)
-    h = layers.rmsnorm(params["final_norm"], h)
+    h = _norm(cfg, params["final_norm"], h)
     return _logits_head(params, cfg, h), state
+
+
+def _enc_rows(state, i: int, rows=slice(None)):
+    """Layer ``i``'s cross K/V (views of the state's ``enc_kv``), the
+    batch rows ``rows`` of each; None without ``enc_kv``."""
+    enc = state.get("enc_kv")
+    if enc is None:
+        return None
+    return enc[0][i, rows], enc[1][i, rows]
 
 
 def _paged_chunk_attn(ap, cfg: ModelConfig, x1, pool, tables, positions,
@@ -437,12 +610,13 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
     (1, T) the slot's block table (None for attention-free rwkv); slot:
     the slot's row of the recurrent carries (rwkv, hybrid), which step
     their masked recurrences so that a right-padded final chunk leaves
-    the carry at the last real token. Returns (last-valid-position logits
-    (1, V) fp32, state)."""
+    the carry at the last real token, and of encdec's cross K/V. Returns
+    (last-valid-position logits (1, V) fp32, state)."""
     check_family(cfg)
-    if cfg.family in CARRY_FAMILIES and slot is None:
+    if (cfg.family in CARRY_FAMILIES or cfg.family == "encdec") \
+            and slot is None:
         raise ValueError(f"a {cfg.family!r} prefill chunk needs the slot "
-                         f"whose recurrent carry it advances")
+                         f"whose per-slot state it reads")
     fmt = get_kv_format(kv_format)
     valid = positions >= 0
     safe_pos = positions.clamp_min(0)
@@ -455,7 +629,7 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
             for k, t in new.items():
                 carry[k].copy_(t)
             continue
-        x1 = layers.rmsnorm(lp["norm1"], h)
+        x1 = _norm(cfg, lp["norm1"], h)
         a = _paged_chunk_attn(
             lp["attn"], cfg, x1, cache["kv"].layer(i), table, positions,
             safe_pos, fmt=fmt, cache_len=cache_len, attn_path=attn_path,
@@ -466,8 +640,9 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
             carry["ssm"].copy_(s_fin)
             h = _ffn(lp, cfg, h + 0.5 * (a + s_out))
         else:
-            h = _ffn(lp, cfg, h + a)
-    h = layers.rmsnorm(params["final_norm"], h)
+            h = _ffn(lp, cfg, _cross(lp, cfg, h + a,
+                                     _enc_rows(state, i, rows)))
+    h = _norm(cfg, params["final_norm"], h)
     return _logits_head(params, cfg, _last_valid_row(h, valid)), state
 
 
@@ -514,7 +689,7 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
             h, _, steps = _rwkv_layer(lp, cfg, h, carry, valid=valid,
                                       collect_states=True)
         else:
-            x1 = layers.rmsnorm(lp["norm1"], h)
+            x1 = _norm(cfg, lp["norm1"], h)
             a = _paged_chunk_attn(
                 lp["attn"], cfg, x1, cache["kv"].layer(i), tables,
                 positions, safe_pos, fmt=fmt, cache_len=cache_len,
@@ -527,11 +702,11 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
                 steps = {"ssm": s_steps}
                 h = _ffn(lp, cfg, h + 0.5 * (a + s_out))
             else:
-                h = _ffn(lp, cfg, h + a)
+                h = _ffn(lp, cfg, _cross(lp, cfg, h + a, _enc_rows(state, i)))
         for k in carry:
             carries[k][i, :, 0] = carry[k]
             carries[k][i, :, 1:] = steps[k]
-    h = layers.rmsnorm(params["final_norm"], h)
+    h = _norm(cfg, params["final_norm"], h)
     return _logits_head(params, cfg, h), state, carries
 
 
@@ -559,11 +734,20 @@ def _init_carries(cfg: ModelConfig, batch: int, device=None):
                            device=device) for k, v in one.items()}
 
 
+def _init_enc_kv(cfg: ModelConfig, batch: int, device=None):
+    """encdec's per-slot cross K/V at zero: two (L, B, T, Hkv, D) stacks;
+    the engine writes a slot's rows at admit."""
+    shape = (cfg.num_layers, batch, cfg.encoder_seq, cfg.num_kv_heads,
+             cfg.head_dim)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
                       device=None):
     """Empty per-slot ring decode state: one KV ring of ``cache_len``
     entries per slot (none for rwkv) and the family's carries, stacked
-    over L."""
+    over L; encdec adds ``enc_kv``."""
     check_family(cfg)
     cache = _init_carries(cfg, batch, device)
     if cfg.family != "rwkv":
@@ -573,20 +757,30 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
             k=torch.zeros(shape, dtype=cfg.dtype, device=device),
             v=torch.zeros(shape, dtype=cfg.dtype, device=device),
             pos=torch.full(shape[:3], -1, dtype=torch.int32, device=device))
-    return {"cache": cache}
+    state = {"cache": cache}
+    if cfg.family == "encdec":
+        state["enc_kv"] = _init_enc_kv(cfg, batch, device)
+    return state
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache_len: int):
-    """Run a whole prompt (tokens (B, S) at positions 0..S-1); returns
-    (last-position logits (B, V) fp32, a ring decode state holding each
-    layer's last ``cache_len`` K/V and the carries after the prompt)."""
+            cache_len: int, prefix_embeds=None, audio_embeds=None):
+    """Run a whole prompt (tokens (B, S_text), after ``prefix_embeds`` (B,
+    P, d) when given, at positions 0..S_total-1; encdec's audio frames
+    ``audio_embeds`` (B, T, d)); returns (last-position logits (B, V) fp32,
+    a ring decode state holding each layer's last ``cache_len`` K/V, the
+    carries after the prompt and encdec's ``enc_kv``)."""
     check_family(cfg)
-    h = layers.embed(params["embed"], tokens)
+    _check_audio(cfg, audio_embeds)
+    h = _embed_stream(params, tokens, prefix_embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
     state = init_decode_state(cfg, B, cache_len, device=h.device)
+    if cfg.family == "encdec":
+        for dst, src in zip(state["enc_kv"],
+                            encode_cross_kv(params, cfg, audio_embeds)):
+            dst.copy_(src)
     cache = state["cache"]
     for i, lp in enumerate(_layers(params)):
         carry = _carry_rows(cache, i)
@@ -595,7 +789,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             for k, t in new.items():
                 carry[k].copy_(t)
             continue
-        x1 = layers.rmsnorm(lp["norm1"], h)
+        x1 = _norm(cfg, lp["norm1"], h)
         a, (k, v) = _attn_seq(lp["attn"], cfg, x1, positions,
                               return_kv=True)
         attention.cache_prefill(_ring_layer(cache["kv"], i), k, v)
@@ -604,8 +798,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             carry["ssm"].copy_(s_fin)
             h = _ffn(lp, cfg, h + 0.5 * (a + s_out))
         else:
-            h = _ffn(lp, cfg, h + a)
-    h = layers.rmsnorm(params["final_norm"], h[:, -1])
+            h = _ffn(lp, cfg, _cross(lp, cfg, h + a, _enc_rows(state, i)))
+    h = _norm(cfg, params["final_norm"], h[:, -1])
     return _logits_head(params, cfg, h), state
 
 
@@ -613,9 +807,9 @@ def init_paged_state(cfg: ModelConfig, batch: int, cache_len: int, *,
                      page_size: int, num_blocks: int,
                      kv_format: str = DEFAULT_KV_FORMAT, device=None):
     """Paged decode state: one block pool stacked over L, and the family's
-    per-slot carries. Block tables live outside the state (the engine
-    passes them per step). rwkv holds no KV cache: its state is the
-    carry-only state of :func:`init_decode_state`."""
+    per-slot carries (encdec: ``enc_kv``). Block tables live outside the
+    state (the engine passes them per step). rwkv holds no KV cache: its
+    state is the carry-only state of :func:`init_decode_state`."""
     check_family(cfg)
     if cfg.family == "rwkv":
         return init_decode_state(cfg, batch, cache_len, device=device)
@@ -624,4 +818,7 @@ def init_paged_state(cfg: ModelConfig, batch: int, cache_len: int, *,
     cache["kv"] = kvc.init_pool(num_blocks, page_size, cfg.num_kv_heads,
                                 cfg.head_dim, cfg.dtype, kv_format,
                                 num_layers=cfg.num_layers, device=device)
-    return {"cache": cache}
+    state = {"cache": cache}
+    if cfg.family == "encdec":
+        state["enc_kv"] = _init_enc_kv(cfg, batch, device)
+    return state

@@ -7,7 +7,13 @@ block tables, prefix sharing or warm LRU. The rwkv and hybrid families'
 recurrent carries are per-slot rows of the state: zeroed when a slot
 admits a request, advanced only for the rows that decode (``active``),
 and, after each verify step, set to the checkpoint at the row's accepted
-frontier.
+frontier. The encdec family (whisper) runs its encoder once a request at
+admit (:meth:`ServingEngine._insert_enc_kv`) and writes the slot's rows
+of the state's cross K/V, which every step then reads; its audio seeds the
+prefix-page keys, so identical prompts over different audio share no
+page. A vision-prefix arch (internvl2) prefills the request's patch
+embeddings ahead of its prompt in one chunked stream; the patches are
+``E`` units of the page keys, and decode starts after prompt + prefix.
 
 Slot lifecycle:
 
@@ -37,11 +43,11 @@ prefill_chunk``), a verify plan when speculating (``B = max_batch``,
 ``M = max_batch`` or, when speculating, at the verify step's ``M =
 max_batch·(spec_k + 1)``; the other steps' GEMMs reuse them.
 
-Not ported, and refused: meshes, the ring cache as the serving state
-(``paged=False``; the draft model keeps a ring of its own), and the encdec
-family. A moe layer routes every row of a step (inactive decode slots, a
-chunk's padding, every verify position) as the JAX engine does, since
-which pairs overflow an expert's capacity depends on it.
+Not ported, and refused: meshes and the ring cache as the serving state
+(``paged=False``; the draft model keeps a ring of its own). A moe layer
+routes every row of a step (inactive decode slots, a chunk's padding,
+every verify position) as the JAX engine does, since which pairs overflow
+an expert's capacity depends on it.
 """
 from __future__ import annotations
 
@@ -73,19 +79,33 @@ __all__ = ["Request", "ServeReport", "ServingEngine", "StepEvents"]
 _PATH_CODE = {"ring": 0, "gather": 1, "fused": 2}
 
 
+def _host_bytes(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as a numpy array of the same bytes (bf16 read bit
+    for bit as int16: numpy has no bf16)."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One generation request: a 1-D int prompt, a budget that counts
     every generated token including the one prefill produces, and the
-    decode step before which it is not admitted. ``deadline_s`` (seconds
-    from submission) and ``priority`` (higher admits first) only shape the
-    admission order under ``admission="priority"``; FIFO ignores both.
-    Deadlines are enforced (408) by the front door's queue."""
+    decode step before which it is not admitted. ``prefix_embeds``
+    (vision_prefix, d) and ``audio_embeds`` (encoder_seq, d) are the
+    request's frontends (arrays, lists or tensors); where the arch needs
+    one and the request carries none, the engine uses zeros.
+    ``deadline_s`` (seconds from submission) and ``priority`` (higher
+    admits first) only shape the admission order under
+    ``admission="priority"``; FIFO ignores both. Deadlines are enforced
+    (408) by the front door's queue."""
 
     rid: int
     prompt: Any
     max_new_tokens: int
     arrival_step: int = 0
+    prefix_embeds: Any = None
+    audio_embeds: Any = None
     deadline_s: Optional[float] = None
     priority: int = 0
 
@@ -419,6 +439,18 @@ class ServingEngine:
             if name in T.CARRY_LEAVES:
                 leaf[:, i] = 0
 
+    def _insert_enc_kv(self, i: int, req: Request) -> None:
+        """Run the encoder and every decoder layer's cross K/V projection
+        over ``req``'s audio and write them into slot ``i``'s rows of the
+        state's ``enc_kv``: the only whole-sequence work outside the chunk
+        step (it reads the audio, not the prompt, so chunking does not
+        apply)."""
+        ek, ev = T.encode_cross_kv(self.params, self.cfg,
+                                   self._audio_embeds(req)[None])
+        sk, sv = self._state["enc_kv"]
+        sk[:, i] = ek[:, 0]
+        sv[:, i] = ev[:, 0]
+
     def _apply_carry_selection(self, carries, sel) -> None:
         """Commit the verify step's carry checkpoints: row b takes
         checkpoint ``sel[b]`` (0 restores the pre-verify carry of an
@@ -508,17 +540,43 @@ class ServingEngine:
         if freed:
             kvc.reset_blocks(self._pool(), freed)
 
+    def _embeds(self, value, rows: int) -> torch.Tensor:
+        """A request's frontend embeddings (rows, d) on the device in the
+        model's dtype; zeros when the request carries none."""
+        cfg = self.cfg
+        if value is None:
+            return torch.zeros((rows, cfg.d_model), dtype=cfg.dtype,
+                               device=self.device)
+        return torch.as_tensor(value, dtype=cfg.dtype, device=self.device)
+
+    def vision_embeds(self, req: Request) -> torch.Tensor:
+        """``req``'s patch embeddings (vision_prefix, d) on the device in
+        the model's dtype (zeros when it carries none)."""
+        return self._embeds(req.prefix_embeds, self.cfg.vision_prefix)
+
+    def _audio_embeds(self, req: Request) -> torch.Tensor:
+        return self._embeds(req.audio_embeds, self.cfg.encoder_seq)
+
     def _prefix_keys(self, req: Request):
         """(stream length, (full page keys, partial)) for ``req``, hashed
-        once per request. Streams longer than the window share nothing
-        (their offsets are no longer page-aligned prefix content)."""
+        once per request: the vision patches are ``E`` units ahead of the
+        prompt's tokens, and encdec's audio seeds the chain (decoder K/V
+        at every position depend on it through cross-attention). Both
+        hash the bytes of the model's dtype, as the JAX package does.
+        Streams longer than the window share nothing (their offsets are
+        no longer page-aligned prefix content)."""
         cached = self._keys_cache.get(id(req))
         if cached is None:
-            S_total = len(req.prompt)
+            cfg = self.cfg
+            S_total = len(req.prompt) + cfg.vision_prefix
             keys = ([], None)
             if self.share_prefix and S_total <= self.cache_len:
-                keys = kvc.page_keys(kvc.position_units(req.prompt),
-                                     self.page_size)
+                pe = _host_bytes(self.vision_embeds(req)) \
+                    if cfg.vision_prefix else None
+                seed = _host_bytes(self._audio_embeds(req)).tobytes() \
+                    if cfg.family == "encdec" else b""
+                keys = kvc.page_keys(kvc.position_units(req.prompt, pe),
+                                     self.page_size, seed=seed)
             cached = self._keys_cache[id(req)] = (S_total, keys)
         return cached
 
@@ -627,7 +685,9 @@ class ServingEngine:
     # -- admit / prefill ---------------------------------------------------
 
     def pos0(self, req: Request) -> int:
-        return int(len(req.prompt))
+        """First decode position: prompt + vision prefix (prefill wrote
+        that many positions)."""
+        return int(len(req.prompt)) + self.cfg.vision_prefix
 
     def _count(self, name: str, help: str, n: int = 1) -> None:
         if self.metrics is not None:
@@ -680,10 +740,15 @@ class ServingEngine:
             saved = cold_steps - (-(-(S_total - shared) // C))
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)
-            slot.pf_stream = layers.embed(self.params["embed"], prompt)
+            emb = layers.embed(self.params["embed"], prompt)
+            if self.cfg.vision_prefix:
+                emb = torch.cat([self.vision_embeds(req), emb])
+            slot.pf_stream = emb
             slot.pf_next = shared
         if self.cfg.family in T.CARRY_FAMILIES:
             self._reset_carry(i)
+        if self.cfg.family == "encdec":
+            self._insert_enc_kv(i, req)
         if self.share_prefix:
             self.report.prefill_steps_saved += saved
             if self.metrics is not None:
@@ -786,6 +851,20 @@ class ServingEngine:
                              f"at least 1 (prefill emits the first token)")
         if len(r.prompt) < 1:
             raise ValueError(f"request {r.rid}: empty prompt")
+        cfg = self.cfg
+        for name, value, rows in (
+                ("prefix_embeds", r.prefix_embeds, cfg.vision_prefix),
+                ("audio_embeds", r.audio_embeds,
+                 cfg.encoder_seq if cfg.family == "encdec" else 0)):
+            if value is None:
+                continue
+            if not rows:
+                raise ValueError(f"request {r.rid}: {cfg.name} takes no "
+                                 f"{name}")
+            if tuple(np.shape(value)) != (rows, cfg.d_model):
+                raise ValueError(
+                    f"request {r.rid}: {name} must be {rows} x "
+                    f"{cfg.d_model}, got {tuple(np.shape(value))}")
 
     def start(self) -> None:
         """Arm the stepper: fresh scheduler state, empty report, a zeroed

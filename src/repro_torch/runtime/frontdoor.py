@@ -21,7 +21,8 @@ land in the final :class:`ServeReport`.
 Wire format (one connection per request, ``Connection: close``):
 
     POST /v1/generate         {"prompt": [ints], "max_new_tokens": N,
-                               "deadline_s": S?, "priority": P?}
+                               "deadline_s": S?, "priority": P?,
+                               "prefix_embeds"/"audio_embeds": [[floats]]?}
     → 200 text/event-stream   data: {"rid": R, "tokens": [..]}\\n\\n  per
                               engine step, then
                               event: done
@@ -275,12 +276,27 @@ class FrontDoor:
             deadline_s = spec.get("deadline_s",
                                   self.settings.default_deadline_s)
             priority = int(spec.get("priority", 0))
+            prefix_embeds = spec.get("prefix_embeds")
+            audio_embeds = spec.get("audio_embeds")
             cfg = self.engine.cfg
-            for name in ("prefix_embeds", "audio_embeds"):
-                # the ported family has neither frontend: a 400, not a
+            if prefix_embeds is not None:
+                # shape-check here so a ragged payload is a 400, not a
                 # dead driver task
-                if spec.get(name) is not None:
-                    raise ValueError(f"{cfg.name} takes no {name}")
+                if not cfg.vision_prefix:
+                    raise ValueError(f"{cfg.name} takes no prefix_embeds")
+                if (len(prefix_embeds) != cfg.vision_prefix or any(
+                        len(r) != cfg.d_model for r in prefix_embeds)):
+                    raise ValueError(
+                        f"prefix_embeds must be {cfg.vision_prefix} x "
+                        f"{cfg.d_model}")
+            if audio_embeds is not None:
+                if cfg.family != "encdec":
+                    raise ValueError(f"{cfg.name} takes no audio_embeds")
+                if (len(audio_embeds) != cfg.encoder_seq or any(
+                        len(r) != cfg.d_model for r in audio_embeds)):
+                    raise ValueError(
+                        f"audio_embeds must be {cfg.encoder_seq} x "
+                        f"{cfg.d_model}")
         except (KeyError, ValueError, TypeError, json.JSONDecodeError) as e:
             await _respond_json(writer, 400, {"error": f"bad request: {e}"})
             return
@@ -308,7 +324,8 @@ class FrontDoor:
             return
         rid = next(self._rids)
         req = Request(rid=rid, prompt=list(prompt), max_new_tokens=max_new,
-                      deadline_s=deadline_s, priority=priority)
+                      deadline_s=deadline_s, priority=priority,
+                      prefix_embeds=prefix_embeds, audio_embeds=audio_embeds)
         entry = _Pending(req, None if deadline_s is None
                          else time.perf_counter() + deadline_s)
         self.queue.append(entry)

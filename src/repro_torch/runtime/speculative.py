@@ -119,7 +119,11 @@ class DraftModelProposer(Proposer):
     the parity tests); without them the draft draws random weights from a
     ``torch.Generator`` (``gen``, else one seeded with ``seed``) on the
     engine's device at :meth:`reset`. Recurrent carry families are
-    refused: re-feed and rewind rely on cache writes keyed by position.
+    refused: re-feed and rewind rely on cache writes keyed by position. So
+    is an encdec draft: its ring prefill would need the request's audio,
+    which the draft is not given (nor is the JAX package's). A draft of a
+    vision-prefix target must share its frontend (the same prefix length
+    and width): the request's patches feed both models.
     """
 
     name = "draft"
@@ -132,6 +136,11 @@ class DraftModelProposer(Proposer):
                 f"recurrent carry families {T.CARRY_FAMILIES} cannot "
                 f"rewind rejected drafts (cache writes must be keyed by "
                 f"position); use an attention-state draft or ngram")
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"draft speculation cannot use an 'encdec' draft — the "
+                f"draft's ring prefill is not given the request's audio; "
+                f"use ngram")
         T.check_family(cfg)
         self.cfg = cfg
         self.params = None if params is None else T.unstack_layers(params)
@@ -144,6 +153,14 @@ class DraftModelProposer(Proposer):
 
     def reset(self, engine) -> None:
         cfg = self.cfg
+        if cfg.vision_prefix != engine.cfg.vision_prefix or (
+                cfg.vision_prefix and cfg.d_model != engine.cfg.d_model):
+            raise ValueError(
+                f"draft cfg must match the target's vision frontend "
+                f"(vision_prefix {cfg.vision_prefix} vs "
+                f"{engine.cfg.vision_prefix}, d_model {cfg.d_model} vs "
+                f"{engine.cfg.d_model}) — prefix embeds feed both models")
+        self.voff = cfg.vision_prefix
         self.device = engine.device
         if self.params is None:
             gen = self.gen
@@ -173,15 +190,19 @@ class DraftModelProposer(Proposer):
 
     def admit(self, engine, i: int, slot) -> None:
         prompt = np.asarray(slot.req.prompt, np.int64).reshape(-1)
-        tokens = torch.as_tensor(prompt, device=self.device)[None]
+        inputs = {"tokens": torch.as_tensor(prompt, device=self.device)[None]}
+        if self.voff:
+            inputs["prefix_embeds"] = engine.vision_embeds(slot.req).to(
+                self.cfg.dtype)[None]
         with torch.no_grad():
-            _, rstate = self._prefill()(self.params, {"tokens": tokens})
+            _, rstate = self._prefill()(self.params, inputs)
         # the B=1 prefill state overwrites row i whole, pos tags included
         for dst, src in zip(self.state["cache"]["kv"], rstate["cache"]["kv"]):
             dst[:, i] = src[:, 0].to(dst.dtype)
-        self.dpos[i] = len(prompt)
+        pos0 = len(prompt) + self.voff
+        self.dpos[i] = pos0
         self.last_tok[i] = int(prompt[-1])
-        self.last_pos[i] = len(prompt) - 1
+        self.last_pos[i] = pos0 - 1
 
     def evict(self, engine, i: int) -> None:
         attention.cache_reset_slots(self.state["cache"]["kv"], i)
@@ -203,7 +224,8 @@ class DraftModelProposer(Proposer):
         for view in views:
             i, ctx, pos_next = view.slot, view.context, view.pos_next
             start = min(int(self.dpos[i]), pos_next)
-            feeds[i] = [(ctx[q], q) for q in range(start, pos_next + 1)]
+            feeds[i] = [(ctx[q - self.voff], q)
+                        for q in range(start, pos_next + 1)]
             chain_left[i] = k - 1
         out: Dict[int, List[int]] = {v.slot: [] for v in views}
         n_steps = max(len(feeds[i]) + chain_left[i] for i in feeds)

@@ -84,10 +84,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
-    """prefill_step(params, inputs={tokens}) — a whole prompt into a ring
-    decode state (the draft model's admit); returns (logits, state)."""
+    """prefill_step(params, inputs={tokens, [prefix_embeds],
+    [audio_embeds]}) — a whole prompt into a ring decode state (the draft
+    model's admit); returns (logits, state)."""
     def prefill_step(params, inputs):
-        return T.prefill(params, cfg, inputs["tokens"], cache_len=cache_len)
+        return T.prefill(params, cfg, inputs["tokens"], cache_len=cache_len,
+                         prefix_embeds=inputs.get("prefix_embeds"),
+                         audio_embeds=inputs.get("audio_embeds"))
     return prefill_step
 
 

@@ -783,14 +783,19 @@ def test_carry_family_draft_and_training_refused(arch):
 
 
 def test_whisper_still_refused():
+    """whisper-small is ported now (``tests/test_torch_encdec.py``): the
+    family check passes it, and refuses only a family it does not know;
+    the registry refuses only an arch the JAX package lacks."""
     from repro_torch.models.config import ModelConfig
     cfg = ModelConfig(name="whisper-small", family="encdec", num_layers=1,
                       d_model=64, num_heads=2, num_kv_heads=2, d_ff=128,
                       vocab_size=256)
-    with pytest.raises(NotImplementedError, match="'encdec' archs"):
-        T.check_family(cfg)
+    T.check_family(cfg)
+    assert configs.get_config("whisper-small").family == "encdec"
+    with pytest.raises(NotImplementedError, match="unknown family 'nope'"):
+        T.check_family(dataclasses.replace(cfg, family="nope"))
     with pytest.raises(ValueError, match="not ported"):
-        configs.get_config("whisper-small")
+        configs.get_config("whisper-large")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -228,8 +228,8 @@ def test_engine_refuses_what_the_slice_left_out(weights):
     with pytest.raises(ValueError, match="paged"):
         spec.validate_speculate("ngram", 4, cfg=cfg, paged=False)
     with pytest.raises(NotImplementedError,
-                       match="dense, moe, rwkv and hybrid families"):
-        ServingEngine(dataclasses.replace(cfg, family="encdec"), tparams,
+                       match="dense, moe, rwkv, hybrid and encdec families"):
+        ServingEngine(dataclasses.replace(cfg, family="nope"), tparams,
                       **kw)
 
 

@@ -1049,3 +1049,175 @@ def test_carry_engine_kernel_path_matches_plain_path(cuda_device, arch):
         torch.testing.assert_close(fused.prefill_logits[rid],
                                    plain.prefill_logits[rid],
                                    rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and vision-prefix families, the remaining dense configs
+# ---------------------------------------------------------------------------
+
+# (K, N, runs at admit) of every W4A16 leaf the new archs serve: whisper-
+# small's (its encoder layers and cross K/V also at M = 1500 frames),
+# internvl2-1b's, starcoder2-7b's (GELU) and granite-20b's (its K/V
+# projections at K / N = 48), as tests/test_torch_dense_variants.py pins
+# them; last, a vocab-wide N off the served path (internvl2-1b's lm_head
+# stays dense)
+ENCDEC_GEMMS = [(768, 768, True), (768, 3072, True), (3072, 768, True),
+                (896, 896, False), (896, 128, False), (896, 4864, False),
+                (4864, 896, False), (4608, 4608, False), (4608, 512, False),
+                (4608, 18432, False), (18432, 4608, False),
+                (6144, 6144, False), (6144, 128, False),
+                (6144, 24576, False), (24576, 6144, False),
+                (896, 151808, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N,admit", ENCDEC_GEMMS)
+def test_w4a16_kernel_at_encdec_and_dense_shapes(cuda_device, K, N, admit,
+                                                 dtype):
+    """The new served shapes at M = 1, 8 (decode), 32 (a chunk), 40 (the
+    k = 4 verify step) and, for whisper's admit leaves, 1500; every
+    group-aligned power-of-two split up to the planner's pick at M = 1
+    (granite's (6144, 128): 1 to 16), the pick at M and the engine's plans
+    at M = 8 and 40. Tolerance: one bf16 ulp after a reordered fp32 sum
+    (2^-7·|plain| + 1e-3); fp32, summation order (1e-5·|plain| + 1e-4)."""
+    rng = np.random.default_rng(K + N)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * K ** -0.5)
+                         .astype(np.float32)).to(cuda_device)
+    qt = tq.quantize(w.to(dtype), out_dtype=dtype)
+    del w
+    rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-3)
+    cores = planning.num_cores("cuda")
+    top = planning.choose_split_k(1, N, K, cores=cores)
+    if (K, N) == (6144, 128):
+        assert top == 16
+    for M in (1, 8, 32, 40) + ((1500,) if admit else ()):
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)) \
+            .to(cuda_device).to(dtype)
+        splits = {1 << i for i in range(top.bit_length())} \
+            | {planning.choose_split_k(m, N, K, cores=cores)
+               for m in (M, 8, 40)}
+        for s in sorted(splits):
+            before = wf.W4A16_GEMM.launches
+            got = wf.w4a16_fused(x, qt, split_k=s)
+            assert wf.W4A16_GEMM.launches == before + 1
+            want = wf.w4a16_fused_plain(x, qt, split_k=s)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype == dtype
+            d = (got.float() - want.float()).abs()
+            assert bool((d <= want.float().abs() * rtol + atol).all()), \
+                (M, s, float(d.max()))
+
+
+@pytest.mark.parametrize("kind", ["decode", "chunk", "verify"])
+@pytest.mark.parametrize("heads,T_", [((12, 1, 64), 10), ((2, 7, 64), 26),
+                                      ((4, 9, 128), 9), ((1, 48, 128), 9)])
+def test_paged_attention_at_encdec_and_dense_heads(cuda_device, kind, heads,
+                                                   T_):
+    """whisper's G = 1, internvl2's G = 7 (D = 64), starcoder2's G = 9 and
+    granite's G = 48 (D = 128: 48 rows a decode block, 96 a 32-token
+    chunk), 16-token pages, their served tables, full attention, one
+    partition and the planner's pick; held as the danube edges are."""
+    qk, positions, start, pool, tables, fmt, Tq, G_ = _paged_pool_case(
+        cuda_device, kind=kind, fmt_name="kv_fp16", dtype=torch.bfloat16,
+        seed=13, heads=heads, ps=16, T_=T_,
+        ctx=16 * T_ - (40 if kind == "chunk" else 12))
+    assert G_ == heads[1]
+    B, C = positions.shape
+    rows = (positions >= 0).reshape(B, C // Tq, Tq, 1) \
+        .expand(B, C // Tq, Tq, G_).reshape(B, 1, C // Tq, Tq * G_)
+    planned = planning.choose_kv_partitions(
+        B, heads[0], T_, q_tiles=C // Tq, cores=planning.num_cores("cuda"))
+    for S in sorted({1, planned}):
+        kw = dict(Tq=Tq, G=G_, S=S, window=0, fmt=fmt)
+        args = (qk, positions, start, pool, tables)
+        before = tpa.PAGED_ATTENTION.launches
+        got = tpa._launch_partials(*args, **kw)
+        assert tpa.PAGED_ATTENTION.launches == before + 1
+        want = tpa.pooled_partials_plain(*args, **kw)
+        torch.cuda.synchronize()
+        out_p = _combine_partials(*want)
+        d = torch.where(rows[..., None],
+                        (_combine_partials(*got) - out_p).abs(), 0.0)
+        assert bool((d <= out_p.abs() * 2 ** -7 + 2e-3).all()), \
+            (S, float(d.max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+def test_flash_kernel_non_causal_at_whisper_encoder(cuda_device, dtype, tol):
+    """whisper's encoder self-attention: 1500 frames, 12 heads of 64, no
+    mask; held as ``test_flash_kernel_matches_plain`` holds the causal
+    cases."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _flash_inputs(cuda_device, 1, 1500, 12, 12, 64, dtype, seed=3)
+    o, lse = tfa.flash_attention_forward(q, k, v, causal=False, window=0)
+    o_p, lse_p = tfa.flash_attention_plain(q, k, v, causal=False, window=0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_p.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        w = o_p.float()
+        rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+        assert bool(((o.float() - w).abs()
+                     <= 2 ** -7 * w.abs() + 2 ** -5 * rms).all())
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b",
+                                  "starcoder2-7b", "granite-20b"])
+def test_encdec_and_vision_engine_kernel_path_matches_plain_path(
+        cuda_device, arch):
+    """REDUCED configs in fp32 through the kernels (whisper's encoder
+    through the flash kernel): every decode step launches the W4A16 kernel
+    once for each quantized linear (8 a layer for whisper, 6 for
+    starcoder2's GELU MLP, 7 else) and paged attention once a layer;
+    prefill logits match the plain path within fp32 summation order over
+    two layers (1e-3), and so do greedy tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_reduced(arch)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = T.quantize_params(T.init_params(gen, cfg, device=cuda_device),
+                               cfg, min_size=0)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 12)).astype(np.int32)
+    extra = [{} for _ in range(2)]
+    for e in extra:
+        if cfg.vision_prefix:
+            e["prefix_embeds"] = rng.standard_normal(
+                (cfg.vision_prefix, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            e["audio_embeds"] = rng.standard_normal(
+                (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    per_layer = {"encdec": 8}.get(cfg.family,
+                                  7 if cfg.mlp_type == "swiglu" else 6)
+
+    def run(strategy, path, attn_impl):
+        eng = ServingEngine(dataclasses.replace(
+            cfg, w4a16_strategy=strategy, attn_impl=attn_impl), params,
+            max_batch=2, max_prompt_len=12, max_new_tokens=4, page_size=8,
+            prefill_chunk=8, attn_path=path, device=cuda_device)
+        eng.start()
+        f0 = tfa.FLASH_ATTENTION.launches
+        for i in range(2):
+            eng.submit(Request(rid=i, prompt=toks[i], max_new_tokens=4,
+                               **extra[i]))
+        while eng.report.decode_tokens == 0:
+            eng.step()
+        flash = tfa.FLASH_ATTENTION.launches - f0
+        n0 = (wf.W4A16_GEMM.launches, tpa.PAGED_ATTENTION.launches)
+        eng.step()
+        n1 = (wf.W4A16_GEMM.launches - n0[0],
+              tpa.PAGED_ATTENTION.launches - n0[1])
+        return eng.drain(), n1, flash
+
+    fused, n, flash = run("auto", "auto", "flash")
+    assert n == (cfg.num_layers * per_layer, cfg.num_layers)
+    assert flash == (2 * cfg.encoder_layers if cfg.family == "encdec"
+                     else 0)
+    plain, n, flash = run("reference", "gather", "chunked")
+    assert n == (0, 0) and flash == 0
+    for rid in (0, 1):
+        torch.testing.assert_close(fused.prefill_logits[rid],
+                                   plain.prefill_logits[rid],
+                                   rtol=1e-3, atol=1e-3)
+    assert fused.results == plain.results

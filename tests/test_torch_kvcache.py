@@ -245,4 +245,4 @@ def test_cache_sizing_matches_jax():
     with pytest.raises(ValueError, match="page multiple"):
         kvc.pages_per_slot(10, 4)
     with pytest.raises(ValueError, match="not ported"):
-        configs.get_config("whisper-small")
+        configs.get_config("whisper-large")
