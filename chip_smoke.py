@@ -95,7 +95,7 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
 7. train   — (a) two train steps of danube at full width and depth (B=4 x
              2048 tokens, the same random weights and batches) through the
              flash kernel and through the plain chunked attention: loss,
-             grad norm, parameters and moments compared; (b) the port's
+             grad norm and moments compared; (b) the port's
              training launcher (``repro_torch.launch.train``) at full width
              and depth, 4 steps of 2 x 8192 tokens with checkpoints at
              steps 0 and 3 (~18.3 GB each, in a temporary directory that is
@@ -206,6 +206,39 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              1, the flash encoder, and whisper's decode-step
              cross-attention (plain PyTorch, as the JAX package leaves it to
              XLA).
+12. train-families — every family trains at full width, random weights
+             from seed 0, the full configs' remat (``FAMILY_TRAIN``):
+             whisper-small (12 + 12 layers, 4 x 448 tokens over 1500
+             frames each), internvl2-1b (24 layers, 2 x (256 patches +
+             1792)), hymba-1.5b (32, 2 x 1280: the 1024 window bites),
+             olmoe-1b-7b (4 of 16 layers, 2 x 1024), mixtral-8x7b (1 x 1024
+             at the depth 80 GB allows: 1 layer, since the functional
+             AdamW holds old and new moments), rwkv6-7b (8 of 32, 2 x 512),
+             starcoder2-7b and granite-20b (4 layers, 1 x 1024); each cut
+             printed with its byte count (``launch.train.train_bytes``).
+             Four ``make_train_step`` steps through the flash kernel and
+             two through the chunked attention from the same parameters
+             and batches (the launcher's own ``extra_inputs``): loss and
+             grad norm of the first two, m and v after them, within
+             ``TRAIN_TOL`` (phase 7(a)'s ``compare_paths``); MoE expert
+             choices of the flash run replayed in the chunked run, forward
+             and recompute in call order, every differing choice a
+             near-tie; hymba's two paths held in fp32 (in bf16 two plain
+             attention orders alone nearly fill ``TRAIN_TOL``'s m), its
+             bf16 flash steps timed; rwkv (no attention) flash steps only,
+             finite. Flash launches 2 x the attention layers a step (the
+             encoder's included), no other kernel; the median step ms of
+             steps 1-3, tokens/s, MFU and peak memory per arch. Then
+             ``python -m repro_torch.launch.train --arch whisper-small``
+             for 3 steps with checkpoints at steps 0 and 2 (each >= 10 B a
+             parameter; phase 7(b)'s ``run_launcher``), and row 7c: the
+             flash forward at each family's training shape held against
+             its plain version in fp32 and bf16 (hymba's window and
+             whisper's encoder among them), then timed against its bound,
+             its plain version and SDPA. Phase 3 also holds the Function's
+             gradients at each of those head shapes, at S = 256 and at the
+             training lengths (``flash_grad_cases``), against the exact
+             (fp64) gradient.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -866,13 +899,29 @@ def flash_limit(torch, want, dt):
                          2 ** -7 * w.abs() + 2 ** -5 * rms)
 
 
+def hold_flash(torch, phase, what, dt, dtype, o, lse, o_p, lse_p):
+    """The flash kernel's output within ``flash_limit`` of its plain
+    version's, element by element, and the log-sum-exp within 1e-4·(1 +
+    |lse|) (an fp32 sum of exps in another order); raises otherwise.
+    Returns max|d| of the output."""
+    err = (o.float() - o_p.float()).abs()
+    share = float((err / flash_limit(torch, o_p, dt)).max())
+    dl = float(((lse - lse_p).abs() / (1 + lse_p.abs())).max())
+    bad = o.dtype != dtype or share > 1 or dl > 1e-4
+    tol = FLASH_BF16_TOL if dt == "bf16" else "|d| <= 1e-5*(1+|plain|)"
+    log(phase, f"flash_attention {what}: max|d|={float(err.max()):.3e}, "
+        f"max |d|/limit={share:.3f}, max|dlse|/(1+|lse|)={dl:.2e} "
+        f"{'FAIL' if bad else 'ok'} ({tol}; lse 1e-4)")
+    if bad:
+        raise AssertionError(f"flash_attention disagrees at {what}")
+    return float(err.max())
+
+
 def check_flash(torch, dev, gen):
     """The flash-attention kernel vs its plain version (one full softmax
     per row in the kernel's rounding order) at every phase-3 shape
-    (``FLASH_CASES``, then ``FLASH_VIEW_CASES`` on strided views): the
-    output within ``flash_limit`` of the plain output element by element;
-    the log-sum-exp within 1e-4·(1 + |lse|) (an fp32 sum of exps in
-    another order). Returns the worst bf16 |d| of the output."""
+    (``FLASH_CASES``, then ``FLASH_VIEW_CASES`` on strided views), held by
+    ``hold_flash``. Returns the worst bf16 |d| of the output."""
     from repro_torch.kernels import flash_attention as fa
     worst = 0.0
     cases = [(c, False) for c in FLASH_CASES] \
@@ -885,57 +934,114 @@ def check_flash(torch, dev, gen):
                                                 window=window)
             o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=causal,
                                                   window=window)
-            err = (o.float() - o_p.float()).abs()
-            share = float((err / flash_limit(torch, o_p, dt)).max())
-            dl = float(((lse - lse_p).abs() / (1 + lse_p.abs())).max())
-            bad = o.dtype != dtype or share > 1 or dl > 1e-4
+            err = hold_flash(
+                torch, "kernels", f"{label} {dt} B={B} Sq={Sq} Skv={Skv} "
+                f"Hq={Hq} Hkv={Hkv} D={D} causal={causal} window={window}",
+                dt, dtype, o, lse, o_p, lse_p)
             if dt == "bf16":
-                worst = max(worst, float(err.max()))
-            tol = FLASH_BF16_TOL if dt == "bf16" else \
-                "|d| <= 1e-5*(1+|plain|)"
-            log("kernels", f"flash_attention {label} {dt} B={B} Sq={Sq} "
-                f"Skv={Skv} Hq={Hq} Hkv={Hkv} D={D} causal={causal} "
-                f"window={window}: max|d|={float(err.max()):.3e}, "
-                f"max |d|/limit={share:.3f}, "
-                f"max|dlse|/(1+|lse|)={dl:.2e} {'FAIL' if bad else 'ok'} "
-                f"({tol}; lse 1e-4)")
-            if bad:
-                raise AssertionError(f"flash_attention disagrees at {label} "
-                                     f"{dt}")
+                worst = max(worst, err)
             del q, k, v, o, o_p, lse, lse_p
     return worst
 
 
+# the Function's gradients at B = 1, S = 256 (phase 3's first length)
+# for danube's heads and each family's training heads, a 64-token
+# window where the arch has a window, and whisper's encoder non-causal
+# over 1500 frames: (label, S, Hq, Hkv, D, causal, window)
+FLASH_GRAD_CASES = [
+    ("danube", 256, 32, 8, 80, True, 64),
+    ("olmoe", 256, 16, 16, 128, True, 0),
+    ("mixtral", 256, 32, 8, 128, True, 64),
+    ("hymba", 256, 25, 5, 64, True, 64),
+    ("internvl2", 256, 14, 2, 64, True, 0),
+    ("starcoder2", 256, 36, 4, 128, True, 0),
+    ("granite", 256, 48, 1, 128, True, 0),
+    ("whisper decoder", 256, 12, 12, 64, True, 0),
+    ("whisper encoder", 1500, 12, 12, 64, False, 0),
+]
+# the Function's tolerances: fp32 sums; bf16 outputs and p rounded at
+# different maxima, on unit-scale gradients
+FLASH_GRAD_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+
+
+def flash_grad_cases():
+    """``FLASH_GRAD_CASES``, then the training lengths at B = 1: phase
+    7(a)'s 2048 tokens at danube's heads and every phase-12 shape
+    (``family_flash_shapes``) not already listed. Yields (label, S, Hq,
+    Hkv, D, causal, window, at the training length)."""
+    seen = set()
+    for c in FLASH_GRAD_CASES:
+        seen.add(c[1:])
+        yield (*c, False)
+    train = [("danube 4x2048", 2048, 32, 8, 80, True, 4096)] + [
+        (label, S, Hq, Hkv, D, causal, window) for label, _, S, Hq, Hkv, D,
+        causal, window in family_flash_shapes()]
+    for c in train:
+        if c[1:] not in seen:
+            seen.add(c[1:])
+            yield (*c, True)
+
+
 def check_flash_grads(torch, dev, gen):
     """The FlashAttention Function's dq, dk, dv (kernel forward, PyTorch
-    backward from its lse) vs autograd through the plain version, at B=1,
-    S=256, danube heads, window 64. fp32: 1e-5 (two fp32 routes to one
-    gradient); bf16: 2e-2·(1 + |g|) on unit-scale gradients (bf16 outputs
-    and p rounded at different maxima)."""
+    backward from its lse) vs autograd through the plain version in fp64
+    on the same input values (the exact gradient), at every
+    ``flash_grad_cases`` shape: |d| <= tol·(1 + |g|) with ``FLASH_GRAD_TOL``.
+    The reference is exact because a reference in the inputs' dtype
+    spends the bound on its own error once G query heads share a KV head:
+    each dK element sums G x S rows, and autograd through the bf16 plain
+    version also rounds dP to bf16 (1.01x the bf16 bound off the exact dK
+    at granite's G = 48, S = 1024, a CPU reading). At the training
+    lengths (S = 1024 to 2048, G up to 48) the fp32 sums alone come near
+    1e-5: there fp32 autograd through the plain version is measured
+    against the exact gradient on the same inputs, and the fp32 tol is
+    the larger of 1e-5 and twice that distance (max over the tensor of
+    |plain - exact| / (1 + |exact|)). bf16 keeps its tol everywhere."""
     from repro_torch.kernels import flash_attention as fa
-    for dt, dtype, tol in (("fp32", torch.float32, 1e-5),
-                           ("bf16", torch.bfloat16, 2e-2)):
-        q, k, v = flash_inputs(torch, gen, dev, 1, 256, 256, 32, 8, 80,
-                               dtype)
-        do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
-        got = torch.autograd.grad(
-            fa.flash_attention(q.requires_grad_(), k.requires_grad_(),
-                               v.requires_grad_(), causal=True, window=64),
-            (q, k, v), do)
-        want = torch.autograd.grad(
-            fa.flash_attention_plain(q, k, v, causal=True, window=64)[0],
-            (q, k, v), do)
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            err = (g.float() - w.float()).abs()
-            bad = g.dtype != dtype or bool(
-                (err > tol * (1 + w.float().abs())).any())
-            log("kernels", f"flash_attention grad {dt} {name} B=1 S=256 "
-                f"window=64: max|d|={float(err.max()):.3e} (max|g| "
-                f"{float(w.float().abs().max()):.3f}) "
-                f"{'FAIL' if bad else 'ok'} (|d| <= {tol}*(1+|g|))")
-            if bad:
-                raise AssertionError(f"flash_attention {name} {dt} "
-                                     f"disagrees with autograd")
+    for label, S, Hq, Hkv, D, causal, window, long in flash_grad_cases():
+        for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = flash_inputs(torch, gen, dev, 1, S, S, Hq, Hkv, D,
+                                   dtype)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            got = torch.autograd.grad(
+                fa.flash_attention(q.requires_grad_(), k.requires_grad_(),
+                                   v.requires_grad_(), causal=causal,
+                                   window=window),
+                (q, k, v), do)
+            qf, kf, vf = (t.detach().double().requires_grad_()
+                          for t in (q, k, v))
+            want = torch.autograd.grad(
+                fa.flash_attention_plain(qf, kf, vf, causal=causal,
+                                         window=window)[0],
+                (qf, kf, vf), do.double())
+            plain = [None] * 3
+            if long and dt == "fp32":
+                qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
+                plain = torch.autograd.grad(
+                    fa.flash_attention_plain(qp, kp, vp, causal=causal,
+                                             window=window)[0],
+                    (qp, kp, vp), do)
+                del qp, kp, vp
+            for name, g, w, p in zip(("dq", "dk", "dv"), got, want, plain):
+                scale = 1 + w.abs()
+                tol, note = FLASH_GRAD_TOL[dt], ""
+                if p is not None:
+                    rel = float(((p.double() - w).abs() / scale).max())
+                    tol = max(tol, 2 * rel)
+                    note = f"; fp32 plain {rel:.3e} off exact"
+                err = (g.double() - w).abs()
+                share = float((err / (tol * scale)).max())
+                bad = g.dtype != dtype or share > 1
+                log("kernels", f"flash_attention grad {label} {dt} {name} "
+                    f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} causal={causal} "
+                    f"window={window}: max|d|={float(err.max()):.3e} (max|g| "
+                    f"{float(w.abs().max()):.3f}), max |d|/limit "
+                    f"{share:.3f}{note} {'FAIL' if bad else 'ok'} "
+                    f"(|d| <= {tol:.3g}*(1+|g|))")
+                if bad:
+                    raise AssertionError(f"flash_attention {name} {label} "
+                                         f"{dt} disagrees with autograd")
+            del q, k, v, qf, kf, vf, do, got, want, plain
 
 
 # ---------------------------------------------------------------------------
@@ -1540,74 +1646,17 @@ def max_rel_diff(torch, got, want):
 
 def train_compare(torch, dev, card, table):
     """Phase 7(a): two train steps (``make_train_step``, B=4 x 2048 tokens,
-    full width and depth, the same parameters drawn once from seed 0, the
-    same batches) through the flash kernel and through the plain chunked
-    attention (the JAX trainer's). Any kernel error raises here, before
-    the launcher's runner would retry it."""
-    import dataclasses
+    full width and depth, the parameters of seed 0, the same batches)
+    through the flash kernel and through the plain chunked attention (the
+    JAX trainer's), held by phase 12's ``compare_paths``. Any kernel error
+    raises here, before the launcher's runner would retry it."""
     from repro_torch import configs
     from repro_torch.data import SyntheticTokenStream
-    from repro_torch.models import transformer as T
-    from repro_torch.optim import AdamWConfig, adamw_init
-    from repro_torch.runtime import steps
     cfg = configs.get_config(ARCH)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params0 = T.init_params(gen, cfg, device=dev)
-    opt_cfg = AdamWConfig(lr=1e-3)
     stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=2048,
                                   batch_size=4, device=dev)
-    runs = {}
-    for impl in ("flash", "chunked"):
-        step_fn = steps.make_train_step(
-            dataclasses.replace(cfg, attn_impl=impl), opt_cfg)
-        params, state = params0, adamw_init(params0, opt_cfg)
-        reset_counts(table)
-        metrics = []
-        for step in range(2):
-            t0 = time.perf_counter()
-            params, state, m = step_fn(params, state,
-                                       {"batch": stream.batch_at(step),
-                                        "step": step})
-            torch.cuda.synchronize()
-            metrics.append((float(m["loss"]), float(m["grad_norm"]),
-                            time.perf_counter() - t0))
-        launched = read_counts(table)
-        log("train", f"attn_impl={impl}: " + "; ".join(
-            f"step {i} loss {l:.6f} grad-norm {g:.6f} ({t:.2f} s)"
-            for i, (l, g, t) in enumerate(metrics))
-            + f"; flash launches {launched['flash_attention']} [{card}]")
-        want = 2 * 2 * cfg.num_layers if impl == "flash" else 0
-        if launched["flash_attention"] != want or any(
-                launched[n] for n in table if n != "flash_attention"):
-            raise AssertionError(f"attn_impl={impl}: expected {want} flash "
-                                 f"launches and no other kernel: {launched}")
-        moments = {"m": state["m"], "v": state["v"]}
-        runs[impl] = (metrics, tree_to(torch, moments, "cpu")
-                      if impl == "flash" else moments)
-        del params, state
-        torch.cuda.empty_cache()
-    (mk, tk), (mp, tp) = runs["flash"], runs["chunked"]
-    bad = []
-    for i in range(2):
-        for j, name in enumerate(("loss", "grad_norm")):
-            d = abs(mk[i][j] - mp[i][j]) / abs(mp[i][j])
-            ok = d <= TRAIN_TOL[name]
-            bad += [] if ok else [f"step {i} {name}"]
-            log("train", f"step {i} {name}: kernel {mk[i][j]:.6f} vs plain "
-                f"{mp[i][j]:.6f}, |d|/|plain| {d:.2e} "
-                f"{'ok' if ok else 'FAIL'} ({TRAIN_TOL[name]})")
-    for name in ("m", "v"):
-        d, where = max_rel_diff(torch, tk[name], tp[name])
-        ok = d <= TRAIN_TOL[name]
-        bad += [] if ok else [name]
-        log("train", f"after step 2, {name}: max|d| / max|plain| per leaf "
-            f"{d:.3e} (worst {where}) {'ok' if ok else 'FAIL'} "
-            f"({TRAIN_TOL[name]:.3g})")
-    if bad:
-        raise AssertionError(f"kernel and plain training paths disagree: "
-                             f"{bad}")
-    del runs, tk, tp
+    batches = [stream.batch_at(i) for i in range(FAMILY_STEPS)]
+    compare_paths(torch, dev, cfg, batches, table, "danube", phase="train")
     torch.cuda.empty_cache()
 
 
@@ -1630,32 +1679,37 @@ def _mem_available() -> int:
     raise RuntimeError("MemAvailable missing from /proc/meminfo")
 
 
-def train_launcher(torch, card, table):
-    """Phase 7(b): the port's training launcher at full width and depth,
-    2 x 8192 tokens (danube's long-context length: SWA bites), 4 steps,
-    checkpoints at steps 0 and 3 into a temporary directory that is
-    removed afterwards. Returns the flash kernel's launches in the run."""
+def run_launcher(torch, card, table, phase, argv):
+    """``python -m repro_torch.launch.train`` with ``argv`` (full width
+    and depth), checkpoints into a temporary directory that is removed
+    afterwards, after checking there is room for two checkpoints on disk
+    and one in host RAM. Checks the history (a checkpoint at each step the
+    runner saves: every ``--ckpt-every``, and the last), the flash kernel
+    alone launching 2 x the attention layers a step (forward and remat
+    recompute), finite losses, and each checkpoint at least 10 B a
+    parameter (bf16 weights, fp32 m and v). Returns the report, the
+    launches and the peak device memory."""
     import shutil
     import tempfile
     from repro_torch import configs
-    from repro_torch.core import costmodel as cm
     from repro_torch.launch import train as launcher
-    cfg = configs.get_config(ARCH)
+    args = launcher.build_args(argv)
+    cfg = configs.get_config(args.arch)
     ckpt = _ckpt_bytes(cfg)
     tmp_root = tempfile.gettempdir()
     free, avail = shutil.disk_usage(tmp_root).free, _mem_available()
-    log("train", f"checkpoints of {ckpt / 1e9:.2f} GB each: {free / 1e9:.1f} "
+    log(phase, f"checkpoints of {ckpt / 1e9:.2f} GB each: {free / 1e9:.1f} "
         f"GB free under {tmp_root}, {avail / 1e9:.1f} GB host RAM available")
     if free < 2.2 * ckpt or avail < 1.5 * ckpt:
         raise RuntimeError(
-            f"phase 7 needs room for two {ckpt / 1e9:.1f} GB checkpoints "
+            f"{args.arch} needs room for two {ckpt / 1e9:.1f} GB checkpoints "
             f"({2.2 * ckpt / 1e9:.1f} GB free disk under {tmp_root}) and "
             f"{1.5 * ckpt / 1e9:.1f} GB of host RAM to stage one; found "
             f"{free / 1e9:.1f} GB and {avail / 1e9:.1f} GB")
     d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        argv = TRAIN_ARGV + ["--ckpt-dir", d]
-        log("train", "python -m repro_torch.launch.train " + " ".join(argv))
+        argv = argv + ["--ckpt-dir", d]
+        log(phase, "python -m repro_torch.launch.train " + " ".join(argv))
         reset_counts(table)
         torch.cuda.reset_peak_memory_stats()
         report = launcher.main(argv)
@@ -1666,21 +1720,45 @@ def train_launcher(torch, card, table):
                  for name in sorted(os.listdir(d))}
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    kinds = [h[0] for h in report.history]
-    per_step = launched["flash_attention"] / TRAIN_STEPS
-    log("train", f"history {report.history}; launches {launched} "
-        f"({per_step:.0f} flash launches per step: {cfg.num_layers} "
-        f"forward + {cfg.num_layers} remat recompute)")
-    if kinds != ["checkpoint", "checkpoint"] or \
-            per_step != 2 * cfg.num_layers or any(
-                launched[n] for n in table if n != "flash_attention"):
-        raise AssertionError("the launcher's run went other than planned: "
-                             "its history must hold only the two "
-                             "checkpoints, and the flash kernel alone must "
-                             "launch, 48 times a step")
-    if len(report.losses) != TRAIN_STEPS or not all(
+    saves = [("checkpoint", s) for s in range(args.steps)
+             if s % args.ckpt_every == 0 or s == args.steps - 1]
+    attn_layers = cfg.num_layers + cfg.encoder_layers
+    want = args.steps * 2 * attn_layers
+    log(phase, f"{args.arch} launcher: history {report.history}; losses "
+        f"{[f'{l:.4f}' for l in report.losses]}; grad norm "
+        f"{[f'{g:.3f}' for g in report.grad_norms]}; step ms "
+        f"{[f'{t * 1e3:.1f}' for t in report.step_s]}; launches {launched} "
+        f"(want {want} flash: 2 x {attn_layers} attention layers a step, "
+        f"forward and remat recompute); checkpoints " + "; ".join(
+            f"{n} {b / 1e9:.4f} GB" for n, b in sizes.items())
+        + f" (at least {ckpt / 1e9:.4f} GB: 10 B x "
+        f"{cfg.param_count() / 1e9:.4f} B params); save to the next step's "
+        f"start " + "; ".join(f"step {s} {report.after_step_s[s]:.1f} s"
+                              for _, s in report.history) + f" [{card}]")
+    if report.history != saves or launched["flash_attention"] != want \
+            or any(c for n, c in launched.items() if n != "flash_attention"):
+        raise AssertionError(f"the {args.arch} launcher's run went other "
+                             f"than planned: history must be {saves}, and "
+                             f"the flash kernel alone must launch, {want} "
+                             f"times")
+    if len(report.losses) != args.steps or not all(
             l == l and abs(l) < 1e4 for l in report.losses):
         raise AssertionError(f"losses {report.losses}")
+    if len(sizes) != len(saves) or min(sizes.values()) < ckpt:
+        raise AssertionError(f"checkpoints {sizes}, each at least {ckpt} B")
+    return report, launched, peak
+
+
+def train_launcher(torch, card, table):
+    """Phase 7(b): the port's training launcher (``run_launcher``) at
+    full width and depth, 2 x 8192 tokens (danube's long-context length:
+    SWA bites), 4 steps, checkpoints at steps 0 and 3. Returns the flash
+    kernel's launches in the run."""
+    from repro_torch import configs
+    from repro_torch.core import costmodel as cm
+    cfg = configs.get_config(ARCH)
+    report, launched, peak = run_launcher(torch, card, table, "train",
+                                          TRAIN_ARGV)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_s = sorted(report.step_s[1:])[len(report.step_s[1:]) // 2]
     pairs = cm.attn_pairs(TRAIN_SEQ, TRAIN_SEQ, causal=True,
@@ -1688,22 +1766,11 @@ def train_launcher(torch, card, table):
     flops = 6.0 * cfg.param_count() * tokens + 12.0 * cfg.num_layers \
         * TRAIN_BATCH * cfg.num_heads * cfg.head_dim * pairs
     log("train", f"{cfg.param_count() / 1e9:.3f} B params, {tokens} tokens "
-        f"a step: step ms {[f'{t * 1e3:.1f}' for t in report.step_s]} "
-        f"(median of steps 1-3 {step_s * 1e3:.1f} ms) = "
+        f"a step: median of steps 1-3 {step_s * 1e3:.1f} ms = "
         f"{tokens / step_s:.0f} tokens/s, MFU {flops / step_s / PEAK_BF16:.1%}"
         f" of 989 TFLOP/s (6·N·T + 12·L·B·Hq·D·pairs = {flops:.4g} FLOP, "
         f"remat recompute not counted); peak device memory "
-        f"{peak / 2**30:.2f} GiB; loss per step "
-        f"{[f'{l:.4f}' for l in report.losses]}; grad norm "
-        f"{[f'{g:.3f}' for g in report.grad_norms]} [{card}]")
-    log("train", "checkpoints: " + "; ".join(
-        f"{name} {sizes[name] / 1e9:.3f} GB" for name in sizes)
-        + " (expected " + f"{ckpt / 1e9:.3f} GB); save to the next step's "
-        "start " + "; ".join(f"step {s} {report.after_step_s[s]:.1f} s"
-                             for _, s in report.history))
-    if set(sizes.values()) and min(sizes.values()) < ckpt:
-        raise AssertionError(f"a checkpoint is smaller than its "
-                             f"{ckpt} bytes: {sizes}")
+        f"{peak / 2**30:.2f} GiB [{card}]")
     return launched["flash_attention"]
 
 
@@ -4162,6 +4229,387 @@ def p11_serve(torch, dev, card, table):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: train the families
+# ---------------------------------------------------------------------------
+
+# (arch, decoder layers kept (None: all), rows, text tokens a row): full
+# width, random weights from seed 0, the full configs' remat; the vision
+# prefix adds its 256 patches to every row, whisper's encoder its 1500
+# frames. Depth is cut where 80 GB forces it: mixtral keeps 1 layer, since
+# 2 would hold 75.3 GiB at the update's peak (``launch.train.train_bytes``)
+FAMILY_TRAIN = [
+    ("whisper-small", None, 4, 448),
+    ("internvl2-1b", None, 2, 1792),
+    ("hymba-1.5b", None, 2, 1280),
+    ("olmoe-1b-7b", 4, 2, 1024),
+    ("mixtral-8x7b", 1, 1, 1024),
+    ("rwkv6-7b", 8, 2, 512),
+    ("starcoder2-7b", 4, 1, 1024),
+    ("granite-20b", 4, 1, 1024),
+]
+# steps of each path held against the other; the flash run goes on to
+# FAMILY_TIMED steps, and its step time is the median of steps 1 to 3
+FAMILY_STEPS = 2
+FAMILY_TIMED = 4
+# hymba's paths are held in fp32: in bf16 two plain attention orders
+# alone (chunks of 1024 and of 512) move its m by 4.36e-2 to 6.30e-2 over
+# seeds 0-3 against the 5e-2 bound (SSM projections), and the kernel's
+# order by 4.64e-2 to 6.33e-2, one spread (scripts/hymba_bf16_spread.py;
+# an H100 80GB HBM3 at 700 W). Its bf16 flash steps are timed, and the
+# kernel is held at its bf16 shape by ``check_family_flash`` and
+# ``check_flash_grads``.
+FP32_HELD = {"hymba-1.5b"}
+TRAIN_MEM_CAP = 70 * 2 ** 30
+FAMILY_LAUNCH_ARGV = ["--arch", "whisper-small", "--steps", "3", "--batch",
+                      "4", "--seq", "448", "--ckpt-every", "2"]
+
+
+def family_config(arch, layers):
+    """The full config at ``layers`` decoder layers, the cut printed; its
+    training state (``launch.train.train_bytes``) must stay under
+    ``TRAIN_MEM_CAP``."""
+    from repro_torch import configs
+    from repro_torch.launch.train import (LEAF_TEMP_BYTES,
+                                          TRAIN_BYTES_PER_PARAM, train_bytes)
+    full = configs.get_config(arch)
+    cfg = full if layers is None else \
+        dataclasses.replace(full, num_layers=layers)
+    if cfg.num_layers < full.num_layers:
+        more = dataclasses.replace(cfg, num_layers=cfg.num_layers + 1)
+        log("train-families", f"{arch}: depth cut to {cfg.num_layers} of "
+            f"{full.num_layers} layers, full width: all {full.num_layers} "
+            f"would hold {train_bytes(full) / 2**30:.1f} GiB at the "
+            f"update's peak, {more.num_layers} "
+            f"{train_bytes(more) / 2**30:.1f} GiB ({TRAIN_BYTES_PER_PARAM} B "
+            f"a parameter + {LEAF_TEMP_BYTES} B an element of the largest "
+            f"leaf)")
+    if train_bytes(cfg) > TRAIN_MEM_CAP:
+        raise AssertionError(f"{arch}: {train_bytes(cfg)} B of training "
+                             f"state pass {TRAIN_MEM_CAP}")
+    return cfg
+
+
+def train_flops(cfg, B, S) -> float:
+    """6·N·T (N the active parameters, embedding included, as phase 7
+    counts) plus 12·B·Hq·D per attention pair a layer (QKᵀ and PV, the
+    backward twice the forward); whisper's encoder and cross K/V
+    projections run over its frames, its cross-attention over S x frames
+    pairs. Remat recompute and the scans are not counted."""
+    from repro_torch.core import costmodel as cm
+    St = S + cfg.vision_prefix
+    n = cfg.active_param_count()
+    if cfg.family == "rwkv":
+        return 6.0 * n * B * St
+    per_pair = 12.0 * B * cfg.num_heads * cfg.head_dim
+    flops = per_pair * cfg.num_layers * cm.attn_pairs(
+        St, St, causal=True, window=cfg.sliding_window)
+    if cfg.family != "encdec":
+        return flops + 6.0 * n * B * St
+    d, T = cfg.d_model, cfg.encoder_seq
+    attn = 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+    mlp = 2 * d * cfg.d_ff
+    n_frames = cfg.encoder_layers * (attn + mlp) \
+        + cfg.num_layers * 2 * d * cfg.kv_dim
+    return flops + 6.0 * n_frames * B * T + 6.0 * (n - n_frames) * B * S \
+        + per_pair * (cfg.encoder_layers * T * T + cfg.num_layers * S * T)
+
+
+def family_run(torch, dev, cfg, impl, batches, table, routing=None,
+               replay=False, seed=0, keep=True):
+    """One step of ``make_train_step`` through ``impl`` per batch, from
+    the parameters of ``seed`` (drawn anew, so no copy is held), with the
+    counts set to 0 just before and read just after; MoE expert choices
+    recorded into ``routing`` (the first ``FAMILY_STEPS`` steps' only),
+    or replayed from it with ``replay``. Returns the (loss, grad norm,
+    seconds) per step, the moments after ``FAMILY_STEPS`` steps (with
+    ``keep``; on the host if more steps follow), the counts."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import steps
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = T.init_params(gen, cfg, device=dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    state = adamw_init(params, opt_cfg)
+    step_fn = steps.make_train_step(
+        dataclasses.replace(cfg, attn_impl=impl), opt_cfg)
+    ctx = contextlib.nullcontext() if routing is None else \
+        routing.replaying() if replay else routing.recording()
+    metrics, held, n_calls = [], None, 0
+    torch.cuda.synchronize()
+    reset_counts(table)
+    with ctx:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state,
+                                       {"batch": batch, "step": i})
+            torch.cuda.synchronize()
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            time.perf_counter() - t0))
+            if i + 1 == FAMILY_STEPS and keep:
+                held = {"m": state["m"], "v": state["v"]}
+                if len(batches) > FAMILY_STEPS:
+                    held = tree_to(torch, held, "cpu")
+                n_calls = len(routing.calls) if routing is not None else 0
+    launched = read_counts(table)
+    if routing is not None and not replay:
+        del routing.calls[n_calls:]
+    del params, state
+    return metrics, held, launched
+
+
+def median_step_s(metrics) -> float:
+    """The median seconds of the steps after the first."""
+    times = sorted(t for _, _, t in metrics[1:])
+    return times[len(times) // 2]
+
+
+def hold_family(torch, phase, label, mk, tk, mp, tp):
+    """Loss and grad norm per step over the first ``FAMILY_STEPS`` steps,
+    m and v after them, within ``TRAIN_TOL``."""
+    bad = []
+    for i in range(FAMILY_STEPS):
+        for j, name in enumerate(("loss", "grad_norm")):
+            d = abs(mk[i][j] - mp[i][j]) / abs(mp[i][j])
+            ok = d <= TRAIN_TOL[name]
+            bad += [] if ok else [f"step {i} {name}"]
+            log(phase, f"{label} step {i} {name}: flash {mk[i][j]:.6f} vs "
+                f"chunked {mp[i][j]:.6f}, |d|/|chunked| {d:.2e} "
+                f"{'ok' if ok else 'FAIL'} ({TRAIN_TOL[name]})")
+    for name in ("m", "v"):
+        d, where = max_rel_diff(torch, tk[name], tp[name])
+        ok = d <= TRAIN_TOL[name]
+        bad += [] if ok else [name]
+        log(phase, f"{label} after step {FAMILY_STEPS}, {name}: max|d| / "
+            f"max|chunked| per leaf {d:.3e} (worst {where}) "
+            f"{'ok' if ok else 'FAIL'} ({TRAIN_TOL[name]:.3g})")
+    if bad:
+        raise AssertionError(f"{label}: the flash and chunked training paths "
+                             f"disagree: {bad}")
+
+
+def compare_paths(torch, dev, cfg, batches, table, label, *,
+                  phase="train-families", plain=True):
+    """One flash step per batch, then (with ``plain``, and but for an
+    attention-free arch) ``FAMILY_STEPS`` through the chunked attention
+    from the same weights and batches, held by ``hold_family``; MoE
+    expert choices of the flash run replayed in the chunked run. The flash
+    kernel must launch 2 x the attention layers a step (forward and remat
+    recompute, the encoder's included) and nothing else must. Returns the
+    flash run's (loss, grad norm, seconds) per step."""
+    attn_layers = 0 if cfg.attn_free else \
+        cfg.num_layers + cfg.encoder_layers
+    want = len(batches) * 2 * attn_layers
+    plain = plain and not cfg.attn_free
+    routing = Routing() if cfg.family == "moe" and plain else None
+    mk, tk, launched = family_run(torch, dev, cfg, "flash", batches, table,
+                                  routing, keep=plain)
+    others = {n: c for n, c in launched.items()
+              if c and n != "flash_attention"}
+    log(phase, f"{label} flash: " + "; ".join(
+        f"step {i} loss {l:.6f} grad-norm {g:.6f} ({t * 1e3:.1f} ms)"
+        for i, (l, g, t) in enumerate(mk))
+        + f"; flash launches {launched['flash_attention']} (want {want}: "
+        f"2 x {attn_layers} attention layers a step)")
+    if launched["flash_attention"] != want or others:
+        raise AssertionError(f"{label}: expected {want} flash launches and "
+                             f"no other kernel: {launched}")
+    if not all(l == l and g == g and abs(l) < 1e4 for l, g, _ in mk):
+        raise AssertionError(f"{label}: losses or grad norms not finite "
+                             f"{mk}")
+    if not plain:
+        return mk
+    tk = tree_to(torch, tk, "cpu")
+    torch.cuda.empty_cache()
+    mp, tp, counts = family_run(torch, dev, cfg, "chunked",
+                                batches[:FAMILY_STEPS], table, routing,
+                                replay=True)
+    log(phase, f"{label} chunked: " + "; ".join(
+        f"step {i} ({t * 1e3:.1f} ms)" for i, (_, _, t) in enumerate(mp))
+        + f"; launches {sum(counts.values())}")
+    if any(counts.values()):
+        raise AssertionError(f"{label}: the chunked run launched {counts}")
+    if routing is not None:
+        routing.check(f"{label} training")
+        if routing.next != len(routing.calls):
+            raise AssertionError(f"{label}: replayed {routing.next} of "
+                                 f"{len(routing.calls)} routing calls")
+    hold_family(torch, phase, label, mk, tk, mp, tp)
+    del tk, tp, routing
+    torch.cuda.empty_cache()
+    return mk
+
+
+def train_family(torch, dev, card, table, arch, layers, B, S):
+    """One arch of phase 12 (``compare_paths``) at full width, in bf16,
+    ``FAMILY_TIMED`` flash steps; an arch in ``FP32_HELD`` runs its bf16
+    flash steps alone (times, launches, finite values) and is held by a
+    pair of ``FAMILY_STEPS``-step runs in fp32 on the same (unrounded)
+    weights. Returns the row of the summary."""
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.launch import train as launcher
+    cfg = family_config(arch, layers)
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=S,
+                                  batch_size=B, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    extra = launcher.extra_inputs(cfg, B, gen, dev)
+    batches = [{**stream.batch_at(i), **extra} for i in range(FAMILY_TIMED)]
+    shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in extra.items())
+    log("train-families", f"{arch}: {cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else "")
+        + f", d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params "
+        f"({cfg.active_param_count() / 1e9:.3f} B active), B = {B} x {S} "
+        f"tokens{'; ' + shapes if shapes else ''}; training state "
+        f"~{launcher.train_bytes(cfg) / 2**30:.1f} GiB at the update's peak")
+    torch.cuda.reset_peak_memory_stats()
+    mk = compare_paths(torch, dev, cfg, batches, table, arch,
+                       plain=arch not in FP32_HELD)
+    peak = torch.cuda.max_memory_allocated()
+    if arch in FP32_HELD:
+        compare_paths(torch, dev, dataclasses.replace(
+            cfg, dtype=torch.float32), batches[:FAMILY_STEPS], table,
+            f"{arch} fp32")
+    del batches, extra
+    torch.cuda.empty_cache()
+    step_s = median_step_s(mk)
+    tokens = B * (S + cfg.vision_prefix)
+    flops = train_flops(cfg, B, S)
+    row = dict(arch=arch, layers=cfg.num_layers, step_ms=step_s * 1e3,
+               tokens=tokens, mfu=flops / step_s / PEAK_BF16, peak=peak)
+    log("train-families", f"{arch}: flash, bf16, median of steps 1-"
+        f"{len(mk) - 1} {row['step_ms']:.1f} ms (steps "
+        f"{', '.join(f'{t * 1e3:.1f}' for _, _, t in mk[1:])}) for {tokens} "
+        f"tokens = {tokens / step_s:.0f} tokens/s, MFU {row['mfu']:.2%} of "
+        f"989 TFLOP/s ({flops:.4g} FLOP: 6·N_active·T + 12·B·Hq·D·pairs a "
+        f"layer, remat recompute not counted); peak device memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    if peak >= 80e9:
+        raise AssertionError(f"{arch}: peak {peak} B is not under 80 GB")
+    return row
+
+
+def family_launcher(torch, card, table):
+    """Phase 12's launcher run (``run_launcher``): ``python -m
+    repro_torch.launch.train --arch whisper-small`` at full width and
+    depth, 4 x 448 tokens over 4 x 1500 frames that must come from the
+    launcher's own ``extra_inputs``, 3 steps, checkpoints at steps 0 and
+    2, each at least 10 B a parameter (the encoder's included)."""
+    from repro_torch import configs
+    from repro_torch.launch import train as launcher
+    cfg = configs.get_config("whisper-small")
+    drawn = []
+    draw = launcher.extra_inputs
+    launcher.extra_inputs = lambda *a: drawn.append(draw(*a)) or drawn[-1]
+    try:
+        run_launcher(torch, card, table, "train-families", FAMILY_LAUNCH_ARGV)
+    finally:
+        launcher.extra_inputs = draw
+    audio = [(tuple(ex["audio_embeds"].shape), ex["audio_embeds"].dtype)
+             for ex in drawn]
+    log("train-families", f"whisper-small launcher: audio drawn {audio}")
+    if audio != [((4, cfg.encoder_seq, cfg.d_model), cfg.dtype)]:
+        raise AssertionError(f"the launcher's audio: {audio}")
+
+
+def family_flash_shapes():
+    """The flash kernel's shapes in phase 12's training runs: (label, B,
+    S, Hq, Hkv, D, causal, window) per arch with attention, and whisper's
+    encoder over its frames."""
+    from repro_torch import configs
+    for arch, _, B, S in FAMILY_TRAIN:
+        cfg = configs.get_config(arch)
+        if cfg.attn_free:
+            continue
+        heads = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        yield (arch, B, S + cfg.vision_prefix, *heads, True,
+               cfg.sliding_window)
+        if cfg.family == "encdec":
+            yield (f"{arch} encoder", B, cfg.encoder_seq, *heads, False, 0)
+
+
+def check_family_flash(torch, dev, gen, card):
+    """Row 7c: the flash kernel's forward at each family's training shape
+    (``family_flash_shapes``: hymba's window and whisper's encoder among
+    them) held against its plain version by ``hold_flash`` in fp32 and in
+    bf16, then timed in bf16 (L2 flushed, phase 5's ``Timer``) beside its
+    bound (bytes: q, k, v read and o, lse written once; operations: 4·D a
+    visible pair and query head at 989 TFLOP/s), its plain version and
+    ``F.scaled_dot_product_attention`` (``enable_gqa``; an explicit mask
+    where the window bites). The SDPA call is timed only. Returns the
+    rows and the worst bf16 |d| of the output."""
+    import torch.nn.functional as F
+    from repro_torch.core import costmodel as cm
+    from repro_torch.kernels import flash_attention as fa
+    timer = Timer(torch, dev, iters=10)
+    rows, worst = {}, 0.0
+    for label, B, S, Hq, Hkv, D, causal, window in family_flash_shapes():
+        for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = flash_inputs(torch, gen, dev, B, S, S, Hq, Hkv, D,
+                                   dtype)
+            o, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                                window=window)
+            o_p, lse_p = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                  window=window)
+            err = hold_flash(
+                torch, "train-families", f"{label} {dt} B={B} S={S} "
+                f"{Hq}/{Hkv} heads of {D} causal={causal} window={window}",
+                dt, dtype, o, lse, o_p, lse_p)
+            del o, lse, o_p, lse_p
+        worst = max(worst, err)
+        pos = torch.arange(S, device=dev)
+        bites = bool(window) and window < S
+        mask = None if not bites else \
+            (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                              - window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = cm.attn_pairs(S, S, causal=causal, window=window)
+        nbytes = cm.flash_attn_bytes(B, S, S, Hq, Hkv, D)
+        flops = cm.flash_attn_flops(B, Hq, D, pairs)
+        r = dict(
+            ms=timer(lambda: fa.flash_attention_forward(
+                q, k, v, causal=causal, window=window)),
+            plain_ms=timer(lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window)),
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and not bites,
+                enable_gqa=True)),
+            bound_ms=cm.roofline_s(nbytes, flops) * 1e3,
+            bound_by=cm.bound_by(nbytes, flops))
+        rows[label] = r
+        log("train-families", f"flash_attention {label} (B={B}, S={S}, "
+            f"{Hq}/{Hkv} heads of {D}, causal={causal}, window={window}, "
+            f"bf16): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of roofline, "
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s); plain "
+            f"{r['plain_ms']:.4f} ms; sdpa {r['library_ms']:.4f} ms "
+            f"[{card}]")
+        del q, k, v, qt, kt, vt, mask
+    del timer
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+def train_families(torch, dev, card, table):
+    """Phase 12: every family trains at full width (``FAMILY_TRAIN``),
+    the whisper launcher run, and row 7c (``check_family_flash``).
+    Returns the flash kernel's worst bf16 |d| there."""
+    t0 = time.perf_counter()
+    rows = [train_family(torch, dev, card, table, *c) for c in FAMILY_TRAIN]
+    log("train-families", "summary: " + "; ".join(
+        f"{r['arch']} ({r['layers']} layers) {r['step_ms']:.1f} ms a step, "
+        f"MFU {r['mfu']:.2%}, peak {r['peak'] / 2**30:.2f} GiB"
+        for r in rows) + f" [{card}]")
+    family_launcher(torch, card, table)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    _, worst = check_family_flash(torch, dev, gen, card)
+    log("train-families", f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
 # template arguments of the attention and GEMM kernels as nvcc mangles
 # them
 _MANGLED = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
@@ -4350,6 +4798,9 @@ def main() -> int:
     carry_serve(torch, dev, card, table)
     torch.cuda.empty_cache()
     p11_serve(torch, dev, card, table)
+    torch.cuda.empty_cache()
+    errs["flash_attention"] = max(errs["flash_attention"], train_families(
+        torch, dev, card, table))
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),

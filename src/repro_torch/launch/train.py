@@ -3,13 +3,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
         --steps 20 --batch 2 --seq 8192
 
-Random weights from seed 0 (a ``torch.Generator`` on the device), AdamW
-(lr 1e-3), the synthetic token stream, and the fault-tolerant runner with
-its checkpoints. Attention runs the flash-attention kernel (``attn_impl =
-"flash"``, the deployment value); every other op is plain PyTorch. One
-device: ``--device cpu`` runs the plain PyTorch path on the CPU (the
-kernel's plain version included); by default the launcher needs a CUDA
-card and fails without one. ``--plan-cache`` pre-plans the quantized
+Every family trains on one device, as with the JAX launcher: random weights
+from seed 0 (a ``torch.Generator`` on the device), AdamW (lr 1e-3), the
+synthetic token stream with the arch's vision patches or audio frames
+(:func:`extra_inputs`, drawn once), and the fault-tolerant runner with its
+checkpoints. A config whose training state cannot fit on the device is
+refused before anything is allocated (:func:`check_fits`; on an 80 GB
+card that is, outside ``--reduced``, every arch but danube, hymba,
+whisper and internvl2). Attention runs the flash-attention kernel
+(``attn_impl = "flash"``, the deployment value); every other op is plain
+PyTorch. One device: ``--device cpu`` runs the plain PyTorch path on the
+CPU (the kernel's plain version included); by default the launcher needs
+a CUDA card and fails without one. ``--plan-cache`` pre-plans the quantized
 serving GEMMs of the trained model and saves them for the serve launcher.
 """
 from __future__ import annotations
@@ -35,6 +40,19 @@ from repro_torch.runtime import steps as rsteps
 from repro_torch.runtime.resilient import RunnerConfig, run_training
 
 
+# bytes a parameter at the update's peak: bf16 weights, gradients and new
+# weights (2 B each), old and new fp32 AdamW m and v (the update is
+# functional: the new trees are made beside the old ones). Peak device
+# memory of full-width training steps on an H100 came within 5 % of
+# ``train_bytes`` (chip_smoke.py phase 12)
+TRAIN_BYTES_PER_PARAM = 2 + 2 + 2 + 8 + 8
+# the update's fp32 temporaries of a leaf (the clipped gradient, the step,
+# the weights in fp32), counted for the largest leaf
+LEAF_TEMP_BYTES = 12
+# one H100's memory: the bound of ``check_fits`` on the CPU
+CARD_BYTES = 80 * 2 ** 30
+
+
 @dataclasses.dataclass
 class TrainReport:
     """What a run measured: per step (in order of success) the loss, the
@@ -49,6 +67,69 @@ class TrainReport:
     after_step_s: Dict[int, float]
     history: List[Tuple]
     flash_launches: int
+
+
+def extra_inputs(cfg, batch_size: int, gen: torch.Generator,
+                 device) -> Dict[str, torch.Tensor]:
+    """The non-token inputs of a training batch, drawn once from ``gen``
+    in ``cfg.dtype`` (the counterpart of JAX's ``extra_inputs``): vision
+    patches ``vision_embeds`` (B, vision_prefix, d) for a vision-prefix
+    arch, audio frames ``audio_embeds`` (B, encoder_seq, d) for encdec."""
+    shapes = {}
+    if cfg.vision_prefix:
+        shapes["vision_embeds"] = (batch_size, cfg.vision_prefix,
+                                   cfg.d_model)
+    if cfg.family == "encdec":
+        shapes["audio_embeds"] = (batch_size, cfg.encoder_seq, cfg.d_model)
+    return {k: torch.randn(shape, generator=gen, device=device)
+            .to(cfg.dtype) for k, shape in shapes.items()}
+
+
+def largest_leaf(cfg) -> int:
+    """Elements of the largest stacked leaf: the embedding or head, an
+    expert or MLP stack, or a stack of d x q_dim projections."""
+    d, L = cfg.d_model, cfg.num_layers
+    return max(cfg.padded_vocab * d, L * max(1, cfg.num_experts) * d
+               * cfg.d_ff, L * d * cfg.q_dim)
+
+
+def train_bytes(cfg, per_param: int = TRAIN_BYTES_PER_PARAM) -> int:
+    """Device bytes of ``cfg``'s training state at the update's peak:
+    ``per_param`` bytes a parameter plus ``LEAF_TEMP_BYTES`` an element
+    of the largest leaf. Activations are not counted."""
+    return per_param * cfg.param_count() + LEAF_TEMP_BYTES * largest_leaf(cfg)
+
+
+def check_fits(cfg, device) -> None:
+    """Refuse, before anything is allocated, a config whose training state
+    (``train_bytes``: weights, gradients, AdamW moments and the update's
+    copies, not the activations) passes the device's memory. The
+    launcher trains the config at its full depth, so this is the config
+    checked; the message says whether even one layer (and one encoder
+    layer) beside the embedding and head would fit. On the CPU the bound
+    is one card's ``CARD_BYTES``, so a CPU run refuses what the card
+    would."""
+    need = train_bytes(cfg)
+    have = torch.cuda.get_device_properties(device).total_memory \
+        if device.type == "cuda" else CARD_BYTES
+    if need <= have:
+        return
+    one = dataclasses.replace(cfg, num_layers=1,
+                              encoder_layers=min(cfg.encoder_layers, 1))
+    one_need = train_bytes(one)
+    depth = (f"even one of its layers with the embedding and head is "
+             f"{one.param_count() / 1e9:.1f} B parameters, "
+             f"{one_need / 2**30:.0f} GiB") if one_need > have else \
+        (f"a cut to a few layers would fit (one layer with the embedding and "
+         f"head: {one_need / 2**30:.0f} GiB), but the launcher trains the "
+         f"full depth")
+    raise ValueError(
+        f"{cfg.name} cannot train on one device: its {cfg.num_layers} "
+        f"layers are {cfg.param_count() / 1e9:.1f} B parameters, "
+        f"{need / 2**30:.0f} GiB of training state at "
+        f"{TRAIN_BYTES_PER_PARAM} B a parameter (bf16 weights, gradients "
+        f"and update, old and new fp32 AdamW m and v), over the device's "
+        f"{have / 2**30:.0f} GiB; {depth}; train it with --reduced")
 
 
 def build_args(argv=None) -> argparse.Namespace:
@@ -78,32 +159,14 @@ def build_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> TrainReport:
     args = build_args(argv)
     device = resolve_device(args.device)
+    cfg = (configs.get_reduced if args.reduced else configs.get_config)(
+        args.arch)
+    check_fits(cfg, device)
     if args.plan_cache and os.path.exists(args.plan_cache):
         if planning.load_plan_cache(args.plan_cache, tolerant=True) < 0:
             print(f"[train] plan cache {args.plan_cache} unreadable; "
                   f"replanning from scratch")
 
-    cfg = (configs.get_reduced if args.reduced else configs.get_config)(
-        args.arch)
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: training the moe family is not ported yet (it "
-            f"comes with the multi-GPU slice that brings its FSDP/ZeRO-2 "
-            f"presets and the load-balancing loss); the port serves it: "
-            f"python -m repro_torch.launch.serve --arch {cfg.name}")
-    if cfg.family in ("rwkv", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported "
-            f"yet (its FSDP/ZeRO-2 presets come with the multi-GPU slice); "
-            f"the port serves it: python -m repro_torch.launch.serve "
-            f"--arch {cfg.name}")
-    if cfg.family == "encdec" or cfg.vision_prefix:
-        kind = "encdec" if cfg.family == "encdec" else "vision-prefix"
-        raise NotImplementedError(
-            f"{cfg.name}: training {kind} archs is not ported yet (their "
-            f"audio or patch inputs and FSDP/ZeRO-2 presets come with a "
-            f"later slice); the port serves it: python -m "
-            f"repro_torch.launch.serve --arch {cfg.name}")
     cfg = dataclasses.replace(cfg, attn_impl="flash")
     settings = rsteps.TrainSettings(microbatches=args.microbatches)
     opt_cfg = AdamWConfig(lr=1e-3)
@@ -121,8 +184,10 @@ def main(argv=None) -> TrainReport:
                                   seq_len=args.seq, batch_size=args.batch,
                                   device=device)
 
+    ex = extra_inputs(cfg, args.batch, gen, device)
+
     def batches(step):
-        return {"batch": stream.batch_at(step), "step": step}
+        return {"batch": {**stream.batch_at(step), **ex}, "step": step}
 
     losses, gnorms, step_s = [], [], []
     last = {"metrics_t": None, "step": None}

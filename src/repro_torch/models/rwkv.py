@@ -69,10 +69,12 @@ def wkv_scan(s: torch.Tensor, w: torch.Tensor, kv: torch.Tensor,
     ``s`` (B, H, hd, hd), w (B, S, H, hd), kv (B, S, H, hd, hd); a step
     whose ``valid`` (B, S) entry is False leaves the carry as it was.
     Returns (the final carry, every step's pre-mask state (B, S, H, hd,
-    hd), and the post-mask carries when ``collect_states``, else None)."""
+    hd), and the post-mask carries when ``collect_states``, else None).
+    The steps read w and kv through ``unbind`` (a backward that stacks the
+    per-step gradients once, as ``ssm.ssm_scan``)."""
     s_new_all, kept = [], []
-    for t in range(w.shape[1]):
-        s_new = s * w[:, t, :, :, None] + kv[:, t]
+    for t, (w_t, kv_t) in enumerate(zip(w.unbind(1), kv.unbind(1))):
+        s_new = s * w_t[..., None] + kv_t
         s = s_new if valid is None else torch.where(
             valid[:, t, None, None, None], s_new, s)
         s_new_all.append(s_new)

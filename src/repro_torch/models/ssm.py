@@ -62,10 +62,13 @@ def ssm_scan(h: torch.Tensor, da: torch.Tensor, dbu: torch.Tensor,
     ``h`` (B, d_inner, n), da and dbu (B, S, d_inner, n); a step whose
     ``valid`` (B, S) entry is False leaves the carry as it was. Returns
     (the final carry, every step's pre-mask state (B, S, d_inner, n), and
-    the post-mask carries when ``collect_states``, else None)."""
+    the post-mask carries when ``collect_states``, else None). The steps
+    read da and dbu through ``unbind``, whose backward stacks the per-step
+    gradients once; indexing each step would make each step's backward
+    write a zero-filled gradient the size of the whole sequence."""
     h_new_all, kept = [], []
-    for t in range(da.shape[1]):
-        h_new = h * da[:, t] + dbu[:, t]
+    for t, (da_t, dbu_t) in enumerate(zip(da.unbind(1), dbu.unbind(1))):
+        h_new = h * da_t + dbu_t
         h = h_new if valid is None else torch.where(
             valid[:, t, None, None], h_new, h)
         h_new_all.append(h_new)

@@ -8,7 +8,9 @@ W4A16, chunk sizes None/3/4, more requests than slots, ngram speculation,
 drafts partly or always accepted, a proposer that is always wrong),
 ``cancel`` and slot reuse, the front door, plus the configs, the converter,
 ``quantize_tree``'s group 64 at K = 1600, the attention plans at hymba's
-group of 5, the refusals and the launchers.
+group of 5, the train step (three steps against JAX's, the backward
+through the stepped wkv and SSM scans and hymba's ``0.5 * (attn + ssm)``),
+remat, the refusals and the launchers.
 
 Weights are the JAX package's, converted leaf for leaf; inputs come from
 numpy with a fixed seed. REDUCED configs run in fp32: layer ops and carries
@@ -39,13 +41,14 @@ from repro_torch.core.quant import QuantizedTensor
 from repro_torch.kernels import planning
 from repro_torch.kernels.paged_attention import paged_geometry
 from repro_torch.launch import serve as tserve
-from repro_torch.launch import train as ttrain
 from repro_torch.models import layers, rwkv, ssm
 from repro_torch.models import transformer as T
 from repro_torch.runtime import speculative as spec
 from repro_torch.runtime.engine import Request, ServingEngine
 
-from torch_parity_helpers import jax_to_numpy
+from torch_parity_helpers import (assert_train_matches, check_remat,
+                                  jax_to_numpy, jax_trained, port_train,
+                                  train_launcher_round_trip)
 
 ARCHS = ("rwkv6-7b", "hymba-1.5b")
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -766,7 +769,10 @@ def test_quantized_kv_format_refused_on_rwkv_as_jax():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_carry_family_draft_and_training_refused(arch):
+def test_carry_family_draft_and_training_refused(arch, tmp_path):
+    """A carry-family draft is refused (it cannot rewind), as in JAX; the
+    train launcher, which refused these archs once, trains them with two
+    microbatches and checkpoints that restore."""
     cfg = configs.get_reduced(arch)
     with pytest.raises(ValueError, match="rewind") as info:
         spec.DraftModelProposer(cfg)
@@ -777,9 +783,7 @@ def test_carry_family_draft_and_training_refused(arch):
         spec.make_proposer("draft:layers=1", target_cfg=cfg)
     # ngram validates for the carry families
     assert spec.validate_speculate("ngram", 4, cfg=cfg) == "ngram"
-    with pytest.raises(NotImplementedError, match=f"{cfg.family} family"):
-        ttrain.main(["--arch", arch, "--reduced", "--steps", "1",
-                     "--device", "cpu"])
+    train_launcher_round_trip(arch, tmp_path, "--microbatches", "2")
 
 
 def test_whisper_still_refused():
@@ -815,3 +819,23 @@ def test_serve_launcher_on_cpu(arch, capsys):
     else:
         assert "paged KV" in out and "verify gather" in out
         assert "[serve] speculative:" in out
+
+
+# ---------------------------------------------------------------------------
+# training: the train step against JAX's, remat, the launcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("attn_impl", ["chunked", "flash"])
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_jax(jax_trained, arch, micro, attn_impl):
+    """Three ``make_train_step`` steps from JAX's parameters against
+    JAX's (``torch_parity_helpers.assert_train_matches``)."""
+    want = jax_trained(arch, micro)
+    got = port_train(arch, micro, want["params0"], attn_impl=attn_impl)
+    assert_train_matches(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_gives_the_same_grads(arch, monkeypatch):
+    check_remat(arch, monkeypatch)

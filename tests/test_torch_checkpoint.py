@@ -136,6 +136,71 @@ def test_port_checkpoint_restores_in_jax_with_the_same_keys(tmp_path):
     assert latest_step(str(tmp_path / "port")) == 3
 
 
+# one REDUCED arch of each family, and a leaf only that family's tree holds
+FAMILY_LEAVES = {
+    "olmoe-1b-7b": "params/layers/moe/w_gate/kernel",
+    "rwkv6-7b": "params/layers/w_bias",
+    "hymba-1.5b": "params/layers/ssm/A_log",
+    "whisper-small": "params/encoder/layers/attn/wq/kernel",
+    "internvl2-1b": "params/lm_head/kernel",
+}
+
+
+def _train_trees(arch, seed):
+    """A train checkpoint's tree ({"params", "opt"}) of REDUCED ``arch``
+    from JAX's ``init_params`` at ``seed``: JAX's, and the port's
+    converted leaf for leaf."""
+    import jax
+    from repro import configs as jconfigs
+    from repro.models import transformer as JT
+    from repro.optim import AdamWConfig, adamw_init
+    from repro_torch import configs
+    from repro_torch.convert import from_jax_opt_state
+    jcfg = jconfigs.get_reduced(arch)
+    params = JT.init_params(jax.random.PRNGKey(seed), jcfg)
+    jtree = {"params": params, "opt": adamw_init(params, AdamWConfig())}
+    n = jax_to_numpy(jtree)
+    return jtree, {"params": from_jax_params(
+        n["params"], dtype=configs.get_reduced(arch).dtype),
+        "opt": from_jax_opt_state(n["opt"])}
+
+
+def _assert_bits(got, want):
+    got, want = dict(tree_flatten_with_keys(got)), \
+        dict(tree_flatten_with_keys(want))
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        assert got[key].dtype == w.dtype and torch.equal(got[key], w), key
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_LEAVES))
+def test_family_train_checkpoint_round_trip(arch, tmp_path):
+    """A train checkpoint of each family's REDUCED tree (MoE expert
+    stacks, rwkv's fp32 ``w_bias``, hymba's ``A_log`` and ``D``, the
+    encoder subtree) saved by JAX restores in the port bit for bit, and
+    the port's restores in JAX; both packages write the same keys."""
+    jtree, ttree = _train_trees(arch, 0)
+    jlike, tlike = _train_trees(arch, 1)
+    jsave(str(tmp_path / "jax"), 2, jtree)
+    got, step, _ = restore_checkpoint(str(tmp_path / "jax"), tlike)
+    assert step == 2
+    _assert_bits(got, ttree)
+    save_checkpoint(str(tmp_path / "port"), 2, ttree)
+    back, step, _ = jrestore(str(tmp_path / "port"), jlike)
+    assert step == 2
+    got, want = (dict(tree_flatten_with_keys(jax_to_numpy(t)))
+                 for t in (back, jtree))
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        assert got[key].dtype == w.dtype and np.array_equal(got[key], w), key
+    keys = []
+    for d in ("port", "jax"):
+        with np.load(tmp_path / d / "step_2" / "arrays.npz") as z:
+            keys.append(sorted(z.files))
+    assert keys[0] == keys[1] and FAMILY_LEAVES[arch] in keys[0]
+    assert "opt/m/" + FAMILY_LEAVES[arch].split("/", 1)[1] in keys[0]
+
+
 def _error(fn):
     with pytest.raises(ValueError) as e:
         fn()

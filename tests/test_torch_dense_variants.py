@@ -5,8 +5,10 @@ only). Per arch: the config and its parameter count, the forward, the
 loss and its gradients, engine-level greedy token parity (W4A16, chunked
 prefill, ngram speculation), the tied head through
 ``dataclasses.replace(cfg, tie_embeddings=True)`` (the forward and the
-engine), and the launchers; plus ``param_count`` of all ten full configs
-against JAX's.
+engine), the train step (three steps against JAX's), remat, and the
+launchers (llama3-405b refused outside REDUCED: it cannot fit one card;
+``check_fits`` weighs every full config);
+plus ``param_count`` of all ten full configs against JAX's.
 
 Weights are the JAX package's, converted leaf for leaf; inputs come from
 numpy with a fixed seed. REDUCED runs in fp32: logits after two layers
@@ -35,7 +37,8 @@ from repro_torch.models import transformer as T
 from repro_torch.runtime import steps as tsteps
 from repro_torch.runtime.engine import Request, ServingEngine
 
-from torch_parity_helpers import jax_to_numpy
+from torch_parity_helpers import (assert_train_matches, check_remat,
+                                  jax_to_numpy, jax_trained, port_train)
 
 ARCHS = ("starcoder2-7b", "granite-20b", "llama3-405b")
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -230,3 +233,63 @@ def test_launchers_on_cpu(arch, tmp_path, capsys):
                        str(tmp_path), "--ckpt-every", "10", "--device",
                        "cpu"])
     assert len(out.losses) == 2 and np.isfinite(out.losses).all()
+
+
+# ---------------------------------------------------------------------------
+# training: the train step against JAX's, remat, the launcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("attn_impl", ["chunked", "flash"])
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_jax(jax_trained, arch, micro, attn_impl):
+    """Three ``make_train_step`` steps from JAX's parameters against
+    JAX's (``torch_parity_helpers.assert_train_matches``)."""
+    want = jax_trained(arch, micro)
+    got = port_train(arch, micro, want["params0"], attn_impl=attn_impl)
+    assert_train_matches(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_gives_the_same_grads(arch, monkeypatch):
+    check_remat(arch, monkeypatch)
+
+
+def test_train_launcher_refuses_llama3_405b_at_full_width(monkeypatch):
+    """Even one layer of llama3-405b with its embedding and head is 7.4 B
+    parameters, 175 GiB of training state at 22 B a parameter: the
+    launcher refuses it for that reason before it draws any weight."""
+    def no_init(*a, **k):
+        raise AssertionError("weights drawn before the refusal")
+    monkeypatch.setattr(T, "init_params", no_init)
+    with pytest.raises(ValueError) as info:
+        ttrain.main(["--arch", "llama3-405b", "--steps", "1", "--device",
+                     "cpu"])
+    msg = str(info.value)
+    assert "cannot train on one device" in msg and "7.4 B parameters" in msg
+    assert "175 GiB" in msg and "80 GiB" in msg and "--reduced" in msg
+    assert "even one of its layers" in msg
+
+
+# full configs: (arch, whether its training state fits one 80 GB card)
+FITS = [("h2o-danube-1.8b", True), ("hymba-1.5b", True),
+        ("whisper-small", True), ("internvl2-1b", True),
+        ("olmoe-1b-7b", False), ("mixtral-8x7b", False),
+        ("rwkv6-7b", False), ("starcoder2-7b", False),
+        ("granite-20b", False), ("llama3-405b", False)]
+
+
+@pytest.mark.parametrize("arch,fits", FITS)
+def test_check_fits_holds_the_config_the_launcher_trains(arch, fits):
+    """``check_fits`` weighs the full-depth config the launcher would
+    train (``train_bytes`` at 22 B a parameter) against one card's 80
+    GiB, and ``--reduced`` fits every arch."""
+    cpu = torch.device("cpu")
+    cfg = configs.get_config(arch)
+    assert (ttrain.train_bytes(cfg) <= ttrain.CARD_BYTES) == fits
+    if fits:
+        ttrain.check_fits(cfg, cpu)
+    else:
+        with pytest.raises(ValueError, match="cannot train on one device"):
+            ttrain.check_fits(cfg, cpu)
+    ttrain.check_fits(configs.get_reduced(arch), cpu)

@@ -7,7 +7,9 @@ chunk sizes None/3/4, more requests than slots, ngram speculation), with
 prefix sharing under the same audio (pages shared) and different audio
 (none), page counts equal to JAX's; the param tree, the converter and
 ``quantize_tree`` on the encoder's stacks, the front door with
-``audio_embeds``, the refusals and the launchers.
+``audio_embeds``, the train step (three steps against JAX's, the backward
+through the encoder and the cross-attention), remat, the refusals and the
+launchers.
 
 Weights are the JAX package's, converted leaf for leaf; inputs come from
 numpy with a fixed seed. REDUCED runs in fp32: layer ops are held to
@@ -41,7 +43,9 @@ from repro_torch.runtime import speculative as spec
 from repro_torch.runtime.engine import Request, ServingEngine
 from repro_torch.runtime.frontdoor import FrontDoor, sse_decode_tokens
 
-from torch_parity_helpers import jax_to_numpy
+from torch_parity_helpers import (assert_train_matches, check_remat,
+                                  jax_to_numpy, jax_trained, port_train,
+                                  train_launcher_round_trip)
 
 ARCH = "whisper-small"
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -457,13 +461,23 @@ def test_front_door_with_audio_embeds():
 # refusals and launchers
 # ---------------------------------------------------------------------------
 
-def test_encdec_draft_and_training_refused():
+def test_encdec_draft_and_training_refused(tmp_path, monkeypatch):
+    """An encdec draft is refused; the train launcher, which refused
+    whisper once, trains it with two microbatches on audio frames from its
+    own ``extra_inputs`` (drawn once, every step's batch), with
+    checkpoints that restore."""
     cfg = configs.get_reduced(ARCH)
     with pytest.raises(ValueError, match="'encdec' draft"):
         spec.DraftModelProposer(cfg)
-    with pytest.raises(NotImplementedError, match="encdec archs"):
-        ttrain.main(["--arch", ARCH, "--reduced", "--steps", "1",
-                     "--device", "cpu"])
+    drawn = []
+    extra = ttrain.extra_inputs
+    monkeypatch.setattr(ttrain, "extra_inputs", lambda *a: drawn.append(
+        extra(*a)) or drawn[-1])
+    train_launcher_round_trip(ARCH, tmp_path, "--microbatches", "2")
+    assert [sorted(ex) for ex in drawn] == [["audio_embeds"]] * 2
+    audio = drawn[0]["audio_embeds"]
+    assert audio.shape == (4, 32, 128) and audio.dtype == torch.float32
+    assert torch.equal(audio, drawn[1]["audio_embeds"])
 
 
 @pytest.mark.parametrize("extra", [[], ["--speculate", "ngram"]])
@@ -480,3 +494,23 @@ def test_serve_launcher_on_cpu(extra, capsys):
     reqs = tserve.make_requests(configs.get_reduced(ARCH), 2, 6, 3, 0)
     assert reqs[0].audio_embeds.shape == (32, 128)
     assert not np.array_equal(reqs[0].audio_embeds, reqs[1].audio_embeds)
+
+
+# ---------------------------------------------------------------------------
+# training: the train step against JAX's, remat, the launcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("attn_impl", ["chunked", "flash"])
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("arch", [ARCH])
+def test_train_step_matches_jax(jax_trained, arch, micro, attn_impl):
+    """Three ``make_train_step`` steps from JAX's parameters against
+    JAX's (``torch_parity_helpers.assert_train_matches``)."""
+    want = jax_trained(arch, micro)
+    got = port_train(arch, micro, want["params0"], attn_impl=attn_impl)
+    assert_train_matches(got, want)
+
+
+@pytest.mark.parametrize("arch", [ARCH])
+def test_remat_gives_the_same_grads(arch, monkeypatch):
+    check_remat(arch, monkeypatch)

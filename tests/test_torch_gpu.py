@@ -1221,3 +1221,45 @@ def test_encdec_and_vision_engine_kernel_path_matches_plain_path(
                                    plain.prefill_logits[rid],
                                    rtol=1e-3, atol=1e-3)
     assert fused.results == plain.results
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mixtral-8x7b", "rwkv6-7b",
+                                  "hymba-1.5b", "whisper-small",
+                                  "internvl2-1b", "starcoder2-7b",
+                                  "granite-20b"])
+def test_family_train_step_kernel_path_matches_plain_path(cuda_device, arch):
+    """One train step of each family (REDUCED, fp32, with remat; B = 4 x
+    64 tokens and the launcher's own vision patches or audio frames)
+    through the flash kernel and through the chunked attention from the
+    same parameters: loss and grad norm within 1e-5 relative (fp32
+    attention in two orders), the kernel launched twice per attention
+    layer (forward and recompute; the encoder's included, none for rwkv)
+    and not at all on the chunked path."""
+    from repro_torch.launch import train as ttrain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_reduced(arch), remat=True)
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=64,
+                                  batch_size=4, device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    batch = {**stream.batch_at(0),
+             **ttrain.extra_inputs(cfg, 4, gen, cuda_device)}
+    opt_cfg = AdamWConfig(lr=1e-3)
+    out = {}
+    for impl in ("flash", "chunked"):
+        gen.manual_seed(0)
+        params = T.init_params(gen, cfg, device=cuda_device)
+        step = tsteps.make_train_step(
+            dataclasses.replace(cfg, attn_impl=impl), opt_cfg)
+        n0 = tfa.FLASH_ATTENTION.launches
+        _, _, m = step(params, adamw_init(params, opt_cfg),
+                       {"batch": batch, "step": 0})
+        out[impl] = (float(m["loss"]), float(m["grad_norm"]),
+                     tfa.FLASH_ATTENTION.launches - n0)
+    attn_layers = 0 if cfg.attn_free else \
+        cfg.num_layers + cfg.encoder_layers
+    assert out["flash"][2] == 2 * attn_layers and out["chunked"][2] == 0
+    for i in (0, 1):
+        assert np.isfinite(out["flash"][i])
+        assert abs(out["flash"][i] - out["chunked"][i]) \
+            <= 1e-5 * abs(out["chunked"][i]), (out, i)

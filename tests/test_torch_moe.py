@@ -5,7 +5,10 @@ the expert-batched GEMM against its per-expert loop, ``quantize_tree`` on
 (L, E, K, N) stacks with a dense router, the converter on an olmoe tree,
 the serve steps, and engine-level greedy token parity on REDUCED
 olmoe-1b-7b and mixtral-8x7b (dense and W4A16, 2 slots, chunked prefill,
-ngram speculation, a shared prefix), plus the launchers.
+ngram speculation, a shared prefix), the train step (three steps against
+JAX's: gradients through the capacity dispatch, the router reached through
+the top-k weights, the aux loss dropped on both sides), remat, plus the
+launchers.
 
 Weights are the JAX package's, converted leaf for leaf; inputs come from
 numpy with a fixed seed. REDUCED configs run in fp32: ``moe_ffn`` is held
@@ -36,12 +39,13 @@ from repro_torch.kernels.w4a16_fused import (w4a16_fused, w4a16_fused_plain,
                                              W4A16_GEMM_EXPERTS)
 from repro_torch.kernels.w8a16_fused import w8a16_fused
 from repro_torch.launch import serve as tserve
-from repro_torch.launch import train as ttrain
 from repro_torch.models import layers, moe
 from repro_torch.models import transformer as T
 from repro_torch.runtime.engine import Request, ServingEngine
 
-from torch_parity_helpers import jax_to_numpy
+from torch_parity_helpers import (assert_train_matches, check_remat,
+                                  jax_to_numpy, jax_trained, port_train,
+                                  train_launcher_round_trip)
 
 ARCHS = ("olmoe-1b-7b", "mixtral-8x7b")
 
@@ -532,7 +536,37 @@ def test_serve_launcher_moe_on_cpu(monkeypatch):
         tserve.main(["--arch", "mixtral-8x7b", "--reduced"])
 
 
-def test_train_launcher_refuses_moe():
-    with pytest.raises(NotImplementedError, match="moe family"):
-        ttrain.main(["--arch", "olmoe-1b-7b", "--reduced", "--steps", "1",
-                     "--device", "cpu"])
+def test_train_launcher_refuses_moe(tmp_path):
+    """The launcher trains both MoE archs (it refused them once): two
+    microbatches, checkpoints that restore, and the post-training planning
+    pass, which plans each expert stack as one batched problem of E
+    GEMMs."""
+    import json
+    for arch in ARCHS:
+        cfg = configs.get_reduced(arch)
+        plans = tmp_path / f"{arch}.json"
+        train_launcher_round_trip(arch, tmp_path / arch, "--microbatches",
+                                  "2", "--plan-cache", str(plans))
+        batches = sorted(p["problem"]["batch"]
+                         for p in json.loads(plans.read_text())["plans"])
+        assert batches.count(cfg.num_experts) >= 2 and batches[0] == 1
+
+
+# ---------------------------------------------------------------------------
+# training: the train step against JAX's, remat, the launcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("attn_impl", ["chunked", "flash"])
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_jax(jax_trained, arch, micro, attn_impl):
+    """Three ``make_train_step`` steps from JAX's parameters against
+    JAX's (``torch_parity_helpers.assert_train_matches``)."""
+    want = jax_trained(arch, micro)
+    got = port_train(arch, micro, want["params0"], attn_impl=attn_impl)
+    assert_train_matches(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_gives_the_same_grads(arch, monkeypatch):
+    check_remat(arch, monkeypatch)

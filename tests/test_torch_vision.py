@@ -6,7 +6,9 @@ and W4A16, chunk sizes None/3/4, ngram speculation, a draft model fed the
 patches), prefix sharing (identical patches and prompt share pages; a
 request that differs in a single patch row shares nothing from that
 row's page on), page counts equal to JAX's, the draft's frontend check,
-the front door with ``prefix_embeds`` and its 400s, and the launchers.
+the front door with ``prefix_embeds`` and its 400s, the train step
+(three steps against JAX's, the loss's label slice past the prefix),
+remat, and the launchers.
 
 Weights are the JAX package's, converted leaf for leaf; inputs come from
 numpy with a fixed seed. REDUCED runs in fp32: logits after two layers
@@ -38,7 +40,8 @@ from repro_torch.runtime import speculative as spec
 from repro_torch.runtime.engine import Request, ServingEngine
 from repro_torch.runtime.frontdoor import FrontDoor, sse_decode_tokens
 
-from torch_parity_helpers import jax_to_numpy
+from torch_parity_helpers import (assert_train_matches, check_remat,
+                                  jax_to_numpy, jax_trained, port_train)
 
 ARCH = "internvl2-1b"
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -346,10 +349,28 @@ def test_front_door_with_prefix_embeds_and_its_400s():
     assert b"internvl2-1b takes no audio_embeds" in bad["audio"][1]
 
 
-def test_training_refused_and_serve_launcher_on_cpu(capsys):
-    with pytest.raises(NotImplementedError, match="vision-prefix archs"):
-        ttrain.main(["--arch", ARCH, "--reduced", "--steps", "1",
-                     "--device", "cpu"])
+def test_training_refused_and_serve_launcher_on_cpu(capsys, tmp_path,
+                                                   monkeypatch):
+    """The train launcher, which refused internvl2 once, trains it as the
+    JAX CLI test does (4 steps, batch 2 x 16, checkpoints every 2 steps)
+    on patches from its own ``extra_inputs``; the checkpoint restores (a
+    5-step run resumes at step 4). Then the serve launcher with the front
+    door."""
+    drawn = []
+    extra = ttrain.extra_inputs
+    monkeypatch.setattr(ttrain, "extra_inputs", lambda *a: drawn.append(
+        extra(*a)) or drawn[-1])
+    argv = ["--arch", ARCH, "--reduced", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2", "--device",
+            "cpu"]
+    rep = ttrain.main(argv + ["--steps", "4"])
+    assert len(rep.losses) == 4 and np.isfinite(rep.losses).all()
+    assert [h[1] for h in rep.history] == [0, 2, 3]
+    resumed = ttrain.main(argv + ["--steps", "5"])
+    assert resumed.history == [("resume", 4), ("checkpoint", 4)]
+    assert np.isfinite(resumed.losses).all()
+    assert drawn[0]["vision_embeds"].shape == (2, 8, 128)
+    assert [sorted(ex) for ex in drawn] == [["vision_embeds"]] * 2
     rep = tserve.main(["--arch", ARCH, "--reduced", "--batch", "2",
                        "--prompt-len", "6", "--gen", "3", "--device", "cpu",
                        "--http", "0"])
@@ -360,3 +381,23 @@ def test_training_refused_and_serve_launcher_on_cpu(capsys):
     reqs = tserve.make_requests(configs.get_reduced(ARCH), 2, 6, 3, 0)
     assert reqs[0].prefix_embeds.shape == (8, 128)
     assert reqs[0].audio_embeds is None
+
+
+# ---------------------------------------------------------------------------
+# training: the train step against JAX's, remat, the launcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("attn_impl", ["chunked", "flash"])
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("arch", [ARCH])
+def test_train_step_matches_jax(jax_trained, arch, micro, attn_impl):
+    """Three ``make_train_step`` steps from JAX's parameters against
+    JAX's (``torch_parity_helpers.assert_train_matches``)."""
+    want = jax_trained(arch, micro)
+    got = port_train(arch, micro, want["params0"], attn_impl=attn_impl)
+    assert_train_matches(got, want)
+
+
+@pytest.mark.parametrize("arch", [ARCH])
+def test_remat_gives_the_same_grads(arch, monkeypatch):
+    check_remat(arch, monkeypatch)
