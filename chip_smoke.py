@@ -240,6 +240,28 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              training lengths (``flash_grad_cases``), against the exact
              (fp64) gradient.
 
+13. mesh   — serving on a (data, model) mesh of ranks, one process each,
+             spawned on the one card (``chip_smoke.py --mesh-rank``) and
+             joined over ``gloo`` (NCCL refuses two ranks on one GPU;
+             the collectives go through host memory): (a) h2o-danube-1.8b
+             at full width and depth at 1x2 and 2x2, (b) llama3-405b at
+             full width (d_model 16384, 128/8 heads of 128, d_ff 53248,
+             vocab 128256), its first 2 of 126 layers, at 1x4 (each rank
+             draws the weights in turn and keeps its slice of each leaf as
+             it is drawn: a leaf of several GB at a time). Each rank
+             serves 4 requests of 128 + 8 tokens (W4A16, kv_fp16, 4 slots,
+             16-token pages, 32-token chunks) through ``ServingEngine(mesh=
+             ...)``, counters set to 0 just before and read just after:
+             first-token logits within LOGIT_TOL of one process serving
+             the same cut on the same weights, W4A16 and paged-attention
+             launches exactly 7 and 1 a layer and forward on every rank,
+             the ranks' tokens equal, the first greedy token that differs
+             from one process printed. Phase 3 also holds the W4A16
+             kernel at every shard-local leaf (M = 1, 2, 4, 8) and paged
+             attention at a rank's heads (32/2 of 128, 16/4 of 80); phase
+             5 times them (rows 1e and 4d). No phase-13 time is a
+             multi-GPU figure: the ranks share one card.
+
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
 contract's JSON object.
@@ -4612,6 +4634,360 @@ def train_families(torch, dev, card, table):
 
 # template arguments of the attention and GEMM kernels as nvcc mangles
 # them
+# ---------------------------------------------------------------------------
+# phase 13: serving on a (data, model) mesh of ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# the shard-local W4A16 leaves phase 13 runs: (label, K, N, a layer's
+# launches of that shape)
+MESH_GEMMS = [("llama tp4 wq", 16384, 4096, 1), ("llama tp4 wk/wv", 16384,
+                                                 256, 2),
+              ("llama tp4 wo", 4096, 16384, 1),
+              ("llama tp4 w_gate/w_up", 16384, 13312, 2),
+              ("llama tp4 w_down", 13312, 16384, 1),
+              ("danube tp2 wq", 2560, 1280, 1),
+              ("danube tp2 wk/wv", 2560, 320, 2),
+              ("danube tp2 wo", 1280, 2560, 1),
+              ("danube tp2 w_gate/w_up", 2560, 3456, 2),
+              ("danube tp2 w_down", 3456, 2560, 1)]
+# a rank's paged attention: (label, (KV heads, group, head dim), window)
+MESH_ATTN = [("llama tp4", (2, 16, 128), 0),
+             ("danube tp2", (4, 4, 80), 4096)]
+MESH_PROMPT, MESH_GEN, MESH_REQS = 128, 8, 4
+# attention forced to the kernel: at llama's G = 16 the planner's cost
+# model sends the 32-token chunk to the plain gather path (PERF.md §7),
+# where row 4d times the kernel 4.5x faster than gather + SDPA
+MESH_KW = dict(max_batch=4, max_prompt_len=MESH_PROMPT,
+               max_new_tokens=MESH_GEN, page_size=16, prefill_chunk=32,
+               kv_format="kv_fp16", attn_path="fused")
+MESH_PAGE, MESH_PAGES = 16, 9       # a slot's 144-token window
+# (arch, depth cut or None, meshes, ranks draw one after the other)
+MESH_RUNS = [("h2o-danube-1.8b", None, [(1, 2), (2, 2)], False),
+             ("llama3-405b", 2, [(1, 4)], True)]
+# the engine's plan M at each mesh (4 slots over the data axis)
+MESH_M = (1, 2, 4, 8)
+
+
+def check_mesh_gemms(torch, dev, gen):
+    """The W4A16 kernel against its plain version at every shard-local
+    leaf phase 13 runs (llama3-405b at TP=4, danube at TP=2), bf16, M = 1,
+    2 and 4 (the engines' plans: 4 slots over 2 data ranks, or one) and 8,
+    the planner's split_k and 1; ``held``'s tolerance."""
+    from repro_torch.kernels.w4a16_fused import (w4a16_fused,
+                                                 w4a16_fused_plain)
+    worst = 0.0
+    for label, K, N, _ in MESH_GEMMS:
+        for M in MESH_M:
+            x, qt = gemm_case(torch, K, N, M, gen, dev)
+            for s in sorted({planned_split(x, qt), 1}):
+                worst = max(worst, held(
+                    "w4a16_gemm", f"{label} M={M} K={K} N={N} split_k={s}",
+                    w4a16_fused(x, qt, split_k=s),
+                    w4a16_fused_plain(x, qt, split_k=s), f32=False))
+            del x, qt
+    return worst
+
+
+def check_mesh_attention(torch, dev, gen):
+    """Paged attention at a rank's heads (llama3-405b at TP=4: 32 query
+    over 2 KV heads of 128; danube at TP=2: 16 over 4 of 80, window 4096)
+    on phase 13's 16-token pages and 9-page tables: decode, chunk and
+    verify at one partition and the planner's pick, held as
+    ``check_attention`` holds danube's."""
+    worst = 0.0
+    for label, heads, window in MESH_ATTN:
+        for kind in ("decode", "chunk", "verify"):
+            c = attn_case(torch, gen, dev, fmt_name="kv_fp16", kind=kind,
+                          heads=heads, page=MESH_PAGE, pages=MESH_PAGES,
+                          ctx=130)
+            for parts in sorted({1, c["planned"]}):
+                worst = max(worst, hold_partials(
+                    torch, c, f"{label} {kind}", "kv_fp16", "bf16", window,
+                    parts))
+    return worst
+
+
+def time_mesh(torch, dev, gen, timer, card, floor_ms):
+    """Phase 5's rows 1e and 4d: the W4A16 kernel at each shard-local leaf
+    at the engines' M = 4 (the planner's split_k beside the kernel's own
+    split of K inside a cluster) against its bound, its plain version,
+    dequant + ``torch.matmul`` and ``torch.matmul`` on the dense bf16
+    weight; each rank's decode-step sum (every layer's GEMMs); paged
+    attention at a rank's heads beside gather + SDPA. Each is one rank's
+    work alone on the card."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.quant import dequantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gemm import gemm_geometry, sm_count
+    from repro_torch.kernels.w4a16_fused import (w4a16_fused,
+                                                 w4a16_fused_plain)
+    M = 4
+    rows = {}
+    for label, K, N, n in MESH_GEMMS:
+        x, qt = gemm_case(torch, K, N, M, gen, dev)
+        dense = dequantize(qt).to(torch.bfloat16)
+        s = planned_split(x, qt)
+        geo = gemm_geometry("int4", M, N, K, s, x.dtype, direct=s <= 8,
+                            group=qt.group_size, sms=sm_count(dev))
+        nbytes = costmodel.w4a16_gemm_bytes(M, N, K)
+        flops = costmodel.w4a16_gemm_flops(M, N, K)
+        r = dict(ms=timer(lambda: w4a16_fused(x, qt, split_k=s)),
+                 plain_ms=timer(lambda: w4a16_fused_plain(x, qt, split_k=s)),
+                 dequant_ms=timer(lambda: ref.w4a16_ref(x, qt)),
+                 library_ms=timer(lambda: torch.matmul(x, dense)),
+                 bound_ms=costmodel.roofline_s(nbytes, flops) * 1e3,
+                 bound_by=costmodel.bound_by(nbytes, flops), nbytes=nbytes,
+                 flops=flops, n=n, split_k=s)
+        rows[label] = r
+        log("timing", f"w4a16_gemm {label} M={M} K={K} N={N} split_k={s} "
+            f"(the kernel splits K {geo.ks} ways, {geo.sub} inside a "
+            f"cluster of {geo.cluster}): kernel {r['ms']:.4f} ms, "
+            f"{gbs(nbytes, r['ms'])}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of roofline; "
+            f"the timer's floor {floor_ms:.4f}), plain {r['plain_ms']:.4f} "
+            f"ms, dequant+matmul {r['dequant_ms']:.4f} ms, torch.matmul "
+            f"bf16 {r['library_ms']:.4f} ms [{card}]")
+        del x, qt, dense
+    for arch, L in (("llama", 2), ("danube", 24)):
+        def total(key):
+            return L * sum(r[key] * r["n"] for lbl, r in rows.items()
+                           if lbl.startswith(arch))
+        log("timing", f"w4a16_gemm, one {arch} rank's decode step ({L} "
+            f"layers' GEMMs at M={M}, {7 * L} launches): kernel "
+            f"{total('ms'):.3f} ms, bound {total('bound_ms'):.3f} ms, plain "
+            f"{total('plain_ms'):.3f} ms, torch.matmul bf16 "
+            f"{total('library_ms'):.3f} ms [{card}]")
+    for label, heads, window in MESH_ATTN:
+        for kind in ("decode", "chunk"):
+            c = attn_case(torch, gen, dev, fmt_name="kv_fp16", kind=kind,
+                          heads=heads, page=MESH_PAGE, pages=MESH_PAGES,
+                          ctx=130)
+            rows[(label, kind)] = time_attn_case(
+                torch, timer, c, window, f"{label} {kind}", card)
+    return rows
+
+
+def mesh_cfg(arch, layers):
+    from repro_torch import configs
+    cfg = configs.get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def mesh_requests(cfg):
+    from repro_torch.launch import serve as launcher
+    return launcher.make_requests(cfg, MESH_REQS, MESH_PROMPT, MESH_GEN, 0)
+
+
+def mesh_serve_run(torch, dev, cfg, params, table, mesh=None):
+    """Serve phase 13's requests through ``ServingEngine`` (on ``mesh``
+    when given), counters set to 0 just before and read just after.
+    Returns a summary: tokens, first-token logits, launches, forwards and
+    times."""
+    from repro_torch.runtime.engine import ServingEngine
+    engine = ServingEngine(cfg, params, mesh=mesh, device=dev, **MESH_KW)
+    reqs = mesh_requests(cfg)
+    if mesh is not None:
+        torch.distributed.barrier()
+    reset_counts(table)
+    t0 = time.perf_counter()
+    rep = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(table)
+    chunks = sum(-(-len(r.prompt) // engine.prefill_chunk) for r in reqs) \
+        - rep.prefill_steps_saved
+    out = dict(tokens=dict(rep.results), launches=counts,
+               forwards=chunks + len(rep.step_records),
+               logits={r: rep.prefill_logits[r].float().cpu()
+                       for r in rep.results},
+               wall=wall, decode_s=rep.decode_s,
+               steps=len(rep.step_records), prefill_s=rep.prefill_s,
+               heads=(engine.cfg.num_heads, engine.cfg.num_kv_heads),
+               plans={k: p.split_k for k, p in engine.plans.items()},
+               paths=(engine.attn_path, engine.prefill_attn_path))
+    del engine
+    return out
+
+
+def mesh_rank(rank, world, store, runs_json, out_dir):
+    """One rank of phase 13 (``chip_smoke.py --mesh-rank``): joins the gloo
+    group through ``store``, then for each run builds its mesh, draws the
+    weights with the rank's cut (one rank after the other where the run
+    asks: llama's leaves are GBs), quantizes its slice on the card and
+    serves. Writes ``rank{r}.pkl``."""
+    import pickle
+
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import sharding
+
+    dev = tmesh.rank_device()
+    backend = tmesh.init_process_group(
+        dev, init_method=f"file://{store}", rank=rank, world_size=world)
+    table = kernel_table()
+    results = []
+    for arch, layers, dm, serial in json.loads(runs_json):
+        cfg = mesh_cfg(arch, layers)
+        mesh = tmesh.make_local_mesh(*dm)
+        layout = sharding.Layout(cfg, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for turn in range(world if serial else 1):
+            if not serial or turn == rank:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(0)
+                params = T.quantize_params(T.init_params(
+                    gen, cfg, device=dev, cut=layout.cut), cfg, min_size=0)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            torch.distributed.barrier()
+        build_s = time.perf_counter() - t0
+        res = mesh_serve_run(torch, dev, cfg, params, table, mesh)
+        res.update(arch=arch, mesh=dm, backend=backend, build_s=build_s,
+                   coords=(layout.dp_rank, layout.tp_rank),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        results.append(res)
+        del params
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_mesh(runs, world, timeout=420):
+    """Run ``runs`` (one world size) on ``world`` rank processes of this
+    script sharing the card; returns each rank's results. A rank that
+    fails or hangs fails the phase."""
+    import pickle
+    import tempfile
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        logs = [open(os.path.join(d, f"rank{r}.log"), "w+")
+                for r in range(world)]
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), str(world), os.path.join(d, "store"),
+             json.dumps(runs), d], stdout=logs[r], stderr=subprocess.STDOUT,
+            env=env) for r in range(world)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if time.monotonic() > deadline or any(
+                        p.returncode not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            for r, text in enumerate(texts):
+                log("mesh", f"rank {r} exited {codes[r]}:\n{text[-4000:]}")
+            raise AssertionError(f"phase 13: ranks exited {codes}")
+        for text in texts[:1]:
+            for line in text.strip().splitlines():
+                log("mesh", f"rank 0: {line}")
+        out = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def hold_mesh(ref, ranks, what, card):
+    """Every rank's first-token logits within LOGIT_TOL of the
+    single-process port's on the same weights, every rank's W4A16 and
+    paged-attention launches exactly 7 x L and L a forward (each call went
+    to its kernel), the ranks in lockstep (the same tokens); the first
+    greedy token that differs from the single process, if any, printed."""
+    L = ranks[0]["L"]
+    for res in ranks:
+        d = max(float((res["logits"][r] - ref["logits"][r]).abs().max())
+                for r in ref["logits"])
+        n = res["launches"]
+        want = (7 * L * res["forwards"], L * res["forwards"])
+        got = (n["w4a16_gemm"], n["paged_attention"])
+        first = next(((r, i, a, b) for r in sorted(ref["tokens"])
+                      for i, (a, b) in enumerate(zip(res["tokens"][r],
+                                                     ref["tokens"][r]))
+                      if a != b), None)
+        ok = d <= LOGIT_TOL and got == want \
+            and res["tokens"] == ranks[0]["tokens"]
+        log("mesh", f"{what} rank {res['coords']} ({res['backend']}): "
+            f"heads {res['heads'][0]}/{res['heads'][1]}, first-token "
+            f"logits vs one process max|d|={d:.3e} (tolerance {LOGIT_TOL}),"
+            f" launches w4a16_gemm {got[0]} / paged_attention {got[1]} "
+            f"(want {want[0]} / {want[1]}: {res['forwards']} forwards), "
+            f"first differing greedy token "
+            f"{'none' if first is None else f'request {first[0]} token {first[1]}: {first[2]} vs {first[3]}'}"
+            f"; build {res['build_s']:.1f} s, serve {res['wall']:.2f} s, "
+            f"decode {res['decode_s'] / max(res['steps'], 1) * 1e3:.1f} "
+            f"ms/step over {res['steps']} steps, peak {res['peak_gib']:.2f} "
+            f"GiB {'ok' if ok else 'FAIL'} [ranks share one card: {card}]")
+        if not ok:
+            raise AssertionError(f"phase 13 {what}: rank {res['coords']} "
+                                 f"disagrees with the single process")
+    log("mesh", f"{what}: plans (KxN: split_k) {ranks[0]['plans']}, "
+        f"attention paths {ranks[0]['paths']}")
+
+
+def mesh_serve(torch, dev, card, table):
+    """Phase 13: every run of MESH_RUNS served by one process at the same
+    cut (the reference: the port on one card), then by its mesh's ranks,
+    spawned on the one card over gloo (one spawn per world size), and held
+    against it (``hold_mesh``)."""
+    from repro_torch.models import transformer as T
+    refs = {}
+    for arch, layers, _, _ in MESH_RUNS:
+        cfg = mesh_cfg(arch, layers)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = T.quantize_params(T.init_params(gen, cfg, device=dev), cfg,
+                                   min_size=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ref = mesh_serve_run(torch, dev, cfg, params, table)
+        del params
+        torch.cuda.empty_cache()
+        refs[arch] = ref
+        log("mesh", f"{arch} ({cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) in "
+            f"one process: built {build_s:.1f} s, served {MESH_REQS} x "
+            f"{MESH_PROMPT} + {MESH_GEN} in {ref['wall']:.2f} s, decode "
+            f"{ref['decode_s'] / max(ref['steps'], 1) * 1e3:.1f} ms/step "
+            f"[{card}]")
+    by_world = {}
+    for arch, layers, meshes, serial in MESH_RUNS:
+        for dm in meshes:
+            by_world.setdefault(dm[0] * dm[1], []).append(
+                (arch, layers, dm, serial))
+    for world, runs in sorted(by_world.items()):
+        t0 = time.perf_counter()
+        out = spawn_mesh(runs, world)
+        log("mesh", f"{world} ranks on one card: {len(runs)} runs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for i, (arch, layers, dm, _) in enumerate(runs):
+            ranks = [res[i] for res in out]
+            for res in ranks:
+                res["L"] = mesh_cfg(arch, layers).num_layers
+            hold_mesh(refs[arch], ranks, f"{arch} at {dm[0]}x{dm[1]}", card)
+
+
 _MANGLED = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
             "Lb0E": "", "Lb1E": " kv8"}
 
@@ -4756,6 +5132,10 @@ def main() -> int:
                              check_p11_gemms(torch, dev, gen))
     errs["paged_attention"] = max(errs["paged_attention"],
                                   check_p11_attention(torch, dev, gen))
+    errs["w4a16_gemm"] = max(errs["w4a16_gemm"],
+                             check_mesh_gemms(torch, dev, gen))
+    errs["paged_attention"] = max(errs["paged_attention"],
+                                  check_mesh_attention(torch, dev, gen))
     torch.cuda.synchronize()
     log("kernels", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
@@ -4776,6 +5156,7 @@ def main() -> int:
     moe_rows = time_moe_gemms(torch, dev, gen, timer, card)
     time_carry(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
     time_p11(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
+    time_mesh(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
     del timer
     torch.cuda.empty_cache()
     log("timing", f"phase 5 took {time.perf_counter() - t0:.1f} s")
@@ -4801,6 +5182,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     errs["flash_attention"] = max(errs["flash_attention"], train_families(
         torch, dev, card, table))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_serve(torch, dev, card, table)
+    log("mesh", f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),
@@ -4860,4 +5245,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        # one rank of phase 13, spawned by spawn_mesh
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
+                           *sys.argv[4:7]))
     sys.exit(main())

@@ -46,8 +46,8 @@ import torch
 from repro_torch.core import costmodel
 from repro_torch.core.device import dtype_name
 from repro_torch.core.quant import (
-    DEFAULT_FORMAT, DEFAULT_KV_FORMAT, QuantizedTensor, get_kv_format,
-    w4a16_format_for, w4a8_matmul_ref,
+    DEFAULT_FORMAT, DEFAULT_KV_FORMAT, QuantizedTensor, get_format,
+    get_kv_format, w4a16_format_for, w4a8_matmul_ref,
 )
 from repro_torch.kernels import ref
 from repro_torch.kernels.w4a8_fused import w4a8_fused
@@ -60,6 +60,7 @@ __all__ = [
     "register_strategy", "get_strategy", "available_strategies",
     "strategies_for_format",
     "plan_matmul", "resolve_plan", "execute", "matmul", "plan_for_params",
+    "shard_problem", "splits_k", "mesh_axis_size",
     "PlanCache", "PLAN_CACHE", "load_plan_cache", "save_plan_cache",
     "choose_split_k", "num_cores",
     "AttentionProblem", "AttentionPlan", "register_attn_path",
@@ -597,13 +598,89 @@ def quantized_leaves(tree):
     return (leaf for _, leaf in _quantized_paths(tree))
 
 
-def plan_for_params(params, M: int, *,
-                    strategy: Optional[str] = None) -> Dict[str, KernelPlan]:
+def mesh_axis_size(mesh, name: str) -> int:
+    """Axis size by name, 0 when absent: a ``DeviceMesh``, or a spec-level
+    stand-in with a ``shape`` dict (the JAX package's tests' FakeMesh)."""
+    if mesh is None:
+        return 0
+    dims = getattr(mesh, "mesh_dim_names", None)
+    if dims is not None:
+        return mesh.size(dims.index(name)) if name in dims else 0
+    try:
+        return int(mesh.shape[name])
+    except (KeyError, TypeError):
+        return 0
+
+
+def splits_k(problem: MatmulProblem, tp: int) -> bool:
+    """Can a row-parallel GEMM split its K over ``tp`` ranks that each run
+    their shard alone? Only into whole packed rows and quant groups, and
+    never for a format that quantizes its activations (a row scale would
+    then cover one rank's K slice)."""
+    fmt = get_format(problem.format)
+    K = problem.K
+    units = [K, K // fmt.pack_factor]
+    if fmt.scale_granularity == "group":
+        units.append(K // problem.group_size)
+    return not fmt.quantized_activations and all(u % tp == 0 for u in units)
+
+
+def shard_problem(problem: MatmulProblem, mesh, kind: str, *,
+                  parts: Optional[int] = None) -> MatmulProblem:
+    """The per-rank LOCAL GEMM of ``problem`` under tensor parallelism (the
+    JAX package's ``shard_problem``): ``kind="col"`` divides N by the
+    "model" axis (or by ``parts``: the groups a KV projection's heads
+    split into when ranks outnumber them), ``"row"`` divides K, ``"rep"``
+    leaves the weight whole; the data axes divide M greedily, as
+    ``batch_spec`` does. A dim that does not divide stays whole.
+
+    It departs from JAX where a rank that runs its shard alone cannot take
+    JAX's layout: a row-parallel K splits only as :func:`splits_k` allows
+    (JAX divides any K the axis divides and replicates the scales).
+
+    Row-parallel sharding moves each rank's GEMM deeper into the K ≫ N
+    decode regime the paper's Split-K targets (llama3-405b at TP=4: wk/wv
+    become K = 16384 against N = 256 per KV head), so plans are costed on
+    these shapes."""
+    if mesh is None:
+        return problem
+    model = mesh_axis_size(mesh, "model")
+    M, N, K = problem.M, problem.N, problem.K
+    dp = 1
+    for a in ("pod", "data"):
+        sz = mesh_axis_size(mesh, a)
+        if sz > 1 and M % (dp * sz) == 0:
+            dp *= sz
+    M //= dp
+    if model > 1:
+        if kind == "col" and N % (parts or model) == 0:
+            N //= parts or model
+        elif kind == "row" and splits_k(problem, model):
+            K //= model
+    return dataclasses.replace(problem, M=max(M, 1), N=N, K=K)
+
+
+def plan_for_params(params, M: int, *, strategy: Optional[str] = None,
+                    mesh=None, cfg=None) -> Dict[str, KernelPlan]:
     """Pre-plan every quantized layer GEMM in a param tree for ``M`` rows
     (``strategy`` forces one, and a strategy/format mismatch raises here).
     An MoE expert stack (a leaf under ``moe``, experts on the axis before
     K) is planned as one batched problem of E GEMMs. Returns ``{"KxN":
-    plan}``; every planned decision lands in the plan cache."""
+    plan}``; every planned decision lands in the plan cache.
+
+    With ``mesh`` (and the model's ``cfg``) ``params`` is the whole tree
+    and each leaf is planned at the GEMM a rank executes: its cut by the
+    rank's ``runtime.sharding.Layout`` through :func:`shard_problem`, M
+    divided over the data axes. The keys are those shard-local "KxN",
+    which is what a rank's layer-time lookups see. A rank's own tree
+    (``sharding.shard_params``) plans the same keys without ``mesh``, at
+    the rank's M."""
+    layout = None
+    if mesh is not None:
+        # runtime.sharding owns the cut; imported here so that the kernels
+        # layer does not import runtime/ when it loads
+        from repro_torch.runtime.sharding import Layout
+        layout = Layout(cfg, mesh)
     plans: Dict[str, KernelPlan] = {}
     for names, leaf in _quantized_paths(params):
         batch = leaf.packed.shape[-3] if "moe" in names else 1
@@ -615,6 +692,12 @@ def plan_for_params(params, M: int, *,
             has_zeros=leaf.zeros is not None,
             backend=leaf.packed.device.type, batch=int(batch),
             format=leaf.format.name)
+        if layout is not None:
+            cut = layout.leaf_cut(names[:-1], {"kernel": leaf})
+            kind = "rep" if cut is None or cut[0] == "gather" else \
+                ("row" if cut[1] == -2 else "col")
+            parts = cut[2] if kind == "col" else None
+            problem = shard_problem(problem, mesh, kind, parts=parts)
         plans[problem.layer_key] = plan_matmul(problem, strategy=strategy)
     return plans
 

@@ -26,11 +26,24 @@ the same requests through the asyncio front door
 (``runtime/frontdoor.py``): one real-socket client per request on
 127.0.0.1 streaming SSE tokens, through a bounded queue (``--queue-depth``
 → 429, ``--deadline-s`` → 408), with ``GET /metrics`` live.
+
+``--mesh DATAxMODEL`` serves on a (data, model) mesh of ranks, one
+process each, every rank drawing the same weights and keeping only its
+slice of each leaf as it is drawn (``runtime/sharding.py``):
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch h2o-danube-1.8b --mesh 2x2
+
+The world size must equal DATA*MODEL. Ranks on one card share it over
+``gloo`` (``launch/mesh.py``); only rank 0 prints. The dense,
+vision-prefix and moe archs serve on a mesh; ``--http`` does not (one
+front door would have to feed every rank's host loop).
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
 import os
@@ -43,9 +56,10 @@ from repro_torch import configs
 from repro_torch.core import quant
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import planning
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.presets import serve_settings_for
 from repro_torch.models import transformer as T
-from repro_torch.runtime import speculative
+from repro_torch.runtime import sharding, speculative
 from repro_torch.runtime.engine import Request, ServingEngine
 
 
@@ -120,6 +134,10 @@ def build_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="default per-request deadline in seconds, 408 "
                          "once expired (--http only; default and 0: none)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve on a (data, model) mesh of ranks, e.g. "
+                         "2x4 (launch DATA*MODEL ranks with python -m "
+                         "torch.distributed.run)")
     ap.add_argument("--verbose", action="store_true")
     return ap.parse_args(argv)
 
@@ -190,10 +208,19 @@ def make_requests(cfg, n: int, prompt_len, gen: int, seed: int, *,
 
 def build(args: argparse.Namespace):
     """The engine and the requests that ``args`` describe (weights drawn
-    and quantized on the device); returns ``(engine, requests)``."""
-    device = resolve_device(args.device)
+    and quantized on the device; with ``--mesh`` this rank's slice of
+    them); returns ``(engine, requests)``."""
+    device = resolve_device(args.device) if args.mesh is None \
+        else tmesh.rank_device(args.device)
     cfg = (configs.get_reduced if args.reduced else configs.get_config)(
         args.arch)
+    mesh = layout = None
+    if args.mesh is not None:
+        if args.http is not None:
+            raise ValueError("--http serves one host loop; it does not "
+                             "take --mesh")
+        sharding.check_mesh_family(cfg)
+        mesh = tmesh.parse_mesh(args.mesh, device)
     sset = serve_settings_for(args.arch)
     fmt = quant.get_format(args.format or cfg.quant_format)
     kv_format = validate_kv_format(args.kv_format or sset.kv_format,
@@ -208,10 +235,22 @@ def build(args: argparse.Namespace):
     if cfg.family == "encdec" and device.type == "cuda":
         cfg = dataclasses.replace(cfg, attn_impl="flash")
 
+    if mesh is not None:
+        layout = sharding.Layout(cfg, mesh)
+        rank_cfg = layout.local_cfg()
+        cuts = [f"{what} / {layout.tp}" for what, cut in (
+            ("the vocab", layout.vocab_sharded), ("d_ff", layout.ffn_sharded))
+            if cut]
+        print(f"[serve] mesh {args.mesh} ({torch.distributed.get_backend()})"
+              f": each rank holds {rank_cfg.num_heads} of {cfg.num_heads} "
+              f"query heads and {rank_cfg.num_kv_heads} of "
+              f"{cfg.num_kv_heads} KV heads" + "".join(", " + c for c in cuts))
+
     t0 = time.perf_counter()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = T.init_params(gen, cfg, device=device)
+    params = T.init_params(gen, cfg, device=device,
+                           cut=None if layout is None else layout.cut)
     if args.no_quant:
         print(f"[serve] {cfg.name} dense {str(cfg.dtype).split('.')[-1]} "
               f"weights (--no-quant) on {device}; built in "
@@ -235,7 +274,8 @@ def build(args: argparse.Namespace):
         warm_cache_mb=args.warm_cache_mb,
         speculate=speculate, spec_k=args.spec_k,
         admission="priority" if args.http is not None else "fifo",
-        attn_path=args.attn_path or sset.attn_path, device=device)
+        attn_path=args.attn_path or sset.attn_path, device=device,
+        mesh=mesh)
     print(f"[serve] streams: prompt {pmax} + prefix {cfg.vision_prefix} + "
           f"gen {args.gen}"
           + (f"; {cfg.encoder_layers}-layer encoder over "
@@ -321,8 +361,22 @@ def serve_http(engine, reqs, *, port: int, queue_depth: int,
 
 
 def main(argv=None):
-    """Build, serve, print the report; returns the ``ServeReport``."""
+    """Build, serve, print the report; returns the ``ServeReport``. On a
+    mesh only rank 0 prints (and writes the plan cache)."""
     args = build_args(argv)
+    if args.mesh is None:
+        return _main(args)
+    quiet = int(os.environ.get("RANK", 0)) != 0
+    try:
+        with contextlib.redirect_stdout(open(os.devnull, "w")) if quiet \
+                else contextlib.nullcontext():
+            return _main(args, save=not quiet)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, save: bool = True):
     if args.plan_cache and os.path.exists(args.plan_cache):
         n = planning.load_plan_cache(args.plan_cache, tolerant=True)
         if n >= 0:
@@ -372,7 +426,7 @@ def main(argv=None):
               f"({report.acceptance_rate:.0%}); tok/s above counts "
               f"accepted tokens only")
     print(f"[serve] sample generation (request 0): {got[0]}")
-    if args.plan_cache:
+    if args.plan_cache and save:
         n = planning.save_plan_cache(args.plan_cache)
         c = planning.PLAN_CACHE
         print(f"[serve] plan cache: {n} plans -> {args.plan_cache} "

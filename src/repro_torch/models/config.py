@@ -53,6 +53,10 @@ class ModelConfig:
                                      # hand-written kernel, the deployment
                                      # value the launchers set)
 
+    # multi-device serving: the rank's runtime.sharding.Layout (its heads,
+    # its cut of the weights, the mesh's collectives); None on one device
+    shard: Any = None
+
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)

@@ -37,15 +37,42 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
 def linear(p, x: torch.Tensor, cfg=None) -> torch.Tensor:
     """y = x @ W (+ b); W may be dense or a QuantizedTensor (W4A16). The
     dense path accumulates in fp32 and returns the activation dtype; the
-    bias is added in that dtype, as in the JAX package."""
+    bias is added in that dtype, as in the JAX package.
+
+    On a mesh (``cfg.shard``, a ``runtime.sharding.Layout``) the leaf's
+    ``"tp"`` mark says what the rank holds: ``"col"`` output features (no
+    collective), ``"row"`` input features (the partial products are
+    all-reduced over "model" in the activation dtype, before the bias),
+    ``"gather"`` the whole weight behind an input that is sharded (x is
+    all-gathered over "model" first)."""
     w = p["kernel"]
+    mode = p.get("tp")
+    if mode == "gather":
+        x = cfg.shard.gather_model(x)
     if isinstance(w, QuantizedTensor):
         y = planning.matmul(x, w, cfg=cfg)
     else:
         y = torch.matmul(x, w.to(x.dtype))
+    if mode == "row":
+        y = cfg.shard.reduce_model(y)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
+
+
+def pick_format(base, K: int):
+    """The format a (K, N) weight quantizes to under ``base``: its group
+    size, else the largest of 64 and 32 that divides K (hymba's d_model
+    1600); None when K cannot be packed or grouped (the leaf stays
+    dense)."""
+    if base.pack_factor > 1 and K % 2:
+        return None
+    if base.scale_granularity != "group":
+        return base
+    for g in (base.group_size, 64, 32):
+        if K % g == 0:
+            return base.with_group_size(g)
+    return None
 
 
 def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
@@ -64,21 +91,11 @@ def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
     if symmetric is not None:
         base = base.with_symmetric(symmetric)
 
-    def pick_format(K: int):
-        if base.pack_factor > 1 and K % 2:
-            return None
-        if base.scale_granularity != "group":
-            return base
-        for g in (base.group_size, 64, 32):
-            if K % g == 0:
-                return base.with_group_size(g)
-        return None
-
     def quantize_leaf(leaf: torch.Tensor):
         if leaf.dim() < 2 or leaf.dtype == torch.int8 \
                 or leaf.shape[-2] * leaf.shape[-1] < min_size:
             return leaf
-        fmt = pick_format(leaf.shape[-2])
+        fmt = pick_format(base, leaf.shape[-2])
         if fmt is None:
             return leaf
         if leaf.dim() == 2:
@@ -138,8 +155,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.to(torch.float32), approximate="tanh").to(x.dtype)
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["table"])
+def embed(p, tokens: torch.Tensor, cfg=None) -> torch.Tensor:
+    """The rows of the table at ``tokens``. A vocab-sharded table (mark
+    ``"vocab"``: the rank holds rows ``[r·V/tp, (r+1)·V/tp)``) looks up the
+    ids it holds, zeros elsewhere, and all-reduces over "model" (one
+    nonzero term per entry: exact)."""
+    if p.get("tp") != "vocab":
+        return F.embedding(tokens.long(), p["table"])
+    table = p["table"]
+    ids = tokens.long() - cfg.shard.tp_rank * table.shape[0]
+    held = (ids >= 0) & (ids < table.shape[0])
+    rows = F.embedding(ids.clamp(0, table.shape[0] - 1), table)
+    return cfg.shard.reduce_model(
+        torch.where(held[..., None], rows, torch.zeros_like(rows)))
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Top-k token-choice MoE with capacity-based dispatch (port of
-``repro/models/moe.py``, single device).
+``repro/models/moe.py``).
 
 Dispatch is the sort-free cumsum-rank formulation: every (token, k) pair
 gets a rank within its chosen expert; pairs beyond the expert capacity are
@@ -11,8 +11,18 @@ E experts), with dense experts ``torch.bmm``.
 Which pairs drop depends on the routing batch T (the capacity is a
 function of T), so callers route exactly the rows the JAX package routes:
 every decode row (inactive slots included), every padded chunk row, every
-verify row. The JAX package's data-parallel dispatch (``shard_map`` and
-the vmapped shards) waits for the port's multi-GPU slice.
+verify row.
+
+On a mesh (``cfg.shard``) the expert stacks are tensor-parallel on d_ff
+(``w_gate``/``w_up`` column-, ``w_down`` row-parallel; the router
+replicated) and the expert-batched kernel runs at the rank's N or K; the
+row-parallel partial sums are all-reduced over "model" once, after the
+combine. Dispatch is data-parallel as the JAX package's (its ``_dp_axes``
+and the vmapped shards of ``moe_ffn``): each data shard of the routing
+batch routes its own tokens at a per-shard capacity. A step whose rows are
+a rank's data shard routes them as one; a replicated step (the one-slot
+prefill chunk) routes its tokens in ``shards`` contiguous groups
+(:func:`moe_ffn`).
 """
 from __future__ import annotations
 
@@ -29,24 +39,26 @@ from repro_torch.models import layers
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
              num_experts: int, dtype, *, device=None,
-             stacked: Optional[int] = None):
+             stacked: Optional[int] = None, cut=None):
     """Router and (E, d, ff) / (E, ff, d) expert kernels, N(0, 1/fan_in),
     drawn from ``gen`` on ``device`` (stacked over ``stacked`` layers when
-    given)."""
+    given); ``cut(path, p)`` replaces each dict as it is drawn (a mesh
+    rank's slice, ``transformer.init_params``)."""
     lead = () if stacked is None else (stacked,)
     E = num_experts
+    keep = cut or (lambda path, p: p)
 
-    def experts(d_in, d_out):
+    def experts(name, d_in, d_out):
         w = torch.randn(lead + (E, d_in, d_out), generator=gen,
                         device=device) * d_in ** -0.5
-        return {"kernel": w.to(dtype)}
+        return keep(("layers", "moe", name), {"kernel": w.to(dtype)})
 
     return {
-        "router": layers.init_linear(gen, d_model, E, dtype, device=device,
-                                     layers=stacked),
-        "w_gate": experts(d_model, d_ff),
-        "w_up": experts(d_model, d_ff),
-        "w_down": experts(d_ff, d_model),
+        "router": keep(("layers", "moe", "router"), layers.init_linear(
+            gen, d_model, E, dtype, device=device, layers=stacked)),
+        "w_gate": experts("w_gate", d_model, d_ff),
+        "w_up": experts("w_up", d_model, d_ff),
+        "w_down": experts("w_down", d_ff, d_model),
     }
 
 
@@ -69,8 +81,12 @@ def stable_top_k(gates: torch.Tensor, k: int):
 def _expert_matmul(w, x: torch.Tensor, cfg) -> torch.Tensor:
     """x: (E, cap, K) · w: (E, K, N) — a quantized expert stack (one plan
     for the stack, M = cap, batch = E) or dense experts (``torch.bmm``,
-    fp32 accumulation, the activation dtype out)."""
+    fp32 accumulation, the activation dtype out). A whole stack behind a
+    d_ff-sharded input (mark ``"gather"``) all-gathers x over "model"
+    first; a row-parallel stack's output is a partial sum."""
     kern = w["kernel"]
+    if w.get("tp") == "gather":
+        x = cfg.shard.gather_model(x)
     if isinstance(kern, QuantizedTensor):
         problem = planning.MatmulProblem(
             M=int(x.shape[1]), N=int(kern.N), K=int(x.shape[-1]),
@@ -132,12 +148,20 @@ def _dispatch_ffn(p, xt: torch.Tensor, *, num_experts: int, top_k: int,
 
 
 def moe_ffn(p, x: torch.Tensor, *, num_experts: int, top_k: int,
-            capacity_factor: float = 1.25, cfg=None):
+            capacity_factor: float = 1.25, cfg=None, shards: int = 1):
     """x: (..., d) → ((..., d), the aux load-balancing loss). Every row of
-    x joins the routing batch."""
+    x joins the routing batch; with ``shards`` > 1 the flattened tokens
+    route in that many contiguous groups, each at its own capacity (the
+    JAX package's data-parallel dispatch), and the aux loss is their
+    mean."""
     lead = x.shape[:-1]
     d = x.shape[-1]
-    yt, aux = _dispatch_ffn(p, x.reshape(-1, d), num_experts=num_experts,
-                            top_k=top_k, capacity_factor=capacity_factor,
-                            cfg=cfg)
+    xt = x.reshape(-1, d)
+    outs = [_dispatch_ffn(p, xs, num_experts=num_experts, top_k=top_k,
+                          capacity_factor=capacity_factor, cfg=cfg)
+            for xs in xt.chunk(shards)]
+    yt = torch.cat([y for y, _ in outs])
+    aux = torch.stack([a for _, a in outs]).mean()
+    if p["w_down"].get("tp") == "row":
+        yt = cfg.shard.reduce_model(yt)
     return yt.reshape(*lead, d), aux

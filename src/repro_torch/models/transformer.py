@@ -34,6 +34,13 @@ KV pool and the recurrent carries (rwkv ``wkv``/``shift``/``cm_shift``,
 hybrid ``ssm``, stacked over L with one row per slot) in place and return
 the same state; the verify step alone leaves the carries as they are and
 returns their checkpoints.
+
+On a mesh (``cfg.shard``, ``runtime/sharding.py``) the params are a rank's
+slice and ``cfg`` carries the rank's head counts: the layers' collectives
+live in ``layers.linear``, ``layers.embed`` and :func:`_logits_head`, and
+the decode and verify steps run this rank's data shard of the batch when
+``Layout.rows`` gives one, gathering every shard's new K/V rows before the
+paged write.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import quant
 from repro_torch.core.quant import (
     DEFAULT_KV_FORMAT, QuantizedTensor, get_kv_format, kv_dequantize,
     kv_quantize,
@@ -72,7 +80,8 @@ def check_family(cfg: ModelConfig) -> None:
 # init / quantize
 # ---------------------------------------------------------------------------
 
-def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
+def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
+                cut=None):
     """Random parameters drawn from ``gen`` (stacked over L), created in
     ``cfg.dtype`` on ``device`` (rwkv's ``w_bias`` and the SSM's ``A_log``
     and ``D`` in fp32): each layer holds attention (not rwkv), then the
@@ -80,13 +89,19 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
     ``moe``, rwkv's time-mix and channel-mix leaves, hybrid's ``ssm``, or
     encdec's ``cross`` attention and ``norm3``; encdec adds the encoder's
     layers (attention and the MLP) and its final norm. LayerNorms and the
-    GELU MLP's biases start at zero, as in the JAX package."""
+    GELU MLP's biases start at zero, as in the JAX package.
+
+    ``cut(path, p)`` (a ``runtime.sharding.Layout.cut``) replaces each
+    linear or embedding dict of the dense and moe families right after it
+    is drawn, before the next is: a rank of a mesh then never holds more
+    than one whole leaf, and ``gen`` is consumed as without it."""
     check_family(cfg)
     L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    keep = cut or (lambda path, p: p)
 
-    def lin(d_in, d_out, n=L, bias=False):
-        return layers.init_linear(gen, d_in, d_out, cfg.dtype, device=device,
-                                  layers=n, bias=bias)
+    def lin(d_in, d_out, n=L, bias=False, path=()):
+        return keep(path, layers.init_linear(
+            gen, d_in, d_out, cfg.dtype, device=device, layers=n, bias=bias))
 
     def norm(*lead):
         p = {"scale": torch.ones(lead + (d,), dtype=cfg.dtype,
@@ -96,18 +111,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
                                     device=device)
         return p
 
-    def attn(n=L):
-        return {"wq": lin(d, cfg.q_dim, n), "wk": lin(d, cfg.kv_dim, n),
-                "wv": lin(d, cfg.kv_dim, n), "wo": lin(cfg.q_dim, d, n)}
+    def attn(n=L, pre=("layers", "attn")):
+        return {"wq": lin(d, cfg.q_dim, n, path=pre + ("wq",)),
+                "wk": lin(d, cfg.kv_dim, n, path=pre + ("wk",)),
+                "wv": lin(d, cfg.kv_dim, n, path=pre + ("wv",)),
+                "wo": lin(cfg.q_dim, d, n, path=pre + ("wo",))}
 
-    def mlp(n=L):
+    def mlp(n=L, pre=("layers", "mlp")):
         if cfg.mlp_type == "swiglu":
-            return {"w_gate": lin(d, ff, n), "w_up": lin(d, ff, n),
-                    "w_down": lin(ff, d, n)}
-        return {"w_up": lin(d, ff, n, bias=True),
-                "w_down": lin(ff, d, n, bias=True)}
+            return {"w_gate": lin(d, ff, n, path=pre + ("w_gate",)),
+                    "w_up": lin(d, ff, n, path=pre + ("w_up",)),
+                    "w_down": lin(ff, d, n, path=pre + ("w_down",))}
+        return {"w_up": lin(d, ff, n, bias=True, path=pre + ("w_up",)),
+                "w_down": lin(ff, d, n, bias=True, path=pre + ("w_down",))}
 
     table = torch.randn(V, d, generator=gen, device=device) * 0.02
+    embed = keep(("embed",), {"table": table.to(cfg.dtype)})
+    del table
     stack = {"norm1": norm(L), "norm2": norm(L)}
     if cfg.family == "rwkv":
         stack.update(rwkv.init_rwkv_block(gen, d, ff, cfg.num_heads,
@@ -117,35 +137,42 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None):
         stack["attn"] = attn()
     if cfg.family == "moe":
         stack["moe"] = moe.init_moe(gen, d, ff, cfg.num_experts, cfg.dtype,
-                                    device=device, stacked=L)
+                                    device=device, stacked=L, cut=keep)
     elif cfg.family in ("dense", "hybrid", "encdec"):
         stack["mlp"] = mlp()
     if cfg.family == "hybrid":
         stack["ssm"] = ssm.init_ssm(gen, d, cfg.d_inner, cfg.ssm_state,
                                     cfg.dtype, device=device, stacked=L)
-    params = {"embed": {"table": table.to(cfg.dtype)},
-              "final_norm": norm(), "layers": stack}
+    params = {"embed": embed, "final_norm": norm(), "layers": stack}
     if cfg.family == "encdec":
-        stack["cross"] = attn()
+        stack["cross"] = attn(pre=("layers", "cross"))
         stack["norm3"] = norm(L)
         E = cfg.encoder_layers
         params["encoder"] = {
-            "layers": {"norm1": norm(E), "norm2": norm(E), "attn": attn(E),
-                       "mlp": mlp(E)},
+            "layers": {"norm1": norm(E), "norm2": norm(E),
+                       "attn": attn(E, ("encoder", "attn")),
+                       "mlp": mlp(E, ("encoder", "mlp"))},
             "final_norm": norm()}
     if not cfg.tie_embeddings:
-        params["lm_head"] = lin(d, V, None)
+        params["lm_head"] = lin(d, V, None, path=("lm_head",))
     return params
+
+
+def serve_format(cfg: ModelConfig, format=None):
+    """The format serving quantizes to: ``format`` (a registered name) or
+    ``cfg.quant_format``, regrouped to ``cfg.group_size`` for the default
+    format only."""
+    fmt = quant.get_format(format or cfg.quant_format)
+    if fmt.name == quant.DEFAULT_FORMAT:
+        return fmt.with_group_size(cfg.group_size)
+    return fmt
 
 
 def quantize_params(params, cfg: ModelConfig, *, format=None,
                     min_size: int = 1 << 16):
     """Serve-time quantization (``cfg.quant_format``, the paper's W4A16 by
     default; ``cfg.group_size`` re-groups the default format only)."""
-    from repro_torch.core import quant
-    fmt = quant.get_format(format or cfg.quant_format)
-    gs = cfg.group_size if fmt.name == quant.DEFAULT_FORMAT else None
-    return layers.quantize_tree(params, format=fmt.name, group_size=gs,
+    return layers.quantize_tree(params, format=serve_format(cfg, format).name,
                                 min_size=min_size)
 
 
@@ -154,6 +181,8 @@ def _layer_slice(tree, i: int):
         return {k: _layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, QuantizedTensor):
         return tree.layer(i)
+    if isinstance(tree, str):           # a mesh rank's "tp" mark
+        return tree
     return tree[i]
 
 
@@ -222,16 +251,22 @@ def _mlp(p, cfg: ModelConfig, x):
     return layers.linear(p["w_down"], h, cfg)
 
 
-def _ffn(lp, cfg: ModelConfig, h):
+def _ffn(lp, cfg: ModelConfig, h, split: bool = False):
     """The post-attention FFN tail of every layer body (JAX's
     ``_ffn_seq``): h + FFN(norm2(h)), the FFN being the MLP or the MoE
-    (every row of h routed; its aux loss dropped)."""
+    (every row of h routed; its aux loss dropped). On a mesh ``split``
+    says h's rows are this rank's data shard of the step (the MoE routes
+    them as one shard; a replicated step's tokens route in the data
+    axis's shards)."""
     x = _norm(cfg, lp["norm2"], h)
     if cfg.family == "moe":
+        shards = 1 if cfg.shard is None else cfg.shard.route_shards(
+            x.numel() // x.shape[-1], split)
         y, _aux = moe.moe_ffn(
             lp["moe"], x, num_experts=cfg.num_experts,
             top_k=cfg.experts_per_token,
-            capacity_factor=cfg.moe_capacity_factor, cfg=cfg)
+            capacity_factor=cfg.moe_capacity_factor, cfg=cfg,
+            shards=shards)
         return h + y
     return h + _mlp(lp["mlp"], cfg, x)
 
@@ -375,9 +410,9 @@ def encode_cross_kv(params, cfg: ModelConfig, audio_embeds):
     return (torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
 
 
-def _embed_stream(params, tokens, prefix_embeds):
+def _embed_stream(params, cfg: ModelConfig, tokens, prefix_embeds):
     """Token embeddings, after the vision-prefix embeds when given."""
-    h = layers.embed(params["embed"], tokens)
+    h = layers.embed(params["embed"], tokens, cfg)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     return h
@@ -401,7 +436,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     stacked ``layers`` leaves through the per-layer views."""
     check_family(cfg)
     _check_audio(cfg, audio_embeds)
-    h = _embed_stream(params, tokens, prefix_embeds)
+    h = _embed_stream(params, cfg, tokens, prefix_embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
@@ -440,10 +475,15 @@ def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
 def _logits_head(params, cfg: ModelConfig, h):
     """The tied head (``layers.unembed``, fp32) or the dense (unquantized)
     ``lm_head``, whose activation-dtype product is returned as fp32
-    logits."""
+    logits. A vocab-sharded head's logits are all-gathered over "model"
+    (before any argmax)."""
     if cfg.tie_embeddings:
-        return layers.unembed(params["embed"], h)
-    return layers.linear(params["lm_head"], h, cfg).to(torch.float32)
+        logits = layers.unembed(params["embed"], h)
+        sharded = params["embed"].get("tp") == "vocab"
+    else:
+        logits = layers.linear(params["lm_head"], h, cfg).to(torch.float32)
+        sharded = params["lm_head"].get("tp") == "col"
+    return cfg.shard.gather_model(logits) if sharded else logits
 
 
 def _last_valid_row(h, valid):
@@ -469,19 +509,30 @@ def _carry_rows(cache, i: int, rows=slice(None)):
     return {k: cache[k][i, rows] for k in CARRY_LEAVES if k in cache}
 
 
+def _mine(t, rows):
+    """``t``'s rows that this rank runs (all of them when ``rows`` is
+    None)."""
+    return t if rows is None else t[rows]
+
+
 def _attn_step(ap, cfg: ModelConfig, x, kv_all, i: int, pos, tables, *,
                cache_len: int, fmt, attn_path: str, kv_partitions,
-               live_pages):
+               live_pages, rows=None):
     """Decode self-attention of one layer for one token a row: insert the
     token's K/V (into the paged pool, or the ring when ``tables`` is
-    None), then attend (insert before attend)."""
+    None), then attend (insert before attend). ``pos`` and ``tables``
+    cover the step's whole batch; on a mesh whose data axis splits it, x
+    holds this rank's ``rows``, and the new K/V rows of every data rank
+    are gathered before the insert so that each replica's pool stays
+    whole."""
     B = x.shape[0]
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mpos = _mine(pos, rows)
     q = layers.linear(ap["wq"], x, cfg).reshape(B, H, D)
     k = layers.linear(ap["wk"], x, cfg).reshape(B, Hkv, D)
     v = layers.linear(ap["wv"], x, cfg).reshape(B, Hkv, D)
-    q = layers.apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-    k = layers.apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    q = layers.apply_rope(q[:, None], mpos[:, None], cfg.rope_theta)[:, 0]
+    k = layers.apply_rope(k[:, None], mpos[:, None], cfg.rope_theta)[:, 0]
     if tables is None:
         ring = _ring_layer(kv_all, i)
         attention.cache_insert(ring, k, v, pos)
@@ -489,11 +540,14 @@ def _attn_step(ap, cfg: ModelConfig, x, kv_all, i: int, pos, tables, *,
                                        window=cfg.sliding_window)
     else:
         pool = kv_all.layer(i)
+        if rows is not None:
+            k, v = cfg.shard.gather_rows(k, rows), \
+                cfg.shard.gather_rows(v, rows)
         kvc.paged_insert(pool, tables, k, v, pos, cache_len=cache_len,
                          fmt=fmt)
         o = kvc.paged_decode_attention(
-            q, pool, tables, pos, window=cfg.sliding_window, fmt=fmt,
-            out_dtype=cfg.dtype, attn_path=attn_path,
+            q, pool, _mine(tables, rows), mpos, window=cfg.sliding_window,
+            fmt=fmt, out_dtype=cfg.dtype, attn_path=attn_path,
             kv_partitions=kv_partitions, live_pages=live_pages)
     return layers.linear(ap["wo"], o.reshape(B, H * D), cfg)
 
@@ -511,10 +565,13 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
     carries of rows that are not decoding (a slot mid chunked prefill
     shares the batch; its carry would be advanced by the dummy token). An
     encdec layer's cross-attention reads the state's ``enc_kv`` rows.
+    On a mesh whose data axis divides B this rank runs its rows of the
+    batch (``Layout.rows``) and returns their logits.
     Returns (logits (B, V) fp32, state)."""
     check_family(cfg)
     fmt = get_kv_format(kv_format)
-    h = layers.embed(params["embed"], tokens)               # (B, d)
+    rows = None if cfg.shard is None else cfg.shard.rows(tokens.shape[0])
+    h = layers.embed(params["embed"], _mine(tokens, rows), cfg)  # (B, d)
     cache = state["cache"]
     for i, lp in enumerate(_layers(params)):
         if cfg.family == "rwkv":
@@ -532,14 +589,15 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
         x = _norm(cfg, lp["norm1"], h)
         a = _attn_step(lp["attn"], cfg, x, cache["kv"], i, pos, tables,
                        cache_len=cache_len, fmt=fmt, attn_path=attn_path,
-                       kv_partitions=kv_partitions, live_pages=live_pages)
+                       kv_partitions=kv_partitions, live_pages=live_pages,
+                       rows=rows)
         if cfg.family == "hybrid":
             s_out, s_new = ssm.ssm_step(lp["ssm"], x, cache["ssm"][i], cfg)
             _commit(cache["ssm"][i], s_new, active)
             h = h + 0.5 * (a + s_out)
         else:
             h = _cross(lp, cfg, (h + a)[:, None], _enc_rows(state, i))[:, 0]
-        h = _ffn(lp, cfg, h)
+        h = _ffn(lp, cfg, h, split=rows is not None)
     h = _norm(cfg, params["final_norm"], h)
     return _logits_head(params, cfg, h), state
 
@@ -556,7 +614,7 @@ def _enc_rows(state, i: int, rows=slice(None)):
 def _paged_chunk_attn(ap, cfg: ModelConfig, x1, pool, tables, positions,
                       safe_pos, *, fmt, cache_len: int,
                       attn_path: str = "gather", kv_partitions=None,
-                      live_pages=None):
+                      live_pages=None, rows=None):
     """Self-attention for (B, C) chunks over the paged pool: one slot's
     prefill chunk (B = 1), or every slot's verify window, written with
     :func:`kvcache.scatter_chunks`. Each row attends the
@@ -564,9 +622,15 @@ def _paged_chunk_attn(ap, cfg: ModelConfig, x1, pool, tables, positions,
     the chunk is scattered (when the stream wraps, the chunk overwrites
     in-window entries its earliest queries still attend); the chunk's own
     K/V join as a segment after the same quantize round-trip their stored
-    copy takes."""
+    copy takes. On a mesh whose data axis splits the verify batch, x1
+    holds this rank's ``rows`` (``tables`` and ``positions`` cover every
+    row) and every data rank's K/V rows are gathered before the
+    scatter."""
     B, C, _ = x1.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    all_tables, all_positions = tables, positions
+    tables, positions = _mine(tables, rows), _mine(positions, rows)
+    safe_pos = _mine(safe_pos, rows)
     q = layers.linear(ap["wq"], x1, cfg).reshape(B, C, H, D)
     k = layers.linear(ap["wk"], x1, cfg).reshape(B, C, Hkv, D)
     v = layers.linear(ap["wv"], x1, cfg).reshape(B, C, Hkv, D)
@@ -595,8 +659,10 @@ def _paged_chunk_attn(ap, cfg: ModelConfig, x1, pool, tables, positions,
     else:
         raise ValueError(f"unknown attn_path {attn_path!r} "
                          f"(expected gather | fused)")
-    kvc.scatter_chunks(pool, tables, k, v, positions, cache_len=cache_len,
-                       fmt=fmt)
+    if rows is not None:
+        k, v = cfg.shard.gather_rows(k, rows), cfg.shard.gather_rows(v, rows)
+    kvc.scatter_chunks(pool, all_tables, k, v, all_positions,
+                       cache_len=cache_len, fmt=fmt)
     return layers.linear(ap["wo"], o.reshape(B, C, H * D), cfg)
 
 
@@ -675,9 +741,11 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
     the checkpoints or None)."""
     check_family(cfg)
     fmt = get_kv_format(kv_format)
-    h = layers.embed(params["embed"], tokens.clamp_min(0))   # (B, C, d)
+    rows = None if cfg.shard is None else cfg.shard.rows(tokens.shape[0])
+    h = layers.embed(params["embed"], _mine(tokens, rows).clamp_min(0),
+                     cfg)                                    # (B, C, d)
     B, C, _ = h.shape
-    valid = positions >= 0
+    valid = _mine(positions, rows) >= 0
     safe_pos = positions.clamp_min(0)
     cache = state["cache"]
     carries = {k: torch.empty((v.shape[0], B, C + 1, *v.shape[2:]),
@@ -694,7 +762,7 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
                 lp["attn"], cfg, x1, cache["kv"].layer(i), tables,
                 positions, safe_pos, fmt=fmt, cache_len=cache_len,
                 attn_path=attn_path, kv_partitions=kv_partitions,
-                live_pages=live_pages)
+                live_pages=live_pages, rows=rows)
             if cfg.family == "hybrid":
                 s_out, _, s_steps = ssm.ssm_seq(
                     lp["ssm"], x1, carry["ssm"], cfg, valid=valid,
@@ -702,7 +770,8 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
                 steps = {"ssm": s_steps}
                 h = _ffn(lp, cfg, h + 0.5 * (a + s_out))
             else:
-                h = _ffn(lp, cfg, _cross(lp, cfg, h + a, _enc_rows(state, i)))
+                h = _ffn(lp, cfg, _cross(lp, cfg, h + a, _enc_rows(state, i)),
+                         split=rows is not None)
         for k in carry:
             carries[k][i, :, 0] = carry[k]
             carries[k][i, :, 1:] = steps[k]
@@ -772,7 +841,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     carries after the prompt and encdec's ``enc_kv``)."""
     check_family(cfg)
     _check_audio(cfg, audio_embeds)
-    h = _embed_stream(params, tokens, prefix_embeds)
+    h = _embed_stream(params, cfg, tokens, prefix_embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)

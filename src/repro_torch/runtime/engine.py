@@ -43,7 +43,19 @@ prefill_chunk``), a verify plan when speculating (``B = max_batch``,
 ``M = max_batch`` or, when speculating, at the verify step's ``M =
 max_batch·(spec_k + 1)``; the other steps' GEMMs reuse them.
 
-Not ported, and refused: meshes and the ring cache as the serving state
+On a (data, model) mesh (``mesh=``, ``launch/mesh.py``) every rank runs
+this same host loop — scheduler, allocator, proposer — in lockstep on its
+shard of the weights (``runtime/sharding.py``) and of the KV pool (its own
+KV heads, every page: the pool is replicated over "data"). The decode and
+verify steps split their slots over "data" when ``max_batch`` divides it
+and all-gather the tokens after the argmax; the one-slot prefill chunk
+runs on every rank. Plans are shard-local: GEMMs keyed on the "KxN" a rank
+executes at its own rows (``max_batch / dp``, or ``max_batch·(spec_k +
+1) / dp`` when speculating), attention at its own heads. The dense,
+vision-prefix and moe families serve on a mesh; the carry families and
+encdec refuse one.
+
+Not ported, and refused: the ring cache as the serving state
 (``paged=False``; the draft model keeps a ring of its own). A moe layer
 routes every row of a step (inactive decode slots, a chunk's padding,
 every verify position) as the JAX engine does, since which pairs overflow
@@ -71,6 +83,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import kvcache as kvc
 from repro_torch.runtime import metrics as rmetrics
+from repro_torch.runtime import sharding
 from repro_torch.runtime import speculative as spec
 from repro_torch.runtime import steps as rsteps
 
@@ -212,6 +225,10 @@ class ServingEngine:
     up to that many MiB. ``admission`` is ``fifo`` or ``priority``.
     rwkv arrives with ``paged=True`` and serves from its carry-only state
     (``self.paged`` is False); the carry families share no prefix.
+    ``mesh`` (a (data, model) DeviceMesh) serves this rank's shard:
+    ``params`` whole (cut here) or already the rank's
+    (``sharding.shard_params``); ``self.cfg`` is then the rank's config
+    (its heads, ``cfg.shard``).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
@@ -229,13 +246,15 @@ class ServingEngine:
             raise NotImplementedError(
                 "the port serves from the paged KV cache only; the ring "
                 "cache (paged=False) is not ported")
-        if mesh is not None:
-            raise NotImplementedError("multi-device serving (mesh) is not "
-                                      "ported to PyTorch yet")
         if admission not in ("fifo", "priority"):
             raise ValueError(f"admission must be 'fifo' or 'priority', "
                              f"got {admission!r}")
         T.check_family(cfg)
+        self.layout = None if mesh is None else sharding.Layout(cfg, mesh)
+        global_cfg = cfg
+        if self.layout is not None:
+            params = sharding.shard_params(params, mesh, cfg)
+            cfg = self.layout.local_cfg()
         self.admission = admission
         self.device = resolve_device(device)
         self.max_batch = int(max_batch)
@@ -277,8 +296,9 @@ class ServingEngine:
                     f"block); size the pool with "
                     f"configs.shapes.serve_num_pages")
             # bytes one block occupies across every layer's pool leaves
-            # (scales and pos tags included): the warm budget's unit
-            one = kvc.init_pool(1, self.page_size, cfg.num_kv_heads,
+            # (scales and pos tags included; all KV heads, on a mesh too):
+            # the warm budget's unit
+            one = kvc.init_pool(1, self.page_size, global_cfg.num_kv_heads,
                                 cfg.head_dim, cfg.dtype, self.kv_format,
                                 device="meta")
             self.block_bytes = cfg.num_layers * sum(
@@ -296,12 +316,17 @@ class ServingEngine:
         # attention plans per regime (none for attention-free rwkv, whose
         # paths stay None)
         forced = None if attn_path == "auto" else attn_path
+        # a rank's rows of a max_batch step: the attention and GEMM plans'
+        # batch
+        rows = None if self.layout is None \
+            else self.layout.rows(self.max_batch)
+        B_rank = self.max_batch if rows is None else rows.stop - rows.start
         attn_problem = None
         self.attn_path = self.prefill_attn_path = None
         self.kv_partitions = self.prefill_kv_partitions = None
         if self.paged:
             attn_problem = planning.AttentionProblem(
-                B=self.max_batch, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                B=B_rank, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
                 D=cfg.head_dim, cache_len=self.cache_len,
                 page_size=self.page_size, window=cfg.sliding_window,
                 kv_format=self.kv_format, paged=True,
@@ -319,13 +344,17 @@ class ServingEngine:
         self.spec_k = int(spec_k)
         self.proposer: Optional[spec.Proposer] = None
         if speculate is not None and speculate != "off":
+            # a draft model runs whole on every rank: its config is built
+            # from the target's whole one
             if isinstance(speculate, spec.Proposer):
-                spec.validate_speculate(speculate.name, self.spec_k, cfg=cfg)
+                spec.validate_speculate(speculate.name, self.spec_k,
+                                        cfg=global_cfg)
                 self.proposer = speculate
             else:
-                spec.validate_speculate(str(speculate), self.spec_k, cfg=cfg)
+                spec.validate_speculate(str(speculate), self.spec_k,
+                                        cfg=global_cfg)
                 self.proposer = spec.make_proposer(str(speculate),
-                                                   target_cfg=cfg)
+                                                   target_cfg=global_cfg)
         # verify: q_len = k+1 queries per slot over the full batch
         if self.proposer is not None and attn_problem is not None:
             vf_plan = planning.plan_attention(
@@ -342,14 +371,15 @@ class ServingEngine:
                 isinstance(leaf, QuantizedTensor)
                 for leaf in planning.quantized_leaves(params)):
             # plans keyed "KxN" at the widest step's M: the verify step's
-            # B·(k+1) rows when speculating, else the decode step's B; the
+            # B·(k+1) rows when speculating, else the decode step's B (a
+            # rank's rows on a mesh, its own weight shards' KxN); the
             # other steps' GEMMs look up the same keys. A forced strategy
             # is planned here too, so one that cannot run the weights'
             # format is refused before serving starts.
             strategy = None if cfg.w4a16_strategy == "auto" \
                 else cfg.w4a16_strategy
-            M = self.max_batch * (self.spec_k + 1) \
-                if self.proposer is not None else self.max_batch
+            M = B_rank * (self.spec_k + 1) \
+                if self.proposer is not None else B_rank
             self.plans = planning.plan_for_params(params, M=M,
                                                   strategy=strategy)
             cfg = dataclasses.replace(cfg, w4a16_plan=self.plans)
@@ -740,7 +770,7 @@ class ServingEngine:
             saved = cold_steps - (-(-(S_total - shared) // C))
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)
-            emb = layers.embed(self.params["embed"], prompt)
+            emb = layers.embed(self.params["embed"], prompt, self.cfg)
             if self.cfg.vision_prefix:
                 emb = torch.cat([self.vision_embeds(req), emb])
             slot.pf_stream = emb

@@ -1,7 +1,10 @@
 """Train and serving steps as plain eager functions (port of
 ``repro/runtime/steps.py``). PyTorch runs eagerly: no ``torch.compile`` and
 no CUDA graphs yet. The serving steps' greedy argmax runs on the device;
-the engine syncs one (B,) int array per step.
+the engine syncs one (B,) int array per step. On a mesh (``cfg.shard``)
+a step whose batch splits over "data" runs this rank's rows and
+all-gathers their argmax over "data", so every rank's host loop sees the
+whole step's tokens.
 
 ``make_train_step`` runs on one device: the JAX package's FSDP and ZeRO-2
 shardings are not ported. Gradients are cast to ``grad_dtype`` (bf16) at
@@ -94,6 +97,14 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
     return prefill_step
 
 
+def _all_rows(cfg: ModelConfig, next_tok, B: int):
+    """The step's tokens for every row: this rank's, gathered over "data"
+    when the batch of B rows splits there."""
+    if cfg.shard is None:
+        return next_tok
+    return cfg.shard.gather_rows(next_tok, cfg.shard.rows(B))
+
+
 def make_serve_step(cfg: ModelConfig, *, cache_len: int = 0,
                     kv_format: str = "kv_fp16", attn_path: str = "gather",
                     kv_partitions=None, live_pages=None):
@@ -108,7 +119,8 @@ def make_serve_step(cfg: ModelConfig, *, cache_len: int = 0,
             kv_format=kv_format, attn_path=attn_path,
             kv_partitions=kv_partitions, live_pages=live_pages,
             active=inputs.get("active"))
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = _all_rows(cfg, torch.argmax(logits, dim=-1).to(
+            torch.int32), inputs["tokens"].shape[0])
         return {"next": next_tok, "logits": logits, "state": state}
     return serve_step
 
@@ -147,7 +159,8 @@ def make_verify_step(cfg: ModelConfig, cache_len: int, *,
             inputs.get("tables"), cache_len=cache_len, kv_format=kv_format,
             attn_path=attn_path, kv_partitions=kv_partitions,
             live_pages=live_pages)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = _all_rows(cfg, torch.argmax(logits, dim=-1).to(
+            torch.int32), inputs["tokens"].shape[0])
         return {"next": next_tok, "logits": logits, "state": state,
                 "carries": carries}
     return verify
