@@ -261,6 +261,26 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              attention at a rank's heads (32/2 of 128, 16/4 of 80); phase
              5 times them (rows 1e and 4d). No phase-13 time is a
              multi-GPU figure: the ranks share one card.
+14. mesh-train — training on a (data, model) mesh of 4 ranks spawned on
+             the one card (``chip_smoke.py --mesh-train-rank``, gloo, as
+             phase 13): h2o-danube-1.8b at full width, its first 4 of 24
+             layers (the cut and its ``train_bytes`` printed, with each
+             mesh's shares and the bytes a step sends through host memory
+             reckoned before the run), 8 x 1024 tokens a step under
+             danube's preset (``launch.presets.settings_for``: 4
+             microbatches, FSDP, ZeRO-2) at 1x4 and 2x2, two steps of
+             ``make_train_step(..., mesh=)`` from the weights of seed 0
+             against one process (rank 0, before the meshes) running
+             ``make_train_step`` with the same settings on the same
+             weights and batches: loss and grad norm of both steps, and m
+             and v gathered from the ranks after them, within
+             ``TRAIN_TOL``; flash launches exactly 2 · L · n a step on
+             every rank (forward and recompute per microbatch), no other
+             kernel; each rank's step ms beside the one process's. Phase 3
+             also holds the flash forward and its gradients at the ranks'
+             heads (8/2 and 16/4 of 80, window 4096); phase 5 times the
+             forward there (row 7d). No phase-14 time is a multi-GPU
+             figure: the ranks share one card.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -942,12 +962,15 @@ def hold_flash(torch, phase, what, dt, dtype, o, lse, o_p, lse_p):
 def check_flash(torch, dev, gen):
     """The flash-attention kernel vs its plain version (one full softmax
     per row in the kernel's rounding order) at every phase-3 shape
-    (``FLASH_CASES``, then ``FLASH_VIEW_CASES`` on strided views), held by
+    (``FLASH_CASES``, then ``FLASH_VIEW_CASES`` on strided views, then
+    phase 14's shard-local shapes, ``MESH_TRAIN_FLASH``), held by
     ``hold_flash``. Returns the worst bf16 |d| of the output."""
     from repro_torch.kernels import flash_attention as fa
     worst = 0.0
     cases = [(c, False) for c in FLASH_CASES] \
-        + [(c, True) for c in FLASH_VIEW_CASES]
+        + [(c, True) for c in FLASH_VIEW_CASES] \
+        + [((label, B, S, S, *rest), False)
+           for label, B, S, *rest in MESH_TRAIN_FLASH]
     for (label, B, Sq, Skv, Hq, Hkv, D, causal, window), fused in cases:
         for dt, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             q, k, v = flash_inputs(torch, gen, dev, B, Sq, Skv, Hq, Hkv, D,
@@ -988,8 +1011,9 @@ FLASH_GRAD_TOL = {"fp32": 1e-5, "bf16": 2e-2}
 
 def flash_grad_cases():
     """``FLASH_GRAD_CASES``, then the training lengths at B = 1: phase
-    7(a)'s 2048 tokens at danube's heads and every phase-12 shape
-    (``family_flash_shapes``) not already listed. Yields (label, S, Hq,
+    7(a)'s 2048 tokens at danube's heads, every phase-12 shape
+    (``family_flash_shapes``) and every phase-14 shape
+    (``MESH_TRAIN_FLASH``) not already listed. Yields (label, S, Hq,
     Hkv, D, causal, window, at the training length)."""
     seen = set()
     for c in FLASH_GRAD_CASES:
@@ -997,7 +1021,7 @@ def flash_grad_cases():
         yield (*c, False)
     train = [("danube 4x2048", 2048, 32, 8, 80, True, 4096)] + [
         (label, S, Hq, Hkv, D, causal, window) for label, _, S, Hq, Hkv, D,
-        causal, window in family_flash_shapes()]
+        causal, window in [*family_flash_shapes(), *MESH_TRAIN_FLASH]]
     for c in train:
         if c[1:] not in seen:
             seen.add(c[1:])
@@ -4561,8 +4585,6 @@ def check_family_flash(torch, dev, gen, card):
     ``F.scaled_dot_product_attention`` (``enable_gqa``; an explicit mask
     where the window bites). The SDPA call is timed only. Returns the
     rows and the worst bf16 |d| of the output."""
-    import torch.nn.functional as F
-    from repro_torch.core import costmodel as cm
     from repro_torch.kernels import flash_attention as fa
     timer = Timer(torch, dev, iters=10)
     rows, worst = {}, 0.0
@@ -4580,37 +4602,53 @@ def check_family_flash(torch, dev, gen, card):
                 dt, dtype, o, lse, o_p, lse_p)
             del o, lse, o_p, lse_p
         worst = max(worst, err)
-        pos = torch.arange(S, device=dev)
-        bites = bool(window) and window < S
-        mask = None if not bites else \
-            (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                              - window)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        pairs = cm.attn_pairs(S, S, causal=causal, window=window)
-        nbytes = cm.flash_attn_bytes(B, S, S, Hq, Hkv, D)
-        flops = cm.flash_attn_flops(B, Hq, D, pairs)
-        r = dict(
-            ms=timer(lambda: fa.flash_attention_forward(
-                q, k, v, causal=causal, window=window)),
-            plain_ms=timer(lambda: fa.flash_attention_plain(
-                q, k, v, causal=causal, window=window)),
-            library_ms=timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=causal and not bites,
-                enable_gqa=True)),
-            bound_ms=cm.roofline_s(nbytes, flops) * 1e3,
-            bound_by=cm.bound_by(nbytes, flops))
-        rows[label] = r
-        log("train-families", f"flash_attention {label} (B={B}, S={S}, "
-            f"{Hq}/{Hkv} heads of {D}, causal={causal}, window={window}, "
-            f"bf16): kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of roofline, "
-            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s); plain "
-            f"{r['plain_ms']:.4f} ms; sdpa {r['library_ms']:.4f} ms "
-            f"[{card}]")
-        del q, k, v, qt, kt, vt, mask
+        rows[label] = time_flash_shape(torch, timer, q, k, v, label, causal,
+                                       window, card, "train-families")
+        del q, k, v
     del timer
     torch.cuda.empty_cache()
     return rows, worst
+
+
+def time_flash_shape(torch, timer, q, k, v, label, causal, window, card,
+                     phase):
+    """The flash kernel's forward on bf16 ``q, k, v`` timed (``timer``,
+    L2 flushed) beside its bound (bytes: q, k, v read and o, lse written
+    once; operations: 4·D a visible pair and query head at 989 TFLOP/s),
+    its plain version and ``F.scaled_dot_product_attention``
+    (``enable_gqa``; an explicit mask where the window bites; timed
+    only). Returns the row."""
+    import torch.nn.functional as F
+    from repro_torch.core import costmodel as cm
+    from repro_torch.kernels import flash_attention as fa
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    bites = bool(window) and window < S
+    mask = None if not bites else \
+        (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                          - window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = cm.attn_pairs(S, S, causal=causal, window=window)
+    nbytes = cm.flash_attn_bytes(B, S, S, Hq, Hkv, D)
+    flops = cm.flash_attn_flops(B, Hq, D, pairs)
+    r = dict(
+        ms=timer(lambda: fa.flash_attention_forward(
+            q, k, v, causal=causal, window=window)),
+        plain_ms=timer(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window)),
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not bites,
+            enable_gqa=True)),
+        bound_ms=cm.roofline_s(nbytes, flops) * 1e3,
+        bound_by=cm.bound_by(nbytes, flops))
+    log(phase, f"flash_attention {label} (B={B}, S={S}, {Hq}/{Hkv} heads "
+        f"of {D}, causal={causal}, window={window}, bf16): kernel "
+        f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of roofline, "
+        f"{flops / r['ms'] / 1e9:.1f} TFLOP/s); plain {r['plain_ms']:.4f} "
+        f"ms; sdpa {r['library_ms']:.4f} ms [{card}]")
+    return r
 
 
 def train_families(torch, dev, card, table):
@@ -4859,10 +4897,12 @@ def mesh_rank(rank, world, store, runs_json, out_dir):
     return 0
 
 
-def spawn_mesh(runs, world, timeout=420):
+def spawn_mesh(runs, world, timeout=420, flag="--mesh-rank",
+               phase="mesh"):
     """Run ``runs`` (one world size) on ``world`` rank processes of this
-    script sharing the card; returns each rank's results. A rank that
-    fails or hangs fails the phase."""
+    script sharing the card (``chip_smoke.py flag r world store runs
+    out_dir``); returns each rank's results. A rank that fails or hangs
+    fails the phase."""
     import pickle
     import tempfile
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -4871,7 +4911,7 @@ def spawn_mesh(runs, world, timeout=420):
                 for r in range(world)]
         env = dict(os.environ, OMP_NUM_THREADS="1")
         procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+            [sys.executable, os.path.abspath(__file__), flag,
              str(r), str(world), os.path.join(d, "store"),
              json.dumps(runs), d], stdout=logs[r], stderr=subprocess.STDOUT,
             env=env) for r in range(world)]
@@ -4895,11 +4935,11 @@ def spawn_mesh(runs, world, timeout=420):
         codes = [p.returncode for p in procs]
         if any(codes):
             for r, text in enumerate(texts):
-                log("mesh", f"rank {r} exited {codes[r]}:\n{text[-4000:]}")
-            raise AssertionError(f"phase 13: ranks exited {codes}")
+                log(phase, f"rank {r} exited {codes[r]}:\n{text[-4000:]}")
+            raise AssertionError(f"{phase}: ranks exited {codes}")
         for text in texts[:1]:
             for line in text.strip().splitlines():
-                log("mesh", f"rank 0: {line}")
+                log(phase, f"rank 0: {line}")
         out = []
         for r in range(world):
             with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
@@ -4986,6 +5026,326 @@ def mesh_serve(torch, dev, card, table):
             for res in ranks:
                 res["L"] = mesh_cfg(arch, layers).num_layers
             hold_mesh(refs[arch], ranks, f"{arch} at {dm[0]}x{dm[1]}", card)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: training on a (data, model) mesh of ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+# h2o-danube-1.8b at full width, its first MESH_TRAIN_LAYERS of 24 layers
+# (a one-process reference and four ranks share the card, and the phase
+# must fit in ~120 s of the script's 1200), B x S tokens a step under
+# danube's preset (launch.presets.settings_for: 4 microbatches, FSDP,
+# ZeRO-2) at each mesh, FAMILY_STEPS steps
+MESH_TRAIN_LAYERS = 4
+MESH_TRAIN_B, MESH_TRAIN_S = 8, 1024
+MESH_TRAIN_MESHES = [(1, 4), (2, 2)]
+# the flash kernel's shapes there (a rank's rows of a microbatch, its
+# heads): (label, B, S, Hq, Hkv, D, causal, window)
+MESH_TRAIN_FLASH = [("danube tp4 (1x4)", 2, 1024, 8, 2, 80, True, 4096),
+                    ("danube tp2 (2x2)", 1, 1024, 16, 4, 80, True, 4096)]
+
+
+def mesh_train_cfg():
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(ARCH),
+                               num_layers=MESH_TRAIN_LAYERS,
+                               attn_impl="flash")
+
+
+class SpecMesh:
+    """A spec-level (data, model) stand-in at rank (0, 0): what a rank
+    holds (``runtime.sharding.TrainShards``), without ranks."""
+
+    def __init__(self, dm):
+        self.shape = {"data": dm[0], "model": dm[1]}
+        self.axis_names = ("data", "model")
+        self.coords = {}
+
+
+def reckon_mesh_train(cfg, settings, card):
+    """Before the phase runs: its depth cut and ``train_bytes``, and per
+    mesh what rank (0, 0) holds (its shares at the functional AdamW's 22
+    B a parameter; ZeRO-2's gathered slice and a microbatch's gradients
+    of it in bf16) and the bytes a step sends through host memory (each
+    staged collective copies to the host and back): over "data" the
+    gradients' reduce-scatter and the gather of the shares; over "model"
+    a microbatch's 9 activation collectives a layer (2 row-parallel sums,
+    again in the recompute, 5 column inputs' gradient sums), the
+    embedding's sum and the fp32 logits' gather."""
+    import math
+
+    from repro_torch import configs
+    from repro_torch.launch.train import TRAIN_BYTES_PER_PARAM, train_bytes
+    from repro_torch.runtime.sharding import TrainShards
+    full = configs.get_config(cfg.name)
+    log("mesh-train", f"{cfg.name}: depth cut to {cfg.num_layers} of "
+        f"{full.num_layers} layers, full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}, "
+        f"{str(cfg.dtype).split('.')[-1]}, remat {cfg.remat}): "
+        f"{cfg.param_count() / 1e9:.3f} B params, "
+        f"train_bytes {train_bytes(cfg) / 2**30:.2f} GiB (the one-process "
+        f"reference; all 24 layers {train_bytes(full) / 2**30:.2f} GiB); "
+        f"{MESH_TRAIN_B} x {MESH_TRAIN_S} tokens a step, {settings}")
+    n = settings.microbatches
+    for dm in MESH_TRAIN_MESHES:
+        sh = TrainShards(cfg, SpecMesh(dm), fsdp=settings.fsdp)
+        dp, tp = dm
+        slice_n = share_n = 0
+        for s in sh.leaves.values():
+            k = math.prod(s.shape) // (s.tp[1] if s.tp else 1)
+            slice_n += k
+            share_n += k // dp if s.fsdp is not None and dp > 1 else k
+        rows = MESH_TRAIN_B // n // dp
+        act = rows * MESH_TRAIN_S * cfg.d_model * 2
+        model_b = 0 if tp == 1 else n * (
+            9 * cfg.num_layers * act + 2 * act
+            + rows * MESH_TRAIN_S * cfg.padded_vocab * 4)
+        data_b = 0 if dp == 1 else \
+            n * slice_n * 2 + (slice_n - share_n) * 2
+        state = share_n * TRAIN_BYTES_PER_PARAM
+        zero2 = slice_n * 2 if settings.zero2 and dp > 1 else 0
+        log("mesh-train", f"reckoned at {dp}x{tp}: a rank's shares "
+            f"{share_n / 1e6:.1f} M elements of its {slice_n / 1e6:.1f} M "
+            f"slice, {state / 2**30:.2f} GiB of training state, ZeRO-2 "
+            f"copy {zero2 / 2**30:.2f} GiB, a microbatch's slice "
+            f"gradients {slice_n * 2 / 2**30:.2f} GiB; through host memory "
+            f"a step: {data_b / 2**30:.2f} GiB over data, "
+            f"{model_b / 2**30:.2f} GiB over model (x2 for the copies in "
+            f"and out) [{card}]")
+
+
+def _nest(path, t):
+    """A tree holding the one leaf ``t`` at key path ``path``."""
+    for k in reversed(path):
+        t = {k: t}
+    return t
+
+
+def mesh_train_rank(rank, world, store, runs_json, out_dir):
+    """One rank of phase 14 (``chip_smoke.py --mesh-train-rank``): joins
+    the gloo group through ``store``. Rank 0 first runs the reference,
+    one process training the whole tree (``make_train_step`` with the
+    same settings, no mesh) while the others wait, and keeps its m and v
+    on the host. Then for each mesh every rank draws the whole tree of
+    seed 0, cuts its shares and trains ``FAMILY_STEPS`` steps, counters
+    set to 0 just before and read just after; m and v are gathered to
+    rank 0 leaf by leaf, and it holds each against the reference. Writes
+    ``rank{r}.pkl``."""
+    import pickle
+
+    import torch
+    from repro_torch.core.tree import tree_flatten_with_keys, tree_map
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.presets import settings_for
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import sharding, steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # every collective's host wall time (its wait for the card included)
+    spent = {"s": 0.0, "n": 0}
+    collective = sharding.Layout._collective
+
+    def timed_collective(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return collective(self, *args, **kw)
+        finally:
+            spent["s"] += time.perf_counter() - t0
+            spent["n"] += 1
+    sharding.Layout._collective = timed_collective
+    dev = tmesh.rank_device()
+    backend = tmesh.init_process_group(
+        dev, init_method=f"file://{store}", rank=rank, world_size=world)
+    table = kernel_table()
+    cfg = mesh_train_cfg()
+    settings = settings_for(cfg.name)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size,
+                                  seq_len=MESH_TRAIN_S,
+                                  batch_size=MESH_TRAIN_B, device=dev)
+    batches = [stream.batch_at(i) for i in range(FAMILY_STEPS)]
+
+    def draw():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return T.init_params(gen, cfg, device=dev)
+
+    def train(step_fn, params, state):
+        torch.cuda.synchronize()
+        reset_counts(table)
+        metrics = []
+        for i, batch in enumerate(batches):
+            spent.update(s=0.0, n=0)
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state,
+                                       {"batch": batch, "step": i})
+            torch.cuda.synchronize()
+            metrics.append((float(m["loss"]), float(m["grad_norm"]),
+                            time.perf_counter() - t0, spent["s"],
+                            spent["n"]))
+        return params, state, metrics, read_counts(table)
+
+    out = {"backend": backend, "runs": []}
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        params = draw()
+        _, state, metrics, launches = train(
+            steps.make_train_step(cfg, opt_cfg, settings), params,
+            adamw_init(params, opt_cfg))
+        ref = {k: dict(tree_flatten_with_keys(tree_map(
+            lambda t: t.cpu(), state[k]))) for k in ("m", "v")}
+        out["ref"] = dict(metrics=metrics, launches=launches,
+                          peak_gib=torch.cuda.max_memory_allocated()
+                          / 2 ** 30)
+        del params, state
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    for dm in json.loads(runs_json):
+        mesh = tmesh.make_local_mesh(*dm)
+        step_fn = steps.make_train_step(cfg, opt_cfg, settings, mesh=mesh)
+        shards = step_fn.shards
+        lay = shards.layout
+        params = shards.cut(draw())
+        torch.cuda.empty_cache()
+        state = adamw_init(params, opt_cfg)
+        share_gib = sum(t.numel() * t.element_size() for _, t in
+                        tree_flatten_with_keys(params)) / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        params, state, metrics, launches = train(step_fn, params, state)
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        held = {}
+        for key in ("m", "v"):
+            worst, where = 0.0, ""
+            for path, t in tree_flatten_with_keys(state[key]):
+                w = shards.whole(_nest(path, t))     # None but on rank 0
+                if w is not None:
+                    for k in path:
+                        w = w[k]
+                    ref_t = ref[key][path].to(dev).float()
+                    d = float((w.float() - ref_t).abs().max()) / max(
+                        float(ref_t.abs().max()), 1e-30)
+                    if d > worst:
+                        worst, where = d, "/".join(path)
+                    del ref_t
+                del w
+            held[key] = (worst, where)
+        local = lay.local_cfg()
+        out["runs"].append(dict(
+            mesh=tuple(dm), coords=(lay.dp_rank, lay.tp_rank),
+            heads=(local.num_heads, local.num_kv_heads), metrics=metrics,
+            launches=launches, peak_gib=peak, share_gib=share_gib,
+            train_s=train_s, held=held if rank == 0 else None))
+        del params, state, step_fn, shards, lay
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def hold_mesh_train(out, cfg, settings, card):
+    """The reference's and every rank's flash launches exactly 2 · L · n a
+    step (forward and remat recompute per microbatch) and no other
+    kernel; every rank's loss and grad norm equal; each mesh's loss and
+    grad norm per step and m and v after ``FAMILY_STEPS`` steps within
+    ``TRAIN_TOL`` of the one process's. Prints each rank's step ms beside
+    the one process's."""
+    L, n = cfg.num_layers, settings.microbatches
+    want = FAMILY_STEPS * 2 * L * n
+
+    def launches_ok(counts):
+        return counts["flash_attention"] == want and not any(
+            c for k, c in counts.items() if k != "flash_attention")
+
+    ref = out[0]["ref"]
+    bad = [] if launches_ok(ref["launches"]) else ["reference launches"]
+    log("mesh-train", "one process: " + "; ".join(
+        f"step {i} loss {l:.6f} grad-norm {g:.6f} ({t * 1e3:.1f} ms)"
+        for i, (l, g, t, _, _) in enumerate(ref["metrics"]))
+        + f"; flash launches {ref['launches']['flash_attention']} (want "
+        f"{want}: 2 x {L} layers x {n} microbatches x {FAMILY_STEPS} "
+        f"steps); peak {ref['peak_gib']:.2f} GiB [{card}]")
+    for i, dm in enumerate(MESH_TRAIN_MESHES):
+        ranks = [o["runs"][i] for o in out]
+        what = f"{dm[0]}x{dm[1]}"
+        for r in ranks:
+            ok = launches_ok(r["launches"]) and [m[:2] for m in r[
+                "metrics"]] == [m[:2] for m in ranks[0]["metrics"]]
+            bad += [] if ok else [f"{what} rank {r['coords']}"]
+            log("mesh-train", f"{what} rank {r['coords']} ({out[0]['backend']}"
+                f"): heads {r['heads'][0]}/{r['heads'][1]}, shares "
+                f"{r['share_gib']:.2f} GiB, step ms "
+                + ", ".join(f"{m[2] * 1e3:.1f}" for m in r["metrics"])
+                + " (one process: " + ", ".join(
+                    f"{m[2] * 1e3:.1f}" for m in ref["metrics"])
+                + "), of which in collectives (host wall, each waiting "
+                "for the card) " + ", ".join(
+                    f"{m[3] * 1e3:.1f} ms in {m[4]}" for m in r["metrics"])
+                + f", flash launches {r['launches']['flash_attention']} "
+                f"(want {want}), peak {r['peak_gib']:.2f} GiB "
+                f"{'ok' if ok else 'FAIL'} [ranks share one card: {card}]")
+        for j in range(FAMILY_STEPS):
+            for k, name in enumerate(("loss", "grad_norm")):
+                got, w = ranks[0]["metrics"][j][k], ref["metrics"][j][k]
+                d = abs(got - w) / abs(w)
+                ok = d <= TRAIN_TOL[name]
+                bad += [] if ok else [f"{what} step {j} {name}"]
+                log("mesh-train", f"{what} step {j} {name}: mesh {got:.6f} "
+                    f"vs one process {w:.6f}, |d|/|ref| {d:.2e} "
+                    f"{'ok' if ok else 'FAIL'} ({TRAIN_TOL[name]})")
+        for name in ("m", "v"):
+            d, where = ranks[0]["held"][name]
+            ok = d <= TRAIN_TOL[name]
+            bad += [] if ok else [f"{what} {name}"]
+            log("mesh-train", f"{what} after step {FAMILY_STEPS}, {name} "
+                f"gathered from the ranks: max|d| / max|ref| per leaf "
+                f"{d:.3e} (worst {where}) {'ok' if ok else 'FAIL'} "
+                f"({TRAIN_TOL[name]:.3g})")
+        log("mesh-train", f"{what}: {FAMILY_STEPS} steps in "
+            f"{max(r['train_s'] for r in ranks):.2f} s on the slowest rank")
+    if bad:
+        raise AssertionError(f"phase 14: {bad}")
+
+
+def mesh_train(torch, card):
+    """Phase 14: the danube cut (``mesh_train_cfg``) under its preset,
+    reckoned (``reckon_mesh_train``), then one spawn of 4 ranks on the one
+    card over gloo that runs the one-process reference (rank 0) and
+    every mesh of ``MESH_TRAIN_MESHES``, held by ``hold_mesh_train``."""
+    from repro_torch.launch.presets import settings_for
+    cfg = mesh_train_cfg()
+    settings = settings_for(cfg.name)
+    reckon_mesh_train(cfg, settings, card)
+    t0 = time.perf_counter()
+    out = spawn_mesh([list(dm) for dm in MESH_TRAIN_MESHES], 4, timeout=600,
+                     flag="--mesh-train-rank", phase="mesh-train")
+    log("mesh-train", f"4 ranks on one card: the reference and "
+        f"{len(MESH_TRAIN_MESHES)} meshes in {time.perf_counter() - t0:.1f}"
+        f" s")
+    hold_mesh_train(out, cfg, settings, card)
+
+
+def time_mesh_flash(torch, dev, gen, timer, card):
+    """Phase 5's row 7d: the flash forward at phase 14's shard-local
+    shapes (``MESH_TRAIN_FLASH``; ``time_flash_shape``)."""
+    rows = {}
+    for label, B, S, Hq, Hkv, D, causal, window in MESH_TRAIN_FLASH:
+        q, k, v = flash_inputs(torch, gen, dev, B, S, S, Hq, Hkv, D,
+                               torch.bfloat16)
+        rows[label] = time_flash_shape(torch, timer, q, k, v, label, causal,
+                                       window, card, "timing")
+        del q, k, v
+    return rows
 
 
 _MANGLED = {"f": "fp32", "13__nv_bfloat16": "bf16", "6__half": "fp16",
@@ -5157,6 +5517,7 @@ def main() -> int:
     time_carry(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
     time_p11(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
     time_mesh(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
+    time_mesh_flash(torch, dev, gen, timer, card)
     del timer
     torch.cuda.empty_cache()
     log("timing", f"phase 5 took {time.perf_counter() - t0:.1f} s")
@@ -5186,6 +5547,10 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_serve(torch, dev, card, table)
     log("mesh", f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_train(torch, card)
+    log("mesh-train", f"phase 14 took {time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),
@@ -5249,4 +5614,8 @@ if __name__ == "__main__":
         # one rank of phase 13, spawned by spawn_mesh
         sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
                            *sys.argv[4:7]))
+    if sys.argv[1:2] == ["--mesh-train-rank"]:
+        # one rank of phase 14, spawned by spawn_mesh
+        sys.exit(mesh_train_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                 *sys.argv[4:7]))
     sys.exit(main())

@@ -14,6 +14,14 @@ saved:
     saved (and the reverse), fails loudly with the JAX package's messages.
 Restore is structure-checked against a template tree (shapes, and the
 template's dtypes and devices for the restored tensors).
+
+A mesh's training state (``shards``, a ``runtime.sharding.TrainShards``)
+is saved as the same whole-tree file one process writes: the whole tree is
+gathered to rank 0 (every rank joins the gathers), rank 0 alone writes,
+and the ranks meet at a barrier before the atomic rename (and after it). Restoring reads the
+whole tree on every rank and cuts this rank's shares again. The JAX
+store's docstring promises per-host sharded saving, but its code writes
+the whole arrays from one host; the port follows the code.
 """
 from __future__ import annotations
 
@@ -25,11 +33,12 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.device import dtype_name
 from repro_torch.core.quant import (QuantFormat, QuantizedTensor,
                                     w4a16_format_for)
-from repro_torch.core.tree import tree_flatten_with_keys
+from repro_torch.core.tree import tree_flatten_with_keys, tree_map
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -42,12 +51,20 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
-                    extra: Optional[dict] = None) -> str:
+                    extra: Optional[dict] = None, *, shards=None) -> str:
     """Atomically persist a tree (params, optimizer state, ...) for
-    ``step``; returns the step's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``step``; returns the step's directory. With ``shards`` the tree is a
+    runner state ``{"params", "opt"}`` of this rank's shares (see the
+    module's docstring)."""
     tmp = os.path.join(ckpt_dir, f"tmp.{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")
+    if shards is not None:
+        tree = shards.whole_state(tree)
+        if tree is None:                # every rank but 0
+            dist.barrier()              # rank 0 has written tmp.<step>
+            dist.barrier()              # ... and renamed it
+            return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
@@ -77,9 +94,13 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
+    if shards is not None:
+        dist.barrier()
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)                      # atomic commit
+    if shards is not None:
+        dist.barrier()
     return final
 
 
@@ -91,10 +112,24 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None):
+def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
+                       *, shards=None):
     """Restore into the structure of ``like`` (shape-checked; each tensor
-    in the template leaf's dtype, on its device). Returns ``(tree, step,
-    extra)``, or ``(None, None, None)`` when there is no checkpoint."""
+    in the template leaf's dtype, on its device; a ``meta`` template leaf
+    on the CPU). Returns ``(tree, step, extra)``, or ``(None, None,
+    None)`` when there is no checkpoint. With ``shards`` ``like`` is this
+    rank's shares (a runner state or a param tree): the whole tree is read
+    and cut again."""
+    if shards is not None:
+        whole, step, extra = restore_checkpoint(
+            ckpt_dir, shards.whole_shapes(like), step)
+        if whole is None:
+            return None, None, None
+        cut = shards.cut_state(whole) if "params" in whole \
+            else shards.cut(whole)
+        return tree_map(lambda t, ref: t.to(device=ref.device,
+                                            dtype=ref.dtype),
+                        cut, like), step, extra
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         return None, None, None
@@ -125,7 +160,8 @@ def restore_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None):
             if tuple(arr.shape) != want:
                 raise ValueError(f"checkpoint mismatch at {key}: "
                                  f"{tuple(arr.shape)} != {want}")
-            return arr.to(device=leaf.device, dtype=leaf.dtype)
+            dev = "cpu" if leaf.device.type == "meta" else leaf.device
+            return arr.to(device=dev, dtype=leaf.dtype)
 
         def build(tree, path):
             if isinstance(tree, dict):

@@ -4,7 +4,11 @@
 The stream is numpy in both packages, so the same seed, step and host give
 the same bytes; the port hands them over as int32 tensors on ``device``.
 Zipfian token statistics plus a short-range copy structure make the LM
-loss fall in short runs.
+loss fall in short runs. On a mesh every rank draws the same batch at a
+step (one host's stream: the same seed, step and ``host_id``), and the
+sharded train step keeps the rank's rows of each microbatch
+(``runtime.steps.make_train_step(..., mesh=)``), as JAX's
+``train_input_shardings`` hand each device its rows of the global batch.
 """
 from __future__ import annotations
 

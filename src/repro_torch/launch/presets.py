@@ -1,9 +1,41 @@
-"""Per-architecture paged-serving defaults (port of the page and chunk
-settings of the serving presets of ``repro/launch/presets.py``)."""
+"""Per-architecture run settings (port of ``repro/launch/presets.py``):
+the training presets, field for field, and the page and chunk settings of
+the serving presets.
+
+``PRESETS`` are the JAX package's: microbatches, FSDP (ZeRO-3) and the
+optimizer-state dtype per arch, ``zero2`` where the gathered copy fits,
+``fsdp_serve`` for llama3-405b. They take effect on a mesh
+(``runtime.steps.make_train_step(..., mesh=)``); on one device the step
+computes the plain step whatever they say, as JAX's does.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
+
+from repro_torch.runtime.steps import TrainSettings
+
+PRESETS = {
+    "granite-20b": TrainSettings(microbatches=16, fsdp=True, zero2=True),
+    "h2o-danube-1.8b": TrainSettings(microbatches=4, fsdp=True, zero2=True),
+    "starcoder2-7b": TrainSettings(microbatches=4, fsdp=True, zero2=True),
+    # the ZeRO-2 copy would be too large: ZeRO-3
+    "llama3-405b": TrainSettings(
+        microbatches=16, fsdp=True, fsdp_serve=True,
+        opt_dtype=torch.bfloat16),
+    "internvl2-1b": TrainSettings(microbatches=4, fsdp=True, zero2=True),
+    "whisper-small": TrainSettings(microbatches=4, fsdp=True, zero2=True),
+    "rwkv6-7b": TrainSettings(microbatches=4, fsdp=True, zero2=True),
+    "mixtral-8x7b": TrainSettings(microbatches=8, fsdp=True),
+    "olmoe-1b-7b": TrainSettings(microbatches=4, fsdp=True, zero2=True),
+    "hymba-1.5b": TrainSettings(microbatches=8, fsdp=True, zero2=True),
+}
+
+
+def settings_for(arch: str) -> TrainSettings:
+    return PRESETS.get(arch, TrainSettings())
 
 
 @dataclasses.dataclass(frozen=True)

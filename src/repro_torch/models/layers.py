@@ -34,6 +34,22 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype, *,
     return p
 
 
+def trains(w) -> bool:
+    """A weight leaf being trained: a tensor that requires grad (never a
+    QuantizedTensor)."""
+    return isinstance(w, torch.Tensor) and w.requires_grad
+
+
+def col_input(x: torch.Tensor, cfg, *leaves) -> torch.Tensor:
+    """The input of column-cut ``leaves`` that share it (q, k and v; the
+    gate and up projections): on a training mesh rank, x through
+    ``copy_to_model`` once for all of them (each rank's gradient of x
+    covers only its own columns, so it is summed over "model"), else x."""
+    if any(p.get("tp") == "col" and trains(p["kernel"]) for p in leaves):
+        return cfg.shard.copy_to_model(x)
+    return x
+
+
 def linear(p, x: torch.Tensor, cfg=None) -> torch.Tensor:
     """y = x @ W (+ b); W may be dense or a QuantizedTensor (W4A16). The
     dense path accumulates in fp32 and returns the activation dtype; the
@@ -44,17 +60,23 @@ def linear(p, x: torch.Tensor, cfg=None) -> torch.Tensor:
     collective), ``"row"`` input features (the partial products are
     all-reduced over "model" in the activation dtype, before the bias),
     ``"gather"`` the whole weight behind an input that is sharded (x is
-    all-gathered over "model" first)."""
+    all-gathered over "model" first). A weight that requires grad (a mesh
+    rank training) goes through the Layout's autograd-aware forms of those
+    collectives; a training ``"col"`` leaf's caller passes x through
+    :func:`col_input` first."""
     w = p["kernel"]
     mode = p.get("tp")
+    grad = trains(w)
     if mode == "gather":
-        x = cfg.shard.gather_model(x)
+        x = cfg.shard.gather_over_model(x) if grad \
+            else cfg.shard.gather_model(x)
     if isinstance(w, QuantizedTensor):
         y = planning.matmul(x, w, cfg=cfg)
     else:
         y = torch.matmul(x, w.to(x.dtype))
     if mode == "row":
-        y = cfg.shard.reduce_model(y)
+        y = cfg.shard.reduce_over_model(y) if grad \
+            else cfg.shard.reduce_model(y)
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
@@ -159,15 +181,17 @@ def embed(p, tokens: torch.Tensor, cfg=None) -> torch.Tensor:
     """The rows of the table at ``tokens``. A vocab-sharded table (mark
     ``"vocab"``: the rank holds rows ``[r·V/tp, (r+1)·V/tp)``) looks up the
     ids it holds, zeros elsewhere, and all-reduces over "model" (one
-    nonzero term per entry: exact)."""
+    nonzero term per entry: exact; ``reduce_over_model`` when the table
+    trains)."""
     if p.get("tp") != "vocab":
         return F.embedding(tokens.long(), p["table"])
     table = p["table"]
     ids = tokens.long() - cfg.shard.tp_rank * table.shape[0]
     held = (ids >= 0) & (ids < table.shape[0])
     rows = F.embedding(ids.clamp(0, table.shape[0] - 1), table)
-    return cfg.shard.reduce_model(
-        torch.where(held[..., None], rows, torch.zeros_like(rows)))
+    rows = torch.where(held[..., None], rows, torch.zeros_like(rows))
+    return cfg.shard.reduce_over_model(rows) if trains(table) \
+        else cfg.shard.reduce_model(rows)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:

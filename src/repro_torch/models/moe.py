@@ -17,7 +17,9 @@ On a mesh (``cfg.shard``) the expert stacks are tensor-parallel on d_ff
 (``w_gate``/``w_up`` column-, ``w_down`` row-parallel; the router
 replicated) and the expert-batched kernel runs at the rank's N or K; the
 row-parallel partial sums are all-reduced over "model" once, after the
-combine. Dispatch is data-parallel as the JAX package's (its ``_dp_axes``
+combine (a training rank's through the autograd-aware all-reduce; its
+combine weights pass ``copy_to_model``, since each rank's gradient of them
+is partial). Dispatch is data-parallel as the JAX package's (its ``_dp_axes``
 and the vmapped shards of ``moe_ffn``): each data shard of the routing
 batch routes its own tokens at a per-shard capacity. A step whose rows are
 a rank's data shard routes them as one; a replicated step (the one-slot
@@ -86,7 +88,8 @@ def _expert_matmul(w, x: torch.Tensor, cfg) -> torch.Tensor:
     first; a row-parallel stack's output is a partial sum."""
     kern = w["kernel"]
     if w.get("tp") == "gather":
-        x = cfg.shard.gather_model(x)
+        x = cfg.shard.gather_over_model(x) if layers.trains(kern) \
+            else cfg.shard.gather_model(x)
     if isinstance(kern, QuantizedTensor):
         problem = planning.MatmulProblem(
             M=int(x.shape[1]), N=int(kern.N), K=int(x.shape[-1]),
@@ -110,6 +113,10 @@ def _dispatch_ffn(p, xt: torch.Tensor, *, num_experts: int, top_k: int,
     gates = torch.softmax(logits, dim=-1)
     weights, sel = stable_top_k(gates, top_k)                       # (T, k)
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    if _partial_out(p):
+        # each model rank combines its partial expert outputs: the
+        # weights' gradient is partial too, summed over "model"
+        weights = cfg.shard.copy_to_model(weights)
 
     # aux loss (Switch): E * sum_e f_e * p_e
     me = gates.mean(dim=0)
@@ -134,6 +141,7 @@ def _dispatch_ffn(p, xt: torch.Tensor, *, num_experts: int, top_k: int,
         (src > 0)[:, None], xt[(src - 1).clamp_min(0)],
         torch.zeros((), dtype=xt.dtype, device=dev)).reshape(E, cap, d)
 
+    gathered = layers.col_input(gathered, cfg, p["w_gate"], p["w_up"])
     h_gate = _expert_matmul(p["w_gate"], gathered, cfg)
     h_up = _expert_matmul(p["w_up"], gathered, cfg)
     h = F.silu(h_gate.to(torch.float32)).to(xt.dtype) * h_up
@@ -163,5 +171,13 @@ def moe_ffn(p, x: torch.Tensor, *, num_experts: int, top_k: int,
     yt = torch.cat([y for y, _ in outs])
     aux = torch.stack([a for _, a in outs]).mean()
     if p["w_down"].get("tp") == "row":
-        yt = cfg.shard.reduce_model(yt)
+        yt = cfg.shard.reduce_over_model(yt) if _partial_out(p) \
+            else cfg.shard.reduce_model(yt)
     return yt.reshape(*lead, d), aux
+
+
+def _partial_out(p) -> bool:
+    """A training rank's row-cut ``w_down``: its combined output is a
+    partial sum, and the autograd-aware collectives carry the step."""
+    return p["w_down"].get("tp") == "row" \
+        and layers.trains(p["w_down"]["kernel"])

@@ -213,6 +213,8 @@ def _unbind_layers(stacked, L: int) -> List[Dict[str, Any]]:
         return [{k: parts[k][i] for k in parts} for i in range(L)]
     if isinstance(stacked, QuantizedTensor):
         return [stacked.layer(i) for i in range(L)]
+    if isinstance(stacked, str):        # a mesh rank's "tp" mark
+        return [stacked] * L
     return list(torch.unbind(stacked))
 
 
@@ -243,10 +245,12 @@ def _mlp(p, cfg: ModelConfig, x):
     """The SwiGLU MLP, or the GELU one (``w_up``, GELU in fp32, ``w_down``;
     both with biases)."""
     if cfg.mlp_type == "swiglu":
+        x = layers.col_input(x, cfg, p["w_gate"], p["w_up"])
         g = layers.linear(p["w_gate"], x, cfg)
         u = layers.linear(p["w_up"], x, cfg)
         h = F.silu(g.to(torch.float32)).to(x.dtype) * u
         return layers.linear(p["w_down"], h, cfg)
+    x = layers.col_input(x, cfg, p["w_up"])
     h = layers.gelu(layers.linear(p["w_up"], x, cfg))
     return layers.linear(p["w_down"], h, cfg)
 
@@ -280,6 +284,7 @@ def _attn_seq(p, cfg: ModelConfig, x, positions, *, causal=True,
     (ring-cache prefill)."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = layers.col_input(x, cfg, p["wq"], p["wk"], p["wv"])
     q = layers.linear(p["wq"], x, cfg).reshape(B, S, H, D)
     k = layers.linear(p["wk"], x, cfg).reshape(B, S, Hkv, D)
     v = layers.linear(p["wv"], x, cfg).reshape(B, S, Hkv, D)
@@ -347,9 +352,11 @@ def _rwkv_layer(lp, cfg: ModelConfig, h, carry, *, valid=None,
     return h, new
 
 
-def _layer_seq(p, cfg: ModelConfig, h, positions, enc_kv=None):
+def _layer_seq(p, cfg: ModelConfig, h, positions, enc_kv=None,
+               split=False):
     """One decoder layer in sequence mode, every carry starting at zero;
-    ``enc_kv`` this layer's cross K/V (encdec)."""
+    ``enc_kv`` this layer's cross K/V (encdec); ``split`` as
+    :func:`_ffn`'s."""
     B = h.shape[0]
     if cfg.family == "rwkv":
         carry = rwkv.rwkv_state_init(B, cfg.d_model, cfg.num_heads,
@@ -362,7 +369,7 @@ def _layer_seq(p, cfg: ModelConfig, h, positions, enc_kv=None):
                                 device=h.device)
         s_out, _ = ssm.ssm_seq(p["ssm"], x1, s0, cfg)
         return _ffn(p, cfg, h + 0.5 * (a + s_out))
-    return _ffn(p, cfg, _cross(p, cfg, h + a, enc_kv))
+    return _ffn(p, cfg, _cross(p, cfg, h + a, enc_kv), split)
 
 
 def _enc_layer(lp, cfg: ModelConfig, h, positions):
@@ -425,7 +432,8 @@ def _check_audio(cfg: ModelConfig, audio_embeds) -> None:
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            prefix_embeds=None, audio_embeds=None) -> torch.Tensor:
+            prefix_embeds=None, audio_embeds=None,
+            split: bool = False) -> torch.Tensor:
     """tokens (B, S_text) → logits (B, S_total, padded_vocab) fp32.
     ``prefix_embeds`` (B, P, d): vision patches prepended to the token
     embeddings (S_total = P + S_text); ``audio_embeds`` (B, T, d): the
@@ -433,7 +441,9 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for every row. With ``cfg.remat`` each layer runs under
     ``torch.utils.checkpoint`` (recomputed in backward), the counterpart of
     ``jax.checkpoint`` around the JAX layer scan. Gradients reach the
-    stacked ``layers`` leaves through the per-layer views."""
+    stacked ``layers`` leaves through the per-layer views. On a mesh
+    ``split`` says the rows are this rank's data shard of the batch (a
+    training rank's microbatch rows; MoE routes them as one shard)."""
     check_family(cfg)
     _check_audio(cfg, audio_embeds)
     h = _embed_stream(params, cfg, tokens, prefix_embeds)
@@ -446,22 +456,26 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for lp in lps:
         ekv = None if enc_out is None else _cross_kv(lp, cfg, enc_out)
         if cfg.remat:
-            h = checkpoint(_layer_seq, lp, cfg, h, positions, ekv,
+            h = checkpoint(_layer_seq, lp, cfg, h, positions, ekv, split,
                            use_reentrant=False)
         else:
-            h = _layer_seq(lp, cfg, h, positions, ekv)
+            h = _layer_seq(lp, cfg, h, positions, ekv, split)
     h = _norm(cfg, params["final_norm"], h)
     return _logits_head(params, cfg, h)
 
 
-def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
+def loss_fn(params, cfg: ModelConfig, batch, *, count=None,
+            split: bool = False) -> torch.Tensor:
     """Next-token cross entropy over the padded vocabulary (log-softmax in
     fp32); labels < 0 are masked. batch: {tokens, labels, [vision_embeds],
     [audio_embeds]}; the vision prefix's positions carry no label and are
-    dropped."""
+    dropped. The masked sum is divided by the unmasked labels' ``count``
+    when given (a mesh rank's rows: the count over every data rank's rows
+    of the microbatch, so the ranks' losses sum to the microbatch's mean),
+    else by this batch's own count. ``split`` as :func:`forward`'s."""
     logits = forward(params, cfg, batch["tokens"],
                      prefix_embeds=batch.get("vision_embeds"),
-                     audio_embeds=batch.get("audio_embeds"))
+                     audio_embeds=batch.get("audio_embeds"), split=split)
     labels = batch["labels"].long()
     P = logits.shape[1] - labels.shape[1]
     if P > 0:
@@ -469,21 +483,33 @@ def loss_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    return -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if count is None:
+        count = mask.sum()
+    return -(ll * mask).sum() / torch.clamp_min(count, 1.0)
 
 
 def _logits_head(params, cfg: ModelConfig, h):
     """The tied head (``layers.unembed``, fp32) or the dense (unquantized)
     ``lm_head``, whose activation-dtype product is returned as fp32
     logits. A vocab-sharded head's logits are all-gathered over "model"
-    (before any argmax)."""
+    (before any argmax); when the head trains, through the autograd-aware
+    gather, and the tied head's input through ``copy_to_model``."""
     if cfg.tie_embeddings:
-        logits = layers.unembed(params["embed"], h)
-        sharded = params["embed"].get("tp") == "vocab"
+        p = params["embed"]
+        sharded = p.get("tp") == "vocab"
+        grad = sharded and layers.trains(p["table"])
+        logits = layers.unembed(p, cfg.shard.copy_to_model(h) if grad
+                                else h)
     else:
-        logits = layers.linear(params["lm_head"], h, cfg).to(torch.float32)
-        sharded = params["lm_head"].get("tp") == "col"
-    return cfg.shard.gather_model(logits) if sharded else logits
+        p = params["lm_head"]
+        sharded = p.get("tp") == "col"
+        grad = sharded and layers.trains(p["kernel"])
+        logits = layers.linear(p, layers.col_input(h, cfg, p),
+                               cfg).to(torch.float32)
+    if not sharded:
+        return logits
+    return cfg.shard.gather_over_model(logits) if grad \
+        else cfg.shard.gather_model(logits)
 
 
 def _last_valid_row(h, valid):

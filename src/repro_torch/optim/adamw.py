@@ -48,10 +48,15 @@ def _global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
-    """Returns ``(new_params, new_state, {"grad_norm"})``."""
+def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0, *,
+                 gnorm=None):
+    """Returns ``(new_params, new_state, {"grad_norm"})``. ``gnorm`` is
+    the clip's global norm when the caller computes it (a mesh rank's
+    shares: ``runtime.sharding.TrainShards.global_norm``); by default the
+    norm of ``grads``."""
     count = state["count"] + 1
-    gnorm = _global_norm(grads)
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     clip = torch.clamp_max(
         torch.div(torch.full_like(gnorm, cfg.grad_clip), gnorm + 1e-9), 1.0)
     cf = count.to(F32)

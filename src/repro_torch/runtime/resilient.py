@@ -11,6 +11,13 @@ package, so a failure that repeats (a kernel that does not build, a sticky
 CUDA error) loops for ever: callers that must fail fast run one step
 directly first. ``inject_failure`` lets tests script failures. Each step
 ends in a device sync (``jax.block_until_ready`` in the JAX package).
+
+On a mesh every rank runs the runner with the same arguments, the step
+being ``make_train_step(..., mesh=)`` and ``shards`` its
+``TrainShards``: each rank feeds the whole batch and the step takes the
+rank's rows; the checkpoints are the whole tree, written by rank 0
+(``checkpoint.save_checkpoint(shards=)``), and only rank 0 removes old
+ones.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
@@ -67,16 +75,20 @@ def run_training(
     inject_failure: Optional[Callable[[int, int], bool]] = None,
     remesh_fn: Optional[Callable[[], Callable]] = None,
     on_metrics: Optional[Callable[[int, dict], None]] = None,
+    shards=None,
 ):
     """Run ``num_steps`` with checkpoint/restart semantics. Returns
     ``(params, opt_state, history)``; history records every recovery
-    event and checkpoint."""
+    event and checkpoint. ``shards``: a mesh step's ``TrainShards`` (the
+    params and optimizer state are this rank's shares)."""
     history = []
     start = latest_step(cfg.ckpt_dir)
     step = 0
+    writer = shards is None or dist.get_rank() == 0
     if start is not None:
         restored, step0, _ = restore_checkpoint(
-            cfg.ckpt_dir, {"params": params, "opt": opt_state})
+            cfg.ckpt_dir, {"params": params, "opt": opt_state},
+            shards=shards)
         params, opt_state = restored["params"], restored["opt"]
         step = step0 + 1
         history.append(("resume", step))
@@ -97,7 +109,8 @@ def run_training(
             history.append(("failure", step, str(e)[:120]))
             if retries > cfg.max_retries:
                 restored, step0, _ = restore_checkpoint(
-                    cfg.ckpt_dir, {"params": params, "opt": opt_state})
+                    cfg.ckpt_dir, {"params": params, "opt": opt_state},
+                    shards=shards)
                 if restored is not None:
                     params, opt_state = restored["params"], restored["opt"]
                     step = step0 + 1
@@ -114,8 +127,10 @@ def run_training(
             on_metrics(step, {k: float(v) for k, v in metrics.items()})
         if step % cfg.ckpt_every == 0 or step == num_steps - 1:
             save_checkpoint(cfg.ckpt_dir, step,
-                            {"params": params, "opt": opt_state})
-            _gc_checkpoints(cfg.ckpt_dir, cfg.keep_last)
+                            {"params": params, "opt": opt_state},
+                            shards=shards)
+            if writer:
+                _gc_checkpoints(cfg.ckpt_dir, cfg.keep_last)
             history.append(("checkpoint", step))
         step += 1
     return params, opt_state, history

@@ -34,6 +34,16 @@ ranks each run their rows of a step whose batch divides the data axis
 (``batch_spec``) and replicate a step whose batch does not (the one-slot
 prefill chunk), so the paged pool stays whole on every data replica.
 
+Training on a mesh (:class:`TrainShards`, the state of
+``runtime.steps.make_train_step(..., mesh=)``) keeps each rank's TP slice
+of every leaf and, under FSDP, only its share over "data" (JAX's
+``param_shardings(fsdp=True)``: :func:`fsdp_dim`). A leaf that requires
+grad takes the autograd-aware forms of the model collectives
+(:meth:`Layout.copy_to_model`, :meth:`Layout.reduce_over_model`,
+:meth:`Layout.gather_over_model`), so every rank's gradients are those of
+its slice for its rows; a KV head held by several ranks sums their
+partial gradients over its :meth:`Layout.part_group`.
+
 The recurrent-carry families and encoder-decoder refuse a mesh: their
 sharded state (the JAX rules for ``wkv``, ``ssm`` and ``enc_kv``) is not
 ported.
@@ -47,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.core.tree import tree_flatten_with_keys
 from repro_torch.kernels import planning
 from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import layers
@@ -163,6 +174,7 @@ class Layout:
         self.ffn_sharded = tp > 1 and cfg.d_ff % tp == 0
         self.vocab_sharded = tp > 1 and cfg.padded_vocab % tp == 0
         self.base_format = T.serve_format(cfg)
+        self._part_groups = {}
 
     # -- the rank's config and rows ------------------------------------------
 
@@ -265,24 +277,70 @@ class Layout:
 
     # -- collectives ---------------------------------------------------------
 
-    def _collective(self, t: torch.Tensor, axis: str, fn) -> torch.Tensor:
-        """Run ``fn(tensor, group)`` over the mesh's ``axis`` group; a
-        CUDA tensor on a gloo group goes through host memory."""
-        group = self.mesh.get_group(axis)
+    def _group(self, axis):
+        """A mesh dim's group ("data", "model"), a group itself, or the
+        whole world (None)."""
+        if axis is None:
+            return dist.group.WORLD
+        return self.mesh.get_group(axis) if isinstance(axis, str) else axis
+
+    def _collective(self, t: torch.Tensor, axis, fn, *,
+                    copy: bool = False) -> torch.Tensor:
+        """Run ``fn(tensor, group)`` over ``axis`` (:meth:`_group`); a
+        CUDA tensor on a gloo group goes through host memory, both ways.
+        ``copy`` hands ``fn`` a copy where it would get ``t`` itself (an
+        in-place reduction must not write into an autograd input)."""
+        group = self._group(axis)
         staged = t.is_cuda and dist.get_backend(group) == "gloo"
-        h = t.detach().cpu() if staged else t.contiguous()
+        if staged:
+            h = t.detach().cpu()
+        else:
+            h = t.detach().clone(memory_format=torch.contiguous_format) \
+                if copy else t.contiguous()
         out = fn(h, group)
-        return out.to(t.device) if staged else out
+        return out.to(t.device) if staged and out is not None else out
 
-    def reduce_model(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum over "model", in ``t``'s dtype."""
-        if self.tp == 1:
-            return t
-
+    def all_reduce(self, t: torch.Tensor, axis, *,
+                   copy: bool = False) -> torch.Tensor:
+        """Sum over ``axis`` (:meth:`_group`: a mesh dim, a group such as
+        a :meth:`part_group`, or None for the world), in ``t``'s dtype."""
         def fn(h, group):
             dist.all_reduce(h, group=group)
             return h
-        return self._collective(t, "model", fn)
+        return self._collective(t, axis, fn, copy=copy)
+
+    def reduce_model(self, t: torch.Tensor, *,
+                     copy: bool = False) -> torch.Tensor:
+        """Sum over "model", in ``t``'s dtype."""
+        if self.tp == 1:
+            return t
+        return self.all_reduce(t, "model", copy=copy)
+
+    def reduce_data(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over "data", in ``t``'s dtype (in place where ``t`` is not
+        staged through host memory)."""
+        if self.dp == 1:
+            return t
+        return self.all_reduce(t, "data")
+
+    def reduce_world(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over every rank of the mesh."""
+        if self.dp * self.tp == 1:
+            return t
+        return self.all_reduce(t, None)
+
+    def reduce_scatter_data(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Sum over "data", then keep this data rank's part of ``dim``
+        (``dp`` equal parts): the FSDP gradient's reduce-scatter."""
+        if self.dp == 1:
+            return t
+
+        def fn(h, group):
+            parts = [c.contiguous() for c in h.chunk(self.dp, dim)]
+            out = torch.empty_like(parts[0])
+            dist.reduce_scatter(out, parts, group=group)
+            return out
+        return self._collective(t, "data", fn)
 
     def _gather(self, t: torch.Tensor, axis: str, n: int,
                 dim: int) -> torch.Tensor:
@@ -299,12 +357,114 @@ class Layout:
         """Concatenate every "model" rank's ``t`` along ``dim``."""
         return self._gather(t, "model", self.tp, dim)
 
+    def gather_data(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Concatenate every "data" rank's ``t`` along ``dim``."""
+        return self._gather(t, "data", self.dp, dim)
+
+    def gather_root(self, t: torch.Tensor, axis: str,
+                    dim: int) -> Optional[torch.Tensor]:
+        """Every ``axis`` rank's ``t`` concatenated along ``dim`` on the
+        first rank of this rank's ``axis`` group; None on the others."""
+        n = self.dp if axis == "data" else self.tp
+        if n == 1:
+            return t
+
+        def fn(h, group):
+            root = dist.get_global_rank(group, 0)
+            parts = [torch.empty_like(h) for _ in range(n)] \
+                if dist.get_rank() == root else None
+            dist.gather(h, parts, dst=root, group=group)
+            return None if parts is None else torch.cat(parts, dim=dim)
+        return self._collective(t, axis, fn)
+
     def gather_rows(self, t: torch.Tensor, rows: Optional[slice]):
         """Every data rank's rows of ``t`` (dim 0), when the step's rows
         shard over "data" (``rows`` not None); else ``t``."""
         if rows is None:
             return t
         return self._gather(t, "data", self.dp, 0)
+
+    def part_group(self, parts: int):
+        """The group of the model ranks that hold the same one of
+        ``parts`` parts of a leaf (``tp / parts`` ranks of this rank's
+        data row: a KV head held by a group, ``Layout.kv_parts``); the
+        whole "model" group for one part. The groups are made on first use:
+        every rank of the world must ask for them at the same time."""
+        if parts == 1:
+            return self.mesh.get_group("model")
+        if parts not in self._part_groups:
+            ranks = self.mesh.mesh.reshape(self.dp, self.tp)
+            me = dist.get_rank()
+            for d in range(self.dp):
+                for j in range(parts):
+                    members = [int(ranks[d, r]) for r in range(self.tp)
+                               if r * parts // self.tp == j]
+                    g = dist.new_group(members)
+                    if me in members:
+                        self._part_groups[parts] = g
+        return self._part_groups[parts]
+
+    # -- autograd-aware collectives (Megatron's operators; training) ---------
+
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward, the gradient summed over "model" backward: in
+        front of a column-cut leaf, whose input every model rank holds
+        whole but whose gradient each computes only for its own columns."""
+        return x if self.tp == 1 else _CopyToModel.apply(x, self)
+
+    def reduce_over_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over "model" forward, identity backward: after a row-cut
+        leaf and after the vocab-cut embedding."""
+        return x if self.tp == 1 else _ReduceOverModel.apply(x, self)
+
+    def gather_over_model(self, x: torch.Tensor,
+                          dim: int = -1) -> torch.Tensor:
+        """Concatenate over "model" forward; backward keeps this rank's
+        slice of the gradient: a ``"gather"``-marked leaf's input, the
+        vocab-cut logits."""
+        return x if self.tp == 1 else _GatherOverModel.apply(x, self, dim)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """:meth:`Layout.copy_to_model`. ``torch.distributed.nn``'s
+    all-reduce is not used: its backward all-reduces the gradient again,
+    which multiplies a replicated gradient by tp."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout = layout
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.layout.reduce_model(g, copy=True), None
+
+
+class _ReduceOverModel(torch.autograd.Function):
+    """:meth:`Layout.reduce_over_model`."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        return layout.reduce_model(x, copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherOverModel(torch.autograd.Function):
+    """:meth:`Layout.gather_over_model`."""
+
+    @staticmethod
+    def forward(ctx, x, layout, dim):
+        ctx.layout, ctx.dim = layout, dim
+        return layout.gather_model(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lay, dim = ctx.layout, ctx.dim
+        n = g.shape[dim] // lay.tp
+        return g.narrow(dim, lay.tp_rank * n, n).contiguous(), None, None
 
 
 def shard_params(params, mesh, cfg):
@@ -337,6 +497,243 @@ def is_local(params) -> bool:
     if isinstance(params, list):
         return any(is_local(v) for v in params)
     return False
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh: FSDP (ZeRO) shares of a rank's TP slice
+# ---------------------------------------------------------------------------
+
+def fsdp_dim(names, shape, n: int) -> Optional[int]:
+    """The dim of a whole leaf at key path ``names`` that FSDP cuts over a
+    data axis of ``n`` ranks (JAX's ``param_shardings(fsdp=True)`` and its
+    ``_matrix_spec``): the embedding's d; a matrix's K for a
+    column-parallel or replicated leaf, its N for a row-parallel one; None
+    for norms, biases and scalars, and where ``n`` does not divide the
+    dim. A negative dim: the TP cut never touches it, so it is the same
+    dim of a rank's slice."""
+    names = tuple(names)
+    if "embed" in names:
+        dim = -1
+    elif len(shape) >= 2 and "kernel" in names:
+        dim = -1 if leaf_kind_for_path(names) == "row" else -2
+    else:
+        return None
+    return dim if n > 0 and shape[dim] % n == 0 else None
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """Where one leaf of the whole tree lies on a rank: ``shape`` the whole
+    leaf's; ``tp`` (dim, parts, index) of its TP cut, None where every
+    model rank holds it whole; ``fsdp`` the dim its FSDP share is cut
+    along over "data" (of more than one rank), None where every data
+    rank holds the whole slice."""
+    shape: tuple
+    tp: Optional[tuple]
+    fsdp: Optional[int]
+
+
+def _map_paths(fn, tree, path=()):
+    if isinstance(tree, Mapping):
+        return {k: _map_paths(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+class TrainShards:
+    """How a (data, model) mesh holds the training state of ``cfg``
+    (``runtime.steps.make_train_step(..., mesh=)``): each rank holds its TP
+    slice of every leaf (:meth:`Layout.cut`) and, under ``fsdp``, only its
+    data-axis share of that slice (:func:`fsdp_dim`). A rank's state is
+    the whole tree's key structure with plain tensors (no ``"tp"`` marks):
+    parameters, and AdamW's m and v beside them (JAX's ``oshard = {"m":
+    pshard, "v": pshard}``).
+
+    :meth:`cut` takes a whole tree to a rank's shares; :meth:`gather_data`
+    gathers shares back into TP slices (before a forward); :meth:`whole`
+    gathers the whole tree from every rank to rank 0 (tests, checkpoints);
+    :meth:`reduce_grads` takes a microbatch's gradients of the TP slices to
+    the shares; :meth:`global_norm` is the clip's norm over every distinct
+    element once. A QuantizedTensor never trains: :meth:`cut` refuses
+    one."""
+
+    def __init__(self, cfg, mesh, *, fsdp: bool):
+        self.layout = lay = Layout(cfg, mesh)
+        self.fsdp = fsdp
+        self.marks = {}          # linear / embedding dict path -> "tp" mark
+        self.leaves = {}         # leaf path -> LeafShard
+        meta = T.init_params(torch.Generator(), cfg, device="meta")
+
+        def visit(tree, path):
+            if "kernel" in tree or "table" in tree:
+                plan = lay.leaf_cut(path, tree)
+                if plan is not None:
+                    self.marks[path] = plan[0]
+                cut = None if plan is None or plan[0] == "gather" \
+                    else plan[1:]
+                for k, t in tree.items():
+                    tp = cut if k != "bias" or (cut and cut[0] == -1) \
+                        else None
+                    self._add(path + (k,), t, tp)
+                return
+            for k, v in tree.items():
+                if isinstance(v, Mapping):
+                    visit(v, path + (k,))
+                else:
+                    self._add(path + (k,), v, None)
+
+        visit(meta, ())
+        # the KV heads held by a group of model ranks: each rank's
+        # gradient is partial, summed over its group (the groups are made
+        # here, on every rank at once; a spec-level stand-in mesh has none)
+        self.groups = {s.tp[1]: None for s in self.leaves.values()
+                       if s.tp is not None and s.tp[1] < lay.tp}
+        if getattr(mesh, "mesh_dim_names", None) is not None:
+            for parts in sorted(self.groups):
+                self.groups[parts] = lay.part_group(parts)
+
+    def _add(self, path, t, tp):
+        dp = self.layout.dp
+        dim = fsdp_dim(path, tuple(t.shape), dp) \
+            if self.fsdp and dp > 1 else None
+        self.leaves[path] = LeafShard(tuple(t.shape), tp, dim)
+
+    # -- whole tree <-> shares ------------------------------------------------
+
+    def _check(self, path, t):
+        if isinstance(t, QuantizedTensor):
+            raise TypeError(
+                f"{'/'.join(path)} is a QuantizedTensor: a quantized tree "
+                f"serves but never trains (train the dense tree, then "
+                f"quantize_params)")
+        if path not in self.leaves:
+            raise KeyError(f"{'/'.join(path)} is not a leaf of "
+                           f"{self.layout.cfg.name}'s parameters")
+        return self.leaves[path]
+
+    def cut(self, tree):
+        """This rank's shares of a whole param-structured tree (the
+        parameters, or AdamW's m or v)."""
+        lay = self.layout
+
+        def fn(path, t):
+            s = self._check(path, t)
+            if s.tp is not None:
+                t = _take(t, *s.tp)
+            if s.fsdp is not None:
+                t = _take(t, s.fsdp, lay.dp, lay.dp_rank)
+            return t
+        return _map_paths(fn, tree)
+
+    def gather_data(self, shares):
+        """The TP slices, every FSDP share gathered over "data"."""
+        lay = self.layout
+
+        def fn(path, t):
+            s = self.leaves[path]
+            return t if s.fsdp is None else lay.gather_data(t, s.fsdp)
+        return _map_paths(fn, shares)
+
+    def marked(self, slices):
+        """``slices`` with each cut linear's and embedding's ``"tp"`` mark
+        set, as ``layers.linear`` / ``embed`` and the head read them."""
+        def visit(tree, path):
+            if not isinstance(tree, Mapping):
+                return tree
+            out = {k: visit(v, path + (k,)) for k, v in tree.items()}
+            if path in self.marks:
+                out["tp"] = self.marks[path]
+            return out
+        return visit(slices, ())
+
+    def whole(self, shares):
+        """The whole tree on mesh rank (0, 0), global rank 0, every rank
+        joining the gathers; None on the others. FSDP shares are gathered
+        over "data" to data rank 0, then TP slices over "model" to model
+        rank 0 (one of each group holding a KV head)."""
+        lay = self.layout
+
+        def fn(path, t):
+            s = self.leaves[path]
+            if s.fsdp is not None:
+                t = lay.gather_root(t, "data", s.fsdp)
+            if lay.dp_rank or s.tp is None:
+                return t
+            dim, parts, _ = s.tp
+            t = lay.gather_root(t, "model", dim)
+            if t is None or parts == lay.tp:
+                return t
+            return torch.cat(t.chunk(lay.tp, dim)[::lay.tp // parts],
+                             dim=dim)
+        out = _map_paths(fn, shares)
+        return out if lay.dp_rank == lay.tp_rank == 0 else None
+
+    def _state(self, fn, tree):
+        """``fn`` over the param-structured parts of a runner state
+        ``{"params", "opt": {"m", "v", "count"}}``."""
+        out = dict(tree, params=fn(tree["params"]))
+        if "opt" in tree:
+            out["opt"] = dict(tree["opt"], m=fn(tree["opt"]["m"]),
+                              v=fn(tree["opt"]["v"]))
+        return out
+
+    def whole_state(self, tree):
+        """:meth:`whole` of a runner state's parameters, m and v: the
+        whole state on rank 0, None on the others."""
+        out = self._state(self.whole, tree)
+        return out if out["params"] is not None else None
+
+    def cut_state(self, tree):
+        """:meth:`cut` of a runner state's parameters, m and v."""
+        return self._state(self.cut, tree)
+
+    def whole_shapes(self, tree):
+        """A runner state's (or a param tree's) leaves as ``meta`` tensors
+        of the whole tree's shapes, in each leaf's dtype."""
+        def fn(sub):
+            return _map_paths(lambda path, t: torch.empty(
+                self.leaves[path].shape, dtype=t.dtype, device="meta"), sub)
+        return self._state(fn, tree) if "params" in tree else fn(tree)
+
+    # -- gradients -----------------------------------------------------------
+
+    def reduce_grads(self, grads, split: bool):
+        """A microbatch's gradients of the TP slices (each rank's for its
+        rows) → this rank's shares of their sum over the batch: a KV
+        head's partial gradients summed over the ranks holding it; then,
+        where the rows split over "data" (``split``), reduce-scattered onto
+        the FSDP shares (JAX's per-microbatch ``with_sharding_constraint``
+        onto ``fsdp_shardings``) or all-reduced over "data"; where every
+        data rank ran every row, each keeps its share."""
+        lay = self.layout
+
+        def fn(path, g):
+            s = self.leaves[path]
+            if s.tp is not None and s.tp[1] < lay.tp:
+                g = lay.all_reduce(g, self.groups[s.tp[1]])
+            if not split:
+                return g if s.fsdp is None \
+                    else _take(g, s.fsdp, lay.dp, lay.dp_rank)
+            if s.fsdp is None:
+                return lay.reduce_data(g)
+            return lay.reduce_scatter_data(g, s.fsdp)
+        return _map_paths(fn, grads)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """sqrt of the sum of squares of every distinct element once: a
+        share counted by each data rank, a TP part by one rank of the
+        model ranks holding it, a replicated leaf by one rank; summed
+        over the world in fp32."""
+        lay = self.layout
+        leaves = tree_flatten_with_keys(grads)
+        total = torch.zeros((), dtype=torch.float32,
+                            device=leaves[0][1].device)
+        for path, g in leaves:
+            s = self.leaves[path]
+            held = lay.tp if s.tp is None else lay.tp // s.tp[1]
+            if lay.tp_rank % held == 0 and (s.fsdp is not None
+                                            or lay.dp_rank == 0):
+                total = total + torch.sum(torch.square(g.to(torch.float32)))
+        return torch.sqrt(lay.reduce_world(total))
 
 
 def pool_spec(shape, layout: Layout) -> tuple:

@@ -6,10 +6,12 @@ a step whose batch splits over "data" runs this rank's rows and
 all-gathers their argmax over "data", so every rank's host loop sees the
 whole step's tokens.
 
-``make_train_step`` runs on one device: the JAX package's FSDP and ZeRO-2
-shardings are not ported. Gradients are cast to ``grad_dtype`` (bf16) at
-every microbatch count, accumulated across microbatches in that dtype and
-divided by the count, then the fp32 AdamW update runs.
+``make_train_step`` casts the gradients to ``grad_dtype`` (bf16) at every
+microbatch count, accumulates them across microbatches in that dtype and
+divides by the count, then runs the AdamW update. On one device it
+computes the plain step whatever the settings, as JAX's does when it is
+given no sharding pytrees. With ``mesh`` it is the counterpart of JAX's
+``jit_train_step``, SPMD by hand (:func:`_mesh_train_step`).
 """
 from __future__ import annotations
 
@@ -27,11 +29,20 @@ from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 
 @dataclasses.dataclass(frozen=True)
 class TrainSettings:
-    """``fsdp`` and ``zero2`` (the JAX package's sharded settings, which
-    its presets use) are refused by :func:`make_train_step`."""
+    """The JAX package's train settings, field for field. ``fsdp`` cuts
+    every rank's TP slice of a leaf over "data" too (ZeRO-3: gathered
+    before each microbatch's forward); ``zero2`` (with ``fsdp``) gathers
+    once a step and reuses the gathered copy across microbatches.
+    ``opt_dtype`` is the AdamW moments' dtype (``AdamWConfig.state_dtype``
+    of the caller's optimizer). ``fsdp_serve`` is carried so that
+    ``launch.presets.PRESETS`` equals JAX's: only the dry run reads it
+    (serving weights sharded over "data"), and the dry run is not
+    ported."""
 
     microbatches: int = 1
     fsdp: bool = False
+    fsdp_serve: bool = False
+    opt_dtype: Any = torch.float32
     grad_dtype: Any = torch.bfloat16    # gradient compression
     zero2: bool = False
 
@@ -43,24 +54,29 @@ def _split_micro(batch, n: int):
              for k, v in batch.items()} for j in range(n)]
 
 
-def value_and_grad(params, cfg: ModelConfig, batch):
+def value_and_grad(params, cfg: ModelConfig, batch, *, mark=None,
+                   **loss_kw):
     """``(loss, grads)`` of ``T.loss_fn`` at ``params``; the grads in each
-    leaf's dtype, the loss detached."""
+    leaf's dtype, the loss detached. ``mark`` turns the leaves into the
+    tree the forward reads (a mesh rank's ``"tp"`` marks,
+    ``TrainShards.marked``); ``loss_kw`` go to the loss."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss = T.loss_fn(leaves, cfg, batch)
+    loss = T.loss_fn(leaves if mark is None else mark(leaves), cfg, batch,
+                     **loss_kw)
     loss.backward()
     return loss.detach(), tree_map(
         lambda t: torch.zeros_like(t) if t.grad is None else t.grad, leaves)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    settings: TrainSettings = TrainSettings()):
+                    settings: TrainSettings = TrainSettings(), *,
+                    mesh=None):
     """train_step(params, opt_state, inputs) → (params, opt_state,
-    metrics); inputs = {"batch": {tokens, labels}, "step": int}."""
-    if settings.fsdp or settings.zero2:
-        raise NotImplementedError(
-            "make_train_step runs on one device: FSDP / ZeRO-2 sharding is "
-            "not ported")
+    metrics); inputs = {"batch": {tokens, labels, [vision_embeds],
+    [audio_embeds]}, "step": int}; metrics = {"loss", "grad_norm"}. With
+    ``mesh`` the trees are this rank's shares (:func:`_mesh_train_step`)."""
+    if mesh is not None:
+        return _mesh_train_step(cfg, opt_cfg, settings, mesh)
     gdt, n = settings.grad_dtype, settings.microbatches
 
     def train_step(params, opt_state, inputs):
@@ -83,6 +99,74 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             grads, opt_state, params, opt_cfg, cosine_schedule(step))
         return new_params, opt_state, {"loss": loss, **om}
 
+    return train_step
+
+
+def _mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                     settings: TrainSettings, mesh):
+    """JAX's ``jit_train_step`` on a (data, model) mesh, SPMD by hand:
+    ``params`` and AdamW's m and v are this rank's shares
+    (``runtime.sharding.TrainShards``, the step's ``shards``: cut a whole
+    tree with ``shards.cut``, gather one with ``shards.whole``), and every
+    rank gets the whole batch of B rows.
+
+    Microbatch j is rows [j·B/n, (j+1)·B/n); data rank d runs its 1/dp of
+    them, or, where the data axis does not divide B/n (``batch_spec``),
+    every data rank runs every row and the data reduction is skipped, as
+    JAX then replicates. The loss of a rank's rows is its masked sum over
+    the microbatch's unmasked labels on every data rank, so the ranks'
+    losses and gradients sum to the microbatch's. ZeRO-3 (``fsdp``)
+    gathers the shares before each microbatch's forward and frees them
+    after its backward; ZeRO-2 (``fsdp`` and ``zero2``) gathers once a step.
+    Each microbatch's gradients are cast to ``grad_dtype``, summed over
+    the ranks holding a KV head, reduce-scattered over "data" onto the
+    shares (all-reduced without ``fsdp``), accumulated there, divided by
+    n, and the AdamW update runs on the shares with the norm of every
+    distinct element. ``metrics`` are JAX's, equal on every rank."""
+    from repro_torch.runtime.sharding import TrainShards
+
+    shards = TrainShards(cfg, mesh, fsdp=settings.fsdp)
+    lay = shards.layout
+    local = lay.local_cfg()
+    gdt, n = settings.grad_dtype, settings.microbatches
+    zero2 = settings.zero2 and settings.fsdp
+
+    def train_step(params, opt_state, inputs):
+        batch, step = inputs["batch"], inputs["step"]
+        B = next(iter(batch.values())).shape[0]
+        rows = lay.rows(B // n)
+        micro = _split_micro(batch, n)
+        if rows is not None:
+            micro = [{k: v[rows] for k, v in mb.items()} for mb in micro]
+        # each microbatch's unmasked labels over every data rank's rows
+        counts = torch.stack([(mb["labels"] >= 0).sum().to(torch.float32)
+                              for mb in micro])
+        if rows is not None:
+            counts = lay.reduce_data(counts)
+        gathered = shards.gather_data(params) if zero2 else None
+        loss, grads = None, None
+        for j, mb in enumerate(micro):
+            w = gathered if zero2 else shards.gather_data(params)
+            l, g = value_and_grad(w, local, mb, mark=shards.marked,
+                                  count=counts[j], split=rows is not None)
+            del w
+            g = shards.reduce_grads(tree_map(lambda t: t.to(gdt), g),
+                                    rows is not None)
+            loss = l if loss is None else loss + l
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+            del g
+        del gathered
+        if rows is not None:
+            loss = lay.reduce_data(loss)
+        if n > 1:
+            loss = true_div(loss, n)
+            grads = tree_map(lambda g: true_div(g, n), grads)
+        new_params, opt_state, om = adamw_update(
+            grads, opt_state, params, opt_cfg, cosine_schedule(step),
+            gnorm=shards.global_norm(grads))
+        return new_params, opt_state, {"loss": loss, **om}
+
+    train_step.shards = shards
     return train_step
 
 

@@ -235,10 +235,40 @@ def test_train_launcher_requires_cuda_unless_cpu_is_asked(monkeypatch):
         ttrain.main(["--arch", ARCH, "--reduced", "--steps", "1"])
 
 
-def test_make_train_step_refuses_sharded_settings(model):
-    _, _, cfg = model
-    for s in (tsteps.TrainSettings(fsdp=True),
-              tsteps.TrainSettings(zero2=True)):
-        with pytest.raises(NotImplementedError, match="one device"):
-            tsteps.make_train_step(cfg, AdamWConfig(), s)
-    assert tfa.FLASH_ATTENTION.launches == 0
+@pytest.mark.parametrize("fields", [dict(microbatches=2, fsdp=True),
+                                    dict(fsdp=True, zero2=True)],
+                         ids=["fsdp-micro2", "fsdp-zero2"])
+def test_sharded_settings_on_one_device_match_jax(model, fields):
+    """``make_train_step`` without a mesh accepts FSDP and ZeRO-2 and
+    computes the plain step, as JAX's does with no sharding pytrees (its
+    own reference for the sharded step, ``tests/test_distributed.py``):
+    three steps against JAX's with the same settings, flash attention on
+    the port's side (its plain version on the CPU, no kernel launched)."""
+    jcfg, jparams, cfg = model
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    jopt_cfg, opt_cfg = JAdamWConfig(lr=1e-3), AdamWConfig(lr=1e-3)
+    jstate = jadamw_init(jparams, jopt_cfg)
+    jstep = jax.jit(jsteps.make_train_step(
+        jcfg, jopt_cfg, jsteps.TrainSettings(**fields)))
+    tstep = tsteps.make_train_step(cfg, opt_cfg,
+                                   tsteps.TrainSettings(**fields))
+    params = _tparams(jparams, cfg)
+    state = from_jax_opt_state(jax_to_numpy(jstate))
+    stream = JStream(vocab_size=cfg.vocab_size, seq_len=16, batch_size=4)
+    tstream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=16,
+                                   batch_size=4)
+    launches = tfa.FLASH_ATTENTION.launches
+    for step in range(3):
+        jparams, jstate, jm = jstep(
+            jparams, jstate, {"batch": stream.batch_at(step),
+                              "step": jnp.asarray(step, jnp.int32)})
+        params, state, m = tstep(params, state,
+                                 {"batch": tstream.batch_at(step),
+                                  "step": step})
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[key]), float(jm[key]),
+                                       rtol=1e-5, err_msg=f"step {step}")
+    _assert_trees_close(params, jparams, 1e-5, 1e-5)
+    _assert_trees_close(state["m"], jstate["m"], 1e-5, 1e-5)
+    _assert_trees_close(state["v"], jstate["v"], 1e-5, 1e-5)
+    assert tfa.FLASH_ATTENTION.launches == launches

@@ -1,15 +1,19 @@
-"""Multi-rank runs of the port's sharded serving engine for the CPU tests.
+"""Multi-rank runs of the port's sharded serving engine and sharded train
+step for the CPU tests.
 
 :func:`spawn` starts ``world`` processes of this file, each a gloo rank
 joined through a ``file://`` store (no TCP port), hands them one pickled
-job and collects each rank's pickled results. A job is a list of cases;
-each case serves a set of requests through ``ServingEngine(mesh=...)`` at
-a (data, model) mesh over the same world, on numpy weights converted with
-``repro_torch.convert.from_jax_params`` (``force_fused`` lets the
-planner pick the fused paged-attention path on the CPU, whose wrapper then
-runs the kernel's plain version). This file imports torch and
-``repro_torch`` only (never jax), and runs every rank with one thread.
-A rank that fails or hangs past the timeout fails the whole spawn.
+job and collects each rank's pickled results. A job is a list of cases on
+numpy weights converted with ``repro_torch.convert.from_jax_params``. A
+serving case (:func:`run_case`) serves a set of requests through
+``ServingEngine(mesh=...)`` at a (data, model) mesh over the same world
+(``force_fused`` lets the planner pick the fused paged-attention path on
+the CPU, whose wrapper then runs the kernel's plain version). A training
+case (``"train"`` in the case, :func:`run_train_case`) runs a few steps of
+``make_train_step(..., mesh=...)`` and returns every step's metrics and
+the whole parameters, m and v gathered from the ranks. This file imports
+torch and ``repro_torch`` only (never jax), and runs every rank with one
+thread. A rank that fails or hangs past the timeout fails the whole spawn.
 """
 from __future__ import annotations
 
@@ -129,6 +133,132 @@ def run_case(case: dict, weights: dict) -> dict:
     }
 
 
+def run_train_case(case: dict, weights: dict) -> dict:
+    """Train ``case`` on this rank: ``case["train"]`` holds the
+    ``TrainSettings`` fields (dtypes by name; AdamW's moments in
+    ``opt_dtype``) and the numpy
+    ``batches``; the weights and AdamW's fresh state are cut to the rank's
+    shares. With ``ckpt_dir`` the steps run through ``run_training``
+    twice: all but the last step with a checkpoint after each, then a
+    second runner from the initial shares, which resumes from the last
+    checkpoint and runs the last step. Returns per step (loss, grad norm)
+    and, gathered whole from the ranks to rank 0, the parameters, m and v
+    as numpy (None on the other ranks); whether cutting the initial
+    weights and gathering them back gave them bit for bit (rank 0); the
+    runners' histories."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.resilient import RunnerConfig, run_training
+
+    cfg = dataclasses.replace(configs.get_reduced(case["arch"]),
+                              **case.get("cfg", {}))
+    tr = dict(case["train"])
+    batches = tr.pop("batches")
+    ckpt_dir = tr.pop("ckpt_dir", None)
+    for name, default in (("grad_dtype", "bfloat16"),
+                          ("opt_dtype", "float32")):
+        tr[name] = getattr(torch, tr.get(name, default))
+    settings = steps.TrainSettings(**tr)
+    mesh = make_local_mesh(*case["mesh"])
+    opt_cfg = AdamWConfig(lr=1e-3, state_dtype=settings.opt_dtype)
+    step_fn = steps.make_train_step(cfg, opt_cfg, settings, mesh=mesh)
+    shards = step_fn.shards
+    whole0 = from_jax_params(weights[case["weights"]], dtype=cfg.dtype,
+                             device="cpu")
+    params = shards.cut(whole0)
+    back = shards.whole(params)
+    identity = back is None or all(
+        torch.equal(a, b) for a, b in zip(_leaves(back), _leaves(whole0)))
+    state = adamw_init(params, opt_cfg)
+    metrics, histories = [], []
+
+    def inputs(i):
+        return {"batch": {k: torch.from_numpy(v)
+                          for k, v in batches[i].items()}, "step": i}
+
+    if ckpt_dir is None:
+        for i in range(len(batches)):
+            params, state, m = step_fn(params, state, inputs(i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    else:
+        def on_metrics(i, m):
+            metrics.append((m["loss"], m["grad_norm"]))
+        run = RunnerConfig(ckpt_dir=ckpt_dir, ckpt_every=1)
+        for n in (len(batches) - 1, len(batches)):
+            params, state, hist = run_training(
+                cfg=run, train_step=step_fn, params=shards.cut(whole0),
+                opt_state=adamw_init(shards.cut(whole0), opt_cfg),
+                batches=inputs, num_steps=n, on_metrics=on_metrics,
+                shards=shards)
+            histories.append(hist)
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.float().numpy()
+
+    whole = shards.whole_state({"params": params, "opt": state})
+    lay = shards.layout
+    out = {"metrics": metrics, "count": int(state["count"]),
+           "coords": (lay.dp_rank, lay.tp_rank),
+           "heads": (lay.local_cfg().num_heads,
+                     lay.local_cfg().num_kv_heads),
+           "share_elems": sum(t.numel() for t in _leaves(params)),
+           "identity": identity, "histories": histories,
+           "params": None, "m": None, "v": None}
+    if whole is not None:
+        out.update(params=host(whole["params"]), m=host(whole["opt"]["m"]),
+                   v=host(whole["opt"]["v"]))
+    return out
+
+
+def run_ops_case(case: dict, weights: dict) -> dict:
+    """The autograd-aware collectives on this rank of a (1, tp) mesh, on
+    ``case["ops"]``'s numpy inputs: a Megatron MLP (``copy_to_model``,
+    the rank's columns of ``w1`` and rows of ``w2``,
+    ``reduce_over_model``) and a vocab-cut head (``copy_to_model``, the
+    rank's columns of ``wv``, ``gather_over_model``), each under a fixed
+    cotangent. Returns the outputs and the gradients of x and of the
+    rank's slices."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime.sharding import Layout
+
+    ops = {k: torch.from_numpy(v) for k, v in case["ops"].items()}
+    mesh = make_local_mesh(*case["mesh"])
+    lay = Layout(configs.get_reduced("h2o-danube-1.8b"), mesh)
+    tp, r = lay.tp, lay.tp_rank
+
+    def part(t, dim):
+        n = t.shape[dim] // tp
+        return t.narrow(dim, r * n, n).clone().requires_grad_(True)
+
+    x = ops["x"].clone().requires_grad_(True)
+    w1, w2, wv = part(ops["w1"], 1), part(ops["w2"], 0), part(ops["wv"], 1)
+    y = lay.reduce_over_model(torch.relu(lay.copy_to_model(x) @ w1) @ w2)
+    z = lay.gather_over_model(lay.copy_to_model(x) @ wv)
+    ((y * ops["cy"]).sum() + (z * ops["cz"]).sum()).backward()
+    return {"y": y.detach().numpy(), "z": z.detach().numpy(),
+            "dx": x.grad.numpy(), "dw1": w1.grad.numpy(),
+            "dw2": w2.grad.numpy(), "dwv": wv.grad.numpy(), "rank": r}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def main(rank: int, world: int, store: str, payload: str, out: str) -> None:
     import torch
     import torch.distributed as dist
@@ -140,8 +270,12 @@ def main(rank: int, world: int, store: str, payload: str, out: str) -> None:
                              rank=rank, world_size=world)
     with open(payload, "rb") as f:
         job = pickle.load(f)
-    results = {case["name"]: run_case(case, job["weights"])
-               for case in job["cases"]}
+    def run(case):
+        fn = run_train_case if "train" in case else \
+            run_ops_case if "ops" in case else run_case
+        return fn(case, job["weights"])
+
+    results = {case["name"]: run(case) for case in job["cases"]}
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     dist.barrier()
