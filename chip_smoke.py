@@ -142,7 +142,7 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              way. Phase 3 also holds paged attention at both archs' head
              shapes (16 over 16 heads of 128; 32 over 8 of 128, window
              4096).
-10. carry  — the recurrent-carry families at full width and depth, each
+10. carry  — the recurrent-carry families at full width, each
              through the serve launcher (W4A16, kv_fp16, 8 slots, 8
              requests of 256 + 32 tokens, 16-token pages, 32-token chunks,
              random weights from seed 0) and against its plain paths on
@@ -154,10 +154,12 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              never; its random-weight logits move past LOGIT_TOL under
              bf16 rounding alone (the bf16 plain path against an fp32 one,
              printed), so its paths are held with fp32 activations on the
-             same quantized weights (the kernel's fp32 variant); (b) hymba-1.5b (32 layers, d_model 1600, 25/5 heads of
+             same quantized weights (the kernel's fp32 variant); (b) hymba-1.5b (its
+             first 8 of 32 layers, ``CARRY_LAYERS``: the cut pays for
+             phases 13 and 14's time; d_model 1600, 25/5 heads of
              64, SSM d_inner 3200 state 16, d_ff 5504, vocab 32001, SWA
-             1024; the K = 1600 leaves at group 64), 32 x 10 = 320 W4A16
-             and 32 paged-attention launches every decode step, and one
+             1024; the K = 1600 leaves at group 64), 8 x 10 = 80 W4A16
+             and 8 paged-attention launches every decode step, and one
              request of 1200 + 8 tokens (the window bites) against its
              plain path. For each: a traced prefill chunk and 4 traced
              decode steps (device ms, ops, idle share), speculation at k =
@@ -210,7 +212,9 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              from seed 0, the full configs' remat (``FAMILY_TRAIN``):
              whisper-small (12 + 12 layers, 4 x 448 tokens over 1500
              frames each), internvl2-1b (24 layers, 2 x (256 patches +
-             1792)), hymba-1.5b (32, 2 x 1280: the 1024 window bites),
+             1792)), hymba-1.5b (8 of 32 layers, 2 x 1280: the 1024
+             window bites; cut for the script's time, its stepped SSM
+             scan made each full-depth step 8.4-12.3 s),
              olmoe-1b-7b (4 of 16 layers, 2 x 1024), mixtral-8x7b (1 x 1024
              at the depth 80 GB allows: 1 layer, since the functional
              AdamW holds old and new moments), rwkv6-7b (8 of 32, 2 x 512),
@@ -259,7 +263,28 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              from one process printed. Phase 3 also holds the W4A16
              kernel at every shard-local leaf (M = 1, 2, 4, 8) and paged
              attention at a rank's heads (32/2 of 128, 16/4 of 80); phase
-             5 times them (rows 1e and 4d). No phase-13 time is a
+             5 times them (rows 1e and 4d). Then the recurrent-carry and
+             encoder-decoder families, the same way: (c) rwkv6-7b at full
+             width, its first 4 of 32 layers, with fp32 activations (its
+             bf16 logits are chaotic on random weights) at 1x4 (16 heads
+             a rank), (d) hymba-1.5b at full width, its first 8 of 32
+             layers, at 1x2 (the attention whole: 25/5 heads; the SSM's
+             3200 channels and d_ff cut; out_proj and w_down whole behind
+             a gathered input) and 1x5 (5 over 1 heads, 640 channels, the
+             MLP whole), and with ngram at 1x2 (every verify step's carry
+             commit equal to checkpoint 1 + accepted, the verify logits
+             against a replayed decode step), (e) whisper-small at full
+             width and depth at 2x2, each request its own 1500 x 768
+             frames (the encoder runs at every admit on every rank, its
+             heads cut). Every rank launches exactly the one process's
+             W4A16, paged-attention and flash counts (``mesh_want``: a
+             layer a forward 8/0 rwkv, 10/1 hymba, 8/1 whisper; 96 W4A16
+             and 12 flash a whisper admit). Phase 3 holds the W4A16
+             kernel at every new rank-local leaf (rwkv in fp32, M = 1 to
+             32; whisper's encoder leaves at 1500), paged attention at
+             hymba 1x5 (5 over 1 of 64) and whisper 2x2 (6/6 of 64), the
+             flash forward and gradients at whisper 2x2's 6 heads; phase 5
+             times them (rows 1f, 4e, 7e). No phase-13 time is a
              multi-GPU figure: the ranks share one card.
 14. mesh-train — training on a (data, model) mesh of 4 ranks spawned on
              the one card (``chip_smoke.py --mesh-train-rank``, gloo, as
@@ -279,7 +304,12 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              kernel; each rank's step ms beside the one process's. Phase 3
              also holds the flash forward and its gradients at the ranks'
              heads (8/2 and 16/4 of 80, window 4096); phase 5 times the
-             forward there (row 7d). No phase-14 time is a multi-GPU
+             forward there (row 7d). Then whisper-small at full width
+             and depth, 4 x 448 tokens over 1500 frames a row at 2x2 under
+             its preset (4 microbatches of one row, so every data rank
+             runs every row; FSDP, ZeRO-2), held the same way, flash
+             launching 2 x 24 x 4 a step on every rank (the encoder's 12
+             layers and the decoder's 12). No phase-14 time is a multi-GPU
              figure: the ranks share one card.
 
 The line before the last two is the kernels' JSON record; the line before
@@ -959,18 +989,21 @@ def hold_flash(torch, phase, what, dt, dtype, o, lse, o_p, lse_p):
     return float(err.max())
 
 
-def check_flash(torch, dev, gen):
+def check_flash(torch, dev, gen, cases=None):
     """The flash-attention kernel vs its plain version (one full softmax
     per row in the kernel's rounding order) at every phase-3 shape
     (``FLASH_CASES``, then ``FLASH_VIEW_CASES`` on strided views, then
-    phase 14's shard-local shapes, ``MESH_TRAIN_FLASH``), held by
-    ``hold_flash``. Returns the worst bf16 |d| of the output."""
+    phase 14's shard-local shapes, ``MESH_TRAIN_FLASH``), or at
+    ``cases`` ((label, B, Sq, Skv, Hq, Hkv, D, causal, window), strided
+    views), held by ``hold_flash``. Returns the worst bf16 |d| of the
+    output."""
     from repro_torch.kernels import flash_attention as fa
     worst = 0.0
-    cases = [(c, False) for c in FLASH_CASES] \
-        + [(c, True) for c in FLASH_VIEW_CASES] \
-        + [((label, B, S, S, *rest), False)
-           for label, B, S, *rest in MESH_TRAIN_FLASH]
+    if cases is None:
+        cases = [(c, False) for c in FLASH_CASES] \
+            + [(c, True) for c in FLASH_VIEW_CASES] \
+            + [((label, B, S, S, *rest), False)
+               for label, B, S, *rest in MESH_TRAIN_FLASH]
     for (label, B, Sq, Skv, Hq, Hkv, D, causal, window), fused in cases:
         for dt, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             q, k, v = flash_inputs(torch, gen, dev, B, Sq, Skv, Hq, Hkv, D,
@@ -1028,7 +1061,7 @@ def flash_grad_cases():
             yield (*c, True)
 
 
-def check_flash_grads(torch, dev, gen):
+def check_flash_grads(torch, dev, gen, cases=None):
     """The FlashAttention Function's dq, dk, dv (kernel forward, PyTorch
     backward from its lse) vs autograd through the plain version in fp64
     on the same input values (the exact gradient), at every
@@ -1042,9 +1075,11 @@ def check_flash_grads(torch, dev, gen):
     1e-5: there fp32 autograd through the plain version is measured
     against the exact gradient on the same inputs, and the fp32 tol is
     the larger of 1e-5 and twice that distance (max over the tensor of
-    |plain - exact| / (1 + |exact|)). bf16 keeps its tol everywhere."""
+    |plain - exact| / (1 + |exact|)). bf16 keeps its tol everywhere.
+    ``cases`` in place of ``flash_grad_cases()``: the same tuples."""
     from repro_torch.kernels import flash_attention as fa
-    for label, S, Hq, Hkv, D, causal, window, long in flash_grad_cases():
+    for label, S, Hq, Hkv, D, causal, window, long in (
+            flash_grad_cases() if cases is None else cases):
         for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             q, k, v = flash_inputs(torch, gen, dev, 1, S, S, Hq, Hkv, D,
                                    dtype)
@@ -3292,17 +3327,17 @@ def speculate_checked(torch, engine, reqs, table, kernels, what, card):
     return stats["sel"]
 
 
-def repeat_prompts(vocab, n=8, plen=64, period=16, seed=9):
+def repeat_prompts(vocab, n=8, plen=64, period=16, seed=9, gen=CARRY_GEN):
     """``n`` requests' prompts of ``plen`` tokens, each a ``period``-token
     random sequence repeated: prompt lookup has matches to propose (64
     tokens, not the cell's 256: the run checks the verify path, and its
-    prefill is the carry families' slowest step)."""
+    prefill is the carry families' slowest step); ``gen`` tokens each."""
     import numpy as np
     from repro_torch.runtime.engine import Request
     rng = np.random.default_rng(seed)
     return [Request(rid=i, prompt=np.resize(rng.integers(0, vocab, period),
                                             plen).astype(np.int32),
-                    max_new_tokens=CARRY_GEN) for i in range(n)]
+                    max_new_tokens=gen) for i in range(n)]
 
 
 def first_requests(rep, n):
@@ -3316,10 +3351,13 @@ def first_requests(rep, n):
 
 def fp32_params(torch, tree):
     """``tree`` with fp32 activations: quantized leaves keep their bytes
-    and dequantize to fp32, dense leaves are cast."""
+    and dequantize to fp32, dense leaves are cast (a mesh rank's "tp"
+    marks kept)."""
     from repro_torch.core.quant import QuantizedTensor
     if isinstance(tree, dict):
         return {k: fp32_params(torch, v) for k, v in tree.items()}
+    if isinstance(tree, str):
+        return tree
     if isinstance(tree, QuantizedTensor):
         return QuantizedTensor(tree.packed, tree.scales, tree.zeros,
                                tree.group_size, torch.float32, tree.format)
@@ -3361,7 +3399,8 @@ def rwkv_fp32_logits(torch, engine, cfg, params, kernel16, plain16, reqs):
 
 
 def carry_arch(torch, dev, card, table, arch):
-    """Phase 10 for one arch at full width and depth: the serve launcher
+    """Phase 10 for one arch at full width and the depth ``configs.
+    get_config`` gives (``depth_cut``): the serve launcher
     (W4A16, 8 slots, 8 requests of 256 + 32 tokens, 32-token chunks;
     counters set to 0 just before and read just after), the same weights
     on the plain paths (the first CARRY_HELD requests' prefill logits
@@ -3490,11 +3529,44 @@ def carry_arch(torch, dev, card, table, arch):
     return launches
 
 
+# phase 10's depth cuts: hymba keeps 8 of its 32 layers (every step of
+# its host-bound serving runs is per layer: 125.6 s at 32 layers on an
+# H100 80GB HBM3 at 700 W), paying with phase 12's cut for phases 13 and
+# 14's carry-family and whisper runs
+CARRY_LAYERS = {"hymba-1.5b": 8}
+
+
+@contextlib.contextmanager
+def depth_cut(arch, layers):
+    """``configs.get_config(arch)`` at ``layers`` decoder layers for the
+    block (the launcher and the engines read it), the cut printed with
+    its byte counts; nothing changes for ``layers`` None."""
+    from repro_torch import configs
+    if layers is None:
+        yield
+        return
+    get = configs.get_config
+    full = get(arch)
+    cut = dataclasses.replace(full, num_layers=layers)
+    log("carry", f"{arch}: depth cut to {layers} of {full.num_layers} "
+        f"layers, full width: {cut.param_count() / 1e9:.3f} B params, "
+        f"{cut.param_count() * 2 / 2**30:.2f} GiB in bf16 (all "
+        f"{full.num_layers}: {full.param_count() / 1e9:.3f} B, "
+        f"{full.param_count() * 2 / 2**30:.2f} GiB)")
+    configs.get_config = lambda a: cut if a == arch else get(a)
+    try:
+        yield
+    finally:
+        configs.get_config = get
+
+
 def carry_serve(torch, dev, card, table):
-    """Phase 10: rwkv6-7b, then hymba-1.5b (``carry_arch``)."""
+    """Phase 10: rwkv6-7b, then hymba-1.5b (``carry_arch``; depth cuts
+    ``CARRY_LAYERS``)."""
     t0 = time.perf_counter()
     for arch in ("rwkv6-7b", "hymba-1.5b"):
-        carry_arch(torch, dev, card, table, arch)
+        with depth_cut(arch, CARRY_LAYERS.get(arch)):
+            carry_arch(torch, dev, card, table, arch)
     log("carry", f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
@@ -4283,11 +4355,14 @@ def p11_serve(torch, dev, card, table):
 # width, random weights from seed 0, the full configs' remat; the vision
 # prefix adds its 256 patches to every row, whisper's encoder its 1500
 # frames. Depth is cut where 80 GB forces it: mixtral keeps 1 layer, since
-# 2 would hold 75.3 GiB at the update's peak (``launch.train.train_bytes``)
+# 2 would hold 75.3 GiB at the update's peak (``launch.train.train_bytes``);
+# and where the script's time does: hymba keeps 8 of its 32 layers (its
+# stepped SSM scan made its steps 8.4-12.3 s each at 32), paying for
+# phases 13 and 14's carry-family and whisper runs
 FAMILY_TRAIN = [
     ("whisper-small", None, 4, 448),
     ("internvl2-1b", None, 2, 1792),
-    ("hymba-1.5b", None, 2, 1280),
+    ("hymba-1.5b", 8, 2, 1280),
     ("olmoe-1b-7b", 4, 2, 1024),
     ("mixtral-8x7b", 1, 1, 1024),
     ("rwkv6-7b", 8, 2, 512),
@@ -4699,11 +4774,76 @@ MESH_KW = dict(max_batch=4, max_prompt_len=MESH_PROMPT,
                max_new_tokens=MESH_GEN, page_size=16, prefill_chunk=32,
                kv_format="kv_fp16", attn_path="fused")
 MESH_PAGE, MESH_PAGES = 16, 9       # a slot's 144-token window
-# (arch, depth cut or None, meshes, ranks draw one after the other)
-MESH_RUNS = [("h2o-danube-1.8b", None, [(1, 2), (2, 2)], False),
-             ("llama3-405b", 2, [(1, 4)], True)]
+# (arch, depth cut or None, meshes, ranks draw one after the other, what
+# else the run does: "fp32" activations on the quantized weights, "ngram"
+# speculation with every verify step's carry commit checked)
+MESH_RUNS = [("h2o-danube-1.8b", None, [(1, 2), (2, 2)], False, ""),
+             ("llama3-405b", 2, [(1, 4)], True, ""),
+             # rwkv's bf16 logits are chaotic on random weights (phase 10):
+             # its mesh run is held with fp32 activations
+             ("rwkv6-7b", 4, [(1, 4)], False, "fp32"),
+             ("hymba-1.5b", 8, [(1, 2), (1, 5)], False, ""),
+             ("hymba-1.5b", 8, [(1, 2)], False, "ngram"),
+             ("whisper-small", None, [(2, 2)], False, "")]
 # the engine's plan M at each mesh (4 slots over the data axis)
 MESH_M = (1, 2, 4, 8)
+# launches a forward of one request's tokens, per layer: (W4A16, paged
+# attention); at each admit, the encoder's (W4A16 and flash per encoder
+# layer) and every decoder layer's cross K/V projections (W4A16)
+MESH_LAYER_LAUNCHES = {"dense": (7, 1), "rwkv": (8, 0), "hybrid": (10, 1),
+                       "encdec": (8, 1)}
+ENC_LAYER_GEMMS, CROSS_KV_GEMMS = 6, 2
+# the W4A16 leaves the carry-family and whisper runs execute on a rank:
+# (label, K, N, group, activation dtype, a layer's launches of that
+# shape, Ms: decode rows, the 32-token chunk, [the k = 4 verify step's
+# 4 x 5 rows] [whisper's 1500 frames at admit])
+MESH_FAMILY_GEMMS = [
+    ("rwkv tp4 tm_r/k/v/g/w", 4096, 1024, 128, "fp32", 5, (1, 2, 4, 8, 32)),
+    ("rwkv tp4 tm_o", 1024, 4096, 128, "fp32", 1, (1, 2, 4, 8, 32)),
+    ("rwkv tp4 cm_k", 4096, 3584, 128, "fp32", 1, (1, 2, 4, 8, 32)),
+    ("rwkv tp4 cm_v", 3584, 4096, 128, "fp32", 1, (1, 2, 4, 8, 32)),
+    ("hymba tp2 wq/wo/in/dt_proj", 1600, 1600, 64, "bf16", 4,
+     (1, 2, 4, 8, 20, 32)),
+    ("hymba tp2 wk/wv", 1600, 320, 64, "bf16", 2, (1, 2, 4, 8, 20, 32)),
+    ("hymba tp2 out_proj (gathered)", 3200, 1600, 128, "bf16", 1,
+     (1, 2, 4, 8, 20, 32)),
+    ("hymba tp2 w_gate/w_up", 1600, 2752, 64, "bf16", 2,
+     (1, 2, 4, 8, 20, 32)),
+    ("hymba tp2 w_down (gathered)", 5504, 1600, 128, "bf16", 1,
+     (1, 2, 4, 8, 20, 32)),
+    ("hymba tp5 wq", 1600, 320, 64, "bf16", 1, (1, 2, 4, 8, 32)),
+    ("hymba tp5 wk/wv", 1600, 64, 64, "bf16", 2, (1, 2, 4, 8, 32)),
+    ("hymba tp5 wo", 320, 1600, 64, "bf16", 1, (1, 2, 4, 8, 32)),
+    ("hymba tp5 in/dt_proj", 1600, 640, 64, "bf16", 2, (1, 2, 4, 8, 32)),
+    ("hymba tp5 out_proj", 640, 1600, 128, "bf16", 1, (1, 2, 4, 8, 32)),
+    ("hymba tp5 w_gate/w_up (whole)", 1600, 5504, 64, "bf16", 2,
+     (1, 2, 4, 8, 32)),
+    ("hymba tp5 w_down (whole)", 5504, 1600, 128, "bf16", 1,
+     (1, 2, 4, 8, 32)),
+    ("whisper tp2 wq/wk/wv, cross wq", 768, 384, 128, "bf16", 4,
+     (1, 2, 4, 8, 32, 1500)),
+    ("whisper tp2 wo, cross wo", 384, 768, 128, "bf16", 2,
+     (1, 2, 4, 8, 32, 1500)),
+    ("whisper tp2 w_up", 768, 1536, 128, "bf16", 1, (1, 2, 4, 8, 32, 1500)),
+    ("whisper tp2 w_down", 1536, 768, 128, "bf16", 1,
+     (1, 2, 4, 8, 32, 1500)),
+]
+# (arch label, layers a rank's decode step runs, decode rows, the labels'
+# prefix)
+MESH_FAMILY_STEPS = [("rwkv 1x4 (4 layers)", 4, 4, "rwkv tp4"),
+                     ("hymba 1x2 (8 layers)", 8, 4, "hymba tp2"),
+                     ("hymba 1x5 (8 layers)", 8, 4, "hymba tp5"),
+                     ("whisper 2x2 (12 layers)", 12, 2, "whisper tp2")]
+# a rank's paged attention: hymba at 1x5 (5 query over 1 KV head of 64,
+# window 1024) and whisper at 2x2 (6 over 6 of 64)
+MESH_FAMILY_ATTN = [("hymba tp5", (1, 5, 64), 1024),
+                    ("whisper tp2", (6, 1, 64), 0)]
+# the flash kernel at a whisper 2x2 rank's heads: the encoder over 1500
+# frames (at admit, and in training) and the decoder's 448 tokens
+# (training): (label, B, S, Hq, Hkv, D, causal, window)
+MESH_FAMILY_FLASH = [
+    ("whisper tp2 encoder", 1, 1500, 6, 6, 64, False, 0),
+    ("whisper tp2 decoder", 1, 448, 6, 6, 64, True, 0)]
 
 
 def check_mesh_gemms(torch, dev, gen):
@@ -4726,14 +4866,16 @@ def check_mesh_gemms(torch, dev, gen):
     return worst
 
 
-def check_mesh_attention(torch, dev, gen):
-    """Paged attention at a rank's heads (llama3-405b at TP=4: 32 query
-    over 2 KV heads of 128; danube at TP=2: 16 over 4 of 80, window 4096)
-    on phase 13's 16-token pages and 9-page tables: decode, chunk and
-    verify at one partition and the planner's pick, held as
-    ``check_attention`` holds danube's."""
+def check_mesh_attention(torch, dev, gen, cases=MESH_ATTN):
+    """Paged attention at a rank's heads (``MESH_ATTN``: llama3-405b at
+    TP=4, 32 query over 2 KV heads of 128; danube at TP=2, 16 over 4 of
+    80, window 4096; or ``MESH_FAMILY_ATTN``: hymba at TP=5, 5 over 1 of
+    64, window 1024; whisper at TP=2, 6 over 6 of 64) on phase 13's
+    16-token pages and 9-page tables: decode, chunk and verify at one
+    partition and the planner's pick, held as ``check_attention`` holds
+    danube's."""
     worst = 0.0
-    for label, heads, window in MESH_ATTN:
+    for label, heads, window in cases:
         for kind in ("decode", "chunk", "verify"):
             c = attn_case(torch, gen, dev, fmt_name="kv_fp16", kind=kind,
                           heads=heads, page=MESH_PAGE, pages=MESH_PAGES,
@@ -4805,26 +4947,184 @@ def time_mesh(torch, dev, gen, timer, card, floor_ms):
     return rows
 
 
-def mesh_cfg(arch, layers):
+def check_mesh_family_gemms(torch, dev, gen):
+    """The W4A16 kernel against its plain version at every rank-local leaf
+    of phase 13's carry-family and whisper runs (``MESH_FAMILY_GEMMS``:
+    rwkv at TP=4 with fp32 activations, hymba at TP=2 and 5 and whisper at
+    TP=2 in bf16), at each M those runs give it, with the planner's
+    split_k at that M, the engine's plan (made at the decode step's rows,
+    or the verify step's) and 1; ``held``'s tolerances. Returns the worst
+    bf16 |d|."""
+    from repro_torch.kernels.w4a16_fused import (w4a16_fused,
+                                                 w4a16_fused_plain)
+    worst = 0.0
+    for label, K, N, group, dt, _, Ms in MESH_FAMILY_GEMMS:
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        plans = set()
+        for M in Ms:
+            x, qt = carry_gemm_case(torch, K, N, group, M, gen, dev, dtype)
+            if M in (2 if label.startswith("whisper") else 4, 20):
+                plans.add(planned_split(x, qt))
+            for s in sorted(plans | {planned_split(x, qt), 1}):
+                err = held("w4a16_gemm", f"{label} {dt} M={M} K={K} N={N} "
+                           f"group={group} split_k={s}",
+                           w4a16_fused(x, qt, split_k=s),
+                           w4a16_fused_plain(x, qt, split_k=s),
+                           f32=dt == "fp32")
+                if dt == "bf16":
+                    worst = max(worst, err)
+            del x, qt
+    return worst
+
+
+def time_mesh_families(torch, dev, gen, timer, card, floor_ms):
+    """Phase 5's rows 1f, 4e and 7e, each one rank's work alone on the
+    card: the W4A16 kernel at every rank-local leaf of phase 13's
+    carry-family and whisper runs at the rank's decode rows (rwkv in
+    fp32; whisper's admit leaves also at its 1500 frames), the planner's
+    split_k, beside its bound, the timer's floor, its plain version,
+    dequant + ``torch.matmul`` and ``torch.matmul`` on the dense weight in
+    the activation dtype; each run's decode-step sum; paged attention at
+    hymba 1x5's and whisper 2x2's heads beside gather + SDPA; the flash
+    forward at a whisper 2x2 rank's encoder and decoder heads beside
+    SDPA."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.quant import dequantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a16_fused import (w4a16_fused,
+                                                 w4a16_fused_plain)
+    rows = {}
+    for label, K, N, group, dt, n, Ms in MESH_FAMILY_GEMMS:
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        step_m = 2 if label.startswith("whisper") else 4
+        for M in [step_m] + [m for m in Ms if m == ENCODER_M]:
+            x, qt = carry_gemm_case(torch, K, N, group, M, gen, dev, dtype)
+            dense = dequantize(qt).to(dtype)
+            s = planned_split(x, qt)
+            size = 4 if dt == "fp32" else 2
+            nbytes = costmodel.w4a16_gemm_bytes(M, N, K, group=group,
+                                                act_bytes=size,
+                                                out_bytes=size)
+            flops = costmodel.w4a16_gemm_flops(M, N, K)
+            r = dict(ms=timer(lambda: w4a16_fused(x, qt, split_k=s)),
+                     plain_ms=timer(lambda: w4a16_fused_plain(
+                         x, qt, split_k=s)),
+                     dequant_ms=timer(lambda: ref.w4a16_ref(x, qt)),
+                     library_ms=timer(lambda: torch.matmul(x, dense)),
+                     bound_ms=costmodel.roofline_s(nbytes, flops) * 1e3,
+                     bound_by=costmodel.bound_by(nbytes, flops),
+                     nbytes=nbytes, n=n, split_k=s)
+            rows[(label, M)] = r
+            log("timing", f"w4a16_gemm {label} {dt} M={M} K={K} N={N} "
+                f"group={group} split_k={s}: kernel {r['ms']:.4f} ms, "
+                f"{gbs(nbytes, r['ms'])}, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of "
+                f"roofline; the timer's floor {floor_ms:.4f}), plain "
+                f"{r['plain_ms']:.4f} ms, dequant+matmul "
+                f"{r['dequant_ms']:.4f} ms, torch.matmul {dt} "
+                f"{r['library_ms']:.4f} ms [{card}]")
+            del x, qt, dense
+    for what, L, M, prefix in MESH_FAMILY_STEPS:
+        def total(key):
+            return L * sum(r[key] * r["n"] for (lbl, m), r in rows.items()
+                           if lbl.startswith(prefix) and m == M)
+        n = L * sum(r["n"] for (lbl, m), r in rows.items()
+                    if lbl.startswith(prefix) and m == M)
+        log("timing", f"w4a16_gemm, one {what} rank's decode step ({n} "
+            f"launches at M={M}): kernel {total('ms'):.3f} ms, bound "
+            f"{total('bound_ms'):.3f} ms, plain {total('plain_ms'):.3f} ms, "
+            f"dequant+matmul {total('dequant_ms'):.3f} ms, torch.matmul "
+            f"{total('library_ms'):.3f} ms [{card}]")
+    for label, heads, window in MESH_FAMILY_ATTN:
+        for kind in ("decode", "chunk"):
+            c = attn_case(torch, gen, dev, fmt_name="kv_fp16", kind=kind,
+                          heads=heads, page=MESH_PAGE, pages=MESH_PAGES,
+                          ctx=130)
+            rows[(label, kind)] = time_attn_case(
+                torch, timer, c, window, f"{label} {kind}", card)
+    for label, B, S, Hq, Hkv, D, causal, window in MESH_FAMILY_FLASH:
+        q, k, v = flash_inputs(torch, gen, dev, B, S, S, Hq, Hkv, D,
+                               torch.bfloat16)
+        rows[label] = time_flash_shape(torch, timer, q, k, v, label, causal,
+                                       window, card, "timing")
+        del q, k, v
+    return rows
+
+
+def mesh_cfg(arch, layers, what=""):
+    """The full config at ``layers`` layers (None: all), the activations
+    fp32 for ``what == "fp32"``, whisper's encoder on the flash kernel
+    (as the serve launcher sets it on a card)."""
+    import torch
     from repro_torch import configs
     cfg = configs.get_config(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          num_layers=layers)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if what == "fp32":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
+    return cfg
 
 
-def mesh_requests(cfg):
+def mesh_weights(torch, dev, cfg, cut=None):
+    """Seed 0's weights of ``cfg`` drawn on the card in bf16 (each leaf
+    cut as drawn with ``cut``) and quantized there; for fp32 activations
+    the quantized leaves then dequantize to fp32 (``fp32_params``)."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    bf16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    params = T.quantize_params(T.init_params(gen, bf16, device=dev, cut=cut),
+                               bf16, min_size=0)
+    return fp32_params(torch, params) if cfg.dtype == torch.float32 \
+        else params
+
+
+def weight_bytes(tree):
+    """Bytes a param tree holds (a QuantizedTensor's payload, scales and
+    zeros)."""
+    from repro_torch.core.quant import QuantizedTensor
+    if isinstance(tree, dict):
+        return sum(weight_bytes(v) for v in tree.values())
+    if isinstance(tree, QuantizedTensor):
+        return sum(t.numel() * t.element_size()
+                   for t in (tree.packed, tree.scales, tree.zeros)
+                   if t is not None)
+    return 0 if isinstance(tree, str) else tree.numel() * tree.element_size()
+
+
+def mesh_requests(cfg, what=""):
+    """Phase 13's requests: MESH_REQS random prompts of MESH_PROMPT tokens
+    (with whisper's audio frames, each request its own), or for an ngram
+    run prompts of a 16-token sequence repeated (prompt lookup has
+    matches), each MESH_GEN tokens."""
     from repro_torch.launch import serve as launcher
+    if what == "ngram":
+        return repeat_prompts(cfg.vocab_size, n=MESH_REQS, plen=MESH_PROMPT,
+                              gen=MESH_GEN)
     return launcher.make_requests(cfg, MESH_REQS, MESH_PROMPT, MESH_GEN, 0)
 
 
-def mesh_serve_run(torch, dev, cfg, params, table, mesh=None):
+def mesh_serve_run(torch, dev, cfg, params, table, mesh=None, what=""):
     """Serve phase 13's requests through ``ServingEngine`` (on ``mesh``
-    when given), counters set to 0 just before and read just after.
-    Returns a summary: tokens, first-token logits, launches, forwards and
-    times."""
+    when given), counters set to 0 just before and read just after. An
+    ngram run wraps every verify step (``capture_carry_verify``): exact
+    acceptance, each carry commit equal to checkpoint 1 + accepted, the
+    verify logits at each row's first position against a decode step
+    replayed from the same carry. Returns a summary: tokens, first-token
+    logits, launches, forwards, admits and times."""
     from repro_torch.runtime.engine import ServingEngine
-    engine = ServingEngine(cfg, params, mesh=mesh, device=dev, **MESH_KW)
-    reqs = mesh_requests(cfg)
+    kw = dict(MESH_KW)
+    if what == "ngram":
+        kw.update(speculate="ngram", spec_k=SPEC_K)
+    engine = ServingEngine(cfg, params, mesh=mesh, device=dev, **kw)
+    reqs = mesh_requests(cfg, what)
+    if what == "ngram":
+        kernels = ("w4a16_gemm",) + (() if cfg.attn_free
+                                     else ("paged_attention",))
+        records, quiet, stats = capture_carry_verify(torch, engine, table,
+                                                     kernels)
     if mesh is not None:
         torch.distributed.barrier()
     reset_counts(table)
@@ -4835,15 +5135,37 @@ def mesh_serve_run(torch, dev, cfg, params, table, mesh=None):
     counts = read_counts(table)
     chunks = sum(-(-len(r.prompt) // engine.prefill_chunk) for r in reqs) \
         - rep.prefill_steps_saved
+    replays = 0
+    if what == "ngram":
+        # each verify step also ran a decode step replayed from its carry
+        replays = len(records)
+        check_acceptance(records, rep.results, len(reqs[0].prompt),
+                         f"{cfg.name} ngram", phase="mesh")
+        ok = not quiet and records and not stats["bad"] \
+            and stats["commits"] == len(records) \
+            and stats["replay_max"] <= LOGIT_TOL
+        log("mesh", f"{cfg.name} ngram k={SPEC_K}: {rep.accepted_tokens}/"
+            f"{rep.proposed_tokens} drafts accepted over {len(records)} "
+            f"verify steps; {stats['commits']} carry commits, each row's "
+            f"carry checkpoint 1 + accepted (rows per checkpoint "
+            f"{dict(sorted(stats['sel'].items()))}), mismatches "
+            f"{stats['bad'][:4]}; verify vs replayed decode logits max|d|="
+            f"{stats['replay_max']:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{cfg.name} ngram on a mesh: verify "
+                                 f"carries or logits disagree")
     out = dict(tokens=dict(rep.results), launches=counts,
-               forwards=chunks + len(rep.step_records),
+               forwards=chunks + len(rep.step_records) + replays,
+               admits=rep.admitted,
                logits={r: rep.prefill_logits[r].float().cpu()
                        for r in rep.results},
                wall=wall, decode_s=rep.decode_s,
                steps=len(rep.step_records), prefill_s=rep.prefill_s,
                heads=(engine.cfg.num_heads, engine.cfg.num_kv_heads),
+               d_inner=engine.cfg.d_inner if cfg.family == "hybrid" else 0,
                plans={k: p.split_k for k, p in engine.plans.items()},
-               paths=(engine.attn_path, engine.prefill_attn_path))
+               paths=(engine.attn_path, engine.prefill_attn_path),
+               spec=(rep.proposed_tokens, rep.accepted_tokens))
     del engine
     return out
 
@@ -4858,33 +5180,31 @@ def mesh_rank(rank, world, store, runs_json, out_dir):
 
     import torch
     from repro_torch.launch import mesh as tmesh
-    from repro_torch.models import transformer as T
     from repro_torch.runtime import sharding
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = tmesh.rank_device()
     backend = tmesh.init_process_group(
         dev, init_method=f"file://{store}", rank=rank, world_size=world)
     table = kernel_table()
     results = []
-    for arch, layers, dm, serial in json.loads(runs_json):
-        cfg = mesh_cfg(arch, layers)
+    for arch, layers, dm, serial, what in json.loads(runs_json):
+        cfg = mesh_cfg(arch, layers, what)
         mesh = tmesh.make_local_mesh(*dm)
         layout = sharding.Layout(cfg, mesh)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for turn in range(world if serial else 1):
             if not serial or turn == rank:
-                gen = torch.Generator(device=dev)
-                gen.manual_seed(0)
-                params = T.quantize_params(T.init_params(
-                    gen, cfg, device=dev, cut=layout.cut), cfg, min_size=0)
+                params = mesh_weights(torch, dev, cfg, layout.cut)
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
             torch.distributed.barrier()
         build_s = time.perf_counter() - t0
-        res = mesh_serve_run(torch, dev, cfg, params, table, mesh)
-        res.update(arch=arch, mesh=dm, backend=backend, build_s=build_s,
-                   coords=(layout.dp_rank, layout.tp_rank),
+        res = mesh_serve_run(torch, dev, cfg, params, table, mesh, what)
+        res.update(arch=arch, mesh=dm, what=what, backend=backend,
+                   build_s=build_s, coords=(layout.dp_rank, layout.tp_rank),
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         results.append(res)
         del params
@@ -4947,36 +5267,58 @@ def spawn_mesh(runs, world, timeout=420, flag="--mesh-rank",
         return out
 
 
+def mesh_want(res):
+    """One forward's and one admit's launches times the run's: W4A16 and
+    paged attention a layer (``MESH_LAYER_LAUNCHES``) a forward (a prefill
+    chunk, a decode or verify step, a replayed decode step); at each
+    admit, whisper's encoder (6 W4A16 and 1 flash a layer) and every
+    decoder layer's cross K/V (2 W4A16)."""
+    gemm, attn = MESH_LAYER_LAUNCHES.get(res["family"], (7, 1))
+    L, E, f, a = res["L"], res["E"], res["forwards"], res["admits"]
+    admit = E * ENC_LAYER_GEMMS + L * CROSS_KV_GEMMS if E else 0
+    return {"w4a16_gemm": gemm * L * f + admit * a,
+            "paged_attention": attn * L * f, "flash_attention": E * a}
+
+
 def hold_mesh(ref, ranks, what, card):
     """Every rank's first-token logits within LOGIT_TOL of the
-    single-process port's on the same weights, every rank's W4A16 and
-    paged-attention launches exactly 7 x L and L a forward (each call went
-    to its kernel), the ranks in lockstep (the same tokens); the first
-    greedy token that differs from the single process, if any, printed."""
-    L = ranks[0]["L"]
+    single-process port's on the same weights; every rank's launches of
+    W4A16, paged attention and flash exactly the one process's and
+    ``mesh_want``'s (each call went to its kernel) and no other kernel;
+    the ranks in lockstep (the same tokens); the first greedy token that
+    differs from the single process, if any, printed."""
+    kinds = ("w4a16_gemm", "paged_attention", "flash_attention")
     for res in ranks:
         d = max(float((res["logits"][r] - ref["logits"][r]).abs().max())
                 for r in ref["logits"])
         n = res["launches"]
-        want = (7 * L * res["forwards"], L * res["forwards"])
-        got = (n["w4a16_gemm"], n["paged_attention"])
+        want = mesh_want(res)
+        got = {k: n[k] for k in kinds}
+        one = {k: ref["launches"][k] for k in kinds}
+        others = {k: v for k, v in n.items() if v and k not in kinds}
         first = next(((r, i, a, b) for r in sorted(ref["tokens"])
                       for i, (a, b) in enumerate(zip(res["tokens"][r],
                                                      ref["tokens"][r]))
                       if a != b), None)
-        ok = d <= LOGIT_TOL and got == want \
+        ok = d <= LOGIT_TOL and got == want == one and not others \
             and res["tokens"] == ranks[0]["tokens"]
+        heads = f"{res['heads'][0]}/{res['heads'][1]}" + (
+            f", SSM channels {res['d_inner']}" if res["d_inner"] else "")
         log("mesh", f"{what} rank {res['coords']} ({res['backend']}): "
-            f"heads {res['heads'][0]}/{res['heads'][1]}, first-token "
-            f"logits vs one process max|d|={d:.3e} (tolerance {LOGIT_TOL}),"
-            f" launches w4a16_gemm {got[0]} / paged_attention {got[1]} "
-            f"(want {want[0]} / {want[1]}: {res['forwards']} forwards), "
-            f"first differing greedy token "
+            f"heads {heads}, first-token logits vs one process max|d|="
+            f"{d:.3e} (tolerance {LOGIT_TOL}), launches "
+            + ", ".join(f"{k} {got[k]}" for k in kinds)
+            + f" (want {', '.join(str(want[k]) for k in kinds)}: "
+            f"{res['forwards']} forwards, {res['admits']} admits; one "
+            f"process {', '.join(str(one[k]) for k in kinds)}; others "
+            f"{others or 'none'}), first differing greedy token "
             f"{'none' if first is None else f'request {first[0]} token {first[1]}: {first[2]} vs {first[3]}'}"
             f"; build {res['build_s']:.1f} s, serve {res['wall']:.2f} s, "
             f"decode {res['decode_s'] / max(res['steps'], 1) * 1e3:.1f} "
-            f"ms/step over {res['steps']} steps, peak {res['peak_gib']:.2f} "
-            f"GiB {'ok' if ok else 'FAIL'} [ranks share one card: {card}]")
+            f"ms/step over {res['steps']} steps (one process "
+            f"{ref['decode_s'] / max(ref['steps'], 1) * 1e3:.1f}), peak "
+            f"{res['peak_gib']:.2f} GiB {'ok' if ok else 'FAIL'} [ranks "
+            f"share one card: {card}]")
         if not ok:
             raise AssertionError(f"phase 13 {what}: rank {res['coords']} "
                                  f"disagrees with the single process")
@@ -4989,68 +5331,79 @@ def mesh_serve(torch, dev, card, table):
     cut (the reference: the port on one card), then by its mesh's ranks,
     spawned on the one card over gloo (one spawn per world size), and held
     against it (``hold_mesh``)."""
-    from repro_torch.models import transformer as T
     refs = {}
-    for arch, layers, _, _ in MESH_RUNS:
-        cfg = mesh_cfg(arch, layers)
+    for arch, layers, _, _, what in MESH_RUNS:
+        cfg = mesh_cfg(arch, layers, what)
+        full = mesh_cfg(arch, None)
         t0 = time.perf_counter()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        params = T.quantize_params(T.init_params(gen, cfg, device=dev), cfg,
-                                   min_size=0)
+        params = mesh_weights(torch, dev, cfg)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        ref = mesh_serve_run(torch, dev, cfg, params, table)
+        nbytes = weight_bytes(params)
+        ref = mesh_serve_run(torch, dev, cfg, params, table, what=what)
         del params
         torch.cuda.empty_cache()
-        refs[arch] = ref
-        log("mesh", f"{arch} ({cfg.num_layers} layers, d_model "
-            f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) in "
+        refs[arch, what] = ref
+        log("mesh", f"{arch}{' ' + what if what else ''} ({cfg.num_layers} "
+            f"of {full.num_layers} layers, {nbytes / 2**30:.2f} GiB of "
+            f"weights held; d_model {cfg.d_model}, {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+            f"vocab {cfg.vocab_size}, {str(cfg.dtype).split('.')[-1]}) in "
             f"one process: built {build_s:.1f} s, served {MESH_REQS} x "
             f"{MESH_PROMPT} + {MESH_GEN} in {ref['wall']:.2f} s, decode "
             f"{ref['decode_s'] / max(ref['steps'], 1) * 1e3:.1f} ms/step "
             f"[{card}]")
     by_world = {}
-    for arch, layers, meshes, serial in MESH_RUNS:
+    for arch, layers, meshes, serial, what in MESH_RUNS:
         for dm in meshes:
             by_world.setdefault(dm[0] * dm[1], []).append(
-                (arch, layers, dm, serial))
+                (arch, layers, dm, serial, what))
     for world, runs in sorted(by_world.items()):
         t0 = time.perf_counter()
         out = spawn_mesh(runs, world)
         log("mesh", f"{world} ranks on one card: {len(runs)} runs in "
             f"{time.perf_counter() - t0:.1f} s")
-        for i, (arch, layers, dm, _) in enumerate(runs):
+        for i, (arch, layers, dm, _, what) in enumerate(runs):
             ranks = [res[i] for res in out]
+            cfg = mesh_cfg(arch, layers, what)
             for res in ranks:
-                res["L"] = mesh_cfg(arch, layers).num_layers
-            hold_mesh(refs[arch], ranks, f"{arch} at {dm[0]}x{dm[1]}", card)
+                res.update(L=cfg.num_layers, family=cfg.family,
+                           E=cfg.encoder_layers)
+            refs[arch, what].update(L=cfg.num_layers, family=cfg.family,
+                                    E=cfg.encoder_layers)
+            hold_mesh(refs[arch, what], ranks,
+                      f"{arch}{' ' + what if what else ''} at "
+                      f"{dm[0]}x{dm[1]}", card)
 
 
 # ---------------------------------------------------------------------------
 # phase 14: training on a (data, model) mesh of ranks sharing the one card
 # ---------------------------------------------------------------------------
 
-# h2o-danube-1.8b at full width, its first MESH_TRAIN_LAYERS of 24 layers
-# (a one-process reference and four ranks share the card, and the phase
-# must fit in ~120 s of the script's 1200), B x S tokens a step under
-# danube's preset (launch.presets.settings_for: 4 microbatches, FSDP,
-# ZeRO-2) at each mesh, FAMILY_STEPS steps
-MESH_TRAIN_LAYERS = 4
-MESH_TRAIN_B, MESH_TRAIN_S = 8, 1024
-MESH_TRAIN_MESHES = [(1, 4), (2, 2)]
+# the runs: (arch, decoder layers kept (None: all), rows, tokens a row,
+# meshes), each under the arch's preset (launch.presets.settings_for),
+# FAMILY_STEPS steps on every mesh against one process. h2o-danube-1.8b
+# at full width, its first 4 of 24 layers (a one-process reference and
+# four ranks share the card), 8 x 1024 tokens (4 microbatches, FSDP,
+# ZeRO-2) at 1x4 and 2x2; whisper-small at full width and depth, 4 x 448
+# tokens over 1500 frames a row (4 microbatches of one row: every data
+# rank runs every row; FSDP, ZeRO-2) at 2x2
+MESH_TRAIN_RUNS = [("h2o-danube-1.8b", 4, 8, 1024, [(1, 4), (2, 2)]),
+                   ("whisper-small", None, 4, 448, [(2, 2)])]
 # the flash kernel's shapes there (a rank's rows of a microbatch, its
-# heads): (label, B, S, Hq, Hkv, D, causal, window)
+# heads): (label, B, S, Hq, Hkv, D, causal, window); whisper's are
+# MESH_FAMILY_FLASH
 MESH_TRAIN_FLASH = [("danube tp4 (1x4)", 2, 1024, 8, 2, 80, True, 4096),
                     ("danube tp2 (2x2)", 1, 1024, 16, 4, 80, True, 4096)]
 
 
-def mesh_train_cfg():
+def mesh_train_cfg(arch, layers):
+    """The full config at ``layers`` decoder layers, on the flash kernel."""
     from repro_torch import configs
-    return dataclasses.replace(configs.get_config(ARCH),
-                               num_layers=MESH_TRAIN_LAYERS,
-                               attn_impl="flash")
+    cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return dataclasses.replace(cfg, attn_impl="flash")
 
 
 class SpecMesh:
@@ -5063,7 +5416,7 @@ class SpecMesh:
         self.coords = {}
 
 
-def reckon_mesh_train(cfg, settings, card):
+def reckon_mesh_train(cfg, settings, card, B, S, meshes):
     """Before the phase runs: its depth cut and ``train_bytes``, and per
     mesh what rank (0, 0) holds (its shares at the functional AdamW's 22
     B a parameter; ZeRO-2's gathered slice and a microbatch's gradients
@@ -5072,7 +5425,8 @@ def reckon_mesh_train(cfg, settings, card):
     gradients' reduce-scatter and the gather of the shares; over "model"
     a microbatch's 9 activation collectives a layer (2 row-parallel sums,
     again in the recompute, 5 column inputs' gradient sums), the
-    embedding's sum and the fp32 logits' gather."""
+    embedding's sum and the fp32 logits' gather (whisper's encoder
+    layers counted as decoder layers over their frames)."""
     import math
 
     from repro_torch import configs
@@ -5086,10 +5440,12 @@ def reckon_mesh_train(cfg, settings, card):
         f"{str(cfg.dtype).split('.')[-1]}, remat {cfg.remat}): "
         f"{cfg.param_count() / 1e9:.3f} B params, "
         f"train_bytes {train_bytes(cfg) / 2**30:.2f} GiB (the one-process "
-        f"reference; all 24 layers {train_bytes(full) / 2**30:.2f} GiB); "
-        f"{MESH_TRAIN_B} x {MESH_TRAIN_S} tokens a step, {settings}")
+        f"reference; all {full.num_layers} layers "
+        f"{train_bytes(full) / 2**30:.2f} GiB); {B} x {S} tokens a step"
+        + (f" over {cfg.encoder_seq} frames a row" if cfg.encoder_layers
+           else "") + f", {settings}")
     n = settings.microbatches
-    for dm in MESH_TRAIN_MESHES:
+    for dm in meshes:
         sh = TrainShards(cfg, SpecMesh(dm), fsdp=settings.fsdp)
         dp, tp = dm
         slice_n = share_n = 0
@@ -5097,11 +5453,12 @@ def reckon_mesh_train(cfg, settings, card):
             k = math.prod(s.shape) // (s.tp[1] if s.tp else 1)
             slice_n += k
             share_n += k // dp if s.fsdp is not None and dp > 1 else k
-        rows = MESH_TRAIN_B // n // dp
-        act = rows * MESH_TRAIN_S * cfg.d_model * 2
+        rows = B // n // dp or B // n
+        act = rows * S * cfg.d_model * 2
+        enc = rows * cfg.encoder_seq * cfg.d_model * 2
         model_b = 0 if tp == 1 else n * (
-            9 * cfg.num_layers * act + 2 * act
-            + rows * MESH_TRAIN_S * cfg.padded_vocab * 4)
+            9 * cfg.num_layers * act + 9 * cfg.encoder_layers * enc
+            + 2 * act + rows * S * cfg.padded_vocab * 4)
         data_b = 0 if dp == 1 else \
             n * slice_n * 2 + (slice_n - share_n) * 2
         state = share_n * TRAIN_BYTES_PER_PARAM
@@ -5125,24 +5482,21 @@ def _nest(path, t):
 
 def mesh_train_rank(rank, world, store, runs_json, out_dir):
     """One rank of phase 14 (``chip_smoke.py --mesh-train-rank``): joins
-    the gloo group through ``store``. Rank 0 first runs the reference,
-    one process training the whole tree (``make_train_step`` with the
-    same settings, no mesh) while the others wait, and keeps its m and v
-    on the host. Then for each mesh every rank draws the whole tree of
-    seed 0, cuts its shares and trains ``FAMILY_STEPS`` steps, counters
-    set to 0 just before and read just after; m and v are gathered to
-    rank 0 leaf by leaf, and it holds each against the reference. Writes
-    ``rank{r}.pkl``."""
+    the gloo group through ``store``. For each run rank 0 first runs the
+    reference, one process training the whole tree (``make_train_step``
+    with the same settings, no mesh) while the others wait, and keeps its
+    m and v on the host. Then for each mesh every rank draws the whole
+    tree of seed 0, cuts its shares and trains ``FAMILY_STEPS`` steps on
+    the same batches (whisper's audio frames drawn from one seed on every
+    rank), counters set to 0 just before and read just after; m and v are
+    gathered to rank 0 leaf by leaf, and it holds each against the
+    reference. Writes ``rank{r}.pkl``."""
     import pickle
 
     import torch
-    from repro_torch.core.tree import tree_flatten_with_keys, tree_map
-    from repro_torch.data import SyntheticTokenStream
     from repro_torch.launch import mesh as tmesh
-    from repro_torch.launch.presets import settings_for
-    from repro_torch.models import transformer as T
-    from repro_torch.optim import AdamWConfig, adamw_init
-    from repro_torch.runtime import sharding, steps
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import sharding
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5162,13 +5516,40 @@ def mesh_train_rank(rank, world, store, runs_json, out_dir):
     backend = tmesh.init_process_group(
         dev, init_method=f"file://{store}", rank=rank, world_size=world)
     table = kernel_table()
-    cfg = mesh_train_cfg()
-    settings = settings_for(cfg.name)
     opt_cfg = AdamWConfig(lr=1e-3)
-    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size,
-                                  seq_len=MESH_TRAIN_S,
-                                  batch_size=MESH_TRAIN_B, device=dev)
-    batches = [stream.batch_at(i) for i in range(FAMILY_STEPS)]
+    out = {"backend": backend, "runs": []}
+    for arch, layers, B, S, meshes in json.loads(runs_json):
+        out["runs"].append(mesh_train_arch(
+            torch, rank, dev, table, opt_cfg, spent,
+            mesh_train_cfg(arch, layers), B, S, meshes))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
+                    meshes):
+    """``mesh_train_rank``'s work for one run: the reference on rank 0,
+    then every mesh. Returns {"ref" (rank 0), "meshes"}."""
+    from repro_torch.core.tree import tree_flatten_with_keys, tree_map
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.presets import settings_for
+    from repro_torch.launch.train import extra_inputs
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import steps
+
+    settings = settings_for(cfg.name)
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=S,
+                                  batch_size=B, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    extra = extra_inputs(cfg, B, gen, dev)
+    batches = [dict(stream.batch_at(i), **extra)
+               for i in range(FAMILY_STEPS)]
 
     def draw():
         gen = torch.Generator(device=dev)
@@ -5190,7 +5571,7 @@ def mesh_train_rank(rank, world, store, runs_json, out_dir):
                             spent["n"]))
         return params, state, metrics, read_counts(table)
 
-    out = {"backend": backend, "runs": []}
+    out = {"meshes": []}
     if rank == 0:
         torch.cuda.reset_peak_memory_stats()
         params = draw()
@@ -5205,7 +5586,7 @@ def mesh_train_rank(rank, world, store, runs_json, out_dir):
         del params, state
         torch.cuda.empty_cache()
     torch.distributed.barrier()
-    for dm in json.loads(runs_json):
+    for dm in meshes:
         mesh = tmesh.make_local_mesh(*dm)
         step_fn = steps.make_train_step(cfg, opt_cfg, settings, mesh=mesh)
         shards = step_fn.shards
@@ -5238,7 +5619,7 @@ def mesh_train_rank(rank, world, store, runs_json, out_dir):
                 del w
             held[key] = (worst, where)
         local = lay.local_cfg()
-        out["runs"].append(dict(
+        out["meshes"].append(dict(
             mesh=tuple(dm), coords=(lay.dp_rank, lay.tp_rank),
             heads=(local.num_heads, local.num_kv_heads), metrics=metrics,
             launches=launches, peak_gib=peak, share_gib=share_gib,
@@ -5246,22 +5627,22 @@ def mesh_train_rank(rank, world, store, runs_json, out_dir):
         del params, state, step_fn, shards, lay
         torch.cuda.empty_cache()
         torch.distributed.barrier()
-    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
-    torch.distributed.barrier()
-    torch.distributed.destroy_process_group()
-    return 0
+    return out
 
 
-def hold_mesh_train(out, cfg, settings, card):
+def hold_mesh_train(out, cfg, settings, meshes, card):
     """The reference's and every rank's flash launches exactly 2 · L · n a
-    step (forward and remat recompute per microbatch) and no other
-    kernel; every rank's loss and grad norm equal; each mesh's loss and
-    grad norm per step and m and v after ``FAMILY_STEPS`` steps within
-    ``TRAIN_TOL`` of the one process's. Prints each rank's step ms beside
-    the one process's."""
-    L, n = cfg.num_layers, settings.microbatches
-    want = FAMILY_STEPS * 2 * L * n
+    step (forward and remat recompute per microbatch; 1 · L · n without
+    remat; L the decoder's and the encoder's self-attention layers) and
+    no other kernel; every
+    rank's loss and grad norm equal; each mesh's loss and grad norm per
+    step and m and v after ``FAMILY_STEPS`` steps within ``TRAIN_TOL`` of
+    the one process's. ``out``: every rank's results of this run. Prints
+    each rank's step ms beside the one process's."""
+    L, n = cfg.num_layers + cfg.encoder_layers, settings.microbatches
+    passes = 2 if cfg.remat else 1
+    want = FAMILY_STEPS * passes * L * n
+    arch = cfg.name
 
     def launches_ok(counts):
         return counts["flash_attention"] == want and not any(
@@ -5269,20 +5650,20 @@ def hold_mesh_train(out, cfg, settings, card):
 
     ref = out[0]["ref"]
     bad = [] if launches_ok(ref["launches"]) else ["reference launches"]
-    log("mesh-train", "one process: " + "; ".join(
+    log("mesh-train", f"{arch}, one process: " + "; ".join(
         f"step {i} loss {l:.6f} grad-norm {g:.6f} ({t * 1e3:.1f} ms)"
         for i, (l, g, t, _, _) in enumerate(ref["metrics"]))
         + f"; flash launches {ref['launches']['flash_attention']} (want "
-        f"{want}: 2 x {L} layers x {n} microbatches x {FAMILY_STEPS} "
+        f"{want}: {passes} x {L} layers x {n} microbatches x {FAMILY_STEPS} "
         f"steps); peak {ref['peak_gib']:.2f} GiB [{card}]")
-    for i, dm in enumerate(MESH_TRAIN_MESHES):
-        ranks = [o["runs"][i] for o in out]
-        what = f"{dm[0]}x{dm[1]}"
+    for i, dm in enumerate(meshes):
+        ranks = [o["meshes"][i] for o in out]
+        what = f"{arch} {dm[0]}x{dm[1]}"
         for r in ranks:
             ok = launches_ok(r["launches"]) and [m[:2] for m in r[
                 "metrics"]] == [m[:2] for m in ranks[0]["metrics"]]
             bad += [] if ok else [f"{what} rank {r['coords']}"]
-            log("mesh-train", f"{what} rank {r['coords']} ({out[0]['backend']}"
+            log("mesh-train", f"{what} rank {r['coords']} (gloo"
                 f"): heads {r['heads'][0]}/{r['heads'][1]}, shares "
                 f"{r['share_gib']:.2f} GiB, step ms "
                 + ", ".join(f"{m[2] * 1e3:.1f}" for m in r["metrics"])
@@ -5313,26 +5694,30 @@ def hold_mesh_train(out, cfg, settings, card):
                 f"({TRAIN_TOL[name]:.3g})")
         log("mesh-train", f"{what}: {FAMILY_STEPS} steps in "
             f"{max(r['train_s'] for r in ranks):.2f} s on the slowest rank")
-    if bad:
-        raise AssertionError(f"phase 14: {bad}")
+    return bad
 
 
 def mesh_train(torch, card):
-    """Phase 14: the danube cut (``mesh_train_cfg``) under its preset,
+    """Phase 14: every run of ``MESH_TRAIN_RUNS`` under its preset,
     reckoned (``reckon_mesh_train``), then one spawn of 4 ranks on the one
-    card over gloo that runs the one-process reference (rank 0) and
-    every mesh of ``MESH_TRAIN_MESHES``, held by ``hold_mesh_train``."""
+    card over gloo that runs, per run, the one-process reference (rank 0)
+    and every mesh, each held by ``hold_mesh_train``."""
     from repro_torch.launch.presets import settings_for
-    cfg = mesh_train_cfg()
-    settings = settings_for(cfg.name)
-    reckon_mesh_train(cfg, settings, card)
+    for arch, layers, B, S, meshes in MESH_TRAIN_RUNS:
+        cfg = mesh_train_cfg(arch, layers)
+        reckon_mesh_train(cfg, settings_for(arch), card, B, S, meshes)
     t0 = time.perf_counter()
-    out = spawn_mesh([list(dm) for dm in MESH_TRAIN_MESHES], 4, timeout=600,
+    out = spawn_mesh([list(r) for r in MESH_TRAIN_RUNS], 4, timeout=700,
                      flag="--mesh-train-rank", phase="mesh-train")
-    log("mesh-train", f"4 ranks on one card: the reference and "
-        f"{len(MESH_TRAIN_MESHES)} meshes in {time.perf_counter() - t0:.1f}"
-        f" s")
-    hold_mesh_train(out, cfg, settings, card)
+    log("mesh-train", f"4 ranks on one card: {len(MESH_TRAIN_RUNS)} runs' "
+        f"references and meshes in {time.perf_counter() - t0:.1f} s")
+    bad = []
+    for i, (arch, layers, _, _, meshes) in enumerate(MESH_TRAIN_RUNS):
+        bad += hold_mesh_train([o["runs"][i] for o in out],
+                               mesh_train_cfg(arch, layers),
+                               settings_for(arch), meshes, card)
+    if bad:
+        raise AssertionError(f"phase 14: {bad}")
 
 
 def time_mesh_flash(torch, dev, gen, timer, card):
@@ -5496,6 +5881,18 @@ def main() -> int:
                              check_mesh_gemms(torch, dev, gen))
     errs["paged_attention"] = max(errs["paged_attention"],
                                   check_mesh_attention(torch, dev, gen))
+    errs["w4a16_gemm"] = max(errs["w4a16_gemm"],
+                             check_mesh_family_gemms(torch, dev, gen))
+    errs["paged_attention"] = max(errs["paged_attention"], check_mesh_attention(
+        torch, dev, gen, MESH_FAMILY_ATTN))
+    # a whisper 2x2 rank's flash shapes (phase 13's encoder at admit, phase
+    # 14's training), drawn last so every earlier case keeps its inputs
+    errs["flash_attention"] = max(errs["flash_attention"], check_flash(
+        torch, dev, gen, [((label, B, S, S, *rest), False)
+                          for label, B, S, *rest in MESH_FAMILY_FLASH]))
+    check_flash_grads(torch, dev, gen, [
+        (label, S, Hq, Hkv, D, causal, window, True)
+        for label, _, S, Hq, Hkv, D, causal, window in MESH_FAMILY_FLASH])
     torch.cuda.synchronize()
     log("kernels", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
@@ -5518,6 +5915,7 @@ def main() -> int:
     time_p11(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
     time_mesh(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
     time_mesh_flash(torch, dev, gen, timer, card)
+    time_mesh_families(torch, dev, gen, timer, card, gemm_rows["floor_ms"])
     del timer
     torch.cuda.empty_cache()
     log("timing", f"phase 5 took {time.perf_counter() - t0:.1f} s")

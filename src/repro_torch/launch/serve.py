@@ -35,9 +35,10 @@ slice of each leaf as it is drawn (``runtime/sharding.py``):
         -m repro_torch.launch.serve --arch h2o-danube-1.8b --mesh 2x2
 
 The world size must equal DATA*MODEL. Ranks on one card share it over
-``gloo`` (``launch/mesh.py``); only rank 0 prints. The dense,
-vision-prefix and moe archs serve on a mesh; ``--http`` does not (one
-front door would have to feed every rank's host loop).
+``gloo`` (``launch/mesh.py``); only rank 0 prints. Every arch serves on
+a mesh (an encdec arch's audio frames are drawn from ``--seed`` on every
+rank); ``--http`` does not (one front door would have to feed every
+rank's host loop).
 """
 from __future__ import annotations
 
@@ -219,7 +220,6 @@ def build(args: argparse.Namespace):
         if args.http is not None:
             raise ValueError("--http serves one host loop; it does not "
                              "take --mesh")
-        sharding.check_mesh_family(cfg)
         mesh = tmesh.parse_mesh(args.mesh, device)
     sset = serve_settings_for(args.arch)
     fmt = quant.get_format(args.format or cfg.quant_format)
@@ -239,12 +239,14 @@ def build(args: argparse.Namespace):
         layout = sharding.Layout(cfg, mesh)
         rank_cfg = layout.local_cfg()
         cuts = [f"{what} / {layout.tp}" for what, cut in (
-            ("the vocab", layout.vocab_sharded), ("d_ff", layout.ffn_sharded))
-            if cut]
+            ("the vocab", layout.vocab_sharded), ("d_ff", layout.ffn_sharded),
+            ("d_inner", layout.ssm_sharded)) if cut]
+        heads = f"{rank_cfg.num_heads} of {cfg.num_heads} time-mix heads" \
+            if cfg.attn_free else \
+            f"{rank_cfg.num_heads} of {cfg.num_heads} query heads and " \
+            f"{rank_cfg.num_kv_heads} of {cfg.num_kv_heads} KV heads"
         print(f"[serve] mesh {args.mesh} ({torch.distributed.get_backend()})"
-              f": each rank holds {rank_cfg.num_heads} of {cfg.num_heads} "
-              f"query heads and {rank_cfg.num_kv_heads} of "
-              f"{cfg.num_kv_heads} KV heads" + "".join(", " + c for c in cuts))
+              f": each rank holds {heads}" + "".join(", " + c for c in cuts))
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=device)

@@ -56,6 +56,9 @@ class ModelConfig:
     # multi-device serving: the rank's runtime.sharding.Layout (its heads,
     # its cut of the weights, the mesh's collectives); None on one device
     shard: Any = None
+    # the SSM channels a mesh rank runs (its slice of ssm_expand * d_model,
+    # d_model unchanged); None on one device
+    ssm_inner: Optional[int] = None
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -71,6 +74,8 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
+        if self.ssm_inner is not None:
+            return self.ssm_inner
         return self.ssm_expand * self.d_model
 
     @property

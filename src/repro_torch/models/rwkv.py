@@ -22,24 +22,31 @@ TM_KEYS = ("tm_r", "tm_k", "tm_v", "tm_g", "tm_w", "tm_o")
 
 def init_rwkv_block(gen: torch.Generator, d_model: int, d_ff: int,
                     num_heads: int, dtype, *, device=None,
-                    stacked: Optional[int] = None):
+                    stacked: Optional[int] = None, cut=None):
     """One block's parameters (stacked over ``stacked`` layers when
-    given); ``w_bias`` is fp32, as in the JAX package."""
-    def lin(d_in, d_out):
-        return layers.init_linear(gen, d_in, d_out, dtype, device=device,
-                                  layers=stacked)
+    given); ``w_bias`` is fp32, as in the JAX package. ``cut(path, p)``
+    (``runtime.sharding.Layout.cut``) takes each leaf to a mesh rank's
+    slice as soon as it is drawn."""
+    keep = cut or (lambda path, p: p)
 
-    p = {k: lin(d_model, d_model) for k in TM_KEYS}
+    def lin(name, d_in, d_out):
+        return keep(("layers", name), layers.init_linear(
+            gen, d_in, d_out, dtype, device=device, layers=stacked))
+
+    p = {k: lin(k, d_model, d_model) for k in TM_KEYS}
     shape = (d_model,) if stacked is None else (stacked, d_model)
-    p["w_bias"] = torch.full(shape, -6.0, dtype=torch.float32, device=device)
-    p["cm_k"] = lin(d_model, d_ff)
-    p["cm_v"] = lin(d_ff, d_model)
+    p["w_bias"] = keep(("layers", "w_bias"), torch.full(
+        shape, -6.0, dtype=torch.float32, device=device))
+    p["cm_k"] = lin("cm_k", d_model, d_ff)
+    p["cm_v"] = lin("cm_v", d_ff, d_model)
     return p
 
 
-def rwkv_state_init(batch: int, d_model: int, num_heads: int, *,
-                    device=None):
-    hd = d_model // num_heads
+def rwkv_state_init(batch: int, d_model: int, num_heads: int,
+                    head_dim: int, *, device=None):
+    """The carry at zero: ``wkv`` (B, H, hd, hd) for ``num_heads`` heads
+    (a mesh rank's own), the token shifts (B, d) full width."""
+    hd = head_dim
     z = dict(dtype=torch.float32, device=device)
     return {"wkv": torch.zeros((batch, num_heads, hd, hd), **z),
             "shift": torch.zeros((batch, d_model), **z),
@@ -52,7 +59,10 @@ def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
 
 def _rkvgw(p, xm, H: int, cfg):
     """The five projections of the mixed input: r, k, v per head (fp32),
-    g (fp32) and the decay w = exp(-softplus(xm·W_w + w_bias)) per head."""
+    g (fp32) and the decay w = exp(-softplus(xm·W_w + w_bias)) per head.
+    On a training mesh rank xm enters the column-cut leaves through
+    ``layers.col_input``."""
+    xm = layers.col_input(xm, cfg, *(p[k] for k in TM_KEYS[:5]))
     r = _heads(layers.linear(p["tm_r"], xm, cfg), H).to(torch.float32)
     k = _heads(layers.linear(p["tm_k"], xm, cfg), H).to(torch.float32)
     v = _heads(layers.linear(p["tm_v"], xm, cfg), H).to(torch.float32)
@@ -94,7 +104,7 @@ def time_mix_seq(p, x: torch.Tensor, state, *, num_heads: int, cfg=None,
     incoming shift). With ``collect_states`` the per-step (post-mask) wkv
     states come back as a third value, (B, S, H, hd, hd). Returns (out,
     {"wkv", "shift"}[, states])."""
-    B, S, d = x.shape
+    B, S, _ = x.shape
     H = num_heads
     prev = torch.cat([state["shift"].to(x.dtype)[:, None], x[:, :-1]], 1)
     xm = 0.5 * (x + prev)                       # token-shift mixing
@@ -103,7 +113,7 @@ def time_mix_seq(p, x: torch.Tensor, state, *, num_heads: int, cfg=None,
     s, steps, kept = wkv_scan(state["wkv"], w, kv, valid, collect_states)
     # o_t = r_t · S_t over every step at once
     o = torch.matmul(r[..., None, :], steps)[..., 0, :]
-    o = o.reshape(B, S, d) * F.silu(g)
+    o = o.reshape(B, S, -1) * F.silu(g)
     out = layers.linear(p["tm_o"], o.to(x.dtype), cfg)
     if valid is None:
         shift = x[:, -1].to(torch.float32)
@@ -120,11 +130,11 @@ def time_mix_seq(p, x: torch.Tensor, state, *, num_heads: int, cfg=None,
 
 def time_mix_step(p, x: torch.Tensor, state, *, num_heads: int, cfg=None):
     """Decode mode: x (B, d), one token → (out (B, d), {"wkv", "shift"})."""
-    B, d = x.shape
+    B = x.shape[0]
     xm = 0.5 * (x + state["shift"].to(x.dtype))
     r, k, v, g, w = _rkvgw(p, xm, num_heads, cfg)
     s = state["wkv"] * w[..., None] + k[..., None] * v[..., None, :]
-    o = torch.matmul(r[..., None, :], s)[..., 0, :].reshape(B, d)
+    o = torch.matmul(r[..., None, :], s)[..., 0, :].reshape(B, -1)
     o = o * F.silu(g)
     out = layers.linear(p["tm_o"], o.to(x.dtype), cfg)
     return out, {"wkv": s, "shift": x.to(torch.float32)}
@@ -132,7 +142,7 @@ def time_mix_step(p, x: torch.Tensor, state, *, num_heads: int, cfg=None):
 
 def channel_mix(p, x: torch.Tensor, prev: torch.Tensor, cfg=None):
     """RWKV channel-mix FFN with token shift. x, prev: (..., d)."""
-    xm = 0.5 * (x + prev.to(x.dtype))
+    xm = layers.col_input(0.5 * (x + prev.to(x.dtype)), cfg, p["cm_k"])
     k = layers.linear(p["cm_k"], xm, cfg)
     k = torch.square(F.relu(k.to(torch.float32))).to(x.dtype)
     return layers.linear(p["cm_v"], k, cfg)

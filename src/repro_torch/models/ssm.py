@@ -20,23 +20,31 @@ from repro_torch.models import layers
 
 def init_ssm(gen: torch.Generator, d_model: int, d_inner: int,
              ssm_state: int, dtype, *, device=None,
-             stacked: Optional[int] = None):
+             stacked: Optional[int] = None, cut=None):
     """One SSM head's parameters (stacked over ``stacked`` layers when
-    given); ``A_log`` and ``D`` are fp32 and deterministic, as in JAX."""
-    def lin(d_in, d_out):
-        return layers.init_linear(gen, d_in, d_out, dtype, device=device,
-                                  layers=stacked)
+    given); ``A_log`` and ``D`` are fp32 and deterministic, as in JAX.
+    ``cut(path, p)`` (``runtime.sharding.Layout.cut``) takes each leaf to
+    a mesh rank's slice as soon as it is drawn."""
+    keep = cut or (lambda path, p: p)
+
+    def lin(name, d_in, d_out):
+        return keep(("layers", "ssm", name), layers.init_linear(
+            gen, d_in, d_out, dtype, device=device, layers=stacked))
 
     lead = () if stacked is None else (stacked,)
     a = torch.arange(1, ssm_state + 1, dtype=torch.float32, device=device)
-    return {
-        "in_proj": lin(d_model, d_inner),
-        "bc_proj": lin(d_model, 2 * ssm_state),
-        "dt_proj": lin(d_model, d_inner),
-        "out_proj": lin(d_inner, d_model),
-        "A_log": torch.log(a).expand(*lead, d_inner, ssm_state).contiguous(),
-        "D": torch.ones((*lead, d_inner), dtype=torch.float32, device=device),
+    p = {
+        "in_proj": lin("in_proj", d_model, d_inner),
+        "bc_proj": lin("bc_proj", d_model, 2 * ssm_state),
+        "dt_proj": lin("dt_proj", d_model, d_inner),
+        "out_proj": lin("out_proj", d_inner, d_model),
     }
+    for name, t in (
+            ("A_log", torch.log(a).expand(*lead, d_inner, ssm_state)),
+            ("D", torch.ones((*lead, d_inner), dtype=torch.float32,
+                             device=device))):
+        p[name] = keep(("layers", "ssm", name), t.contiguous())
+    return p
 
 
 def ssm_state_init(batch: int, d_inner: int, ssm_state: int, *,
@@ -46,11 +54,19 @@ def ssm_state_init(batch: int, d_inner: int, ssm_state: int, *,
 
 
 def _gates(p, x, cfg):
-    u = layers.linear(p["in_proj"], x, cfg).to(torch.float32)  # (..., d_in)
+    """u, B, C, dt and A of input x. On a mesh rank that holds a slice of
+    the channels (``in_proj``/``dt_proj`` column-cut, ``A_log`` and ``D``
+    sliced to match) ``bc_proj`` stays whole, and when the slice trains,
+    B and C pass through ``copy_to_model``: every rank's channels read
+    them, so each rank's gradient of them is partial."""
+    xc = layers.col_input(x, cfg, p["in_proj"], p["dt_proj"])
+    u = layers.linear(p["in_proj"], xc, cfg).to(torch.float32)  # (.., d_in)
     bc = layers.linear(p["bc_proj"], x, cfg).to(torch.float32)
+    if xc is not x:
+        bc = cfg.shard.copy_to_model(bc)
     Bm, Cm = torch.chunk(bc, 2, dim=-1)                        # (..., n)
     dt = layers.softplus(
-        layers.linear(p["dt_proj"], x, cfg).to(torch.float32) - 4.0)
+        layers.linear(p["dt_proj"], xc, cfg).to(torch.float32) - 4.0)
     A = -torch.exp(p["A_log"])                                 # (d_in, n)
     return u, Bm, Cm, dt, A
 

@@ -36,11 +36,15 @@ the same state; the verify step alone leaves the carries as they are and
 returns their checkpoints.
 
 On a mesh (``cfg.shard``, ``runtime/sharding.py``) the params are a rank's
-slice and ``cfg`` carries the rank's head counts: the layers' collectives
-live in ``layers.linear``, ``layers.embed`` and :func:`_logits_head`, and
-the decode and verify steps run this rank's data shard of the batch when
+slice and ``cfg`` carries the rank's head counts (attention, rwkv's time
+mix) and SSM channels (``ssm_inner``): the layers' collectives live in
+``layers.linear``, ``layers.embed`` and :func:`_logits_head`, and the
+decode and verify steps run this rank's data shard of the batch when
 ``Layout.rows`` gives one, gathering every shard's new K/V rows before the
-paged write.
+paged write; the state's carries and ``enc_kv`` then hold that shard's
+rows. hymba's ``h + 0.5 * (a + s_out)`` adds two outputs that are each
+whole on every rank (each reduced over "model" by its row-cut leaf, or
+computed whole).
 """
 from __future__ import annotations
 
@@ -92,9 +96,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
     GELU MLP's biases start at zero, as in the JAX package.
 
     ``cut(path, p)`` (a ``runtime.sharding.Layout.cut``) replaces each
-    linear or embedding dict of the dense and moe families right after it
-    is drawn, before the next is: a rank of a mesh then never holds more
-    than one whole leaf, and ``gen`` is consumed as without it."""
+    linear or embedding dict, and each bare tensor that follows a cut
+    leaf's columns (rwkv's ``w_bias``, the SSM's ``A_log`` and ``D``),
+    right after it is drawn, before the next is: a rank of a mesh then
+    never holds more than one whole leaf, and ``gen`` is consumed as
+    without it."""
     check_family(cfg)
     L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
     keep = cut or (lambda path, p: p)
@@ -132,7 +138,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
     if cfg.family == "rwkv":
         stack.update(rwkv.init_rwkv_block(gen, d, ff, cfg.num_heads,
                                           cfg.dtype, device=device,
-                                          stacked=L))
+                                          stacked=L, cut=cut))
     else:
         stack["attn"] = attn()
     if cfg.family == "moe":
@@ -142,7 +148,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
         stack["mlp"] = mlp()
     if cfg.family == "hybrid":
         stack["ssm"] = ssm.init_ssm(gen, d, cfg.d_inner, cfg.ssm_state,
-                                    cfg.dtype, device=device, stacked=L)
+                                    cfg.dtype, device=device, stacked=L,
+                                    cut=cut)
     params = {"embed": embed, "final_norm": norm(), "layers": stack}
     if cfg.family == "encdec":
         stack["cross"] = attn(pre=("layers", "cross"))
@@ -307,6 +314,7 @@ def _cross_attn_seq(p, cfg: ModelConfig, x, enc_kv):
     Hkv, D): no RoPE, no mask, plain PyTorch."""
     B, S, _ = x.shape
     H, D = cfg.num_heads, cfg.head_dim
+    x = layers.col_input(x, cfg, p["wq"])
     q = layers.linear(p["wq"], x, cfg).reshape(B, S, H, D)
     k, v = enc_kv
     o = attention.chunked_attention(q, k, v, causal=False, window=0)
@@ -360,7 +368,7 @@ def _layer_seq(p, cfg: ModelConfig, h, positions, enc_kv=None,
     B = h.shape[0]
     if cfg.family == "rwkv":
         carry = rwkv.rwkv_state_init(B, cfg.d_model, cfg.num_heads,
-                                     device=h.device)
+                                     cfg.head_dim, device=h.device)
         return _rwkv_layer(p, cfg, h, carry)[0]
     x1 = _norm(cfg, p["norm1"], h)
     a = _attn_seq(p["attn"], cfg, x1, positions)
@@ -403,8 +411,10 @@ def _cross_kv(lp, cfg: ModelConfig, enc_out):
     encoder's output."""
     B, T, _ = enc_out.shape
     shape = (B, T, cfg.num_kv_heads, cfg.head_dim)
-    return (layers.linear(lp["cross"]["wk"], enc_out, cfg).reshape(shape),
-            layers.linear(lp["cross"]["wv"], enc_out, cfg).reshape(shape))
+    p = lp["cross"]
+    enc_out = layers.col_input(enc_out, cfg, p["wk"], p["wv"])
+    return (layers.linear(p["wk"], enc_out, cfg).reshape(shape),
+            layers.linear(p["wv"], enc_out, cfg).reshape(shape))
 
 
 def encode_cross_kv(params, cfg: ModelConfig, audio_embeds):
@@ -592,12 +602,14 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
     shares the batch; its carry would be advanced by the dummy token). An
     encdec layer's cross-attention reads the state's ``enc_kv`` rows.
     On a mesh whose data axis divides B this rank runs its rows of the
-    batch (``Layout.rows``) and returns their logits.
+    batch (``Layout.rows``) and returns their logits; the state's carries
+    and ``enc_kv`` then hold those rows only.
     Returns (logits (B, V) fp32, state)."""
     check_family(cfg)
     fmt = get_kv_format(kv_format)
     rows = None if cfg.shard is None else cfg.shard.rows(tokens.shape[0])
     h = layers.embed(params["embed"], _mine(tokens, rows), cfg)  # (B, d)
+    active = None if active is None else _mine(active, rows)
     cache = state["cache"]
     for i, lp in enumerate(_layers(params)):
         if cfg.family == "rwkv":
@@ -819,7 +831,7 @@ def _init_carries(cfg: ModelConfig, batch: int, device=None):
     ``wkv``, ``shift`` and ``cm_shift``, hybrid's ``ssm``; none else."""
     if cfg.family == "rwkv":
         one = rwkv.rwkv_state_init(batch, cfg.d_model, cfg.num_heads,
-                                   device="meta")
+                                   cfg.head_dim, device="meta")
     elif cfg.family == "hybrid":
         one = {"ssm": ssm.ssm_state_init(batch, cfg.d_inner, cfg.ssm_state,
                                          device="meta")}
@@ -827,6 +839,17 @@ def _init_carries(cfg: ModelConfig, batch: int, device=None):
         return {}
     return {k: torch.zeros((cfg.num_layers, *v.shape), dtype=v.dtype,
                            device=device) for k, v in one.items()}
+
+
+def init_slot_state(cfg: ModelConfig, batch: int, device=None):
+    """Per-slot state alone, at zero: the family's carries (in
+    ``"cache"``) and encdec's ``enc_kv``, no KV cache (the rows a mesh
+    rank runs a prefill chunk on for a slot that another data rank
+    holds)."""
+    state = {"cache": _init_carries(cfg, batch, device)}
+    if cfg.family == "encdec":
+        state["enc_kv"] = _init_enc_kv(cfg, batch, device)
+    return state
 
 
 def _init_enc_kv(cfg: ModelConfig, batch: int, device=None):

@@ -51,9 +51,16 @@ verify steps split their slots over "data" when ``max_batch`` divides it
 and all-gather the tokens after the argmax; the one-slot prefill chunk
 runs on every rank. Plans are shard-local: GEMMs keyed on the "KxN" a rank
 executes at its own rows (``max_batch / dp``, or ``max_batch·(spec_k +
-1) / dp`` when speculating), attention at its own heads. The dense,
-vision-prefix and moe families serve on a mesh; the carry families and
-encdec refuse one.
+1) / dp`` when speculating), attention at its own heads. Every family
+serves on a mesh. The per-slot state (rwkv's and hybrid's carries,
+encdec's ``enc_kv``) holds the rank's heads or SSM channels and, where the
+slots split over "data", only the rank's slots: the decode step and the
+verify step's carry commit (checkpoint 1 + accepted) act on those rows.
+A slot's prefill chunks run on every rank; a rank whose data shard does
+not hold the slot runs them on side rows of its own (zeroed at admit, with
+encdec's cross K/V from the encoder, which every rank runs at admit at its
+own heads) and drops them when the prefill ends, so no carry row crosses
+ranks.
 
 Not ported, and refused: the ring cache as the serving state
 (``paged=False``; the draft model keeps a ring of its own). A moe layer
@@ -251,6 +258,9 @@ class ServingEngine:
                              f"got {admission!r}")
         T.check_family(cfg)
         self.layout = None if mesh is None else sharding.Layout(cfg, mesh)
+        # the slots whose per-slot state this rank holds (None: all)
+        self._slot_rows = None if self.layout is None \
+            else self.layout.rows(int(max_batch))
         global_cfg = cfg
         if self.layout is not None:
             params = sharding.shard_params(params, mesh, cfg)
@@ -390,6 +400,9 @@ class ServingEngine:
         self._verify_fns: Dict[Optional[int], Any] = {}
         self._tables: Optional[np.ndarray] = None
         self._keys_cache: Dict[int, Any] = {}   # id(req) → prefix keys
+        # slot → the side rows of a slot this rank does not hold, while it
+        # prefills (a mesh whose data axis splits the slots)
+        self._side: Dict[int, Any] = {}
         self._reserve: Dict[int, int] = {}      # slot → outstanding worst-
                                                 # case future allocations
         self.last_state = None
@@ -457,38 +470,72 @@ class ServingEngine:
         return fn
 
     def _init_state(self):
+        rows = self._slot_rows
         return T.init_paged_state(
-            self.cfg, self.max_batch, self.cache_len,
+            self.cfg, self.max_batch if rows is None
+            else rows.stop - rows.start, self.cache_len,
             page_size=self.page_size, num_blocks=self.num_pages,
             kv_format=self.kv_format, device=self.device)
 
+    def _local_row(self, i: int) -> Optional[int]:
+        """Slot ``i``'s row in this rank's per-slot state, None where
+        another data rank holds it."""
+        rows = self._slot_rows
+        if rows is None:
+            return i
+        return i - rows.start if rows.start <= i < rows.stop else None
+
+    def _slot_state(self, i: int):
+        """(the state slot ``i``'s prefill chunk runs on, its row there):
+        the rank's state at the slot's own row, or the slot's side rows
+        (:attr:`_side`) beside the rank's KV pool."""
+        side = self._side.get(i)
+        if side is None:
+            return self._state, self._local_row(i)
+        state = dict(self._state, **side)
+        state["cache"] = dict(self._state["cache"], **side["cache"])
+        return state, 0
+
     def _reset_carry(self, i: int) -> None:
         """Zero slot ``i``'s recurrent carry rows before its chunked
-        prefill streams the prompt through them."""
+        prefill streams the prompt through them (on a rank that does not
+        hold the slot: side rows at zero)."""
+        j = self._local_row(i)
+        if j is None:
+            self._side[i] = T.init_slot_state(self.cfg, 1, self.device)
+            return
         for name, leaf in self._state["cache"].items():
             if name in T.CARRY_LEAVES:
-                leaf[:, i] = 0
+                leaf[:, j] = 0
 
     def _insert_enc_kv(self, i: int, req: Request) -> None:
         """Run the encoder and every decoder layer's cross K/V projection
         over ``req``'s audio and write them into slot ``i``'s rows of the
-        state's ``enc_kv``: the only whole-sequence work outside the chunk
-        step (it reads the audio, not the prompt, so chunking does not
-        apply)."""
+        state's ``enc_kv`` (on a rank that does not hold the slot: side
+        rows, read by its prefill chunks): the only whole-sequence work
+        outside the chunk step (it reads the audio, not the prompt, so
+        chunking does not apply)."""
         ek, ev = T.encode_cross_kv(self.params, self.cfg,
                                    self._audio_embeds(req)[None])
+        j = self._local_row(i)
+        if j is None:
+            self._side[i] = {"cache": {}, "enc_kv": (ek, ev)}
+            return
         sk, sv = self._state["enc_kv"]
-        sk[:, i] = ek[:, 0]
-        sv[:, i] = ev[:, 0]
+        sk[:, j] = ek[:, 0]
+        sv[:, j] = ev[:, 0]
 
     def _apply_carry_selection(self, carries, sel) -> None:
         """Commit the verify step's carry checkpoints: row b takes
         checkpoint ``sel[b]`` (0 restores the pre-verify carry of an
         inactive row, n the carry after n consumed positions, 1 +
-        accepted drafts for an active one). The verify step leaves the
-        state's carries untouched, so this is their only writer."""
+        accepted drafts for an active one), for the rows this rank holds.
+        The verify step leaves the state's carries untouched, so this is
+        their only writer."""
+        if self._slot_rows is not None:
+            sel = sel[self._slot_rows]
         idx = torch.as_tensor(sel, device=self.device).long()
-        rows = torch.arange(self.max_batch, device=self.device)
+        rows = torch.arange(len(sel), device=self.device)
         cache = self._state["cache"]
         for name, stack in carries.items():
             cache[name].copy_(stack[:, rows, idx])
@@ -701,6 +748,7 @@ class ServingEngine:
 
     def _evict(self, i: int) -> None:
         self._reserve.pop(i, None)
+        self._side.pop(i, None)
         if not self.paged:
             return
         # decref may retain published prefix blocks warm instead of freeing
@@ -779,6 +827,8 @@ class ServingEngine:
             self._reset_carry(i)
         if self.cfg.family == "encdec":
             self._insert_enc_kv(i, req)
+        if slot.phase != "prefill":
+            self._side.pop(i, None)
         if self.share_prefix:
             self.report.prefill_steps_saved += saved
             if self.metrics is not None:
@@ -801,11 +851,12 @@ class ServingEngine:
             seg = torch.cat([seg, seg.new_zeros((C - n, seg.shape[-1]))])
         positions = np.full((C,), -1, np.int32)
         positions[:n] = np.arange(start, end, dtype=np.int32)
+        state, row = self._slot_state(i)
         inputs = {
             "h": seg[None],
             "positions": torch.as_tensor(positions,
                                          device=self.device)[None],
-            "slot": i,
+            "slot": row,
         }
         if self.paged:
             inputs["table"] = torch.as_tensor(self._tables[i:i + 1],
@@ -814,10 +865,10 @@ class ServingEngine:
         if self.prefill_attn_path == "gather" and start < self.cache_len:
             # gather reads pool entries < start only
             lp = self._live_bucket(max(1, -(-start // self.page_size)))
-        res = self._chunk_step(lp)(self.params, self._state, inputs)
-        self._state = res["state"]
+        res = self._chunk_step(lp)(self.params, state, inputs)
         slot.pf_next = end
         if end == total:
+            self._side.pop(i, None)
             self._publish_keys(i, slot)
             pending.append((slot, res["logits"][0]))
         else:

@@ -44,9 +44,23 @@ grad takes the autograd-aware forms of the model collectives
 its slice for its rows; a KV head held by several ranks sums their
 partial gradients over its :meth:`Layout.part_group`.
 
-The recurrent-carry families and encoder-decoder refuse a mesh: their
-sharded state (the JAX rules for ``wkv``, ``ssm`` and ``enc_kv``) is not
-ported.
+The recurrent-carry and encoder-decoder families cut by the same rules
+(:meth:`Layout.leaf_cut`): rwkv's time mix by whole heads (``num_heads %
+tp``), the SSM by its ``d_inner`` channels, cross-attention exactly as
+attention, the channel mix as the MLP. Their per-slot state
+(:func:`carry_spec`) holds the rank's heads of ``wkv`` and ``enc_kv``,
+its channels of ``ssm``, and, where the decode step's slots split over
+"data", only the rank's slots; the one-slot prefill chunk, replicated,
+commits the slot's carry on the rank that holds its row (the others run it
+on rows of their own and drop them: ``ServingEngine``).
+
+Departures from JAX's specs that such a rank needs: JAX replicates the
+bare tensors that follow a cut leaf's columns (rwkv's ``w_bias``, the
+SSM's ``A_log`` and ``D``: ``P()``) and lets GSPMD slice them; here each
+rank holds the slice that matches its columns (:meth:`Layout.bare_cut`).
+rwkv's time mix stays whole where the model axis does not divide the heads
+(JAX cuts the columns through a head). JAX cuts ``enc_kv``'s frame dim
+over "model"; here its KV heads.
 """
 from __future__ import annotations
 
@@ -62,6 +76,7 @@ from repro_torch.kernels import planning
 from repro_torch.launch.mesh import dp_axes
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
+from repro_torch.models.rwkv import TM_KEYS
 from repro_torch.runtime.kvcache import PagedKVCache
 
 # column-parallel: output features sharded over "model"
@@ -71,24 +86,6 @@ COL = {"wq", "wk", "wv", "w_gate", "w_up", "tm_r", "tm_k", "tm_v", "tm_g",
 ROW = {"wo", "w_down", "tm_o", "cm_v", "out_proj"}
 # always replicated (small / routing-sensitive)
 REP = {"router", "bc_proj"}
-
-MESH_FAMILIES = ("dense", "moe")
-_MISSING = {
-    "rwkv": "its recurrent carries (wkv, shift, cm_shift)",
-    "hybrid": "its SSM carry (ssm) beside the paged pool",
-    "encdec": "its encoder and the per-slot cross K/V (enc_kv)",
-}
-
-
-def check_mesh_family(cfg) -> None:
-    """Raise for the families the port does not serve on a mesh."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: serving a {cfg.family!r} arch on a mesh is not "
-            f"ported — {_MISSING.get(cfg.family, 'its state')} would need "
-            f"sharded decode state (the JAX package's "
-            f"decode_state_shardings); serve it on one device")
-
 
 def leaf_kind_for_path(names) -> str:
     """TP kind ("col" | "row" | "rep") of a leaf by its key path (the JAX
@@ -158,21 +155,25 @@ class Layout:
         if not names or not set(names) & {"data", "model"}:
             raise ValueError(f"a mesh must have 'data' and/or 'model' dims "
                              f"(launch.mesh.make_local_mesh), got {mesh!r}")
-        check_mesh_family(cfg)
         self.cfg, self.mesh = cfg, mesh
         self.tp = max(axis_size(mesh, "model"), 1)
         self.dp = max(axis_size(mesh, "data"), 1)
         self.tp_rank = axis_rank(mesh, "model")
         self.dp_rank = axis_rank(mesh, "data")
         tp, Hq, Hkv = self.tp, cfg.num_heads, cfg.num_kv_heads
-        self.attn_sharded = tp > 1 and Hq % tp == 0 and (
-            Hkv % tp == 0 or tp % Hkv == 0)
+        self.attn_sharded = tp > 1 and not cfg.attn_free and Hq % tp == 0 \
+            and (Hkv % tp == 0 or tp % Hkv == 0)
         # KV heads split into kv_parts groups; rank r holds group
         # r·kv_parts/tp (tp/Hkv ranks share one head when tp > Hkv)
         self.kv_parts = min(tp, Hkv) if self.attn_sharded else 1
         self.kv_index = self.tp_rank * self.kv_parts // tp
         self.ffn_sharded = tp > 1 and cfg.d_ff % tp == 0
         self.vocab_sharded = tp > 1 and cfg.padded_vocab % tp == 0
+        # rwkv's time mix by whole heads; the SSM by its d_inner channels
+        self.tm_sharded = tp > 1 and cfg.family == "rwkv" \
+            and Hq % tp == 0
+        self.ssm_sharded = tp > 1 and cfg.family == "hybrid" \
+            and cfg.d_inner % tp == 0
         self.base_format = T.serve_format(cfg)
         self._part_groups = {}
 
@@ -180,18 +181,25 @@ class Layout:
 
     def local_cfg(self):
         """The config this rank runs: its own head counts (the attention,
-        the paged pool and the attention plans see them) and
-        ``shard=self``."""
+        the paged pool and the attention plans see them; rwkv's time mix
+        and ``wkv`` carry), its SSM channels (``ssm_inner``), ``d_model``
+        and ``head_dim`` unchanged, and ``shard=self``."""
         cfg = self.cfg
-        if not self.attn_sharded:
-            return dataclasses.replace(cfg, shard=self)
-        return dataclasses.replace(
-            cfg, num_heads=cfg.num_heads // self.tp,
-            num_kv_heads=cfg.num_kv_heads // self.kv_parts, shard=self)
+        fields = {"shard": self}
+        if self.attn_sharded:
+            fields.update(num_heads=cfg.num_heads // self.tp,
+                          num_kv_heads=cfg.num_kv_heads // self.kv_parts)
+        if self.tm_sharded:
+            fields["num_heads"] = cfg.num_heads // self.tp
+        if self.ssm_sharded:
+            fields["ssm_inner"] = cfg.d_inner // self.tp
+        return dataclasses.replace(cfg, **fields)
 
     def rows(self, B: int) -> Optional[slice]:
         """This rank's rows of a step batch of B when it shards over
-        "data" (``batch_spec``), else None (every rank runs every row)."""
+        "data" (``batch_spec``), else None (every rank runs every row).
+        The per-slot state of ``max_batch`` slots (the recurrent carries,
+        ``enc_kv``) holds the same rows of ``rows(max_batch)``."""
         if self.dp == 1 or not batch_spec(B, self.mesh):
             return None
         n = B // self.dp
@@ -223,6 +231,22 @@ class Layout:
         return planning.splits_k(planning.MatmulProblem(
             M=1, N=1, K=K, group_size=group, format=fmt.name), self.tp)
 
+    def _cut_group(self, path) -> bool:
+        """Is the group the leaf at ``path`` belongs to cut over "model":
+        the vocab, the attention's heads (self-, encoder and cross
+        attention), the SSM's channels, rwkv's time-mix heads, else the
+        MLP's, channel mix's or experts' d_ff."""
+        name = path[-1]
+        if name == "lm_head":
+            return self.vocab_sharded
+        if "attn" in path or "cross" in path:
+            return self.attn_sharded
+        if "ssm" in path:
+            return self.ssm_sharded
+        if name in TM_KEYS:
+            return self.tm_sharded
+        return self.ffn_sharded
+
     def leaf_cut(self, path, p):
         """(mark, dim, parts, index) of the linear or embedding dict ``p``
         at key path ``path``; (``"gather"``,) for a whole row-parallel leaf
@@ -231,10 +255,7 @@ class Layout:
         if name == "embed":
             return ("vocab", -2, tp, r) if self.vocab_sharded else None
         kind = leaf_kind_for_path(path)
-        # the vocab, the attention's heads, the MLP's or experts' d_ff
-        held = self.vocab_sharded if name == "lm_head" else \
-            self.attn_sharded if "attn" in path else self.ffn_sharded
-        if kind == "rep" or not held:
+        if kind == "rep" or not self._cut_group(path):
             return None
         if kind == "col":
             if name in ("wk", "wv"):
@@ -244,12 +265,29 @@ class Layout:
         return ("row", -2, tp, r) if self.row_ok(p["kernel"]) \
             else ("gather",)
 
+    def bare_cut(self, path) -> Optional[tuple]:
+        """(dim, parts, index) of a bare tensor (no linear's or
+        embedding's dict) at ``path`` that follows a cut group's columns:
+        rwkv's ``w_bias`` (d,) with ``tm_w``'s, the SSM's ``A_log``
+        (d_inner, n) and ``D`` (d_inner,) with ``in_proj``'s. None for
+        every other bare tensor (norms: whole on every rank)."""
+        name, tp, r = path[-1], self.tp, self.tp_rank
+        if name == "w_bias" and self.tm_sharded:
+            return (-1, tp, r)
+        if "ssm" in path and self.ssm_sharded and name in ("A_log", "D"):
+            return (-2 if name == "A_log" else -1, tp, r)
+        return None
+
     def cut(self, path, p):
         """This rank's copy of the linear (``kernel``, ``bias``) or
         embedding (``table``) dict ``p`` at ``path``, its ``"tp"`` mark
         set when it is cut or gathers its input. A QuantizedTensor's
         packed payload, scales and zeros are cut along the same dim (a
-        per-channel scale row stays whole under a K cut)."""
+        per-channel scale row stays whole under a K cut). A bare tensor
+        ``p`` is cut by :meth:`bare_cut` (unmarked)."""
+        if isinstance(p, torch.Tensor):
+            plan = self.bare_cut(path)
+            return p if plan is None else _take(p, *plan)
         plan = self.leaf_cut(path, p)
         if plan is None:
             return p
@@ -483,6 +521,8 @@ def shard_params(params, mesh, cfg):
             return {k: visit(v, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, list):
             return [visit(v, path) for v in tree]
+        if isinstance(tree, torch.Tensor):
+            return layout.cut(path, tree)
         return tree
 
     return visit(params, ())
@@ -579,7 +619,7 @@ class TrainShards:
                 if isinstance(v, Mapping):
                     visit(v, path + (k,))
                 else:
-                    self._add(path + (k,), v, None)
+                    self._add(path + (k,), v, lay.bare_cut(path + (k,)))
 
         visit(meta, ())
         # the KV heads held by a group of model ranks: each rank's
@@ -746,14 +786,45 @@ def pool_spec(shape, layout: Layout) -> tuple:
     return tuple(spec)
 
 
+def carry_spec(name: str, shape, layout: Layout) -> tuple:
+    """Spec of a per-slot state leaf, stacked over L with the batch (the
+    ``max_batch`` slots) on dim 1: the batch over the DP axes where
+    ``batch_spec`` splits it (:meth:`Layout.rows`), and over "model"
+    rwkv's ``wkv`` (L, B, H, hd, hd) by head, the SSM's ``ssm`` (L, B,
+    d_inner, n) by channel and ``enc_kv``'s K and V (L, B, T, Hkv, D) by
+    KV head, where the rank holds a slice of them. rwkv's token shifts
+    (L, B, d) are whole on every model rank (their input is the
+    replicated residual stream). JAX cuts ``enc_kv``'s frame dim T over
+    "model" (GSPMD then gathers it for every cross-attention); a rank that
+    runs its KV heads alone holds them for every frame."""
+    spec = [None] * len(shape)
+    spec[1] = batch_axis_entry(shape[1], layout.mesh)
+    if name == "wkv" and layout.tm_sharded \
+            or name == "ssm" and layout.ssm_sharded:
+        spec[2] = "model"
+    elif name == "enc_kv" and layout.attn_sharded:
+        spec[3] = "model"
+    return tuple(spec)
+
+
 def decode_state_shardings(state, cfg, mesh):
-    """Specs of a paged decode state ``{"cache": {"kv": PagedKVCache}}``
-    (the paged-pool rule of JAX's ``decode_state_shardings``): every pool
-    leaf by :func:`pool_spec`. With the KV heads replicated over
-    ``tp / Hkv`` ranks the head dim is "model" too (each rank holds one
-    head); JAX replicates such a pool whole."""
+    """Specs of a decode state of ``max_batch`` slots (JAX's
+    ``decode_state_shardings``): every paged-pool leaf by
+    :func:`pool_spec` (with the KV heads replicated over ``tp / Hkv``
+    ranks the head dim is "model" too, each rank holding one head; JAX
+    replicates such a pool whole), the recurrent carries and ``enc_kv`` by
+    :func:`carry_spec`."""
     layout = Layout(cfg, mesh)
-    pool = state["cache"]["kv"]
-    return {"cache": {"kv": PagedKVCache(*(
-        None if t is None else pool_spec(tuple(t.shape), layout)
-        for t in pool))}}
+    cache = state["cache"]
+    out = {"cache": {}}
+    for name, leaf in cache.items():
+        if name == "kv":
+            out["cache"]["kv"] = PagedKVCache(*(
+                None if t is None else pool_spec(tuple(t.shape), layout)
+                for t in leaf))
+        else:
+            out["cache"][name] = carry_spec(name, tuple(leaf.shape), layout)
+    if "enc_kv" in state:
+        out["enc_kv"] = tuple(carry_spec("enc_kv", tuple(t.shape), layout)
+                              for t in state["enc_kv"])
+    return out

@@ -18,6 +18,12 @@ allocator-level rollback.
 Proposers only ever *suggest* tokens: the engine accepts the longest
 prefix of drafts equal to the target's own greedy choices, so the emitted
 text is the non-speculative decode's whatever a proposer proposes.
+
+On a mesh every rank runs the same proposer on the same host-side stream
+(the tokens are gathered over "data" each step), so every rank proposes
+the same drafts; a draft model runs whole on every rank. The carry
+families speculate with ngram (their draft model cannot rewind): each
+rank commits checkpoint 1 + accepted of its own slots' carries.
 """
 from __future__ import annotations
 

@@ -211,12 +211,8 @@ def problems(leaf, M=8):
 
 
 def port_local(cfg, dm, names, leaf, problem):
-    """The GEMM a rank executes for this leaf: the Layout's cut for the
-    families that serve on a mesh, the name rule for the others."""
+    """The GEMM a rank executes for this leaf: the Layout's cut."""
     mesh = fake(dm)
-    if cfg.family not in shd.MESH_FAMILIES:
-        return planning.shard_problem(
-            problem, mesh, shd.leaf_kind_for_path(names))
     qt = QuantizedTensor(
         meta_kernel(leaf.packed.shape).to(torch.int8),
         meta_kernel(leaf.scales.shape), None, leaf.group_size,
@@ -234,9 +230,8 @@ def departure(cfg, dm, names, problem, got, want):
     tp = dm[1]
     if (got.M, got.N, got.K) == (want.M, want.N, want.K):
         return None
-    lay = shd.Layout(cfg, fake(dm)) \
-        if cfg.family in shd.MESH_FAMILIES else None
-    if "attn" in names and lay is not None and not lay.attn_sharded:
+    lay = shd.Layout(cfg, fake(dm))
+    if ("attn" in names or "cross" in names) and not lay.attn_sharded:
         assert cfg.num_heads % tp or (cfg.num_kv_heads % tp
                                       and tp % cfg.num_kv_heads)
         assert (got.N, got.K) == (problem.N, problem.K)
@@ -406,9 +401,20 @@ def test_plans_are_keyed_on_shard_local_shapes():
 @pytest.mark.parametrize("arch,what", [
     ("rwkv6-7b", "wkv"), ("hymba-1.5b", "ssm"), ("whisper-small", "enc_kv")])
 def test_carry_and_encdec_families_refuse_a_mesh(arch, what):
+    """The carry and encdec families once refused a mesh for want of
+    their sharded per-slot state (``what``); they no longer do: the engine
+    builds on a spec-level (2, 2) mesh, its state holding the rank's one
+    slot of two and its half of the heads or SSM channels."""
     cfg = configs.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match=f"{cfg.family}.*{what}"):
-        ServingEngine(cfg, {}, mesh=fake((1, 2)), device="cpu")
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+    eng = ServingEngine(cfg, params, mesh=fake((2, 2), model=1, data=1),
+                        device="cpu", max_batch=2)
+    state = eng._init_state()
+    leaf = state["enc_kv"][0] if what == "enc_kv" else state["cache"][what]
+    assert leaf.shape[1] == 1
+    want = {"wkv": cfg.num_heads, "ssm": cfg.d_inner,
+            "enc_kv": cfg.num_kv_heads}[what] // 2
+    assert leaf.shape[3 if what == "enc_kv" else 2] == want
 
 
 def test_mesh_size_must_equal_the_world():

@@ -102,21 +102,36 @@ def run_case(case: dict, weights: dict) -> dict:
                                     supports=lambda p: p.paged)
     mesh = make_local_mesh(*case["mesh"])
     planning.PLAN_CACHE.clear()
+    kw = dict(case["engine"])
+    if case.get("oracle"):
+        kw["speculate"] = oracle_proposer(**case["oracle"])
     try:
-        eng = ServingEngine(cfg, params, mesh=mesh, device="cpu",
-                            **case["engine"])
+        eng = ServingEngine(cfg, params, mesh=mesh, device="cpu", **kw)
     finally:
         planning._ATTN_REGISTRY["fused"] = fused
     reqs = [Request(rid=r["rid"], prompt=np.asarray(r["prompt"]),
                     max_new_tokens=r["max_new_tokens"],
                     arrival_step=r.get("arrival_step", 0),
-                    prefix_embeds=r.get("prefix_embeds"))
+                    prefix_embeds=r.get("prefix_embeds"),
+                    audio_embeds=r.get("audio_embeds"))
             for r in case["requests"]]
     rep = eng.run(reqs)
     pool = hashlib.sha256()
-    for t in eng.last_state["cache"]["kv"]:
+    state = eng.last_state
+    for t in state["cache"].get("kv", ()):
         if t is not None:
             pool.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+    # the per-slot state's and the bare leaves' shapes on this rank
+    shapes = {k: tuple(v.shape) for k, v in state["cache"].items()
+              if k != "kv"}
+    if "enc_kv" in state:
+        shapes["enc_kv"] = tuple(state["enc_kv"][0].shape)
+    lp = eng.params["layers"][0]
+    for name, leaf in (("w_bias", lp.get("w_bias")),
+                       ("A_log", lp.get("ssm", {}).get("A_log")),
+                       ("D", lp.get("ssm", {}).get("D"))):
+        if leaf is not None:
+            shapes[name] = tuple(leaf.shape)
     return {
         "tokens": {int(k): [int(t) for t in v]
                    for k, v in sorted(rep.results.items())},
@@ -130,7 +145,41 @@ def run_case(case: dict, weights: dict) -> dict:
                       eng.verify_attn_path),
         "pool": pool.hexdigest(),
         "coords": (eng.layout.dp_rank, eng.layout.tp_rank),
+        "shapes": shapes,
+        "speculated": (rep.proposed_tokens, rep.accepted_tokens),
+        "side_rows": len(eng._side),
     }
+
+
+def oracle_proposer(plain, right, bad, base=None):
+    """A proposer (on ``base``, either package's Proposer; the port's by
+    default) that drafts the plain run's next tokens (``plain``: rid →
+    the tokens a run without speculation emits), the first ``right`` of
+    them right and the rest ``bad``: each verify step accepts up to
+    ``right`` drafts, so carries commit at checkpoints past 1."""
+    if base is None:
+        from repro_torch.runtime.speculative import Proposer as base
+
+    class Oracle(base):
+        name = "ngram"
+
+        def reset(self, engine):
+            self.prompts = {}
+
+        def admit(self, engine, i, slot):
+            self.prompts[i] = (slot.req.rid, len(slot.prompt_ids))
+
+        def propose(self, views, k):
+            out = {}
+            for v in views:
+                rid, n = self.prompts[v.slot]
+                done = len(v.context) - n
+                want = plain[rid][done:done + k]
+                out[v.slot] = [t if j < right else bad
+                               for j, t in enumerate(want)]
+            return out
+
+    return Oracle()
 
 
 def run_train_case(case: dict, weights: dict) -> dict:
