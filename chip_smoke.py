@@ -104,7 +104,8 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              history of checkpoints only; (c) one step of (b)'s shape
              under ``torch.profiler``: device time by kernel group, idle
              share.
-8. features — the serving features at full width and depth (W4A16,
+8. features — the serving features at full width, danube's first 12 of
+             24 layers (``FEATURE_LAYERS``, for the script's time; W4A16,
              kv_fp16, 8 slots, 8 prompts of 512 tokens sharing a 384-token
              prefix, 16 generated each): (a) ngram speculation at k = 4
              (both kernels' counters must rise), exact acceptance (every
@@ -120,8 +121,9 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              prefill chunks; (c) the HTTP front door on 127.0.0.1: SSE clients
              against ``engine.run``, one hanging up mid-stream, one 429,
              ``GET /metrics`` against the report.
-9. moe     — the MoE family: (a) olmoe-1b-7b at full width and depth (16
-             layers, d_model 2048, 16/16 heads of 128, 64 experts top-8 of
+9. moe     — the MoE family: (a) olmoe-1b-7b at full width, its first 8
+             of 16 layers (``MOE_LAYERS``, for the script's time; d_model
+             2048, 16/16 heads of 128, 64 experts top-8 of
              d_ff 1024, vocab 50304, bf16) through the serve launcher,
              W4A16, kv_fp16, 8 slots, 8 requests of 256 + 32 tokens,
              16-token pages, 32-token chunks: every expert stack one
@@ -133,8 +135,8 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              kernels; every replayed choice the plain path would not
              make itself must be a near-tie, gate margin <= 2^-5), 4
              traced decode steps (device ms, ops, idle share) with every
-             decode step launching the W4A16 kernel exactly 16 x (4 + 3)
-             = 112 times, an ngram-speculative run (verify routes 8 x 5
+             decode step launching the W4A16 kernel exactly 8 x (4 + 3)
+             = 56 times, an ngram-speculative run (verify routes 8 x 5
              rows), and the dense bf16 weights (``--no-quant``, the
              paper's FP16 yardstick) traced the same way; (b) mixtral-8x7b
              at full width, the first 2 of its 32 layers, W4A16, 8
@@ -148,18 +150,20 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              random weights from seed 0) and against its plain paths on
              the same weights (the first 4 requests' prefill logits within
              LOGIT_TOL): (a)
-             rwkv6-7b (32 layers, d_model 4096, 64 heads of 64, d_ff 14336,
-             vocab 65536; no KV cache), every decode step launching the
-             W4A16 kernel exactly 32 x 8 = 256 times and paged attention
-             never; its random-weight logits move past LOGIT_TOL under
-             bf16 rounding alone (the bf16 plain path against an fp32 one,
-             printed), so its paths are held with fp32 activations on the
-             same quantized weights (the kernel's fp32 variant); (b) hymba-1.5b (its
-             first 8 of 32 layers, ``CARRY_LAYERS``: the cut pays for
-             phases 13 and 14's time; d_model 1600, 25/5 heads of
+             rwkv6-7b (its first 8 of 32 layers, ``CARRY_LAYERS``: the cut
+             pays for phase 14's elastic run and phase 15; d_model 4096,
+             64 heads of 64, d_ff 14336, vocab 65536; no KV cache), every
+             decode step launching the W4A16 kernel exactly 8 x 8 = 64
+             times and paged attention never; its random-weight logits
+             move past LOGIT_TOL under bf16 rounding alone (the bf16
+             plain path against an fp32 one, printed), so its paths are
+             held with fp32 activations on the same quantized weights
+             (the kernel's fp32 variant); (b) hymba-1.5b (its first 4 of
+             32 layers, ``CARRY_LAYERS``: the cut pays for
+             phases 13 to 15's time; d_model 1600, 25/5 heads of
              64, SSM d_inner 3200 state 16, d_ff 5504, vocab 32001, SWA
-             1024; the K = 1600 leaves at group 64), 8 x 10 = 80 W4A16
-             and 8 paged-attention launches every decode step, and one
+             1024; the K = 1600 leaves at group 64), 4 x 10 = 40 W4A16
+             and 4 paged-attention launches every decode step, and one
              request of 1200 + 8 tokens (the window bites) against its
              plain path. For each: a traced prefill chunk and 4 traced
              decode steps (device ms, ops, idle share), speculation at k =
@@ -189,10 +193,11 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              time a request at admit; prefix sharing (the same audio shares
              a 64-token prefix's pages, different audio none; block tables
              read, pages saved against a CPU replica); ngram at k = 4 with
-             exact acceptance. (b) internvl2-1b at full width and depth (24
-             layers, d_model 896, 14/2 heads of 64, d_ff 4864, vocab 151655)
+             exact acceptance. (b) internvl2-1b at full width, its first
+             12 of 24 layers (``VISION_LAYERS``, for the script's time;
+             d_model 896, 14/2 heads of 64, d_ff 4864, vocab 151655)
              the same way with 256 patch embeddings ahead of 128 + 32
-             tokens (168 W4A16 and 24 paged-attention launches a decode
+             tokens (84 W4A16 and 12 paged-attention launches a decode
              step; a request differing in patch row 100 shares pages 0-5
              only), ngram, and one request with ``prefix_embeds`` through
              the front door. (c) starcoder2-7b (GELU) and granite-20b (one
@@ -211,8 +216,9 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
 12. train-families — every family trains at full width, random weights
              from seed 0, the full configs' remat (``FAMILY_TRAIN``):
              whisper-small (12 + 12 layers, 4 x 448 tokens over 1500
-             frames each), internvl2-1b (24 layers, 2 x (256 patches +
-             1792)), hymba-1.5b (8 of 32 layers, 2 x 1280: the 1024
+             frames each), internvl2-1b (12 of 24 layers, for the
+             script's time, 2 x (256 patches + 1792)), hymba-1.5b (4
+             of 32 layers, 2 x 1280: the 1024
              window bites; cut for the script's time, its stepped SSM
              scan made each full-depth step 8.4-12.3 s),
              olmoe-1b-7b (4 of 16 layers, 2 x 1024), mixtral-8x7b (1 x 1024
@@ -248,7 +254,8 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              spawned on the one card (``chip_smoke.py --mesh-rank``) and
              joined over ``gloo`` (NCCL refuses two ranks on one GPU;
              the collectives go through host memory): (a) h2o-danube-1.8b
-             at full width and depth at 1x2 and 2x2, (b) llama3-405b at
+             at full width, its first 12 of 24 layers (for the script's
+             time), at 1x2 and 2x2, (b) llama3-405b at
              full width (d_model 16384, 128/8 heads of 128, d_ff 53248,
              vocab 128256), its first 2 of 126 layers, at 1x4 (each rank
              draws the weights in turn and keeps its slice of each leaf as
@@ -309,8 +316,32 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              its preset (4 microbatches of one row, so every data rank
              runs every row; FSDP, ZeRO-2), held the same way, flash
              launching 2 x 24 x 4 a step on every rank (the encoder's 12
-             layers and the decoder's 12). No phase-14 time is a multi-GPU
-             figure: the ranks share one card.
+             layers and the decoder's 12). Last, the elastic run
+             (``MESH_ELASTIC``): danube as above at 2x2 through
+             ``run_training`` with a checkpoint after every step (its steps
+             0 and 1 are the 2x2 mesh, held against the one process as
+             above, m and v read from the step-1 checkpoint); every try of
+             step 2 fails, ``remesh_fn`` drops the last data row
+             (``launch.mesh.degraded_mesh``: ranks 2 and 3 leave, 0 and 1
+             join a fresh group on a new store), the survivors restore the
+             step-1 checkpoint onto their 1x2 shares and train steps 2 and
+             3 on a data rank's 4 rows, held against one process restoring
+             the same checkpoint (loss, grad norm, m and v within
+             ``TRAIN_TOL``); the history JAX's runner records, each rank's
+             step ms and flash launches a step printed. No phase-14 time is
+             a multi-GPU figure: the ranks share one card.
+15. dryrun — the dry run (``repro_torch.launch.dryrun``) on the meta
+             device, on the card's host: each cell whose peak an earlier
+             phase measured (phase 7b's launcher, phase 4's decode step,
+             phase 12's whisper flash run, phase 14's danube 1x4 rank (0,
+             0) on a fake world of 4), traced at that geometry, its
+             predicted peak beside the measured (less what the process
+             held before the cell's tensors; a miss beyond 10 % and 256
+             MiB printed with its breakdown); then the production grid:
+             danube and llama3-405b (2 of 126 layers for its train cell)
+             at 16x16, train_4k and decode_32k, and danube's train_4k at
+             15x16, global batch 240 (JAX's elastic cell): each rank-0
+             record's peak, fit, FLOPs and collectives. Nothing launches.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -1134,18 +1165,59 @@ def serve(torch, extra, card, base=SERVE_ARGV):
     argv = base + extra
     log("serve", "python -m repro_torch.launch.serve " + " ".join(argv))
     torch.cuda.reset_peak_memory_stats()
+    DECODE_PEAK.update(base=torch.cuda.memory_allocated(), run=0, step=0)
     t0 = time.perf_counter()
     report = launcher.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = max(torch.cuda.max_memory_allocated(), DECODE_PEAK["run"])
     steps = max(len(report.step_records), 1)
     log("serve", f"{report.decode_tokens} decode tokens in "
         f"{report.decode_s:.3f} s = {report.tokens_per_s:.1f} tok/s, "
         f"{report.decode_s / steps * 1e3:.2f} ms/step over {steps} decode "
         f"steps; prefill {report.prefill_s:.3f} s; run {wall:.1f} s; peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"device memory {peak / 2**30:.2f} "
         f"GiB [{card}]")
     return report
+
+
+# the decode steps' peak of a ``serve`` run under ``decode_peaks``: the
+# baseline before the launcher, the run's peak folded across the resets,
+# the highest decode step's peak and the engine's geometry
+DECODE_PEAK = {"base": 0, "run": 0, "step": 0}
+
+
+@contextlib.contextmanager
+def decode_peaks(torch):
+    """While on, each engine decode step starts from a reset peak counter
+    and the highest step's peak is kept in ``DECODE_PEAK`` (the run's
+    peak, folded in before each reset, still prints as before), with the
+    engine's batch, cache window, pages and attention plan."""
+    from repro_torch.runtime.engine import ServingEngine
+    decode = ServingEngine._decode
+
+    def measured(self, *args, **kw):
+        torch.cuda.synchronize()
+        DECODE_PEAK["run"] = max(DECODE_PEAK["run"],
+                                 torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            return decode(self, *args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            if peak > DECODE_PEAK["step"]:
+                DECODE_PEAK.update(
+                    step=peak, B=self.max_batch, cache_len=self.cache_len,
+                    page_size=self.page_size,
+                    num_blocks=self._state["cache"]["kv"].k_pool.shape[1],
+                    kv_format=self.kv_format, attn_path=self.attn_path,
+                    kv_partitions=self.kv_partitions)
+    ServingEngine._decode = measured
+    try:
+        yield DECODE_PEAK
+    finally:
+        ServingEngine._decode = decode
 
 
 def compare_logits(fused, plain, what, gen_len):
@@ -1184,8 +1256,13 @@ def compare_logits(fused, plain, what, gen_len):
 
 def check_serve(torch, card, table):
     reset_counts(table)
-    fused = serve(torch, [], card)
+    with decode_peaks(torch) as rec:
+        fused = serve(torch, [], card)
     launches = read_counts(table)
+    PEAKS["danube-serve-8x512 decode step"] = (
+        rec["step"] - rec["base"],
+        {k: rec[k] for k in ("B", "cache_len", "page_size", "num_blocks",
+                             "kv_format", "attn_path", "kv_partitions")})
     log("serve", f"launches during the run: {launches}")
     if not (launches["w4a16_gemm"] and launches["paged_attention"]):
         raise AssertionError(f"a kernel of the main path never launched: "
@@ -1793,8 +1870,12 @@ def run_launcher(torch, card, table, phase, argv):
         log(phase, "python -m repro_torch.launch.train " + " ".join(argv))
         reset_counts(table)
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         report = launcher.main(argv)
         peak = torch.cuda.max_memory_allocated()
+        PEAKS[f"{args.arch}-train-{args.batch}x{args.seq} launcher"] = (
+            peak - base, dict(B=args.batch, S=args.seq,
+                              microbatches=args.microbatches))
         launched = read_counts(table)
         sizes = {name: sum(f.stat().st_size
                            for f in os.scandir(os.path.join(d, name)))
@@ -1923,6 +2004,9 @@ def trace_train(torch, dev, card):
 # ---------------------------------------------------------------------------
 
 FEAT_GEN = 16
+# phase 8 serves danube's first 12 of 24 layers, paying for phase 14's
+# elastic run and phase 15 (every run of the phase is per layer)
+FEATURE_LAYERS = 12
 FEAT_KW = dict(max_batch=8, max_prompt_len=512, max_new_tokens=FEAT_GEN,
                page_size=8, prefill_chunk=32, kv_format="kv_fp16")
 
@@ -2354,7 +2438,8 @@ async def _post_metrics(port):
 
 
 def serve_features(torch, dev, card, table):
-    """Phase 8 at full width and depth (W4A16, kv_fp16, 8 slots, 8-token
+    """Phase 8 at full width (the depth ``configs.get_config`` gives:
+    ``FEATURE_LAYERS`` in main; W4A16, kv_fp16, 8 slots, 8-token
     pages, 32-token chunks), the 8 prompts of ``feature_prompts``, 16
     generated tokens each:
     (a) ngram speculation at k = 4 (counters set to 0 just before and read
@@ -2499,6 +2584,9 @@ def serve_features(torch, dev, card, table):
 
 MOE_ARCH = "olmoe-1b-7b"
 MOE_GEN = 32
+# olmoe keeps 8 of its 16 layers, paying for phase 14's elastic run and
+# phase 15 (every serving run of the phase is per layer)
+MOE_LAYERS = 8
 MOE_ARGV = ["--arch", MOE_ARCH, "--batch", "8", "--requests", "8",
             "--prompt-len", "256", "--gen", str(MOE_GEN), "--prefill-chunk",
             "32", "--kv-format", "kv_fp16", "--seed", "0"]
@@ -2879,14 +2967,15 @@ def decode_trace(torch, engine, reqs, card, what, *, phase="moe",
 
 
 def moe_serve(torch, dev, card, table):
-    """Phase 9. (a) olmoe-1b-7b at full width and depth through the serve
+    """Phase 9. (a) olmoe-1b-7b at full width (the depth ``configs.
+    get_config`` gives: ``MOE_LAYERS`` in main) through the serve
     launcher (W4A16, kv_fp16, 8 slots, 8 requests of 256 + 32 tokens,
     32-token chunks, random weights from seed 0), counters set to 0 just
     before and read just after; the same weights on the plain paths,
     replaying the kernel run's expert choices (``Routing``: every choice
     the plain path would make otherwise is a near-tie), prefill logits
     within LOGIT_TOL; decode steps traced, each launching
-    the W4A16 kernel 16 x (4 + 3) = 112 times (the router and the head
+    the W4A16 kernel L x (4 + 3) times (the router and the head
     stay dense); ngram speculation (verify routes B·(k+1) rows); the dense
     bf16 weights (``--no-quant``, the paper's FP16 yardstick). (b)
     mixtral-8x7b at full width, its first 2 layers, W4A16, 8 requests of
@@ -3529,18 +3618,20 @@ def carry_arch(torch, dev, card, table, arch):
     return launches
 
 
-# phase 10's depth cuts: hymba keeps 8 of its 32 layers (every step of
+# phase 10's depth cuts: hymba keeps 4 of its 32 layers (every step of
 # its host-bound serving runs is per layer: 125.6 s at 32 layers on an
 # H100 80GB HBM3 at 700 W), paying with phase 12's cut for phases 13 and
-# 14's carry-family and whisper runs
-CARRY_LAYERS = {"hymba-1.5b": 8}
+# 14's carry-family and whisper runs and, with rwkv's 8 of 32 (68.2 s at
+# 32), for phase 14's elastic run and phase 15
+CARRY_LAYERS = {"rwkv6-7b": 8, "hymba-1.5b": 4}
 
 
 @contextlib.contextmanager
-def depth_cut(arch, layers):
+def depth_cut(arch, layers, phase="carry"):
     """``configs.get_config(arch)`` at ``layers`` decoder layers for the
     block (the launcher and the engines read it), the cut printed with
-    its byte counts; nothing changes for ``layers`` None."""
+    its byte counts under ``phase``; nothing changes for ``layers``
+    None."""
     from repro_torch import configs
     if layers is None:
         yield
@@ -3548,7 +3639,7 @@ def depth_cut(arch, layers):
     get = configs.get_config
     full = get(arch)
     cut = dataclasses.replace(full, num_layers=layers)
-    log("carry", f"{arch}: depth cut to {layers} of {full.num_layers} "
+    log(phase, f"{arch}: depth cut to {layers} of {full.num_layers} "
         f"layers, full width: {cut.param_count() / 1e9:.3f} B params, "
         f"{cut.param_count() * 2 / 2**30:.2f} GiB in bf16 (all "
         f"{full.num_layers}: {full.param_count() / 1e9:.3f} B, "
@@ -4241,8 +4332,14 @@ def vision_front_door(torch, engine, req, card):
                              f"{ref.results[req.rid]}")
 
 
+# internvl2 keeps 12 of its 24 layers, paying for phase 14's elastic run
+# and phase 15
+VISION_LAYERS = 12
+
+
 def vision_serve(torch, dev, card, table):
-    """Phase 11(b): internvl2-1b at full width and depth (24 layers,
+    """Phase 11(b): internvl2-1b at full width (the depth ``configs.
+    get_config`` gives: ``VISION_LAYERS`` in ``p11_serve``; 24 layers,
     d_model 896, 14/2 heads of 64, d_ff 4864, vocab 151655 padded to
     151808) through the serve launcher's engine (W4A16, 8 slots, 8
     requests of 256 patches + 128 + 32 tokens): the counted run with 4
@@ -4340,7 +4437,8 @@ def p11_serve(torch, dev, card, table):
     granite-20b cut to 4 layers."""
     t0 = time.perf_counter()
     launches = whisper_serve(torch, dev, card, table)
-    vision_serve(torch, dev, card, table)
+    with depth_cut("internvl2-1b", VISION_LAYERS, "phase11"):
+        vision_serve(torch, dev, card, table)
     for arch in ("starcoder2-7b", "granite-20b"):
         dense_cut_serve(torch, dev, card, table, arch)
     log("phase11", f"phase 11 took {time.perf_counter() - t0:.1f} s")
@@ -4356,13 +4454,15 @@ def p11_serve(torch, dev, card, table):
 # prefix adds its 256 patches to every row, whisper's encoder its 1500
 # frames. Depth is cut where 80 GB forces it: mixtral keeps 1 layer, since
 # 2 would hold 75.3 GiB at the update's peak (``launch.train.train_bytes``);
-# and where the script's time does: hymba keeps 8 of its 32 layers (its
+# and where the script's time does: hymba keeps 4 of its 32 layers (its
 # stepped SSM scan made its steps 8.4-12.3 s each at 32), paying for
-# phases 13 and 14's carry-family and whisper runs
+# phases 13 and 14's carry-family and whisper runs; internvl2 keeps 12 of
+# its 24, paying with phases 8, 9 and 11's cuts for phase 14's elastic
+# run and phase 15
 FAMILY_TRAIN = [
     ("whisper-small", None, 4, 448),
-    ("internvl2-1b", None, 2, 1792),
-    ("hymba-1.5b", 8, 2, 1280),
+    ("internvl2-1b", 12, 2, 1792),
+    ("hymba-1.5b", 4, 2, 1280),
     ("olmoe-1b-7b", 4, 2, 1024),
     ("mixtral-8x7b", 1, 1, 1024),
     ("rwkv6-7b", 8, 2, 512),
@@ -4448,6 +4548,7 @@ def family_run(torch, dev, cfg, impl, batches, table, routing=None,
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime import steps
+    base = torch.cuda.memory_allocated()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     params = T.init_params(gen, cfg, device=dev)
@@ -4474,10 +4575,21 @@ def family_run(torch, dev, cfg, impl, batches, table, routing=None,
                     held = tree_to(torch, held, "cpu")
                 n_calls = len(routing.calls) if routing is not None else 0
     launched = read_counts(table)
+    if impl == "flash" and not replay:
+        # the peak since train_family's reset, less what was there before
+        # this run's weights: the flash run's own (phase 15)
+        B, S = batches[0]["tokens"].shape
+        PEAKS[f"{cfg.name}-train-{B}x{S} flash {dtype_name(cfg)}"] = (
+            torch.cuda.max_memory_allocated() - base,
+            dict(B=B, S=S, layers=cfg.num_layers))
     if routing is not None and not replay:
         del routing.calls[n_calls:]
     del params, state
     return metrics, held, launched
+
+
+def dtype_name(cfg) -> str:
+    return str(cfg.dtype).split(".")[-1]
 
 
 def median_step_s(metrics) -> float:
@@ -4777,7 +4889,7 @@ MESH_PAGE, MESH_PAGES = 16, 9       # a slot's 144-token window
 # (arch, depth cut or None, meshes, ranks draw one after the other, what
 # else the run does: "fp32" activations on the quantized weights, "ngram"
 # speculation with every verify step's carry commit checked)
-MESH_RUNS = [("h2o-danube-1.8b", None, [(1, 2), (2, 2)], False, ""),
+MESH_RUNS = [("h2o-danube-1.8b", 12, [(1, 2), (2, 2)], False, ""),
              ("llama3-405b", 2, [(1, 4)], True, ""),
              # rwkv's bf16 logits are chaotic on random weights (phase 10):
              # its mesh run is held with fp32 activations
@@ -5385,11 +5497,26 @@ def mesh_serve(torch, dev, card, table):
 # FAMILY_STEPS steps on every mesh against one process. h2o-danube-1.8b
 # at full width, its first 4 of 24 layers (a one-process reference and
 # four ranks share the card), 8 x 1024 tokens (4 microbatches, FSDP,
-# ZeRO-2) at 1x4 and 2x2; whisper-small at full width and depth, 4 x 448
-# tokens over 1500 frames a row (4 microbatches of one row: every data
-# rank runs every row; FSDP, ZeRO-2) at 2x2
-MESH_TRAIN_RUNS = [("h2o-danube-1.8b", 4, 8, 1024, [(1, 4), (2, 2)]),
+# ZeRO-2) at 1x4 (and at 2x2: the elastic run, MESH_ELASTIC);
+# whisper-small at full width and depth, 4 x 448 tokens over 1500 frames
+# a row (4 microbatches of one row: every data rank runs every row; FSDP,
+# ZeRO-2) at 2x2
+MESH_TRAIN_RUNS = [("h2o-danube-1.8b", 4, 8, 1024, [(1, 4)]),
                    ("whisper-small", None, 4, 448, [(2, 2)])]
+# the elastic run, last (two of its ranks leave): danube as above at 2x2
+# through ``run_training`` with a checkpoint after every step; its steps 0
+# and 1 are the 2x2 mesh held against the one process as every mesh is;
+# every try of step ELASTIC_FAIL fails, and ``remesh_fn`` drops the last
+# data row (``launch.mesh.degraded_mesh``): ranks 2 and 3 leave, 0 and 1
+# join a fresh group of two, restore the step-1 checkpoint onto their
+# (1, 2) shares and train steps 2 and 3 on the first 4 rows (a data
+# rank's 4 rows, as before), held against one process restoring the same
+# checkpoint and running the same batches
+MESH_ELASTIC = ("h2o-danube-1.8b", 4, 8, 1024, (2, 2))
+ELASTIC_STEPS, ELASTIC_FAIL = 4, 2
+# phase 15's measured peaks: cell -> (the phase's peak device bytes less
+# what was allocated before the cell's own tensors, the cell's geometry)
+PEAKS = {}
 # the flash kernel's shapes there (a rank's rows of a microbatch, its
 # heads): (label, B, S, Hq, Hkv, D, causal, window); whisper's are
 # MESH_FAMILY_FLASH
@@ -5473,6 +5600,10 @@ def reckon_mesh_train(cfg, settings, card, B, S, meshes):
             f"and out) [{card}]")
 
 
+# rank 0's one-process m and v (host) by arch, for the elastic run
+REF_MV = {}
+
+
 def _nest(path, t):
     """A tree holding the one leaf ``t`` at key path ``path``."""
     for k in reversed(path):
@@ -5522,11 +5653,166 @@ def mesh_train_rank(rank, world, store, runs_json, out_dir):
         out["runs"].append(mesh_train_arch(
             torch, rank, dev, table, opt_cfg, spent,
             mesh_train_cfg(arch, layers), B, S, meshes))
+    out["elastic"] = mesh_elastic(torch, rank, dev, table, opt_cfg, spent,
+                                  store, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
-    torch.distributed.barrier()
-    torch.distributed.destroy_process_group()
+    if torch.distributed.is_initialized():     # a rank that left has none
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
     return 0
+
+
+def mesh_elastic(torch, rank, dev, table, opt_cfg, spent, store, out_dir):
+    """``mesh_train_rank``'s elastic run (``MESH_ELASTIC``): every rank
+    runs ``run_training`` at 2x2, a checkpoint after each step under
+    ``out_dir``; the step's every try at ``ELASTIC_FAIL`` fails, and
+    ``remesh_fn`` drops the last data row (a new store beside ``store``).
+    A rank that leaves returns its steps so far. The survivors' m and v
+    are gathered to rank 0, which then holds the run: m and v of the
+    step-1 checkpoint against the one-process reference (``REF_MV``), and
+    steps 2 and 3 against one process restoring that checkpoint and
+    training the same rows. Each step's ms, its collectives' host wall
+    and its launches are recorded."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.core.tree import tree_flatten_with_keys, tree_map
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.presets import settings_for
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import resilient, steps
+    from repro_torch.runtime.resilient import RunnerConfig, run_training
+
+    arch, layers, B, S, dm = MESH_ELASTIC
+    # the runner's checkpoint saves and restores, timed (host wall)
+    io = []
+    real_io = resilient.save_checkpoint, resilient.restore_checkpoint
+
+    def timed_io(fn, what):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                io.append((what, time.perf_counter() - t0))
+        return call
+    resilient.save_checkpoint = timed_io(real_io[0], "save")
+    resilient.restore_checkpoint = timed_io(real_io[1], "restore")
+    cfg = mesh_train_cfg(arch, layers)
+    settings = settings_for(arch)
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=S,
+                                  batch_size=B, device=dev)
+    pool = [stream.batch_at(i) for i in range(ELASTIC_STEPS)]
+    rows = B // dm[0]                   # a data rank's rows, kept
+    now = {"mesh": tmesh.make_local_mesh(*dm)}
+    first = now["mesh"]
+    record = []                         # one entry a step
+
+    def build():
+        fn = steps.make_train_step(cfg, opt_cfg, settings, mesh=now["mesh"])
+
+        def timed(params, state, inputs):
+            torch.cuda.synchronize()
+            reset_counts(table)
+            spent.update(s=0.0, n=0)
+            t0 = time.perf_counter()
+            out = fn(params, state, inputs)
+            torch.cuda.synchronize()
+            record.append(dict(
+                step=inputs["step"], mesh=tuple(now["mesh"].shape),
+                ms=(time.perf_counter() - t0) * 1e3, coll_s=spent["s"],
+                coll_n=spent["n"],
+                flash=read_counts(table)["flash_attention"]))
+            return out
+        timed.shards = fn.shards
+        now["step"] = timed
+        return timed
+
+    def batches(i):
+        n = rows * now["mesh"].size(0)
+        return {"batch": {k: v[:n] for k, v in pool[i].items()}, "step": i}
+
+    def remesh_fn():
+        now["mesh"] = tmesh.degraded_mesh(
+            now["mesh"], drop_data=1, init_method=f"file://{store}.elastic")
+        return build()
+
+    step_fn = build()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = step_fn.shards.cut(T.init_params(gen, cfg, device=dev))
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(out_dir, "elastic_ckpt")
+    metrics = []
+    t0 = time.perf_counter()
+    try:
+        params, state, history = run_training(
+            cfg=RunnerConfig(ckpt_dir=ckpt, ckpt_every=1,
+                             keep_last=ELASTIC_STEPS),
+            train_step=step_fn, params=params,
+            opt_state=adamw_init(params, opt_cfg), batches=batches,
+            num_steps=ELASTIC_STEPS,
+            inject_failure=lambda s, r: s == ELASTIC_FAIL
+            and now["mesh"] is first,
+            remesh_fn=remesh_fn, shards=step_fn.shards,
+            on_metrics=lambda i, m: metrics.append(
+                (i, m["loss"], m["grad_norm"])))
+    except tmesh.LeftMesh:
+        return {"left": True, "record": record, "metrics": metrics}
+    finally:
+        resilient.save_checkpoint, resilient.restore_checkpoint = real_io
+    run_s = time.perf_counter() - t0
+    shards = now["step"].shards
+    got = {}
+    for key in ("m", "v"):
+        for path, t in tree_flatten_with_keys(state[key]):
+            w = shards.whole(_nest(path, t))     # None but on rank 0
+            if w is not None:
+                for k in path:
+                    w = w[k]
+                got[(key,) + tuple(path)] = w.cpu()
+            del w
+    del params, state
+    torch.cuda.empty_cache()
+    out = {"left": False, "record": record, "metrics": metrics,
+           "history": history, "mesh": tuple(now["mesh"].shape),
+           "run_s": run_s, "io": io, "held": None}
+    if rank:
+        return out
+
+    def worst(pairs):
+        d, where = 0.0, ""
+        for key, g, w in pairs:
+            w = w.float()
+            x = float((g.float() - w).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+            if x > d:
+                d, where = x, "/".join(key)
+        return d, where
+
+    abstract = T.abstract_params(cfg)
+    like = {"params": abstract, "opt": adamw_init(abstract, opt_cfg)}
+    tree, _, _ = restore_checkpoint(ckpt, like, step=ELASTIC_FAIL - 1)
+    ref = REF_MV[cfg.name]
+    at1 = {k: worst((p, t, ref[k][p])
+                    for p, t in tree_flatten_with_keys(tree["opt"][k]))
+           for k in ("m", "v")}
+    tree = tree_map(lambda t: t.to(dev), tree)
+    plain = steps.make_train_step(cfg, opt_cfg, settings)
+    params, state = tree["params"], tree["opt"]
+    del tree
+    tail = []
+    for i in range(ELASTIC_FAIL, ELASTIC_STEPS):
+        params, state, m = plain(params, state, {"batch": {
+            k: v[:rows] for k, v in pool[i].items()}, "step": i})
+        tail.append((i, float(m["loss"]), float(m["grad_norm"])))
+    after = {k: worst((p, got[(k,) + tuple(p)], t.cpu()) for p, t in
+                      tree_flatten_with_keys(state[k])) for k in ("m", "v")}
+    del params, state
+    torch.cuda.empty_cache()
+    out["held"] = dict(at1=at1, tail=tail, after=after)
+    return out
 
 
 def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
@@ -5556,7 +5842,10 @@ def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
         gen.manual_seed(0)
         return T.init_params(gen, cfg, device=dev)
 
-    def train(step_fn, params, state):
+    def train(step_fn, pair):
+        # pair: [params, AdamW state], emptied here, so that a step holds
+        # the state it reads and the one it makes, and no third copy
+        params, state = pair.pop(0), pair.pop(0)
         torch.cuda.synchronize()
         reset_counts(table)
         metrics = []
@@ -5574,16 +5863,17 @@ def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
     out = {"meshes": []}
     if rank == 0:
         torch.cuda.reset_peak_memory_stats()
-        params = draw()
+        pair = [draw()]
+        pair.append(adamw_init(pair[0], opt_cfg))
         _, state, metrics, launches = train(
-            steps.make_train_step(cfg, opt_cfg, settings), params,
-            adamw_init(params, opt_cfg))
+            steps.make_train_step(cfg, opt_cfg, settings), pair)
         ref = {k: dict(tree_flatten_with_keys(tree_map(
             lambda t: t.cpu(), state[k]))) for k in ("m", "v")}
+        REF_MV[cfg.name] = ref
         out["ref"] = dict(metrics=metrics, launches=launches,
                           peak_gib=torch.cuda.max_memory_allocated()
                           / 2 ** 30)
-        del params, state
+        del state
         torch.cuda.empty_cache()
     torch.distributed.barrier()
     for dm in meshes:
@@ -5591,15 +5881,16 @@ def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
         step_fn = steps.make_train_step(cfg, opt_cfg, settings, mesh=mesh)
         shards = step_fn.shards
         lay = shards.layout
-        params = shards.cut(draw())
+        base = torch.cuda.memory_allocated()
+        pair = [shards.cut(draw())]
         torch.cuda.empty_cache()
-        state = adamw_init(params, opt_cfg)
+        pair.append(adamw_init(pair[0], opt_cfg))
         share_gib = sum(t.numel() * t.element_size() for _, t in
-                        tree_flatten_with_keys(params)) / 2 ** 30
+                        tree_flatten_with_keys(pair[0])) / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
         torch.distributed.barrier()
         t0 = time.perf_counter()
-        params, state, metrics, launches = train(step_fn, params, state)
+        params, state, metrics, launches = train(step_fn, pair)
         train_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         held = {}
@@ -5622,8 +5913,9 @@ def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
         out["meshes"].append(dict(
             mesh=tuple(dm), coords=(lay.dp_rank, lay.tp_rank),
             heads=(local.num_heads, local.num_kv_heads), metrics=metrics,
-            launches=launches, peak_gib=peak, share_gib=share_gib,
-            train_s=train_s, held=held if rank == 0 else None))
+            launches=launches, peak_gib=peak, base_gib=base / 2 ** 30,
+            share_gib=share_gib, train_s=train_s,
+            held=held if rank == 0 else None))
         del params, state, step_fn, shards, lay
         torch.cuda.empty_cache()
         torch.distributed.barrier()
@@ -5701,23 +5993,259 @@ def mesh_train(torch, card):
     """Phase 14: every run of ``MESH_TRAIN_RUNS`` under its preset,
     reckoned (``reckon_mesh_train``), then one spawn of 4 ranks on the one
     card over gloo that runs, per run, the one-process reference (rank 0)
-    and every mesh, each held by ``hold_mesh_train``."""
+    and every mesh, each held by ``hold_mesh_train``, then the elastic
+    run (``MESH_ELASTIC``, ``hold_mesh_elastic``). Keeps rank (0, 0)'s
+    peak of danube's 1x4 mesh for phase 15."""
     from repro_torch.launch.presets import settings_for
     for arch, layers, B, S, meshes in MESH_TRAIN_RUNS:
         cfg = mesh_train_cfg(arch, layers)
         reckon_mesh_train(cfg, settings_for(arch), card, B, S, meshes)
+    arch, layers, B, S, dm = MESH_ELASTIC
+    reckon_mesh_train(mesh_train_cfg(arch, layers), settings_for(arch),
+                      card, B, S, [dm, (dm[0] - 1, dm[1])])
     t0 = time.perf_counter()
     out = spawn_mesh([list(r) for r in MESH_TRAIN_RUNS], 4, timeout=700,
                      flag="--mesh-train-rank", phase="mesh-train")
     log("mesh-train", f"4 ranks on one card: {len(MESH_TRAIN_RUNS)} runs' "
-        f"references and meshes in {time.perf_counter() - t0:.1f} s")
+        f"references and meshes and the elastic run in "
+        f"{time.perf_counter() - t0:.1f} s")
     bad = []
     for i, (arch, layers, _, _, meshes) in enumerate(MESH_TRAIN_RUNS):
         bad += hold_mesh_train([o["runs"][i] for o in out],
                                mesh_train_cfg(arch, layers),
                                settings_for(arch), meshes, card)
+    bad += hold_mesh_elastic([o["elastic"] for o in out],
+                             out[0]["runs"][0]["ref"]["metrics"], card)
+    r0 = out[0]["runs"][0]["meshes"][0]
+    PEAKS["danube-4L-train-mesh-1x4 rank (0, 0)"] = (
+        (r0["peak_gib"] - r0["base_gib"]) * 2 ** 30,
+        dict(mesh=r0["mesh"], B=8, S=1024))
     if bad:
         raise AssertionError(f"phase 14: {bad}")
+
+
+def hold_mesh_elastic(ranks, ref_metrics, card):
+    """The elastic run (``mesh_elastic``): the runner's history on both
+    survivors (two checkpoints, ``max_retries + 1`` failures at step
+    ELASTIC_FAIL, the re-mesh and restart, two checkpoints), ranks 2 and 3
+    gone after steps 0 and 1; flash launches 2 · L · n a step on every
+    rank, no other kernel; steps 0 and 1 (2x2) against the one process's
+    (loss, grad norm, and m and v in the step-1 checkpoint); steps 2 and
+    3 (1x2) against one process restoring that checkpoint (loss, grad norm,
+    m and v after step 3), all within ``TRAIN_TOL``. Prints each rank's
+    step ms. Returns what failed."""
+    from repro_torch.launch.presets import settings_for
+    arch, layers, B, S, dm = MESH_ELASTIC
+    cfg = mesh_train_cfg(arch, layers)
+    n = settings_for(arch).microbatches
+    want_flash = (2 if cfg.remat else 1) * cfg.num_layers * n
+    f = ELASTIC_FAIL
+    want_hist = [("checkpoint", s) for s in range(f)] + [
+        ("failure", f, f"injected failure at step {f}")] * 4 + [
+        ("remesh", f), ("restart", f)] + [
+        ("checkpoint", s) for s in range(f, ELASTIC_STEPS)]
+    bad, kept = [], (dm[0] - 1) * dm[1]
+    for r, res in enumerate(ranks):
+        steps_done = [e["step"] for e in res["record"]]
+        want_steps = list(range(f)) if r >= kept else \
+            list(range(ELASTIC_STEPS))
+        ok = res["left"] == (r >= kept) and steps_done == want_steps \
+            and all(e["flash"] == want_flash for e in res["record"]) \
+            and (res["left"] or res["history"] == want_hist)
+        bad += [] if ok else [f"elastic rank {r}"]
+        log("mesh-train", f"elastic {arch}-{cfg.num_layers}L rank {r}: "
+            + "; ".join(f"step {e['step']} at {e['mesh'][0]}x{e['mesh'][1]}"
+                        f" {e['ms']:.1f} ms ({e['coll_s'] * 1e3:.1f} ms in "
+                        f"{e['coll_n']} collectives), flash {e['flash']}"
+                        for e in res["record"])
+            + (" — left the mesh at the re-mesh" if res["left"] else
+               f"; history {res['history']}; final mesh {res['mesh']}")
+            + f" (want flash {want_flash} a step: 2 x {cfg.num_layers} x "
+            f"{n}) {'ok' if ok else 'FAIL'} [ranks share one card: {card}]")
+    got = {i: (l, g) for i, l, g in ranks[0]["metrics"]}
+    held = ranks[0]["held"]
+    wants = [(i, ref_metrics[i][:2], "the one process") for i in range(f)] \
+        + [(i, (l, g), "one process from the step-1 checkpoint")
+           for i, l, g in held["tail"]]
+    for i, w, whom in wants:
+        for k, name in enumerate(("loss", "grad_norm")):
+            d = abs(got[i][k] - w[k]) / abs(w[k])
+            ok = d <= TRAIN_TOL[name]
+            bad += [] if ok else [f"elastic step {i} {name}"]
+            log("mesh-train", f"elastic step {i} {name}: mesh {got[i][k]:.6f}"
+                f" vs {whom} {w[k]:.6f}, |d|/|ref| {d:.2e} "
+                f"{'ok' if ok else 'FAIL'} ({TRAIN_TOL[name]})")
+    for label, diffs in (("step-1 checkpoint (2x2) vs the one process",
+                          held["at1"]),
+                         (f"after step {ELASTIC_STEPS - 1} (1x2) vs one "
+                          f"process from the checkpoint", held["after"])):
+        for name in ("m", "v"):
+            d, where = diffs[name]
+            ok = d <= TRAIN_TOL[name]
+            bad += [] if ok else [f"elastic {label} {name}"]
+            log("mesh-train", f"elastic {label}, {name}: max|d| / max|ref| "
+                f"per leaf {d:.3e} (worst {where}) {'ok' if ok else 'FAIL'} "
+                f"({TRAIN_TOL[name]:.3g})")
+    log("mesh-train", f"elastic run: {ranks[0]['run_s']:.1f} s on rank 0 "
+        f"(its steps {sum(e['ms'] for e in ranks[0]['record']) / 1e3:.1f} "
+        f"s; checkpoint " + ", ".join(f"{w} {t:.1f} s"
+                                      for w, t in ranks[0]["io"])
+        + ")")
+    return bad
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the dry run on the meta device
+# ---------------------------------------------------------------------------
+
+# a prediction holds when it is within this share of the measured peak, or
+# this many bytes of it, whichever is larger
+PEAK_REL, PEAK_ABS = 0.10, 256 * 2 ** 20
+# the production grid's cells: (arch, shape, layers kept (None: all),
+# data rows dropped, global batch (None: the shape's)); llama3-405b's
+# train_4k keeps 2 of its 126 layers (its 16 microbatches x 126 layers of
+# meta ops would take minutes of host time), the rest full depth; the last
+# is JAX's elastic cell: danube on the 15x16 survivors at batch 240
+DRYRUN_GRID = [("h2o-danube-1.8b", "train_4k", None, 0, None),
+               ("h2o-danube-1.8b", "decode_32k", None, 0, None),
+               ("llama3-405b", "train_4k", 2, 0, None),
+               ("llama3-405b", "decode_32k", None, 0, None),
+               ("h2o-danube-1.8b", "train_4k", None, 1, 240)]
+
+
+def meta_batch(torch, cfg, B, S):
+    """A training batch of B x S tokens as meta tensors, with the arch's
+    vision patches or audio frames (``launch.train.extra_inputs``'
+    shapes)."""
+    out = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+           for k in ("tokens", "labels")}
+    if cfg.vision_prefix:
+        out["vision_embeds"] = torch.empty(
+            (B, cfg.vision_prefix, cfg.d_model), dtype=cfg.dtype,
+            device="meta")
+    if cfg.family == "encdec":
+        out["audio_embeds"] = torch.empty(
+            (B, cfg.encoder_seq, cfg.d_model), dtype=cfg.dtype,
+            device="meta")
+    return out
+
+
+def dryrun_cells(torch):
+    """The dry run's counterpart of each peak an earlier phase measured
+    (``PEAKS``): (label, the cell's step and arguments, the measured
+    bytes, what was measured)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.presets import settings_for
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import TrainSettings
+    opt_cfg = AdamWConfig(lr=1e-3)
+    danube = configs.get_config(ARCH)
+    cells = []
+    label = f"{ARCH}-train-{TRAIN_BATCH}x{TRAIN_SEQ} launcher"
+    peak, geo = PEAKS[label]
+    cells.append(("danube-train-2x8192 (phase 7b, one device)",
+                  dryrun.train_cell(danube, meta_batch(
+                      torch, danube, geo["B"], geo["S"]), TrainSettings(
+                      microbatches=geo["microbatches"]), opt_cfg=opt_cfg),
+                  peak, "the launcher's run, its checkpoints included"))
+    peak, geo = PEAKS["danube-serve-8x512 decode step"]
+    cells.append(("danube-serve-8x512 decode step (phase 4, one device)",
+                  dryrun.decode_cell(
+                      danube, geo["B"], geo["cache_len"],
+                      page_size=geo["page_size"],
+                      num_blocks=geo["num_blocks"],
+                      kv_format=geo["kv_format"], attn_path=geo["attn_path"],
+                      kv_partitions=geo["kv_partitions"]),
+                  peak, "the engine's highest decode step: weights, pool, "
+                  "step"))
+    whisper = configs.get_config("whisper-small")
+    peak, geo = PEAKS["whisper-small-train-4x448 flash bfloat16"]
+    cells.append(("whisper-train-4x448 (phase 12, one device)",
+                  dryrun.train_cell(whisper, meta_batch(
+                      torch, whisper, geo["B"], geo["S"]), TrainSettings(),
+                      opt_cfg=opt_cfg),
+                  peak, "the flash run's four steps"))
+    peak, geo = PEAKS["danube-4L-train-mesh-1x4 rank (0, 0)"]
+    cut = dataclasses.replace(danube, num_layers=4)
+    cells.append(("danube-4L-train-mesh-1x4 rank (0, 0) (phase 14, a fake "
+                  "world of 4)",
+                  dryrun.train_cell(cut, meta_batch(torch, cut, geo["B"],
+                                                    geo["S"]),
+                                    settings_for(ARCH), opt_cfg=opt_cfg,
+                                    mesh=tmesh.fake_mesh(*geo["mesh"])),
+                  peak, "rank (0, 0)'s two steps"))
+    return cells
+
+
+def dryrun_phase(torch, card):
+    """Phase 15: the dry run (``repro_torch.launch.dryrun``) on the meta
+    device beside what the card measured. For each cell an earlier phase
+    ran on the card, its step traced at that phase's geometry (a mesh
+    rank on a fake world of the same size) predicts the step's peak
+    (``peak_total``: its arguments and every temporary), printed beside
+    the phase's measured peak less what the process held before the cell's
+    own tensors; a miss (off by more than PEAK_REL and PEAK_ABS) is printed
+    with the breakdown that explains it. Then the production grid
+    (``DRYRUN_GRID``) at 16x16 and JAX's elastic cell at 15x16: every
+    record OK, with its peak, flops and collective bytes. No kernel
+    launches: counts stay as they were."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    misses = []
+    for label, (step, args, meta), measured, what in dryrun_cells(torch):
+        t1 = time.perf_counter()
+        rec = dryrun.trace(step, args)
+        del step, args
+        b = rec["bytes_per_device"]
+        pred = b["peak_total"]
+        off = pred - measured
+        ok = abs(off) <= max(PEAK_REL * measured, PEAK_ABS)
+        misses += [] if ok else [label]
+        log("dryrun", f"{label}: predicted peak {pred / 2**30:.3f} GiB "
+            f"(arguments {b['argument'] / 2**30:.3f}, temporaries "
+            f"{b['temp'] / 2**30:.3f}, outputs {b['output'] / 2**30:.3f}) "
+            f"vs measured {measured / 2**30:.3f} GiB ({what}): off "
+            f"{off / 2**20:+.0f} MiB = {off / max(measured, 1):+.1%} "
+            f"{'ok' if ok else 'MISS'} (within {PEAK_REL:.0%} or "
+            f"{PEAK_ABS // 2**20} MiB); {rec['cost']['flops']:.4g} FLOP, "
+            f"{rec['collectives']['total'] / 2**30:.3f} GiB of collectives; "
+            f"traced in {time.perf_counter() - t1:.1f} s [{card}]")
+        if not ok:
+            log("dryrun", f"{label}: MISS by {off / 2**20:+.0f} MiB: "
+                + ("the card held more than the step's arguments and "
+                   "temporaries: memory the phase keeps beside the step "
+                   "(allocator rounding and cached blocks are not "
+                   "allocated bytes)" if off < 0 else
+                   "the trace holds more than the card did: a temporary "
+                   "the eager step frees earlier than the meta trace "
+                   "sees"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    for arch, shape, layers, drop, batch in DRYRUN_GRID:
+        rec = dryrun.run_cell(arch, shape, layers=layers, drop_data=drop,
+                              global_batch=batch, verbose=False)
+        if rec["status"] != "OK":
+            raise AssertionError(f"dry run {arch} {shape}: {rec}")
+        b, c = rec["bytes_per_device"], rec["collectives"]
+        log("dryrun", f"{arch} {shape} at {rec['mesh']}"
+            + (f", global batch {batch}" if batch else "")
+            + (f", {layers} of {dryrun.configs.get_config(arch).num_layers}"
+               f" layers" if layers else "")
+            + f": rank 0 peak {b['peak_total'] / 2**30:.3f} GiB (arguments "
+            f"{b['argument'] / 2**30:.3f}, temporaries "
+            f"{b['temp'] / 2**30:.3f}), fits one H100: {rec['fits_h100']}; "
+            f"{rec['cost']['flops']:.4g} FLOP "
+            f"({rec['cost']['kernel_flops']:.4g} in kernels); collectives "
+            + ", ".join(
+                f"{k} {v['count']} x {v['bytes'] / 2**30:.3f} GiB"
+                for k, v in c.items() if k != "total" and v["count"])
+            + f"; traced in {rec['seconds']:.1f} s")
+        dist.destroy_process_group()
+    log("dryrun", f"phase 15 took {time.perf_counter() - t0:.1f} s; "
+        f"{len(misses)} predictions missed: {misses}")
 
 
 def time_mesh_flash(torch, dev, gen, timer, card):
@@ -5930,10 +6458,12 @@ def main() -> int:
     trace_train(torch, dev, card)
     log("train", f"phase 7 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    serve_features(torch, dev, card, table)
+    with depth_cut(ARCH, FEATURE_LAYERS, "features"):
+        serve_features(torch, dev, card, table)
     torch.cuda.empty_cache()
-    launches["w4a16_gemm_experts"] = moe_serve(
-        torch, dev, card, table)["w4a16_gemm_experts"]
+    with depth_cut(MOE_ARCH, MOE_LAYERS, "moe"):
+        launches["w4a16_gemm_experts"] = moe_serve(
+            torch, dev, card, table)["w4a16_gemm_experts"]
     torch.cuda.empty_cache()
     carry_serve(torch, dev, card, table)
     torch.cuda.empty_cache()
@@ -5949,6 +6479,7 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_train(torch, card)
     log("mesh-train", f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    dryrun_phase(torch, card)
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),

@@ -15,6 +15,13 @@ plain integer), so a run can show which kernels its main path went
 through; a :class:`KernelForm` counts one form of them apart. A launch
 whose C function returns a non-zero ``cudaError_t`` (the
 ``cudaGetLastError()`` right after the launch) raises.
+
+On the ``meta`` device (the dry run, ``launch/dryrun.py``) a wrapper runs
+its CUDA path up to the launch, allocating what that path allocates (the
+output, Split-K partials, workspaces: shapes and dtypes only), and passes
+the stream of :func:`stream_ptr`, None there: the launch then runs nothing
+and counts no launch, but adds one to ``traced`` and the kernel's
+operations (its ``flops`` of the launch's arguments) to ``traced_flops``.
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Iterable, List, Optional, Sequence
+from typing import Callable, Iterable, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -53,15 +60,20 @@ class CudaKernel:
 
     ``argtypes`` lists the C function's parameters (``c_void_p`` for
     pointers and the stream, ``c_int`` for ints); it returns ``int``.
+    ``flops(args)`` gives a launch's operations from its arguments (the
+    dry run's count of a traced launch; 0 when not given).
     """
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence):
+                 argtypes: Sequence, flops: Optional[Callable] = None):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.flops = flops
         self.launches = 0
+        self.traced = 0
+        self.traced_flops = 0.0
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
@@ -119,7 +131,12 @@ class CudaKernel:
 
     def launch(self, *args) -> None:
         """Call the C launcher on the given arguments; raise on a non-zero
-        ``cudaError_t``; count the launch."""
+        ``cudaError_t``; count the launch. A traced launch (the meta
+        device's None stream) runs nothing: it counts in ``traced``."""
+        if traced(args):
+            self.traced += 1
+            self.traced_flops += self.flops(args) if self.flops else 0.0
+            return
         rc = self._function()(*args)
         if rc != 0:
             msg = self._lib[2](rc).decode()
@@ -139,7 +156,8 @@ class KernelForm:
 
     def launch(self, *args) -> None:
         self.kernel.launch(*args)
-        self.launches += 1
+        if not traced(args):
+            self.launches += 1
 
     def __getattr__(self, attr):
         return getattr(self.kernel, attr)
@@ -160,10 +178,18 @@ def build_all(kernels: Iterable[CudaKernel]) -> List[str]:
     return [k.build_log for k in firsts]
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device``, as a ``c_void_p``."""
+def stream_ptr(device) -> Optional[ctypes.c_void_p]:
+    """PyTorch's current CUDA stream on ``device``, as a ``c_void_p``;
+    None on the meta device (a traced launch)."""
     import torch
+    if torch.device(device).type == "meta":
+        return None
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def traced(args) -> bool:
+    """A launch's arguments end in the meta device's None stream."""
+    return bool(args) and args[-1] is None
 
 
 def ptr(t) -> ctypes.c_void_p:

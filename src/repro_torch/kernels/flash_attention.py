@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core import costmodel
 from repro_torch.kernels import build
 from repro_torch.kernels.common import MAX_SMEM, align128
 
@@ -40,7 +41,10 @@ _DTYPES = {torch.bfloat16: 0, torch.float32: 2}
 FLASH_ATTENTION = build.CudaKernel(
     "flash_attention", "flash_attention.cu", "flash_attention_fwd",
     [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 8
-    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    flops=lambda a: costmodel.flash_attn_flops(
+        a[14], a[17], a[19], costmodel.attn_pairs(
+            a[15], a[16], causal=bool(a[20]), window=a[21])))
 
 
 @dataclass(frozen=True)

@@ -22,13 +22,15 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core import costmodel
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.common import (MAX_SMEM, align128, check_operands,
                                         check_split, kernel_dtype)
 
 DENSE_GEMM = build.CudaKernel(
     "dense_gemm", "dense_gemm.cu", "dense_gemm",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+    flops=lambda a: 2.0 * a[3] * a[4] * a[5])
 
 # the tile loop's constants (csrc/gemm_tile.cuh); "w4a8" is the integer
 # contraction of csrc/w4a8_gemm.cu
@@ -208,8 +210,12 @@ def _sm_count(index: int) -> int:
 
 
 def sm_count(device: torch.device) -> int:
-    """The SM count of a CUDA device (what the launcher reads too)."""
-    return _sm_count(device.index if device.index is not None
+    """The SM count of a CUDA device (what the launcher reads too); on the
+    meta device the card's when one is present, else the H100's."""
+    if device.type == "meta" and not torch.cuda.is_available():
+        return costmodel.H100.num_sms
+    return _sm_count(device.index if device.type == "cuda"
+                     and device.index is not None
                      else torch.cuda.current_device())
 
 

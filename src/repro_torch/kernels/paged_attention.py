@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import costmodel
 from repro_torch.core.quant import KVFormat
 from repro_torch.kernels import build, planning
 from repro_torch.kernels.common import KERNEL_DTYPES, MAX_SMEM, align128
@@ -38,7 +39,9 @@ _WARPS = 8
 
 PAGED_ATTENTION = build.CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_partials",
-    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p],
+    flops=lambda a: costmodel.paged_attn_flops(
+        a[12], a[13] * a[16], a[17], a[19] * a[18], q_len=a[14]))
 
 
 @dataclass(frozen=True)

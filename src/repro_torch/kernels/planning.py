@@ -224,13 +224,19 @@ def strategies_for_format(format_name: str) -> Tuple[str, ...]:
 # Split-K heuristic (paper Fig. 2) and core counting
 # ---------------------------------------------------------------------------
 
+# device types whose problems run the card's kernels: "meta" is the dry
+# run's trace of the card's path (launch/dryrun.py), planned as on the card
+CARD_BACKENDS = ("cuda", "meta")
+
+
 def num_cores(backend: str = "cuda") -> int:
     """Parallel units for the occupancy heuristics: the card's SM count
-    (132 on an H100) for CUDA problems; elsewhere the paper-model default
-    of 8 — a CPU host models the target chip, not itself."""
-    if backend == "cuda" and torch.cuda.is_available():
+    (132 on an H100) for CUDA problems, and for meta problems (the H100's
+    where no card is present); elsewhere the paper-model default of 8 — a
+    CPU host models the target chip, not itself."""
+    if backend in CARD_BACKENDS and torch.cuda.is_available():
         return torch.cuda.get_device_properties(0).multi_processor_count
-    return 8
+    return costmodel.H100.num_sms if backend == "meta" else 8
 
 
 def choose_split_k(M: int, N: int, K: int, *, group_size: int = 128,
@@ -306,11 +312,11 @@ def _exec_out_dtype(plan: KernelPlan, x: torch.Tensor):
 
 
 def _on_cuda(problem: MatmulProblem) -> bool:
-    return problem.backend == "cuda"
+    return problem.backend in CARD_BACKENDS
 
 
 def _off_cuda(problem: MatmulProblem) -> bool:
-    return problem.backend != "cuda"
+    return problem.backend not in CARD_BACKENDS
 
 
 def _packable(problem: MatmulProblem) -> bool:
@@ -807,7 +813,8 @@ def _cost_attn_fused(problem: AttentionProblem,
 register_attn_path("gather", cost=_cost_attn_gather,
                    supports=lambda p: p.paged)
 register_attn_path("fused", cost=_cost_attn_fused,
-                   supports=lambda p: p.paged and p.backend == "cuda")
+                   supports=lambda p: p.paged
+                   and p.backend in CARD_BACKENDS)
 
 
 def _attn_plan_for(problem: AttentionProblem, name: str) -> AttentionPlan:

@@ -174,8 +174,11 @@ def main(argv=None) -> TrainReport:
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = T.init_params(gen, cfg, device=device)
-    opt_state = adamw_init(params, opt_cfg)
     n_params = sum(t.numel() for t in tree_leaves(params))
+    # the runner holds the only references to the initial state, so that a
+    # step holds the state it reads and the one it makes, and no third copy
+    initial = [params, adamw_init(params, opt_cfg)]
+    del params
     print(f"[train] {cfg.name} ({cfg.family}) params={n_params / 1e6:.2f}M "
           f"device={device}")
 
@@ -216,8 +219,9 @@ def main(argv=None) -> TrainReport:
     t0 = time.time()
     params, opt_state, history = run_training(
         cfg=RunnerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
-        train_step=timed_step, params=params, opt_state=opt_state,
-        batches=batches, num_steps=args.steps, on_metrics=on_metrics)
+        train_step=timed_step, params=initial.pop(0),
+        opt_state=initial.pop(0), batches=batches, num_steps=args.steps,
+        on_metrics=on_metrics)
     if last["metrics_t"] is not None:
         after_step_s[last["step"]] = time.perf_counter() - last["metrics_t"]
     dt = time.time() - t0

@@ -123,6 +123,14 @@ def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
         if leaf.dim() == 2:
             return quantize(leaf, fmt, out_dtype=leaf.dtype)
         lead = leaf.shape[:-2]
+        if leaf.is_meta:
+            # shapes only (the dry run): one slice's layout, stacked
+            q = quantize(leaf.reshape(-1, *leaf.shape[-2:])[0], fmt,
+                         out_dtype=leaf.dtype)
+            return QuantizedTensor(*(
+                None if t is None else t.new_empty(lead + t.shape)
+                for t in (q.packed, q.scales, q.zeros)),
+                q.group_size, leaf.dtype, fmt)
         parts = [quantize(w, fmt, out_dtype=leaf.dtype)
                  for w in leaf.reshape(-1, *leaf.shape[-2:])]
 

@@ -81,7 +81,14 @@ def wkv_scan(s: torch.Tensor, w: torch.Tensor, kv: torch.Tensor,
     Returns (the final carry, every step's pre-mask state (B, S, H, hd,
     hd), and the post-mask carries when ``collect_states``, else None).
     The steps read w and kv through ``unbind`` (a backward that stacks the
-    per-step gradients once, as ``ssm.ssm_scan``)."""
+    per-step gradients once, as ``ssm.ssm_scan``). On the meta device
+    (the dry run, whose ops run in Python) the S steps are one step of the
+    same shapes."""
+    if kv.is_meta:
+        prev = torch.cat([s[:, None], kv[:, :-1]], 1)
+        s_all = prev * w[..., None] + kv
+        return s_all[:, -1].clone(), s_all, \
+            s_all.clone() if collect_states else None
     s_new_all, kept = [], []
     for t, (w_t, kv_t) in enumerate(zip(w.unbind(1), kv.unbind(1))):
         s_new = s * w_t[..., None] + kv_t

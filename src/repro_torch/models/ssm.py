@@ -81,7 +81,14 @@ def ssm_scan(h: torch.Tensor, da: torch.Tensor, dbu: torch.Tensor,
     the post-mask carries when ``collect_states``, else None). The steps
     read da and dbu through ``unbind``, whose backward stacks the per-step
     gradients once; indexing each step would make each step's backward
-    write a zero-filled gradient the size of the whole sequence."""
+    write a zero-filled gradient the size of the whole sequence. On the
+    meta device (the dry run, whose ops run in Python) the S steps are one
+    step of the same shapes."""
+    if dbu.is_meta:
+        prev = torch.cat([h[:, None], dbu[:, :-1]], 1)
+        h_all = prev * da + dbu
+        return h_all[:, -1].clone(), h_all, \
+            h_all.clone() if collect_states else None
     h_new_all, kept = [], []
     for t, (da_t, dbu_t) in enumerate(zip(da.unbind(1), dbu.unbind(1))):
         h_new = h * da_t + dbu_t

@@ -165,6 +165,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
     return params
 
 
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree of :func:`init_params` on the ``meta`` device:
+    every leaf's shape and dtype, no storage and no random draw (the dry
+    run's counterpart of JAX's ``jax.eval_shape(init_params)``).
+    :func:`quantize_params` takes such a tree to the QuantizedTensor tree
+    of meta tensors with the real one's packed and scale shapes."""
+    return init_params(torch.Generator(), cfg, device="meta")
+
+
 def serve_format(cfg: ModelConfig, format=None):
     """The format serving quantizes to: ``format`` (a registered name) or
     ``cfg.quant_format``, regrouped to ``cfg.group_size`` for the default

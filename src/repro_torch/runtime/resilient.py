@@ -3,8 +3,10 @@
 
   * a transient step failure is retried up to ``max_retries`` times from
     the in-memory state;
-  * past that, the runner restores the latest checkpoint and, if the
-    caller gives ``remesh_fn``, rebuilds the step before going on;
+  * past that (a hard failure), if the caller gives ``remesh_fn``, the
+    runner first rebuilds the step (``remesh_fn() -> train_step``: elastic
+    re-meshing, ``launch.mesh.degraded_mesh``), then restores the latest
+    checkpoint onto that step's own shares (its ``.shards``), and goes on;
   * a step slower than ``step_timeout_s`` counts as a failure.
 Every exception a step raises is caught and retried, as in the JAX
 package, so a failure that repeats (a kernel that does not build, a sticky
@@ -17,7 +19,12 @@ being ``make_train_step(..., mesh=)`` and ``shards`` its
 ``TrainShards``: each rank feeds the whole batch and the step takes the
 rank's rows; the checkpoints are the whole tree, written by rank 0
 (``checkpoint.save_checkpoint(shards=)``), and only rank 0 removes old
-ones.
+ones. A rank's own clock must not decide alone: a step that one rank
+finds too slow is a failure on every rank (one all-reduce of the flag a
+step), so that the ranks take the same branch and issue the same
+collectives. On a re-mesh the per-rank batch stays what ``batches`` gives
+(the caller's function may read the new mesh: the global batch then
+shrinks with the data axis).
 """
 from __future__ import annotations
 
@@ -64,6 +71,16 @@ def _block_until_ready(tree) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _anyone(flag: bool, shards, tree) -> bool:
+    """``flag`` on this rank or, on a mesh, on any rank of the world."""
+    if shards is None:
+        return flag
+    dev = next((t.device for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)), torch.device("cpu"))
+    t = torch.full((), float(flag), dtype=torch.float32, device=dev)
+    return bool(shards.layout.reduce_world(t) > 0)
+
+
 def run_training(
     *,
     cfg: RunnerConfig,
@@ -80,7 +97,8 @@ def run_training(
     """Run ``num_steps`` with checkpoint/restart semantics. Returns
     ``(params, opt_state, history)``; history records every recovery
     event and checkpoint. ``shards``: a mesh step's ``TrainShards`` (the
-    params and optimizer state are this rank's shares)."""
+    params and optimizer state are this rank's shares); after a re-mesh
+    the new step's."""
     history = []
     start = latest_step(cfg.ckpt_dir)
     step = 0
@@ -102,12 +120,17 @@ def run_training(
                 raise StepFailure(f"injected failure at step {step}")
             params2, opt2, metrics = train_step(params, opt_state, inputs)
             _block_until_ready(metrics)
-            if time.time() - t0 > cfg.step_timeout_s:
+            if _anyone(time.time() - t0 > cfg.step_timeout_s, shards,
+                       metrics):
                 raise StepFailure(f"straggler timeout at step {step}")
         except Exception as e:  # noqa: BLE001 — any failure is retried
             retries += 1
             history.append(("failure", step, str(e)[:120]))
             if retries > cfg.max_retries:
+                if remesh_fn is not None:
+                    train_step = remesh_fn()
+                    shards = getattr(train_step, "shards", shards)
+                    writer = shards is None or dist.get_rank() == 0
                 restored, step0, _ = restore_checkpoint(
                     cfg.ckpt_dir, {"params": params, "opt": opt_state},
                     shards=shards)
@@ -115,7 +138,6 @@ def run_training(
                     params, opt_state = restored["params"], restored["opt"]
                     step = step0 + 1
                 if remesh_fn is not None:
-                    train_step = remesh_fn()
                     history.append(("remesh", step))
                 retries = 0
                 history.append(("restart", step))

@@ -87,6 +87,24 @@ ROW = {"wo", "w_down", "tm_o", "cm_v", "out_proj"}
 # always replicated (small / routing-sensitive)
 REP = {"router", "bc_proj"}
 
+# every collective of a Layout, by kind: its count and its traffic on this
+# rank in bytes (ring-algorithm volumes over a group of S ranks, as JAX's
+# dry run reads them off the partitioned HLO: an all-reduce 2·R·(S-1)/S,
+# an all-gather or gather R·(S-1) of an operand of R bytes, a
+# reduce-scatter R·(S-1)/S); the dry run zeroes and reads them
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "gather")
+_RING = {"all-reduce": lambda r, s: 2 * r * (s - 1) / s,
+         "all-gather": lambda r, s: r * (s - 1),
+         "gather": lambda r, s: r * (s - 1),
+         "reduce-scatter": lambda r, s: r * (s - 1) / s}
+COLLECTIVES = {k: {"bytes": 0.0, "count": 0} for k in COLLECTIVE_KINDS}
+
+
+def reset_collectives() -> None:
+    for rec in COLLECTIVES.values():
+        rec.update(bytes=0.0, count=0)
+
+
 def leaf_kind_for_path(names) -> str:
     """TP kind ("col" | "row" | "rep") of a leaf by its key path (the JAX
     package's name rules; the innermost listed name decides)."""
@@ -133,6 +151,12 @@ def batch_axis_entry(B: int, mesh):
     return axes[0] if len(axes) == 1 else axes
 
 
+def _cuts(n: int, tp: int) -> bool:
+    """Can ``n`` output columns be cut over ``tp`` model ranks: evenly,
+    each rank's slice a multiple of 16 (the GEMM kernels' column unit)."""
+    return tp > 1 and n % tp == 0 and (n // tp) % 16 == 0
+
+
 def _take(t: torch.Tensor, dim: int, parts: int, index: int) -> torch.Tensor:
     """Part ``index`` of ``parts`` along ``dim``, copied so that the whole
     tensor can be freed."""
@@ -167,13 +191,15 @@ class Layout:
         # r·kv_parts/tp (tp/Hkv ranks share one head when tp > Hkv)
         self.kv_parts = min(tp, Hkv) if self.attn_sharded else 1
         self.kv_index = self.tp_rank * self.kv_parts // tp
-        self.ffn_sharded = tp > 1 and cfg.d_ff % tp == 0
+        # d_ff and the SSM's d_inner channels are cut when a rank's slice
+        # is a multiple of the GEMM kernels' 16 output columns (hymba's
+        # d_ff 5504 and d_inner 3200 over 16 ranks would leave 344 and 200)
+        self.ffn_sharded = _cuts(cfg.d_ff, tp)
         self.vocab_sharded = tp > 1 and cfg.padded_vocab % tp == 0
-        # rwkv's time mix by whole heads; the SSM by its d_inner channels
+        # rwkv's time mix by whole heads
         self.tm_sharded = tp > 1 and cfg.family == "rwkv" \
             and Hq % tp == 0
-        self.ssm_sharded = tp > 1 and cfg.family == "hybrid" \
-            and cfg.d_inner % tp == 0
+        self.ssm_sharded = cfg.family == "hybrid" and _cuts(cfg.d_inner, tp)
         self.base_format = T.serve_format(cfg)
         self._part_groups = {}
 
@@ -322,13 +348,18 @@ class Layout:
             return dist.group.WORLD
         return self.mesh.get_group(axis) if isinstance(axis, str) else axis
 
-    def _collective(self, t: torch.Tensor, axis, fn, *,
+    def _collective(self, t: torch.Tensor, axis, fn, kind: str, *,
                     copy: bool = False) -> torch.Tensor:
-        """Run ``fn(tensor, group)`` over ``axis`` (:meth:`_group`); a
-        CUDA tensor on a gloo group goes through host memory, both ways.
-        ``copy`` hands ``fn`` a copy where it would get ``t`` itself (an
-        in-place reduction must not write into an autograd input)."""
+        """Run ``fn(tensor, group)`` over ``axis`` (:meth:`_group`), counted
+        in :data:`COLLECTIVES` under ``kind``; a CUDA tensor on a gloo
+        group goes through host memory, both ways. ``copy`` hands ``fn`` a
+        copy where it would get ``t`` itself (an in-place reduction must
+        not write into an autograd input)."""
         group = self._group(axis)
+        rec = COLLECTIVES[kind]
+        rec["count"] += 1
+        rec["bytes"] += _RING[kind](t.numel() * t.element_size(),
+                                    dist.get_world_size(group))
         staged = t.is_cuda and dist.get_backend(group) == "gloo"
         if staged:
             h = t.detach().cpu()
@@ -345,7 +376,7 @@ class Layout:
         def fn(h, group):
             dist.all_reduce(h, group=group)
             return h
-        return self._collective(t, axis, fn, copy=copy)
+        return self._collective(t, axis, fn, "all-reduce", copy=copy)
 
     def reduce_model(self, t: torch.Tensor, *,
                      copy: bool = False) -> torch.Tensor:
@@ -378,7 +409,7 @@ class Layout:
             out = torch.empty_like(parts[0])
             dist.reduce_scatter(out, parts, group=group)
             return out
-        return self._collective(t, "data", fn)
+        return self._collective(t, "data", fn, "reduce-scatter")
 
     def _gather(self, t: torch.Tensor, axis: str, n: int,
                 dim: int) -> torch.Tensor:
@@ -389,7 +420,7 @@ class Layout:
             parts = [torch.empty_like(h) for _ in range(n)]
             dist.all_gather(parts, h, group=group)
             return torch.cat(parts, dim=dim)
-        return self._collective(t, axis, fn)
+        return self._collective(t, axis, fn, "all-gather")
 
     def gather_model(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Concatenate every "model" rank's ``t`` along ``dim``."""
@@ -413,7 +444,7 @@ class Layout:
                 if dist.get_rank() == root else None
             dist.gather(h, parts, dst=root, group=group)
             return None if parts is None else torch.cat(parts, dim=dim)
-        return self._collective(t, axis, fn)
+        return self._collective(t, axis, fn, "gather")
 
     def gather_rows(self, t: torch.Tensor, rows: Optional[slice]):
         """Every data rank's rows of ``t`` (dim 0), when the step's rows

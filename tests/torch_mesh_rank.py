@@ -11,9 +11,23 @@ serving case (:func:`run_case`) serves a set of requests through
 the CPU, whose wrapper then runs the kernel's plain version). A training
 case (``"train"`` in the case, :func:`run_train_case`) runs a few steps of
 ``make_train_step(..., mesh=...)`` and returns every step's metrics and
-the whole parameters, m and v gathered from the ranks. This file imports
+the whole parameters, m and v gathered from the ranks. An elastic case
+(``"elastic"`` in the case, :func:`run_elastic_case`) runs ``run_training``
+with a scripted hard failure and ``remesh_fn`` dropping a data row
+(``launch.mesh.degraded_mesh``): the dropped ranks leave, the survivors
+join a fresh group on a new store and go on. This file imports
 torch and ``repro_torch`` only (never jax), and runs every rank with one
 thread. A rank that fails or hangs past the timeout fails the whole spawn.
+
+Each rank dumps every thread's Python stack if it is killed by a signal
+(``faulthandler``: an abort in a C++ thread then names where the rank
+was), bounds every collective by ``COLLECTIVE_TIMEOUT`` (a peer that is
+gone or stuck raises on the waiting rank with a traceback, within the
+spawn's timeout), prints its own traceback on any error, and ends with a
+barrier, the process group destroyed and ``os._exit``: interpreter
+finalization, which would tear down the objects holding process groups
+(device meshes, a layout's part groups) in no set order while gloo's
+threads still run, is skipped.
 """
 from __future__ import annotations
 
@@ -24,6 +38,9 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# a collective that waits longer raises on the rank (below the spawn's own
+# timeout, so that the rank's traceback reaches its log first)
+COLLECTIVE_TIMEOUT = 180.0
 SRC = os.path.join(HERE, "..", "src")
 
 
@@ -269,6 +286,109 @@ def run_train_case(case: dict, weights: dict) -> dict:
     return out
 
 
+def run_elastic_case(case: dict, weights: dict, store: str) -> dict:
+    """``run_training`` of ``case["elastic"]`` on this rank of a (data,
+    model) mesh: each data rank takes ``rows`` rows of every batch (the
+    global batch is ``rows`` x the data axis, so it shrinks with it), a
+    checkpoint after every step. ``fail_at``: a hard failure at that step
+    (every retry fails), after which ``remesh_fn`` drops the last data row
+    and rebuilds the step on the survivors' mesh (new store
+    ``{store}.degraded``). ``slow``: {rank: step} — that rank's clock finds
+    the step past ``step_timeout_s`` (the runner's straggler check), no
+    other rank's does. Returns the history, the metrics and, gathered to
+    rank 0 of the final mesh, the whole parameters, m and v; ``left`` on a
+    rank that left."""
+    import dataclasses
+    import datetime
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import resilient, steps
+    from repro_torch.runtime.resilient import RunnerConfig, run_training
+
+    cfg = dataclasses.replace(configs.get_reduced(case["arch"]),
+                              **case.get("cfg", {}))
+    el = dict(case["elastic"])
+    pool, rows = el.pop("batches"), el.pop("rows")
+    fail_at, slow = el.pop("fail_at", None), el.pop("slow", {})
+    ckpt_dir, timeout = el.pop("ckpt_dir"), el.pop("step_timeout_s", 3600.0)
+    for name, default in (("grad_dtype", "bfloat16"),
+                          ("opt_dtype", "float32")):
+        el[name] = getattr(torch, el.get(name, default))
+    settings = steps.TrainSettings(**el)
+    opt_cfg = AdamWConfig(lr=1e-3, state_dtype=settings.opt_dtype)
+    now = {"mesh": tmesh.make_local_mesh(*case["mesh"])}
+    now["step"] = steps.make_train_step(cfg, opt_cfg, settings,
+                                        mesh=now["mesh"])
+    first = now["mesh"]
+    me = torch.distributed.get_rank()
+    real_time = resilient.time
+    if me in slow:
+        # the runner reads the clock twice a step (start, check): this
+        # rank's check of step slow[me] reads past the timeout
+        calls = iter(range(1 << 30))
+        late = 2 * slow[me] + 1
+
+        class Clock:
+            @staticmethod
+            def time():
+                extra = 2 * timeout if next(calls) == late else 0.0
+                return real_time.time() + extra
+        resilient.time = Clock
+
+    def batches(i):
+        dp = now["mesh"].size(0)
+        return {"batch": {k: torch.from_numpy(v[:rows * dp])
+                          for k, v in pool[i].items()}, "step": i}
+
+    def remesh_fn():
+        now["mesh"] = tmesh.degraded_mesh(
+            now["mesh"], drop_data=1, init_method=f"file://{store}.degraded",
+            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT))
+        now["step"] = steps.make_train_step(cfg, opt_cfg, settings,
+                                            mesh=now["mesh"])
+        return now["step"]
+
+    metrics = []
+    whole0 = from_jax_params(weights[case["weights"]], dtype=cfg.dtype,
+                             device="cpu")
+    params = now["step"].shards.cut(whole0)
+    try:
+        params, state, hist = run_training(
+            cfg=RunnerConfig(ckpt_dir=ckpt_dir, ckpt_every=1,
+                             step_timeout_s=timeout),
+            train_step=now["step"], params=params,
+            opt_state=adamw_init(params, opt_cfg), batches=batches,
+            num_steps=len(pool),
+            inject_failure=None if fail_at is None else (
+                lambda s, r: s == fail_at and now["mesh"] is first),
+            remesh_fn=remesh_fn, shards=now["step"].shards,
+            on_metrics=lambda i, m: metrics.append(
+                (i, m["loss"], m["grad_norm"])))
+    except tmesh.LeftMesh:
+        return {"left": True, "rank": me, "metrics": metrics}
+    finally:
+        resilient.time = real_time
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.float().numpy()
+
+    whole = now["step"].shards.whole_state({"params": params, "opt": state})
+    out = {"left": False, "rank": me, "history": hist, "metrics": metrics,
+           "mesh": tuple(now["mesh"].shape), "params": None, "m": None,
+           "v": None}
+    if whole is not None:
+        out.update(params=host(whole["params"]), m=host(whole["opt"]["m"]),
+                   v=host(whole["opt"]["v"]))
+    return out
+
+
 def run_ops_case(case: dict, weights: dict) -> dict:
     """The autograd-aware collectives on this rank of a (1, tp) mesh, on
     ``case["ops"]``'s numpy inputs: a Megatron MLP (``copy_to_model``,
@@ -309,17 +429,22 @@ def _leaves(tree):
 
 
 def main(rank: int, world: int, store: str, payload: str, out: str) -> None:
+    import datetime
+
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as tmesh
 
     torch.set_num_threads(1)
-    tmesh.init_process_group("cpu", init_method=f"file://{store}",
-                             rank=rank, world_size=world)
+    tmesh.init_process_group(
+        "cpu", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT))
     with open(payload, "rb") as f:
         job = pickle.load(f)
     def run(case):
+        if "elastic" in case:
+            return run_elastic_case(case, job["weights"], store)
         fn = run_train_case if "train" in case else \
             run_ops_case if "ops" in case else run_case
         return fn(case, job["weights"])
@@ -327,9 +452,22 @@ def main(rank: int, world: int, store: str, payload: str, out: str) -> None:
     results = {case["name"]: run(case) for case in job["cases"]}
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
-    dist.barrier()
-    dist.destroy_process_group()
+    if dist.is_initialized():       # a rank that left a mesh has no group
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])
+    import faulthandler
+    import traceback
+
+    faulthandler.enable(all_threads=True)
+    code = 0
+    try:
+        main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
