@@ -295,8 +295,11 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              multi-GPU figure: the ranks share one card.
 14. mesh-train — training on a (data, model) mesh of 4 ranks spawned on
              the one card (``chip_smoke.py --mesh-train-rank``, gloo, as
-             phase 13): h2o-danube-1.8b at full width, its first 4 of 24
-             layers (the cut and its ``train_bytes`` printed, with each
+             phase 13): h2o-danube-1.8b at full width, its first 1 of 24
+             layers (``MESH_TRAIN_LAYERS``: the elastic run's four
+             checkpoints, gathered to rank 0 through host memory, made
+             most of the phase at 4; the cut and its ``train_bytes``
+             printed, with each
              mesh's shares and the bytes a step sends through host memory
              reckoned before the run), 8 x 1024 tokens a step under
              danube's preset (``launch.presets.settings_for``: 4
@@ -311,12 +314,14 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              kernel; each rank's step ms beside the one process's. Phase 3
              also holds the flash forward and its gradients at the ranks'
              heads (8/2 and 16/4 of 80, window 4096); phase 5 times the
-             forward there (row 7d). Then whisper-small at full width
-             and depth, 4 x 448 tokens over 1500 frames a row at 2x2 under
+             forward there (row 7d). Then whisper-small at full width,
+             its first 2 of 12 decoder and encoder layers
+             (``MESH_TRAIN_WHISPER_LAYERS``, for the script's time), 4 x
+             448 tokens over 1500 frames a row at 2x2 under
              its preset (4 microbatches of one row, so every data rank
              runs every row; FSDP, ZeRO-2), held the same way, flash
-             launching 2 x 24 x 4 a step on every rank (the encoder's 12
-             layers and the decoder's 12). Last, the elastic run
+             launching 2 x 4 x 4 a step on every rank (the encoder's 2
+             layers and the decoder's 2). Last, the elastic run
              (``MESH_ELASTIC``): danube as above at 2x2 through
              ``run_training`` with a checkpoint after every step (its steps
              0 and 1 are the 2x2 mesh, held against the one process as
@@ -341,7 +346,28 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              danube and llama3-405b (2 of 126 layers for its train cell)
              at 16x16, train_4k and decode_32k, and danube's train_4k at
              15x16, global batch 240 (JAX's elastic cell): each rank-0
-             record's peak, fit, FLOPs and collectives. Nothing launches.
+             record's peak, fit, FLOPs and collectives; a decode cell
+             is JAX's (the ring state of ``input_specs``, its batch over
+             "data" and its window over "model"), printed beside the
+             paged departure, llama3-405b's decode_32k first. Nothing
+             launches.
+16. ring   — the ring engine (``ServingEngine(paged=False)``): (a)
+             h2o-danube-1.8b at full width and depth, W4A16, 8 requests of
+             512 + 32 tokens, each prompt prefilled whole through the
+             flash kernel, counters set to 0 just before and read just
+             after (24 flash and 168 W4A16 launches a prefill, 168 W4A16
+             a decode step, no paged attention), its prefill logits and
+             first decode step's logits within LOGIT_TOL of the paged
+             engine's on the same weights, greedy tokens compared with the
+             first divergence printed; (b) danube's first 2 layers on 1x2
+             gloo ranks sharing the card (the window cut over "model": a
+             decode step all-gathers the new K/V and q and merges each
+             rank's softmax partials), first-token and first decode step's
+             logits against one process within LOGIT_TOL, launches equal;
+             (c) the planner's refine pass (``kernels/autotune.py``) at
+             granite's (6144, 128) and llama3 TP=4's (16384, 256), M = 1,
+             8, 16: the refined split held against the plain version and
+             timed beside the default split and ``torch.matmul``.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -5165,8 +5191,9 @@ def time_mesh_families(torch, dev, gen, timer, card, floor_ms):
 
 def mesh_cfg(arch, layers, what=""):
     """The full config at ``layers`` layers (None: all), the activations
-    fp32 for ``what == "fp32"``, whisper's encoder on the flash kernel
-    (as the serve launcher sets it on a card)."""
+    fp32 for ``what == "fp32"``, whisper's encoder and a ring run's
+    whole-prompt prefill on the flash kernel (as the serve launcher sets
+    them on a card)."""
     import torch
     from repro_torch import configs
     cfg = configs.get_config(arch)
@@ -5174,7 +5201,7 @@ def mesh_cfg(arch, layers, what=""):
         cfg = dataclasses.replace(cfg, num_layers=layers)
     if what == "fp32":
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    if cfg.family == "encdec":
+    if cfg.family == "encdec" or what == "ring":
         cfg = dataclasses.replace(cfg, attn_impl="flash")
     return cfg
 
@@ -5224,13 +5251,18 @@ def mesh_serve_run(torch, dev, cfg, params, table, mesh=None, what=""):
     ngram run wraps every verify step (``capture_carry_verify``): exact
     acceptance, each carry commit equal to checkpoint 1 + accepted, the
     verify logits at each row's first position against a decode step
-    replayed from the same carry. Returns a summary: tokens, first-token
+    replayed from the same carry. A ring run (phase 16) serves on the
+    ring engine (``paged=False``; its prompts prefill whole) and keeps the
+    first decode step's logits. Returns a summary: tokens, first-token
     logits, launches, forwards, admits and times."""
     from repro_torch.runtime.engine import ServingEngine
     kw = dict(MESH_KW)
     if what == "ngram":
         kw.update(speculate="ngram", spec_k=SPEC_K)
+    if what == "ring":
+        kw = dict(RING_MESH_KW)
     engine = ServingEngine(cfg, params, mesh=mesh, device=dev, **kw)
+    step0 = first_step_logits(engine) if what == "ring" else {}
     reqs = mesh_requests(cfg, what)
     if what == "ngram":
         kernels = ("w4a16_gemm",) + (() if cfg.attn_free
@@ -5246,7 +5278,7 @@ def mesh_serve_run(torch, dev, cfg, params, table, mesh=None, what=""):
     wall = time.perf_counter() - t0
     counts = read_counts(table)
     chunks = sum(-(-len(r.prompt) // engine.prefill_chunk) for r in reqs) \
-        - rep.prefill_steps_saved
+        - rep.prefill_steps_saved if engine.chunked else 0
     replays = 0
     if what == "ngram":
         # each verify step also ran a decode step replayed from its carry
@@ -5277,7 +5309,8 @@ def mesh_serve_run(torch, dev, cfg, params, table, mesh=None, what=""):
                d_inner=engine.cfg.d_inner if cfg.family == "hybrid" else 0,
                plans={k: p.split_k for k, p in engine.plans.items()},
                paths=(engine.attn_path, engine.prefill_attn_path),
-               spec=(rep.proposed_tokens, rep.accepted_tokens))
+               spec=(rep.proposed_tokens, rep.accepted_tokens),
+               step0=step0)
     del engine
     return out
 
@@ -5495,14 +5528,22 @@ def mesh_serve(torch, dev, card, table):
 # the runs: (arch, decoder layers kept (None: all), rows, tokens a row,
 # meshes), each under the arch's preset (launch.presets.settings_for),
 # FAMILY_STEPS steps on every mesh against one process. h2o-danube-1.8b
-# at full width, its first 4 of 24 layers (a one-process reference and
-# four ranks share the card), 8 x 1024 tokens (4 microbatches, FSDP,
-# ZeRO-2) at 1x4 (and at 2x2: the elastic run, MESH_ELASTIC);
-# whisper-small at full width and depth, 4 x 448 tokens over 1500 frames
+# at full width, its first MESH_TRAIN_LAYERS of 24 layers (a one-process
+# reference and four ranks share the card; 1 layer since the elastic run's
+# four checkpoints, gathered to rank 0 through host memory, were most of
+# the phase at 4), 8 x 1024 tokens (4 microbatches, FSDP, ZeRO-2) at 1x4
+# (and at 2x2: the elastic run, MESH_ELASTIC);
+# whisper-small at full width, its first MESH_TRAIN_WHISPER_LAYERS decoder
+# and encoder layers, 4 x 448 tokens over 1500 frames
 # a row (4 microbatches of one row: every data rank runs every row; FSDP,
 # ZeRO-2) at 2x2
-MESH_TRAIN_RUNS = [("h2o-danube-1.8b", 4, 8, 1024, [(1, 4)]),
-                   ("whisper-small", None, 4, 448, [(2, 2)])]
+MESH_TRAIN_LAYERS = 1
+# whisper-small's decoder and encoder layers kept (2 of 12 each; cut too,
+# for the script's time)
+MESH_TRAIN_WHISPER_LAYERS = 2
+MESH_TRAIN_RUNS = [
+    ("h2o-danube-1.8b", MESH_TRAIN_LAYERS, 8, 1024, [(1, 4)]),
+    ("whisper-small", MESH_TRAIN_WHISPER_LAYERS, 4, 448, [(2, 2)])]
 # the elastic run, last (two of its ranks leave): danube as above at 2x2
 # through ``run_training`` with a checkpoint after every step; its steps 0
 # and 1 are the 2x2 mesh held against the one process as every mesh is;
@@ -5512,11 +5553,12 @@ MESH_TRAIN_RUNS = [("h2o-danube-1.8b", 4, 8, 1024, [(1, 4)]),
 # (1, 2) shares and train steps 2 and 3 on the first 4 rows (a data
 # rank's 4 rows, as before), held against one process restoring the same
 # checkpoint and running the same batches
-MESH_ELASTIC = ("h2o-danube-1.8b", 4, 8, 1024, (2, 2))
+MESH_ELASTIC = ("h2o-danube-1.8b", MESH_TRAIN_LAYERS, 8, 1024, (2, 2))
 ELASTIC_STEPS, ELASTIC_FAIL = 4, 2
 # phase 15's measured peaks: cell -> (the phase's peak device bytes less
 # what was allocated before the cell's own tensors, the cell's geometry)
 PEAKS = {}
+MESH_TRAIN_PEAK = f"danube-{MESH_TRAIN_LAYERS}L-train-mesh-1x4 rank (0, 0)"
 # the flash kernel's shapes there (a rank's rows of a microbatch, its
 # heads): (label, B, S, Hq, Hkv, D, causal, window); whisper's are
 # MESH_FAMILY_FLASH
@@ -5525,11 +5567,14 @@ MESH_TRAIN_FLASH = [("danube tp4 (1x4)", 2, 1024, 8, 2, 80, True, 4096),
 
 
 def mesh_train_cfg(arch, layers):
-    """The full config at ``layers`` decoder layers, on the flash kernel."""
+    """The full config at ``layers`` decoder layers (and as many encoder
+    layers at most), on the flash kernel."""
     from repro_torch import configs
     cfg = configs.get_config(arch)
     if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = dataclasses.replace(
+            cfg, num_layers=min(layers, cfg.num_layers),
+            encoder_layers=min(layers, cfg.encoder_layers))
     return dataclasses.replace(cfg, attn_impl="flash")
 
 
@@ -5561,7 +5606,10 @@ def reckon_mesh_train(cfg, settings, card, B, S, meshes):
     from repro_torch.runtime.sharding import TrainShards
     full = configs.get_config(cfg.name)
     log("mesh-train", f"{cfg.name}: depth cut to {cfg.num_layers} of "
-        f"{full.num_layers} layers, full width (d_model {cfg.d_model}, "
+        f"{full.num_layers} layers"
+        + (f" (encoder {cfg.encoder_layers} of {full.encoder_layers})"
+           if full.encoder_layers else "")
+        + f", full width (d_model {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.sliding_window}, "
         f"{str(cfg.dtype).split('.')[-1]}, remat {cfg.remat}): "
@@ -6017,9 +6065,9 @@ def mesh_train(torch, card):
     bad += hold_mesh_elastic([o["elastic"] for o in out],
                              out[0]["runs"][0]["ref"]["metrics"], card)
     r0 = out[0]["runs"][0]["meshes"][0]
-    PEAKS["danube-4L-train-mesh-1x4 rank (0, 0)"] = (
+    PEAKS[MESH_TRAIN_PEAK] = (
         (r0["peak_gib"] - r0["base_gib"]) * 2 ** 30,
-        dict(mesh=r0["mesh"], B=8, S=1024))
+        dict(mesh=r0["mesh"], B=8, S=1024, layers=MESH_TRAIN_LAYERS))
     if bad:
         raise AssertionError(f"phase 14: {bad}")
 
@@ -6106,10 +6154,13 @@ PEAK_REL, PEAK_ABS = 0.10, 256 * 2 ** 20
 # train_4k keeps 2 of its 126 layers (its 16 microbatches x 126 layers of
 # meta ops would take minutes of host time), the rest full depth; the last
 # is JAX's elastic cell: danube on the 15x16 survivors at batch 240
-DRYRUN_GRID = [("h2o-danube-1.8b", "train_4k", None, 0, None),
+# a decode shape's cell is JAX's (the ring state cut over "data" and
+# "model"), then the paged departure beside it; llama3-405b's decode_32k
+# first
+DRYRUN_GRID = [("llama3-405b", "decode_32k", None, 0, None),
                ("h2o-danube-1.8b", "decode_32k", None, 0, None),
+               ("h2o-danube-1.8b", "train_4k", None, 0, None),
                ("llama3-405b", "train_4k", 2, 0, None),
-               ("llama3-405b", "decode_32k", None, 0, None),
                ("h2o-danube-1.8b", "train_4k", None, 1, 240)]
 
 
@@ -6152,7 +6203,7 @@ def dryrun_cells(torch):
                   peak, "the launcher's run, its checkpoints included"))
     peak, geo = PEAKS["danube-serve-8x512 decode step"]
     cells.append(("danube-serve-8x512 decode step (phase 4, one device)",
-                  dryrun.decode_cell(
+                  dryrun.decode_paged_cell(
                       danube, geo["B"], geo["cache_len"],
                       page_size=geo["page_size"],
                       num_blocks=geo["num_blocks"],
@@ -6167,10 +6218,9 @@ def dryrun_cells(torch):
                       torch, whisper, geo["B"], geo["S"]), TrainSettings(),
                       opt_cfg=opt_cfg),
                   peak, "the flash run's four steps"))
-    peak, geo = PEAKS["danube-4L-train-mesh-1x4 rank (0, 0)"]
-    cut = dataclasses.replace(danube, num_layers=4)
-    cells.append(("danube-4L-train-mesh-1x4 rank (0, 0) (phase 14, a fake "
-                  "world of 4)",
+    peak, geo = PEAKS[MESH_TRAIN_PEAK]
+    cut = dataclasses.replace(danube, num_layers=geo["layers"])
+    cells.append((f"{MESH_TRAIN_PEAK} (phase 14, a fake world of 4)",
                   dryrun.train_cell(cut, meta_batch(torch, cut, geo["B"],
                                                     geo["S"]),
                                     settings_for(ARCH), opt_cfg=opt_cfg,
@@ -6224,13 +6274,22 @@ def dryrun_phase(torch, card):
                    "sees"))
     if dist.is_initialized():
         dist.destroy_process_group()
-    for arch, shape, layers, drop, batch in DRYRUN_GRID:
+    grid = [(arch, shape, layers, drop, batch, paged)
+            for arch, shape, layers, drop, batch in DRYRUN_GRID
+            for paged in ((False, True)
+                          if dryrun.SHAPES[shape].kind == "decode"
+                          else (False,))]
+    for arch, shape, layers, drop, batch, paged in grid:
         rec = dryrun.run_cell(arch, shape, layers=layers, drop_data=drop,
-                              global_batch=batch, verbose=False)
+                              global_batch=batch, paged=paged,
+                              verbose=False)
         if rec["status"] != "OK":
             raise AssertionError(f"dry run {arch} {shape}: {rec}")
         b, c = rec["bytes_per_device"], rec["collectives"]
-        log("dryrun", f"{arch} {shape} at {rec['mesh']}"
+        cell = {"ring": " JAX's cell (the ring state)",
+                "paged (departure)": " the paged departure"}.get(
+            rec.get("cell"), "")
+        log("dryrun", f"{arch} {shape}{cell} at {rec['mesh']}"
             + (f", global batch {batch}" if batch else "")
             + (f", {layers} of {dryrun.configs.get_config(arch).num_layers}"
                f" layers" if layers else "")
@@ -6246,6 +6305,254 @@ def dryrun_phase(torch, card):
         dist.destroy_process_group()
     log("dryrun", f"phase 15 took {time.perf_counter() - t0:.1f} s; "
         f"{len(misses)} predictions missed: {misses}")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the ring engine
+# ---------------------------------------------------------------------------
+
+# (a) danube at full width and depth, W4A16, 8 requests of 512 + RING_GEN
+# tokens through ServingEngine(paged=False) beside the paged engine on the
+# same weights
+RING_GEN = 32
+RING_KW = dict(max_batch=8, max_prompt_len=512, max_new_tokens=RING_GEN)
+# (b) danube's first 2 layers on 1x2 gloo ranks against one process,
+# phase 13's requests (4 slots, 128 + 8 tokens)
+RING_MESH_KW = dict(max_batch=4, max_prompt_len=MESH_PROMPT,
+                    max_new_tokens=MESH_GEN, paged=False)
+RING_MESH = [("h2o-danube-1.8b", 2, (1, 2), False, "ring")]
+# (c) the refine pass at the worst shapes of PERF.md rows 1d and 1e
+REFINE_SHAPES = [("granite (6144, 128)", 6144, 128),
+                 ("llama3 tp4 wk/wv (16384, 256)", 16384, 256)]
+REFINE_M = (1, 8, 16)
+
+
+def first_step_logits(engine):
+    """Keep the first decode step's logits and input tokens of
+    ``engine`` (its serve steps wrapped) in the returned dict."""
+    box = {}
+    make = engine._serve_step
+
+    def serve_step(live_pages=None):
+        fn = make(live_pages)
+
+        def run(params, inputs):
+            res = fn(params, inputs)
+            if "logits" not in box:
+                box.update(logits=res["logits"].float().cpu(),
+                           tokens=inputs["tokens"].cpu())
+            return res
+        return run
+    engine._serve_step = serve_step
+    return box
+
+
+def step_gap(a, b):
+    """max|d| of two first decode steps' logits over the rows whose input
+    tokens agree, and how many rows that is."""
+    same = (a["tokens"] == b["tokens"]).nonzero().flatten().tolist()
+    rows = [r for r in same if r < a["logits"].shape[0]]
+    if not rows:
+        return float("inf"), 0
+    return float((a["logits"][rows] - b["logits"][rows]).abs().max()), \
+        len(rows)
+
+
+def first_divergence(got, want):
+    """(request, token index, got, want) of the first greedy token that
+    differs, or None."""
+    return next(((r, i, a, b) for r in sorted(want)
+                 for i, (a, b) in enumerate(zip(got[r], want[r]))
+                 if a != b), None)
+
+
+def ring_serve(torch, dev, card, table):
+    """Phase 16(a): danube at full width and depth (W4A16, bf16) serves
+    ``RING_KW``'s 8 requests of 512 + 32 tokens through the ring engine,
+    counters set to 0 just before and read just after: every whole-prompt
+    prefill launching 24 flash and 168 W4A16 kernels, every decode step
+    168 W4A16 and no paged attention. Its prefill logits and first decode
+    step's logits (rows whose input tokens agree) against the paged
+    engine's on the same weights within LOGIT_TOL; greedy tokens compared
+    and the first divergence printed with the paged engine's logit gap
+    there."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.engine import ServingEngine
+    cfg = dataclasses.replace(configs.get_config(ARCH), attn_impl="flash")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.quantize_params(T.init_params(gen, cfg, device=dev), cfg,
+                               min_size=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reqs = launcher.make_requests(cfg, 8, 512, RING_GEN, 0)
+    out = {}
+    for name, kw in (("ring", dict(paged=False)),
+                     ("paged", dict(page_size=8, prefill_chunk=32))):
+        engine = ServingEngine(cfg, params, device=dev, **RING_KW, **kw)
+        step0 = first_step_logits(engine)
+        torch.cuda.synchronize()
+        reset_counts(table)
+        t0 = time.perf_counter()
+        rep = engine.run(reqs)
+        torch.cuda.synchronize()
+        out[name] = dict(rep=rep, step0=step0, counts=read_counts(table),
+                         wall=time.perf_counter() - t0,
+                         path=engine.attn_path, cache_len=engine.cache_len)
+        del engine
+    ring, paged = out["ring"], out["paged"]
+    rep = ring["rep"]
+    L, steps = cfg.num_layers, len(rep.step_records)
+    want = {"w4a16_gemm": 7 * L * (rep.admitted + steps),
+            "flash_attention": L * rep.admitted, "paged_attention": 0}
+    counts = ring["counts"]
+    others = {k: v for k, v in counts.items() if v and k not in want}
+    got = {k: counts[k] for k in want}
+    d_pre = max(float((rep.prefill_logits[r].float()
+                       - paged["rep"].prefill_logits[r].float())
+                      .abs().max()) for r in rep.results)
+    d_step, rows = step_gap(ring["step0"], paged["step0"])
+    toks = [a == b for r in rep.results
+            for a, b in zip(rep.results[r], paged["rep"].results[r])]
+    first = first_divergence(rep.results, paged["rep"].results)
+    gap = "none"
+    if first is not None:
+        r, i = first[:2]
+        gap = f"request {r} token {i}: {first[2]} vs {first[3]}"
+        if i == 0:
+            lg = paged["rep"].prefill_logits[r].float()
+            gap += (f", the paged engine's logit gap "
+                    f"{float(lg.max() - lg[first[2]]):.3e}")
+    ok = got == want and not others and d_pre <= LOGIT_TOL \
+        and d_step <= LOGIT_TOL and rows > 0 \
+        and all(len(v) == RING_GEN for v in rep.results.values())
+    pst = max(len(paged["rep"].step_records), 1)
+    log("ring", f"{ARCH} W4A16 ({L} layers, full width; built "
+        f"{build_s:.1f} s) ring engine (attn path {ring['path']}, "
+        f"cache_len {ring['cache_len']} a slot): {len(rep.results)} x 512 + "
+        f"{RING_GEN} in {ring['wall']:.2f} s, prefill {rep.prefill_s:.3f} "
+        f"s, decode {rep.decode_s / max(steps, 1) * 1e3:.2f} ms/step over "
+        f"{steps} steps (paged engine: {paged['wall']:.2f} s, prefill "
+        f"{paged['rep'].prefill_s:.3f} s, decode "
+        f"{paged['rep'].decode_s / pst * 1e3:.2f} ms/step over {pst}); "
+        f"launches " + ", ".join(f"{k} {got[k]}" for k in want)
+        + f" (want {', '.join(str(want[k]) for k in want)}: "
+        f"{rep.admitted} whole-prompt prefills, {steps} decode steps; "
+        f"others {others or 'none'}); vs the paged engine: prefill logits "
+        f"max|d|={d_pre:.3e}, first decode step's logits max|d|="
+        f"{d_step:.3e} over {rows} rows whose tokens agree (tolerance "
+        f"{LOGIT_TOL}), greedy tokens equal {sum(toks)}/{len(toks)}, "
+        f"first divergence {gap} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("phase 16: the ring engine disagrees with the "
+                             "paged engine or missed its kernels")
+    del params
+    torch.cuda.empty_cache()
+
+
+def ring_mesh(torch, dev, card, table):
+    """Phase 16(b): danube's first 2 layers at full width on the ring
+    engine, on 1x2 gloo ranks sharing the card (``spawn_mesh``: the window
+    cut over "model", each rank's slice for every KV head) against one
+    process serving the same weights: first-token logits and the first
+    decode step's logits within LOGIT_TOL, W4A16 7 a layer a forward and
+    flash 1 a layer an admit on every rank (equal to the one process's),
+    no paged attention, the ranks' tokens equal, the first greedy token
+    that differs from the one process printed."""
+    arch, layers, dm, serial, what = RING_MESH[0]
+    cfg = mesh_cfg(arch, layers, what)
+    params = mesh_weights(torch, dev, cfg)
+    ref = mesh_serve_run(torch, dev, cfg, params, table, what=what)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_mesh([list(r) for r in RING_MESH], dm[0] * dm[1],
+                       phase="ring")
+    ranks = [res[0] for res in ranks]
+    L = cfg.num_layers
+    want = {"w4a16_gemm": 7 * L * (ref["admits"] + ref["steps"]),
+            "flash_attention": L * ref["admits"], "paged_attention": 0}
+    bad = []
+    for res in ranks:
+        d = max(float((res["logits"][r] - ref["logits"][r]).abs().max())
+                for r in ref["logits"])
+        d_step, rows = step_gap(res["step0"], ref["step0"])
+        got = {k: res["launches"][k] for k in want}
+        one = {k: ref["launches"][k] for k in want}
+        others = {k: v for k, v in res["launches"].items()
+                  if v and k not in want}
+        first = first_divergence(res["tokens"], ref["tokens"])
+        ok = d <= LOGIT_TOL and d_step <= LOGIT_TOL and rows > 0 \
+            and got == want == one and not others \
+            and res["tokens"] == ranks[0]["tokens"]
+        bad += [] if ok else [res["coords"]]
+        log("ring", f"{arch}-{L}L ring at {dm[0]}x{dm[1]} rank "
+            f"{res['coords']} ({res['backend']}): heads {res['heads'][0]}/"
+            f"{res['heads'][1]}, first-token logits vs one process max|d|="
+            f"{d:.3e}, first decode step's logits max|d|={d_step:.3e} over "
+            f"{rows} rows (tolerance {LOGIT_TOL}), launches "
+            + ", ".join(f"{k} {got[k]}" for k in want)
+            + f" (want {', '.join(str(want[k]) for k in want)}; one "
+            f"process {', '.join(str(one[k]) for k in want)}; others "
+            f"{others or 'none'}), first differing greedy token "
+            f"{'none' if first is None else f'request {first[0]} token {first[1]}: {first[2]} vs {first[3]}'}"
+            f"; decode {res['decode_s'] / max(res['steps'], 1) * 1e3:.1f} "
+            f"ms/step (one process "
+            f"{ref['decode_s'] / max(ref['steps'], 1) * 1e3:.1f}) "
+            f"{'ok' if ok else 'FAIL'} [ranks share one card: {card}]")
+    log("ring", f"{dm[0] * dm[1]} ranks on one card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"phase 16: ring ranks {bad} disagree with "
+                             f"the one process")
+
+
+def refine_check(torch, dev, card):
+    """Phase 16(c): the refine pass's plan (``plan_matmul(refine=True)``:
+    ``kernels/autotune.py``'s split_k) at ``REFINE_SHAPES`` and
+    ``REFINE_M``, held against the plain version at that split (GEMM_TOL),
+    then timed beside the default plan's split and ``torch.matmul`` on the
+    dense bf16 weight (phase 5's timer, L2 flushed). No claim: the ranking
+    is a model."""
+    from repro_torch.kernels import planning, ref
+    from repro_torch.kernels.w4a16_fused import (w4a16_fused,
+                                                 w4a16_fused_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    timer = Timer(torch, dev)
+    for label, K, N in REFINE_SHAPES:
+        for M in REFINE_M:
+            x, qt = gemm_case(torch, K, N, M, gen, dev)
+            prob = planning.MatmulProblem.from_operands(x, qt)
+            default = planning.plan_matmul(prob, use_cache=False).split_k
+            refined = planning.plan_matmul(prob, refine=True,
+                                           use_cache=False).split_k
+            held("w4a16_gemm", f"refined plan {label} M={M} split_k="
+                 f"{refined}", w4a16_fused(x, qt, split_k=refined),
+                 w4a16_fused_plain(x, qt, split_k=refined), f32=False)
+            w = ref.dequant_ref(qt.packed, qt.scales, qt.zeros,
+                                qt.group_size, out_dtype=x.dtype)
+            ms_ref = timer(lambda: w4a16_fused(x, qt, split_k=refined))
+            ms_def = timer(lambda: w4a16_fused(x, qt, split_k=default))
+            ms_mm = timer(lambda: torch.matmul(x, w))
+            log("ring", f"refine {label} M={M}: refined split_k {refined} "
+                f"{ms_ref:.4f} ms, default split_k {default} {ms_def:.4f} "
+                f"ms, torch.matmul on the dense bf16 weight {ms_mm:.4f} ms "
+                f"[{card}]")
+            del x, qt, w
+    del timer
+    torch.cuda.empty_cache()
+
+
+def ring_phase(torch, dev, card, table):
+    """Phase 16: the ring engine on one card and on 1x2 ranks, and the
+    planner's refine pass."""
+    ring_serve(torch, dev, card, table)
+    ring_mesh(torch, dev, card, table)
+    refine_check(torch, dev, card)
 
 
 def time_mesh_flash(torch, dev, gen, timer, card):
@@ -6480,6 +6787,10 @@ def main() -> int:
     mesh_train(torch, card)
     log("mesh-train", f"phase 14 took {time.perf_counter() - t0:.1f} s")
     dryrun_phase(torch, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ring_phase(torch, dev, card, table)
+    log("ring", f"phase 16 took {time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),

@@ -206,14 +206,17 @@ def paged_attn_bytes(path: str, B: int, Hq: int, Hkv: int, D: int,
                      ctx: int, *, quantized: bool, act_bytes: int = 2,
                      kv_partitions: int = 1, q_len: int = 1) -> float:
     """Bytes one attention step of ``q_len`` queries per row moves over a
-    ``ctx``-token window: ``gather`` reads the pool, writes the dequantized
-    window and reads it back; ``fused`` reads the pool once and writes
-    O(S·q_len) fp32 partials. A multi-query step (q_len > 1) also stages
-    the chunk's own K/V segment on both paths."""
+    ``ctx``-token window: ``ring`` reads the dense per-slot ring once (it
+    stores no quantized format); ``gather`` reads the pool, writes the
+    dequantized window and reads it back; ``fused`` reads the pool once
+    and writes O(S·q_len) fp32 partials. A multi-query step (q_len > 1)
+    also stages the chunk's own K/V segment on the paged paths."""
     q_out = 2 * B * q_len * Hq * D * act_bytes
     window = B * ctx
     dense_tok = 2 * act_bytes * Hkv * D
     seg = 2 * B * q_len * dense_tok if q_len > 1 else 0
+    if path == "ring":
+        return window * dense_tok + q_out
     pool = window * kv_bytes_per_token(Hkv, D, quantized=quantized,
                                        act_bytes=act_bytes)
     if path == "gather":
@@ -222,7 +225,7 @@ def paged_attn_bytes(path: str, B: int, Hq: int, Hkv: int, D: int,
         partials = kv_partitions * B * q_len * Hq * (D + 2) * 4
         return pool + seg + q_out + partials
     raise ValueError(f"unknown attention path {path!r} "
-                     "(expected gather | fused)")
+                     "(expected ring | gather | fused)")
 
 
 def paged_attn_flops(B: int, Hq: int, D: int, ctx: int, *,
@@ -234,7 +237,7 @@ def paged_attn_flops(B: int, Hq: int, D: int, ctx: int, *,
 def attn_time(path: str, B: int, Hq: int, Hkv: int, D: int, ctx: int, *,
               quantized: bool, act_bytes: int = 2, kv_partitions: int = 1,
               q_len: int = 1) -> float:
-    """Roofline time of one paged-attention step on ``path``."""
+    """Roofline time of one attention step on ``path``."""
     return roofline_s(
         paged_attn_bytes(path, B, Hq, Hkv, D, ctx, quantized=quantized,
                          act_bytes=act_bytes, kv_partitions=kv_partitions,

@@ -7,7 +7,8 @@ a plan (forcing the strategy and split_k when given) and executes it. The
 registered strategies: ``reference`` and ``w4a8_xla`` (the plain paths, for
 CPU operands), ``fused``, ``decoupled``, ``w8a16_fused`` and ``w4a8_fused``
 (the Hopper kernels, for CUDA operands); ``auto`` ranks every strategy that
-supports the tensor's format and device.
+supports the tensor's format and device. ``autotune=True`` runs the
+planner's refine pass (``kernels/autotune.py``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,18 +36,21 @@ __all__ = [
 
 def w4a16_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
                  strategy: str = "auto", split_k: Optional[int] = None,
-                 out_dtype=None) -> torch.Tensor:
+                 autotune: bool = False, out_dtype=None) -> torch.Tensor:
     """C = x · Dequant(W); x may have leading dims. ``auto`` defers to the
     planner (``split_k`` overrides its degree); a named strategy is forced
-    with ``split_k`` defaulting to 1."""
+    with ``split_k`` defaulting to 1, or, with ``autotune``, to the refine
+    pass's."""
     problem = planning.MatmulProblem.from_operands(
         x, qt, out_dtype=out_dtype or x.dtype)
     if strategy == "auto":
-        plan = planning.plan_matmul(problem)
+        plan = planning.plan_matmul(problem, refine=autotune)
         if split_k is not None:
             plan = dataclasses.replace(plan, split_k=split_k)
     else:
-        plan = dataclasses.replace(
-            planning.plan_matmul(problem, strategy=strategy),
-            split_k=1 if split_k is None else split_k)
+        plan = planning.plan_matmul(problem, strategy=strategy,
+                                    refine=autotune)
+        if not autotune:
+            plan = dataclasses.replace(
+                plan, split_k=1 if split_k is None else split_k)
     return planning.execute(plan, x, qt)

@@ -25,11 +25,20 @@ paths still run on the card when asked for by name (the comparisons of
 ``chip_smoke.py``). JAX's ``xla`` strategy is not ported: in eager PyTorch
 it is the same computation as ``reference``.
 
-Attention paths: ``gather`` (materialize the window, plain attention; the
+Attention paths: ``ring`` (the per-slot ring caches of an engine without
+the paged pool: plain attention over the ring, as the JAX package leaves
+it to XLA), ``gather`` (materialize the paged window, plain attention; the
 CPU path) and ``fused`` (the paged-attention kernel, CUDA only).
 
 A ``KernelPlan`` carries no tile sizes: the Hopper GEMM picks its own
-tiles and honours ``split_k`` only.
+tiles and honours ``split_k`` only. ``refine=True`` (``plan_matmul``,
+``plan_for_params``) runs the fused W4A16 strategy's split_k through
+``kernels/autotune.autotune_w4a16``, which ranks the launches the kernel
+accepts by the H100 roofline and their waves over the SMs; the other
+strategies keep the heuristic split (JAX refines every Pallas strategy's
+tiles, which the Hopper kernels pick themselves). A plan JSON-round-trips
+(``to_json``/``from_json``), and a JAX plan's JSON reads with its tiles
+dropped.
 """
 from __future__ import annotations
 
@@ -154,6 +163,14 @@ class KernelPlan:
         the Hopper kernels pick their own tiles)."""
         return cls(**{k: v for k, v in d.items()
                       if k not in cls._JAX_TILES})
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "KernelPlan":
+        """A plan's JSON, of either package (see :meth:`from_dict`)."""
+        return cls.from_dict(json.loads(s))
 
 
 # ---------------------------------------------------------------------------
@@ -476,23 +493,37 @@ def save_plan_cache(path: str) -> int:
 # Planner
 # ---------------------------------------------------------------------------
 
-def _default_plan(problem: MatmulProblem, strategy: str) -> KernelPlan:
+def _default_plan(problem: MatmulProblem, strategy: str,
+                  refine: bool = False) -> KernelPlan:
+    """The heuristic (or, with ``refine``, the searched) plan of one
+    strategy: the refine pass ranks the fused W4A16 kernel's launches
+    (``autotune.autotune_w4a16``) for one GEMM of the problem's shape."""
     split_k = 1
     if get_strategy(strategy).splittable:
         split_k = choose_split_k(problem.M, problem.N, problem.K,
                                  group_size=problem.group_size,
                                  cores=num_cores(problem.backend),
                                  batch=problem.batch)
+        if refine and strategy == "fused" and problem.batch == 1:
+            from repro_torch.kernels.autotune import autotune_w4a16
+
+            split_k = autotune_w4a16(
+                problem.M, problem.N, problem.K, group=problem.group_size,
+                dtype=getattr(torch, problem.act_dtype),
+                has_zeros=problem.has_zeros)[3]
     return KernelPlan(strategy=strategy, split_k=split_k,
                       out_dtype=problem.out_dtype)
 
 
 def plan_matmul(problem: MatmulProblem, *, strategy: Optional[str] = None,
-                use_cache: bool = True,
+                refine: bool = False, use_cache: bool = True,
                 cache: Optional[PlanCache] = None) -> KernelPlan:
     """Choose a :class:`KernelPlan`: the cheapest registered strategy that
     supports the problem's format and shape (memoized), or the named
-    ``strategy`` (a strategy/format mismatch raises)."""
+    ``strategy`` (a strategy/format mismatch raises). ``refine=True`` runs
+    the refine pass (:func:`_default_plan`); it reaches the search even
+    when a plan is cached, and the refined plan replaces the cached one,
+    as in the JAX package."""
     if strategy is not None:
         strat = get_strategy(strategy)
         if not strat.supports_format(problem.format):
@@ -501,10 +532,10 @@ def plan_matmul(problem: MatmulProblem, *, strategy: Optional[str] = None,
                 f"format {problem.format!r} (it supports formats matching "
                 f"{list(strat.formats)}); strategies that do: "
                 f"{list(strategies_for_format(problem.format))}")
-        return _default_plan(problem, strat.name)
+        return _default_plan(problem, strat.name, refine)
 
     cache = cache if cache is not None else PLAN_CACHE
-    if use_cache:
+    if use_cache and not refine:
         hit = cache.get(problem)
         if hit is not None:
             return hit
@@ -513,7 +544,7 @@ def plan_matmul(problem: MatmulProblem, *, strategy: Optional[str] = None,
         if not strat.supports_format(problem.format) \
                 or not strat.supports(problem):
             continue
-        plan = _default_plan(problem, strat.name)
+        plan = _default_plan(problem, strat.name, refine)
         score = strat.cost(problem, plan)
         if best is None or (score, order) < (best[0], best[1]):
             best = (score, order, plan)
@@ -538,12 +569,22 @@ def plan_matmul(problem: MatmulProblem, *, strategy: Optional[str] = None,
 
 
 def resolve_plan(problem: MatmulProblem, cfg=None) -> KernelPlan:
-    """Plan for a model-layer matmul, honouring ``cfg.w4a16_plan`` (a
-    ``{"KxN": KernelPlan}`` mapping, as :func:`plan_for_params` returns)
-    and then ``cfg.w4a16_strategy`` ("auto" defers to the planner)."""
-    plans = getattr(cfg, "w4a16_plan", None) if cfg is not None else None
-    if plans is not None and problem.layer_key in plans:
-        return plans[problem.layer_key]
+    """Plan for a model-layer matmul, honouring ``cfg.w4a16_plan`` and then
+    ``cfg.w4a16_strategy`` ("auto" defers to the planner). The override is
+    a :class:`KernelPlan` (every quantized layer), a mapping from the
+    layer's ``"KxN"`` to a plan or a plan dict (as :func:`plan_for_params`
+    returns; a layer it does not name is planned), or a plan's JSON."""
+    override = getattr(cfg, "w4a16_plan", None) if cfg is not None \
+        else None
+    if isinstance(override, KernelPlan):
+        return override
+    if isinstance(override, str):
+        return KernelPlan.from_json(override)
+    if isinstance(override, Mapping):
+        hit = override.get(problem.layer_key)
+        if hit is not None:
+            return hit if isinstance(hit, KernelPlan) \
+                else KernelPlan.from_dict(hit)
     strategy = getattr(cfg, "w4a16_strategy", "auto") if cfg is not None \
         else "auto"
     if strategy and strategy != "auto":
@@ -667,9 +708,11 @@ def shard_problem(problem: MatmulProblem, mesh, kind: str, *,
 
 
 def plan_for_params(params, M: int, *, strategy: Optional[str] = None,
-                    mesh=None, cfg=None) -> Dict[str, KernelPlan]:
+                    refine: bool = False, mesh=None,
+                    cfg=None) -> Dict[str, KernelPlan]:
     """Pre-plan every quantized layer GEMM in a param tree for ``M`` rows
-    (``strategy`` forces one, and a strategy/format mismatch raises here).
+    (``strategy`` forces one, and a strategy/format mismatch raises here;
+    ``refine`` runs each through the refine pass of :func:`plan_matmul`).
     An MoE expert stack (a leaf under ``moe``, experts on the axis before
     K) is planned as one batched problem of E GEMMs. Returns ``{"KxN":
     plan}``; every planned decision lands in the plan cache.
@@ -704,12 +747,13 @@ def plan_for_params(params, M: int, *, strategy: Optional[str] = None,
                 ("row" if cut[1] == -2 else "col")
             parts = cut[2] if kind == "col" else None
             problem = shard_problem(problem, mesh, kind, parts=parts)
-        plans[problem.layer_key] = plan_matmul(problem, strategy=strategy)
+        plans[problem.layer_key] = plan_matmul(problem, strategy=strategy,
+                                               refine=refine)
     return plans
 
 
 # ---------------------------------------------------------------------------
-# Paged-attention planning: gather vs fused
+# Attention planning: ring vs gather vs fused
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -741,7 +785,7 @@ class AttentionProblem:
 
 @dataclasses.dataclass(frozen=True)
 class AttentionPlan:
-    path: str                     # "gather" | "fused"
+    path: str                     # "ring" | "gather" | "fused"
     kv_partitions: int = 1        # Split-K degree over the page axis
 
 
@@ -793,6 +837,12 @@ def _attn_quantized(problem: AttentionProblem) -> bool:
     return get_kv_format(problem.kv_format).quantized
 
 
+def _cost_attn_ring(problem: AttentionProblem, plan: AttentionPlan) -> float:
+    return costmodel.attn_time(
+        "ring", problem.B, problem.Hq, problem.Hkv, problem.D, problem.ctx,
+        quantized=False, act_bytes=problem.act_bytes, q_len=problem.q_len)
+
+
 def _cost_attn_gather(problem: AttentionProblem,
                       plan: AttentionPlan) -> float:
     return costmodel.attn_time(
@@ -810,6 +860,8 @@ def _cost_attn_fused(problem: AttentionProblem,
         kv_partitions=plan.kv_partitions)
 
 
+register_attn_path("ring", cost=_cost_attn_ring,
+                   supports=lambda p: not p.paged)
 register_attn_path("gather", cost=_cost_attn_gather,
                    supports=lambda p: p.paged)
 register_attn_path("fused", cost=_cost_attn_fused,
@@ -834,8 +886,10 @@ def _attn_plan_for(problem: AttentionProblem, name: str) -> AttentionPlan:
 
 def plan_attention(problem: AttentionProblem, *,
                    path: Optional[str] = None) -> AttentionPlan:
-    """Choose the paged-attention path: the cheapest supported one, or the
-    named ``path`` (validated against ``supports()``)."""
+    """Choose the attention path: the cheapest supported one (``ring`` for
+    an engine without the paged pool), or the named ``path`` (validated
+    against ``supports()``: ``fused`` or ``gather`` without the pool, or
+    ``ring`` with it, is refused in the JAX package's words)."""
     if path is not None and path != "auto":
         entry = _ATTN_REGISTRY.get(path)
         if entry is None:

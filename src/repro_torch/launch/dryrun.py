@@ -23,9 +23,16 @@ no random draw — with the rank's shares of the abstract parameters
 - prefill: ``steps.make_prefill_step`` (the whole prompt into the ring
   state, flash attention) on the rank's W4A16 shard and its rows of the
   batch;
-- decode: ``steps.make_serve_step`` on the paged state the engine holds
-  (the pool whole on every data replica, the rank's KV heads; the slots'
-  carries and ``enc_kv`` its rows), the attention planned as on the card.
+- decode (JAX's cell): ``steps.make_serve_step`` on ``input_specs``' ring
+  state at the rank's share (:func:`decode_cell`: the ring's batch over
+  "data", its window over "model" where the model axis divides it, every
+  KV head; the carries and ``enc_kv`` the rank's rows and heads), the
+  ring engine's step;
+- decode, the paged departure (:func:`decode_paged_cell`): the same step
+  on the paged state the paged engine holds (the pool whole on every data
+  replica, the rank's KV heads), the attention planned as on the card.
+  JAX's dry run never traces it; the CLI prints it beside JAX's cell for
+  every arch that holds a KV cache.
 
 Each kernel wrapper runs its CUDA path on meta tensors up to the launch:
 it allocates what that path allocates and launches nothing
@@ -214,15 +221,38 @@ def prefill_cell(cfg, inputs, cache_len: int, *, mesh=None):
     return step, (params, inputs), {"kind": "prefill"}
 
 
-def decode_cell(cfg, B: int, cache_len: int, *, page_size: int,
-                num_blocks: Optional[int] = None, mesh=None,
-                kv_format: str = "kv_fp16", attn_path: Optional[str] = None,
-                kv_partitions: Optional[int] = None):
-    """One paged decode step over B slots as the engine runs it: the pool
-    (``num_blocks`` pages, by default every slot's ``cache_len`` window
-    and the null block) whole on every data replica with this rank's KV
-    heads, the slots' carries and ``enc_kv`` its rows, the attention
-    planned for the card unless ``attn_path`` is given."""
+def decode_cell(cfg, B: int, cache_len: int, *, mesh=None):
+    """JAX's decode cell: one serve step over the ring state of
+    ``input_specs`` (B slots, a ``cache_len`` window) on this rank's share
+    of it — its rows of the batch (``batch_spec`` over "data"), its slice
+    of the window where the model axis divides it, every KV head; the
+    carries and ``enc_kv`` its rows and heads (``T.init_decode_state`` on
+    the rank's config) — with the rank's W4A16 slice, as the ring engine
+    runs it."""
+    params, local, lay = _serve_params(cfg, mesh)
+    rows = None if lay is None else lay.rows(B)
+    n_rows = B if rows is None else rows.stop - rows.start
+    i32 = dict(dtype=torch.int32, device="meta")
+    inputs = {"state": T.init_decode_state(local, n_rows, cache_len,
+                                           device="meta"),
+              "tokens": torch.empty((B,), **i32),
+              "pos": torch.empty((B,), **i32)}
+    step = rsteps.make_serve_step(local, cache_len=cache_len,
+                                  attn_path="ring")
+    return step, (params, inputs), {"kind": "decode", "cell": "ring"}
+
+
+def decode_paged_cell(cfg, B: int, cache_len: int, *, page_size: int,
+                      num_blocks: Optional[int] = None, mesh=None,
+                      kv_format: str = "kv_fp16",
+                      attn_path: Optional[str] = None,
+                      kv_partitions: Optional[int] = None):
+    """A named departure from JAX's dry run: one paged decode step over B
+    slots as the paged engine runs it: the pool (``num_blocks`` pages, by
+    default every slot's ``cache_len`` window and the null block) whole on
+    every data replica with this rank's KV heads, the slots' carries and
+    ``enc_kv`` its rows, the attention planned for the card unless
+    ``attn_path`` is given."""
     params, local, lay = _serve_params(cfg, mesh)
     pages = cache_len // page_size
     rows = None if lay is None else lay.rows(B)
@@ -234,7 +264,7 @@ def decode_cell(cfg, B: int, cache_len: int, *, page_size: int,
     i32 = dict(dtype=torch.int32, device="meta")
     inputs = {"state": state, "tokens": torch.empty((B,), **i32),
               "pos": torch.empty((B,), **i32)}
-    meta, kw = {"kind": "decode"}, {}
+    meta, kw = {"kind": "decode", "cell": "paged (departure)"}, {}
     if local.family in T.CARRY_FAMILIES:
         inputs["active"] = torch.empty((B,), dtype=torch.bool,
                                        device="meta")
@@ -257,11 +287,12 @@ def decode_cell(cfg, B: int, cache_len: int, *, page_size: int,
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                drop_data: int = 0, global_batch: Optional[int] = None,
-               layers: Optional[int] = None):
+               layers: Optional[int] = None, paged: bool = False):
     """One cell's step on rank 0 of the production mesh (less
     ``drop_data`` data rows; at ``global_batch`` rows when given; the
-    first ``layers`` layers when given). Returns ``(step, arguments,
-    meta)``: ``step(*arguments)`` runs the rank's step; or ``(None, None,
+    first ``layers`` layers when given; a decode shape's paged departure
+    with ``paged``). Returns ``(step, arguments, meta)``:
+    ``step(*arguments)`` runs the rank's step; or ``(None, None,
     {"skipped": reason})``."""
     cfg = _cut_depth(configs.get_config(arch), layers)
     shape = SHAPES[shape_name]
@@ -285,11 +316,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             settings, microbatches=micro), mesh=mesh)
     elif shape.kind == "prefill":
         out = prefill_cell(cfg, specs, cache_len_for(cfg, shape), mesh=mesh)
-    else:
+    elif paged:
         ps = serve_settings_for(arch).page_size
-        out = decode_cell(cfg, shape.global_batch,
-                          -(-cache_len_for(cfg, shape) // ps) * ps,
-                          page_size=ps, mesh=mesh)
+        out = decode_paged_cell(cfg, shape.global_batch,
+                                -(-cache_len_for(cfg, shape) // ps) * ps,
+                                page_size=ps, mesh=mesh)
+    else:
+        out = decode_cell(cfg, shape.global_batch, cache_len_for(cfg, shape),
+                          mesh=mesh)
     out[2]["mesh"] = "x".join(str(n) for n in mesh.shape)
     return out
 
@@ -324,15 +358,17 @@ def trace(step, arguments) -> dict:
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              drop_data: int = 0, global_batch: Optional[int] = None,
-             layers: Optional[int] = None, verbose: bool = True) -> dict:
-    """One cell's record (see the module's docstring)."""
+             layers: Optional[int] = None, paged: bool = False,
+             verbose: bool = True) -> dict:
+    """One cell's record (see the module's docstring); ``paged``: a decode
+    shape's paged departure."""
     t0 = time.time()
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "2x16x16" if multi_pod else "16x16"}
     try:
         step, arguments, meta = lower_cell(
             arch, shape_name, multi_pod=multi_pod, drop_data=drop_data,
-            global_batch=global_batch, layers=layers)
+            global_batch=global_batch, layers=layers, paged=paged)
         if step is None:
             rec.update(status="SKIP", skip_reason=meta["skipped"])
             return rec
@@ -371,11 +407,16 @@ def main(argv=None) -> int:
     for mp in meshes:
         for a in archs:
             for s in shapes:
-                rec = run_cell(a, s, multi_pod=mp)
-                records.append(rec)
-                if rec["status"] not in ("OK", "SKIP"):
-                    fail += 1
-                    print(json.dumps(rec, default=str), flush=True)
+                # a decode shape of an arch with a KV cache: JAX's cell,
+                # then the paged departure beside it
+                departure = SHAPES[s].kind == "decode" \
+                    and not configs.get_config(a).attn_free
+                for paged in (False, True) if departure else (False,):
+                    rec = run_cell(a, s, multi_pod=mp, paged=paged)
+                    records.append(rec)
+                    if rec["status"] not in ("OK", "SKIP"):
+                        fail += 1
+                        print(json.dumps(rec, default=str), flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(records, f, indent=1, default=str)

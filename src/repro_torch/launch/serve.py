@@ -18,6 +18,12 @@ flash kernel (``attn_impl = "flash"``). ``--device cpu`` runs the
 plain PyTorch paths; by default the launcher needs a CUDA card and fails
 without one.
 
+``--ring`` serves from per-slot ring KV caches instead of the paged pool
+(``ServingEngine(paged=False)``, the JAX package's ring engine: each prompt
+prefills whole at admit, on the card through the flash kernel; no sharing,
+no speculation, no quantized KV format). ``--refine-plans`` runs the W4A16
+plans through the planner's refine pass (``kernels/autotune.py``).
+
 ``--speculate ngram|draft[:layers=N]`` with ``--spec-k`` turns on
 speculative decoding (a batched verify step of ``batch x (k+1)``
 positions), ``--warm-cache-mb`` keeps released prompt prefixes warm, and
@@ -90,8 +96,8 @@ def build_args(argv=None) -> argparse.Namespace:
                          "(default: the arch preset)")
     ap.add_argument("--ring", action="store_true",
                     help="per-slot ring KV caches instead of the paged "
-                         "pool: not ported, refused (with --speculate, by "
-                         "the proposer check)")
+                         "pool (whole-prompt prefill at admit; no sharing, "
+                         "speculation or quantized KV format)")
     ap.add_argument("--warm-cache-mb", type=float, default=0.0,
                     help="warm prefix retention budget in MiB: released "
                          "page-aligned prefixes stay adoptable and a "
@@ -125,6 +131,9 @@ def build_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--plan-cache", default=None,
                     help="plan-cache JSON (either package's): loaded before "
                          "serving when it exists, written after")
+    ap.add_argument("--refine-plans", action="store_true",
+                    help="run the planner's refine pass (the fused W4A16 "
+                         "kernel's split_k ranked by kernels/autotune.py)")
     ap.add_argument("--http", type=int, default=None, metavar="PORT",
                     help="serve through the HTTP front door on 127.0.0.1:"
                          "PORT (0 = any free port), one SSE client per "
@@ -159,18 +168,24 @@ def parse_prompt_len(spec) -> "tuple[int, int]":
 
 
 def validate_kv_format(kv_format: str, weight_format: str, *,
-                       attn_free: bool = False) -> str:
+                       attn_free: bool = False, paged: bool = True) -> str:
     """Resolve the ``--kv-format`` × ``--format`` pair up front, so a bad
     name fails with the registries' vocabulary before any weight is
-    drawn. Every registered pair is executable (the port serves from the
-    paged cache only); attention-free archs (rwkv) hold no KV cache for a
-    quantized format to apply to."""
+    drawn. Every registered pair is executable; KV quantization needs the
+    paged cache (the ring stores raw rows in the activation dtype), and
+    attention-free archs (rwkv) hold no KV cache for a quantized format to
+    apply to."""
     quant.get_format(weight_format)
     kf = quant.get_kv_format(kv_format)
     if kf.quantized and attn_free:
         raise ValueError(
             f"--kv-format {kf.name!r} does not apply to attention-free "
             f"archs — there is no KV cache to quantize; use kv_fp16")
+    if kf.quantized and not paged:
+        raise ValueError(
+            f"--kv-format {kf.name!r} quantizes KV blocks, which requires "
+            f"the paged cache; drop --ring (or use --kv-format kv_fp16). "
+            f"Registered KV formats: {quant.available_kv_formats()}")
     return kf.name
 
 
@@ -224,7 +239,8 @@ def build(args: argparse.Namespace):
     sset = serve_settings_for(args.arch)
     fmt = quant.get_format(args.format or cfg.quant_format)
     kv_format = validate_kv_format(args.kv_format or sset.kv_format,
-                                   fmt.name, attn_free=cfg.attn_free)
+                                   fmt.name, attn_free=cfg.attn_free,
+                                   paged=not args.ring)
     pmin, pmax = parse_prompt_len(args.prompt_len)
     speculate = None if args.speculate == "off" else args.speculate
     # a bad proposer / spec-k pair fails here, before any weight is drawn
@@ -232,7 +248,9 @@ def build(args: argparse.Namespace):
                                    paged=not args.ring)
     cfg = dataclasses.replace(cfg, w4a16_strategy=args.strategy,
                               quant_format=fmt.name)
-    if cfg.family == "encdec" and device.type == "cuda":
+    if device.type == "cuda" and (cfg.family == "encdec" or args.ring):
+        # the encoder, and the ring engine's whole-prompt prefill, on the
+        # flash kernel
         cfg = dataclasses.replace(cfg, attn_impl="flash")
 
     if mesh is not None:
@@ -273,7 +291,7 @@ def build(args: argparse.Namespace):
         page_size=args.page_size or sset.page_size,
         prefill_chunk=args.prefill_chunk or sset.prefill_chunk,
         kv_format=kv_format, paged=not args.ring,
-        warm_cache_mb=args.warm_cache_mb,
+        refine_plans=args.refine_plans, warm_cache_mb=args.warm_cache_mb,
         speculate=speculate, spec_k=args.spec_k,
         admission="priority" if args.http is not None else "fifo",
         attn_path=args.attn_path or sset.attn_path, device=device,
@@ -297,10 +315,16 @@ def build(args: argparse.Namespace):
               + (f", verify {engine.verify_attn_path} "
                  f"(kv_partitions={engine.verify_kv_partitions})"
                  if engine.proposer is not None else ""))
+    elif engine.attn_path is not None:
+        print(f"[serve] engine: {B} slots, ring KV cache_len "
+              f"{engine.cache_len} a slot, whole-prompt prefill (attention "
+              f"{engine.cfg.attn_impl}); attn path: decode "
+              f"{engine.attn_path}")
     else:
         print(f"[serve] engine: {B} slots, cache_len {engine.cache_len}, "
-              f"recurrent carries only (no KV cache), prefill_chunk "
-              f"{engine.prefill_chunk}")
+              f"recurrent carries only (no KV cache), "
+              + (f"prefill_chunk {engine.prefill_chunk}" if engine.chunked
+                 else "whole-prompt prefill"))
     if engine.proposer is not None:
         k = args.spec_k
         print(f"[serve] speculative: proposer {engine.proposer.name!r}, "

@@ -1,7 +1,14 @@
 """GQA attention: chunked online softmax (training), attention over a
 pos-tagged KV window (decode, chunked prefill) and the per-slot ring cache
-the speculative draft model decodes on. Port of
+that the ring engine and the speculative draft model decode on. Port of
 ``repro/models/attention.py``.
+
+A ring can be one rank's slice of a longer window (``ring_len`` entries,
+this rank's ``[start, start + W)``; the ring engine on a mesh whose model
+axis divides the window): inserts and prefills then write only the
+entries that fall in the slice, and :func:`ring_partials` gives a slice's
+online-softmax partials, which :func:`combine_partials` merges across the
+slices.
 
 Masking is positional: an entry at position ``kpos`` is visible to a query
 at ``qpos`` iff ``kpos >= 0 & kpos <= qpos`` (and ``kpos > qpos - window``
@@ -34,15 +41,30 @@ def init_cache(batch: int, window: int, num_kv_heads: int, head_dim: int,
 
 
 def cache_insert(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: torch.Tensor) -> KVCache:
+                 pos: torch.Tensor, *, ring_len: int = 0,
+                 start: int = 0) -> KVCache:
     """Insert one token's K/V per row at ring slot ``pos % W``, in place
-    (k_new/v_new: (B, Hkv, D); pos: (B,) absolute)."""
+    (k_new/v_new: (B, Hkv, D); pos: (B,) absolute). With ``ring_len`` the
+    cache holds entries ``[start, start + W)`` of a ``ring_len`` window,
+    and a row whose slot falls outside them writes nothing."""
     W = cache.k.shape[1]
     b = torch.arange(cache.k.shape[0], device=pos.device)
-    slot = (pos % W).long()
-    cache.k[b, slot] = k_new.to(cache.k.dtype)
-    cache.v[b, slot] = v_new.to(cache.v.dtype)
-    cache.pos[b, slot] = pos.to(torch.int32)
+    if not ring_len:
+        slot = (pos % W).long()
+        cache.k[b, slot] = k_new.to(cache.k.dtype)
+        cache.v[b, slot] = v_new.to(cache.v.dtype)
+        cache.pos[b, slot] = pos.to(torch.int32)
+        return cache
+    local = (pos % ring_len).long() - start
+    own = (local >= 0) & (local < W)
+    slot = local.clamp(0, W - 1)
+    keep = own[:, None, None]
+    cache.k[b, slot] = torch.where(keep, k_new.to(cache.k.dtype),
+                                   cache.k[b, slot])
+    cache.v[b, slot] = torch.where(keep, v_new.to(cache.v.dtype),
+                                   cache.v[b, slot])
+    cache.pos[b, slot] = torch.where(own, pos.to(torch.int32),
+                                     cache.pos[b, slot])
     return cache
 
 
@@ -56,18 +78,27 @@ def cache_reset_slots(cache: KVCache, slots) -> KVCache:
 
 
 def cache_prefill(cache: KVCache, k_seq: torch.Tensor,
-                  v_seq: torch.Tensor) -> KVCache:
+                  v_seq: torch.Tensor, *, ring_len: int = 0,
+                  start: int = 0) -> KVCache:
     """Fill the ring with the last W tokens of a prefilled sequence at
-    positions 0..S-1, in place (k_seq/v_seq: (B, S, Hkv, D))."""
+    positions 0..S-1, in place (k_seq/v_seq: (B, S, Hkv, D)). With
+    ``ring_len`` the cache holds entries ``[start, start + W)`` of a
+    ``ring_len`` window: the last ``ring_len`` tokens whose slots fall
+    there are written."""
     B, S = k_seq.shape[:2]
     W = cache.k.shape[1]
-    T = min(S, W)
-    tail_pos = torch.arange(S - T, S, dtype=torch.int32,
-                            device=k_seq.device)
-    slot = (tail_pos % W).long()
-    cache.k[:, slot] = k_seq[:, S - T:].to(cache.k.dtype)
-    cache.v[:, slot] = v_seq[:, S - T:].to(cache.v.dtype)
-    cache.pos[:, slot] = tail_pos.expand(B, T)
+    full = ring_len or W
+    T = min(S, full)
+    tail = torch.arange(S - T, S)
+    slot = tail % full - start
+    if ring_len:
+        mine = (slot >= 0) & (slot < W)
+        tail, slot = tail[mine], slot[mine]
+    src = tail.to(k_seq.device)
+    slot = slot.to(k_seq.device)
+    cache.k[:, slot] = k_seq[:, src].to(cache.k.dtype)
+    cache.v[:, slot] = v_seq[:, src].to(cache.v.dtype)
+    cache.pos[:, slot] = src.to(torch.int32).expand(B, len(src))
     return cache
 
 
@@ -160,3 +191,47 @@ def prefix_chunk_attention(q: torch.Tensor, cache: KVCache,
     out = torch.einsum("bhgcw,bwhd->bchgd", p.to(torch.float32),
                        cache.v.to(torch.float32))
     return out.reshape(B, C, Hq, D).to(q.dtype)
+
+
+def ring_partials(q: torch.Tensor, cache: KVCache, pos: torch.Tensor, *,
+                  window: int = 0):
+    """One-token attention partials over a ring (or one rank's slice of
+    it): q (B, Hq, D), pos (B,). The masking, scaling and casts of
+    :func:`decode_attention`, but unnormalized: the max ``m`` and the sum
+    ``l`` of exp(s - m) (B, Hq) and the readout ``acc`` (B, Hq, D), fp32,
+    with p cast to the V dtype before the readout. A slice with no
+    visible entry carries m = -1e30, which :func:`combine_partials`
+    cancels."""
+    B, Hq, D = q.shape
+    Hkv = cache.k.shape[2]
+    G = Hq // Hkv
+    qg = (q.reshape(B, Hkv, G, D).to(torch.float32)
+          * (D ** -0.5)).to(cache.k.dtype)
+    s = torch.einsum("bhgd,bwhd->bhgw", qg.to(torch.float32),
+                     cache.k.to(torch.float32))
+    kpos = cache.pos[:, None, None, :]
+    qp = pos[:, None, None, None]
+    valid = (kpos >= 0) & (kpos <= qp)
+    if window:
+        valid = valid & (kpos > qp - window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgw,bwhd->bhgd",
+                       p.to(cache.v.dtype).to(torch.float32),
+                       cache.v.to(torch.float32))
+    return acc.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)
+
+
+def combine_partials(acc: torch.Tensor, m: torch.Tensor,
+                     l: torch.Tensor) -> torch.Tensor:
+    """Merge S slices' partials stacked on dim 0 (acc (S, ..., D); m and l
+    (S, ...)) into the normalized output, fp32: the log-sum-exp rule of
+    ``kernels/paged_attention.py``'s plain ``_combine`` (a slice whose m is
+    -1e30 weighs exp(-1e30 - m_max) = 0)."""
+    m_max = m.amax(dim=0)
+    alpha = torch.exp(m - m_max)
+    l_tot = (l * alpha).sum(dim=0)
+    out = (acc * alpha[..., None]).sum(dim=0)
+    return out / l_tot.clamp_min(1e-30)[..., None]

@@ -45,6 +45,23 @@ paged write; the state's carries and ``enc_kv`` then hold that shard's
 rows. hymba's ``h + 0.5 * (a + s_out)`` adds two outputs that are each
 whole on every rank (each reduced over "model" by its row-cut leaf, or
 computed whole).
+
+The ring cache on a mesh (the ring engine's state, JAX's
+``decode_state_shardings`` rule) holds a rank's rows of the batch and, where
+the model axis divides the window W, its slice of the window for every KV
+head (``Layout.ring_slice``): model rank r holds ring entries [r·W/tp,
+(r+1)·W/tp). A rank's rows are its own, so no K/V row crosses "data". A
+decode step all-gathers the new token's K/V of the rank's KV heads over
+"model" (the rank that holds entry ``pos % W`` writes it), all-gathers q,
+computes each head's online-softmax partials over its slice
+(``attention.ring_partials``), all-gathers them over "model" and merges
+them (``attention.combine_partials``), keeping its own heads' output for
+the row-parallel ``wo``. With W whole, each rank writes every head and
+attends its own heads over the whole window. The whole-prompt prefill
+gathers each layer's K/V heads the same way and each rank keeps its
+slice. This is sequence-parallel decode attention written by hand: the
+one place where the port departs from JAX's program rather than its
+specs, since GSPMD inserts these collectives for JAX.
 """
 from __future__ import annotations
 
@@ -578,10 +595,13 @@ def _attn_step(ap, cfg: ModelConfig, x, kv_all, i: int, pos, tables, *,
     v = layers.linear(ap["wv"], x, cfg).reshape(B, Hkv, D)
     q = layers.apply_rope(q[:, None], mpos[:, None], cfg.rope_theta)[:, 0]
     k = layers.apply_rope(k[:, None], mpos[:, None], cfg.rope_theta)[:, 0]
-    if tables is None:
+    if tables is None and cfg.shard is not None:
+        o = _mesh_ring_attn(cfg, q, k, v, _ring_layer(kv_all, i), mpos,
+                            cache_len)
+    elif tables is None:
         ring = _ring_layer(kv_all, i)
-        attention.cache_insert(ring, k, v, pos)
-        o = attention.decode_attention(q, ring, pos,
+        attention.cache_insert(ring, k, v, mpos)
+        o = attention.decode_attention(q, ring, mpos,
                                        window=cfg.sliding_window)
     else:
         pool = kv_all.layer(i)
@@ -597,6 +617,41 @@ def _attn_step(ap, cfg: ModelConfig, x, kv_all, i: int, pos, tables, *,
     return layers.linear(ap["wo"], o.reshape(B, H * D), cfg)
 
 
+def _mesh_ring_attn(cfg: ModelConfig, q, k, v, ring: attention.KVCache,
+                    pos, W: int):
+    """One layer's ring decode attention on a mesh rank (see the module's
+    docstring): q (B, H, D) and k, v (B, Hkv, D) at this rank's heads and
+    rows; ``ring`` its rows of the layer's ring (every KV head, its slice
+    of the ``W``-entry window). Returns the rank's heads' output (B, H,
+    D)."""
+    lay = cfg.shard
+    if W <= 0:
+        raise ValueError("a ring decode step on a mesh needs the ring's "
+                         "window (cache_len)")
+    k = lay.gather_heads(k, 1, kv=True)
+    v = lay.gather_heads(v, 1, kv=True)
+    if not lay.ring_cut(W):
+        attention.cache_insert(ring, k, v, pos)
+        heads = lay.kv_heads()
+        mine = attention.KVCache(ring.k[:, :, heads], ring.v[:, :, heads],
+                                 ring.pos)
+        return attention.decode_attention(q, mine, pos,
+                                          window=cfg.sliding_window)
+    part = lay.ring_slice(W)
+    attention.cache_insert(ring, k, v, pos, ring_len=W, start=part.start)
+    acc, m, l = attention.ring_partials(
+        lay.gather_heads(q, 1), ring, pos, window=cfg.sliding_window)
+    H = acc.shape[1]
+    parts = lay.gather_model(torch.cat([acc, m[..., None], l[..., None]],
+                                       -1)[None], 0)
+    o = attention.combine_partials(parts[..., :-2], parts[..., -2],
+                                   parts[..., -1])
+    if lay.attn_sharded:
+        n = H // lay.tp
+        o = o[:, lay.tp_rank * n:(lay.tp_rank + 1) * n]
+    return o.to(q.dtype)
+
+
 def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
                 pos: torch.Tensor, *, tables=None, cache_len: int = 0,
                 kv_format: str = DEFAULT_KV_FORMAT,
@@ -605,11 +660,13 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
     """One decode step. tokens/pos: (B,). With ``tables`` (B,
     pages_per_slot) the state is the paged pool (-1 rows are inactive:
     their writes go to the null block); with ``tables=None`` it is the
-    per-slot ring cache of :func:`init_decode_state` (the draft model's,
-    and rwkv's carry-only state). ``active`` (B,) bool keeps the recurrent
-    carries of rows that are not decoding (a slot mid chunked prefill
-    shares the batch; its carry would be advanced by the dummy token). An
-    encdec layer's cross-attention reads the state's ``enc_kv`` rows.
+    per-slot ring cache of :func:`init_decode_state` (the ring engine's,
+    the draft model's, and rwkv's carry-only state; on a mesh
+    ``cache_len`` is the ring's whole window). ``active`` (B,) bool keeps
+    the recurrent carries of rows that are not decoding (a slot mid
+    chunked prefill shares the batch; its carry would be advanced by the
+    dummy token). An encdec layer's cross-attention reads the state's
+    ``enc_kv`` rows.
     On a mesh whose data axis divides B this rank runs its rows of the
     batch (``Layout.rows``) and returns their logits; the state's carries
     and ``enc_kv`` then hold those rows only.
@@ -874,12 +931,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
                       device=None):
     """Empty per-slot ring decode state: one KV ring of ``cache_len``
     entries per slot (none for rwkv) and the family's carries, stacked
-    over L; encdec adds ``enc_kv``."""
+    over L; encdec adds ``enc_kv``. On a mesh (``cfg.shard``) the ring
+    holds every KV head and this rank's slice of the window
+    (``Layout.ring_slice``), the carries and ``enc_kv`` the rank's heads
+    or channels."""
     check_family(cfg)
     cache = _init_carries(cfg, batch, device)
     if cfg.family != "rwkv":
-        shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
-                 cfg.head_dim)
+        Hkv, W = cfg.num_kv_heads, cache_len
+        if cfg.shard is not None:
+            part = cfg.shard.ring_slice(cache_len)
+            Hkv, W = cfg.shard.cfg.num_kv_heads, part.stop - part.start
+        shape = (cfg.num_layers, batch, W, Hkv, cfg.head_dim)
         cache["kv"] = attention.KVCache(
             k=torch.zeros(shape, dtype=cfg.dtype, device=device),
             v=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -888,6 +951,21 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int, *,
     if cfg.family == "encdec":
         state["enc_kv"] = _init_enc_kv(cfg, batch, device)
     return state
+
+
+def _ring_prefill(cfg: ModelConfig, ring: attention.KVCache, k, v,
+                  cache_len: int) -> None:
+    """A layer's prefilled K/V (B, S, Hkv, D) into its ring; on a mesh every
+    KV head, gathered over "model", into the rank's slice of the
+    window."""
+    if cfg.shard is None:
+        attention.cache_prefill(ring, k, v)
+        return
+    lay = cfg.shard
+    part = lay.ring_slice(cache_len)
+    attention.cache_prefill(ring, lay.gather_heads(k, 2, kv=True),
+                            lay.gather_heads(v, 2, kv=True),
+                            ring_len=cache_len, start=part.start)
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -919,7 +997,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x1 = _norm(cfg, lp["norm1"], h)
         a, (k, v) = _attn_seq(lp["attn"], cfg, x1, positions,
                               return_kv=True)
-        attention.cache_prefill(_ring_layer(cache["kv"], i), k, v)
+        _ring_prefill(cfg, _ring_layer(cache["kv"], i), k, v, cache_len)
         if cfg.family == "hybrid":
             s_out, s_fin = ssm.ssm_seq(lp["ssm"], x1, carry["ssm"], cfg)
             carry["ssm"].copy_(s_fin)

@@ -62,11 +62,23 @@ encdec's cross K/V from the encoder, which every rank runs at admit at its
 own heads) and drops them when the prefill ends, so no carry row crosses
 ranks.
 
-Not ported, and refused: the ring cache as the serving state
-(``paged=False``; the draft model keeps a ring of its own). A moe layer
-routes every row of a step (inactive decode slots, a chunk's padding,
-every verify position) as the JAX engine does, since which pairs overflow
-an expert's capacity depends on it.
+The ring engine (``paged=False``, the JAX package's legacy engine and the
+reference its paged one is held against) keeps per-slot ring caches
+(``T.init_decode_state``): a request's whole prompt prefills at admit
+through ``steps.make_prefill_step`` (its attention on the config's
+``attn_impl``; the launcher sets the flash kernel on the card), the slot's
+row of every state leaf is overwritten from it (:func:`insert_slot`), each
+decode step runs over the rings without block tables, and an evicted slot's
+ring tags are wiped (:func:`reset_slot`). There is no allocator, no prefix
+sharing, no warm LRU and no speculation; a quantized KV format is refused,
+as in the JAX package. rwkv follows JAX's rule: ``paged=False`` prefills
+whole too. On a mesh a slot's prefill runs on every rank and the rank that
+holds the slot's row keeps it; the ring holds the rank's rows and its slice
+of the window (``models/transformer.py``).
+
+A moe layer routes every row of a step (inactive decode slots, a chunk's
+padding, every verify position) as the JAX engine does, since which pairs
+overflow an expert's capacity depends on it.
 """
 from __future__ import annotations
 
@@ -85,7 +97,7 @@ from repro_torch.core.quant import (
     DEFAULT_KV_FORMAT, QuantizedTensor, get_kv_format,
 )
 from repro_torch.kernels import planning
-from repro_torch.models import layers
+from repro_torch.models import attention, layers
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import kvcache as kvc
@@ -94,7 +106,8 @@ from repro_torch.runtime import sharding
 from repro_torch.runtime import speculative as spec
 from repro_torch.runtime import steps as rsteps
 
-__all__ = ["Request", "ServeReport", "ServingEngine", "StepEvents"]
+__all__ = ["Request", "ServeReport", "ServingEngine", "StepEvents",
+           "insert_slot", "reset_slot"]
 
 _PATH_CODE = {"ring": 0, "gather": 1, "fused": 2}
 
@@ -217,8 +230,38 @@ class _Slot:
         self.phase = "active"
 
 
+def insert_slot(state, rstate, slot: int):
+    """Write a B = 1 prefilled decode state ``rstate`` into row ``slot`` of
+    ``state``, in place (returns ``state``). Every per-slot leaf is (L, B,
+    ...) — ring K, V and tags, the recurrent carries, encdec's ``enc_kv``
+    — so one rule covers every family; the whole row is overwritten, tags
+    included, so a reused slot never sees its previous occupant."""
+    def put(dst, src):
+        dst[:, slot] = src[:, 0].to(dst.dtype)
+
+    for name, leaf in state["cache"].items():
+        src = rstate["cache"][name]
+        if isinstance(leaf, attention.KVCache):
+            for d, r in zip(leaf, src):
+                put(d, r)
+        else:
+            put(leaf, src)
+    for d, r in zip(state.get("enc_kv", ()), rstate.get("enc_kv", ())):
+        put(d, r)
+    return state
+
+
+def reset_slot(state, slot: int):
+    """Evict ``slot`` of a ring state, in place: wipe its ring tags so the
+    row reads as empty (the paged engine wipes blocks instead)."""
+    ring = state["cache"].get("kv")
+    if isinstance(ring, attention.KVCache):
+        attention.cache_reset_slots(ring, slot)
+    return state
+
+
 class ServingEngine:
-    """Continuous-batching paged decode over ``max_batch`` request slots.
+    """Continuous-batching decode over ``max_batch`` request slots.
 
     ``device=None`` runs on ``cuda`` and raises when CUDA is missing;
     ``device="cpu"`` runs the plain PyTorch paths (the CPU tests). Params
@@ -231,7 +274,11 @@ class ServingEngine:
     the same blocks; ``warm_cache_mb`` keeps released prefix chains warm
     up to that many MiB. ``admission`` is ``fifo`` or ``priority``.
     rwkv arrives with ``paged=True`` and serves from its carry-only state
-    (``self.paged`` is False); the carry families share no prefix.
+    (``self.paged`` is False, ``self.chunked`` True); the carry families
+    share no prefix. ``paged=False`` is the ring engine (module
+    docstring): ``self.chunked`` False, the attention path ``ring``.
+    ``refine_plans`` runs the W4A16 plans through the planner's refine
+    pass (``kernels/autotune.py``); off by default, as in JAX.
     ``mesh`` (a (data, model) DeviceMesh) serves this rank's shard:
     ``params`` whole (cut here) or already the rank's
     (``sharding.shard_params``); ``self.cfg`` is then the rank's config
@@ -240,6 +287,7 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  max_prompt_len: int = 128, max_new_tokens: int = 64,
+                 refine_plans: bool = False,
                  cache_len: Optional[int] = None, paged: bool = True,
                  page_size: int = 16, prefill_chunk: Optional[int] = None,
                  kv_format: Optional[str] = None,
@@ -249,10 +297,6 @@ class ServingEngine:
                  admission: str = "fifo",
                  attn_path: str = "auto", device: DeviceLike = None,
                  mesh=None):
-        if not paged:
-            raise NotImplementedError(
-                "the port serves from the paged KV cache only; the ring "
-                "cache (paged=False) is not ported")
         if admission not in ("fifo", "priority"):
             raise ValueError(f"admission must be 'fifo' or 'priority', "
                              f"got {admission!r}")
@@ -271,14 +315,22 @@ class ServingEngine:
         self.max_prompt_len = int(max_prompt_len)
         self.max_new_tokens = int(max_new_tokens)
         # rwkv holds no KV cache: nothing to page
-        self.paged = cfg.family != "rwkv"
+        self.paged = bool(paged) and cfg.family != "rwkv"
+        # chunked prefill whenever the paged engine was asked for (rwkv's
+        # too); the ring engine prefills each prompt whole
+        self.chunked = bool(paged)
         self.page_size = int(page_size)
         self.kv_format = kv_format or DEFAULT_KV_FORMAT
-        if get_kv_format(self.kv_format).quantized and cfg.attn_free:
-            raise ValueError(
-                f"kv_format {self.kv_format!r} does not apply to "
-                f"{cfg.family!r} archs — they hold no KV cache to "
-                f"quantize; use kv_fp16")
+        if get_kv_format(self.kv_format).quantized:
+            if cfg.attn_free:
+                raise ValueError(
+                    f"kv_format {self.kv_format!r} does not apply to "
+                    f"{cfg.family!r} archs — they hold no KV cache to "
+                    f"quantize; use kv_fp16")
+            if not self.paged:
+                raise ValueError(
+                    f"kv_format {self.kv_format!r} quantizes KV blocks, "
+                    f"which needs the paged cache (paged=True)")
         ps = self.page_size if self.paged else None
         if cache_len is None:
             self.cache_len = serve_cache_len(cfg, max_prompt_len,
@@ -321,10 +373,12 @@ class ServingEngine:
                    self.cache_len))
         # decode steps must not advance the carries of rows that are free
         # or still mid chunked prefill
-        self._needs_active = cfg.family in T.CARRY_FAMILIES
+        self._needs_active = self.chunked \
+            and cfg.family in T.CARRY_FAMILIES
 
         # attention plans per regime (none for attention-free rwkv, whose
-        # paths stay None)
+        # paths stay None; the ring engine's one path is "ring", and a
+        # forced paged path is refused there in the planner's words)
         forced = None if attn_path == "auto" else attn_path
         # a rank's rows of a max_batch step: the attention and GEMM plans'
         # batch
@@ -334,22 +388,24 @@ class ServingEngine:
         attn_problem = None
         self.attn_path = self.prefill_attn_path = None
         self.kv_partitions = self.prefill_kv_partitions = None
-        if self.paged:
+        if not cfg.attn_free:
             attn_problem = planning.AttentionProblem(
                 B=B_rank, Hq=cfg.num_heads, Hkv=cfg.num_kv_heads,
                 D=cfg.head_dim, cache_len=self.cache_len,
                 page_size=self.page_size, window=cfg.sliding_window,
-                kv_format=self.kv_format, paged=True,
+                kv_format=self.kv_format, paged=self.paged,
                 backend=self.device.type,
                 act_bytes=torch.finfo(cfg.dtype).bits // 8)
             plan = planning.plan_attention(attn_problem, path=forced)
             self.attn_path, self.kv_partitions = plan.path, \
                 plan.kv_partitions
-            pf_plan = planning.plan_attention(
-                dataclasses.replace(attn_problem, B=1,
-                                    q_len=self.prefill_chunk), path=forced)
-            self.prefill_attn_path = pf_plan.path
-            self.prefill_kv_partitions = pf_plan.kv_partitions
+            if self.paged:
+                plan = planning.plan_attention(
+                    dataclasses.replace(attn_problem, B=1,
+                                        q_len=self.prefill_chunk),
+                    path=forced)
+            self.prefill_attn_path = plan.path
+            self.prefill_kv_partitions = plan.kv_partitions
 
         self.spec_k = int(spec_k)
         self.proposer: Optional[spec.Proposer] = None
@@ -358,11 +414,11 @@ class ServingEngine:
             # from the target's whole one
             if isinstance(speculate, spec.Proposer):
                 spec.validate_speculate(speculate.name, self.spec_k,
-                                        cfg=global_cfg)
+                                        cfg=global_cfg, paged=self.chunked)
                 self.proposer = speculate
             else:
                 spec.validate_speculate(str(speculate), self.spec_k,
-                                        cfg=global_cfg)
+                                        cfg=global_cfg, paged=self.chunked)
                 self.proposer = spec.make_proposer(str(speculate),
                                                    target_cfg=global_cfg)
         # verify: q_len = k+1 queries per slot over the full batch
@@ -391,10 +447,14 @@ class ServingEngine:
             M = B_rank * (self.spec_k + 1) \
                 if self.proposer is not None else B_rank
             self.plans = planning.plan_for_params(params, M=M,
-                                                  strategy=strategy)
+                                                  strategy=strategy,
+                                                  refine=refine_plans)
             cfg = dataclasses.replace(cfg, w4a16_plan=self.plans)
         self.cfg = cfg
         self.params = T.unstack_layers(params)
+        # the ring engine's whole-prompt prefill (eager: one step serves
+        # every prompt length)
+        self._prefill = rsteps.make_prefill_step(cfg, self.cache_len)
         self._serve_fns: Dict[Optional[int], Any] = {}
         self._chunk_fns: Dict[Optional[int], Any] = {}
         self._verify_fns: Dict[Optional[int], Any] = {}
@@ -469,13 +529,28 @@ class ServingEngine:
                 live_pages=live_pages)
         return fn
 
+    def _prefill_inputs(self, req: Request):
+        """The ring engine's whole-prompt prefill inputs for ``req`` (B =
+        1): its tokens, and its patches or audio frames where the arch
+        takes them."""
+        inputs = {"tokens": torch.as_tensor(
+            np.asarray(req.prompt, np.int64), device=self.device)[None]}
+        if self.cfg.vision_prefix:
+            inputs["prefix_embeds"] = self.vision_embeds(req)[None]
+        if self.cfg.family == "encdec":
+            inputs["audio_embeds"] = self._audio_embeds(req)[None]
+        return inputs
+
     def _init_state(self):
         rows = self._slot_rows
+        n = self.max_batch if rows is None else rows.stop - rows.start
+        if not self.paged:
+            return T.init_decode_state(self.cfg, n, self.cache_len,
+                                       device=self.device)
         return T.init_paged_state(
-            self.cfg, self.max_batch if rows is None
-            else rows.stop - rows.start, self.cache_len,
-            page_size=self.page_size, num_blocks=self.num_pages,
-            kv_format=self.kv_format, device=self.device)
+            self.cfg, n, self.cache_len, page_size=self.page_size,
+            num_blocks=self.num_pages, kv_format=self.kv_format,
+            device=self.device)
 
     def _local_row(self, i: int) -> Optional[int]:
         """Slot ``i``'s row in this rank's per-slot state, None where
@@ -749,6 +824,11 @@ class ServingEngine:
     def _evict(self, i: int) -> None:
         self._reserve.pop(i, None)
         self._side.pop(i, None)
+        if not self.chunked:
+            j = self._local_row(i)
+            if j is not None:
+                reset_slot(self._state, j)
+            return
         if not self.paged:
             return
         # decref may retain published prefix blocks warm instead of freeing
@@ -836,6 +916,22 @@ class ServingEngine:
                     "engine_prefill_steps_saved",
                     "chunk steps avoided per admit by shared or warm "
                     "prefix pages").observe(saved)
+        return slot
+
+    def _admit_ring(self, req: Request, i: int, t0: float,
+                    pending) -> _Slot:
+        """The ring engine's admit: prefill ``req``'s whole prompt into a
+        one-slot ring state and write it into slot ``i``'s row (on a mesh,
+        on the rank that holds the row; the others drop it). The first
+        token's logits join ``pending``."""
+        inputs = self._prefill_inputs(req)
+        logits, rstate = self._prefill(self.params, inputs)
+        j = self._local_row(i)
+        if j is not None:
+            insert_slot(self._state, rstate, j)
+        del rstate
+        slot = _Slot(req, self.pos0(req), t0)
+        pending.append((slot, logits[0]))
         return slot
 
     def _advance_prefill(self, i: int, slot: _Slot, pending) -> None:
@@ -1074,15 +1170,17 @@ class ServingEngine:
             m.gauge("engine_warm_pages",
                     "refcount-0 prefix blocks retained warm").set(
                 self.alloc.warm_pages)
+        if self.attn_path is not None:
             m.gauge("engine_attn_path",
                     "decode attention path (0=ring 1=gather 2=fused)").set(
                 _PATH_CODE.get(self.attn_path, -1))
             m.counter(f"engine_attn_path_steps_{self.attn_path}",
                       "scheduler steps served by this attention path").inc()
-            m.gauge("engine_prefill_attn_path",
-                    "chunked-prefill attention path "
-                    "(0=ring 1=gather 2=fused)").set(
-                _PATH_CODE.get(self.prefill_attn_path, -1))
+            if self.chunked:
+                m.gauge("engine_prefill_attn_path",
+                        "chunked-prefill attention path "
+                        "(0=ring 1=gather 2=fused)").set(
+                    _PATH_CODE.get(self.prefill_attn_path, -1))
             if self.proposer is not None:
                 m.gauge("engine_verify_attn_path",
                         "speculative-verify attention path "
@@ -1148,7 +1246,10 @@ class ServingEngine:
                 break               # pool too full — wait for evictions
             del self._waiting[idx]
             t0 = time.perf_counter()
-            slot = self._admit(cand, i, t0)
+            if self.chunked:
+                slot = self._admit(cand, i, t0)
+            else:
+                slot = self._admit_ring(cand, i, t0, pending)
             if self.proposer is not None:
                 slot.prompt_ids = [int(t) for t in
                                    np.asarray(cand.prompt).reshape(-1)]

@@ -38,7 +38,8 @@ from repro_torch.models import attention
 __all__ = [
     "PagedKVCache", "BlockAllocator", "NULL_BLOCK", "init_pool",
     "pages_per_slot", "paged_insert", "paged_decode_attention",
-    "gather_window", "scatter_chunk", "scatter_chunks", "copy_blocks",
+    "gather_window", "scatter_chunk", "scatter_chunks", "scatter_ring",
+    "copy_blocks",
     "reset_blocks",
     "position_units", "page_keys",
 ]
@@ -205,6 +206,36 @@ def scatter_chunks(pool: PagedKVCache, tables: torch.Tensor, k_chunk,
     Hkv, D = k_chunk.shape[-2:]
     return _scatter(pool, flat.reshape(-1), k_chunk.reshape(B * C, Hkv, D),
                     v_chunk.reshape(B * C, Hkv, D), tag.reshape(-1), fmt)
+
+
+def scatter_ring(pool: PagedKVCache, table, ring: attention.KVCache, *,
+                 fmt: KVFormat) -> PagedKVCache:
+    """Write a prefilled ring cache of one slot (B = 1) into the pages of
+    its block ``table`` (T,), in place. The ring's index is the logical
+    offset (the ring holds the slot's whole window), so ring entry ``j``
+    lands at page ``j // page_size``, offset ``j % page_size``. ``ring``
+    is one layer's ((1, W) tags) or stacked over L ((L, 1, W) tags, the
+    pool stacked alike). Empty ring entries keep their -1 tag; entries
+    whose page is unmapped write -1 tags into the null block."""
+    ps = pool.page_size
+    W = ring.pos.shape[-1]
+    dev = ring.pos.device
+    tbl = torch.as_tensor(np.asarray(table, np.int64), device=dev)
+    j = torch.arange(W, device=dev)
+    bid = tbl[j // ps]
+    ok = bid >= 0
+    flat = torch.where(ok, bid * ps + j % ps, j % ps)
+
+    def one(pool_l, k, v, pos):
+        tag = torch.where(ok, pos.to(torch.int32),
+                          torch.full_like(pos, -1, dtype=torch.int32))
+        return _scatter(pool_l, flat, k, v, tag, fmt)
+
+    if ring.pos.dim() == 3:
+        for i in range(ring.pos.shape[0]):
+            one(pool.layer(i), ring.k[i, 0], ring.v[i, 0], ring.pos[i, 0])
+        return pool
+    return one(pool, ring.k[0], ring.v[0], ring.pos[0])
 
 
 def paged_decode_attention(q: torch.Tensor, pool: PagedKVCache,

@@ -61,6 +61,14 @@ rank holds the slice that matches its columns (:meth:`Layout.bare_cut`).
 rwkv's time mix stays whole where the model axis does not divide the heads
 (JAX cuts the columns through a head). JAX cuts ``enc_kv``'s frame dim
 over "model"; here its KV heads.
+
+The ring engine's state follows JAX's rule exactly (:func:`ring_spec`):
+a rank holds its rows of the slots and, where the model axis divides the
+window, its slice of the window for every KV head. What departs is the
+program, not the spec: GSPMD inserts the collectives that sequence-
+parallel decode attention over such a ring needs, and here they are
+written by hand (``models/transformer.py``: the new K/V and q all-gathered
+over "model", each rank's softmax partials merged across it).
 """
 from __future__ import annotations
 
@@ -230,6 +238,42 @@ class Layout:
             return None
         n = B // self.dp
         return slice(self.dp_rank * n, (self.dp_rank + 1) * n)
+
+    # -- the ring cache's window -------------------------------------------
+
+    def ring_cut(self, W: int) -> bool:
+        """Is a ring window of W entries cut over "model" (JAX's
+        ``decode_state_shardings``: where the model axis divides W)?"""
+        return self.tp > 1 and W % self.tp == 0
+
+    def ring_slice(self, W: int) -> slice:
+        """This rank's entries of a ring window of W: ``[r·W/tp,
+        (r+1)·W/tp)`` for model rank r when the window is cut, else all.
+        The rank's ring holds them for every KV head, as in JAX."""
+        if not self.ring_cut(W):
+            return slice(0, W)
+        n = W // self.tp
+        return slice(self.tp_rank * n, (self.tp_rank + 1) * n)
+
+    def kv_heads(self) -> slice:
+        """This rank's KV heads among the config's (all of them where the
+        attention is whole on every rank)."""
+        n = self.cfg.num_kv_heads // self.kv_parts
+        return slice(self.kv_index * n, (self.kv_index + 1) * n)
+
+    def gather_heads(self, t: torch.Tensor, dim: int, *,
+                     kv: bool = False) -> torch.Tensor:
+        """Every head of ``t``, whose ``dim`` holds this rank's query heads
+        (or, with ``kv``, its KV heads: a head that ``tp / kv_parts`` ranks
+        share is taken once), gathered over "model"; ``t`` itself where the
+        attention is whole on every rank."""
+        if not self.attn_sharded:
+            return t
+        t = self.gather_model(t, dim)
+        rep = self.tp // self.kv_parts if kv else 1
+        if rep > 1:
+            t = torch.cat(t.chunk(self.tp, dim)[::rep], dim)
+        return t
 
     def route_shards(self, T: int, split: bool) -> int:
         """Token shards a MoE layer routes ``T`` local tokens in: one when
@@ -838,21 +882,37 @@ def carry_spec(name: str, shape, layout: Layout) -> tuple:
     return tuple(spec)
 
 
+def ring_spec(shape, layout: Layout) -> tuple:
+    """Spec of a ring-cache leaf (JAX's rule): K and V (L, B, W, Hkv, D)
+    and the tags (L, B, W) cut their batch over the DP axes where
+    ``batch_spec`` splits it and their window W over "model" where the
+    model axis divides it; the KV heads stay whole on every rank."""
+    spec = [None] * len(shape)
+    spec[1] = batch_axis_entry(shape[1], layout.mesh)
+    model = axis_size(layout.mesh, "model")
+    if model > 0 and shape[2] % model == 0:
+        spec[2] = "model"
+    return tuple(spec)
+
+
 def decode_state_shardings(state, cfg, mesh):
     """Specs of a decode state of ``max_batch`` slots (JAX's
     ``decode_state_shardings``): every paged-pool leaf by
     :func:`pool_spec` (with the KV heads replicated over ``tp / Hkv``
     ranks the head dim is "model" too, each rank holding one head; JAX
-    replicates such a pool whole), the recurrent carries and ``enc_kv`` by
-    :func:`carry_spec`."""
+    replicates such a pool whole), a ring cache by :func:`ring_spec`, the
+    recurrent carries and ``enc_kv`` by :func:`carry_spec`."""
     layout = Layout(cfg, mesh)
     cache = state["cache"]
     out = {"cache": {}}
     for name, leaf in cache.items():
-        if name == "kv":
+        if name == "kv" and isinstance(leaf, PagedKVCache):
             out["cache"]["kv"] = PagedKVCache(*(
                 None if t is None else pool_spec(tuple(t.shape), layout)
                 for t in leaf))
+        elif name == "kv":
+            out["cache"]["kv"] = type(leaf)(*(
+                ring_spec(tuple(t.shape), layout) for t in leaf))
         else:
             out["cache"][name] = carry_spec(name, tuple(leaf.shape), layout)
     if "enc_kv" in state:

@@ -13,8 +13,15 @@ it reads, against the JAX package on the CPU.
   same coordinates (``shard_params``, ``TrainShards``), and JAX's shard
   shapes (``param_shardings(fsdp=True)``) where the port cuts as JAX does.
 - REDUCED cells on small fake worlds: the arguments' bytes equal the real
-  shards' on the CPU; a one-device train step's FLOPs equal
-  ``FlopCounterMode`` on the same step run on CPU tensors.
+  shards' on the CPU (JAX's decode cell: the rank's share of the whole
+  ring state cut by JAX's specs; the paged departure: the rank's paged
+  state); a one-device train step's FLOPs equal ``FlopCounterMode`` on
+  the same step run on CPU tensors.
+- The ring state a rank holds (``T.init_decode_state`` on its config):
+  each ring leaf's shape, and the port's spec of it, equal JAX's
+  ``decode_state_shardings`` on ``input_specs``' state, at 16x16 for the
+  full configs and on REDUCED worlds, a window the model axis does not
+  divide included.
 - Every (arch x shape) cell of the full configs at 16x16 (the first layer
   of each, full width) is OK or SKIP with JAX's reasons; danube's train_4k
   at 15x16 and global batch 240 (full depth) fits one H100.
@@ -299,7 +306,9 @@ def test_arguments_are_the_real_shards_bytes(arch, dm):
     assert rec["bytes_per_device"]["argument"] == want
     assert rec["bytes_per_device"]["peak_total"] > want
     assert rec["collectives"]["total"] > 0
-    step, args, _ = dryrun.decode_cell(cfg, 4, 16, page_size=4, mesh=mesh)
+    step, args, meta = dryrun.decode_paged_cell(cfg, 4, 16, page_size=4,
+                                                mesh=mesh)
+    assert meta["cell"] == "paged (departure)"
     rec = dryrun.trace(step, args)
     whole = T.quantize_params(T.init_params(
         torch.Generator().manual_seed(0), cfg), cfg)
@@ -313,7 +322,125 @@ def test_arguments_are_the_real_shards_bytes(arch, dm):
     want = nbytes(sharding.shard_params(whole, mesh, cfg)) + nbytes(state) \
         + inputs
     assert rec["bytes_per_device"]["argument"] == want
+    # JAX's cell: the whole ring state of B slots and a 16-entry window,
+    # rank 0's share of each ring leaf by JAX's spec, of the carries and
+    # enc_kv by the port's (its enc_kv_heads departure)
+    step, args, meta = dryrun.decode_cell(cfg, 4, 16, mesh=mesh)
+    assert meta["cell"] == "ring"
+    rec = dryrun.trace(step, args)
+    ring_state = T.init_decode_state(cfg, 4, 16)
+    _, specs = jax_decode_specs(jconfigs.get_reduced(arch),
+                                jconfigs.ShapeSpec("decode_w", 16, 4,
+                                                   "decode"), dm)
+    share = 0
+    for name, leaf in ring_state["cache"].items():
+        if name == "kv":
+            for key, t in zip(("k", "v", "pos"), leaf):
+                share += nbytes(rank0_share(t, specs[("cache", "kv", key)],
+                                            dm))
+        else:
+            share += nbytes(rank0_share(leaf, sharding.carry_spec(
+                name, tuple(leaf.shape), lay), dm))
+    for t in ring_state.get("enc_kv", ()):
+        share += nbytes(rank0_share(t, sharding.carry_spec(
+            "enc_kv", tuple(t.shape), lay), dm))
+    want = nbytes(sharding.shard_params(whole, mesh, cfg)) + share + 2 * 4 * 4
+    assert rec["bytes_per_device"]["argument"] == want
     torch.distributed.destroy_process_group()
+
+
+def rank0_share(t, spec, dm):
+    """Rank (0, 0)'s part of ``t`` under ``spec`` on a (data, model) mesh
+    of ``dm``."""
+    sizes = {"data": dm[0], "model": dm[1]}
+    for dim, entry in enumerate(spec):
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is not None:
+                t = t.narrow(dim, 0, t.shape[dim] // sizes[a])
+    return t
+
+
+def jax_decode_specs(jcfg, shape, dm):
+    """``input_specs``' decode state of the (config × shape) cell and
+    JAX's ``decode_state_shardings`` of it as PartitionSpec tuples keyed by
+    leaf path."""
+    state = jconfigs.input_specs(jcfg, shape)["state"]
+    real = jshd.NamedSharding
+    try:
+        jshd.NamedSharding = lambda m, spec: spec
+        specs = jshd.decode_state_shardings(state, jcfg, SpecMesh(dm))
+    finally:
+        jshd.NamedSharding = real
+    flat = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    return state, {tuple(str(getattr(k, "key", getattr(k, "name", k)))
+                         for k in p): tuple(spec) for p, spec in flat}
+
+
+def jax_ring_shapes(jcfg, shape, dm):
+    """JAX's ring leaves' shard shapes and specs for the (config × shape)
+    cell."""
+    state, specs = jax_decode_specs(jcfg, shape, dm)
+    sizes = {"data": dm[0], "model": dm[1]}
+    out = {}
+    for name in ("k", "v", "pos"):
+        shp = list(getattr(state["cache"]["kv"], name).shape)
+        spec = specs[("cache", "kv", name)]
+        for i, e in enumerate(spec):
+            for a in (e if isinstance(e, tuple) else (e,)):
+                if a is not None:
+                    shp[i] //= sizes[a]
+        out[name] = (tuple(shp), spec)
+    return out
+
+
+RING_CELLS = [(a, s, (16, 16), False) for a in jconfigs.ARCHS
+              for s in ("decode_32k", "long_500k")] + [
+    (a, jconfigs.ShapeSpec("decode_w", W, B, "decode"), dm, True)
+    for a in ("h2o-danube-1.8b", "llama3-405b", "hymba-1.5b",
+              "whisper-small")
+    for W, B, dm in ((16, 4, (2, 2)), (13, 4, (1, 4)), (16, 4, (1, 4)),
+                     (12, 6, (2, 3)), (13, 2, (2, 1)))]
+
+
+def test_ring_leaves_rank_shapes_equal_jax_specs():
+    """Each ring leaf a rank holds (``T.init_decode_state`` on its
+    config) has the shape of JAX's ``decode_state_shardings`` spec applied
+    to ``input_specs``' state, and the port's spec of it
+    (``sharding.ring_spec``) is JAX's: at 16x16 for every full config's
+    decode shapes (ranks (0,0), (3,9) and (15,15)), and on REDUCED worlds
+    with windows the model axis divides and does not (13 over 4 and 2,
+    12 over 3 with 6 slots over 2 data rows)."""
+    checked = 0
+    for arch, shape, dm, reduced in RING_CELLS:
+        jcfg = (jconfigs.get_reduced if reduced else jconfigs.get_config)(
+            arch)
+        if isinstance(shape, str):
+            shape = jconfigs.SHAPES[shape]
+        if jcfg.attn_free or jconfigs.skip_reason(jcfg, shape):
+            continue
+        if reduced and jcfg.sliding_window:
+            jcfg = dataclasses.replace(jcfg, sliding_window=0)
+        cfg = (configs.get_reduced if reduced else configs.get_config)(arch)
+        cfg = dataclasses.replace(cfg, sliding_window=jcfg.sliding_window)
+        want = jax_ring_shapes(jcfg, shape, dm)
+        W = jconfigs.cache_len_for(jcfg, shape)
+        B = shape.global_batch
+        whole = T.init_decode_state(cfg, B, W, device="meta")
+        for d, m in ((0, 0), (3 % dm[0], 9 % dm[1]), (dm[0] - 1, dm[1] - 1)):
+            lay = sharding.Layout(cfg, SpecMesh(dm, d, m))
+            rows = lay.rows(B)
+            n = B if rows is None else rows.stop - rows.start
+            ring = T.init_decode_state(lay.local_cfg(), n, W,
+                                       device="meta")["cache"]["kv"]
+            spec = sharding.decode_state_shardings(whole, cfg,
+                                                   SpecMesh(dm, d, m))
+            for name, t, sp in zip(("k", "v", "pos"), ring,
+                                   spec["cache"]["kv"]):
+                assert (tuple(t.shape), sp) == want[name], \
+                    (arch, shape.name, dm, d, m, name)
+            checked += 1
+    assert checked > 50
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "olmoe-1b-7b"])
@@ -499,3 +626,26 @@ def test_flash_forward_on_meta_matches_the_plain_shape():
     for a, b in zip(got, want):
         assert a.is_meta and a.shape == b.shape and a.dtype == b.dtype
     assert flash_attention.FLASH_ATTENTION.traced == traced + 1
+
+
+def test_decode_records_jax_cell_beside_the_paged_departure(tmp_path):
+    """A decode shape's record is JAX's cell (the ring state cut over
+    "data" and "model"); the paged departure is its own record, and the
+    CLI writes both for an arch that holds a KV cache: at llama3-405b's
+    decode_32k (one layer) the ring's rank share is 1/16 of its window,
+    the paged pool's every data replica's whole."""
+    ring = dryrun.run_cell("llama3-405b", "decode_32k", layers=1,
+                           verbose=False)
+    paged = dryrun.run_cell("llama3-405b", "decode_32k", layers=1,
+                            paged=True, verbose=False)
+    assert ring["status"] == paged["status"] == "OK"
+    assert (ring["cell"], paged["cell"]) == ("ring", "paged (departure)")
+    assert ring["bytes_per_device"]["argument"] < \
+        paged["bytes_per_device"]["argument"]
+    out = tmp_path / "cells.json"
+    assert dryrun.main(["--arch", "whisper-small", "--shape", "decode_32k",
+                        "--json", str(out)]) == 0
+    recs = json.loads(out.read_text())
+    assert [(r["status"], r["cell"]) for r in recs] == \
+        [("OK", "ring"), ("OK", "paged (departure)")]
+    torch.distributed.destroy_process_group()

@@ -214,13 +214,17 @@ def test_engine_refuses_what_the_slice_left_out(weights):
     kw = dict(max_batch=2, max_prompt_len=8, max_new_tokens=2, page_size=4,
               device="cpu")
     for bad, match in ((dict(mesh=object()), "mesh"),
-                       (dict(paged=False), "ring"),
                        (dict(attn_path="fused"), "does not support"),
                        # a draft overhang as long as the window (16)
                        (dict(speculate="ngram", spec_k=16),
                         "sliding window")):
         with pytest.raises((NotImplementedError, ValueError), match=match):
             ServingEngine(cfg, tparams, **kw, **bad)
+    # the ring engine serves (held against JAX's in test_torch_ring.py)
+    ring = ServingEngine(cfg, tparams, **dict(kw, paged=False))
+    rep = ring.run([Request(rid=0, prompt=np.arange(4, dtype=np.int32),
+                            max_new_tokens=2)])
+    assert ring.attn_path == "ring" and len(rep.results[0]) == 2
     # a recurrent draft cannot rewind rejected drafts
     with pytest.raises(ValueError, match="rewind"):
         spec.DraftModelProposer(dataclasses.replace(cfg, family="rwkv"))

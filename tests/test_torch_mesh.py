@@ -10,7 +10,12 @@ K/4 in whole groups) and (2,4); the fused paged-attention path at (2,4)
 with 5-token chunks and ngram; ngram speculation at (2,2); a warm
 re-admit at (2,4); a shared prompt prefix whose two slots sit on
 different data ranks; internvl2 at (2,2); olmoe at (1,2); llama3-405b
-REDUCED at (1,4); danube with the tied head at (1,4). Each world size is spawned once for all its cases. MoE
+REDUCED at (1,4); danube with the tied head at (1,4). The ring engine
+(``paged=False``): danube at (1,2) and (2,2) with a 12-entry window cut
+over "model" (it wraps in decode), llama3-405b REDUCED at (1,4) with its
+13-entry window whole (4 does not divide it) and with a 16-entry window
+cut 4 ways (2 KV heads over 4 ranks). Each world size is spawned once for
+all its cases. MoE
 under a data axis routes per data shard (a different reference:
 ``test_torch_sharding.py`` holds that dispatch op by op), so olmoe is held
 at TP only.
@@ -94,6 +99,18 @@ CASES = {
 }
 ALL = [(world, c) for world, cases in CASES.items() for c in cases]
 
+RING = dict(BASE, paged=False)
+# the ring engine's cases: (case, weights, mesh, engine kwargs)
+RING_CASES = {
+    2: [("ring-danube-1x2", "danube", (1, 2), dict(RING, cache_len=12))],
+    4: [("ring-danube-2x2", "danube", (2, 2), dict(RING, cache_len=12)),
+        ("ring-llama3-1x4", "llama3", (1, 4), RING),
+        ("ring-llama3-1x4-cut", "llama3", (1, 4),
+         dict(RING, cache_len=16))],
+}
+RING_ALL = [(world, c) for world, cases in RING_CASES.items()
+            for c in cases]
+
 _JAX = {}
 
 
@@ -128,17 +145,21 @@ def ranks(tmp_path_factory):
     out = {}
     for world, cases in CASES.items():
         job = {"weights": {}, "cases": []}
-        for name, wkey, mesh, kw, kind, fused in cases:
+        ring = [(name, wkey, mesh, kw, "base", False, True)
+                for name, wkey, mesh, kw in RING_CASES.get(world, [])]
+        for name, wkey, mesh, kw, kind, fused, *step in \
+                [c + (False,) for c in cases] + ring:
             job["weights"][wkey] = jax_weights(wkey)[2]
             arch, fields = WEIGHTS[wkey]
             job["cases"].append(dict(
                 name=name, arch=arch, cfg=fields,
                 weights=wkey, mesh=mesh, engine=kw,
-                requests=requests(arch, kind), force_fused=fused))
+                requests=requests(arch, kind), force_fused=fused,
+                step=step[0]))
         results = torch_mesh_rank.spawn(
             world, job, tmp_path_factory.mktemp(f"world{world}"))
-        for name, *_ in cases:
-            out[name] = [r[name] for r in results]
+        for case in job["cases"]:
+            out[case["name"]] = [r[case["name"]] for r in results]
     return out
 
 
@@ -160,6 +181,50 @@ def test_sharded_engine_matches_jax_single_device(ranks, world, case):
         assert len(pools) == 1, (name, col)
     paths = {res["attn_path"] for res in got}
     assert paths == {("fused",) * 3 if fused else ("gather",) * 3}
+
+
+@pytest.mark.parametrize("world,case", RING_ALL,
+                         ids=[c[0] for _, c in RING_ALL])
+def test_ring_engine_on_a_mesh_matches_jax_single_device(ranks, world,
+                                                         case):
+    """The ring engine on gloo ranks: every rank's greedy tokens equal
+    JAX's single-device ring engine's; every rank's ring holds its rows of
+    the slots and, where the model axis divides the window, its slice of
+    it, for every KV head; one whole-prompt prefill and one decode step
+    run by hand give JAX's logits (prefill, and the step's rows this rank
+    runs) within 1e-4 (fp32)."""
+    import jax.numpy as jnp
+    from repro.runtime.engine import insert_slot as jinsert
+
+    name, wkey, mesh, kw = case
+    want, _ = jax_reference(wkey, kw, "base")
+    jcfg, jparams, _ = jax_weights(wkey)
+    jeng = JServingEngine(jcfg, jparams, **kw)
+    W = jeng.cache_len
+    dp, tp = mesh
+    rows = kw["max_batch"] // dp
+    win = W // tp if W % tp == 0 else W
+    shape = (jcfg.num_layers, rows, win, jcfg.num_kv_heads, jcfg.head_dim)
+    req = JRequest(**requests(jcfg.name, "base")[0])
+    inputs = jeng._prefill_inputs(req)
+    logits, rstate = jeng._prefill_fn(inputs)(jeng.params, inputs)
+    state = jinsert(JT.init_decode_state(jcfg, kw["max_batch"], W),
+                    rstate, 0)
+    got = ranks[name]
+    assert len(got) == world
+    for r, res in enumerate(got):
+        assert res["tokens"] == want, (name, r)
+        assert res["ring"] == {"k": shape, "v": shape, "pos": shape[:3]}
+        assert res["attn_path"] == ("ring", "ring", "ring")
+        step = res["step"]
+        np.testing.assert_allclose(step["prefill"], np.asarray(logits[0]),
+                                   rtol=1e-4, atol=1e-4)
+        out = jeng._serve_step()(jeng.params, {
+            "state": state, "tokens": jnp.asarray(step["tok"], jnp.int32),
+            "pos": jnp.asarray(step["pos"], jnp.int32)})
+        np.testing.assert_allclose(
+            step["decode"], np.asarray(out["logits"])[step["rows"]],
+            rtol=1e-4, atol=1e-4)
 
 
 def test_shard_local_plans_and_heads(ranks):

@@ -138,6 +138,9 @@ def test_plan_attention_fused_on_cuda_gather_on_cpu():
     with pytest.raises(ValueError, match="does not support"):
         planning.plan_attention(_attn(backend="cpu"), path="fused")
     with pytest.raises(ValueError, match="unknown attention path"):
+        planning.plan_attention(_attn(), path="flash3")
+    # the ring path serves only an engine without the paged pool
+    with pytest.raises(ValueError, match="does not support"):
         planning.plan_attention(_attn(), path="ring")
     assert planning.plan_attention(_attn(), path="gather").path == "gather"
 
@@ -158,7 +161,11 @@ def test_h100_roofline():
             kv_partitions=2) < costmodel.paged_attn_bytes(
             "gather", 8, 32, 8, 80, 544, quantized=False, q_len=q_len)
     with pytest.raises(ValueError, match="unknown attention path"):
-        costmodel.paged_attn_bytes("ring", 1, 1, 1, 1, 1, quantized=False)
+        costmodel.paged_attn_bytes("flash3", 1, 1, 1, 1, 1, quantized=False)
+    # the ring: the dense window read once, q in and out back (JAX's terms)
+    assert costmodel.paged_attn_bytes(
+        "ring", 8, 32, 8, 80, 544, quantized=True) == \
+        8 * 544 * 2 * 2 * 8 * 80 + 2 * 8 * 32 * 80 * 2
 
 
 def test_h100_gemm_family_bounds():
@@ -273,3 +280,148 @@ def test_serve_launcher_plan_cache(tmp_path, capsys):
     assert f"4 plans -> {path} (3 hits / 4 misses this run)" in first
     assert f"loaded 4 plans from {path}" in out
     assert " / 0 misses this run)" in out
+
+
+# ---------------------------------------------------------------------------
+# the refine pass (kernels/autotune.py) and plans as JSON
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,N,K", list(itertools.product(
+    [1, 8, 16, 64], [128, 256, 1024, 6144], [2048, 6144, 16384])))
+def test_autotune_plans_are_launches_the_kernel_takes(M, N, K):
+    """Every plan is a launch ``gemm_geometry`` accepts: a power-of-two
+    split whose K slices are whole groups, the row tile and K rows a
+    block of that launch's geometry, ``GEMM_BN`` columns."""
+    from repro_torch.kernels.autotune import autotune_w4a16
+    from repro_torch.kernels.gemm import (GEMM_BN, gemm_geometry,
+                                          sums_in_kernel)
+    bm, bn, bk, s = autotune_w4a16(M, N, K, group=128)
+    assert s & (s - 1) == 0 and (K // s) % 128 == 0 and bn == GEMM_BN
+    geo = gemm_geometry("int4", M, N, K, s, torch.bfloat16,
+                        direct=sums_in_kernel(s, torch.bfloat16,
+                                              torch.bfloat16),
+                        group=128, sms=132)
+    assert (bm, bk) == (geo.bm, K // geo.ks)
+
+
+def test_autotune_split_k_grows_with_k_at_small_m():
+    """The regime of JAX's ``test_autotune_split_k_regimes``: at small M
+    and K ≫ N the split grows with K (the Hopper kernel's geometry fills
+    the card with in-cluster slices first, so it stays 1 until K is deep);
+    a square decode GEMM stays at 1, as the kernel's geometry already
+    fills the card."""
+    from repro_torch.kernels.autotune import autotune_w4a16
+    for M, N in ((1, 256), (8, 256), (1, 64), (8, 128)):
+        splits = [autotune_w4a16(M, N, K)[3]
+                  for K in (2048, 4096, 8192, 16384, 32768, 65536)]
+        assert splits == sorted(splits) and splits[-1] > 1, (M, N, splits)
+    assert autotune_w4a16(8, 2560, 2560)[3] == 1
+    # granite's (6144, 128) stays unsplit, where the heuristic picks 16
+    assert autotune_w4a16(8, 128, 6144)[3] == 1
+    assert planning.choose_split_k(8, 128, 6144, cores=132) == 16
+
+
+def test_refine_reaches_the_search_past_a_cached_plan():
+    """``refine=True`` runs the search even when a heuristic plan is
+    cached and replaces it (JAX's rule); refine is off by default, so no
+    default plan changes; a forced strategy refines too."""
+    from repro_torch.kernels.autotune import autotune_w4a16
+    cache = planning.PlanCache()
+    # a meta problem is planned as the card's (132 SMs without one)
+    prob = _problem("meta", M=8, K=6144, N=128)
+    heuristic = planning.plan_matmul(prob, cache=cache)
+    assert heuristic.split_k == planning.choose_split_k(
+        8, 128, 6144, cores=planning.num_cores("meta")) == 16
+    refined = planning.plan_matmul(prob, refine=True, cache=cache)
+    assert refined.strategy == heuristic.strategy == "fused"
+    assert refined.split_k == autotune_w4a16(8, 128, 6144)[3] == 1
+    assert cache.get(prob) == refined
+    assert planning.plan_matmul(prob, strategy="fused", refine=True) == \
+        refined
+    # the plain path has no split to refine
+    assert planning.plan_matmul(_problem("cpu"), refine=True,
+                                use_cache=False).split_k == 1
+    from repro_torch.kernels import ops
+    w = quantize(torch.randn(256, 128, generator=torch.Generator()
+                             .manual_seed(1)))
+    x = torch.randn(4, 256, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(ops.w4a16_matmul(x, w, autotune=True),
+                               ops.w4a16_matmul(x, w))
+
+
+def test_plan_json_round_trips_and_reads_jax_plans():
+    plan = planning.KernelPlan(strategy="fused", split_k=4,
+                               out_dtype="bfloat16")
+    assert planning.KernelPlan.from_json(plan.to_json()) == plan
+    jplan = jplanning.KernelPlan(strategy="decoupled", split_k=8,
+                                 block_m=16, block_n=512, block_k=1024)
+    assert planning.KernelPlan.from_json(jplan.to_json()) == \
+        planning.KernelPlan(strategy="decoupled", split_k=8)
+    # JAX reads the port's JSON (its tiles at their defaults)
+    back = jplanning.KernelPlan.from_json(plan.to_json())
+    assert (back.strategy, back.split_k, back.out_dtype) == \
+        ("fused", 4, "bfloat16")
+
+
+def test_resolve_plan_takes_jax_override_forms():
+    """``cfg.w4a16_plan`` as a plan, a mapping (to a plan or a dict; a
+    layer it does not name is planned) or a plan's JSON gives JAX's
+    ``resolve_plan`` decision for each form."""
+    prob = _problem("cpu", M=8, K=256, N=128, act="float32")
+    jprob = jplanning.MatmulProblem(M=8, N=128, K=256, backend="cpu",
+                                    act_dtype="float32",
+                                    out_dtype="float32")
+    forced = planning.KernelPlan(strategy="reference", split_k=2)
+    jforced = jplanning.KernelPlan(strategy="reference", split_k=2)
+
+    class Cfg:
+        w4a16_strategy = "auto"
+
+    forms = [(forced, jforced),
+             ({"256x128": forced}, {"256x128": jforced}),
+             ({"256x128": forced.to_dict()}, {"256x128": jforced.to_dict()}),
+             (forced.to_json(), jforced.to_json())]
+    for tform, jform in forms:
+        tcfg, jcfg = Cfg(), Cfg()
+        tcfg.w4a16_plan, jcfg.w4a16_plan = tform, jform
+        got = planning.resolve_plan(prob, tcfg)
+        want = jplanning.resolve_plan(jprob, jcfg)
+        assert (got.strategy, got.split_k) == (want.strategy, want.split_k)
+    tcfg = Cfg()
+    tcfg.w4a16_plan = {"64x64": forced}
+    assert planning.resolve_plan(prob, tcfg) == planning.plan_matmul(prob)
+
+
+def test_refine_plans_keeps_the_engine_tokens():
+    """``ServingEngine(refine_plans=True)`` plans through the refine pass
+    (on the CPU the plain path, unsplit) and serves JAX's tokens."""
+    import jax
+    from repro import configs as jconfigs
+    from repro.models import transformer as JT
+    from repro.runtime.engine import Request as JRequest
+    from repro.runtime.engine import ServingEngine as JServingEngine
+    from repro_torch import configs
+    from repro_torch.convert import from_jax_params
+    from repro_torch.runtime.engine import Request, ServingEngine
+    from torch_parity_helpers import jax_to_numpy
+    import numpy as np
+
+    arch = "h2o-danube-1.8b"
+    jcfg = jconfigs.get_reduced(arch)
+    jparams = JT.quantize_params(JT.init_params(jax.random.PRNGKey(0), jcfg),
+                                 jcfg, min_size=0)
+    cfg = configs.get_reduced(arch)
+    tparams = from_jax_params(jax_to_numpy(jparams), dtype=cfg.dtype,
+                              device="cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    kw = dict(max_batch=2, max_prompt_len=8, max_new_tokens=4,
+              page_size=4, refine_plans=True)
+    want = JServingEngine(jcfg, jparams, **kw).run(
+        [JRequest(rid=i, prompt=toks[i].astype(np.int32), max_new_tokens=4)
+         for i in range(2)])
+    eng = ServingEngine(cfg, tparams, device="cpu", **kw)
+    got = eng.run([Request(rid=i, prompt=toks[i].astype(np.int32),
+                           max_new_tokens=4) for i in range(2)])
+    assert got.results == {k: [int(t) for t in v]
+                           for k, v in want.results.items()}
+    assert eng.plans and all(p.split_k == 1 for p in eng.plans.values())

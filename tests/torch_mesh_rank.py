@@ -9,6 +9,10 @@ serving case (:func:`run_case`) serves a set of requests through
 ``ServingEngine(mesh=...)`` at a (data, model) mesh over the same world
 (``force_fused`` lets the planner pick the fused paged-attention path on
 the CPU, whose wrapper then runs the kernel's plain version). A training
+case with ``paged=False`` serves on the ring engine and also returns its
+ring leaves' shapes and, with ``"step"``, the logits of one whole-prompt
+prefill and one decode step run by hand on the rank (:func:`ring_step`).
+A training
 case (``"train"`` in the case, :func:`run_train_case`) runs a few steps of
 ``make_train_step(..., mesh=...)`` and returns every step's metrics and
 the whole parameters, m and v gathered from the ranks. An elastic case
@@ -149,7 +153,15 @@ def run_case(case: dict, weights: dict) -> dict:
                        ("D", lp.get("ssm", {}).get("D"))):
         if leaf is not None:
             shapes[name] = tuple(leaf.shape)
+    out = {}
+    ring = state["cache"].get("kv")
+    if not eng.chunked and ring is not None:
+        out["ring"] = {name: tuple(t.shape)
+                       for name, t in zip(("k", "v", "pos"), ring)}
+        if case.get("step"):
+            out["step"] = ring_step(eng, reqs[0])
     return {
+        **out,
         "tokens": {int(k): [int(t) for t in v]
                    for k, v in sorted(rep.results.items())},
         "warm_hits": rep.warm_hits, "steps": rep.steps,
@@ -166,6 +178,36 @@ def run_case(case: dict, weights: dict) -> dict:
         "speculated": (rep.proposed_tokens, rep.accepted_tokens),
         "side_rows": len(eng._side),
     }
+
+
+def ring_step(eng, req) -> dict:
+    """On a fresh ring state: ``req``'s whole-prompt prefill into slot 0,
+    then one decode step of every slot with slot 0 at its first decode
+    position and its first token (the other slots at position 0, token
+    0). Returns the prefill's logits (V,) and the step's logits of the
+    rows this rank runs, with those rows' indices."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime.engine import insert_slot
+
+    with torch.no_grad():
+        state = eng._init_state()
+        inputs = eng._prefill_inputs(req)
+        logits, rstate = eng._prefill(eng.params, inputs)
+        j = eng._local_row(0)
+        if j is not None:
+            insert_slot(state, rstate, j)
+        tok = np.zeros(eng.max_batch, np.int64)
+        pos = np.zeros(eng.max_batch, np.int64)
+        tok[0], pos[0] = int(torch.argmax(logits[0])), eng.pos0(req)
+        res = eng._serve_step()(eng.params, {
+            "state": state, "tokens": torch.as_tensor(tok),
+            "pos": torch.as_tensor(pos)})
+    rows = eng._slot_rows or slice(0, eng.max_batch)
+    return {"prefill": logits[0].numpy(), "decode": res["logits"].numpy(),
+            "rows": list(range(rows.start, rows.stop)), "tok": tok,
+            "pos": pos}
 
 
 def oracle_proposer(plain, right, bad, base=None):
