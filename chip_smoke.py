@@ -47,8 +47,10 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              rows all zero, and fp32; W8A16 batched at olmoe's shapes;
              the decoupled pipeline and W4A8 on olmoe's w_gate stack,
              expert by expert through their 2-D kernels.
-4. serve   — the port's main path through its launcher
-             (``repro_torch.launch.serve``): h2o-danube-1.8b at full width
+4. serve   — the port's main path on its launcher's engine
+             (``repro_torch.launch.serve``'s ``build``, driven through the
+             engine's stepper with phase 6's trace windows): h2o-danube-1.8b
+             at full width
              (24 layers, d_model 2560, 32/8 heads of 80, d_ff 6912, vocab
              32000, bf16), random weights from seed 0 quantized to
              w4a16_g128, 8 requests of 512 prompt + 32 generated tokens,
@@ -63,9 +65,11 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              ``reference``, ``w4a8_xla``) with the path's kernels' counters
              rising, and ``--no-quant`` (dense bf16 weights, the FP16×FP16
              yardstick); the fused W4A16 path runs in that cell too. Each
-             path's device time per decode step is read from a short
-             ``torch.profiler`` window (decode steps are host-bound, so
-             tok/s hides the GEMMs).
+             of those kernel runs traces 4 of its decode steps under
+             ``torch.profiler`` (device time per decode step: decode steps
+             are host-bound, so tok/s hides the GEMMs), every decode step
+             launching the path's GEMM kernels 7 times a layer and paged
+             attention once a layer.
 5. timing  — CUDA-event medians of each kernel, its plain version and one
              PyTorch library call for the same function, with the L2 cache
              flushed before every launch (the serving step reads every
@@ -85,13 +89,13 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              beside E GEMMs' bound, dequant + ``torch.bmm`` and the 2-D
              kernel looped over the experts; the decoupled pipeline's and
              W4A8's expert-by-expert runs on olmoe's w_gate stack.
-6. trace   — the main path once more, stepped through the engine's
-             stepper API: a prefill window and a decode window under
-             ``torch.profiler`` (device busy time and device ops per step,
-             the fused W4A16 kernel's share, the kernels and host ops that
-             cost the most), and untraced steps of each kind
+6. trace   — in phase 4's counted run: one prefill step and 4 decode
+             steps under ``torch.profiler`` (device busy time and device
+             ops per step, the fused W4A16 kernel's share, the kernels and
+             host ops that cost the most), and untraced steps of each kind
              timed to a sync, so the idle share is read against host time
-             the profiler did not slow.
+             the profiler did not slow. Phase 16 holds the ring engine
+             against this run.
 7. train   — (a) two train steps of danube at full width and depth (B=4 x
              2048 tokens, the same random weights and batches) through the
              flash kernel and through the plain chunked attention: loss,
@@ -139,11 +143,19 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              = 56 times, an ngram-speculative run (verify routes 8 x 5
              rows), and the dense bf16 weights (``--no-quant``, the
              paper's FP16 yardstick) traced the same way; (b) mixtral-8x7b
-             at full width, the first 2 of its 32 layers, W4A16, 8
-             requests of 64 + 8 tokens, against its plain paths the same
-             way. Phase 3 also holds paged attention at both archs' head
-             shapes (16 over 16 heads of 128; 32 over 8 of 128, window
-             4096).
+             at full width and depth (32 layers, 46.7 B parameters: 87 GiB
+             in bf16): first ``python -m repro_torch.launch.serve --arch
+             mixtral-8x7b`` as typed (``launch.serve.main``, counted: the
+             W4A16 kernel, its expert-batched form and paged attention
+             launch), then the launcher's engine, built streamed
+             (``T.init_serving_params``: drawn and quantized layer by
+             layer, 26.7 GiB at the peak reckoned, printed beside the
+             measured), W4A16, 8 requests of 64 + 16 tokens, every decode
+             step launching the W4A16 kernel 7 x 32 times (3 x 32 of them
+             expert-batched) and paged attention 32 times, against its
+             plain paths the same way. Phase 3 also holds paged attention
+             at both archs' head shapes (16 over 16 heads of 128; 32 over
+             8 of 128, window 4096).
 10. carry  — the recurrent-carry families at full width, each
              through the serve launcher (W4A16, kv_fp16, 8 slots, 8
              requests of 256 + 32 tokens, 16-token pages, 32-token chunks,
@@ -201,10 +213,14 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              step; a request differing in patch row 100 shares pages 0-5
              only), ngram, and one request with ``prefix_embeds`` through
              the front door. (c) starcoder2-7b (GELU) and granite-20b (one
-             KV head for 48) at full width, depth cut to their first 4
-             layers, 8 requests of 128 + 16 tokens, against their plain
-             paths. Phase 3 also holds the W4A16 kernel at whisper's M =
-             1500 encoder shapes and at (896, 128), (896, 151808), (6144,
+             KV head for 48) at full width and depth (32 and 52 layers)
+             through the serve launcher (granite built streamed,
+             starcoder2 whole, as the launcher chooses from the shapes;
+             the build's peak measured beside the reckoned), 8 requests of 128 + 16 tokens
+             (6 x 32 and 7 x 52 W4A16 launches, 32 and 52 paged-attention
+             launches a decode step), against their plain paths. Phase 3
+             also holds the W4A16 kernel at whisper's M = 1500 encoder
+             shapes and at (896, 128), (896, 151808), (6144,
              128) at every split the planner may pick, (24576, 6144) and
              (18432, 4608); paged attention at G = 1, 7, 9 and 48 (decode,
              chunk, verify); the flash kernel non-causal at 1 x 1500, D =
@@ -342,7 +358,9 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              0) on a fake world of 4), traced at that geometry, its
              predicted peak beside the measured (less what the process
              held before the cell's tensors; a miss beyond 10 % and 256
-             MiB printed with its breakdown); then the production grid:
+             MiB printed with its breakdown) (the full-depth serving
+             builds' peaks are held so in phases 9(b) and 11(c)); then
+             the production grid:
              danube and llama3-405b (2 of 126 layers for its train cell)
              at 16x16, train_4k and decode_32k, and danube's train_4k at
              15x16, global batch 240 (JAX's elastic cell): each rank-0
@@ -358,9 +376,11 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              after (24 flash and 168 W4A16 launches a prefill, 168 W4A16
              a decode step, no paged attention), its prefill logits and
              first decode step's logits within LOGIT_TOL of the paged
-             engine's on the same weights, greedy tokens compared with the
-             first divergence printed; (b) danube's first 2 layers on 1x2
-             gloo ranks sharing the card (the window cut over "model": a
+             engine's on the same weights and requests (phase 4's run),
+             greedy tokens compared with the first divergence printed;
+             (b) danube's first 2 layers on 1x2 gloo ranks sharing the card,
+             served in phase 13's spawn of 2 ranks (the window cut over
+             "model": a
              decode step all-gathers the new K/V and q and merges each
              rank's softmax partials), first-token and first decode step's
              logits against one process within LOGIT_TOL, launches equal;
@@ -377,6 +397,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -428,6 +449,24 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock in Hz, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def log_built(phase: str, argv, note: str = "") -> None:
+    """Name the launcher command whose engine a phase builds
+    (``launch.serve.build``) and then steps itself: the command's own run
+    (``launch.serve.main``: plan cache, ``engine.run``, report) is not
+    what runs."""
+    log(phase, "engine of `python -m repro_torch.launch.serve "
+        + " ".join(argv) + "` (launch.serve.build), stepped here" + note)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -460,17 +499,17 @@ def kernel_table():
         w4a8_fused, w4a16_decoupled, w4a16_fused, w8a16_fused
     return {
         "w4a16_gemm": (w4a16_fused.W4A16_GEMM, "w4a16_gemm.cu",
-                       "src/repro/kernels/w4a16_fused.py:37"),
+                       "src/repro/kernels/w4a16_fused.py:36"),
         # the same kernel's expert-batched launch (JAX vmaps the pallas_call
         # over an MoE layer's experts)
         "w4a16_gemm_experts": (w4a16_fused.W4A16_GEMM_EXPERTS,
                                "w4a16_gemm.cu",
-                               "src/repro/kernels/w4a16_fused.py:37"),
+                               "src/repro/kernels/w4a16_fused.py:36"),
         "paged_attention": (paged_attention.PAGED_ATTENTION,
                             "paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:148"),
         "dense_gemm": (gemm.DENSE_GEMM, "dense_gemm.cu",
-                       "src/repro/kernels/gemm.py:20"),
+                       "src/repro/kernels/gemm.py:21"),
         "dequant_w4": (w4a16_decoupled.DEQUANT_W4, "w4a16_decoupled.cu",
                        "src/repro/kernels/w4a16_decoupled.py:52"),
         "reduce_partials": (w4a16_decoupled.REDUCE_PARTIALS,
@@ -1281,9 +1320,14 @@ def compare_logits(fused, plain, what, gen_len):
 
 
 def check_serve(torch, card, table):
+    """Phase 4's main-path run (``trace``: counters set to 0 just before
+    and read just after; the peak of its last decode steps, outside the
+    timed windows, kept for phase 15), then the plain paths on the same
+    requests; returns (the run, launches)."""
     reset_counts(table)
-    with decode_peaks(torch) as rec:
-        fused = serve(torch, [], card)
+    run = trace(torch, card)
+    rec = DECODE_PEAK
+    fused = run["rep"]
     launches = read_counts(table)
     PEAKS["danube-serve-8x512 decode step"] = (
         rec["step"] - rec["base"],
@@ -1297,57 +1341,45 @@ def check_serve(torch, card, table):
     plain = serve(torch, ["--strategy", "reference", "--attn-path",
                           "gather"], card)
     compare_logits(fused, plain, "kernel path", GEN)
-    return fused, plain, launches
+    return run, launches
 
 
-def decode_device_ms(torch, extra, card, steps=4):
-    """Device time per decode step of one GEMM path in the family's cell:
-    the requests are prefilled untraced, then ``steps`` decode steps run
-    under ``torch.profiler`` (device activity only). Decode steps are
+def gemm_path_run(torch, extra, card, expect):
+    """One GEMM path's serving run in the family's cell (``FAMILY_ARGV`` +
+    ``extra``) on the serve launcher's engine, through ``decode_trace``:
+    the requests prefilled, 8 decode steps timed untraced and 4 under
+    ``torch.profiler`` (device busy ms a step: decode steps are
     host-bound, so this, not tok/s, is where a faster GEMM shows end to
-    end."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    end), each launching ``expect``. Returns the run's report."""
     from repro_torch.launch import serve as launcher
-    engine, reqs = launcher.build(launcher.build_args(FAMILY_ARGV + extra))
-    engine.start()
-    for r in reqs:
-        engine.submit(r)
-    while engine.report.decode_tokens == 0:
-        engine.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
-    dev = sorted((e for e in prof.key_averages()
-                  if e.device_type != DeviceType.CPU),
-                 key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
-    ops = sum(e.count for e in dev) / steps
-    top = "; ".join(f"{e.self_device_time_total / 1e3 / steps:.3f} ms "
-                    f"x{e.count / steps:.0f} {e.key[:48]}" for e in dev[:3])
-    log("serve", f"{' '.join(extra) or 'fused w4a16'}: device busy "
-        f"{busy:.3f} ms per decode step ({ops:.0f} device ops; top: {top}) "
-        f"[{card}]")
+    argv = FAMILY_ARGV + extra
+    log_built("serve", argv)
+    engine, reqs = launcher.build(launcher.build_args(argv))
+    rep = decode_trace(torch, engine, reqs, card,
+                       " ".join(extra) or "fused w4a16", phase="serve",
+                       expect=expect)
     del engine
     torch.cuda.empty_cache()
-    return busy
+    return rep
 
 
 def serve_family(torch, card, table):
     """The GEMM family's serving runs at full width and depth: the fused
     W4A16 path as the cell's yardstick; each other kernel path against its
     plain GEMM path (attention on its kernel in both), counters set to 0
-    just before each kernel-path run and read just after; then
-    ``--no-quant``. Each kernel path's device time per decode step is
-    traced too. Returns each kernel's launches from its run."""
+    just before each kernel-path run and read just after, its decode steps
+    traced (``gemm_path_run``: each launching the path's GEMM kernels once a
+    linear, 7 a layer, and paged attention once a layer); then
+    ``--no-quant``. Returns each kernel's launches from its run."""
+    from repro_torch import configs
     t0 = time.perf_counter()
+    L = configs.get_config(ARCH).num_layers
     counts = {}
     runs = [([], None, ("w4a16_gemm", "paged_attention"))] + FAMILY_RUNS
     for kernel_argv, plain_argv, names in runs:
         reset_counts(table)
-        got = serve(torch, kernel_argv, card, FAMILY_ARGV)
+        got = gemm_path_run(torch, kernel_argv, card, {
+            n: L if n == "paged_attention" else 7 * L for n in names})
         launched = read_counts(table)
         log("serve", f"launches during the run: {launched}")
         quiet = [n for n in table if n not in names and launched[n]]
@@ -1357,22 +1389,14 @@ def serve_family(torch, card, table):
                                  f"other GEMM kernel: {launched}")
         counts.update({n: launched[n] for n in names
                        if n not in ("paged_attention", "w4a16_gemm")})
-        torch.cuda.empty_cache()
         if plain_argv is not None:
             want = serve(torch, plain_argv, card, FAMILY_ARGV)
             compare_logits(got, want, " ".join(kernel_argv), FAMILY_GEN)
             del want
         del got
         torch.cuda.empty_cache()
-        decode_device_ms(torch, kernel_argv, card)
-    dense = serve(torch, ["--no-quant"], card, FAMILY_ARGV)
-    for rid, out in dense.results.items():
-        if len(out) != FAMILY_GEN:
-            raise AssertionError(f"--no-quant request {rid} produced "
-                                 f"{len(out)} tokens")
-    del dense
-    torch.cuda.empty_cache()
-    decode_device_ms(torch, ["--no-quant"], card)
+    gemm_path_run(torch, ["--no-quant"], card,
+                  {"w4a16_gemm": 0, "paged_attention": L})
     log("serve", f"GEMM-family runs took {time.perf_counter() - t0:.1f} s")
     return counts
 
@@ -1386,26 +1410,37 @@ class Timer:
     launch (a 256 MB buffer is zeroed, five times the 50 MB L2). A wrapper
     issues several device ops (kernel, Split-K sum, cast); if the host
     issued them while the card waited, its launch gaps would land between
-    the events. So the card first sleeps ~0.1 s (2e8 cycles) while the host
-    queues every timed launch, and the events time the card's work only."""
+    the events. So the card first sleeps while the host queues every timed
+    launch, and the events time the card's work only: four times the host
+    time the warm-up iterations took to issue (a lazy first call or a host
+    sync inside ``fn`` only lengthens it), at least 5 ms and at most 0.1 s
+    (``SLEEP_S``; cycles at the card's reported maximum SM clock,
+    :func:`sm_clock_hz`, so longer at a lower clock)."""
+
+    SLEEP_S = (0.005, 0.1)
 
     def __init__(self, torch, dev, iters=25, warmup=3):
         self.torch, self.iters, self.warmup = torch, iters, warmup
         self.flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+        self.hz = sm_clock_hz()
 
     def __call__(self, fn, setup=None) -> float:
         """``setup`` (untimed) runs after the flush and before ``fn``."""
         torch = self.torch
+        t0 = time.perf_counter()
         for _ in range(self.warmup):
             self.flush.zero_()
             if setup is not None:
                 setup()
             fn()
+        issue = (time.perf_counter() - t0) / self.warmup
         ev = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True))
               for _ in range(self.iters)]
         torch.cuda.synchronize()
-        torch.cuda._sleep(200_000_000)
+        lo, hi = self.SLEEP_S
+        torch.cuda._sleep(int(self.hz * min(hi, max(lo, 4 * issue
+                                                    * self.iters))))
         for s, e in ev:
             self.flush.zero_()
             if setup is not None:
@@ -1717,19 +1752,28 @@ def time_flash(torch, dev, gen, timer, card):
 
 
 def trace(torch, card):
-    """Phase 6: where a step's time goes. The phase-4 traffic once more,
-    stepped through the engine's stepper API. Engine steps 0-1 (pure
-    prefill: one 32-token chunk for each of 8 slots) run under
-    ``torch.profiler``; steps 2-9 (prefill) run untraced, timed to a
+    """Phase 4's counted run (``SERVE_ARGV`` on the serve launcher's
+    engine, driven through the engine's stepper API) with phase 6's
+    windows: where a step's time goes. Engine step 0 (pure prefill: one
+    32-token chunk for each of 8 slots) runs under ``torch.profiler``;
+    steps 1-8 (prefill, the same kind of step) run untraced, timed to a
     sync; then, after the first decode, 10 untraced decode steps are timed
-    and the next 8 decode steps are traced; the rest run untraced. The
+    and the next 4 decode steps are traced; the rest run untraced. The
     profiler slows the host but not the device, so the idle share is the
     traced device busy time per step against the untraced wall time per
-    step."""
+    step. The rest of the run (its last, longest decode steps) runs under
+    ``decode_peaks``, whose highest step phase 15 reads. Returns the run (its report, first decode step's logits,
+    attention path and window), which phase 4 holds against the plain
+    paths and phase 16 the ring engine against."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve as launcher
+    log_built("serve", SERVE_ARGV, " with phase 6's trace windows")
+    torch.cuda.reset_peak_memory_stats()
+    DECODE_PEAK.update(base=torch.cuda.memory_allocated(), run=0, step=0)
+    t_run = time.perf_counter()
     engine, reqs = launcher.build(launcher.build_args(SERVE_ARGV))
+    step0 = first_step_logits(engine)
     engine.start()
     for r in reqs:
         engine.submit(r)
@@ -1777,18 +1821,31 @@ def trace(torch, card):
                 f"{e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step  "
                 f"x{e.count / steps:<6.0f} {e.key[:80]}")
 
-    pf_steps, pf_traced, pf_prof = run(2, traced=True)
+    pf_steps, pf_traced, pf_prof = run(1, traced=True)
     _, pf_ms, _ = run(8)
     while engine.report.decode_tokens == 0:
         engine.step()
     _, dec_ms, _ = run(10)
-    dec_steps, dec_traced, dec_prof = run(8, traced=True)
-    if dec_steps != 8:
+    dec_steps, dec_traced, dec_prof = run(4, traced=True)
+    if dec_steps != 4:
         raise AssertionError(f"the traced decode window ran {dec_steps} "
-                             f"steps, not 8")
-    engine.drain()
+                             f"steps, not 4")
+    with decode_peaks(torch):
+        rep = engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    run = dict(rep=rep, step0=step0, path=engine.attn_path,
+               cache_len=engine.cache_len)
+    steps = max(len(rep.step_records), 1)
+    log("serve", f"{len(rep.results)} requests in {rep.steps} steps, "
+        f"{rep.decode_tokens} decode tokens; untraced prefill "
+        f"{pf_ms:.1f} ms/step, decode {dec_ms:.2f} ms/step; over the run "
+        f"(5 of its steps traced) prefill {rep.prefill_s:.3f} s, decode "
+        f"{rep.decode_s / steps * 1e3:.2f} ms/step; pages peak "
+        f"{rep.peak_pages}; run with the build {wall:.1f} s [{card}]")
     report("prefill", pf_steps, pf_traced, pf_ms, pf_prof)
     report("decode", dec_steps, dec_traced, dec_ms, dec_prof)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1959,17 +2016,17 @@ def train_launcher(torch, card, table):
         f" of 989 TFLOP/s (6·N·T + 12·L·B·Hq·D·pairs = {flops:.4g} FLOP, "
         f"remat recompute not counted); peak device memory "
         f"{peak / 2**30:.2f} GiB [{card}]")
-    return launched["flash_attention"]
+    return launched["flash_attention"], step_s
 
 
-def trace_train(torch, dev, card):
+def trace_train(torch, dev, card, step_s):
     """Phase 7(c): where a training step's time goes, at the launcher's
     shape (full width and depth, 2 x 8192 tokens, flash attention): one
-    warm-up step, one step timed to a sync, one step under
-    ``torch.profiler`` (device activity only). Device time is grouped into
-    the flash kernel, matrix products (kernels named gemm / xmma /
-    cutlass) and the rest; the idle share is the traced busy time against
-    the untraced wall time."""
+    warm-up step, then one step under ``torch.profiler`` (device activity
+    only). Device time is grouped into the flash kernel, matrix products
+    (kernels named gemm / xmma / cutlass) and the rest; the idle share is
+    the traced busy time against the untraced wall time of the same step,
+    ``step_s``: the launcher's median step (7(b))."""
     import dataclasses
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1996,11 +2053,9 @@ def trace_train(torch, dev, card):
         torch.cuda.synchronize()
 
     one(0)
-    t0 = time.perf_counter()
-    one(1)
-    wall = (time.perf_counter() - t0) * 1e3
+    wall = step_s * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        one(2)
+        one(1)
     dev_ev = sorted((e for e in prof.key_averages()
                      if e.device_type != DeviceType.CPU),
                     key=lambda e: e.self_device_time_total, reverse=True)
@@ -2015,7 +2070,7 @@ def trace_train(torch, dev, card):
     ops = sum(e.count for e in dev_ev)
     log("train", f"one step at {TRAIN_BATCH} x {TRAIN_SEQ}: device busy "
         f"{busy:.1f} ms ({ops} device ops) against {wall:.1f} ms untraced "
-        f"-> device idle {1 - busy / wall:.1%}; " + "; ".join(
+        f"(the launcher's median step) -> device idle {1 - busy / wall:.1%}; " + "; ".join(
             f"{g} {t:.1f} ms ({t / busy:.1%})" for g, t in groups.items())
         + f" [{card}]")
     for e in dev_ev[:10]:
@@ -2624,9 +2679,17 @@ MIXTRAL_STACKS = [("w_gate/w_up", 8, 4096, 14336), ("w_down", 8, 14336, 4096)]
 MOE_CASES = [(lbl, E, M, K, N) for lbl, E, K, N in OLMOE_STACKS
              for M in (8, 10)] + \
     [(lbl, E, M, K, N) for lbl, E, K, N in MIXTRAL_STACKS for M in (2, 10)]
-# phase 9(b): mixtral-8x7b at full width, the first 2 of its 32 layers
-MIXTRAL_LAYERS = 2
-MIXTRAL_PROMPT, MIXTRAL_GEN = 64, 8
+# phase 9(b): mixtral-8x7b at full width and depth through the serve
+# launcher, which builds it streamed (93 GB of bf16 weights, 25 GB packed);
+# 16 tokens give decode_trace its 12 decode steps
+MIXTRAL_PROMPT, MIXTRAL_GEN = 64, 16
+MIXTRAL_ARGV = ["--arch", "mixtral-8x7b", "--batch", "8", "--requests", "8",
+                "--prompt-len", str(MIXTRAL_PROMPT), "--gen",
+                str(MIXTRAL_GEN), "--page-size", "16", "--prefill-chunk", "32",
+                "--kv-format", "kv_fp16", "--seed", "0"]
+# phase 9(b)'s run of the launcher's own command at its defaults (4
+# requests of 32 + 16 tokens), the full-depth serve a user would type
+MIXTRAL_MAIN_ARGV = ["--arch", "mixtral-8x7b"]
 
 
 def expert_stack(torch, E, K, N, gen, dev, fmt="w4a16_g128"):
@@ -2995,23 +3058,22 @@ def decode_trace(torch, engine, reqs, card, what, *, phase="moe",
 def moe_serve(torch, dev, card, table):
     """Phase 9. (a) olmoe-1b-7b at full width (the depth ``configs.
     get_config`` gives: ``MOE_LAYERS`` in main) through the serve
-    launcher (W4A16, kv_fp16, 8 slots, 8 requests of 256 + 32 tokens,
-    32-token chunks, random weights from seed 0), counters set to 0 just
-    before and read just after; the same weights on the plain paths,
-    replaying the kernel run's expert choices (``Routing``: every choice
-    the plain path would make otherwise is a near-tie), prefill logits
-    within LOGIT_TOL; decode steps traced, each launching
-    the W4A16 kernel L x (4 + 3) times (the router and the head
-    stay dense); ngram speculation (verify routes B·(k+1) rows); the dense
-    bf16 weights (``--no-quant``, the paper's FP16 yardstick). (b)
-    mixtral-8x7b at full width, its first 2 layers, W4A16, 8 requests of
-    64 + 8 tokens, against its plain paths the same way. Returns the
-    launches of (a)'s main-path run."""
+    launcher's build (W4A16, kv_fp16, 8 slots, 8 requests of 256 + 32
+    tokens, 32-token chunks, random weights from seed 0), counters set to
+    0 just before and read just after, its decode steps traced
+    (``decode_trace``), each launching the W4A16 kernel L x (4 + 3) times
+    (the router and the head stay dense); the same weights on the plain
+    paths, replaying the kernel run's expert choices (``Routing``: every
+    choice the plain path would make otherwise is a near-tie), prefill
+    logits within LOGIT_TOL; ngram speculation (verify routes B·(k+1)
+    rows); the dense bf16 weights (``--no-quant``, the paper's FP16
+    yardstick). (b) mixtral-8x7b at full width and depth
+    (:func:`mixtral_serve`). Returns the launches of (a)'s main-path
+    run."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.kernels import w4a16_fused as wf
     from repro_torch.launch import serve as launcher
-    from repro_torch.models import transformer as T
     t0 = time.perf_counter()
     cfg = configs.get_config(MOE_ARCH)
     log("moe", f"{cfg.name}: {cfg.num_layers} layers, d_model "
@@ -3019,27 +3081,25 @@ def moe_serve(torch, dev, card, table):
         f"{cfg.experts_per_token} of d_ff {cfg.d_ff}, "
         f"{cfg.param_count() / 1e9:.2f} B params "
         f"({cfg.active_param_count() / 1e9:.2f} B active)")
+    log_built("moe", MOE_ARGV)
+    engine, reqs = launcher.build(launcher.build_args(MOE_ARGV))
+    cfg = dataclasses.replace(engine.cfg, w4a16_plan=None)
+    layer_launches = cfg.num_layers * (4 + 3)
     route = Routing()
     reset_counts(table)
     with route.recording():
-        kernel_rep = serve(torch, [], card, MOE_ARGV)
+        kernel_rep = decode_trace(torch, engine, reqs, card,
+                                  f"{cfg.name} w4a16",
+                                  expect={"w4a16_gemm": layer_launches})
     launches = read_counts(table)
     log("moe", f"launches during the run: {launches}")
     if not all(launches[n] for n in ("w4a16_gemm", "w4a16_gemm_experts",
                                      "paged_attention")):
         raise AssertionError(f"a kernel of the MoE path never launched: "
                              f"{launches}")
+    params = engine.params
+    del engine
     torch.cuda.empty_cache()
-
-    # the launcher's weights once more (the same generator and seed)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    t1 = time.perf_counter()
-    dense = T.init_params(gen, cfg, device=dev)
-    params = T.quantize_params(dense, cfg, min_size=0)
-    torch.cuda.synchronize()
-    log("moe", f"weights drawn and quantized on the card in "
-        f"{time.perf_counter() - t1:.1f} s")
     reqs = lambda: launcher.make_requests(cfg, 8, 256, MOE_GEN, 0)  # noqa
     plain_cfg = dataclasses.replace(cfg, w4a16_strategy="reference")
     t1 = time.perf_counter()
@@ -3054,9 +3114,6 @@ def moe_serve(torch, dev, card, table):
     route.check(cfg.name)
     compare_logits(kernel_rep, plain, f"{cfg.name} kernel path", MOE_GEN)
     del plain
-    layer_launches = cfg.num_layers * (4 + 3)
-    decode_trace(torch, moe_engine(torch, cfg, params, dev), reqs(), card,
-                 f"{cfg.name} w4a16", expect={"w4a16_gemm": layer_launches})
     torch.cuda.empty_cache()
 
     spec = moe_engine(torch, cfg, params, dev, speculate="ngram",
@@ -3080,48 +3137,163 @@ def moe_serve(torch, dev, card, table):
     torch.cuda.empty_cache()
 
     t1 = time.perf_counter()
-    rep = decode_trace(torch, moe_engine(torch, cfg, dense, dev), reqs(),
-                       card, f"{cfg.name} --no-quant",
-                       expect={"w4a16_gemm": 0})
+    argv = MOE_ARGV + ["--no-quant"]
+    log_built("moe", argv)
+    engine, dense_reqs = launcher.build(launcher.build_args(argv))
+    rep = decode_trace(torch, engine, dense_reqs, card,
+                       f"{cfg.name} --no-quant", expect={"w4a16_gemm": 0})
     log("moe", f"{cfg.name} --no-quant (dense bf16 experts, torch.bmm): "
         f"{rep.decode_tokens} decode tokens in {rep.decode_s:.3f} s = "
         f"{rep.tokens_per_s:.1f} tok/s (4 of its steps traced); run "
         f"{time.perf_counter() - t1:.1f} s [{card}]")
-    del dense, rep
+    del engine, rep
     torch.cuda.empty_cache()
 
-    # (b) mixtral at full width, depth cut to 2 layers
-    mcfg = dataclasses.replace(configs.get_config("mixtral-8x7b"),
-                               num_layers=MIXTRAL_LAYERS)
-    gen.manual_seed(0)
-    t1 = time.perf_counter()
-    mparams = T.quantize_params(T.init_params(gen, mcfg, device=dev), mcfg,
-                                min_size=0)
-    torch.cuda.synchronize()
-    log("moe", f"mixtral-8x7b, {MIXTRAL_LAYERS} of 32 layers at full width "
-        f"(d_model 4096, 8 experts top-2 of d_ff 14336, SWA 4096): weights "
-        f"built in {time.perf_counter() - t1:.1f} s")
-    mreqs = lambda: launcher.make_requests(  # noqa
-        mcfg, 8, MIXTRAL_PROMPT, MIXTRAL_GEN, 0)
-    kw = dict(max_prompt_len=MIXTRAL_PROMPT, max_new_tokens=MIXTRAL_GEN)
-    n0 = wf.W4A16_GEMM_EXPERTS.launches
-    route = Routing()
-    with route.recording():
-        got = moe_engine(torch, mcfg, mparams, dev, **kw).run(mreqs())
-    if wf.W4A16_GEMM_EXPERTS.launches == n0:
-        raise AssertionError("mixtral: the expert-batched kernel never "
-                             "launched")
-    with route.replaying():
-        want = moe_engine(torch, dataclasses.replace(
-            mcfg, w4a16_strategy="reference"), mparams, dev,
-            attn_path="gather", **kw).run(mreqs())
-    route.check(f"mixtral-8x7b ({MIXTRAL_LAYERS} layers)")
-    compare_logits(got, want, f"mixtral-8x7b ({MIXTRAL_LAYERS} layers) "
-                   f"kernel path", MIXTRAL_GEN)
-    del mparams, got, want
-    torch.cuda.empty_cache()
+    mixtral_serve(torch, dev, card, table)
     log("moe", f"phase 9 took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def full_depth_engine(torch, argv, phase, card, mode):
+    """The serve launcher's engine and requests for ``argv`` at the arch's
+    full depth (``launch.serve.build``: the build ``plan_build`` picks from
+    the shapes, which must be ``mode``), the build's peak device memory
+    (``max_memory_allocated`` after a reset, less what was allocated
+    before; the engine's KV pool included) printed beside the reckoned
+    one, held within PEAK_REL or PEAK_ABS as phase 15 holds its cells (a
+    miss printed). Returns (engine, requests, its config without the
+    engine's plans)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launcher
+    args = launcher.build_args(argv)
+    cfg = configs.get_config(args.arch)
+    dev = torch.device("cuda")
+    plan = launcher.plan_build(
+        cfg, kv_bytes=launcher.kv_pool_bytes(
+            cfg, batch=args.batch, prompt_len=int(args.prompt_len),
+            gen=args.gen, page_size=args.page_size,
+            kv_format=args.kv_format), have=launcher.device_bytes(dev))
+    if plan.mode != mode:
+        raise AssertionError(f"{cfg.name}: the launcher's build is "
+                             f"{plan.mode}, not {mode}")
+    log_built(phase, argv)
+    # an earlier run's engine freed by the collector during the build would
+    # hide part of its peak below ``base``
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine, reqs = launcher.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    est, gib = plan.bytes, 2 ** 30
+    off = peak - plan.peak
+    ok = abs(off) <= max(PEAK_REL * peak, PEAK_ABS)
+    log(phase, f"{cfg.name}: all {cfg.num_layers} layers at full width "
+        f"(d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads "
+        f"of {cfg.head_dim}, {cfg.mlp_type} d_ff {cfg.d_ff}"
+        + (f", {cfg.num_experts} experts top-{cfg.experts_per_token}"
+           if cfg.family == "moe" else "")
+        + f", vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.2f} B "
+        f"params, {est.dense / gib:.2f} GiB dense): {plan.mode} build and "
+        f"engine in {build_s:.1f} s, peak {peak / gib:.3f} GiB measured vs "
+        f"{plan.peak / gib:.3f} GiB reckoned ({off / 2**20:+.0f} MiB = "
+        f"{off / max(peak, 1):+.1%} {'ok' if ok else 'MISS'}, within "
+        f"{PEAK_REL:.0%} or {PEAK_ABS // 2**20} MiB), {est.packed / gib:.3f} "
+        f"GiB packed, the KV pool {plan.kv / gib:.3f} GiB; the whole build "
+        f"reckoned {est.whole / gib:.3f} GiB"
+        + ("" if est.streamed is None else
+           f", the streamed {est.streamed / gib:.3f} GiB")
+        + f"; the card {plan.have / gib:.2f} GiB [{card}]")
+    if peak > plan.have:
+        raise AssertionError(f"{cfg.name}: the build's peak passed the card")
+    return engine, reqs, dataclasses.replace(engine.cfg, w4a16_plan=None)
+
+
+def mixtral_main(torch, card, table):
+    """``python -m repro_torch.launch.serve --arch mixtral-8x7b`` as a user
+    types it (``launch.serve.main``: the streamed build, ``engine.run``,
+    the report), counters set to 0 just before and read just after: the
+    W4A16 kernel, its expert-batched form and paged attention must
+    launch, and no other kernel; every request gets its tokens."""
+    from repro_torch.launch import serve as launcher
+    log("moe", "python -m repro_torch.launch.serve "
+        + " ".join(MIXTRAL_MAIN_ARGV))
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = ("w4a16_gemm", "w4a16_gemm_experts", "paged_attention")
+    reset_counts(table)
+    t0 = time.perf_counter()
+    report = launcher.main(MIXTRAL_MAIN_ARGV)
+    torch.cuda.synchronize()
+    launches = read_counts(table)
+    args = launcher.build_args(MIXTRAL_MAIN_ARGV)
+    steps = max(len(report.step_records), 1)
+    log("moe", f"mixtral-8x7b (launch.serve.main, its defaults): "
+        f"{len(report.results)} requests, {report.decode_tokens} decode "
+        f"tokens, {report.decode_s / steps * 1e3:.2f} ms a decode step; "
+        f"the command {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches} [{card}]")
+    quiet = {k for k, v in launches.items() if v and k not in want}
+    if quiet or not all(launches[k] for k in want):
+        raise AssertionError(f"mixtral-8x7b main: launched {launches}, the "
+                             f"path's kernels are {want}")
+    if len(report.results) != args.batch or any(
+            len(v) != args.gen for v in report.results.values()):
+        raise AssertionError(f"mixtral-8x7b main: {report.results}")
+    del report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mixtral_serve(torch, dev, card, table):
+    """Phase 9(b): mixtral-8x7b at full width and depth (32 layers):
+    first the launcher's own command at its defaults
+    (:func:`mixtral_main`); then the launcher's engine (``MIXTRAL_ARGV``:
+    W4A16, built streamed since the whole build's reckoning passes the
+    card; 8 requests of 64 + 16 tokens), counters set to 0 just before and read just after, every
+    decode step launching the W4A16 kernel 7 a layer (3 of them the
+    expert-batched form) and paged attention once a layer; its routing
+    recorded and replayed by the plain paths on the same weights (2 tokens
+    a request), prefill logits within LOGIT_TOL."""
+    from repro_torch.launch import serve as launcher
+    mixtral_main(torch, card, table)
+    engine, reqs, cfg = full_depth_engine(torch, MIXTRAL_ARGV, "moe", card,
+                                          "streamed")
+    L = cfg.num_layers
+    want = {"w4a16_gemm": 7 * L, "w4a16_gemm_experts": 3 * L,
+            "paged_attention": L}
+    route = Routing()
+    reset_counts(table)
+    with route.recording():
+        got = decode_trace(torch, engine, reqs, card,
+                           f"{cfg.name} {L}L w4a16", expect=want)
+    launches = read_counts(table)
+    log("moe", f"{cfg.name}: launches during the run: {launches}")
+    quiet = {k for k, v in launches.items() if v and k not in want}
+    if quiet or not all(launches[k] for k in want):
+        raise AssertionError(f"{cfg.name}: launched {launches}, the path's "
+                             f"kernels are {sorted(want)}")
+    params = engine.params
+    del engine
+    t1 = time.perf_counter()
+    with route.replaying():
+        plain = moe_engine(
+            torch, dataclasses.replace(cfg, w4a16_strategy="reference"),
+            params, dev, attn_path="gather", max_prompt_len=MIXTRAL_PROMPT,
+            max_new_tokens=MIXTRAL_GEN).run(
+                launcher.make_requests(cfg, 8, MIXTRAL_PROMPT, 2, 0))
+    torch.cuda.synchronize()
+    log("moe", f"{cfg.name}: plain paths (--strategy reference --attn-path "
+        f"gather) served in {time.perf_counter() - t1:.1f} s")
+    route.check(f"{cfg.name} ({L} layers)")
+    compare_logits(got, plain, f"{cfg.name} ({L} layers) kernel path",
+                   MIXTRAL_GEN)
+    del params, got, plain
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3471,6 +3643,8 @@ def fp32_params(torch, tree):
     from repro_torch.core.quant import QuantizedTensor
     if isinstance(tree, dict):
         return {k: fp32_params(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):          # the engine's per-layer dicts
+        return [fp32_params(torch, v) for v in tree]
     if isinstance(tree, str):
         return tree
     if isinstance(tree, QuantizedTensor):
@@ -3533,7 +3707,6 @@ def carry_arch(torch, dev, card, table, arch):
     import dataclasses
     from repro_torch import configs
     from repro_torch.launch import serve as launcher
-    from repro_torch.models import transformer as T
     from repro_torch.runtime.engine import ServingEngine
     t0 = time.perf_counter()
     cfg = configs.get_config(arch)
@@ -3548,8 +3721,15 @@ def carry_arch(torch, dev, card, table, arch):
         + f", vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.2f} B "
         f"params; {gemms} W4A16 GEMMs and {attn // L} paged-attention "
         f"launch a layer")
+    argv = ["--arch", arch] + CARRY_ARGV
+    log_built("carry", argv)
+    engine_k, reqs8 = launcher.build(launcher.build_args(argv))
+    cfg = dataclasses.replace(engine_k.cfg, w4a16_plan=None)
     reset_counts(table)
-    kernel_rep = serve(torch, [], card, ["--arch", arch] + CARRY_ARGV)
+    kernel_rep = decode_trace(
+        torch, engine_k, reqs8, card, f"{cfg.name} w4a16", phase="carry",
+        expect={"w4a16_gemm": L * gemms, "paged_attention": attn},
+        trace_prefill=True)
     launches = read_counts(table)
     log("carry", f"launches during the run: {launches}")
     others = [k for k, v in launches.items()
@@ -3558,6 +3738,8 @@ def carry_arch(torch, dev, card, table, arch):
             != bool(attn) or others:
         raise AssertionError(f"{arch}: the path's kernels did not launch as "
                              f"they must: {launches}")
+    params = engine_k.params
+    del engine_k
     torch.cuda.empty_cache()
 
     def engine(config, weights, **kw):
@@ -3567,15 +3749,6 @@ def carry_arch(torch, dev, card, table, arch):
         base.update(kw)
         return ServingEngine(config, weights, **base)
 
-    # the launcher's weights once more (the same generator and seed)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    t1 = time.perf_counter()
-    dense = T.init_params(gen, cfg, device=dev)
-    params = T.quantize_params(dense, cfg, min_size=0)
-    torch.cuda.synchronize()
-    log("carry", f"weights drawn and quantized on the card in "
-        f"{time.perf_counter() - t1:.1f} s")
     plain_cfg = dataclasses.replace(cfg, w4a16_strategy="reference")
     t1 = time.perf_counter()
     # the plain paths are compared on prefill logits: 2 tokens suffice
@@ -3591,7 +3764,7 @@ def carry_arch(torch, dev, card, table, arch):
         rwkv_fp32_logits(torch, engine, cfg, params, held, plain, reqs2)
     else:
         compare_logits(held, plain, f"{cfg.name} kernel path", CARRY_GEN)
-    del plain, kernel_rep
+    del plain
     if cfg.family == "hybrid":
         P, G_ = HYMBA_LONG
         kw = dict(max_prompt_len=P, max_new_tokens=G_)
@@ -3606,21 +3779,12 @@ def carry_arch(torch, dev, card, table, arch):
         del long_k, got, want
     torch.cuda.empty_cache()
 
-    reqs = lambda: launcher.make_requests(  # noqa
-        cfg, 8, CARRY_PROMPT, CARRY_GEN, 0)
-    plain_rep = decode_trace(
-        torch, engine(cfg, params), reqs(), card, f"{cfg.name} w4a16",
-        phase="carry", expect={"w4a16_gemm": L * gemms,
-                               "paged_attention": attn},
-        trace_prefill=True)
-    torch.cuda.empty_cache()
-
     kernels = ("w4a16_gemm", "paged_attention") if attn else ("w4a16_gemm",)
-    # drafts that mostly pass: the plain decode's own tokens; the verify
+    # drafts that mostly pass: the kernel run's own tokens; the verify
     # steps commit carries past checkpoint 1
-    oracle_reqs = reqs()[:CARRY_HELD]
+    oracle_reqs = reqs8[:CARRY_HELD]
     oracle = engine(cfg, params, speculate=oracle_proposer(
-        torch, oracle_reqs, plain_rep.results), spec_k=SPEC_K)
+        torch, oracle_reqs, kernel_rep.results), spec_k=SPEC_K)
     sel = speculate_checked(torch, oracle, oracle_reqs, table, kernels,
                             f"{cfg.name} oracle drafts", card)
     if not any(c > 1 for c in sel):
@@ -3629,16 +3793,19 @@ def carry_arch(torch, dev, card, table, arch):
     spec = engine(cfg, params, speculate="ngram", spec_k=SPEC_K)
     speculate_checked(torch, spec, repeat_prompts(cfg.vocab_size), table,
                       kernels, f"{cfg.name} ngram", card)
-    del spec, params, plain_rep
+    del spec, params, kernel_rep
     torch.cuda.empty_cache()
 
-    rep = decode_trace(torch, engine(cfg, dense), reqs(), card,
+    argv = argv + ["--no-quant"]
+    log_built("carry", argv)
+    dense_k, dense_reqs = launcher.build(launcher.build_args(argv))
+    rep = decode_trace(torch, dense_k, dense_reqs, card,
                        f"{cfg.name} --no-quant", phase="carry",
                        expect={"w4a16_gemm": 0, "paged_attention": attn})
     log("carry", f"{cfg.name} --no-quant (dense bf16 weights, torch.matmul):"
         f" {rep.decode_tokens} decode tokens in {rep.decode_s:.3f} s = "
         f"{rep.tokens_per_s:.1f} tok/s (4 of its steps traced)")
-    del dense, rep
+    del dense_k, rep
     torch.cuda.empty_cache()
     log("carry", f"{cfg.name} took {time.perf_counter() - t0:.1f} s")
     return launches
@@ -3719,8 +3886,12 @@ P11_ATTN = [("whisper", (12, 1, 64), 16, 10),
 P11_ARGV = ["--batch", "8", "--requests", "8", "--page-size", "16",
             "--prefill-chunk", "32", "--kv-format", "kv_fp16", "--seed", "0"]
 P11_PROMPT, P11_GEN = 128, 32
-# (c): starcoder2-7b and granite-20b at full width, the first 4 layers
-DENSE_CUT_LAYERS, DENSE_CUT_GEN = 4, 16
+# (c): starcoder2-7b and granite-20b at full width and depth through the
+# serve launcher, each built as the launcher chooses from the shapes:
+# granite's whole build (95.7 GiB reckoned) passes the card, so it is
+# streamed; starcoder2's (28.5 GiB) fits, so it is built whole
+DENSE_GEN = 16
+DENSE_BUILD = {"starcoder2-7b": "whole", "granite-20b": "streamed"}
 # the first requests held against the plain paths
 P11_HELD = 4
 # the flash encoder (kernel attention) against the chunked encoder (plain
@@ -4003,8 +4174,7 @@ def launcher_engine(torch, argv, what):
     the card). Returns (engine, requests, its config without the engine's
     plans, for the phase's other engines to plan their own)."""
     from repro_torch.launch import serve as launcher
-    log("phase11", f"{what}: python -m repro_torch.launch.serve "
-        + " ".join(argv))
+    log_built("phase11", argv, f" ({what})")
     engine, reqs = launcher.build(launcher.build_args(argv))
     return engine, reqs, dataclasses.replace(engine.cfg, w4a16_plan=None)
 
@@ -4420,39 +4590,28 @@ def vision_serve(torch, dev, card, table):
     return launches
 
 
-def dense_cut_serve(torch, dev, card, table, arch):
-    """Phase 11(c): ``arch`` at full width with its depth cut to the first
-    DENSE_CUT_LAYERS layers (W4A16, 8 slots, 8 requests of 128 + 16):
-    the counted run with 4 traced decode steps, the plain paths on the
-    first requests."""
-    from repro_torch import configs
-    from repro_torch.launch import serve as launcher
-    from repro_torch.models import transformer as T
+def dense_serve(torch, dev, card, table, arch):
+    """Phase 11(c): ``arch`` at full width and depth through the serve
+    launcher, built as ``DENSE_BUILD`` expects the launcher to choose
+    (W4A16, 8 slots, 8 requests of 128 + 16): the counted run with 4 traced decode steps, each
+    launching the W4A16 kernel 7 (SwiGLU) or 6 (GELU) times a layer and
+    paged attention once a layer; the plain paths on the first requests."""
     t0 = time.perf_counter()
-    full = configs.get_config(arch)
-    cfg = dataclasses.replace(full, num_layers=DENSE_CUT_LAYERS)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params = T.quantize_params(T.init_params(gen, cfg, device=dev), cfg,
-                               min_size=0)
-    torch.cuda.synchronize()
+    argv = ["--arch", arch] + P11_ARGV + [
+        "--prompt-len", str(P11_PROMPT), "--gen", str(DENSE_GEN)]
+    engine, reqs, cfg = full_depth_engine(torch, argv, "phase11", card,
+                                          DENSE_BUILD[arch])
+    L = cfg.num_layers
     per_layer = 7 if cfg.mlp_type == "swiglu" else 6
-    log("phase11", f"{arch}: the first {cfg.num_layers} of {full.num_layers} "
-        f"layers at full width (d_model {cfg.d_model}, {cfg.num_heads}/"
-        f"{cfg.num_kv_heads} heads of {cfg.head_dim}, {cfg.mlp_type} d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}); {cfg.param_count() / 1e9:.2f}"
-        f" B params drawn and quantized on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
-    kw = dict(max_new_tokens=DENSE_CUT_GEN)
-    reqs = launcher.make_requests(cfg, 8, P11_PROMPT, DENSE_CUT_GEN, 0)
-    engine = p11_engine(torch, cfg, params, dev, **kw)
     rep, launches = served_run(torch, engine, reqs, table, card,
-                               f"{arch} {cfg.num_layers}L w4a16",
-                               {"w4a16_gemm": per_layer * cfg.num_layers,
-                                "paged_attention": cfg.num_layers})
-    plain_held(torch, dev, cfg, params, reqs, rep, f"{arch} "
-               f"{cfg.num_layers}L kernel path", DENSE_CUT_GEN, **kw)
-    del engine, params
+                               f"{arch} {L}L w4a16",
+                               {"w4a16_gemm": per_layer * L,
+                                "paged_attention": L})
+    params = engine.params
+    del engine
+    plain_held(torch, dev, cfg, params, reqs, rep, f"{arch} {L}L kernel "
+               f"path", DENSE_GEN, max_new_tokens=DENSE_GEN)
+    del params
     torch.cuda.empty_cache()
     log("phase11", f"{arch} took {time.perf_counter() - t0:.1f} s")
     return launches
@@ -4460,13 +4619,13 @@ def dense_cut_serve(torch, dev, card, table, arch):
 
 def p11_serve(torch, dev, card, table):
     """Phase 11: (a) whisper-small, (b) internvl2-1b, (c) starcoder2-7b and
-    granite-20b cut to 4 layers."""
+    granite-20b at full depth (granite built streamed)."""
     t0 = time.perf_counter()
     launches = whisper_serve(torch, dev, card, table)
     with depth_cut("internvl2-1b", VISION_LAYERS, "phase11"):
         vision_serve(torch, dev, card, table)
     for arch in ("starcoder2-7b", "granite-20b"):
-        dense_cut_serve(torch, dev, card, table, arch)
+        dense_serve(torch, dev, card, table, arch)
     log("phase11", f"phase 11 took {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -5503,6 +5662,11 @@ def mesh_serve(torch, dev, card, table):
         for dm in meshes:
             by_world.setdefault(dm[0] * dm[1], []).append(
                 (arch, layers, dm, serial, what))
+    # phase 16(b)'s ring runs ride the spawn of their world size; phase 16
+    # holds them (RING_RANKS)
+    for arch, layers, dm, serial, what in RING_MESH:
+        by_world.setdefault(dm[0] * dm[1], []).append(
+            (arch, layers, dm, serial, what))
     for world, runs in sorted(by_world.items()):
         t0 = time.perf_counter()
         out = spawn_mesh(runs, world)
@@ -5510,6 +5674,9 @@ def mesh_serve(torch, dev, card, table):
             f"{time.perf_counter() - t0:.1f} s")
         for i, (arch, layers, dm, _, what) in enumerate(runs):
             ranks = [res[i] for res in out]
+            if what == "ring":
+                RING_RANKS[:] = ranks
+                continue
             cfg = mesh_cfg(arch, layers, what)
             for res in ranks:
                 res.update(L=cfg.num_layers, family=cfg.family,
@@ -6321,6 +6488,8 @@ RING_KW = dict(max_batch=8, max_prompt_len=512, max_new_tokens=RING_GEN)
 RING_MESH_KW = dict(max_batch=4, max_prompt_len=MESH_PROMPT,
                     max_new_tokens=MESH_GEN, paged=False)
 RING_MESH = [("h2o-danube-1.8b", 2, (1, 2), False, "ring")]
+# their ranks' results, served in phase 13's spawn of 2 ranks
+RING_RANKS = []
 # (c) the refine pass at the worst shapes of PERF.md rows 1d and 1e
 REFINE_SHAPES = [("granite (6144, 128)", 6144, 128),
                  ("llama3 tp4 wk/wv (16384, 256)", 16384, 256)]
@@ -6366,16 +6535,17 @@ def first_divergence(got, want):
                  if a != b), None)
 
 
-def ring_serve(torch, dev, card, table):
+def ring_serve(torch, dev, card, table, paged):
     """Phase 16(a): danube at full width and depth (W4A16, bf16) serves
     ``RING_KW``'s 8 requests of 512 + 32 tokens through the ring engine,
     counters set to 0 just before and read just after: every whole-prompt
     prefill launching 24 flash and 168 W4A16 kernels, every decode step
     168 W4A16 and no paged attention. Its prefill logits and first decode
     step's logits (rows whose input tokens agree) against the paged
-    engine's on the same weights within LOGIT_TOL; greedy tokens compared
-    and the first divergence printed with the paged engine's logit gap
-    there."""
+    engine's on the same weights within LOGIT_TOL (``paged``: phase 4's
+    run of the same requests on the launcher's weights from seed 0);
+    greedy tokens compared and the first divergence printed with the
+    paged engine's logit gap there."""
     from repro_torch import configs
     from repro_torch.launch import serve as launcher
     from repro_torch.models import transformer as T
@@ -6389,22 +6559,17 @@ def ring_serve(torch, dev, card, table):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     reqs = launcher.make_requests(cfg, 8, 512, RING_GEN, 0)
-    out = {}
-    for name, kw in (("ring", dict(paged=False)),
-                     ("paged", dict(page_size=8, prefill_chunk=32))):
-        engine = ServingEngine(cfg, params, device=dev, **RING_KW, **kw)
-        step0 = first_step_logits(engine)
-        torch.cuda.synchronize()
-        reset_counts(table)
-        t0 = time.perf_counter()
-        rep = engine.run(reqs)
-        torch.cuda.synchronize()
-        out[name] = dict(rep=rep, step0=step0, counts=read_counts(table),
-                         wall=time.perf_counter() - t0,
-                         path=engine.attn_path, cache_len=engine.cache_len)
-        del engine
-    ring, paged = out["ring"], out["paged"]
-    rep = ring["rep"]
+    engine = ServingEngine(cfg, params, device=dev, paged=False, **RING_KW)
+    step0 = first_step_logits(engine)
+    torch.cuda.synchronize()
+    reset_counts(table)
+    t0 = time.perf_counter()
+    rep = engine.run(reqs)
+    torch.cuda.synchronize()
+    ring = dict(rep=rep, step0=step0, counts=read_counts(table),
+                wall=time.perf_counter() - t0, path=engine.attn_path,
+                cache_len=engine.cache_len)
+    del engine
     L, steps = cfg.num_layers, len(rep.step_records)
     want = {"w4a16_gemm": 7 * L * (rep.admitted + steps),
             "flash_attention": L * rep.admitted, "paged_attention": 0}
@@ -6429,15 +6594,13 @@ def ring_serve(torch, dev, card, table):
     ok = got == want and not others and d_pre <= LOGIT_TOL \
         and d_step <= LOGIT_TOL and rows > 0 \
         and all(len(v) == RING_GEN for v in rep.results.values())
-    pst = max(len(paged["rep"].step_records), 1)
     log("ring", f"{ARCH} W4A16 ({L} layers, full width; built "
         f"{build_s:.1f} s) ring engine (attn path {ring['path']}, "
         f"cache_len {ring['cache_len']} a slot): {len(rep.results)} x 512 + "
         f"{RING_GEN} in {ring['wall']:.2f} s, prefill {rep.prefill_s:.3f} "
         f"s, decode {rep.decode_s / max(steps, 1) * 1e3:.2f} ms/step over "
-        f"{steps} steps (paged engine: {paged['wall']:.2f} s, prefill "
-        f"{paged['rep'].prefill_s:.3f} s, decode "
-        f"{paged['rep'].decode_s / pst * 1e3:.2f} ms/step over {pst}); "
+        f"{steps} steps (the paged engine: phase 4's run, attn path "
+        f"{paged['path']}, cache_len {paged['cache_len']}); "
         f"launches " + ", ".join(f"{k} {got[k]}" for k in want)
         + f" (want {', '.join(str(want[k]) for k in want)}: "
         f"{rep.admitted} whole-prompt prefills, {steps} decode steps; "
@@ -6455,9 +6618,10 @@ def ring_serve(torch, dev, card, table):
 
 def ring_mesh(torch, dev, card, table):
     """Phase 16(b): danube's first 2 layers at full width on the ring
-    engine, on 1x2 gloo ranks sharing the card (``spawn_mesh``: the window
-    cut over "model", each rank's slice for every KV head) against one
-    process serving the same weights: first-token logits and the first
+    engine, on 1x2 gloo ranks sharing the card (the window cut over
+    "model", each rank's slice for every KV head; served in phase 13's
+    spawn of 2 ranks, ``RING_RANKS``) against one process serving the same
+    weights: first-token logits and the first
     decode step's logits within LOGIT_TOL, W4A16 7 a layer a forward and
     flash 1 a layer an admit on every rank (equal to the one process's),
     no paged attention, the ranks' tokens equal, the first greedy token
@@ -6468,10 +6632,10 @@ def ring_mesh(torch, dev, card, table):
     ref = mesh_serve_run(torch, dev, cfg, params, table, what=what)
     del params
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn_mesh([list(r) for r in RING_MESH], dm[0] * dm[1],
-                       phase="ring")
-    ranks = [res[0] for res in ranks]
+    if len(RING_RANKS) != dm[0] * dm[1]:
+        raise AssertionError(f"phase 16: phase 13's spawn gave "
+                             f"{len(RING_RANKS)} ring ranks")
+    ranks = list(RING_RANKS)
     L = cfg.num_layers
     want = {"w4a16_gemm": 7 * L * (ref["admits"] + ref["steps"]),
             "flash_attention": L * ref["admits"], "paged_attention": 0}
@@ -6503,8 +6667,6 @@ def ring_mesh(torch, dev, card, table):
             f"ms/step (one process "
             f"{ref['decode_s'] / max(ref['steps'], 1) * 1e3:.1f}) "
             f"{'ok' if ok else 'FAIL'} [ranks share one card: {card}]")
-    log("ring", f"{dm[0] * dm[1]} ranks on one card in "
-        f"{time.perf_counter() - t0:.1f} s")
     if bad:
         raise AssertionError(f"phase 16: ring ranks {bad} disagree with "
                              f"the one process")
@@ -6547,10 +6709,10 @@ def refine_check(torch, dev, card):
     torch.cuda.empty_cache()
 
 
-def ring_phase(torch, dev, card, table):
-    """Phase 16: the ring engine on one card and on 1x2 ranks, and the
-    planner's refine pass."""
-    ring_serve(torch, dev, card, table)
+def ring_phase(torch, dev, card, table, paged):
+    """Phase 16: the ring engine on one card (against ``paged``, phase 4's
+    run) and on 1x2 ranks, and the planner's refine pass."""
+    ring_serve(torch, dev, card, table, paged)
     ring_mesh(torch, dev, card, table)
     refine_check(torch, dev, card)
 
@@ -6732,8 +6894,7 @@ def main() -> int:
     log("kernels", f"phase 3 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    fused, plain, launches = check_serve(torch, card, table)
-    del fused, plain
+    paged_run, launches = check_serve(torch, card, table)
     torch.cuda.empty_cache()
     launches.update(serve_family(torch, card, table))
     log("serve", f"phase 4 took {time.perf_counter() - t0:.1f} s")
@@ -6755,14 +6916,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("timing", f"phase 5 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    trace(torch, card)
-    log("trace", f"phase 6 took {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     train_compare(torch, dev, card, table)
-    launches["flash_attention"] = train_launcher(torch, card, table)
+    launches["flash_attention"], step_s = train_launcher(torch, card, table)
     torch.cuda.empty_cache()
-    trace_train(torch, dev, card)
+    trace_train(torch, dev, card, step_s)
     log("train", f"phase 7 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     with depth_cut(ARCH, FEATURE_LAYERS, "features"):
@@ -6789,7 +6946,8 @@ def main() -> int:
     dryrun_phase(torch, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ring_phase(torch, dev, card, table)
+    ring_phase(torch, dev, card, table, paged_run)
+    del paged_run
     log("ring", f"phase 16 took {time.perf_counter() - t0:.1f} s")
 
     # one entry per kernel: a GEMM entry sums one decode step's seven

@@ -18,6 +18,20 @@ flash kernel (``attn_impl = "flash"``). ``--device cpu`` runs the
 plain PyTorch paths; by default the launcher needs a CUDA card and fails
 without one.
 
+The weights are built one of two ways, chosen by :func:`plan_build` from
+the shapes before any weight is drawn: whole (``T.init_params``: the
+stacked dense tree, then ``T.quantize_params``), or, for a dense or MoE
+arch whose whole build would pass one 80 GiB card, streamed
+(``T.init_serving_params``: drawn and quantized layer by layer, so the
+device holds the packed tree so far and one leaf's transients). That is
+how mixtral-8x7b (87 GiB of bf16 weights, about 24 GiB packed) and
+granite-20b serve at full depth on one card. The two builds draw different
+random streams, so the choice rests on the arch alone: ``--arch`` and
+``--seed`` fix the weights whatever the traffic or the device. A config
+whose build, or its packed weights beside the KV pool, would not fit the
+device is refused before anything is drawn (on the CPU the bound is one
+card's 80 GiB, as the training launcher's ``check_fits``).
+
 ``--ring`` serves from per-slot ring KV caches instead of the paged pool
 (``ServingEngine(paged=False)``, the JAX package's ring engine: each prompt
 prefills whole at admit, on the card through the flash kernel; no sharing,
@@ -63,11 +77,92 @@ from repro_torch import configs
 from repro_torch.core import quant
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import planning
+from repro_torch.configs.shapes import serve_num_pages
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch.presets import serve_settings_for
+from repro_torch.launch.train import CARD_BYTES
 from repro_torch.models import transformer as T
+from repro_torch.runtime import kvcache as kvc
 from repro_torch.runtime import sharding, speculative
 from repro_torch.runtime.engine import Request, ServingEngine
+
+
+def device_bytes(device) -> int:
+    """The memory of ``device``: a card's own, one card's ``CARD_BYTES``
+    for the CPU (a CPU run refuses what the card would)."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return CARD_BYTES
+
+
+def kv_pool_bytes(cfg, *, batch: int, prompt_len: int, gen: int,
+                  page_size: int, kv_format: str) -> int:
+    """Bytes of the paged KV pool the engine allocates for ``batch`` slots
+    of ``prompt_len`` + ``gen`` tokens (``serve_num_pages`` blocks of
+    every layer's pool leaves, as ``ServingEngine`` sizes it; the ring
+    engine's windows are the same less the null block); 0 for an
+    attention-free arch."""
+    if cfg.attn_free:
+        return 0
+    one = kvc.init_pool(1, page_size, cfg.num_kv_heads, cfg.head_dim,
+                        cfg.dtype, kv_format, device="meta")
+    block = cfg.num_layers * sum(t.numel() * t.element_size()
+                                 for t in one if t is not None)
+    return block * serve_num_pages(cfg, prompt_len, gen, page_size=page_size,
+                                   max_batch=batch)
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildPlan:
+    """The build :func:`plan_build` chose: ``mode`` "whole" or
+    "streamed", the reckoned ``bytes`` (``T.BuildBytes``), the KV pool's
+    ``kv`` bytes and the device's ``have``."""
+    mode: str
+    bytes: T.BuildBytes
+    kv: int
+    have: int
+
+    @property
+    def peak(self) -> int:
+        return self.bytes.streamed if self.mode == "streamed" \
+            else self.bytes.whole
+
+    @property
+    def need(self) -> int:
+        """The most the device holds at once: the build's peak (the
+        packed tree and the build's transient), or the packed tree beside
+        the KV pool, which the engine allocates once the build's
+        transients are freed."""
+        return max(self.peak, self.bytes.packed + self.kv)
+
+
+def plan_build(cfg, *, quantize: bool = True, kv_bytes: int = 0,
+               have: int = CARD_BYTES, mesh: bool = False) -> BuildPlan:
+    """Choose the weights' build from the shapes alone
+    (``T.serving_build_bytes``), before anything is drawn: "streamed" for
+    a dense or MoE arch on one device whose whole build's peak passes one
+    card's ``CARD_BYTES``, else "whole". Neither the KV pool nor the
+    device moves the choice, so the arch and the seed alone fix the
+    weights. A plan whose need passes ``have`` bytes is refused. On a mesh
+    each rank keeps its slice of a leaf as it is drawn, which only the
+    whole build does (no fit is reckoned there)."""
+    est = T.serving_build_bytes(cfg, quantize=quantize)
+    if mesh:
+        return BuildPlan("whole", est, kv_bytes, have)
+    mode = "streamed" if est.streamed is not None \
+        and est.whole > CARD_BYTES else "whole"
+    plan = BuildPlan(mode, est, kv_bytes, have)
+    if plan.need > have:
+        gib = 2 ** 30
+        raise ValueError(
+            f"{cfg.name} cannot serve on one device: its {mode} build "
+            f"needs {plan.need / gib:.1f} GiB (the build's peak "
+            f"{plan.peak / gib:.1f} GiB; the weights "
+            f"{est.packed / gib:.1f} GiB "
+            f"{'packed' if quantize else 'dense'} beside the KV pool "
+            f"{kv_bytes / gib:.1f} GiB) over the device's "
+            f"{have / gib:.1f} GiB")
+    return plan
 
 
 def build_args(argv=None) -> argparse.Namespace:
@@ -266,29 +361,55 @@ def build(args: argparse.Namespace):
         print(f"[serve] mesh {args.mesh} ({torch.distributed.get_backend()})"
               f": each rank holds {heads}" + "".join(", " + c for c in cuts))
 
+    B = args.max_batch or args.batch
+    R = args.requests or B
+    page_size = args.page_size or sset.page_size
+    # the build is chosen (or the config refused) before anything is drawn
+    plan = plan_build(
+        cfg, quantize=not args.no_quant,
+        kv_bytes=kv_pool_bytes(cfg, batch=B, prompt_len=pmax, gen=args.gen,
+                               page_size=page_size, kv_format=kv_format),
+        have=device_bytes(device), mesh=mesh is not None)
+
     t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = T.init_params(gen, cfg, device=device,
-                           cut=None if layout is None else layout.cut)
+    if plan.mode == "streamed":
+        params = T.init_serving_params(gen, cfg, device=device,
+                                       quantize=not args.no_quant)
+    else:
+        params = T.init_params(gen, cfg, device=device,
+                               cut=None if layout is None else layout.cut)
+        if not args.no_quant:
+            params = T.quantize_params(params, cfg, min_size=0)
+    measured = ""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        peak = torch.cuda.max_memory_allocated(device) - base
+        measured = f", {peak / 1e6:.1f} MB measured"
+    how = (f"{plan.mode} build" + (
+        "; each rank keeps its slices" if mesh is not None else
+        f": peak {plan.peak / 1e6:.1f} MB reckoned{measured}, "
+        f"{plan.bytes.packed / 1e6:.1f} MB "
+        f"{'dense' if args.no_quant else 'packed'}"))
     if args.no_quant:
         print(f"[serve] {cfg.name} dense {str(cfg.dtype).split('.')[-1]} "
               f"weights (--no-quant) on {device}; built in "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"{time.perf_counter() - t0:.1f} s ({how})")
     else:
-        params = T.quantize_params(params, cfg, min_size=0)
         qbytes = sum(leaf.nbytes_packed()
                      for leaf in planning.quantized_leaves(params))
         print(f"[serve] {cfg.name} {fmt.name} ({args.strategy}) on "
               f"{device}; quantized weights {qbytes / 1e6:.1f} MB; built "
-              f"in {time.perf_counter() - t0:.1f} s")
+              f"in {time.perf_counter() - t0:.1f} s ({how})")
 
-    B = args.max_batch or args.batch
-    R = args.requests or B
     engine = ServingEngine(
         cfg, params, max_batch=B, max_prompt_len=pmax,
         max_new_tokens=args.gen,
-        page_size=args.page_size or sset.page_size,
+        page_size=page_size,
         prefill_chunk=args.prefill_chunk or sset.prefill_chunk,
         kv_format=kv_format, paged=not args.ring,
         refine_plans=args.refine_plans, warm_cache_mb=args.warm_cache_mb,

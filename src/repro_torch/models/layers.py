@@ -99,14 +99,17 @@ def pick_format(base, K: int):
 
 def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
                   symmetric: Optional[bool] = None, min_size: int = 1 << 16,
-                  skip_names=("embed", "lm_head", "router", "bc_proj")):
+                  skip_names=("embed", "lm_head", "router", "bc_proj"),
+                  prefix=()):
     """Convert every eligible ``kernel`` leaf of two or more axes to a
     QuantizedTensor. Leading axes (stacked layers, MoE experts: an (L, E,
     K, N) stack) are quantized slice by slice, so scales are per (layer,
     expert, K group, N) and the stack stays one QuantizedTensor of packed
     shape (..., K/2, N). ``embed``, ``lm_head``, the MoE ``router`` and
     ``bc_proj`` stay dense, as in the JAX package; ``min_size`` is per
-    matrix, not per stack."""
+    matrix, not per stack. ``prefix`` is the key path of ``params`` in
+    its model's tree (one leaf's dict quantized as the whole tree's
+    would be)."""
     base = quant.resolve_format(format)
     if group_size is not None:
         base = base.with_group_size(group_size)
@@ -153,7 +156,7 @@ def quantize_tree(params, *, format=None, group_size: Optional[int] = None,
             return tree
         return quantize_leaf(tree)
 
-    return visit(params, ())
+    return visit(params, tuple(prefix))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

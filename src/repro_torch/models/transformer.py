@@ -65,7 +65,8 @@ specs, since GSPMD inserts these collectives for JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import dataclasses
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -101,6 +102,72 @@ def check_family(cfg: ModelConfig) -> None:
 # init / quantize
 # ---------------------------------------------------------------------------
 
+def _drawers(gen: torch.Generator, cfg: ModelConfig, device, keep):
+    """The leaf drawers :func:`init_params` and
+    :func:`init_serving_params` share: ``lin(d_in, d_out, n, path,
+    bias)`` (a linear dict stacked over ``n`` layers, or one layer's with
+    ``n`` None, through ``keep(path, p)`` as soon as it is drawn),
+    ``norm(*lead)``, ``attn(n, pre)`` and ``mlp(n, pre)``."""
+    d, ff = cfg.d_model, cfg.d_ff
+
+    def lin(d_in, d_out, n, path, bias=False):
+        return keep(path, layers.init_linear(
+            gen, d_in, d_out, cfg.dtype, device=device, layers=n, bias=bias))
+
+    def norm(*lead):
+        p = {"scale": torch.ones(lead + (d,), dtype=cfg.dtype,
+                                 device=device)}
+        if cfg.norm_type == "layernorm":
+            p["bias"] = torch.zeros(lead + (d,), dtype=cfg.dtype,
+                                    device=device)
+        return p
+
+    def attn(n, pre):
+        return {"wq": lin(d, cfg.q_dim, n, pre + ("wq",)),
+                "wk": lin(d, cfg.kv_dim, n, pre + ("wk",)),
+                "wv": lin(d, cfg.kv_dim, n, pre + ("wv",)),
+                "wo": lin(cfg.q_dim, d, n, pre + ("wo",))}
+
+    def mlp(n, pre):
+        if cfg.mlp_type == "swiglu":
+            return {"w_gate": lin(d, ff, n, pre + ("w_gate",)),
+                    "w_up": lin(d, ff, n, pre + ("w_up",)),
+                    "w_down": lin(ff, d, n, pre + ("w_down",))}
+        return {"w_up": lin(d, ff, n, pre + ("w_up",), bias=True),
+                "w_down": lin(ff, d, n, pre + ("w_down",), bias=True)}
+
+    return lin, norm, attn, mlp
+
+
+def _decoder_layers(gen: torch.Generator, cfg: ModelConfig, n, *, device,
+                    keep, cut):
+    """The decoder layers' leaves in :func:`init_params`'s order of draws:
+    stacked over ``n`` layers, or one layer's (``n`` None)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    lead = () if n is None else (n,)
+    _, norm, attn, mlp = _drawers(gen, cfg, device, keep)
+    stack = {"norm1": norm(*lead), "norm2": norm(*lead)}
+    if cfg.family == "rwkv":
+        stack.update(rwkv.init_rwkv_block(gen, d, ff, cfg.num_heads,
+                                          cfg.dtype, device=device,
+                                          stacked=n, cut=cut))
+    else:
+        stack["attn"] = attn(n, ("layers", "attn"))
+    if cfg.family == "moe":
+        stack["moe"] = moe.init_moe(gen, d, ff, cfg.num_experts, cfg.dtype,
+                                    device=device, stacked=n, cut=keep)
+    elif cfg.family in ("dense", "hybrid", "encdec"):
+        stack["mlp"] = mlp(n, ("layers", "mlp"))
+    if cfg.family == "hybrid":
+        stack["ssm"] = ssm.init_ssm(gen, d, cfg.d_inner, cfg.ssm_state,
+                                    cfg.dtype, device=device, stacked=n,
+                                    cut=cut)
+    if cfg.family == "encdec":
+        stack["cross"] = attn(n, ("layers", "cross"))
+        stack["norm3"] = norm(*lead)
+    return stack
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
                 cut=None):
     """Random parameters drawn from ``gen`` (stacked over L), created in
@@ -119,58 +186,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
     never holds more than one whole leaf, and ``gen`` is consumed as
     without it."""
     check_family(cfg)
-    L, d, ff, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    L, d, V = cfg.num_layers, cfg.d_model, cfg.padded_vocab
     keep = cut or (lambda path, p: p)
-
-    def lin(d_in, d_out, n=L, bias=False, path=()):
-        return keep(path, layers.init_linear(
-            gen, d_in, d_out, cfg.dtype, device=device, layers=n, bias=bias))
-
-    def norm(*lead):
-        p = {"scale": torch.ones(lead + (d,), dtype=cfg.dtype,
-                                 device=device)}
-        if cfg.norm_type == "layernorm":
-            p["bias"] = torch.zeros(lead + (d,), dtype=cfg.dtype,
-                                    device=device)
-        return p
-
-    def attn(n=L, pre=("layers", "attn")):
-        return {"wq": lin(d, cfg.q_dim, n, path=pre + ("wq",)),
-                "wk": lin(d, cfg.kv_dim, n, path=pre + ("wk",)),
-                "wv": lin(d, cfg.kv_dim, n, path=pre + ("wv",)),
-                "wo": lin(cfg.q_dim, d, n, path=pre + ("wo",))}
-
-    def mlp(n=L, pre=("layers", "mlp")):
-        if cfg.mlp_type == "swiglu":
-            return {"w_gate": lin(d, ff, n, path=pre + ("w_gate",)),
-                    "w_up": lin(d, ff, n, path=pre + ("w_up",)),
-                    "w_down": lin(ff, d, n, path=pre + ("w_down",))}
-        return {"w_up": lin(d, ff, n, bias=True, path=pre + ("w_up",)),
-                "w_down": lin(ff, d, n, bias=True, path=pre + ("w_down",))}
+    lin, norm, attn, mlp = _drawers(gen, cfg, device, keep)
 
     table = torch.randn(V, d, generator=gen, device=device) * 0.02
     embed = keep(("embed",), {"table": table.to(cfg.dtype)})
     del table
-    stack = {"norm1": norm(L), "norm2": norm(L)}
-    if cfg.family == "rwkv":
-        stack.update(rwkv.init_rwkv_block(gen, d, ff, cfg.num_heads,
-                                          cfg.dtype, device=device,
-                                          stacked=L, cut=cut))
-    else:
-        stack["attn"] = attn()
-    if cfg.family == "moe":
-        stack["moe"] = moe.init_moe(gen, d, ff, cfg.num_experts, cfg.dtype,
-                                    device=device, stacked=L, cut=keep)
-    elif cfg.family in ("dense", "hybrid", "encdec"):
-        stack["mlp"] = mlp()
-    if cfg.family == "hybrid":
-        stack["ssm"] = ssm.init_ssm(gen, d, cfg.d_inner, cfg.ssm_state,
-                                    cfg.dtype, device=device, stacked=L,
-                                    cut=cut)
+    stack = _decoder_layers(gen, cfg, L, device=device, keep=keep, cut=cut)
     params = {"embed": embed, "final_norm": norm(), "layers": stack}
     if cfg.family == "encdec":
-        stack["cross"] = attn(pre=("layers", "cross"))
-        stack["norm3"] = norm(L)
         E = cfg.encoder_layers
         params["encoder"] = {
             "layers": {"norm1": norm(E), "norm2": norm(E),
@@ -178,8 +203,164 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device=None,
                        "mlp": mlp(E, ("encoder", "mlp"))},
             "final_norm": norm()}
     if not cfg.tie_embeddings:
-        params["lm_head"] = lin(d, V, None, path=("lm_head",))
+        params["lm_head"] = lin(d, V, None, ("lm_head",))
     return params
+
+
+# the families the streamed build covers (the others fit one card whole)
+STREAMED_FAMILIES = ("dense", "moe")
+
+
+def check_streamed(cfg: ModelConfig) -> None:
+    """Refuse a family :func:`init_serving_params` does not cover."""
+    check_family(cfg)
+    if cfg.family not in STREAMED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the streamed build covers the "
+            f"{' and '.join(STREAMED_FAMILIES)} families, not "
+            f"{cfg.family!r}; build it whole (init_params, quantize_params)")
+
+
+def init_serving_params(gen: torch.Generator, cfg: ModelConfig, *,
+                        device=None, quantize: bool = True):
+    """The serving tree built layer by layer, for a model whose stacked
+    dense tree would not fit the device beside its quantization. The
+    embedding and ``lm_head`` are drawn first, then each layer's leaves in
+    :func:`init_params`'s order inside a layer; each linear leaf is
+    quantized as the serve launcher's :func:`quantize_params` would
+    quantize it (``cfg.quant_format``, ``min_size=0``; the embedding, the
+    head and the MoE router stay dense) the moment it is drawn, so the device holds the packed tree so far
+    and one leaf's fp32 draw or its quantization's temporaries
+    (:func:`serving_build_bytes`). ``quantize=False`` returns the dense
+    tree of the same draws.
+
+    ``layers`` is a list of per-layer dicts (:func:`unstack_layers`'s
+    form). The random stream is its own: per-layer draws do not reproduce
+    :func:`init_params`'s whole-stack ones. Dense and MoE families only
+    (:data:`STREAMED_FAMILIES`)."""
+    check_streamed(cfg)
+    fmt = serve_format(cfg).name
+
+    def keep(path, p):
+        if not quantize:
+            return p
+        return layers.quantize_tree(p, format=fmt, min_size=0, prefix=path)
+
+    d, V = cfg.d_model, cfg.padded_vocab
+    lin, norm, _, _ = _drawers(gen, cfg, device, keep)
+    table = torch.randn(V, d, generator=gen, device=device) * 0.02
+    params = {"embed": {"table": table.to(cfg.dtype)}, "final_norm": norm()}
+    del table
+    if not cfg.tie_embeddings:
+        params["lm_head"] = lin(d, V, None, ("lm_head",))
+    params["layers"] = [
+        _decoder_layers(gen, cfg, None, device=device, keep=keep, cut=None)
+        for _ in range(cfg.num_layers)]
+    return params
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildBytes:
+    """Device bytes of building a serving tree (:func:`serving_build_bytes`):
+    ``dense`` the dense tree in ``cfg.dtype``, ``packed`` the serving tree
+    (quantized leaves packed, the rest dense), ``whole`` the peak of
+    :func:`init_params` then :func:`quantize_params`, ``streamed`` the
+    peak of :func:`init_serving_params` (None outside
+    :data:`STREAMED_FAMILIES`)."""
+    dense: int
+    packed: int
+    whole: int
+    streamed: Optional[int]
+
+
+def _walk(tree, names=()):
+    """(key path, leaf) in insertion order: the order :func:`init_params`
+    draws the leaves and :func:`quantize_params` visits them."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, names + (k,))
+    else:
+        yield names, tree
+
+
+def _nbytes(leaf) -> int:
+    if isinstance(leaf, QuantizedTensor):
+        return leaf.nbytes_packed()
+    return leaf.numel() * leaf.element_size()
+
+
+def serving_build_bytes(cfg: ModelConfig, *,
+                        quantize: bool = True) -> BuildBytes:
+    """The two builds' peaks reckoned from the shapes alone (the tree on
+    the meta device; nothing is drawn), with the transients of each step
+    of a leaf's build:
+
+    - a draw: ``randn`` in fp32 and its scaled copy, 8 bytes an element
+      (the fp32 copy and its cast then hold 6);
+    - a quantization (``core.quant.quantize``) of one (K, N) matrix: its
+      fp32 copy (for a narrower leaf), the scaled and rounded fp32 copies
+      and the clamp's copy beside the int8 values, 13 bytes an element
+      (9 for an fp32 leaf), and two fp32 arrays of group scales; a
+      stack's slices are packed one by one, then stacked: the stack's
+      packed bytes twice.
+
+    ``whole``: every dense leaf drawn (a leaf's draw on top of the leaves
+    before it), then each leaf quantized while the dense tree is alive.
+    ``streamed``: the embedding and the head, then each layer's leaves,
+    each drawn and quantized on top of the packed leaves before it (the
+    peak is the last layer's largest leaf)."""
+    dense_tree = abstract_params(cfg)
+    served = quantize_params(dense_tree, cfg, min_size=0) if quantize \
+        else dense_tree
+    leaves = [(names, w, q) for (names, w), (_, q)
+              in zip(_walk(dense_tree), _walk(served))]
+
+    def quant_temp(w, q, per):
+        """A quantized unit's transient beyond its dense bytes: one
+        (K, N) slice's temporaries on top of the slices packed before it,
+        then the stack of a unit of several slices (its packed bytes
+        twice)."""
+        qb = _nbytes(q) // per
+        k = w.shape[-2] * w.shape[-1]
+        slices = w.numel() // per // k
+        one = k * (9 + (4 if w.element_size() < 4 else 0)) \
+            + 8 * k // q.group_size
+        return max(qb - qb // slices + one, 2 * qb if slices > 1 else 0)
+
+    live = peak = 0
+    for names, w, _ in leaves:
+        n = w.numel()
+        drawn = names[-1] in ("kernel", "table")
+        peak = max(peak, live + (8 * n if drawn else n * w.element_size()))
+        live += n * w.element_size()
+    dense = live
+    for names, w, q in leaves:
+        if isinstance(q, QuantizedTensor):
+            peak = max(peak, live + quant_temp(w, q, 1))
+            live += _nbytes(q)
+    whole = peak
+    packed = sum(_nbytes(q) for _, _, q in leaves)
+
+    streamed = None
+    if cfg.family in STREAMED_FAMILIES:
+        L = cfg.num_layers
+        top = [leaf for leaf in leaves if leaf[0][0] != "layers"]
+        layer = [leaf for leaf in leaves if leaf[0][0] == "layers"]
+        live = peak = 0
+        for names, w, q, per in [(*leaf, 1) for leaf in top] \
+                + [(*leaf, L) for leaf in layer] * L:
+            n, b = w.numel() // per, w.element_size()
+            drawn = names[-1] in ("kernel", "table")
+            if isinstance(q, QuantizedTensor):
+                temp = max(8 * n, n * b + quant_temp(w, q, per))
+                kept = _nbytes(q) // per
+            else:
+                temp, kept = (8 * n if drawn else n * b), n * b
+            peak = max(peak, live + temp)
+            live += kept
+        streamed = peak
+    return BuildBytes(dense=dense, packed=packed, whole=whole,
+                      streamed=streamed)
 
 
 def abstract_params(cfg: ModelConfig):
