@@ -58,7 +58,8 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              kernels' launch counters must rise during that run. The same
              requests then run on the plain paths (``--strategy reference
              --attn-path gather``) to compare prefill logits and tokens.
-             Then, at the same width and depth with 8 requests of 128
+             Then, at the same width, 12 of the 24 layers
+             (``FAMILY_LAYERS``), with 8 requests of 128
              prompt + 16 generated tokens: ``--strategy decoupled``,
              ``--format w8a16_channel`` and ``--format w4a8_g128``, each
              against its plain GEMM path (``--strategy reference``,
@@ -271,7 +272,11 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              joined over ``gloo`` (NCCL refuses two ranks on one GPU;
              the collectives go through host memory): (a) h2o-danube-1.8b
              at full width, its first 12 of 24 layers (for the script's
-             time), at 1x2 and 2x2, (b) llama3-405b at
+             time), at 1x2 and 2x2, and its first 4 at 2x2 with and
+             without JAX's ``fsdp_serve`` (each rank keeps its shares over
+             "data" of its W4A16 slice and gathers a layer just before it
+             runs): its tokens and launches equal to the run without it,
+             each rank's peaks printed beside, (b) llama3-405b at
              full width (d_model 16384, 128/8 heads of 128, d_ff 53248,
              vocab 128256), its first 2 of 126 layers, at 1x4 (each rank
              draws the weights in turn and keeps its slice of each leaf as
@@ -349,20 +354,35 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              3 on a data rank's 4 rows, held against one process restoring
              the same checkpoint (loss, grad norm, m and v within
              ``TRAIN_TOL``); the history JAX's runner records, each rank's
-             step ms and flash launches a step printed. No phase-14 time is
-             a multi-GPU figure: the ranks share one card.
+             step ms and flash launches a step printed. Before it, the
+             weight-gathered layers of ZeRO-3 (``MESH_ZERO3``): danube's
+             first 4 layers, 8 x 1024 tokens in one microbatch at 2x2,
+             FSDP with ``zero2`` off (each layer gathered over "data" just
+             before it runs and again in its recompute, its gradient
+             reduce-scattered onto the shares), three steps held against
+             one process, the all-gathers over "data" a step equal to the
+             reckoned (``dryrun.zero3_collectives``), and one step of the
+             same cell under ZeRO-2 (the whole slice gathered once a
+             step): the ZeRO-3
+             rank's peak below it by at least 2 layers' TP bytes. No
+             phase-14 time is a multi-GPU figure: the ranks share one
+             card.
 15. dryrun — the dry run (``repro_torch.launch.dryrun``) on the meta
              device, on the card's host: each cell whose peak an earlier
              phase measured (phase 7b's launcher, phase 4's decode step,
              phase 12's whisper flash run, phase 14's danube 1x4 rank (0,
-             0) on a fake world of 4), traced at that geometry, its
+             0) and its ZeRO-3 and ZeRO-2 ranks (0, 0) on a fake world of
+             4; the ZeRO-3 one must hold), traced at that geometry, its
              predicted peak beside the measured (less what the process
              held before the cell's tensors; a miss beyond 10 % and 256
              MiB printed with its breakdown) (the full-depth serving
              builds' peaks are held so in phases 9(b) and 11(c)); then
              the production grid:
-             danube and llama3-405b (2 of 126 layers for its train cell)
-             at 16x16, train_4k and decode_32k, and danube's train_4k at
+             danube and llama3-405b at 16x16, train_4k and decode_32k
+             (llama3-405b's train cell at 1 and 2 of 126 layers, a rank's
+             peak reckoned linear in the layers to 126; its serving cells,
+             prefill_32k too, under its preset's ``fsdp_serve``), and
+             danube's train_4k at
              15x16, global batch 240 (JAX's elastic cell): each rank-0
              record's peak, fit, FLOPs and collectives; a decode cell
              is JAX's (the ring state of ``input_specs``, its batch over
@@ -388,6 +408,14 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              granite's (6144, 128) and llama3 TP=4's (16384, 256), M = 1,
              8, 16: the refined split held against the plain version and
              timed beside the default split and ``torch.matmul``.
+
+Work that needs no card, or only ranks of its own, runs beside the
+card's phases: phase 15's production grid traces in a process of its own
+(``chip_smoke.py --dryrun-grid``) from the build on, and its lines print in
+phase 15; phase 14's ranks start before phase 13, when the card has room,
+and train while phase 13 serves and phase 15 traces its one-device cells,
+and are held after them.
+Every process the script starts is stopped by the time it exits.
 
 The line before the last two is the kernels' JSON record; the line before
 the last is the card's name and power limit; the last line is the
@@ -426,8 +454,10 @@ LOGIT_TOL = 0.25
 # the speculative verify step of phase 8: k = 4 drafts, 8 slots x 5 rows
 SPEC_K = 4
 VERIFY_M = 8 * (SPEC_K + 1)
-# the GEMM family's full-width serving runs (phase 4)
+# the GEMM family's full-width serving runs (phase 4), at FAMILY_LAYERS of
+# danube's 24 layers (the main path's run above them keeps all 24)
 FAMILY_GEN = 16
+FAMILY_LAYERS = 12
 FAMILY_ARGV = ["--arch", ARCH, "--batch", "8", "--requests", "8",
                "--prompt-len", "128", "--gen", str(FAMILY_GEN),
                "--page-size", "8", "--prefill-chunk", "32", "--kv-format",
@@ -1364,7 +1394,8 @@ def gemm_path_run(torch, extra, card, expect):
 
 
 def serve_family(torch, card, table):
-    """The GEMM family's serving runs at full width and depth: the fused
+    """The GEMM family's serving runs at full width (``main`` cuts their
+    depth to ``FAMILY_LAYERS``): the fused
     W4A16 path as the cell's yardstick; each other kernel path against its
     plain GEMM path (attention on its kernel in both), counters set to 0
     just before each kernel-path run and read just after, its decode steps
@@ -5071,10 +5102,22 @@ MESH_KW = dict(max_batch=4, max_prompt_len=MESH_PROMPT,
                max_new_tokens=MESH_GEN, page_size=16, prefill_chunk=32,
                kv_format="kv_fp16", attn_path="fused")
 MESH_PAGE, MESH_PAGES = 16, 9       # a slot's 144-token window
+# danube's layers in phase 13 (12 of 24, for the script's time), and in
+# its fsdp_serve pair (4: that run gathers each layer, the embedding and
+# the head through host memory every step; the same mesh without the flag
+# at the same depth beside it)
+MESH_DANUBE_LAYERS, MESH_FSDP_LAYERS = 12, 4
 # (arch, depth cut or None, meshes, ranks draw one after the other, what
 # else the run does: "fp32" activations on the quantized weights, "ngram"
-# speculation with every verify step's carry commit checked)
-MESH_RUNS = [("h2o-danube-1.8b", 12, [(1, 2), (2, 2)], False, ""),
+# speculation with every verify step's carry commit checked, "fsdp" the
+# weight-gathered layers of JAX's fsdp_serve: each rank keeps its shares
+# over "data" of its slice and gathers a layer at a time, held against one
+# process as every run is and against the same mesh without the flag)
+MESH_RUNS = [("h2o-danube-1.8b", MESH_DANUBE_LAYERS, [(1, 2), (2, 2)], False,
+              ""),
+             ("h2o-danube-1.8b", MESH_FSDP_LAYERS, [(2, 2)], False, ""),
+             ("h2o-danube-1.8b", MESH_FSDP_LAYERS, [(2, 2)], False,
+              "fsdp"),
              ("llama3-405b", 2, [(1, 4)], True, ""),
              # rwkv's bf16 logits are chaotic on random weights (phase 10):
              # its mesh run is held with fp32 activations
@@ -5406,7 +5449,11 @@ def mesh_requests(cfg, what=""):
 
 def mesh_serve_run(torch, dev, cfg, params, table, mesh=None, what=""):
     """Serve phase 13's requests through ``ServingEngine`` (on ``mesh``
-    when given), counters set to 0 just before and read just after. An
+    when given; ``params`` a tree, or a one-tree list that is emptied so
+    that the engine holds the only reference: an ``fsdp`` run's slice is
+    then freed once its shares are cut), counters set to 0 just before
+    and read just after; the peak before the requests (the build) and
+    while they are served (the engine's weights, pool and steps) apart. An
     ngram run wraps every verify step (``capture_carry_verify``): exact
     acceptance, each carry commit equal to checkpoint 1 + accepted, the
     verify logits at each row's first position against a decode step
@@ -5420,7 +5467,15 @@ def mesh_serve_run(torch, dev, cfg, params, table, mesh=None, what=""):
         kw.update(speculate="ngram", spec_k=SPEC_K)
     if what == "ring":
         kw = dict(RING_MESH_KW)
-    engine = ServingEngine(cfg, params, mesh=mesh, device=dev, **kw)
+    if isinstance(params, list):
+        params = params.pop()
+    engine = ServingEngine(cfg, params, mesh=mesh, device=dev,
+                           fsdp_serve=what == "fsdp", **kw)
+    del params
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     step0 = first_step_logits(engine) if what == "ring" else {}
     reqs = mesh_requests(cfg, what)
     if what == "ngram":
@@ -5469,7 +5524,8 @@ def mesh_serve_run(torch, dev, cfg, params, table, mesh=None, what=""):
                plans={k: p.split_k for k, p in engine.plans.items()},
                paths=(engine.attn_path, engine.prefill_attn_path),
                spec=(rep.proposed_tokens, rep.accepted_tokens),
-               step0=step0)
+               step0=step0, build_peak=build_peak,
+               serve_peak=torch.cuda.max_memory_allocated())
     del engine
     return out
 
@@ -5506,12 +5562,14 @@ def mesh_rank(rank, world, store, runs_json, out_dir):
                 torch.cuda.empty_cache()
             torch.distributed.barrier()
         build_s = time.perf_counter() - t0
-        res = mesh_serve_run(torch, dev, cfg, params, table, mesh, what)
+        box = [params]
+        del params
+        res = mesh_serve_run(torch, dev, cfg, box, table, mesh, what)
         res.update(arch=arch, mesh=dm, what=what, backend=backend,
                    build_s=build_s, coords=(layout.dp_rank, layout.tp_rank),
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                   peak_gib=max(res["build_peak"], res["serve_peak"])
+                   / 2 ** 30)
         results.append(res)
-        del params
         torch.cuda.empty_cache()
         torch.distributed.barrier()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -5521,28 +5579,53 @@ def mesh_rank(rank, world, store, runs_json, out_dir):
     return 0
 
 
-def spawn_mesh(runs, world, timeout=420, flag="--mesh-rank",
+# every process this script starts and has not reaped yet; the script's
+# exit kills what is left (a phase that fails leaves none running)
+STARTED = []
+
+
+def reap_started():
+    """Kill and reap every process of ``STARTED`` still running."""
+    for p in STARTED:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    STARTED.clear()
+
+
+def start_mesh(runs, world, timeout=420, flag="--mesh-rank",
                phase="mesh"):
-    """Run ``runs`` (one world size) on ``world`` rank processes of this
+    """Start ``runs`` (one world size) on ``world`` rank processes of this
     script sharing the card (``chip_smoke.py flag r world store runs
-    out_dir``); returns each rank's results. A rank that fails or hangs
-    fails the phase."""
-    import pickle
+    out_dir``) and return at once; ``finish_mesh`` waits for them."""
     import tempfile
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
-        logs = [open(os.path.join(d, f"rank{r}.log"), "w+")
-                for r in range(world)]
-        env = dict(os.environ, OMP_NUM_THREADS="1")
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), flag,
-             str(r), str(world), os.path.join(d, "store"),
-             json.dumps(runs), d], stdout=logs[r], stderr=subprocess.STDOUT,
-            env=env) for r in range(world)]
-        deadline = time.monotonic() + timeout
+    d = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag,
+         str(r), str(world), os.path.join(d, "store"),
+         json.dumps(runs), d], stdout=logs[r], stderr=subprocess.STDOUT,
+        env=env) for r in range(world)]
+    STARTED.extend(procs)
+    return dict(dir=d, logs=logs, procs=procs, world=world, phase=phase,
+                deadline=time.monotonic() + timeout)
+
+
+def finish_mesh(job):
+    """Wait for ``start_mesh``'s ranks; returns each rank's results. A
+    rank that fails or hangs (past the timeout counted from the start)
+    fails the phase."""
+    import pickle
+    import shutil
+    d, logs, procs, phase = job["dir"], job["logs"], job["procs"], \
+        job["phase"]
+    try:
         try:
             while any(p.poll() is None for p in procs):
-                if time.monotonic() > deadline or any(
+                if time.monotonic() > job["deadline"] or any(
                         p.returncode not in (None, 0) for p in procs):
                     break
                 time.sleep(0.1)
@@ -5565,10 +5648,18 @@ def spawn_mesh(runs, world, timeout=420, flag="--mesh-rank",
             for line in text.strip().splitlines():
                 log(phase, f"rank 0: {line}")
         out = []
-        for r in range(world):
+        for r in range(job["world"]):
             with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
         return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def spawn_mesh(runs, world, timeout=420, flag="--mesh-rank",
+               phase="mesh"):
+    """``start_mesh`` and ``finish_mesh`` in one: the ranks' results."""
+    return finish_mesh(start_mesh(runs, world, timeout, flag, phase))
 
 
 def mesh_want(res):
@@ -5630,6 +5721,35 @@ def hold_mesh(ref, ranks, what, card):
         f"attention paths {ranks[0]['paths']}")
 
 
+def hold_fsdp_serve(ranks, plain, what, card):
+    """Phase 13's fsdp_serve run against the same mesh without the flag:
+    every rank's greedy tokens equal, its W4A16 and paged-attention
+    launches equal (a gathered layer runs the kernels of the slice); each
+    rank's peaks printed beside the plain run's: the build's (its slice
+    and the shares cut from it) and the serving's (the shares, the pool,
+    one gathered layer)."""
+    kinds = ("w4a16_gemm", "paged_attention")
+    for a, b in zip(ranks, plain):
+        ok = a["coords"] == b["coords"] and a["tokens"] == b["tokens"] \
+            and all(a["launches"][k] == b["launches"][k] for k in kinds)
+        log("mesh", f"{what} fsdp_serve rank {a['coords']}: greedy tokens "
+            f"{'equal' if a['tokens'] == b['tokens'] else 'DIFFER'} to the "
+            f"same mesh without the flag; launches "
+            + ", ".join(f"{k} {a['launches'][k]} (without "
+                        f"{b['launches'][k]})" for k in kinds)
+            + f"; serving peak {a['serve_peak'] / 2**30:.3f} GiB (without "
+            f"{b['serve_peak'] / 2**30:.3f}), build peak "
+            f"{a['build_peak'] / 2**30:.3f} GiB (without "
+            f"{b['build_peak'] / 2**30:.3f}); decode "
+            f"{a['decode_s'] / max(a['steps'], 1) * 1e3:.1f} ms/step "
+            f"(without {b['decode_s'] / max(b['steps'], 1) * 1e3:.1f}) "
+            f"{'ok' if ok else 'FAIL'} [ranks share one card: {card}]")
+        if not ok:
+            raise AssertionError(f"phase 13 {what} fsdp_serve: rank "
+                                 f"{a['coords']} disagrees with the same "
+                                 f"mesh without the flag")
+
+
 def mesh_serve(torch, dev, card, table):
     """Phase 13: every run of MESH_RUNS served by one process at the same
     cut (the reference: the port on one card), then by its mesh's ranks,
@@ -5637,6 +5757,8 @@ def mesh_serve(torch, dev, card, table):
     against it (``hold_mesh``)."""
     refs = {}
     for arch, layers, _, _, what in MESH_RUNS:
+        if what == "fsdp":      # one process holds no shares
+            continue
         cfg = mesh_cfg(arch, layers, what)
         full = mesh_cfg(arch, None)
         t0 = time.perf_counter()
@@ -5646,8 +5768,9 @@ def mesh_serve(torch, dev, card, table):
         nbytes = weight_bytes(params)
         ref = mesh_serve_run(torch, dev, cfg, params, table, what=what)
         del params
+        gc.collect()
         torch.cuda.empty_cache()
-        refs[arch, what] = ref
+        refs[arch, layers, what] = ref
         log("mesh", f"{arch}{' ' + what if what else ''} ({cfg.num_layers} "
             f"of {full.num_layers} layers, {nbytes / 2**30:.2f} GiB of "
             f"weights held; d_model {cfg.d_model}, {cfg.num_heads}/"
@@ -5681,11 +5804,18 @@ def mesh_serve(torch, dev, card, table):
             for res in ranks:
                 res.update(L=cfg.num_layers, family=cfg.family,
                            E=cfg.encoder_layers)
-            refs[arch, what].update(L=cfg.num_layers, family=cfg.family,
-                                    E=cfg.encoder_layers)
-            hold_mesh(refs[arch, what], ranks,
-                      f"{arch}{' ' + what if what else ''} at "
-                      f"{dm[0]}x{dm[1]}", card)
+            ref = refs[arch, layers, "" if what == "fsdp" else what]
+            ref.update(L=cfg.num_layers, family=cfg.family,
+                       E=cfg.encoder_layers)
+            hold_mesh(ref, ranks, f"{arch}{' ' + what if what else ''} "
+                      f"({layers} layers) at {dm[0]}x{dm[1]}", card)
+            if what == "fsdp":
+                plain = next(j for j, r in enumerate(runs)
+                             if r[:2] == (arch, layers)
+                             and tuple(r[2]) == tuple(dm) and r[4] == "")
+                hold_fsdp_serve(ranks, [res[plain] for res in out],
+                                f"{arch} ({layers} layers) at "
+                                f"{dm[0]}x{dm[1]}", card)
 
 
 # ---------------------------------------------------------------------------
@@ -5722,10 +5852,32 @@ MESH_TRAIN_RUNS = [
 # checkpoint and running the same batches
 MESH_ELASTIC = ("h2o-danube-1.8b", MESH_TRAIN_LAYERS, 8, 1024, (2, 2))
 ELASTIC_STEPS, ELASTIC_FAIL = 4, 2
+# the weight-gathered layers of ZeRO-3 (danube's preset with zero2 off and
+# ZERO3_MICRO microbatch, for the script's time: each microbatch gathers
+# every layer twice through host memory; with one, the forward and
+# backward set the step's peak, not the AdamW update; the accumulation
+# over microbatches on the shares is held on the CPU,
+# tests/test_torch_train_mesh*.py): (arch,
+# layers, rows, tokens a row, mesh); ZERO3_STEPS steps against one
+# process, each layer gathered over "data" just before it runs and again
+# in its recompute; then ZERO2_STEPS of the same cell under ZeRO-2 (the
+# whole slice gathered once a step) for its peak beside
+MESH_ZERO3 = ("h2o-danube-1.8b", 4, 8, 1024, (2, 2))
+ZERO3_MICRO, ZERO3_STEPS, ZERO2_STEPS = 1, 3, 1
+
+
+def zero3_settings(zero2: bool = False):
+    """Phase 14's ZeRO-3 cell's settings (``zero2``: the same cell under
+    ZeRO-2)."""
+    from repro_torch.launch.presets import settings_for
+    return dataclasses.replace(settings_for(MESH_ZERO3[0]), zero2=zero2,
+                               microbatches=ZERO3_MICRO)
 # phase 15's measured peaks: cell -> (the phase's peak device bytes less
 # what was allocated before the cell's own tensors, the cell's geometry)
 PEAKS = {}
 MESH_TRAIN_PEAK = f"danube-{MESH_TRAIN_LAYERS}L-train-mesh-1x4 rank (0, 0)"
+ZERO3_PEAK = f"danube-{MESH_ZERO3[1]}L-train-mesh-2x2 ZeRO-3 rank (0, 0)"
+ZERO2_PEAK = f"danube-{MESH_ZERO3[1]}L-train-mesh-2x2 ZeRO-2 rank (0, 0)"
 # the flash kernel's shapes there (a rank's rows of a microbatch, its
 # heads): (label, B, S, Hq, Hkv, D, causal, window); whisper's are
 # MESH_FAMILY_FLASH
@@ -5815,7 +5967,7 @@ def reckon_mesh_train(cfg, settings, card, B, S, meshes):
             f"and out) [{card}]")
 
 
-# rank 0's one-process m and v (host) by arch, for the elastic run
+# rank 0's one-process m and v (host) by (arch, layers), for the elastic run
 REF_MV = {}
 
 
@@ -5846,17 +5998,19 @@ def mesh_train_rank(rank, world, store, runs_json, out_dir):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # every collective's host wall time (its wait for the card included)
-    spent = {"s": 0.0, "n": 0}
+    # every collective's host wall time (its wait for the card included),
+    # and the all-gathers over "data"
+    spent = {"s": 0.0, "n": 0, "gathers": 0}
     collective = sharding.Layout._collective
 
-    def timed_collective(self, *args, **kw):
+    def timed_collective(self, t, axis, fn, kind, **kw):
         t0 = time.perf_counter()
         try:
-            return collective(self, *args, **kw)
+            return collective(self, t, axis, fn, kind, **kw)
         finally:
             spent["s"] += time.perf_counter() - t0
             spent["n"] += 1
+            spent["gathers"] += kind == "all-gather" and axis == "data"
     sharding.Layout._collective = timed_collective
     dev = tmesh.rank_device()
     backend = tmesh.init_process_group(
@@ -5868,6 +6022,14 @@ def mesh_train_rank(rank, world, store, runs_json, out_dir):
         out["runs"].append(mesh_train_arch(
             torch, rank, dev, table, opt_cfg, spent,
             mesh_train_cfg(arch, layers), B, S, meshes))
+    arch, layers, B, S, dm = MESH_ZERO3
+    out["zero3"] = mesh_train_arch(
+        torch, rank, dev, table, opt_cfg, spent, mesh_train_cfg(arch, layers),
+        B, S, [dm], settings=zero3_settings(), n_steps=ZERO3_STEPS)
+    out["zero2"] = mesh_train_arch(
+        torch, rank, dev, table, opt_cfg, spent, mesh_train_cfg(arch, layers),
+        B, S, [dm], settings=zero3_settings(zero2=True), n_steps=ZERO2_STEPS,
+        reference=False)
     out["elastic"] = mesh_elastic(torch, rank, dev, table, opt_cfg, spent,
                                   store, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -6009,7 +6171,7 @@ def mesh_elastic(torch, rank, dev, table, opt_cfg, spent, store, out_dir):
     abstract = T.abstract_params(cfg)
     like = {"params": abstract, "opt": adamw_init(abstract, opt_cfg)}
     tree, _, _ = restore_checkpoint(ckpt, like, step=ELASTIC_FAIL - 1)
-    ref = REF_MV[cfg.name]
+    ref = REF_MV[cfg.name, cfg.num_layers]
     at1 = {k: worst((p, t, ref[k][p])
                     for p, t in tree_flatten_with_keys(tree["opt"][k]))
            for k in ("m", "v")}
@@ -6031,9 +6193,13 @@ def mesh_elastic(torch, rank, dev, table, opt_cfg, spent, store, out_dir):
 
 
 def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
-                    meshes):
-    """``mesh_train_rank``'s work for one run: the reference on rank 0,
-    then every mesh. Returns {"ref" (rank 0), "meshes"}."""
+                    meshes, *, settings=None, n_steps=FAMILY_STEPS,
+                    reference=True):
+    """``mesh_train_rank``'s work for one run of ``n_steps`` steps under
+    ``settings`` (the arch's preset by default): the reference on rank 0
+    (unless ``reference`` is off), then every mesh. Returns {"ref" (rank
+    0), "meshes"}; a step's metrics: loss, grad norm, seconds, seconds and
+    count of collectives, all-gathers over "data"."""
     from repro_torch.core.tree import tree_flatten_with_keys, tree_map
     from repro_torch.data import SyntheticTokenStream
     from repro_torch.launch import mesh as tmesh
@@ -6043,14 +6209,14 @@ def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
     from repro_torch.optim import adamw_init
     from repro_torch.runtime import steps
 
-    settings = settings_for(cfg.name)
+    settings = settings or settings_for(cfg.name)
     stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=S,
                                   batch_size=B, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     extra = extra_inputs(cfg, B, gen, dev)
     batches = [dict(stream.batch_at(i), **extra)
-               for i in range(FAMILY_STEPS)]
+               for i in range(n_steps)]
 
     def draw():
         gen = torch.Generator(device=dev)
@@ -6065,18 +6231,18 @@ def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
         reset_counts(table)
         metrics = []
         for i, batch in enumerate(batches):
-            spent.update(s=0.0, n=0)
+            spent.update(s=0.0, n=0, gathers=0)
             t0 = time.perf_counter()
             params, state, m = step_fn(params, state,
                                        {"batch": batch, "step": i})
             torch.cuda.synchronize()
             metrics.append((float(m["loss"]), float(m["grad_norm"]),
                             time.perf_counter() - t0, spent["s"],
-                            spent["n"]))
+                            spent["n"], spent["gathers"]))
         return params, state, metrics, read_counts(table)
 
     out = {"meshes": []}
-    if rank == 0:
+    if rank == 0 and reference:
         torch.cuda.reset_peak_memory_stats()
         pair = [draw()]
         pair.append(adamw_init(pair[0], opt_cfg))
@@ -6084,7 +6250,7 @@ def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
             steps.make_train_step(cfg, opt_cfg, settings), pair)
         ref = {k: dict(tree_flatten_with_keys(tree_map(
             lambda t: t.cpu(), state[k]))) for k in ("m", "v")}
-        REF_MV[cfg.name] = ref
+        REF_MV[cfg.name, cfg.num_layers] = ref
         out["ref"] = dict(metrics=metrics, launches=launches,
                           peak_gib=torch.cuda.max_memory_allocated()
                           / 2 ** 30)
@@ -6109,7 +6275,7 @@ def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
         train_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         held = {}
-        for key in ("m", "v"):
+        for key in ("m", "v") if reference else ():
             worst, where = 0.0, ""
             for path, t in tree_flatten_with_keys(state[key]):
                 w = shards.whole(_nest(path, t))     # None but on rank 0
@@ -6137,7 +6303,7 @@ def mesh_train_arch(torch, rank, dev, table, opt_cfg, spent, cfg, B, S,
     return out
 
 
-def hold_mesh_train(out, cfg, settings, meshes, card):
+def hold_mesh_train(out, cfg, settings, meshes, card, steps=FAMILY_STEPS):
     """The reference's and every rank's flash launches exactly 2 · L · n a
     step (forward and remat recompute per microbatch; 1 · L · n without
     remat; L the decoder's and the encoder's self-attention layers) and
@@ -6148,7 +6314,7 @@ def hold_mesh_train(out, cfg, settings, meshes, card):
     each rank's step ms beside the one process's."""
     L, n = cfg.num_layers + cfg.encoder_layers, settings.microbatches
     passes = 2 if cfg.remat else 1
-    want = FAMILY_STEPS * passes * L * n
+    want = steps * passes * L * n
     arch = cfg.name
 
     def launches_ok(counts):
@@ -6159,9 +6325,9 @@ def hold_mesh_train(out, cfg, settings, meshes, card):
     bad = [] if launches_ok(ref["launches"]) else ["reference launches"]
     log("mesh-train", f"{arch}, one process: " + "; ".join(
         f"step {i} loss {l:.6f} grad-norm {g:.6f} ({t * 1e3:.1f} ms)"
-        for i, (l, g, t, _, _) in enumerate(ref["metrics"]))
+        for i, (l, g, t, *_) in enumerate(ref["metrics"]))
         + f"; flash launches {ref['launches']['flash_attention']} (want "
-        f"{want}: {passes} x {L} layers x {n} microbatches x {FAMILY_STEPS} "
+        f"{want}: {passes} x {L} layers x {n} microbatches x {steps} "
         f"steps); peak {ref['peak_gib']:.2f} GiB [{card}]")
     for i, dm in enumerate(meshes):
         ranks = [o["meshes"][i] for o in out]
@@ -6182,7 +6348,7 @@ def hold_mesh_train(out, cfg, settings, meshes, card):
                 + f", flash launches {r['launches']['flash_attention']} "
                 f"(want {want}), peak {r['peak_gib']:.2f} GiB "
                 f"{'ok' if ok else 'FAIL'} [ranks share one card: {card}]")
-        for j in range(FAMILY_STEPS):
+        for j in range(steps):
             for k, name in enumerate(("loss", "grad_norm")):
                 got, w = ranks[0]["metrics"][j][k], ref["metrics"][j][k]
                 d = abs(got - w) / abs(w)
@@ -6195,11 +6361,11 @@ def hold_mesh_train(out, cfg, settings, meshes, card):
             d, where = ranks[0]["held"][name]
             ok = d <= TRAIN_TOL[name]
             bad += [] if ok else [f"{what} {name}"]
-            log("mesh-train", f"{what} after step {FAMILY_STEPS}, {name} "
+            log("mesh-train", f"{what} after step {steps}, {name} "
                 f"gathered from the ranks: max|d| / max|ref| per leaf "
                 f"{d:.3e} (worst {where}) {'ok' if ok else 'FAIL'} "
                 f"({TRAIN_TOL[name]:.3g})")
-        log("mesh-train", f"{what}: {FAMILY_STEPS} steps in "
+        log("mesh-train", f"{what}: {steps} steps in "
             f"{max(r['train_s'] for r in ranks):.2f} s on the slowest rank")
     return bad
 
@@ -6210,7 +6376,14 @@ def mesh_train(torch, card):
     card over gloo that runs, per run, the one-process reference (rank 0)
     and every mesh, each held by ``hold_mesh_train``, then the elastic
     run (``MESH_ELASTIC``, ``hold_mesh_elastic``). Keeps rank (0, 0)'s
-    peak of danube's 1x4 mesh for phase 15."""
+    peak of danube's 1x4 mesh for phase 15. ``main`` runs the two halves
+    apart (``mesh_train_start``, ``mesh_train_finish``) with phase 13 and
+    phase 15's one-device cells between them."""
+    mesh_train_finish(torch, card, mesh_train_start(card))
+
+
+def mesh_train_start(card):
+    """Phase 14's reckoning and its 4 ranks, started; returns the job."""
     from repro_torch.launch.presets import settings_for
     for arch, layers, B, S, meshes in MESH_TRAIN_RUNS:
         cfg = mesh_train_cfg(arch, layers)
@@ -6218,25 +6391,116 @@ def mesh_train(torch, card):
     arch, layers, B, S, dm = MESH_ELASTIC
     reckon_mesh_train(mesh_train_cfg(arch, layers), settings_for(arch),
                       card, B, S, [dm, (dm[0] - 1, dm[1])])
-    t0 = time.perf_counter()
-    out = spawn_mesh([list(r) for r in MESH_TRAIN_RUNS], 4, timeout=700,
+    job = start_mesh([list(r) for r in MESH_TRAIN_RUNS], 4, timeout=700,
                      flag="--mesh-train-rank", phase="mesh-train")
+    job["t0"] = time.perf_counter()
+    return job
+
+
+# the card's free memory, once the main process has let go of its cache,
+# below which phase 14's ranks wait for phase 13's (their peaks, ~25 GiB
+# together, beside phase 13's: its one-process llama3-405b reference ~19
+# GiB, or its 4 llama ranks ~21 GiB while one draws a 7.83 GiB fp32 leaf)
+MESH_BESIDE_FREE = 48 * 2 ** 30
+
+
+def train_beside(torch, card):
+    """Phase 14's ranks started (``mesh_train_start``) to run beside phase
+    13 when the card has ``MESH_BESIDE_FREE`` free; else None (``main``
+    starts them after phase 13). The card's free memory and what this
+    process holds are printed either way."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    beside = free >= MESH_BESIDE_FREE
+    if torch.cuda.memory_allocated() > 2 * 2 ** 30:
+        live = sorted((t.numel() * t.element_size(), tuple(t.shape),
+                       str(t.dtype).split(".")[-1])
+                      for t in gc.get_objects()
+                      if isinstance(t, torch.Tensor) and t.is_cuda)[-5:]
+        log("mesh-train", "this process's largest live tensors: " + ", ".join(
+            f"{shape} {dt} {n / 2**30:.2f} GiB" for n, shape, dt in live))
+    log("mesh-train", f"the card {free / 2**30:.2f} of {total / 2**30:.2f} "
+        f"GiB free, this process holding "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved): phase 14's "
+        + ("ranks start now, beside phase 13" if beside else
+           f"ranks wait for phase 13 (less than "
+           f"{MESH_BESIDE_FREE / 2**30:.0f} GiB free)") + f" [{card}]")
+    return mesh_train_start(card) if beside else None
+
+
+def mesh_train_finish(torch, card, job):
+    """Waits for ``mesh_train_start``'s ranks and holds what they ran."""
+    from repro_torch.launch.presets import settings_for
+    out = finish_mesh(job)
     log("mesh-train", f"4 ranks on one card: {len(MESH_TRAIN_RUNS)} runs' "
         f"references and meshes and the elastic run in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - job['t0']:.1f} s from their start")
     bad = []
     for i, (arch, layers, _, _, meshes) in enumerate(MESH_TRAIN_RUNS):
         bad += hold_mesh_train([o["runs"][i] for o in out],
                                mesh_train_cfg(arch, layers),
                                settings_for(arch), meshes, card)
+    arch, layers, B, S, dm = MESH_ZERO3
+    cfg = mesh_train_cfg(arch, layers)
+    zero3 = zero3_settings()
+    bad += hold_mesh_train([o["zero3"] for o in out], cfg, zero3, [dm], card,
+                           steps=ZERO3_STEPS)
+    bad += hold_zero3(out, cfg, zero3, card)
     bad += hold_mesh_elastic([o["elastic"] for o in out],
                              out[0]["runs"][0]["ref"]["metrics"], card)
     r0 = out[0]["runs"][0]["meshes"][0]
     PEAKS[MESH_TRAIN_PEAK] = (
         (r0["peak_gib"] - r0["base_gib"]) * 2 ** 30,
         dict(mesh=r0["mesh"], B=8, S=1024, layers=MESH_TRAIN_LAYERS))
+    for label, key, settings in ((ZERO3_PEAK, "zero3", zero3),
+                                 (ZERO2_PEAK, "zero2",
+                                  zero3_settings(zero2=True))):
+        r0 = out[0][key]["meshes"][0]
+        PEAKS[label] = ((r0["peak_gib"] - r0["base_gib"]) * 2 ** 30,
+                        dict(mesh=r0["mesh"], B=B, S=S, layers=layers,
+                             settings=settings))
     if bad:
         raise AssertionError(f"phase 14: {bad}")
+
+
+def hold_zero3(out, cfg, settings, card):
+    """Phase 14's ZeRO-3 cell beside ZeRO-2's (the whole slice gathered
+    once a step): every rank's all-gathers over "data" each step exactly
+    ``dryrun.zero3_collectives``; its peak below ZeRO-2's on the same
+    rank by at least L - 2 layers' TP bytes (a layer at a time, not the slice).
+    Returns what failed."""
+    import math
+    from repro_torch.launch.dryrun import zero3_collectives
+    from repro_torch.runtime.sharding import TrainShards
+    sh = TrainShards(cfg, SpecMesh(MESH_ZERO3[4]), fsdp=True)
+    want = zero3_collectives(sh, settings.microbatches)[0]
+    layer = sum(math.prod(s.shape) // (s.tp[1] if s.tp else 1)
+                for p, s in sh.leaves.items()
+                if p[0] == "layers") * 2 // cfg.num_layers
+    bad = []
+    for o in out:
+        z3, z2 = o["zero3"]["meshes"][0], o["zero2"]["meshes"][0]
+        got = [m[5] for m in z3["metrics"]]
+        p3 = z3["peak_gib"] - z3["base_gib"]
+        p2 = z2["peak_gib"] - z2["base_gib"]
+        ok = got == [want] * len(got) \
+            and (p2 - p3) * 2 ** 30 >= (cfg.num_layers - 2) * layer
+        bad += [] if ok else [f"zero3 rank {z3['coords']}"]
+        log("mesh-train", f"{cfg.name}-{cfg.num_layers}L 2x2 ZeRO-3 rank "
+            f"{z3['coords']}: all-gathers over data a step {got} (reckoned "
+            f"{want}: {settings.microbatches} microbatch(es) x (2 x "
+            f"{cfg.num_layers} layers' cut leaves + the cut leaves outside "
+            f"them)); peak {p3:.3f} GiB (a layer at a time) vs ZeRO-2 "
+            f"{p2:.3f} GiB (the whole slice once a step; ZeRO-2 step "
+            f"{z2['metrics'][0][2] * 1e3:.1f} ms, ZeRO-3 steps "
+            + ", ".join(f"{m[2] * 1e3:.1f}" for m in z3["metrics"])
+            + f" ms), apart {(p2 - p3) * 1024:.0f} MiB (want at least "
+            f"{(cfg.num_layers - 2) * layer / 2**20:.0f} MiB: "
+            f"{cfg.num_layers - 2} layers' TP bytes) {'ok' if ok else 'FAIL'}"
+            f" [ranks share one card: {card}]")
+    return bad
 
 
 def hold_mesh_elastic(ranks, ref_metrics, card):
@@ -6318,15 +6582,19 @@ def hold_mesh_elastic(ranks, ref_metrics, card):
 PEAK_REL, PEAK_ABS = 0.10, 256 * 2 ** 20
 # the production grid's cells: (arch, shape, layers kept (None: all),
 # data rows dropped, global batch (None: the shape's)); llama3-405b's
-# train_4k keeps 2 of its 126 layers (its 16 microbatches x 126 layers of
-# meta ops would take minutes of host time), the rest full depth; the last
-# is JAX's elastic cell: danube on the 15x16 survivors at batch 240
-# a decode shape's cell is JAX's (the ring state cut over "data" and
-# "model"), then the paged departure beside it; llama3-405b's decode_32k
-# first
+# train_4k keeps 1 and 2 of its 126 layers (its 16 microbatches x 126
+# layers of meta ops take ~7 minutes of host time: a rank's peak is
+# reckoned linear in the layers from the two, beside the CPU's full-depth
+# record in PERF.md), the rest full depth; the last is JAX's elastic cell:
+# danube on the 15x16 survivors at batch 240. A decode shape's cell is
+# JAX's (the ring state cut over "data" and "model"), then the paged
+# departure beside it; llama3-405b's serving cells read its preset's
+# fsdp_serve (JAX's dry run's rule): decode_32k first, then prefill_32k
 DRYRUN_GRID = [("llama3-405b", "decode_32k", None, 0, None),
+               ("llama3-405b", "prefill_32k", None, 0, None),
                ("h2o-danube-1.8b", "decode_32k", None, 0, None),
                ("h2o-danube-1.8b", "train_4k", None, 0, None),
+               ("llama3-405b", "train_4k", 1, 0, None),
                ("llama3-405b", "train_4k", 2, 0, None),
                ("h2o-danube-1.8b", "train_4k", None, 1, 240)]
 
@@ -6351,49 +6619,71 @@ def meta_batch(torch, cfg, B, S):
 def dryrun_cells(torch):
     """The dry run's counterpart of each peak an earlier phase measured
     (``PEAKS``): (label, the cell's step and arguments, the measured
-    bytes, what was measured)."""
+    bytes, what was measured), each made when the one before has been
+    traced (a fake world replaces the one before it): the one-device
+    cells of phases 4, 7b and 12, then phase 14's mesh cells."""
+    yield from one_device_cells(torch)
+    yield from mesh_cells(torch)
+
+
+def one_device_cells(torch):
+    """``dryrun_cells``' cells of phases 7b, 4 and 12 (one device)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.steps import TrainSettings
+    opt_cfg = AdamWConfig(lr=1e-3)
+    danube = configs.get_config(ARCH)
+    label = f"{ARCH}-train-{TRAIN_BATCH}x{TRAIN_SEQ} launcher"
+    peak, geo = PEAKS[label]
+    yield ("danube-train-2x8192 (phase 7b, one device)",
+           dryrun.train_cell(danube, meta_batch(
+               torch, danube, geo["B"], geo["S"]), TrainSettings(
+               microbatches=geo["microbatches"]), opt_cfg=opt_cfg),
+           peak, "the launcher's run, its checkpoints included")
+    peak, geo = PEAKS["danube-serve-8x512 decode step"]
+    yield ("danube-serve-8x512 decode step (phase 4, one device)",
+           dryrun.decode_paged_cell(
+               danube, geo["B"], geo["cache_len"],
+               page_size=geo["page_size"], num_blocks=geo["num_blocks"],
+               kv_format=geo["kv_format"], attn_path=geo["attn_path"],
+               kv_partitions=geo["kv_partitions"]),
+           peak, "the engine's highest decode step: weights, pool, step")
+    whisper = configs.get_config("whisper-small")
+    peak, geo = PEAKS["whisper-small-train-4x448 flash bfloat16"]
+    yield ("whisper-train-4x448 (phase 12, one device)",
+           dryrun.train_cell(whisper, meta_batch(
+               torch, whisper, geo["B"], geo["S"]), TrainSettings(),
+               opt_cfg=opt_cfg),
+           peak, "the flash run's four steps")
+
+
+def mesh_cells(torch):
+    """``dryrun_cells``' cells of phase 14's ranks (a fake world of 4)."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as tmesh
     from repro_torch.launch.presets import settings_for
     from repro_torch.optim import AdamWConfig
-    from repro_torch.runtime.steps import TrainSettings
     opt_cfg = AdamWConfig(lr=1e-3)
     danube = configs.get_config(ARCH)
-    cells = []
-    label = f"{ARCH}-train-{TRAIN_BATCH}x{TRAIN_SEQ} launcher"
-    peak, geo = PEAKS[label]
-    cells.append(("danube-train-2x8192 (phase 7b, one device)",
-                  dryrun.train_cell(danube, meta_batch(
-                      torch, danube, geo["B"], geo["S"]), TrainSettings(
-                      microbatches=geo["microbatches"]), opt_cfg=opt_cfg),
-                  peak, "the launcher's run, its checkpoints included"))
-    peak, geo = PEAKS["danube-serve-8x512 decode step"]
-    cells.append(("danube-serve-8x512 decode step (phase 4, one device)",
-                  dryrun.decode_paged_cell(
-                      danube, geo["B"], geo["cache_len"],
-                      page_size=geo["page_size"],
-                      num_blocks=geo["num_blocks"],
-                      kv_format=geo["kv_format"], attn_path=geo["attn_path"],
-                      kv_partitions=geo["kv_partitions"]),
-                  peak, "the engine's highest decode step: weights, pool, "
-                  "step"))
-    whisper = configs.get_config("whisper-small")
-    peak, geo = PEAKS["whisper-small-train-4x448 flash bfloat16"]
-    cells.append(("whisper-train-4x448 (phase 12, one device)",
-                  dryrun.train_cell(whisper, meta_batch(
-                      torch, whisper, geo["B"], geo["S"]), TrainSettings(),
-                      opt_cfg=opt_cfg),
-                  peak, "the flash run's four steps"))
     peak, geo = PEAKS[MESH_TRAIN_PEAK]
     cut = dataclasses.replace(danube, num_layers=geo["layers"])
-    cells.append((f"{MESH_TRAIN_PEAK} (phase 14, a fake world of 4)",
-                  dryrun.train_cell(cut, meta_batch(torch, cut, geo["B"],
-                                                    geo["S"]),
-                                    settings_for(ARCH), opt_cfg=opt_cfg,
-                                    mesh=tmesh.fake_mesh(*geo["mesh"])),
-                  peak, "rank (0, 0)'s two steps"))
-    return cells
+    yield (f"{MESH_TRAIN_PEAK} (phase 14, a fake world of 4)",
+           dryrun.train_cell(cut, meta_batch(torch, cut, geo["B"], geo["S"]),
+                             settings_for(ARCH), opt_cfg=opt_cfg,
+                             mesh=tmesh.fake_mesh(*geo["mesh"])),
+           peak, "rank (0, 0)'s two steps")
+    for label, what in ((ZERO3_PEAK, f"rank (0, 0)'s {ZERO3_STEPS} steps"),
+                        (ZERO2_PEAK, f"rank (0, 0)'s {ZERO2_STEPS} step")):
+        peak, geo = PEAKS[label]
+        cut = dataclasses.replace(danube, num_layers=geo["layers"])
+        yield (f"{label} (phase 14, a fake world of 4)",
+               dryrun.train_cell(
+                   cut, meta_batch(torch, cut, geo["B"], geo["S"]),
+                   geo["settings"], opt_cfg=opt_cfg,
+                   mesh=tmesh.fake_mesh(*geo["mesh"])),
+               peak, what)
 
 
 def dryrun_phase(torch, card):
@@ -6407,15 +6697,25 @@ def dryrun_phase(torch, card):
     with the breakdown that explains it. Then the production grid
     (``DRYRUN_GRID``) at 16x16 and JAX's elastic cell at 15x16: every
     record OK, with its peak, flops and collective bytes. No kernel
-    launches: counts stay as they were."""
+    launches: counts stay as they were. ``main`` runs it in three parts:
+    the grid in a process of its own from the start
+    (``dryrun_grid_start``), the one-device cells while phase 14's ranks
+    run, the mesh cells after them (``dryrun_held``,
+    ``dryrun_finish``)."""
+    t0 = time.perf_counter()
+    misses = dryrun_held(torch, card, dryrun_cells(torch))
+    dryrun_finish(dryrun_grid_lines(torch), misses, t0)
+
+
+def dryrun_held(torch, card, cells):
+    """Phase 15's cells (``dryrun_cells`` or a part of it) traced and each
+    printed beside its measured peak; returns the labels that missed."""
     import torch.distributed as dist
     from repro_torch.launch import dryrun
-    t0 = time.perf_counter()
     misses = []
-    for label, (step, args, meta), measured, what in dryrun_cells(torch):
+    for label, (step, args, meta), measured, what in cells:
         t1 = time.perf_counter()
         rec = dryrun.trace(step, args)
-        del step, args
         b = rec["bytes_per_device"]
         pred = b["peak_total"]
         off = pred - measured
@@ -6430,6 +6730,7 @@ def dryrun_phase(torch, card):
             f"{PEAK_ABS // 2**20} MiB); {rec['cost']['flops']:.4g} FLOP, "
             f"{rec['collectives']['total'] / 2**30:.3f} GiB of collectives; "
             f"traced in {time.perf_counter() - t1:.1f} s [{card}]")
+        del step, args
         if not ok:
             log("dryrun", f"{label}: MISS by {off / 2**20:+.0f} MiB: "
                 + ("the card held more than the step's arguments and "
@@ -6441,11 +6742,25 @@ def dryrun_phase(torch, card):
                    "sees"))
     if dist.is_initialized():
         dist.destroy_process_group()
+    return misses
+
+
+def dryrun_grid_lines(torch):
+    """``DRYRUN_GRID`` traced, every decode shape as JAX's cell and then
+    the paged departure, and the train cells cut in depth reckoned linear
+    in the layers: phase 15's lines for them (no card work, nothing read
+    from an earlier phase). A record that is not OK fails."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    lines = []
     grid = [(arch, shape, layers, drop, batch, paged)
             for arch, shape, layers, drop, batch in DRYRUN_GRID
             for paged in ((False, True)
                           if dryrun.SHAPES[shape].kind == "decode"
                           else (False,))]
+    cut_peaks = {}
     for arch, shape, layers, drop, batch, paged in grid:
         rec = dryrun.run_cell(arch, shape, layers=layers, drop_data=drop,
                               global_batch=batch, paged=paged,
@@ -6456,7 +6771,8 @@ def dryrun_phase(torch, card):
         cell = {"ring": " JAX's cell (the ring state)",
                 "paged (departure)": " the paged departure"}.get(
             rec.get("cell"), "")
-        log("dryrun", f"{arch} {shape}{cell} at {rec['mesh']}"
+        lines.append(
+            f"{arch} {shape}{cell} at {rec['mesh']}"
             + (f", global batch {batch}" if batch else "")
             + (f", {layers} of {dryrun.configs.get_config(arch).num_layers}"
                f" layers" if layers else "")
@@ -6468,10 +6784,94 @@ def dryrun_phase(torch, card):
             + ", ".join(
                 f"{k} {v['count']} x {v['bytes'] / 2**30:.3f} GiB"
                 for k, v in c.items() if k != "total" and v["count"])
+            + (f"; fsdp_serve {rec['fsdp_serve']}" if "fsdp_serve" in rec
+               else "")
             + f"; traced in {rec['seconds']:.1f} s")
         dist.destroy_process_group()
+        if layers:
+            cut_peaks.setdefault((arch, shape), {})[layers] = \
+                b["peak_total"]
+    for (arch, shape), peaks in cut_peaks.items():
+        (l0, p0), (l1, p1) = sorted(peaks.items())[:2]
+        L = dryrun.configs.get_config(arch).num_layers
+        whole = p0 + (p1 - p0) * (L - l0) / (l1 - l0)
+        lines.append(
+            f"{arch} {shape} at 16x16, all {L} layers reckoned "
+            f"linear in the layers from {l0} and {l1}: rank 0 peak "
+            f"{whole / 2**30:.3f} GiB ({(p1 - p0) / (l1 - l0) / 2**30:.3f} "
+            f"GiB a layer), fits one H100: {whole <= dryrun.card_bytes()}")
+    return lines
+
+
+def dryrun_grid_rank(out_path):
+    """``chip_smoke.py --dryrun-grid out_path``: ``dryrun_grid_lines`` in
+    a process of its own (the meta device only), written to
+    ``out_path`` as JSON with its seconds."""
+    import torch
+    t0 = time.perf_counter()
+    lines = dryrun_grid_lines(torch)
+    with open(out_path, "w") as f:
+        json.dump({"lines": lines, "seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
+def dryrun_grid_start():
+    """Start ``dryrun_grid_rank`` (one CPU core, no card work) and return
+    at once; ``dryrun_grid_wait`` reads its lines."""
+    import tempfile
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    out = open(os.path.join(d, "grid.log"), "w+")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-grid",
+         os.path.join(d, "grid.json")], stdout=out,
+        stderr=subprocess.STDOUT, env=env)
+    STARTED.append(proc)
+    return dict(dir=d, log=out, proc=proc, t0=time.perf_counter())
+
+
+def dryrun_grid_wait(job, timeout=900):
+    """``dryrun_grid_start``'s lines once its process has ended: a process
+    that fails or outlives ``timeout`` from its start fails phase 15."""
+    import shutil
+    proc, d = job["proc"], job["dir"]
+    try:
+        try:
+            proc.wait(timeout=max(1.0, timeout - (time.perf_counter()
+                                                  - job["t0"])))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        job["log"].seek(0)
+        text = job["log"].read()
+        job["log"].close()
+        if proc.returncode:
+            log("dryrun", f"the grid's process exited {proc.returncode}:\n"
+                f"{text[-4000:]}")
+            raise AssertionError(f"phase 15: the grid's process exited "
+                                 f"{proc.returncode}")
+        with open(os.path.join(d, "grid.json")) as f:
+            rec = json.load(f)
+        log("dryrun", f"the grid below traced in {rec['seconds']:.1f} s "
+            f"in a process of its own (started after the build, beside "
+            f"the card's phases; waited for here "
+            f"{time.perf_counter() - job['t0']:.1f} s after its start)")
+        return rec["lines"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def dryrun_finish(lines, misses, t0):
+    """Phase 15's grid lines printed, then its time and misses; fails if
+    the ZeRO-3 cell's prediction missed."""
+    for line in lines:
+        log("dryrun", line)
     log("dryrun", f"phase 15 took {time.perf_counter() - t0:.1f} s; "
         f"{len(misses)} predictions missed: {misses}")
+    if any(m.startswith(ZERO3_PEAK) for m in misses):
+        raise AssertionError(f"phase 15: the dry run's ZeRO-3 peak misses "
+                             f"the measured one ({ZERO3_PEAK})")
 
 
 # ---------------------------------------------------------------------------
@@ -6816,6 +7216,12 @@ def layer_totals(torch, gemm_rows, fam_rows, card):
 
 
 def main() -> int:
+    # empty_cache hands freed memory back to the card even where a live
+    # tensor shares its segment, so what an earlier phase cached does not
+    # stay pinned (phase 14's ranks run beside phase 13 on that room); the
+    # spawned ranks inherit it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this test "
@@ -6848,6 +7254,12 @@ def main() -> int:
         regs = sorted({line.split(":", 1)[1].strip()
                        for line in text.splitlines() if "registers" in line})
         log("build", f"{name}: {'; '.join(regs) or 'cached build'}")
+
+    # phase 15's grid needs no card and nothing an earlier phase measures:
+    # it traces on the meta device in a process of its own from here on
+    grid_job = dryrun_grid_start()
+    log("dryrun", "phase 15's grid started in a process of its own (the "
+        "meta device, one CPU core)")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -6896,7 +7308,8 @@ def main() -> int:
     t0 = time.perf_counter()
     paged_run, launches = check_serve(torch, card, table)
     torch.cuda.empty_cache()
-    launches.update(serve_family(torch, card, table))
+    with depth_cut(ARCH, FAMILY_LAYERS, "serve"):
+        launches.update(serve_family(torch, card, table))
     log("serve", f"phase 4 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -6936,14 +7349,29 @@ def main() -> int:
     errs["flash_attention"] = max(errs["flash_attention"], train_families(
         torch, dev, card, table))
     torch.cuda.empty_cache()
+    # phase 14's ranks start first and train while phase 13 serves and
+    # phase 15 traces its one-device cells (when the card has room:
+    # ``train_beside``); each rank's peak and launches are its own
+    # process's
+    train_job = train_beside(torch, card)
     t0 = time.perf_counter()
     mesh_serve(torch, dev, card, table)
-    log("mesh", f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    log("mesh", f"phase 13 took {time.perf_counter() - t0:.1f} s"
+        + (" (phase 14's ranks training beside it)" if train_job else ""))
+    gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    mesh_train(torch, card)
-    log("mesh-train", f"phase 14 took {time.perf_counter() - t0:.1f} s")
-    dryrun_phase(torch, card)
+    t15 = time.perf_counter()
+    misses = dryrun_held(torch, card, one_device_cells(torch))
+    t15 = time.perf_counter() - t15
+    if train_job is None:
+        train_job = mesh_train_start(card)
+    mesh_train_finish(torch, card, train_job)
+    log("mesh-train", f"phase 14 took "
+        f"{time.perf_counter() - train_job['t0']:.1f} s from its ranks' "
+        f"start")
+    t0 = time.perf_counter() - t15
+    misses += dryrun_held(torch, card, mesh_cells(torch))
+    dryrun_finish(dryrun_grid_wait(grid_job), misses, t0)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ring_phase(torch, dev, card, table, paged_run)
@@ -7009,11 +7437,18 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
-        # one rank of phase 13, spawned by spawn_mesh
+        # one rank of phase 13, started by spawn_mesh
         sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]),
                            *sys.argv[4:7]))
     if sys.argv[1:2] == ["--mesh-train-rank"]:
-        # one rank of phase 14, spawned by spawn_mesh
+        # one rank of phase 14, started by mesh_train_start
         sys.exit(mesh_train_rank(int(sys.argv[2]), int(sys.argv[3]),
                                  *sys.argv[4:7]))
-    sys.exit(main())
+    if sys.argv[1:2] == ["--dryrun-grid"]:
+        # phase 15's grid, started by dryrun_grid_start
+        sys.exit(dryrun_grid_rank(sys.argv[2]))
+    try:
+        rc = main()
+    finally:
+        reap_started()
+    sys.exit(rc)

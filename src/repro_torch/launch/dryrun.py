@@ -19,10 +19,15 @@ no random draw — with the rank's shares of the abstract parameters
 
 - train: ``make_train_step(..., mesh=)`` under ``settings_for(arch)``, the
   microbatches clamped as JAX's so that each microbatch splits over the
-  data axis, the flash-attention kernel as the launcher runs it;
+  data axis, the flash-attention kernel as the launcher runs it (ZeRO-3,
+  llama3-405b's and mixtral's: each layer gathered over "data" just
+  before it runs, again in its recompute, its gradient reduce-scattered);
 - prefill: ``steps.make_prefill_step`` (the whole prompt into the ring
   state, flash attention) on the rank's W4A16 shard and its rows of the
   batch;
+- every serving cell under the arch's ``fsdp_serve`` (llama3-405b's), as
+  JAX's dry run passes it: the rank holds its shares over "data" of its
+  W4A16 slice (``sharding.serve_shares``) and gathers a layer at a time;
 - decode (JAX's cell): ``steps.make_serve_step`` on ``input_specs``' ring
   state at the rank's share (:func:`decode_cell`: the ring's batch over
   "data", its window over "model" where the model axis divides it, every
@@ -193,35 +198,62 @@ def train_cell(cfg, batch, settings, *, mesh=None, opt_cfg=None,
         {"kind": "train", "microbatches": settings.microbatches}
 
 
-def _serve_params(cfg, mesh):
+def zero3_collectives(shards, microbatches: int) -> tuple:
+    """ZeRO-3's collectives over "data" a step, reckoned from a rank's
+    ``TrainShards``: each cut leaf of a layer stack all-gathered for each
+    layer once a microbatch in the forward and again in its remat
+    recompute (once without remat), each cut leaf outside the stacks once
+    a microbatch; each cut leaf's gradient reduce-scattered as often as
+    it is gathered in the forward. Returns (all-gathers,
+    reduce-scatters)."""
+    cfg = shards.layout.cfg
+    passes = 2 if cfg.remat else 1
+    gathers = scatters = 0
+    for path, s in shards.leaves.items():
+        if s.fsdp is None:
+            continue
+        n = cfg.num_layers if path[0] == "layers" else \
+            cfg.encoder_layers if path[:2] == ("encoder", "layers") else 0
+        gathers += passes * n if n else 1
+        scatters += n or 1
+    return microbatches * gathers, microbatches * scatters
+
+
+def _serve_params(cfg, mesh, fsdp_serve: bool = False):
     """The serving tree of ``cfg`` on this rank (quantized when the config
-    serves quantized; layers unstacked, as the engine holds them) and the
-    config the rank runs."""
+    serves quantized; layers unstacked, as the engine holds them; under
+    ``fsdp_serve`` its shares over "data", ``sharding.serve_shares``) and
+    the config the rank runs."""
     params = T.abstract_params(cfg)
     if cfg.quantize_serve:
         params = T.quantize_params(params, cfg)
     if mesh is None:
         return T.unstack_layers(params), cfg, None
     lay = sharding.Layout(cfg, mesh)
-    return T.unstack_layers(sharding.shard_params(params, mesh, cfg)), \
-        lay.local_cfg(), lay
+    params = sharding.shard_params(params, mesh, cfg)
+    if fsdp_serve:
+        params = sharding.serve_shares(params, lay)
+    return T.unstack_layers(params), lay.local_cfg(), lay
 
 
-def prefill_cell(cfg, inputs, cache_len: int, *, mesh=None):
+def prefill_cell(cfg, inputs, cache_len: int, *, mesh=None,
+                 fsdp_serve: bool = False):
     """The whole-prompt prefill (``steps.make_prefill_step``: the ring
     state, flash attention) of ``inputs`` (meta tensors) on this rank's
     W4A16 shard and its rows of the batch (JAX's ``batch_spec`` over
     "data")."""
     cfg = dataclasses.replace(cfg, attn_impl="flash")
-    params, local, lay = _serve_params(cfg, mesh)
+    params, local, lay = _serve_params(cfg, mesh, fsdp_serve)
     if lay is not None:
         rows = lay.rows(inputs["tokens"].shape[0])
         inputs = {k: _rows_of(v, rows) for k, v in inputs.items()}
-    step = rsteps.make_prefill_step(local, cache_len)
-    return step, (params, inputs), {"kind": "prefill"}
+    step = rsteps.make_prefill_step(local, cache_len, fsdp_serve=fsdp_serve)
+    return step, (params, inputs), {"kind": "prefill",
+                                    "fsdp_serve": fsdp_serve}
 
 
-def decode_cell(cfg, B: int, cache_len: int, *, mesh=None):
+def decode_cell(cfg, B: int, cache_len: int, *, mesh=None,
+                fsdp_serve: bool = False):
     """JAX's decode cell: one serve step over the ring state of
     ``input_specs`` (B slots, a ``cache_len`` window) on this rank's share
     of it — its rows of the batch (``batch_spec`` over "data"), its slice
@@ -229,7 +261,7 @@ def decode_cell(cfg, B: int, cache_len: int, *, mesh=None):
     carries and ``enc_kv`` its rows and heads (``T.init_decode_state`` on
     the rank's config) — with the rank's W4A16 slice, as the ring engine
     runs it."""
-    params, local, lay = _serve_params(cfg, mesh)
+    params, local, lay = _serve_params(cfg, mesh, fsdp_serve)
     rows = None if lay is None else lay.rows(B)
     n_rows = B if rows is None else rows.stop - rows.start
     i32 = dict(dtype=torch.int32, device="meta")
@@ -238,22 +270,24 @@ def decode_cell(cfg, B: int, cache_len: int, *, mesh=None):
               "tokens": torch.empty((B,), **i32),
               "pos": torch.empty((B,), **i32)}
     step = rsteps.make_serve_step(local, cache_len=cache_len,
-                                  attn_path="ring")
-    return step, (params, inputs), {"kind": "decode", "cell": "ring"}
+                                  attn_path="ring", fsdp_serve=fsdp_serve)
+    return step, (params, inputs), {"kind": "decode", "cell": "ring",
+                                    "fsdp_serve": fsdp_serve}
 
 
 def decode_paged_cell(cfg, B: int, cache_len: int, *, page_size: int,
                       num_blocks: Optional[int] = None, mesh=None,
                       kv_format: str = "kv_fp16",
                       attn_path: Optional[str] = None,
-                      kv_partitions: Optional[int] = None):
+                      kv_partitions: Optional[int] = None,
+                      fsdp_serve: bool = False):
     """A named departure from JAX's dry run: one paged decode step over B
     slots as the paged engine runs it: the pool (``num_blocks`` pages, by
     default every slot's ``cache_len`` window and the null block) whole on
     every data replica with this rank's KV heads, the slots' carries and
     ``enc_kv`` its rows, the attention planned for the card unless
     ``attn_path`` is given."""
-    params, local, lay = _serve_params(cfg, mesh)
+    params, local, lay = _serve_params(cfg, mesh, fsdp_serve)
     pages = cache_len // page_size
     rows = None if lay is None else lay.rows(B)
     n_rows = B if rows is None else rows.stop - rows.start
@@ -264,7 +298,9 @@ def decode_paged_cell(cfg, B: int, cache_len: int, *, page_size: int,
     i32 = dict(dtype=torch.int32, device="meta")
     inputs = {"state": state, "tokens": torch.empty((B,), **i32),
               "pos": torch.empty((B,), **i32)}
-    meta, kw = {"kind": "decode", "cell": "paged (departure)"}, {}
+    meta = {"kind": "decode", "cell": "paged (departure)",
+            "fsdp_serve": fsdp_serve}
+    kw = {"fsdp_serve": fsdp_serve}
     if local.family in T.CARRY_FAMILIES:
         inputs["active"] = torch.empty((B,), dtype=torch.bool,
                                        device="meta")
@@ -277,7 +313,7 @@ def decode_paged_cell(cfg, B: int, cache_len: int, *, page_size: int,
                 paged=True, backend="meta",
                 act_bytes=torch.finfo(local.dtype).bits // 8))
             attn_path, kv_partitions = plan.path, plan.kv_partitions
-        kw = dict(attn_path=attn_path, kv_partitions=kv_partitions)
+        kw.update(attn_path=attn_path, kv_partitions=kv_partitions)
         inputs["tables"] = torch.empty((B, pages), **i32)
         meta["attn_path"] = attn_path
     step = rsteps.make_serve_step(local, cache_len=cache_len,
@@ -305,9 +341,9 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if drop_data:
         mesh = degraded_mesh(mesh, drop_data=drop_data)
     specs = input_specs(cfg, shape)
+    settings = settings_for(arch)
     if shape.kind == "train":
         # each microbatch must split over the data axis: clamp as JAX does
-        settings = settings_for(arch)
         dpw = mesh.size(mesh.mesh_dim_names.index("data"))
         micro = settings.microbatches
         while micro > 1 and (shape.global_batch // micro) % dpw:
@@ -315,15 +351,17 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         out = train_cell(cfg, specs["batch"], dataclasses.replace(
             settings, microbatches=micro), mesh=mesh)
     elif shape.kind == "prefill":
-        out = prefill_cell(cfg, specs, cache_len_for(cfg, shape), mesh=mesh)
+        out = prefill_cell(cfg, specs, cache_len_for(cfg, shape), mesh=mesh,
+                           fsdp_serve=settings.fsdp_serve)
     elif paged:
         ps = serve_settings_for(arch).page_size
         out = decode_paged_cell(cfg, shape.global_batch,
                                 -(-cache_len_for(cfg, shape) // ps) * ps,
-                                page_size=ps, mesh=mesh)
+                                page_size=ps, mesh=mesh,
+                                fsdp_serve=settings.fsdp_serve)
     else:
         out = decode_cell(cfg, shape.global_batch, cache_len_for(cfg, shape),
-                          mesh=mesh)
+                          mesh=mesh, fsdp_serve=settings.fsdp_serve)
     out[2]["mesh"] = "x".join(str(n) for n in mesh.shape)
     return out
 

@@ -2,11 +2,23 @@
 the training presets, field for field, and the page and chunk settings of
 the serving presets.
 
-``PRESETS`` are the JAX package's: microbatches, FSDP (ZeRO-3) and the
-optimizer-state dtype per arch, ``zero2`` where the gathered copy fits,
-``fsdp_serve`` for llama3-405b. They take effect on a mesh
-(``runtime.steps.make_train_step(..., mesh=)``); on one device the step
-computes the plain step whatever they say, as JAX's does.
+``PRESETS`` are the JAX package's, and each flag does in the port what it
+does there, on a mesh (``runtime.steps.make_train_step(..., mesh=)``; on
+one device the step computes the plain step whatever they say, as JAX's
+does):
+
+- ``microbatches``: the step's batch in that many microbatches, their
+  gradients accumulated in ``grad_dtype``;
+- ``fsdp``: every rank holds only its share over "data" of its TP slice
+  (ZeRO-3: each layer gathered just before it runs in the forward and
+  again in its remat recompute, its gradient reduce-scattered onto the
+  shares in the backward; llama3-405b and mixtral);
+- ``zero2`` (with ``fsdp``): the whole slice gathered once a step instead,
+  where that copy fits;
+- ``opt_dtype``: AdamW's moments' dtype (bf16 for llama3-405b);
+- ``fsdp_serve`` (llama3-405b): the serving steps take the rank's shares
+  over "data" of its W4A16 slice and gather a layer at a time (the dry
+  run's prefill and decode cells; ``ServingEngine(fsdp_serve=)``).
 """
 from __future__ import annotations
 

@@ -62,6 +62,17 @@ gathers each layer's K/V heads the same way and each rank keeps its
 slice. This is sequence-parallel decode attention written by hand: the
 one place where the port departs from JAX's program rather than its
 specs, since GSPMD inserts these collectives for JAX.
+
+A rank may hold its leaves as shares over "data" (``Layout.held`` set:
+JAX's ``fsdp_serve`` in serving, ZeRO-3 in training; ``runtime/
+sharding.py``). Every layer loop then gathers a layer's leaves right
+before the layer runs (:func:`gathered`; under ``cfg.remat`` inside the
+checkpointed function, so the recompute gathers again and no gathered
+layer is kept for the backward, as ``jax.checkpoint`` around JAX's scan
+body), and each step gathers the leaves outside the layer stacks once: a
+training forward all of them at its start, a serving step the embedding
+just before it embeds and the final norm and head just before the logits
+(so neither is held through the layers).
 """
 from __future__ import annotations
 
@@ -436,6 +447,47 @@ def _layers(params) -> List[Dict[str, Any]]:
     return _unstack(params["layers"])
 
 
+def gathered(cfg: ModelConfig, tree, prefix=()):
+    """``tree`` (one layer's leaves at key path ``prefix`` of the stacked
+    tree, or leaves outside the layer stacks) as this rank runs it: its
+    data shares gathered into its TP slices where it holds shares
+    (``cfg.shard.held``), else ``tree`` itself."""
+    lay = cfg.shard
+    if lay is None or lay.held is None:
+        return tree
+    return lay.held(tree, tuple(prefix))
+
+
+def _gathered_top(params, cfg: ModelConfig):
+    """``params`` with the leaves outside the layer stacks gathered
+    (:func:`gathered`): the embedding, the final norms, ``lm_head``; the
+    layer stacks as they are (the training forward's, once a
+    microbatch)."""
+    if cfg.shard is None or cfg.shard.held is None:
+        return params
+    out = dict(params, **gathered(cfg, {
+        k: v for k, v in params.items() if k not in ("layers", "encoder")}))
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = dict(enc, **gathered(cfg, {
+            k: v for k, v in enc.items() if k != "layers"}, ("encoder",)))
+    return out
+
+
+def _embed_table(params, cfg: ModelConfig):
+    """``params["embed"]`` gathered (:func:`gathered`): a serving step's,
+    just before it embeds."""
+    return gathered(cfg, {"embed": params["embed"]})["embed"]
+
+
+def _head_leaves(params, cfg: ModelConfig):
+    """The final norm and the head's leaves (``lm_head``, or the tied
+    embedding) gathered (:func:`gathered`): a serving step's, just before
+    its logits."""
+    keys = ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")
+    return gathered(cfg, {k: params[k] for k in keys})
+
+
 def _layer_views(stacked) -> List[Dict[str, Any]]:
     """Per-layer views for the forward and the encoder:
     :func:`_unbind_layers` of a stacked tree (gradients assemble once per
@@ -569,9 +621,13 @@ def _rwkv_layer(lp, cfg: ModelConfig, h, carry, *, valid=None,
 
 def _layer_seq(p, cfg: ModelConfig, h, positions, enc_kv=None,
                split=False):
-    """One decoder layer in sequence mode, every carry starting at zero;
-    ``enc_kv`` this layer's cross K/V (encdec); ``split`` as
-    :func:`_ffn`'s."""
+    """One decoder layer in sequence mode, every carry starting at zero,
+    its leaves gathered first (:func:`gathered`); ``enc_kv`` this layer's
+    cross K/V (encdec), or the encoder's output, projected here, where
+    the rank holds shares; ``split`` as :func:`_ffn`'s."""
+    p = gathered(cfg, p, ("layers",))
+    if isinstance(enc_kv, torch.Tensor):
+        enc_kv = _cross_kv(p, cfg, enc_kv)
     B = h.shape[0]
     if cfg.family == "rwkv":
         carry = rwkv.rwkv_state_init(B, cfg.d_model, cfg.num_heads,
@@ -588,6 +644,7 @@ def _layer_seq(p, cfg: ModelConfig, h, positions, enc_kv=None,
 
 
 def _enc_layer(lp, cfg: ModelConfig, h, positions):
+    lp = gathered(cfg, lp, ("encoder", "layers"))
     x1 = _norm(cfg, lp["norm1"], h)
     h = h + _attn_seq(lp["attn"], cfg, x1, positions, causal=False, window=0)
     return h + _mlp(lp["mlp"], cfg, _norm(cfg, lp["norm2"], h))
@@ -630,13 +687,15 @@ def encode_cross_kv(params, cfg: ModelConfig, audio_embeds):
     once a request at admit and writes the slot's rows of the state's
     ``enc_kv``; the forward consumes it inline."""
     enc_out = _encoder_forward(params, cfg, audio_embeds)
-    kv = [_cross_kv(lp, cfg, enc_out) for lp in _layers(params)]
+    kv = [_cross_kv(gathered(cfg, {"cross": lp["cross"]}, ("layers",)), cfg,
+                    enc_out) for lp in _layers(params)]
     return (torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv]))
 
 
-def _embed_stream(params, cfg: ModelConfig, tokens, prefix_embeds):
-    """Token embeddings, after the vision-prefix embeds when given."""
-    h = layers.embed(params["embed"], tokens, cfg)
+def _embed_stream(table, cfg: ModelConfig, tokens, prefix_embeds):
+    """Token embeddings (``table`` the embedding's dict), after the
+    vision-prefix embeds when given."""
+    h = layers.embed(table, tokens, cfg)
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     return h
@@ -663,15 +722,20 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     training rank's microbatch rows; MoE routes them as one shard)."""
     check_family(cfg)
     _check_audio(cfg, audio_embeds)
-    h = _embed_stream(params, cfg, tokens, prefix_embeds)
+    params = _gathered_top(params, cfg)
+    h = _embed_stream(params["embed"], cfg, tokens, prefix_embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
     lps = _layer_views(params["layers"])
     enc_out = None if cfg.family != "encdec" \
         else _encoder_forward(params, cfg, audio_embeds)
+    # a rank holding shares projects a layer's cross K/V inside the layer
+    # (its leaves are gathered there)
+    held = cfg.shard is not None and cfg.shard.held is not None
     for lp in lps:
-        ekv = None if enc_out is None else _cross_kv(lp, cfg, enc_out)
+        ekv = enc_out if enc_out is None or held \
+            else _cross_kv(lp, cfg, enc_out)
         if cfg.remat:
             h = checkpoint(_layer_seq, lp, cfg, h, positions, ekv, split,
                            use_reentrant=False)
@@ -855,10 +919,12 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
     check_family(cfg)
     fmt = get_kv_format(kv_format)
     rows = None if cfg.shard is None else cfg.shard.rows(tokens.shape[0])
-    h = layers.embed(params["embed"], _mine(tokens, rows), cfg)  # (B, d)
+    h = layers.embed(_embed_table(params, cfg), _mine(tokens, rows),
+                     cfg)                                          # (B, d)
     active = None if active is None else _mine(active, rows)
     cache = state["cache"]
     for i, lp in enumerate(_layers(params)):
+        lp = gathered(cfg, lp, ("layers",))
         if cfg.family == "rwkv":
             x1 = _norm(cfg, lp["norm1"], h)
             tm, st = rwkv.time_mix_step(
@@ -883,8 +949,9 @@ def decode_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
         else:
             h = _cross(lp, cfg, (h + a)[:, None], _enc_rows(state, i))[:, 0]
         h = _ffn(lp, cfg, h, split=rows is not None)
-    h = _norm(cfg, params["final_norm"], h)
-    return _logits_head(params, cfg, h), state
+    top = _head_leaves(params, cfg)
+    h = _norm(cfg, top["final_norm"], h)
+    return _logits_head(top, cfg, h), state
 
 
 def _enc_rows(state, i: int, rows=slice(None)):
@@ -974,6 +1041,7 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
     cache = state["cache"]
     rows = slice(slot, None if slot is None else slot + 1)
     for i, lp in enumerate(_layers(params)):
+        lp = gathered(cfg, lp, ("layers",))
         carry = _carry_rows(cache, i, rows)
         if cfg.family == "rwkv":
             h, new = _rwkv_layer(lp, cfg, h, carry, valid=valid)
@@ -993,8 +1061,9 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
         else:
             h = _ffn(lp, cfg, _cross(lp, cfg, h + a,
                                      _enc_rows(state, i, rows)))
-    h = _norm(cfg, params["final_norm"], h)
-    return _logits_head(params, cfg, _last_valid_row(h, valid)), state
+    top = _head_leaves(params, cfg)
+    h = _norm(cfg, top["final_norm"], h)
+    return _logits_head(top, cfg, _last_valid_row(h, valid)), state
 
 
 def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
@@ -1027,8 +1096,8 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
     check_family(cfg)
     fmt = get_kv_format(kv_format)
     rows = None if cfg.shard is None else cfg.shard.rows(tokens.shape[0])
-    h = layers.embed(params["embed"], _mine(tokens, rows).clamp_min(0),
-                     cfg)                                    # (B, C, d)
+    h = layers.embed(_embed_table(params, cfg),
+                     _mine(tokens, rows).clamp_min(0), cfg)  # (B, C, d)
     B, C, _ = h.shape
     valid = _mine(positions, rows) >= 0
     safe_pos = positions.clamp_min(0)
@@ -1037,6 +1106,7 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
                               dtype=v.dtype, device=v.device)
                for k, v in cache.items() if k in CARRY_LEAVES} or None
     for i, lp in enumerate(_layers(params)):
+        lp = gathered(cfg, lp, ("layers",))
         carry = _carry_rows(cache, i)
         if cfg.family == "rwkv":
             h, _, steps = _rwkv_layer(lp, cfg, h, carry, valid=valid,
@@ -1060,8 +1130,9 @@ def verify_step(params, cfg: ModelConfig, state, tokens: torch.Tensor,
         for k in carry:
             carries[k][i, :, 0] = carry[k]
             carries[k][i, :, 1:] = steps[k]
-    h = _norm(cfg, params["final_norm"], h)
-    return _logits_head(params, cfg, h), state, carries
+    top = _head_leaves(params, cfg)
+    h = _norm(cfg, top["final_norm"], h)
+    return _logits_head(top, cfg, h), state, carries
 
 
 # ---------------------------------------------------------------------------
@@ -1158,7 +1229,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     carries after the prompt and encdec's ``enc_kv``)."""
     check_family(cfg)
     _check_audio(cfg, audio_embeds)
-    h = _embed_stream(params, cfg, tokens, prefix_embeds)
+    h = _embed_stream(_embed_table(params, cfg), cfg, tokens, prefix_embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
@@ -1169,6 +1240,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             dst.copy_(src)
     cache = state["cache"]
     for i, lp in enumerate(_layers(params)):
+        lp = gathered(cfg, lp, ("layers",))
         carry = _carry_rows(cache, i)
         if cfg.family == "rwkv":
             h, new = _rwkv_layer(lp, cfg, h, carry)
@@ -1185,8 +1257,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             h = _ffn(lp, cfg, h + 0.5 * (a + s_out))
         else:
             h = _ffn(lp, cfg, _cross(lp, cfg, h + a, _enc_rows(state, i)))
-    h = _norm(cfg, params["final_norm"], h[:, -1])
-    return _logits_head(params, cfg, h), state
+    top = _head_leaves(params, cfg)
+    h = _norm(cfg, top["final_norm"], h[:, -1])
+    return _logits_head(top, cfg, h), state
 
 
 def init_paged_state(cfg: ModelConfig, batch: int, cache_len: int, *,

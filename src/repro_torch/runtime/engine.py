@@ -97,7 +97,7 @@ from repro_torch.core.quant import (
     DEFAULT_KV_FORMAT, QuantizedTensor, get_kv_format,
 )
 from repro_torch.kernels import planning
-from repro_torch.models import attention, layers
+from repro_torch.models import attention
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime import kvcache as kvc
@@ -282,7 +282,10 @@ class ServingEngine:
     ``mesh`` (a (data, model) DeviceMesh) serves this rank's shard:
     ``params`` whole (cut here) or already the rank's
     (``sharding.shard_params``); ``self.cfg`` is then the rank's config
-    (its heads, ``cfg.shard``).
+    (its heads, ``cfg.shard``). ``fsdp_serve`` (a mesh only; off by
+    default, as in JAX) keeps only the rank's shares over "data" of its
+    slice (``sharding.serve_shares``, cut after the plans are made on the
+    slice) and every step gathers a layer at a time.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
@@ -296,7 +299,7 @@ class ServingEngine:
                  speculate=None, spec_k: int = 4,
                  admission: str = "fifo",
                  attn_path: str = "auto", device: DeviceLike = None,
-                 mesh=None):
+                 mesh=None, fsdp_serve: bool = False):
         if admission not in ("fifo", "priority"):
             raise ValueError(f"admission must be 'fifo' or 'priority', "
                              f"got {admission!r}")
@@ -450,11 +453,20 @@ class ServingEngine:
                                                   strategy=strategy,
                                                   refine=refine_plans)
             cfg = dataclasses.replace(cfg, w4a16_plan=self.plans)
+        # the rank keeps its shares of the slice; every step gathers them
+        self.fsdp_serve = bool(fsdp_serve and self.layout is not None)
+        if self.fsdp_serve:
+            params = sharding.serve_shares(params, self.layout)
         self.cfg = cfg
         self.params = T.unstack_layers(params)
         # the ring engine's whole-prompt prefill (eager: one step serves
-        # every prompt length)
-        self._prefill = rsteps.make_prefill_step(cfg, self.cache_len)
+        # every prompt length); the paged engine's prompt embedding and
+        # encoder at admit
+        self._prefill = rsteps.make_prefill_step(
+            cfg, self.cache_len, fsdp_serve=self.fsdp_serve)
+        self._embed = rsteps.make_embed_step(cfg, fsdp_serve=self.fsdp_serve)
+        self._encode = rsteps.make_encode_step(cfg,
+                                               fsdp_serve=self.fsdp_serve)
         self._serve_fns: Dict[Optional[int], Any] = {}
         self._chunk_fns: Dict[Optional[int], Any] = {}
         self._verify_fns: Dict[Optional[int], Any] = {}
@@ -502,7 +514,7 @@ class ServingEngine:
             fn = self._serve_fns[live_pages] = rsteps.make_serve_step(
                 self.cfg, cache_len=self.cache_len, kv_format=self.kv_format,
                 attn_path=self.attn_path, kv_partitions=self.kv_partitions,
-                live_pages=live_pages)
+                live_pages=live_pages, fsdp_serve=self.fsdp_serve)
         return fn
 
     def _chunk_step(self, live_pages: Optional[int] = None):
@@ -513,7 +525,7 @@ class ServingEngine:
                     self.cfg, self.cache_len, kv_format=self.kv_format,
                     attn_path=self.prefill_attn_path,
                     kv_partitions=self.prefill_kv_partitions,
-                    live_pages=live_pages)
+                    live_pages=live_pages, fsdp_serve=self.fsdp_serve)
         return fn
 
     def _verify_step(self, live_pages: Optional[int] = None):
@@ -526,7 +538,7 @@ class ServingEngine:
                 self.cfg, self.cache_len, kv_format=self.kv_format,
                 attn_path=self.verify_attn_path,
                 kv_partitions=self.verify_kv_partitions,
-                live_pages=live_pages)
+                live_pages=live_pages, fsdp_serve=self.fsdp_serve)
         return fn
 
     def _prefill_inputs(self, req: Request):
@@ -590,8 +602,7 @@ class ServingEngine:
         rows, read by its prefill chunks): the only whole-sequence work
         outside the chunk step (it reads the audio, not the prompt, so
         chunking does not apply)."""
-        ek, ev = T.encode_cross_kv(self.params, self.cfg,
-                                   self._audio_embeds(req)[None])
+        ek, ev = self._encode(self.params, self._audio_embeds(req)[None])
         j = self._local_row(i)
         if j is None:
             self._side[i] = {"cache": {}, "enc_kv": (ek, ev)}
@@ -898,7 +909,7 @@ class ServingEngine:
             saved = cold_steps - (-(-(S_total - shared) // C))
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)
-            emb = layers.embed(self.params["embed"], prompt, self.cfg)
+            emb = self._embed(self.params, prompt)
             if self.cfg.vision_prefix:
                 emb = torch.cat([self.vision_embeds(req), emb])
             slot.pf_stream = emb

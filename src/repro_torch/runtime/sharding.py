@@ -62,6 +62,18 @@ rwkv's time mix stays whole where the model axis does not divide the heads
 (JAX cuts the columns through a head). JAX cuts ``enc_kv``'s frame dim
 over "model"; here its KV heads.
 
+Weight-gathered layers (JAX's ``param_shardings(fsdp=True)`` read a layer
+at a time): a rank may hold only its "data" share of each leaf's TP slice
+and rebuild one layer's slice just before the layer runs (the model's
+loops call ``Layout.held`` on each layer's leaves, and once a step on the
+leaves outside the layer stacks). Serving under ``fsdp_serve``
+(:func:`serve_shares`) marks each cut linear or embedding dict with the
+dims its parts were cut along (``"data"``) and gathers them detached
+(:meth:`Layout.gather_shares`); the ZeRO-3 train step gathers through an
+autograd Function (:meth:`TrainShards.gather_layer`) whose backward
+reduce-scatters the layer's gradient onto the shares, as
+:meth:`TrainShards.reduce_grads` does for the whole tree.
+
 The ring engine's state follows JAX's rule exactly (:func:`ring_spec`):
 a rank holds its rows of the slots and, where the model axis divides the
 window, its slice of the window for every KV head. What departs is the
@@ -72,6 +84,7 @@ over "model", each rank's softmax partials merged across it).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Mapping, Optional
 
@@ -210,6 +223,10 @@ class Layout:
         self.ssm_sharded = cfg.family == "hybrid" and _cuts(cfg.d_inner, tp)
         self.base_format = T.serve_format(cfg)
         self._part_groups = {}
+        # how this rank rebuilds the TP slices of leaves it holds as data
+        # shares: held(tree, key path prefix) -> tree (None: it holds its
+        # TP slices)
+        self.held = None
 
     # -- the rank's config and rows ------------------------------------------
 
@@ -381,6 +398,64 @@ class Layout:
             out["kernel"] = _take(k, dim, parts, index)
         if "bias" in p and dim == -1:
             out["bias"] = _take(p["bias"], dim, parts, index)
+        return out
+
+    # -- a serving slice's shares over "data" (fsdp_serve) -------------------
+
+    def data_cut(self, path, p):
+        """This data rank's share of the linear or embedding dict ``p`` at
+        ``path``, a TP slice (:meth:`cut`), by JAX's
+        ``param_shardings(fsdp=True)`` (:func:`fsdp_dim` on each part's own
+        shape: a QuantizedTensor's packed payload, and its scales and
+        zeros alike); marked ``"data"`` with the dim each part is cut
+        along. ``p`` itself where no part is cut. The TP cut never touches
+        these dims, so "data" divides a rank's dim where it divides the
+        whole leaf's, as JAX judges it."""
+        key = "table" if "table" in p else "kernel"
+        w = p[key]
+        quantized = isinstance(w, QuantizedTensor)
+        parts = (w.packed, w.scales, w.zeros) if quantized else (w,)
+        dims = tuple(None if t is None or self.dp == 1
+                     else fsdp_dim(path + (key,), tuple(t.shape), self.dp)
+                     for t in parts)
+        if all(d is None for d in dims):
+            return p
+        cut = [t if d is None else _take(t, d, self.dp, self.dp_rank)
+               for t, d in zip(parts, dims)]
+        out = dict(p, data=",".join("" if d is None else str(d)
+                                    for d in dims))
+        out[key] = QuantizedTensor(*cut, w.group_size, w.out_dtype,
+                                   w.format) if quantized else cut[0]
+        return out
+
+    def gather_shares(self, tree, prefix=()):
+        """``tree`` with every ``"data"``-marked dict (:meth:`data_cut`)
+        gathered over "data" back into its TP slice, bit for bit: one
+        all-gather per cut part. The marks say what was cut, so
+        ``prefix`` (``held``'s key path) is not read."""
+        if isinstance(tree, list):
+            return [self.gather_shares(v) for v in tree]
+        if not isinstance(tree, Mapping):
+            return tree
+        if "data" not in tree:
+            return {k: self.gather_shares(v) for k, v in tree.items()}
+        key = "table" if "table" in tree else "kernel"
+        w = tree[key]
+        quantized = isinstance(w, QuantizedTensor)
+        parts = (w.packed, w.scales, w.zeros) if quantized else (w,)
+        dims = [None if s == "" else int(s) for s in tree["data"].split(",")]
+        whole = [t if d is None else self.gather_data(t, d)
+                 for t, d in zip(parts, dims)]
+        out = {k: v for k, v in tree.items() if k != "data"}
+        out[key] = QuantizedTensor(*whole, w.group_size, w.out_dtype,
+                                   w.format) if quantized else whole[0]
+        return out
+
+    def holding_shares(self) -> "Layout":
+        """A copy of this layout whose rank holds its leaves as
+        :func:`serve_shares` cut them (``held``: :meth:`gather_shares`)."""
+        out = copy.copy(self)
+        out.held = out.gather_shares
         return out
 
     # -- collectives ---------------------------------------------------------
@@ -603,6 +678,25 @@ def shard_params(params, mesh, cfg):
     return visit(params, ())
 
 
+def serve_shares(params, layout: Layout):
+    """``fsdp_serve``: this rank's shares over "data" of its serving slice
+    ``params`` (:func:`shard_params`' tree, layers stacked or unstacked;
+    QuantizedTensor-aware), each cut linear and embedding dict marked
+    (:meth:`Layout.data_cut`); norms, biases and every leaf "data" does
+    not divide stay whole, as in JAX. The serving steps gather them a
+    layer at a time (``steps.make_serve_step(..., fsdp_serve=True)``)."""
+    def visit(tree, path):
+        if isinstance(tree, Mapping):
+            if "kernel" in tree or "table" in tree:
+                return layout.data_cut(path, tree)
+            return {k: visit(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [visit(v, path) for v in tree]
+        return tree
+
+    return visit(params, ())
+
+
 def is_local(params) -> bool:
     """True for a tree :func:`shard_params` (or ``T.init_params(...,
     cut=layout.cut)``) cut: some leaf carries a ``"tp"`` mark (every cut
@@ -819,19 +913,40 @@ class TrainShards:
         the FSDP shares (JAX's per-microbatch ``with_sharding_constraint``
         onto ``fsdp_shardings``) or all-reduced over "data"; where every
         data rank ran every row, each keeps its share."""
-        lay = self.layout
+        return _map_paths(lambda path, g: self.reduce_leaf(path, g, split),
+                          grads)
 
-        def fn(path, g):
-            s = self.leaves[path]
-            if s.tp is not None and s.tp[1] < lay.tp:
-                g = lay.all_reduce(g, self.groups[s.tp[1]])
-            if not split:
-                return g if s.fsdp is None \
-                    else _take(g, s.fsdp, lay.dp, lay.dp_rank)
-            if s.fsdp is None:
-                return lay.reduce_data(g)
-            return lay.reduce_scatter_data(g, s.fsdp)
-        return _map_paths(fn, grads)
+    def reduce_leaf(self, path, g, split: bool, *, copy: bool = False):
+        """:meth:`reduce_grads` of the one leaf at ``path`` (its stacked
+        form's path for a layer's slice: the cut dims are negative).
+        ``copy``: the sums over a group do not write into ``g``."""
+        lay, s = self.layout, self.leaves[path]
+        if s.tp is not None and s.tp[1] < lay.tp:
+            g = lay.all_reduce(g, self.groups[s.tp[1]], copy=copy)
+            copy = False
+        if not split:
+            return g if s.fsdp is None \
+                else _take(g, s.fsdp, lay.dp, lay.dp_rank)
+        if s.fsdp is None:
+            return g if lay.dp == 1 else lay.all_reduce(g, "data", copy=copy)
+        return lay.reduce_scatter_data(g, s.fsdp)
+
+    def gather_layer(self, tree, prefix, *, split: bool, gdt):
+        """ZeRO-3's ``held`` (``Layout.held``): ``tree`` (a layer's leaves,
+        its key path ``prefix`` in the stacked tree, or the leaves outside
+        the layer stacks) with every leaf through one autograd Function:
+        forward, each FSDP share all-gathered over "data" into its TP
+        slice (the other leaves as they are); backward, each slice's
+        gradient cast to ``gdt`` and taken to the share as
+        :meth:`reduce_grads` takes the whole tree's (``split`` as there).
+        Called inside a checkpointed layer it gathers again in the
+        recompute, and no gathered slice outlives the layer's forward."""
+        paths, leaves = [], []
+        shape = _collect_leaves(tree, tuple(prefix), paths, leaves)
+        if not leaves:
+            return tree
+        return _fill_leaves(shape, _GatherShares.apply(
+            self, tuple(paths), split, gdt, *leaves))
 
     def global_norm(self, grads) -> torch.Tensor:
         """sqrt of the sum of squares of every distinct element once: a
@@ -849,6 +964,54 @@ class TrainShards:
                                             or lay.dp_rank == 0):
                 total = total + torch.sum(torch.square(g.to(torch.float32)))
         return torch.sqrt(lay.reduce_world(total))
+
+
+# (module-level, not closures: a recursive closure is a reference cycle
+# that would keep a gathered layer alive until the cyclic collector runs)
+def _collect_leaves(tree, path, paths, leaves):
+    """``tree`` with each tensor replaced by its index in ``leaves`` (its
+    key path appended to ``paths``); marks kept."""
+    if isinstance(tree, Mapping):
+        return {k: _collect_leaves(v, path + (k,), paths, leaves)
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        paths.append(path)
+        leaves.append(tree)
+        return len(leaves) - 1
+    return tree
+
+
+def _fill_leaves(shape, out):
+    """:func:`_collect_leaves`' tree with each index replaced by ``out``'s
+    tensor."""
+    if isinstance(shape, Mapping):
+        return {k: _fill_leaves(v, out) for k, v in shape.items()}
+    return out[shape] if isinstance(shape, int) else shape
+
+
+class _GatherShares(torch.autograd.Function):
+    """:meth:`TrainShards.gather_layer`: gathers forward, reduces the
+    gradients to the shares backward (the gradient returned in the
+    share's dtype: exact, it holds ``gdt`` values)."""
+
+    @staticmethod
+    def forward(ctx, shards, paths, split, gdt, *shares):
+        ctx.shards, ctx.paths, ctx.split, ctx.gdt = shards, paths, split, gdt
+        ctx.dtypes = [t.dtype for t in shares]
+        lay = shards.layout
+        out = []
+        for path, t in zip(paths, shares):
+            dim = shards.leaves[path].fsdp
+            out.append(t.view_as(t) if dim is None
+                       else lay.gather_data(t, dim))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = [ctx.shards.reduce_leaf(path, g.to(ctx.gdt), ctx.split,
+                                      copy=True).to(dt)
+               for path, g, dt in zip(ctx.paths, grads, ctx.dtypes)]
+        return (None, None, None, None, *out)
 
 
 def pool_spec(shape, layout: Layout) -> tuple:

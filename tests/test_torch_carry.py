@@ -543,6 +543,25 @@ def _engine_pair(arch, quantized, prompts, G, *, jspeculate=None,
     return jrep, eng.run(_requests(Request, prompts, G)), eng
 
 
+_PLAIN = {}
+
+
+def _plain_run(arch, prompts, G, **kw):
+    """The port's plain decode (quantized weights, no proposer) of
+    ``prompts``: the tokens a speculating run must reproduce. Cached per
+    arch, prompts and settings (the accepting-drafts cases share one)."""
+    key = (arch, tuple(tuple(p.tolist()) for p in prompts), G,
+           tuple(sorted(kw.items())))
+    if key not in _PLAIN:
+        _, _, cfg, tparams = _weights(arch, True)
+        eng = ServingEngine(
+            cfg, tparams, device="cpu", max_batch=2,
+            max_prompt_len=max(len(p) for p in prompts), max_new_tokens=G,
+            page_size=4, **kw)
+        _PLAIN[key] = eng.run(_requests(Request, prompts, G))
+    return _PLAIN[key]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("chunk", [None, 3, 4])
@@ -616,7 +635,7 @@ def test_engine_accepting_drafts_parity_with_jax(arch, right):
     plain decode's and JAX's under the same proposer."""
     cfg = configs.get_reduced(arch)
     prompts = _prompts(cfg, 3, 9, seed=6)
-    _, plain, _ = _engine_pair(arch, True, prompts, 8, prefill_chunk=4)
+    plain = _plain_run(arch, prompts, 8, prefill_chunk=4)
     mk = lambda base: _oracle(base, prompts, plain.results, right,  # noqa
                               cfg.vocab_size)
     jrep, rep, _ = _engine_pair(arch, True, prompts, 8, prefill_chunk=4,
@@ -662,7 +681,7 @@ def test_always_wrong_proposer_rewinds_every_step(arch):
         arch, True, prompts, 8, prefill_chunk=4,
         speculate=_AlwaysWrong(cfg.vocab_size),
         jspeculate=_JAlwaysWrong(cfg.vocab_size), spec_k=3)
-    _, plain, _ = _engine_pair(arch, True, prompts, 8, prefill_chunk=4)
+    plain = _plain_run(arch, prompts, 8, prefill_chunk=4)
     assert rep.results == jrep.results == plain.results
     assert rep.proposed_tokens == jrep.proposed_tokens > 0
     assert rep.accepted_tokens == 0

@@ -54,6 +54,9 @@ from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import kvcache, sharding
 from repro_torch.runtime import steps as tsteps
 
+# one torch thread a test process (see its docstring)
+import torch_parity_helpers  # noqa: F401
+
 
 def dtype_name(dt) -> str:
     return str(dt).replace("torch.", "")

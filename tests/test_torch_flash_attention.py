@@ -27,6 +27,9 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
 from repro_torch.models.attention import chunked_attention
 
+# one torch thread a test process (see its docstring)
+import torch_parity_helpers  # noqa: F401
+
 SWEEP = [
     # B, Sq, Skv, Hq, Hkv, D, causal, window, dtype
     (2, 128, 128, 4, 2, 64, True, 0, "float32"),

@@ -34,6 +34,9 @@ from repro_torch.kernels import w4a16_decoupled as tdec
 from repro_torch.kernels import w4a8_fused as tw4a8
 from repro_torch.kernels import w8a16_fused as tw8a16
 
+# one torch thread a test process (see its docstring)
+import torch_parity_helpers  # noqa: F401
+
 # (M, K, N) of tests/test_template.py: ragged M, K == group, N == 128 lanes,
 # all three at once
 EDGE_SHAPES = [(5, 256, 384), (8, 128, 256), (16, 256, 128), (3, 128, 128)]

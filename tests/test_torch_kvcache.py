@@ -20,6 +20,9 @@ from repro_torch.configs import shapes
 from repro_torch.core import quant as tq
 from repro_torch.runtime import kvcache as kvc
 
+# one torch thread a test process (see its docstring)
+import torch_parity_helpers  # noqa: F401
+
 
 # ---------------------------------------------------------------------------
 # block allocator (mirrors tests/test_kvcache.py)

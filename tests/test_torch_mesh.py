@@ -14,8 +14,16 @@ REDUCED at (1,4); danube with the tied head at (1,4). The ring engine
 (``paged=False``): danube at (1,2) and (2,2) with a 12-entry window cut
 over "model" (it wraps in decode), llama3-405b REDUCED at (1,4) with its
 13-entry window whole (4 does not divide it) and with a 16-entry window
-cut 4 ways (2 KV heads over 4 ranks). Each world size is spawned once for
-all its cases. MoE
+cut 4 ways (2 KV heads over 4 ranks). Weight-gathered layers
+(``fsdp_serve``: each rank holds its shares over "data" of its slice and
+gathers a layer at a time): danube at (2,2) plain and with ngram
+(chunked prefill, decode and verify steps), mixtral REDUCED at (2,2) with
+ngram (at a capacity no token overflows, so that routing per data shard
+is JAX's single-device routing) with and without the flag, internvl2
+(the vision prefix) at (2,2); each gives
+JAX's tokens, and its first-token logits and KV pools are bit-equal to the
+same mesh without the flag. Each world size is spawned once for all its
+cases. MoE
 under a data axis routes per data shard (a different reference:
 ``test_torch_sharding.py`` holds that dispatch op by op), so olmoe is held
 at TP only.
@@ -46,6 +54,8 @@ SPEC = dict(BASE, prefill_chunk=5, speculate="ngram", spec_k=2)
 SHARED = dict(BASE, page_size=4, prefill_chunk=4)
 WARM = dict(BASE, max_new_tokens=4, page_size=4, prefill_chunk=4,
             warm_cache_mb=1.0)
+FSDP = dict(BASE, fsdp_serve=True)
+SPEC_FSDP = dict(SPEC, fsdp_serve=True)
 
 # weights: (arch, config fields)
 WEIGHTS = {
@@ -55,6 +65,10 @@ WEIGHTS = {
     "internvl2": ("internvl2-1b", {}),
     "olmoe": ("olmoe-1b-7b", {}),
     "llama3": ("llama3-405b", {}),
+    # no token overflows an expert at this capacity, on one device or
+    # routed per data shard
+    "mixtral": ("mixtral-8x7b", {"moe_capacity_factor": float(
+        jconfigs.get_reduced("mixtral-8x7b").num_experts)}),
 }
 
 
@@ -91,13 +105,24 @@ CASES = {
         ("internvl2-2x2", "internvl2", (2, 2), BASE, "base", False),
         # the tied head: the vocab-sharded table's logits gathered
         ("tied-head-1x4", "danube_tied", (1, 4), BASE, "base", False),
-        ("llama3-1x4", "llama3", (1, 4), BASE, "base", False)],
+        ("llama3-1x4", "llama3", (1, 4), BASE, "base", False),
+        ("danube-2x2-fsdp", "danube", (2, 2), FSDP, "base", False),
+        ("ngram-2x2-fsdp", "danube", (2, 2), SPEC_FSDP, "base", False),
+        ("mixtral-ngram-2x2", "mixtral", (2, 2), SPEC, "base", False),
+        ("mixtral-ngram-2x2-fsdp", "mixtral", (2, 2), SPEC_FSDP, "base",
+         False),
+        ("internvl2-2x2-fsdp", "internvl2", (2, 2), FSDP, "base", False)],
     8: [("danube-2x4", "danube", (2, 4), BASE, "base", False),
         ("fused-ngram-2x4", "danube", (2, 4), SPEC, "base", True),
         ("warm-2x4", "danube", (2, 4), WARM, "warm", False)],
     2: [("olmoe-1x2", "olmoe", (1, 2), BASE, "base", False)],
 }
 ALL = [(world, c) for world, cases in CASES.items() for c in cases]
+# (the fsdp_serve case, the same mesh without the flag)
+FSDP_PAIRS = [("danube-2x2-fsdp", "danube-2x2"),
+              ("ngram-2x2-fsdp", "ngram-2x2"),
+              ("mixtral-ngram-2x2-fsdp", "mixtral-ngram-2x2"),
+              ("internvl2-2x2-fsdp", "internvl2-2x2")]
 
 RING = dict(BASE, paged=False)
 # the ring engine's cases: (case, weights, mesh, engine kwargs)
@@ -128,7 +153,10 @@ _REF = {}
 
 
 def jax_reference(wkey, kw, kind):
-    """JAX's single-device engine on the same weights and requests."""
+    """JAX's single-device engine on the same weights and requests (the
+    port's ``fsdp_serve`` is a mesh's layout, not an engine setting of
+    JAX's single device)."""
+    kw = {k: v for k, v in kw.items() if k != "fsdp_serve"}
     key = (wkey, tuple(sorted(kw.items())), kind)
     if key not in _REF:
         jcfg, jparams, _ = jax_weights(wkey)
@@ -225,6 +253,25 @@ def test_ring_engine_on_a_mesh_matches_jax_single_device(ranks, world,
         np.testing.assert_allclose(
             step["decode"], np.asarray(out["logits"])[step["rows"]],
             rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("held,plain", FSDP_PAIRS,
+                         ids=[p[0] for p in FSDP_PAIRS])
+def test_fsdp_serve_is_bit_equal_to_the_slice(ranks, held, plain):
+    """A rank holding its shares over "data" (``fsdp_serve``) and gathering
+    a layer at a time serves what the same rank holding its whole slice
+    serves: the same tokens, first-token logits and final KV pool bit for
+    bit on every rank (the gathered layer is the slice's bytes); the plans
+    are the slice's."""
+    for a, b in zip(ranks[held], ranks[plain]):
+        assert a["coords"] == b["coords"]
+        assert a["tokens"] == b["tokens"]
+        assert a["logits"].keys() == b["logits"].keys()
+        for rid, row in a["logits"].items():
+            assert np.array_equal(row, b["logits"][rid]), (held, rid)
+        assert a["pool"] == b["pool"]
+        assert a["plans"] == b["plans"]
+        assert a["speculated"] == b["speculated"]
 
 
 def test_shard_local_plans_and_heads(ranks):

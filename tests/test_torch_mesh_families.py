@@ -17,7 +17,12 @@ prompt and audio sent twice, the two slots on different data ranks sharing
 the prefix's pages. Prefill runs in chunks of 3 (the carry of a slot that
 another data rank holds is carried over several chunks on side rows) and
 three requests pass through two slots (a slot's rows reset at readmit).
-Each world size is spawned once.
+Weight-gathered layers (``fsdp_serve``: each rank holds its shares over
+"data" of its slice and gathers a layer at a time): rwkv, whisper (the
+encoder's layers and each decoder layer's cross K/V projected inside the
+layer) and hymba with ngram at (2,2) give JAX's tokens, and their
+first-token logits and pools are bit-equal to the same mesh without the
+flag. Each world size is spawned once.
 """
 import dataclasses
 
@@ -43,6 +48,8 @@ SHARED = dict(BASE, prefill_chunk=4)
 SPEC_P, SPEC_G, SPEC_SEED = 9, 8, 4
 SPEC = dict(BASE, max_prompt_len=SPEC_P, max_new_tokens=SPEC_G,
             speculate="ngram", spec_k=2)
+FSDP = dict(BASE, fsdp_serve=True)
+SPEC_FSDP = dict(SPEC, fsdp_serve=True)
 # the oracle's drafts: the plain run's next 2 tokens, the first right
 ORACLE = dict(right=1, bad=0)
 
@@ -93,9 +100,16 @@ CASES = {
         ("whisper-1x4", "whisper", (1, 4), BASE, "base"),
         ("hymba-ngram-2x2", "hymba", (2, 2), SPEC, "spec"),
         ("rwkv-oracle-2x2", "rwkv", (2, 2), SPEC, "oracle"),
-        ("whisper-shared-2x2", "whisper", (2, 2), SHARED, "shared")],
+        ("whisper-shared-2x2", "whisper", (2, 2), SHARED, "shared"),
+        ("rwkv-2x2-fsdp", "rwkv", (2, 2), FSDP, "base"),
+        ("whisper-2x2-fsdp", "whisper", (2, 2), FSDP, "base"),
+        ("hymba-ngram-2x2-fsdp", "hymba", (2, 2), SPEC_FSDP, "spec")],
 }
 ALL = [(world, c) for world, cases in CASES.items() for c in cases]
+# (the fsdp_serve case, the same mesh without the flag)
+FSDP_PAIRS = [("rwkv-2x2-fsdp", "rwkv-2x2"),
+              ("whisper-2x2-fsdp", "whisper-2x2"),
+              ("hymba-ngram-2x2-fsdp", "hymba-ngram-2x2")]
 
 _JAX = {}
 
@@ -124,7 +138,10 @@ def oracle(wkey):
 
 def jax_reference(wkey, kw, kind):
     """JAX's single-device engine on the same weights and requests (kind
-    "oracle": the "spec" requests, speculated by the oracle)."""
+    "oracle": the "spec" requests, speculated by the oracle; the port's
+    ``fsdp_serve`` is a mesh's layout, not an engine setting of JAX's
+    single device)."""
+    kw = {k: v for k, v in kw.items() if k != "fsdp_serve"}
     key = (wkey, tuple(sorted(kw.items())), kind)
     if key not in _REF:
         jcfg, jparams, _ = jax_weights(wkey)
@@ -183,6 +200,23 @@ def test_family_on_a_mesh_matches_jax_single_device(ranks, world, case):
         assert jrep.proposed_tokens > 0
         # the oracle's right drafts are accepted: carries commit past 1
         assert (jrep.accepted_tokens > 0) == (kind == "oracle")
+
+
+@pytest.mark.parametrize("held,plain", FSDP_PAIRS,
+                         ids=[p[0] for p in FSDP_PAIRS])
+def test_fsdp_serve_is_bit_equal_to_the_slice(ranks, held, plain):
+    """A rank holding its shares over "data" (``fsdp_serve``) and gathering
+    a layer at a time serves what the same rank holding its whole slice
+    serves: the same tokens, first-token logits and final pool bit for bit
+    on every rank (the gathered layer is the slice's bytes)."""
+    for a, b in zip(ranks[held], ranks[plain]):
+        assert a["coords"] == b["coords"]
+        assert a["tokens"] == b["tokens"]
+        assert a["logits"].keys() == b["logits"].keys()
+        for rid, row in a["logits"].items():
+            assert np.array_equal(row, b["logits"][rid]), (held, rid)
+        assert a["pool"] == b["pool"]
+        assert a["speculated"] == b["speculated"]
 
 
 # (case, leaf, the shape a rank holds): L = 2 layers, REDUCED widths

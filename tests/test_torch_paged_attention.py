@@ -25,6 +25,9 @@ from repro_torch.core import quant as tq
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.runtime import kvcache as tkvc
 
+# one torch thread a test process (see its docstring)
+import torch_parity_helpers  # noqa: F401
+
 B, HKV, G, D, PS, T_PAGES = 2, 2, 2, 32, 4, 4
 CACHE_LEN = PS * T_PAGES
 TOL = dict(rtol=2e-5, atol=2e-6)

@@ -16,6 +16,9 @@ from repro_torch.convert import from_jax_params
 from repro_torch.core import quant as tq
 from repro_torch.kernels import common, ref
 
+# one torch thread a test process (see its docstring)
+import torch_parity_helpers  # noqa: F401
+
 
 def _q4(shape, seed=0):
     return np.random.default_rng(seed).integers(-8, 8, size=shape) \

@@ -33,6 +33,9 @@ from repro_torch.core.tree import tree_flatten_with_keys
 from repro_torch.models import transformer as T
 from repro_torch.runtime import sharding as shd
 
+# one torch thread a test process (see its docstring)
+import torch_parity_helpers  # noqa: F401
+
 ARCHS = ("rwkv6-7b", "hymba-1.5b", "whisper-small")
 # (arch, full width?, model axis)
 GRID = [(a, False, tp) for a in ARCHS for tp in (2, 4)] + \

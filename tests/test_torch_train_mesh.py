@@ -15,7 +15,12 @@ the tied head (the vocab-cut table's gradient from embedding and head),
 at (2,1) with labels masked differently on the two data
 ranks, at (2,1) with one row a microbatch (every data rank runs every
 row); internvl2 (the vision prefix) at (2,2); olmoe at (1,2); the runner
-with sharded checkpoints at (2,1). Each world size is spawned once.
+with sharded checkpoints at (2,1); ZeRO-3 (each layer gathered just before
+it runs, its gradient reduce-scattered in the backward) at (2,2): danube
+and internvl2 with 2 microbatches and mixtral under its preset (8 microbatches of one
+row: every data rank runs every row; at a capacity no token overflows, so
+that its routing is JAX's single-device routing). Each world size is
+spawned once.
 
 MoE under a data axis routes each data shard at its own capacity (JAX's
 data-parallel dispatch), so olmoe at (2,1) is held against one process of
@@ -63,7 +68,9 @@ WEIGHTS = {"danube": ("h2o-danube-1.8b", {}),
            # the tied head: the vocab-cut table read by embed and head
            "danube_tied": ("h2o-danube-1.8b", {"tie_embeddings": True}),
            "internvl2": ("internvl2-1b", {}),
-           "olmoe": ("olmoe-1b-7b", {})}
+           "olmoe": ("olmoe-1b-7b", {}),
+           "mixtral": ("mixtral-8x7b", {"moe_capacity_factor": float(
+               jconfigs.get_reduced("mixtral-8x7b").num_experts)})}
 
 
 def batches(arch, masked=False, seed=0):
@@ -108,7 +115,14 @@ CASES = {
          dict(grad_dtype=F32), False, False),
         ("internvl2-2x2", "internvl2", (2, 2),
          dict(microbatches=2, fsdp=True, zero2=True, grad_dtype=F32),
-         False, False)],
+         False, False),
+        ("danube-2x2-zero3", "danube", (2, 2),
+         dict(microbatches=2, fsdp=True, grad_dtype=F32), False, False),
+        ("internvl2-2x2-zero3", "internvl2", (2, 2),
+         dict(microbatches=2, fsdp=True, grad_dtype=F32), False, False),
+        # mixtral's preset (launch.presets): ZeRO-3, 8 microbatches
+        ("mixtral-2x2-zero3", "mixtral", (2, 2),
+         dict(microbatches=8, fsdp=True, grad_dtype=F32), False, False)],
     2: [("danube-2x1-dp", "danube", (2, 1), dict(grad_dtype=F32), False,
          False),
         ("danube-2x1-masked", "danube", (2, 1),
@@ -149,8 +163,9 @@ _REF = {}
 def jax_reference(key, settings, masked):
     """JAX's single-device ``make_train_step`` with the same settings (no
     sharding pytrees: the plain step), three steps: {"metrics", "params",
-    "m", "v"} as numpy."""
-    fields = dict(settings)
+    "m", "v"} as numpy. Without sharding pytrees that step reads neither
+    ``fsdp`` nor ``zero2``, so one reference serves every such case."""
+    fields = {k: v for k, v in settings.items() if k not in ("fsdp", "zero2")}
     ref_key = (key, tuple(sorted(fields.items())), masked)
     if ref_key not in _REF:
         cfg, params, _ = jax_weights(key)

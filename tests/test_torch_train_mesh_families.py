@@ -12,8 +12,11 @@ cut, ``bc_proj`` whole: its B and C through ``copy_to_model``), and with 5
 query over 5 KV heads at (1,2) (the attention whole beside the cut SSM);
 whisper-small at (1,4) (the encoder, self- and cross-attention at one head
 a rank, the encoder's output into the cross K/V through ``copy_to_model``)
-and at (2,1) (each data rank its rows' audio frames). Each world size is
-spawned once.
+and at (2,1) (each data rank its rows' audio frames); rwkv, and whisper
+with remat, at (2,2) under ZeRO-3 with 2 microbatches (each layer, the
+encoder's too, gathered just before it runs, whisper's again in its
+recompute, its gradient reduce-scattered onto the shares). Each world
+size is spawned once.
 """
 import dataclasses
 
@@ -38,14 +41,19 @@ F32 = "float32"
 WEIGHTS = {"rwkv": ("rwkv6-7b", {}),
            "hymba": ("hymba-1.5b", {}),
            "hymba_h5": ("hymba-1.5b", {"num_heads": 5, "num_kv_heads": 5}),
-           "whisper": ("whisper-small", {})}
+           "whisper": ("whisper-small", {}),
+           "whisper_remat": ("whisper-small", {"remat": True})}
 # (name, weights, mesh, TrainSettings fields)
 CASES = {
     4: [("rwkv-2x2-zero2", "rwkv", (2, 2),
          dict(microbatches=2, fsdp=True, zero2=True, grad_dtype=F32)),
         ("hymba-2x2-zero3", "hymba", (2, 2),
          dict(microbatches=2, fsdp=True, grad_dtype=F32)),
-        ("whisper-1x4", "whisper", (1, 4), dict(grad_dtype=F32))],
+        ("whisper-1x4", "whisper", (1, 4), dict(grad_dtype=F32)),
+        ("rwkv-2x2-zero3", "rwkv", (2, 2),
+         dict(microbatches=2, fsdp=True, grad_dtype=F32)),
+        ("whisper-2x2-zero3", "whisper_remat", (2, 2),
+         dict(microbatches=2, fsdp=True, grad_dtype=F32))],
     2: [("rwkv-1x2", "rwkv", (1, 2), dict(grad_dtype=F32)),
         ("hymba-heads5-1x2", "hymba_h5", (1, 2),
          dict(microbatches=2, grad_dtype=F32)),
@@ -83,11 +91,24 @@ def jax_weights(key):
     return _WEIGHTS[key]
 
 
+# remat recomputes the same values: a remat run's weights are held
+# against JAX's step on the same draw without it
+JAX_KEY = {"whisper_remat": "whisper"}
+_REF = {}
+
+
 def jax_reference(key, settings):
     """JAX's single-device ``make_train_step`` with the same settings,
-    three steps: {"metrics", "params", "m", "v"} as numpy."""
+    three steps: {"metrics", "params", "m", "v"} as numpy. Without
+    sharding pytrees that step reads neither ``fsdp`` nor ``zero2``, so
+    one reference serves every such case."""
+    key = JAX_KEY.get(key, key)
+    fields = {k: v for k, v in settings.items() if k not in ("fsdp", "zero2")}
+    ref_key = (key, tuple(sorted(fields.items())))
+    if ref_key in _REF:
+        return _REF[ref_key]
     cfg, params, _ = jax_weights(key)
-    fields = dict(settings, grad_dtype=jnp.float32)
+    fields = dict(fields, grad_dtype=jnp.float32)
     opt_cfg = JAdamWConfig(lr=1e-3)
     state = jadamw_init(params, opt_cfg)
     step = jax.jit(jsteps.make_train_step(
@@ -99,8 +120,10 @@ def jax_reference(key, settings):
                                       for k, v in b.items()},
                             "step": jnp.asarray(i, jnp.int32)})
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
-    return {"metrics": metrics, "params": jax_to_numpy(params),
-            "m": jax_to_numpy(state["m"]), "v": jax_to_numpy(state["v"])}
+    _REF[ref_key] = {"metrics": metrics, "params": jax_to_numpy(params),
+                     "m": jax_to_numpy(state["m"]),
+                     "v": jax_to_numpy(state["v"])}
+    return _REF[ref_key]
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,9 @@ from repro_torch.models import transformer as T
 from repro_torch.runtime import sharding as shd
 from repro_torch.runtime import steps as tsteps
 
+# one torch thread a test process (see its docstring)
+import torch_parity_helpers  # noqa: F401
+
 TRAIN_ARCHS = ("h2o-danube-1.8b", "internvl2-1b", "olmoe-1b-7b",
                "mixtral-8x7b", "starcoder2-7b", "granite-20b", "llama3-405b")
 MESHES = [(2, 2), (4, 1), (1, 4), (2, 4), (8, 2)]

@@ -21,6 +21,9 @@ from repro.kernels.w4a16_fused import w4a16_fused as jax_w4a16_fused
 from repro_torch.core import quant as tq
 from repro_torch.kernels import w4a16_fused as wf
 
+# one torch thread a test process (see its docstring)
+import torch_parity_helpers  # noqa: F401
+
 
 def _case(M, K, N, *, group=128, symmetric=True, seed=0):
     rng = np.random.default_rng(seed)

@@ -177,6 +177,8 @@ def run_case(case: dict, weights: dict) -> dict:
         "shapes": shapes,
         "speculated": (rep.proposed_tokens, rep.accepted_tokens),
         "side_rows": len(eng._side),
+        "logits": {int(k): v.float().numpy()
+                   for k, v in sorted(rep.prefill_logits.items())},
     }
 
 

@@ -1,11 +1,20 @@
 """Shared by the port's parity tests: the JAX side's parameter trees as the
 numpy trees ``repro_torch.convert.from_jax_params`` takes, and the
 train-step parity of every family (three steps of each package's
-``make_train_step`` on one numpy draw, remat, the train launcher)."""
+``make_train_step`` on one numpy draw, remat, the train launcher).
+
+Importing it gives the test process one torch thread. The suite runs
+under pytest-xdist, several workers on a few cores, and each worker's
+torch would otherwise start an intra-op pool as wide as the machine: the
+pools' threads starve one another (the four heaviest port files took
+2.1x as long on 4 workers so). Each mesh rank runs on one thread too."""
 import numpy as np
 import pytest
+import torch
 
 from repro.core import quant as jquant
+
+torch.set_num_threads(1)
 
 
 def jax_to_numpy(tree):
