@@ -409,6 +409,33 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              8, 16: the refined split held against the plain version and
              timed beside the default split and ``torch.matmul``.
 
+17. compiled — the serving steps under CUDA graphs (``runtime/steps.py``:
+             the counterparts of JAX's ``jax.jit`` steps) against eager:
+             (a) phase 4's cell (h2o-danube-1.8b at full width and depth,
+             W4A16, 8 x (512 + 32)) through the serve launcher's engine
+             compiled (the default) and ``--eager``, on the same weights
+             and requests, counters set to 0 just before each run and read
+             just after: greedy tokens equal, first-token logits bit-equal
+             (or within LOGIT_TOL, named), launches per decode step (168
+             W4A16, 24 paged attention) and over the run equal, the graphs
+             captured, their pool's bytes and the capture's seconds, and
+             each run's decode ms a step on the host clock (10 untraced
+             steps to a sync) and on the device (4 under
+             ``torch.profiler``, which records each kernel a graph replays)
+             with the idle share; (b) compiled against eager on tokens,
+             first-token logits and launches, 8 requests of 64 + 16 tokens:
+             danube's ngram verify step (12 layers, prompts repeating a
+             16-token segment), rwkv6-7b (8 layers, carries, a chunk graph
+             per slot), whisper-small (full depth, the encoder compiled)
+             and olmoe-1b-7b (8 layers).
+
+Every serving phase runs the engine's steps compiled (the engine's
+default on one card), except where it says otherwise: phase 9's routed
+pairs step eagerly (their expert choices are recorded and replayed in
+Python between the ops), phase 8's verify-against-decode timing and phase
+10's replayed decode steps call the eager steps, and the mesh's ranks are
+eager (``steps.MESH_DEPARTURE``).
+
 Work that needs no card, or only ranks of its own, runs beside the
 card's phases: phase 15's production grid traces in a process of its own
 (``chip_smoke.py --dryrun-grid``) from the build on, and its lines print in
@@ -1799,6 +1826,7 @@ def trace(torch, card):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve as launcher
+    table = kernel_table()
     log_built("serve", SERVE_ARGV, " with phase 6's trace windows")
     torch.cuda.reset_peak_memory_stats()
     DECODE_PEAK.update(base=torch.cuda.memory_allocated(), run=0, step=0)
@@ -1811,24 +1839,27 @@ def trace(torch, card):
 
     def run(n, traced=False):
         """Up to ``n`` engine steps, timed to a sync: (steps, ms/step,
-        profiler or None)."""
+        profiler or None, the counters before and after)."""
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) if traced \
             else None
         torch.cuda.synchronize()
         done = 0
+        n0 = read_counts(table)
         t0 = time.perf_counter()
         with prof or contextlib.nullcontext():
             while done < n and engine.has_work():
                 engine.step()
                 done += 1
             torch.cuda.synchronize()
-        return done, (time.perf_counter() - t0) * 1e3 / max(done, 1), prof
+        return done, (time.perf_counter() - t0) * 1e3 / max(done, 1), prof, \
+            (n0, read_counts(table))
 
-    def report(name, steps, traced_ms, untraced_ms, prof):
+    def report(name, steps, traced_ms, untraced_ms, prof, counts):
         events = prof.key_averages()
         dev = sorted((e for e in events if e.device_type != DeviceType.CPU),
                      key=lambda e: e.self_device_time_total, reverse=True)
+        recorded_launches(dev, *counts, name, "trace")
         host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                       key=lambda e: e.self_cpu_time_total, reverse=True)
         busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
@@ -1841,7 +1872,8 @@ def trace(torch, card):
             f"traced steps ({launches:.0f} device ops/step); wall "
             f"{untraced_ms:.3f} ms/step untraced ({traced_ms:.3f} traced) "
             f"-> device idle {1 - busy / untraced_ms:.1%}; the fused W4A16 "
-            f"kernel {w4_ms:.3f} ms/step ({w4_ms / busy:.1%} of device "
+            f"kernel {w4_ms:.3f} ms/step ({w4_ms / max(busy, 1e-9):.1%} "
+            f"of device "
             f"time, {w4_n:.0f} of the device ops) [{card}]")
         for e in dev[:6]:
             log("trace", f"  {name} device "
@@ -1852,12 +1884,12 @@ def trace(torch, card):
                 f"{e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step  "
                 f"x{e.count / steps:<6.0f} {e.key[:80]}")
 
-    pf_steps, pf_traced, pf_prof = run(1, traced=True)
-    _, pf_ms, _ = run(8)
+    pf_steps, pf_traced, pf_prof, pf_counts = run(1, traced=True)
+    pf_ms = run(8)[1]
     while engine.report.decode_tokens == 0:
         engine.step()
-    _, dec_ms, _ = run(10)
-    dec_steps, dec_traced, dec_prof = run(4, traced=True)
+    dec_ms = run(10)[1]
+    dec_steps, dec_traced, dec_prof, dec_counts = run(4, traced=True)
     if dec_steps != 4:
         raise AssertionError(f"the traced decode window ran {dec_steps} "
                              f"steps, not 4")
@@ -1874,8 +1906,8 @@ def trace(torch, card):
         f"(5 of its steps traced) prefill {rep.prefill_s:.3f} s, decode "
         f"{rep.decode_s / steps * 1e3:.2f} ms/step; pages peak "
         f"{rep.peak_pages}; run with the build {wall:.1f} s [{card}]")
-    report("prefill", pf_steps, pf_traced, pf_ms, pf_prof)
-    report("decode", dec_steps, dec_traced, dec_ms, dec_prof)
+    report("prefill", pf_steps, pf_traced, pf_ms, pf_prof, pf_counts)
+    report("decode", dec_steps, dec_traced, dec_ms, dec_prof, dec_counts)
     return run
 
 
@@ -2166,9 +2198,11 @@ def capture_verify(engine, table, kernels=("w4a16_gemm", "paged_attention")):
                 quiet.append((len(records), idle))
             rids = [s.req.rid if s is not None and s.phase == "active"
                     else None for s in engine._slots]
+            # the compiled step's logits are a static buffer the next
+            # verify step overwrites
             records.append((rids, inputs["tokens"].cpu(),
                             inputs["positions"].cpu(), out["next"].cpu(),
-                            out["logits"]))
+                            out["logits"].clone()))
             return out
         return call
 
@@ -2191,7 +2225,7 @@ def check_verify_path(engine, records, quiet, what):
                              f"kernel of the path: {quiet[:8]}")
 
 
-def capture_draft(engine):
+def capture_draft(torch, engine):
     """Keep the draft proposer's logits by (rid, input position), the
     newest round's winning: the draft's token for position q + 1 is the
     argmax of its row at q."""
@@ -2203,7 +2237,8 @@ def capture_draft(engine):
         pos = inputs["pos"].cpu()
         for i, s in enumerate(engine._slots):
             if s is not None and s.phase == "active":
-                kept[(s.req.rid, int(pos[i]))] = res["logits"][i].float()
+                kept[(s.req.rid, int(pos[i]))] = res["logits"][i].to(
+                    torch.float32, copy=True)
         return res
 
     engine.proposer._step_fn = step
@@ -2299,7 +2334,8 @@ def force_streams(torch, engine, streams):
             pos = inputs["pos"].cpu()
             for i, s in enumerate(engine._slots):
                 if s is not None and s.phase == "active":
-                    kept[(s.req.rid, int(pos[i]))] = out["logits"][i]
+                    kept[(s.req.rid, int(pos[i]))] = \
+                        out["logits"][i].clone()
                     forced[i] = int(streams[s.req.rid][len(s.tokens)])
             out["next"] = forced.to(out["next"].device)
             return out
@@ -2669,7 +2705,7 @@ def serve_features(torch, dev, card, table):
                            speculate=spec.DraftModelProposer(cfg, params),
                            spec_k=SPEC_K, device=dev, **FEAT_KW)
     records, quiet = capture_verify(oracle, table)
-    draft_logits = capture_draft(oracle)
+    draft_logits = capture_draft(torch, oracle)
     a2 = run(oracle, "draft (the target's own weights) k=4")
     check_verify_path(oracle, records, quiet, "draft")
     check_acceptance(records, a2.results, P, "draft")
@@ -3003,6 +3039,31 @@ def device_rows(prof, n):
     return dev, busy, sum(e.count for e in dev) / n
 
 
+def recorded_launches(events, before, after, what, phase):
+    """Print the launches the card recorded in a profiler window
+    (``events``: its device rows) of each counted kernel's device function
+    (named by its ``device``) beside the counters' growth over the window
+    (``before``, ``after``: :func:`read_counts`). CUPTI's records of the
+    W4A16 kernel fall 1–3 short in some windows, eager and compiled
+    alike, so this is no check: a capture holds its counted launches
+    against its graph's kernel nodes exactly (``steps.CompiledStep``)."""
+    from repro_torch.kernels import build
+    got, short = {}, []
+    for name, (kernel, _, _) in kernel_table().items():
+        if not isinstance(kernel, build.CudaKernel):
+            continue            # a launch form counts on its kernel too
+        counted = after[name] - before[name]
+        ran = sum(e.count for e in events
+                  if all(part in e.key for part in kernel.device))
+        if counted or ran:
+            got[name] = ran
+            if counted != ran:
+                short.append(f"{name} {ran} of {counted}")
+    log(phase, f"{what}: launches the profiler recorded {got}; the "
+        f"counters' growth over the window "
+        + ("the same" if not short else "differs: " + ", ".join(short)))
+
+
 def decode_trace(torch, engine, reqs, card, what, *, phase="moe",
                  expect=None, trace_prefill=False):
     """Serve ``reqs`` on ``engine``; once every slot has prefilled, 8
@@ -3058,11 +3119,13 @@ def decode_trace(torch, engine, reqs, card, what, *, phase="moe",
         step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / 8
+    n0 = read_counts(table)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(4):
             step()
         torch.cuda.synchronize()
     dev, busy, ops = device_rows(prof, 4)
+    recorded_launches(dev, n0, read_counts(table), f"{what} decode", phase)
     gemm = [e for e in dev if "Int4Ring" in e.key]
     gemm_ms = sum(e.self_device_time_total for e in gemm) / 1e3 / 4
     log(phase, f"{what}: decode device busy {busy:.3f} ms/step "
@@ -3112,8 +3175,11 @@ def moe_serve(torch, dev, card, table):
         f"{cfg.experts_per_token} of d_ff {cfg.d_ff}, "
         f"{cfg.param_count() / 1e9:.2f} B params "
         f"({cfg.active_param_count() / 1e9:.2f} B active)")
-    log_built("moe", MOE_ARGV)
-    engine, reqs = launcher.build(launcher.build_args(MOE_ARGV))
+    # the expert choices are recorded and replayed in Python, between the
+    # ops: these two runs step eagerly (phase 17 holds olmoe compiled)
+    argv = MOE_ARGV + ["--eager"]
+    log_built("moe", argv)
+    engine, reqs = launcher.build(launcher.build_args(argv))
     cfg = dataclasses.replace(engine.cfg, w4a16_plan=None)
     layer_launches = cfg.num_layers * (4 + 3)
     route = Routing()
@@ -3137,7 +3203,7 @@ def moe_serve(torch, dev, card, table):
     # the plain paths are compared on prefill logits: 2 tokens suffice
     with route.replaying():
         plain = moe_engine(torch, plain_cfg, params, dev,
-                           attn_path="gather") \
+                           attn_path="gather", compiled=False) \
             .run(launcher.make_requests(cfg, 8, 256, 2, 0))
     torch.cuda.synchronize()
     log("moe", f"plain paths (--strategy reference --attn-path gather) "
@@ -3280,20 +3346,51 @@ def mixtral_main(torch, card, table):
     torch.cuda.empty_cache()
 
 
+def mixtral_compiled(torch, dev, card, table, cfg, params, shape, reqs,
+                     eager, eager_launches):
+    """mixtral-8x7b's default compiled steps at full depth: an engine of
+    the same shape (``shape``) on the same weights and plans (``cfg``, the
+    eager engine's) serves the same requests, counters set to 0 just
+    before and read just after, held against the eager routed run
+    (``eager``, its launches) on tokens, first-token logits and launches
+    (``hold_compiled``)."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.runtime.engine import ServingEngine
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, params, device=dev, **shape)
+    reset_counts(table)
+    rep = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts(table).items() if v}
+    steps = max(len(rep.step_records), 1)
+    log("compiled", f"{cfg.name} {cfg.num_layers}L: "
+        f"{launcher.steps_line(engine)}; decode "
+        f"{rep.decode_s / steps * 1e3:.2f} ms/step compiled (host clock); "
+        f"run {time.perf_counter() - t0:.1f} s [{card}]")
+    hold_compiled(rep, eager, f"{cfg.name} ({cfg.num_layers} layers)",
+                  (launches, eager_launches))
+    del engine, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def mixtral_serve(torch, dev, card, table):
     """Phase 9(b): mixtral-8x7b at full width and depth (32 layers):
     first the launcher's own command at its defaults
     (:func:`mixtral_main`); then the launcher's engine (``MIXTRAL_ARGV``:
     W4A16, built streamed since the whole build's reckoning passes the
-    card; 8 requests of 64 + 16 tokens), counters set to 0 just before and read just after, every
-    decode step launching the W4A16 kernel 7 a layer (3 of them the
-    expert-batched form) and paged attention once a layer; its routing
-    recorded and replayed by the plain paths on the same weights (2 tokens
-    a request), prefill logits within LOGIT_TOL."""
+    card; 8 requests of 64 + 16 tokens) run eagerly, counters set to 0
+    just before and read just after, every decode step launching the
+    W4A16 kernel 7 a layer (3 of them the expert-batched form) and paged
+    attention once a layer; the same weights and requests through the
+    default compiled steps, held against it (:func:`mixtral_compiled`);
+    its routing recorded and replayed by the plain paths on the same
+    weights (2 tokens a request), prefill logits within LOGIT_TOL."""
     from repro_torch.launch import serve as launcher
     mixtral_main(torch, card, table)
-    engine, reqs, cfg = full_depth_engine(torch, MIXTRAL_ARGV, "moe", card,
-                                          "streamed")
+    # eager, as phase 9(a)'s routed pair
+    engine, reqs, cfg = full_depth_engine(torch, MIXTRAL_ARGV + ["--eager"],
+                                          "moe", card, "streamed")
     L = cfg.num_layers
     want = {"w4a16_gemm": 7 * L, "w4a16_gemm_experts": 3 * L,
             "paged_attention": L}
@@ -3308,14 +3405,22 @@ def mixtral_serve(torch, dev, card, table):
     if quiet or not all(launches[k] for k in want):
         raise AssertionError(f"{cfg.name}: launched {launches}, the path's "
                              f"kernels are {sorted(want)}")
-    params = engine.params
+    params, planned = engine.params, engine.cfg
+    shape = dict(max_batch=engine.max_batch,
+                 max_prompt_len=engine.max_prompt_len,
+                 max_new_tokens=engine.max_new_tokens,
+                 page_size=engine.page_size,
+                 prefill_chunk=engine.prefill_chunk,
+                 kv_format=engine.kv_format)
     del engine
+    mixtral_compiled(torch, dev, card, table, planned, params, shape, reqs,
+                     got, {k: v for k, v in launches.items() if v})
     t1 = time.perf_counter()
     with route.replaying():
         plain = moe_engine(
             torch, dataclasses.replace(cfg, w4a16_strategy="reference"),
             params, dev, attn_path="gather", max_prompt_len=MIXTRAL_PROMPT,
-            max_new_tokens=MIXTRAL_GEN).run(
+            max_new_tokens=MIXTRAL_GEN, compiled=False).run(
                 launcher.make_requests(cfg, 8, MIXTRAL_PROMPT, 2, 0))
     torch.cuda.synchronize()
     log("moe", f"{cfg.name}: plain paths (--strategy reference --attn-path "
@@ -3517,6 +3622,11 @@ def clone_state(tree):
     return None if tree is None else tree.clone()
 
 
+def eager(step):
+    """The eager step behind a compiled one (``steps.CompiledStep.fn``)."""
+    return getattr(step, "fn", step)
+
+
 def accepted_drafts(tok, pos, nxt, i):
     n = int((pos[i] >= 0).sum()) - 1
     a = 0
@@ -3550,7 +3660,9 @@ def capture_carry_verify(torch, engine, table, kernels):
                    "active": live}
             if "tables" in inputs:
                 dec["tables"] = inputs["tables"]
-            want = engine._serve_step(None)(params, dec)["logits"]
+            # the eager step: a compiled one would take the copy for the
+            # engine's own (donated) state
+            want = eager(engine._serve_step(None))(params, dec)["logits"]
             del dec
             out = fn(params, state, inputs)
             d = (out["logits"][:, 0] - want).abs().amax(-1)[live]
@@ -7117,6 +7229,209 @@ def ring_phase(torch, dev, card, table, paged):
     refine_check(torch, dev, card)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the compiled serving steps (CUDA graphs) against eager
+# ---------------------------------------------------------------------------
+
+# (b): the families held compiled against eager on tokens, at the depths
+# their phases use (``None``: full depth), 8 requests of 64 + 16 tokens
+# (danube's prompts repeat a 16-token segment, so ngram proposes)
+HOLD_PROMPT, HOLD_GEN = 64, 16
+COMPILED_HOLDS = [
+    ("h2o-danube-1.8b ngram verify", ARCH, FEATURE_LAYERS,
+     ["--page-size", "8", "--speculate", "ngram", "--spec-k", str(SPEC_K)]),
+    ("rwkv6-7b", "rwkv6-7b", CARRY_LAYERS["rwkv6-7b"], ["--page-size", "16"]),
+    ("whisper-small", "whisper-small", None, ["--page-size", "16"]),
+    ("olmoe-1b-7b", MOE_ARCH, MOE_LAYERS, ["--page-size", "16"]),
+]
+
+
+def step_run(torch, engine, reqs, table, kernels, what):
+    """Serve ``reqs`` through the stepper: every prefill step, then 10
+    decode steps untraced, timed to a sync, then 4 under
+    ``torch.profiler`` (device busy ms and ops a step; the launches the
+    card recorded beside the counters), then the rest; each of those 24
+    steps' launches of ``kernels``. Returns a dict."""
+    from torch.profiler import ProfilerActivity, profile
+    engine.start()
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while engine.report.decode_tokens == 0:
+        engine.step()
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = []
+
+    def step():
+        n0 = [table[k][0].launches for k in kernels]
+        engine.step()
+        counts.append(tuple(table[k][0].launches - n
+                            for k, n in zip(kernels, n0)))
+
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 10
+    n0 = read_counts(table)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            step()
+        torch.cuda.synchronize()
+    rows, busy, ops = device_rows(prof, 4)
+    recorded_launches(rows, n0, read_counts(table), what, "compiled")
+    rep = engine.drain()
+    torch.cuda.synchronize()
+    return dict(rep=rep, prefill_s=prefill_s, wall=wall, busy=busy, ops=ops,
+                rows=rows, counts=sorted(set(counts)),
+                pool=engine.graph_pool)
+
+
+def logit_hold(a, b):
+    """(max|d| over every request's first-token logits, bit-equal)."""
+    d = max(float((a.prefill_logits[r].float()
+                   - b.prefill_logits[r].float()).abs().max())
+            for r in a.results)
+    same = all(torch_equal(a.prefill_logits[r], b.prefill_logits[r])
+               for r in a.results)
+    return d, same
+
+
+def torch_equal(a, b):
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def hold_compiled(compiled, eager, what, launches):
+    """Compiled against eager: the same greedy tokens, first-token logits
+    bit-equal or within LOGIT_TOL (then named), the same launches."""
+    d, same = logit_hold(compiled, eager)
+    div = first_divergence(compiled.results, eager.results)
+    ok = div is None and d <= LOGIT_TOL and launches[0] == launches[1]
+    log("compiled", f"{what}: greedy tokens compiled vs eager "
+        f"{'equal' if div is None else f'DIFFER at {div}'} "
+        f"({sum(len(v) for v in compiled.results.values())} tokens); "
+        f"first-token logits "
+        + ("bit-equal" if same else f"max|d|={d:.3e}, not bit-equal "
+           f"(within LOGIT_TOL {LOGIT_TOL}: the same kernels on the same "
+           f"inputs, whose sums are not run-to-run deterministic)")
+        + f"; launches compiled {launches[0]} / eager {launches[1]} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the compiled steps disagree with "
+                             f"the eager ones")
+
+
+def compiled_cell(torch, card, table):
+    """17(a): phase 4's cell (danube at full width and depth, 8 x (512 +
+    32), W4A16) through the serve launcher's engine compiled (the
+    default) and ``--eager``, on the same weights (seed 0) and requests;
+    counters set to 0 just before each run and read just after."""
+    from repro_torch.launch import serve as launcher
+    kernels = ("w4a16_gemm", "paged_attention")
+    runs = {}
+    for name, extra in (("compiled", []), ("eager", ["--eager"])):
+        argv = SERVE_ARGV + extra
+        log_built("compiled", argv)
+        engine, reqs = launcher.build(launcher.build_args(argv))
+        reset_counts(table)
+        r = step_run(torch, engine, reqs, table, kernels,
+                     f"danube 8 x (512 + 32) {name}")
+        r["launches"] = {k: v for k, v in read_counts(table).items() if v}
+        r["steps"] = launcher.steps_line(engine)
+        runs[name] = r
+        del engine
+        torch.cuda.empty_cache()
+    c, e = runs["compiled"], runs["eager"]
+    for name, r in runs.items():
+        log("compiled", f"danube 8 x (512 + 32) {name}: {r['steps']}; "
+            f"prefill {r['prefill_s']:.2f} s wall; decode "
+            f"{r['wall']:.3f} ms/step wall untraced, device busy "
+            f"{r['busy']:.3f} ms/step in {r['ops']:.0f} device ops -> "
+            f"device idle {1 - r['busy'] / r['wall']:.1%}; launches per "
+            f"decode step of {list(kernels)} {r['counts']} [{card}]")
+        for ev in r["rows"][:4]:
+            log("compiled", f"  {name} device "
+                f"{ev.self_device_time_total / 1e3 / 4:8.3f} ms/step  "
+                f"x{ev.count / 4:<6.0f} {ev.key[:80]}")
+    log("compiled", f"danube decode step compiled / eager: wall "
+        f"{c['wall'] / e['wall']:.3f}x, device busy "
+        f"{c['busy'] / max(e['busy'], 1e-9):.3f}x; prefill "
+        f"{c['prefill_s'] / e['prefill_s']:.3f}x [{card}]")
+    if not c["pool"].nodes:
+        raise AssertionError("the compiled run's captures held no kernel "
+                             "node against the launch counters")
+    if c["counts"] != e["counts"] or c["counts"] != [(168, 24)]:
+        raise AssertionError(f"launches per decode step compiled "
+                             f"{c['counts']}, eager {e['counts']}, not "
+                             f"[(168, 24)]")
+    hold_compiled(c["rep"], e["rep"], "danube 8 x (512 + 32)",
+                  (c["launches"], e["launches"]))
+
+
+def compiled_holds(torch, dev, card, table):
+    """17(b): each of ``COMPILED_HOLDS`` through the serve launcher's
+    engine compiled, and an eager engine on the same weights and
+    requests, held on tokens."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.runtime.engine import ServingEngine
+    for what, arch, layers, extra in COMPILED_HOLDS:
+        t0 = time.perf_counter()
+        with depth_cut(arch, layers, "compiled"):
+            argv = ["--arch", arch, "--batch", "8", "--requests", "8",
+                    "--prompt-len", str(HOLD_PROMPT), "--gen",
+                    str(HOLD_GEN), "--prefill-chunk", "32", "--kv-format",
+                    "kv_fp16", "--seed", "0"] + extra
+            log_built("compiled", argv)
+            engine, reqs = launcher.build(launcher.build_args(argv))
+        if engine.proposer is not None:
+            reqs = repeat_prompts(engine.cfg.vocab_size, gen=HOLD_GEN)
+        eager = ServingEngine(
+            dataclasses.replace(engine.cfg, w4a16_plan=None), engine.params,
+            max_batch=engine.max_batch, max_prompt_len=engine.max_prompt_len,
+            max_new_tokens=engine.max_new_tokens, page_size=engine.page_size,
+            prefill_chunk=engine.prefill_chunk, kv_format=engine.kv_format,
+            speculate="ngram" if engine.proposer is not None else None,
+            spec_k=engine.spec_k, device=dev, compiled=False)
+        got = []
+        for eng in (engine, eager):
+            reset_counts(table)
+            rep = eng.run(reqs)
+            torch.cuda.synchronize()
+            got.append((rep, {k: v for k, v in read_counts(table).items()
+                              if v}))
+        (c, cl), (e, el) = got
+        spec = f"; accepted {c.accepted_tokens}/{c.proposed_tokens} " \
+            f"(eager {e.accepted_tokens}/{e.proposed_tokens})" \
+            if engine.proposer is not None else ""
+        log("compiled", f"{what}: {launcher.steps_line(engine)}; decode "
+            f"{c.decode_s / max(len(c.step_records), 1) * 1e3:.2f} ms/step "
+            f"compiled, {e.decode_s / max(len(e.step_records), 1) * 1e3:.2f}"
+            f" eager (host clock){spec}; run {time.perf_counter() - t0:.1f} "
+            f"s [{card}]")
+        hold_compiled(c, e, what, (cl, el))
+        if engine.proposer is not None and (
+                c.proposed_tokens, c.accepted_tokens) != (
+                e.proposed_tokens, e.accepted_tokens):
+            raise AssertionError(f"{what}: drafts proposed or accepted "
+                                 f"differ")
+        del engine, eager, got
+        torch.cuda.empty_cache()
+
+
+def compiled_phase(torch, dev, card, table):
+    """Phase 17: the compiled serving steps against eager."""
+    t0 = time.perf_counter()
+    compiled_cell(torch, card, table)
+    compiled_holds(torch, dev, card, table)
+    log("compiled", f"phase 17 took {time.perf_counter() - t0:.1f} s")
+
+
 def time_mesh_flash(torch, dev, gen, timer, card):
     """Phase 5's row 7d: the flash forward at phase 14's shard-local
     shapes (``MESH_TRAIN_FLASH``; ``time_flash_shape``)."""
@@ -7377,6 +7692,8 @@ def main() -> int:
     ring_phase(torch, dev, card, table, paged_run)
     del paged_run
     log("ring", f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    compiled_phase(torch, dev, card, table)
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),

@@ -10,10 +10,20 @@ limit (see the ``hopper-kernels`` guide): 989 TFLOP/s dense bf16/fp16 and
 Modelled: the GEMM family (fused W4A16, the decoupled three-phase W4A16
 pipeline, dense, W8A16, W4A8 — the terms of the JAX package's TPU models
 with the H100's rates), paged attention and flash attention.
+
+Beside the card's roofline, the JAX package's models of two other chips,
+copied term for term under its names (plain arithmetic; the port's
+planner and bounds never read them): the paper's Ascend 910 model of its
+Alg. 1 (``AscendSpec``: calibrated, not measured — its Split-K speedups
+of 1.00–1.78 against the paper's 1.01–1.74 and its W4A16 cap of 1.47×
+against the paper's 1.48×), and the TPU v5e rooflines of the JAX
+package's kernels. A later benchmark can set them beside the card's
+figures; no number of either is the card's.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -268,3 +278,203 @@ def flash_attn_bytes(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, D: int,
     """q, k and v read once, o written once, plus the fp32 log-sum-exp."""
     return act_bytes * D * (2 * B * Sq * Hq + 2 * B * Skv * Hkv) \
         + 4 * B * Hq * Sq
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's models of other chips: the paper's Ascend 910 (Alg. 1)
+# and the TPU v5e (its kernels' rooflines)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AscendSpec:
+    cube_flops: float = 256e12        # FP16 MACs/s aggregate (910)
+    bw_gm: float = 1.1e12             # HBM bytes/s
+    bw_l2: float = 2.2e12             # on-chip L2 path (vector↔cube)
+    num_cores: int = 32               # AI cores (1 cube + 2 vector each)
+    bw_sat_cores: int = 10            # cores that saturate GM bandwidth:
+                                      # why Split-K wins at K ≫ N, small M
+    launch_s: float = 3e-6            # kernel launch + sync
+    block_m: int = 128
+    block_n: int = 256
+    block_k: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class TPUv5eSpec:
+    flops: float = 197e12             # bf16 FLOP/s per chip
+    hbm_bw: float = 819e9             # bytes/s per chip
+    ici_bw: float = 50e9              # bytes/s per link
+    vmem_bytes: int = 128 * 2 ** 20
+
+
+ASCEND = AscendSpec()
+TPU_V5E = TPUv5eSpec()
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _wave_efficiency(tiles: int, cores: int) -> float:
+    """Cube-core use under wave quantization: the last wave may be part
+    full (the effect behind the paper's Fig. 2)."""
+    if tiles >= cores:
+        waves = _ceil_div(tiles, cores)
+        return tiles / (waves * cores)
+    return tiles / cores
+
+
+def gemm_time_ascend(M: int, N: int, K: int, *, split_k: int = 1,
+                     weight_bytes_per_elt: float = 2.0,
+                     weight_bw: Optional[float] = None,
+                     spec: AscendSpec = ASCEND) -> float:
+    """One tiled GEMM phase on the Ascend 910 (data-parallel at split_k
+    1). ``weight_bytes_per_elt`` / ``weight_bw``: where B comes from (GM
+    fp16: 2.0 at bw_gm; GM int4: 0.5 at bw_gm; the L2-resident dequant
+    workspace: 2.0 at bw_l2)."""
+    weight_bw = weight_bw or spec.bw_gm
+    m, n = spec.block_m, spec.block_n
+    tiles = _ceil_div(M, m) * _ceil_div(N, n) * split_k
+    eff = _wave_efficiency(tiles, spec.num_cores)
+    t_compute = (2 * M * N * K) / (spec.cube_flops * eff)
+    # bandwidth grows with the active cores until saturation
+    bw_frac = min(1.0, min(tiles, spec.num_cores) / spec.bw_sat_cores)
+    # A re-read per N-tile wave; B re-read per M-tile (M small: once)
+    a_traffic = 2 * M * K * max(1, _ceil_div(N, n * spec.num_cores))
+    b_traffic = weight_bytes_per_elt * K * N * _ceil_div(M, m)
+    c_traffic = (4 if split_k > 1 else 2) * M * N * split_k
+    t_mem = (a_traffic / spec.bw_gm + b_traffic / weight_bw
+             + c_traffic / spec.bw_gm) / bw_frac
+    return max(t_compute, t_mem) + spec.launch_s
+
+
+def w4a16_time_ascend(M: int, N: int, K: int, *, split_k: int = 1,
+                      spec: AscendSpec = ASCEND) -> float:
+    """The paper's three-phase W4A16 pipeline (Alg. 1): INT4 from GM to
+    an FP16 workspace over the L2 path (the round trip the decoupled
+    architecture pays), the Split-K GEMM from that workspace, the
+    reduction of the S partials."""
+    t1 = (0.5 * K * N) / spec.bw_gm + (2 * K * N) / spec.bw_l2 \
+        + spec.launch_s
+    t2 = gemm_time_ascend(M, N, K, split_k=split_k,
+                          weight_bytes_per_elt=2.0, weight_bw=spec.bw_l2,
+                          spec=spec)
+    t3 = 0.0
+    if split_k > 1:
+        t3 = (4 * M * N * split_k + 2 * M * N) / spec.bw_gm + spec.launch_s
+    return t1 + t2 + t3
+
+
+def fp16_time_ascend(M: int, N: int, K: int,
+                     spec: AscendSpec = ASCEND) -> float:
+    """Native FP16×FP16 (the paper's PyTorch baseline): data-parallel,
+    FP16 weights from GM."""
+    return gemm_time_ascend(M, N, K, split_k=1,
+                            weight_bytes_per_elt=2.0, weight_bw=spec.bw_gm,
+                            spec=spec)
+
+
+def best_split_k_ascend(M: int, N: int, K: int,
+                        spec: AscendSpec = ASCEND) -> int:
+    best, best_t = 1, float("inf")
+    for s in (1, 2, 4, 8, 16):
+        if K % s:
+            continue
+        t = w4a16_time_ascend(M, N, K, split_k=s, spec=spec)
+        if t < best_t:
+            best, best_t = s, t
+    return best
+
+
+def splitk_speedup_ascend(M: int, N: int, K: int,
+                          spec: AscendSpec = ASCEND) -> float:
+    """The paper's Fig. 2: best Split-K W4A16 against data-parallel."""
+    t_dp = w4a16_time_ascend(M, N, K, split_k=1, spec=spec)
+    t_sk = w4a16_time_ascend(
+        M, N, K, split_k=best_split_k_ascend(M, N, K, spec), spec=spec)
+    return t_dp / t_sk
+
+
+def w4a16_speedup_ascend(M: int, N: int, K: int,
+                         spec: AscendSpec = ASCEND) -> float:
+    """The paper's Fig. 3: best-split W4A16 against native FP16."""
+    s = best_split_k_ascend(M, N, K, spec)
+    return fp16_time_ascend(M, N, K, spec) / \
+        w4a16_time_ascend(M, N, K, split_k=s, spec=spec)
+
+
+def w4a16_time_tpu_fused(M: int, N: int, K: int,
+                         spec: TPUv5eSpec = TPU_V5E) -> float:
+    """The fused kernel on the TPU: INT4 weights cross HBM once, the
+    dequant stays in VMEM."""
+    traffic = 2 * M * K + 0.5 * K * N + 2 * M * N
+    return max((2 * M * N * K) / spec.flops, traffic / spec.hbm_bw)
+
+
+def w4a16_time_tpu_decoupled(M: int, N: int, K: int, *, split_k: int = 1,
+                             spec: TPUv5eSpec = TPU_V5E) -> float:
+    """The paper's pipeline on the TPU: the workspace round-trips through
+    HBM (no L2 shared between kernels)."""
+    t1 = (0.5 * K * N + 2 * K * N) / spec.hbm_bw
+    t2 = max((2 * M * N * K) / spec.flops,
+             (2 * M * K + 2 * K * N + 4 * M * N * split_k) / spec.hbm_bw)
+    t3 = (4 * M * N * split_k + 2 * M * N) / spec.hbm_bw if split_k > 1 \
+        else 0
+    return t1 + t2 + t3
+
+
+def fp16_time_tpu(M: int, N: int, K: int,
+                  spec: TPUv5eSpec = TPU_V5E) -> float:
+    traffic = 2 * M * K + 2 * K * N + 2 * M * N
+    return max((2 * M * N * K) / spec.flops, traffic / spec.hbm_bw)
+
+
+def w8a16_time_tpu_fused(M: int, N: int, K: int,
+                         spec: TPUv5eSpec = TPU_V5E) -> float:
+    """Fused per-channel INT8 on the TPU: int8 weights (K·N bytes) and
+    one fp32 scale row cross HBM once."""
+    traffic = 2 * M * K + 1.0 * K * N + 4 * N + 2 * M * N
+    return max((2 * M * N * K) / spec.flops, traffic / spec.hbm_bw)
+
+
+def w4a8_time_tpu_fused(M: int, N: int, K: int, *, group: int = 128,
+                        spec: TPUv5eSpec = TPU_V5E) -> float:
+    """Fused W4A8 on the TPU: int8 activations, packed int4 weights and
+    fp32 group scales; int8 dots at twice the bf16 rate."""
+    traffic = M * K + 0.5 * K * N + 4.0 * K * N / max(group, 1) + 2 * M * N
+    return max((2 * M * N * K) / (2 * spec.flops), traffic / spec.hbm_bw)
+
+
+def _tpu_attn_bytes(path: str, B: int, Hq: int, Hkv: int, D: int,
+                    ctx: int, *, quantized: bool, act_bytes: int,
+                    kv_partitions: int, q_len: int) -> float:
+    """The JAX package's bytes of one attention step (its
+    ``paged_attn_bytes``: no position tags, partials written and read)."""
+    q_out = 2 * B * q_len * Hq * D * act_bytes
+    window = B * ctx
+    dense_tok = 2 * act_bytes * Hkv * D
+    seg = 2 * B * q_len * dense_tok if q_len > 1 else 0
+    if path == "ring":
+        return window * dense_tok + q_out
+    payload = 1 if quantized else act_bytes
+    per_tok = 2 * payload * Hkv * D + (2 * 4 * Hkv if quantized else 0)
+    pool = window * per_tok
+    if path == "gather":
+        return pool + 2 * window * dense_tok + seg + q_out
+    if path == "fused":
+        partials = kv_partitions * B * q_len * Hq * (D + 2) * 4 * 2
+        return pool + seg + q_out + partials
+    raise ValueError(f"unknown attention path {path!r} "
+                     "(expected ring | gather | fused)")
+
+
+def attn_decode_time_tpu(path: str, B: int, Hq: int, Hkv: int, D: int,
+                         ctx: int, *, quantized: bool, act_bytes: int = 2,
+                         kv_partitions: int = 1, q_len: int = 1,
+                         spec: TPUv5eSpec = TPU_V5E) -> float:
+    """The TPU's roofline time of one attention step of ``q_len``
+    queries a row on ``path``."""
+    flops = 4 * B * q_len * Hq * D * ctx
+    return max(flops / spec.flops, _tpu_attn_bytes(
+        path, B, Hq, Hkv, D, ctx, quantized=quantized, act_bytes=act_bytes,
+        kv_partitions=kv_partitions, q_len=q_len) / spec.hbm_bw)

@@ -14,7 +14,15 @@ A :class:`CudaKernel` counts its successful launches in ``launches`` (a
 plain integer), so a run can show which kernels its main path went
 through; a :class:`KernelForm` counts one form of them apart. A launch
 whose C function returns a non-zero ``cudaError_t`` (the
-``cudaGetLastError()`` right after the launch) raises.
+``cudaGetLastError()`` right after the launch) raises. A CUDA graph's
+replay enters no wrapper: a compiled step (``runtime/steps.py``) reads
+every counter around its capture (:func:`launch_counts`), takes the
+capture's launches back out and adds them again at each replay
+(:func:`add_launches`). A kernel's ``device`` names its device function
+(substrings of its name in ``libcuda``): a capture holds its counted
+launches against the kernel nodes of the graph it made
+(:func:`graph_kernel_names`, :func:`node_mismatch`), so a launch that
+never entered the graph cannot count at its replays.
 
 On the ``meta`` device (the dry run, ``launch/dryrun.py``) a wrapper runs
 its CUDA path up to the launch, allocating what that path allocates (the
@@ -32,7 +40,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -55,28 +63,38 @@ def nvcc_path() -> str:
         "with the card")
 
 
+# every kernel and launch form made, in order (the counters a compiled
+# step reads around its capture)
+COUNTED: List = []
+
+
 class CudaKernel:
     """One ``.cu`` source → one shared library → one exported C function.
 
     ``argtypes`` lists the C function's parameters (``c_void_p`` for
     pointers and the stream, ``c_int`` for ints); it returns ``int``.
     ``flops(args)`` gives a launch's operations from its arguments (the
-    dry run's count of a traced launch; 0 when not given).
+    dry run's count of a traced launch; 0 when not given). ``device``: the
+    substrings that all stand in the name of the device function one
+    launch runs (and in no other kernel's).
     """
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence, flops: Optional[Callable] = None):
+                 argtypes: Sequence, flops: Optional[Callable] = None,
+                 device: Sequence[str] = ()):
         self.name = name
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.flops = flops
+        self.device = tuple(device)
         self.launches = 0
         self.traced = 0
         self.traced_flops = 0.0
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
+        COUNTED.append(self)
 
     # -- build --------------------------------------------------------------
     def library_path(self) -> Path:
@@ -153,6 +171,7 @@ class KernelForm:
     def __init__(self, kernel: CudaKernel, name: str):
         self.kernel, self.name = kernel, name
         self.launches = 0
+        COUNTED.append(self)
 
     def launch(self, *args) -> None:
         self.kernel.launch(*args)
@@ -161,6 +180,74 @@ class KernelForm:
 
     def __getattr__(self, attr):
         return getattr(self.kernel, attr)
+
+
+def launch_counts() -> Dict[object, int]:
+    """Every kernel's and launch form's ``launches`` now."""
+    return {k: k.launches for k in COUNTED}
+
+
+def add_launches(delta: Dict[object, int], times: int = 1) -> None:
+    """Add ``times`` × ``delta`` (kernel or form → launches) to the
+    counters: a captured graph's launches at each replay, or taken back
+    (``times=-1``) after a capture, which launches nothing."""
+    for k, n in delta.items():
+        k.launches += times * n
+
+
+def node_mismatch(delta: Dict[object, int],
+                  names: Sequence[str]) -> List[str]:
+    """Where a captured graph's kernel nodes (``names``: their functions'
+    names in ``libcuda``) disagree with the launches counted during its
+    capture (``delta``: kernel → launches): one line a kernel."""
+    bad = []
+    for k in COUNTED:
+        if not isinstance(k, CudaKernel) or not k.device:
+            continue
+        nodes = sum(all(part in n for part in k.device) for n in names)
+        if nodes != delta.get(k, 0):
+            bad.append(f"{k.name}: {delta.get(k, 0)} launches counted, "
+                       f"{nodes} kernel nodes in the graph")
+    return bad
+
+
+def _cu(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUresult {rc}")
+
+
+def graph_kernel_names(graph: int) -> List[str]:
+    """The function name of every kernel node of the ``cudaGraph_t``
+    ``graph`` (``libcuda`` through ``ctypes``: ``cuGraphGetNodes``;
+    a node's ``CUDA_KERNEL_NODE_PARAMS_v2`` holds its ``CUfunction`` at
+    word 0 and its ``CUkernel``, which takes precedence, at word 7)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = ctypes.c_void_p(graph)
+    n = ctypes.c_size_t(0)
+    _cu(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        _cu(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+            "cuGraphNodeGetType")
+        if kind.value != 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_void_p * 9)()
+        _cu(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+            "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[7]:
+            _cu(cu.cuKernelGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params[7])),
+                "cuKernelGetName")
+        else:
+            _cu(cu.cuFuncGetName(ctypes.byref(name),
+                                 ctypes.c_void_p(params[0])),
+                "cuFuncGetName")
+        names.append(name.value.decode())
+    return names
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[str]:

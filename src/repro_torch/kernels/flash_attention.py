@@ -44,7 +44,8 @@ FLASH_ATTENTION = build.CudaKernel(
     + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     flops=lambda a: costmodel.flash_attn_flops(
         a[14], a[17], a[19], costmodel.attn_pairs(
-            a[15], a[16], causal=bool(a[20]), window=a[21])))
+            a[15], a[16], causal=bool(a[20]), window=a[21])),
+    device=("flash_fwd_kernel",))
 
 
 @dataclass(frozen=True)

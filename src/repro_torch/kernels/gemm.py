@@ -30,7 +30,8 @@ from repro_torch.kernels.common import (MAX_SMEM, align128, check_operands,
 DENSE_GEMM = build.CudaKernel(
     "dense_gemm", "dense_gemm.cu", "dense_gemm",
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-    flops=lambda a: 2.0 * a[3] * a[4] * a[5])
+    flops=lambda a: 2.0 * a[3] * a[4] * a[5],
+    device=("gemm_kernel", "Dense"))
 
 # the tile loop's constants (csrc/gemm_tile.cuh); "w4a8" is the integer
 # contraction of csrc/w4a8_gemm.cu

@@ -41,7 +41,8 @@ PAGED_ATTENTION = build.CudaKernel(
     "paged_attention", "paged_attention.cu", "paged_attention_partials",
     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p],
     flops=lambda a: costmodel.paged_attn_flops(
-        a[12], a[13] * a[16], a[17], a[19] * a[18], q_len=a[14]))
+        a[12], a[13] * a[16], a[17], a[19] * a[18], q_len=a[14]),
+    device=("paged_attn_kernel",))
 
 
 @dataclass(frozen=True)

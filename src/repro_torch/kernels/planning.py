@@ -8,9 +8,10 @@ the problem's quantization format.
 
 Matmul strategies, by format family:
   * W4A16 (``w4a16_*``): ``reference`` (dequantize + ``torch.matmul``, the
-    plain path, also for ``w8a16_*``), ``fused`` (``csrc/w4a16_gemm.cu``)
-    and ``decoupled`` (the paper's three-phase pipeline through device
-    memory);
+    plain path, also for ``w8a16_*``), ``xla`` (JAX's: dequantize, then one
+    ``torch.matmul`` accumulated in fp32; also for ``w8a16_*``), ``fused``
+    (``csrc/w4a16_gemm.cu``) and ``decoupled`` (the paper's three-phase
+    pipeline through device memory);
   * W8A16 (``w8a16_channel*``): ``w8a16_fused`` (``csrc/w8a16_gemm.cu``);
   * W4A8 (``w4a8_*``): ``w4a8_xla`` (the plain path; the JAX package's
     name is kept so ``--strategy`` takes the same words) and
@@ -22,8 +23,14 @@ shape and dtype; a CUDA problem a kernel cannot take raises when it runs
 (or, where no kernel supports the shape, when it is planned), never routes
 to a plain path. A forced strategy or path skips the ranking, so the plain
 paths still run on the card when asked for by name (the comparisons of
-``chip_smoke.py``). JAX's ``xla`` strategy is not ported: in eager PyTorch
-it is the same computation as ``reference``.
+``chip_smoke.py``). ``xla`` is a plain strategy like ``reference``: it
+costs the same, so the planner keeps ``reference`` on the CPU (registered
+first), and it runs on the card only when forced; JAX plan caches that
+name it load. JAX pins its dequantize inside the layer loop with an
+optimization barrier, lest XLA hoist every layer's dequantized weight out
+of the decode loop; nothing here has a counterpart or needs one: neither
+eager PyTorch nor a captured CUDA graph (``runtime/steps.py``) hoists
+anything, and a graph replays the dequantize on every call.
 
 Attention paths: ``ring`` (the per-slot ring caches of an engine without
 the paged pool: plain attention over the ring, as the JAX package leaves
@@ -56,7 +63,7 @@ from repro_torch.core import costmodel
 from repro_torch.core.device import dtype_name
 from repro_torch.core.quant import (
     DEFAULT_FORMAT, DEFAULT_KV_FORMAT, QuantizedTensor, get_format,
-    get_kv_format, w4a16_format_for, w4a8_matmul_ref,
+    get_kv_format, w4a16_format_for, w4a16_matmul_ref, w4a8_matmul_ref,
 )
 from repro_torch.kernels import ref
 from repro_torch.kernels.w4a8_fused import w4a8_fused
@@ -351,6 +358,13 @@ def _run_reference(x2, qt, plan):
     return ref.w4a16_ref(x2, qt, out_dtype=_exec_out_dtype(plan, x2))
 
 
+@register_strategy("xla", cost=_cost_reference, supports=_off_cuda,
+                   formats=_FLOAT_ACT_FORMATS, batched=True)
+def _run_xla(x2, qt, plan):
+    return w4a16_matmul_ref(x2, qt, out_dtype=_exec_out_dtype(plan, x2),
+                            acc_dtype=torch.float32)
+
+
 @register_strategy("w4a8_xla", cost=_cost_w4a8_plain,
                    supports=lambda problem: _off_cuda(problem)
                    and _packable(problem), formats=("w4a8_*",))
@@ -451,8 +465,8 @@ class PlanCache:
     def load(self, path: str) -> int:
         """Load persisted decisions, merged over the current contents;
         returns the number loaded. Malformed content raises
-        ValueError. Plans whose strategy this package cannot dispatch
-        (e.g. the JAX package's ``xla``) are dropped."""
+        ValueError. Plans whose strategy this package does not register
+        are dropped."""
         with open(path) as f:
             blob = json.load(f)      # JSONDecodeError is a ValueError
         try:

@@ -32,10 +32,12 @@ from repro_torch.kernels.gemm import launch_dense
 
 DEQUANT_W4 = build.CudaKernel(
     "dequant_w4", "w4a16_decoupled.cu", "dequant_w4",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    device=("dequant_w4_kernel",))
 REDUCE_PARTIALS = build.CudaKernel(
     "reduce_partials", "w4a16_decoupled.cu", "reduce_partials",
-    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    device=("reduce_partials_kernel",))
 
 
 # ---------------------------------------------------------------------------

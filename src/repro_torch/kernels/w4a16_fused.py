@@ -37,7 +37,8 @@ from repro_torch.kernels.gemm import gemm_geometry, sm_count, sums_in_kernel
 W4A16_GEMM = build.CudaKernel(
     "w4a16_gemm", "w4a16_gemm.cu", "w4a16_gemm",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_longlong] * 4
-    + [ctypes.c_void_p], flops=lambda a: 2.0 * a[5] * a[6] * a[7] * a[18])
+    + [ctypes.c_void_p], flops=lambda a: 2.0 * a[5] * a[6] * a[7] * a[18],
+    device=("gemm_kernel", "Int4"))
 # its expert-batched form: one launch for an MoE layer's expert stack
 W4A16_GEMM_EXPERTS = build.KernelForm(W4A16_GEMM, "w4a16_gemm_experts")
 

@@ -37,10 +37,12 @@ from repro_torch.kernels.gemm import MAX_CLUSTER, gemm_geometry, sm_count
 W4A8_GEMM = build.CudaKernel(
     "w4a8_gemm", "w4a8_gemm.cu", "w4a8_gemm",
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
-    flops=lambda a: 2.0 * a[7] * a[8] * a[9])
+    flops=lambda a: 2.0 * a[7] * a[8] * a[9],
+    device=("w4a8_gemm_kernel",))
 W4A8_QUANTIZE = build.CudaKernel(
     "w4a8_quantize", "w4a8_gemm.cu", "w4a8_quantize",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    device=("quantize_rows_kernel",))
 
 
 def _check(x: torch.Tensor, qt: QuantizedTensor, split_k: int) -> None:

@@ -26,7 +26,8 @@ from repro_torch.kernels.w4a16_fused import stack_size
 W8A16_GEMM = build.CudaKernel(
     "w8a16_gemm", "w8a16_gemm.cu", "w8a16_gemm",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_longlong] * 4
-    + [ctypes.c_void_p], flops=lambda a: 2.0 * a[5] * a[6] * a[7] * a[17])
+    + [ctypes.c_void_p], flops=lambda a: 2.0 * a[5] * a[6] * a[7] * a[17],
+    device=("gemm_kernel", "Int8"))
 
 
 def _channel_operands(x: torch.Tensor, qt: QuantizedTensor):

@@ -38,6 +38,12 @@ prefills whole at admit, on the card through the flash kernel; no sharing,
 no speculation, no quantized KV format). ``--refine-plans`` runs the W4A16
 plans through the planner's refine pass (``kernels/autotune.py``).
 
+On one card the engine's steps run under CUDA graphs (the counterparts of
+JAX's ``jax.jit`` steps, ``runtime/steps.py``); ``--eager`` runs them
+eagerly. The run ends with ``[serve] steps: compiled (CUDA graphs: <n>
+captured, <bytes> in their pools)`` or ``[serve] steps: eager (<why>)``:
+on the CPU and on a mesh they are eager.
+
 ``--speculate ngram|draft[:layers=N]`` with ``--spec-k`` turns on
 speculative decoding (a batched verify step of ``batch x (k+1)``
 positions), ``--warm-cache-mb`` keeps released prompt prefixes warm, and
@@ -243,6 +249,9 @@ def build_args(argv=None) -> argparse.Namespace:
                     help="serve on a (data, model) mesh of ranks, e.g. "
                          "2x4 (launch DATA*MODEL ranks with python -m "
                          "torch.distributed.run)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the serving steps eagerly on the card "
+                         "(default: compiled under CUDA graphs)")
     ap.add_argument("--verbose", action="store_true")
     return ap.parse_args(argv)
 
@@ -416,7 +425,7 @@ def build(args: argparse.Namespace):
         speculate=speculate, spec_k=args.spec_k,
         admission="priority" if args.http is not None else "fifo",
         attn_path=args.attn_path or sset.attn_path, device=device,
-        mesh=mesh)
+        mesh=mesh, compiled=False if args.eager else None)
     print(f"[serve] streams: prompt {pmax} + prefix {cfg.vision_prefix} + "
           f"gen {args.gen}"
           + (f"; {cfg.encoder_layers}-layer encoder over "
@@ -460,6 +469,18 @@ def build(args: argparse.Namespace):
         print(f"[serve] prompts: variable length {pmin}:{pmax} (mean "
               f"{sum(len(r.prompt) for r in reqs) / R:.1f})")
     return engine, reqs
+
+
+def steps_line(engine) -> str:
+    """How the engine ran its steps: compiled, with the graphs it captured
+    and the bytes their pool reserved, or eager and why."""
+    pool = engine.graph_pool
+    if pool is None:
+        return engine.steps_note
+    return (f"compiled (CUDA graphs: {pool.graphs} captured, "
+            f"{pool.bytes / 2**20:.1f} MiB in their pools; capture "
+            f"{pool.capture_s:.2f} s with the eager first calls; "
+            f"{pool.nodes} kernel nodes held to the launch counters)")
 
 
 def serve_http(engine, reqs, *, port: int, queue_depth: int,
@@ -573,6 +594,7 @@ def _main(args, save: bool = True):
               f"({report.acceptance_rate:.0%}); tok/s above counts "
               f"accepted tokens only")
     print(f"[serve] sample generation (request 0): {got[0]}")
+    print(f"[serve] steps: {steps_line(engine)}")
     if args.plan_cache and save:
         n = planning.save_plan_cache(args.plan_cache)
         c = planning.PLAN_CACHE

@@ -89,7 +89,10 @@ def cache_prefill(cache: KVCache, k_seq: torch.Tensor,
     W = cache.k.shape[1]
     full = ring_len or W
     T = min(S, full)
-    tail = torch.arange(S - T, S)
+    # made on the device where no host mask is needed: a captured prefill
+    # (runtime/steps.py) takes no host-to-device copy
+    tail = torch.arange(S - T, S,
+                        device=None if ring_len else k_seq.device)
     slot = tail % full - start
     if ring_len:
         mine = (slot >= 0) & (slot < W)

@@ -811,9 +811,26 @@ def _commit(dst: torch.Tensor, new: torch.Tensor, active) -> None:
 
 
 def _carry_rows(cache, i: int, rows=slice(None)):
-    """Layer ``i``'s recurrent carry leaves (views), the batch rows
-    ``rows`` of each."""
-    return {k: cache[k][i, rows] for k in CARRY_LEAVES if k in cache}
+    """Layer ``i``'s recurrent carry leaves, the batch rows ``rows`` of
+    each (:func:`_rows_of`)."""
+    return {k: _rows_of(cache[k][i], rows) for k in CARRY_LEAVES
+            if k in cache}
+
+
+def _rows_of(t, rows):
+    """``t``'s batch rows ``rows``: a view for a slice, a gathered copy
+    for a (1,) index tensor (a chunk step's tensor ``slot``)."""
+    if isinstance(rows, torch.Tensor):
+        return t.index_select(0, rows)
+    return t[rows]
+
+
+def _put_rows(t, rows, new) -> None:
+    """Write ``new`` into ``t``'s batch rows ``rows`` (:func:`_rows_of`)."""
+    if isinstance(rows, torch.Tensor):
+        t.index_copy_(0, rows, new.to(t.dtype))
+    else:
+        t[rows].copy_(new)
 
 
 def _mine(t, rows):
@@ -960,7 +977,7 @@ def _enc_rows(state, i: int, rows=slice(None)):
     enc = state.get("enc_kv")
     if enc is None:
         return None
-    return enc[0][i, rows], enc[1][i, rows]
+    return _rows_of(enc[0][i], rows), _rows_of(enc[1][i], rows)
 
 
 def _paged_chunk_attn(ap, cfg: ModelConfig, x1, pool, tables, positions,
@@ -1028,8 +1045,11 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
     (1, T) the slot's block table (None for attention-free rwkv); slot:
     the slot's row of the recurrent carries (rwkv, hybrid), which step
     their masked recurrences so that a right-padded final chunk leaves
-    the carry at the last real token, and of encdec's cross K/V. Returns
-    (last-valid-position logits (1, V) fp32, state)."""
+    the carry at the last real token, and of encdec's cross K/V; an int,
+    or a 0-d integer tensor on the state's device (its rows gathered and
+    written back by index, so one compiled step serves every slot, as
+    JAX's traced int32 slot does). Returns (last-valid-position logits
+    (1, V) fp32, state)."""
     check_family(cfg)
     if (cfg.family in CARRY_FAMILIES or cfg.family == "encdec") \
             and slot is None:
@@ -1039,14 +1059,15 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
     valid = positions >= 0
     safe_pos = positions.clamp_min(0)
     cache = state["cache"]
-    rows = slice(slot, None if slot is None else slot + 1)
+    rows = slot.reshape(1).long() if isinstance(slot, torch.Tensor) \
+        else slice(slot, None if slot is None else slot + 1)
     for i, lp in enumerate(_layers(params)):
         lp = gathered(cfg, lp, ("layers",))
         carry = _carry_rows(cache, i, rows)
         if cfg.family == "rwkv":
             h, new = _rwkv_layer(lp, cfg, h, carry, valid=valid)
             for k, t in new.items():
-                carry[k].copy_(t)
+                _put_rows(cache[k][i], rows, t)
             continue
         x1 = _norm(cfg, lp["norm1"], h)
         a = _paged_chunk_attn(
@@ -1056,7 +1077,7 @@ def prefill_chunk_step(params, cfg: ModelConfig, state, h: torch.Tensor,
         if cfg.family == "hybrid":
             s_out, s_fin = ssm.ssm_seq(lp["ssm"], x1, carry["ssm"], cfg,
                                        valid=valid)
-            carry["ssm"].copy_(s_fin)
+            _put_rows(cache["ssm"][i], rows, s_fin)
             h = _ffn(lp, cfg, h + 0.5 * (a + s_out))
         else:
             h = _ffn(lp, cfg, _cross(lp, cfg, h + a,

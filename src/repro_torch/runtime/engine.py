@@ -79,6 +79,22 @@ of the window (``models/transformer.py``).
 A moe layer routes every row of a step (inactive decode slots, a chunk's
 padding, every verify position) as the JAX engine does, since which pairs
 overflow an expert's capacity depends on it.
+
+On one CUDA device the steps are compiled (``compiled=None`` or True), as
+the JAX engine jits each of them: the decode, chunk and verify steps a
+graph per live-page bucket (a carry or encdec family's chunk step takes its
+slot as a 0-d device tensor, as JAX's takes a traced int32, so one graph
+serves every slot), the ring engine's prefill a graph per prompt length,
+the encoder one (``runtime/steps.py``: ``jit_*``). They share one memory pool
+(``graph_pool``), which is safe because nothing the engine keeps outlives
+the next replay: the first-token logits rows are cloned, every other
+output is read before the next step runs, and the state is the engine's
+own tensors, kept from run to run (``start`` zeroes them in place). The
+prompt's embedding stays eager: one gather whose shape follows the
+prompt's length, which a graph per length would not make faster. On the
+CPU and on a mesh the steps run eagerly (``steps.eager_reason``), and
+``compiled=False`` runs them eagerly on the card, the reference the
+compiled run is held against.
 """
 from __future__ import annotations
 
@@ -285,7 +301,10 @@ class ServingEngine:
     (its heads, ``cfg.shard``). ``fsdp_serve`` (a mesh only; off by
     default, as in JAX) keeps only the rank's shares over "data" of its
     slice (``sharding.serve_shares``, cut after the plans are made on the
-    slice) and every step gathers a layer at a time.
+    slice) and every step gathers a layer at a time. ``compiled`` (None:
+    on one CUDA device) runs the steps under CUDA graphs (module
+    docstring); True where they cannot be raises, naming the reason;
+    ``steps_note`` says which it is.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
@@ -299,11 +318,21 @@ class ServingEngine:
                  speculate=None, spec_k: int = 4,
                  admission: str = "fifo",
                  attn_path: str = "auto", device: DeviceLike = None,
-                 mesh=None, fsdp_serve: bool = False):
+                 mesh=None, fsdp_serve: bool = False,
+                 compiled: Optional[bool] = None):
         if admission not in ("fifo", "priority"):
             raise ValueError(f"admission must be 'fifo' or 'priority', "
                              f"got {admission!r}")
         T.check_family(cfg)
+        self.device = resolve_device(device)
+        why = rsteps.eager_reason(self.device, mesh)
+        if compiled and why is not None:
+            raise ValueError(f"compiled=True: {why}")
+        self.compiled = why is None if compiled is None else bool(compiled)
+        self.steps_note = "compiled" if self.compiled else \
+            f"eager ({why or 'compiled=False'})"
+        # the compiled steps' one memory pool and what they captured
+        self.graph_pool = rsteps.GraphPool() if self.compiled else None
         self.layout = None if mesh is None else sharding.Layout(cfg, mesh)
         # the slots whose per-slot state this rank holds (None: all)
         self._slot_rows = None if self.layout is None \
@@ -313,7 +342,6 @@ class ServingEngine:
             params = sharding.shard_params(params, mesh, cfg)
             cfg = self.layout.local_cfg()
         self.admission = admission
-        self.device = resolve_device(device)
         self.max_batch = int(max_batch)
         self.max_prompt_len = int(max_prompt_len)
         self.max_new_tokens = int(max_new_tokens)
@@ -459,14 +487,21 @@ class ServingEngine:
             params = sharding.serve_shares(params, self.layout)
         self.cfg = cfg
         self.params = T.unstack_layers(params)
-        # the ring engine's whole-prompt prefill (eager: one step serves
-        # every prompt length); the paged engine's prompt embedding and
+        # the ring engine's whole-prompt prefill (compiled: a graph per
+        # prompt length); the paged engine's prompt embedding (eager) and
         # encoder at admit
-        self._prefill = rsteps.make_prefill_step(
-            cfg, self.cache_len, fsdp_serve=self.fsdp_serve)
+        self._prefill = self._make_step(rsteps.make_prefill_step,
+                                        rsteps.jit_prefill_step,
+                                        self.cache_len)
         self._embed = rsteps.make_embed_step(cfg, fsdp_serve=self.fsdp_serve)
-        self._encode = rsteps.make_encode_step(cfg,
-                                               fsdp_serve=self.fsdp_serve)
+        self._encode = self._make_step(rsteps.make_encode_step,
+                                       rsteps.jit_encode_step)
+        # the chunk step reads a slot's rows only where the family keeps
+        # per-slot state; there it takes the row as a 0-d device tensor
+        # (one per row, made once), elsewhere None
+        self._chunk_slot = cfg.family in T.CARRY_FAMILIES \
+            or cfg.family == "encdec"
+        self._slot_ids: Dict[int, torch.Tensor] = {}
         self._serve_fns: Dict[Optional[int], Any] = {}
         self._chunk_fns: Dict[Optional[int], Any] = {}
         self._verify_fns: Dict[Optional[int], Any] = {}
@@ -508,24 +543,33 @@ class ServingEngine:
             w //= 2
         return None if w >= self.pages_slot else w
 
+    def _make_step(self, make, jit, *args, **kw):
+        """A step of the engine's config: ``jit`` (a compiled step in the
+        engine's graph pool) when compiled, else ``make`` (eager)."""
+        kw["fsdp_serve"] = self.fsdp_serve
+        if self.compiled:
+            return jit(self.cfg, *args, pool=self.graph_pool, **kw)
+        return make(self.cfg, *args, **kw)
+
     def _serve_step(self, live_pages: Optional[int] = None):
         fn = self._serve_fns.get(live_pages)
         if fn is None:
-            fn = self._serve_fns[live_pages] = rsteps.make_serve_step(
-                self.cfg, cache_len=self.cache_len, kv_format=self.kv_format,
+            fn = self._serve_fns[live_pages] = self._make_step(
+                rsteps.make_serve_step, rsteps.jit_serve_step,
+                cache_len=self.cache_len, kv_format=self.kv_format,
                 attn_path=self.attn_path, kv_partitions=self.kv_partitions,
-                live_pages=live_pages, fsdp_serve=self.fsdp_serve)
+                live_pages=live_pages)
         return fn
 
     def _chunk_step(self, live_pages: Optional[int] = None):
         fn = self._chunk_fns.get(live_pages)
         if fn is None:
-            fn = self._chunk_fns[live_pages] = \
-                rsteps.make_prefill_chunk_step(
-                    self.cfg, self.cache_len, kv_format=self.kv_format,
-                    attn_path=self.prefill_attn_path,
-                    kv_partitions=self.prefill_kv_partitions,
-                    live_pages=live_pages, fsdp_serve=self.fsdp_serve)
+            fn = self._chunk_fns[live_pages] = self._make_step(
+                rsteps.make_prefill_chunk_step,
+                rsteps.jit_prefill_chunk_step, self.cache_len,
+                kv_format=self.kv_format, attn_path=self.prefill_attn_path,
+                kv_partitions=self.prefill_kv_partitions,
+                live_pages=live_pages)
         return fn
 
     def _verify_step(self, live_pages: Optional[int] = None):
@@ -534,11 +578,12 @@ class ServingEngine:
         without drafts pads its row to one live position)."""
         fn = self._verify_fns.get(live_pages)
         if fn is None:
-            fn = self._verify_fns[live_pages] = rsteps.make_verify_step(
-                self.cfg, self.cache_len, kv_format=self.kv_format,
+            fn = self._verify_fns[live_pages] = self._make_step(
+                rsteps.make_verify_step, rsteps.jit_verify_step,
+                self.cache_len, kv_format=self.kv_format,
                 attn_path=self.verify_attn_path,
                 kv_partitions=self.verify_kv_partitions,
-                live_pages=live_pages, fsdp_serve=self.fsdp_serve)
+                live_pages=live_pages)
         return fn
 
     def _prefill_inputs(self, req: Request):
@@ -571,6 +616,14 @@ class ServingEngine:
         if rows is None:
             return i
         return i - rows.start if rows.start <= i < rows.stop else None
+
+    def _slot_id(self, row: int) -> torch.Tensor:
+        """Row ``row`` of the per-slot state as a 0-d int64 tensor on the
+        device: the chunk step's ``slot``."""
+        t = self._slot_ids.get(row)
+        if t is None:
+            t = self._slot_ids[row] = torch.tensor(row, device=self.device)
+        return t
 
     def _slot_state(self, i: int):
         """(the state slot ``i``'s prefill chunk runs on, its row there):
@@ -942,7 +995,9 @@ class ServingEngine:
             insert_slot(self._state, rstate, j)
         del rstate
         slot = _Slot(req, self.pos0(req), t0)
-        pending.append((slot, logits[0]))
+        # a static buffer of the compiled prefill: the next admit's
+        # replay would overwrite it
+        pending.append((slot, logits[0].clone()))
         return slot
 
     def _advance_prefill(self, i: int, slot: _Slot, pending) -> None:
@@ -963,7 +1018,7 @@ class ServingEngine:
             "h": seg[None],
             "positions": torch.as_tensor(positions,
                                          device=self.device)[None],
-            "slot": row,
+            "slot": self._slot_id(row) if self._chunk_slot else None,
         }
         if self.paged:
             inputs["table"] = torch.as_tensor(self._tables[i:i + 1],
@@ -977,7 +1032,9 @@ class ServingEngine:
         if end == total:
             self._side.pop(i, None)
             self._publish_keys(i, slot)
-            pending.append((slot, res["logits"][0]))
+            # a static buffer of the compiled chunk step: another slot's
+            # chunk replays the same graph before the rows are stacked
+            pending.append((slot, res["logits"][0].clone()))
         else:
             self._publish_keys(i, slot, upto=end)
 
@@ -1067,7 +1124,8 @@ class ServingEngine:
         self._reserve.clear()
         self._keys_cache.clear()
         self.alloc = self._new_allocator()
-        self._state = self._init_state()
+        self._state = rsteps.refill(self._state, self._init_state()) \
+            if self.compiled else self._init_state()
         if self.proposer is not None:
             self.proposer.reset(self)
         self._tok = np.zeros(self.max_batch, np.int32)

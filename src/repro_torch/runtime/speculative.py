@@ -129,7 +129,10 @@ class DraftModelProposer(Proposer):
     is an encdec draft: its ring prefill would need the request's audio,
     which the draft is not given (nor is the JAX package's). A draft of a
     vision-prefix target must share its frontend (the same prefix length
-    and width): the request's patches feed both models.
+    and width): the request's patches feed both models. Beside a compiled
+    engine the draft's decode and prefill steps are compiled too, in the
+    engine's graph pool (JAX's proposer jits both), and its ring state is
+    kept from run to run, zeroed in place.
     """
 
     name = "draft"
@@ -152,8 +155,10 @@ class DraftModelProposer(Proposer):
         self.params = None if params is None else T.unstack_layers(params)
         self.seed, self.gen = int(seed), gen
         self.state = None
-        self._step_fn = rsteps.make_serve_step(cfg)
-        self._prefill_fns: Dict[int, object] = {}
+        self._eager_step = rsteps.make_serve_step(cfg)
+        self._jit_step = None       # compiled beside a compiled engine
+        self.compiled = False
+        self._prefill_fns: Dict[tuple, object] = {}
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -181,17 +186,34 @@ class DraftModelProposer(Proposer):
         self.cache_len = serve_cache_len(
             cfg, engine.max_prompt_len,
             engine.max_new_tokens + engine.spec_k + 1)
-        self.state = T.init_decode_state(cfg, self.B, self.cache_len,
-                                         device=self.device)
+        fresh = T.init_decode_state(cfg, self.B, self.cache_len,
+                                    device=self.device)
+        self.compiled = engine.compiled
+        if self.compiled and self._jit_step is None:
+            self._jit_step = rsteps.jit_serve_step(cfg,
+                                                   pool=engine.graph_pool)
+        self.state = rsteps.refill(self.state, fresh) if self.compiled \
+            else fresh
+        del fresh
         self.dpos = np.zeros(self.B, np.int64)     # next unfed position
         self.last_tok = np.zeros(self.B, np.int64)
         self.last_pos = np.zeros(self.B, np.int64)
 
+    def _step_fn(self, params, inputs):
+        """One decode step of the draft: compiled beside a compiled engine
+        (an instance attribute of this name wraps it)."""
+        step = self._jit_step if self.compiled else self._eager_step
+        return step(params, inputs)
+
     def _prefill(self):
-        fn = self._prefill_fns.get(self.cache_len)
+        key = (self.cache_len, self.compiled)
+        fn = self._prefill_fns.get(key)
         if fn is None:
-            fn = self._prefill_fns[self.cache_len] = \
-                rsteps.make_prefill_step(self.cfg, self.cache_len)
+            fn = self._prefill_fns[key] = (
+                rsteps.jit_prefill_step(self.cfg, self.cache_len,
+                                        pool=self._jit_step.pool)
+                if self.compiled else
+                rsteps.make_prefill_step(self.cfg, self.cache_len))
         return fn
 
     def admit(self, engine, i: int, slot) -> None:

@@ -1,17 +1,47 @@
-"""Train and serving steps as plain eager functions (port of
-``repro/runtime/steps.py``). PyTorch runs eagerly: no ``torch.compile`` and
-no CUDA graphs yet. The serving steps' greedy argmax runs on the device;
-the engine syncs one (B,) int array per step. On a mesh (``cfg.shard``)
-a step whose batch splits over "data" runs this rank's rows and
-all-gathers their argmax over "data", so every rank's host loop sees the
-whole step's tokens.
+"""Train and serving steps (port of ``repro/runtime/steps.py``).
+
+The ``make_*`` steps are plain eager functions. The serving steps' greedy
+argmax runs on the device; the engine syncs one (B,) int array per step.
+On a mesh (``cfg.shard``) a step whose batch splits over "data" runs this
+rank's rows and all-gathers their argmax over "data", so every rank's
+host loop sees the whole step's tokens.
+
+``jit_serve_step``, ``jit_prefill_chunk_step``, ``jit_verify_step`` and
+``jit_prefill_step`` (and ``jit_encode_step``, JAX's engine's jitted
+encoder) are the counterparts of JAX's ``jax.jit`` steps on one device: a
+:class:`CompiledStep` keeps one CUDA graph per call signature, as
+``jax.jit`` keeps one executable per abstract signature. The signature
+is the inputs' tree structure, every tensor leaf's shape, dtype and
+device, and every other leaf's value (the engine gives the chunk step's
+``slot`` as a 0-d device tensor, so one graph serves every slot).
+A new signature runs the step once eagerly on a side stream (the kernels
+build and the plan caches fill there, outside any capture), then captures
+it on static copies of the inputs; a later call copies each input tensor
+into its static buffer, unless it is that buffer, and replays. The state
+is donated, as JAX's ``donate_argnums`` donates it: its static buffers
+are the caller's own tensors, a state leaf the step returns anew is copied
+back into its input leaf inside the graph, and the call returns the input
+state tree itself, so the paged pool is never copied. Every other output
+is a static buffer that the next replay of the same graph overwrites: a
+caller that keeps one across a replay clones it. The kernels' launch
+counters count each replay (``kernels/build.py``), after the capture has
+held the launches it counted against the kernel nodes of its graph (a
+mismatch raises). A capture that fails
+raises, naming the step and its signature; nothing falls back to the eager
+step.
+
+On a mesh the serving steps stay eager, a named departure: a rank's
+collectives go through gloo and host memory, which a CUDA graph cannot
+capture. JAX's sharded ``jit_*`` steps get their counterpart once NCCL
+runs across cards.
 
 ``make_train_step`` casts the gradients to ``grad_dtype`` (bf16) at every
 microbatch count, accumulates them across microbatches in that dtype and
 divides by the count, then runs the AdamW update. On one device it
 computes the plain step whatever the settings, as JAX's does when it is
 given no sharding pytrees. With ``mesh`` it is the counterpart of JAX's
-``jit_train_step``, SPMD by hand (:func:`_mesh_train_step`).
+``jit_train_step``, SPMD by hand (:func:`_mesh_train_step`); the train
+step is not captured yet.
 
 The serving steps take ``fsdp_serve`` as JAX's ``jit_*_step`` do: on a
 mesh their ``params`` are then the rank's shares over "data" of its
@@ -22,12 +52,15 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
+import gc
+import time
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from repro_torch.core.quant import true_div
 from repro_torch.core.tree import tree_map
+from repro_torch.kernels import build
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -316,3 +349,353 @@ def make_verify_step(cfg: ModelConfig, cache_len: int, *,
         return {"next": next_tok, "logits": logits, "state": state,
                 "carries": carries}
     return verify
+
+
+# ---------------------------------------------------------------------------
+# compiled steps: the counterparts of JAX's jax.jit serving steps
+# ---------------------------------------------------------------------------
+
+MESH_DEPARTURE = (
+    "on a mesh the serving steps stay eager: a rank's collectives go "
+    "through gloo and host memory, which a CUDA graph cannot capture "
+    "(JAX's sharded jit_* steps get their counterpart once NCCL runs "
+    "across cards)")
+
+
+class CudaGraphs:
+    """How a :class:`CompiledStep` warms up and captures: CUDA graphs on
+    the card. ``capture`` returns the captured run's outputs, the replay,
+    the bytes the capture reserved and the function names of the graph's
+    kernel nodes (None where the backend cannot read them)."""
+
+    device_type = "cuda"
+
+    def __init__(self):
+        self._side: Dict[int, Any] = {}     # device → its one side stream
+
+    def new_pool(self):
+        return torch.cuda.graph_pool_handle()
+
+    def warm_up(self, run: Callable):
+        """``run()`` eagerly on a side stream (one a device, so the cache
+        keeps one stream's blocks), ordered after and before the current
+        stream's work."""
+        cur = torch.cuda.current_stream()
+        side = self._side.get(cur.device_index)
+        if side is None:
+            side = self._side[cur.device_index] = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = run()
+        cur.wait_stream(side)
+        return out
+
+    def capture(self, run: Callable, statics: List, pool):
+        # kept, so its kernel nodes can be read after the capture
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # what the capture reserves, not what the cache hands back first
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        # no collection inside the capture: one could destroy another
+        # graph (an engine dropped in a reference cycle), which is not
+        # permitted while a stream captures and ends the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: the front door steps the engine in a worker
+            # thread
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                out = run()
+        finally:
+            if collecting:
+                gc.enable()
+        graph.instantiate()
+        return out, graph.replay, torch.cuda.memory_reserved() - before, \
+            build.graph_kernel_names(graph.raw_cuda_graph())
+
+
+# the capture backend; the CPU tests patch in a stand-in
+GRAPHS = CudaGraphs()
+
+
+def eager_reason(device, mesh=None) -> Optional[str]:
+    """Why the serving steps on ``device`` (on ``mesh``) run eagerly, or
+    None where they are compiled."""
+    if mesh is not None:
+        return MESH_DEPARTURE
+    dev = torch.device(device)
+    if dev.type != GRAPHS.device_type:
+        return (f"CUDA graphs capture work on the card only; {dev.type} "
+                f"steps run eagerly")
+    return None
+
+
+@dataclasses.dataclass
+class GraphPool:
+    """One memory pool that compiled steps share (an engine's), and what
+    was captured into it: ``graphs``, the ``bytes`` the captures reserved,
+    the seconds they took (``capture_s``, the eager warm-ups included) and
+    the kernel nodes of the counted kernels held against their counted
+    launches (``nodes``)."""
+
+    handle: Any = None
+    graphs: int = 0
+    bytes: int = 0
+    capture_s: float = 0.0
+    nodes: int = 0
+
+
+def _flatten(tree, leaves: list):
+    """The structure of ``tree`` (dicts, tuples, lists, named tuples) as a
+    hashable key; its leaves, tensors or not, appended to ``leaves``."""
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _flatten(tree[k], leaves))
+                            for k in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), tuple(_flatten(t, leaves) for t in tree))
+    leaves.append(tree)
+    return None
+
+
+def _leaf_key(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return (tuple(leaf.shape), leaf.dtype, leaf.device)
+    try:
+        hash(leaf)
+    except TypeError:
+        raise TypeError(f"a compiled step's inputs take tensors and "
+                        f"hashable values; got {type(leaf).__name__}") \
+            from None
+    return (type(leaf), leaf)
+
+
+def _rebuild(tree, keep, leaf_fn):
+    """``tree`` with each leaf through ``leaf_fn``, the subtree ``keep``
+    (the donated state) kept as it is."""
+    if tree is keep:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, keep, leaf_fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        items = [_rebuild(t, keep, leaf_fn) for t in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    return leaf_fn(tree)
+
+
+def _shallow(out):
+    """A fresh container around the static outputs (a caller may set its
+    keys)."""
+    if isinstance(out, dict):
+        return dict(out)
+    return out
+
+
+class CompiledStep:
+    """A serving step under CUDA graphs (module docstring): ``fn(params,
+    *args)`` captured once per signature of ``args``; ``params`` stay the
+    tensors of the first call (a call on other weights raises). ``state``
+    picks the donated state out of ``args`` (None: nothing donated); the
+    step returns it under the ``"state"`` key. ``fn`` stays the eager
+    step. ``pool`` is the :class:`GraphPool` shared with other steps."""
+
+    def __init__(self, fn: Callable, name: str, *,
+                 state: Optional[Callable] = None,
+                 pool: Optional[GraphPool] = None):
+        self.fn, self.name, self.state = fn, name, state
+        self.pool = GraphPool() if pool is None else pool
+        self.graphs: Dict[Any, "_Captured"] = {}
+        self._params = None
+
+    def __call__(self, params, *args):
+        if self._params is None:
+            self._params = params
+        elif params is not self._params:
+            raise ValueError(f"{self.name}: captured on other weights; "
+                             f"compile a new step for these")
+        leaves: list = []
+        shape = _flatten(args, leaves)
+        sig = (shape, tuple(_leaf_key(leaf) for leaf in leaves))
+        cap = self.graphs.get(sig)
+        if cap is None:
+            return self._first(sig, params, args)
+        return cap.replay(leaves)
+
+    def _merge(self, out, state):
+        """The step's outputs with its returned state written into the
+        donated ``state`` (each leaf it returned anew is copied back into
+        the input leaf) and returned as that tree."""
+        if self.state is None:
+            return out
+        new: list = []
+        old: list = []
+        if _flatten(out["state"], new) != _flatten(state, old):
+            raise ValueError(f"{self.name} returned a state of another "
+                             f"structure than its input's")
+        for dst, src in zip(old, new):
+            if isinstance(src, torch.Tensor) and src is not dst:
+                dst.copy_(src)
+        return dict(out, state=state)
+
+    def _first(self, sig, params, args):
+        """A new signature: run eagerly (the call's result), then capture
+        on static inputs (the donated state is the caller's own)."""
+        where = [leaf.device for leaf in flat_leaves(args)
+                 if isinstance(leaf, torch.Tensor)]
+        if where and where[0].type != GRAPHS.device_type:
+            raise ValueError(f"{self.name}: {eager_reason(where[0])}")
+        t0 = time.perf_counter()
+        state = None if self.state is None else self.state(args)
+        with torch.no_grad():
+            out = GRAPHS.warm_up(
+                lambda: self._merge(self.fn(params, *args), state))
+            static_args = _rebuild(
+                args, state,
+                lambda x: x.clone() if isinstance(x, torch.Tensor) else x)
+            statics = flat_leaves(static_args)
+            if self.pool.handle is None:
+                self.pool.handle = GRAPHS.new_pool()
+            before = build.launch_counts()
+            try:
+                sout, replay, nbytes, names = GRAPHS.capture(
+                    lambda: self._merge(self.fn(params, *static_args),
+                                        state), statics, self.pool.handle)
+            except Exception as e:
+                raise RuntimeError(
+                    f"capturing {self.name} failed at signature "
+                    f"{_describe(sig)}: {e}") from e
+            finally:
+                after = build.launch_counts()
+                delta = {k: n - before.get(k, 0) for k, n in after.items()
+                         if n != before.get(k, 0)}
+                # the capture launched nothing: its counts come per replay
+                build.add_launches(delta, -1)
+            if names is not None:
+                bad = build.node_mismatch(delta, names)
+                if bad:
+                    raise RuntimeError(
+                        f"{self.name} at signature {_describe(sig)}: the "
+                        f"graph's kernel nodes disagree with the launches "
+                        f"counted during its capture: {'; '.join(bad)}")
+                self.pool.nodes += sum(n for k, n in delta.items()
+                                       if isinstance(k, build.CudaKernel))
+        self.graphs[sig] = _Captured(statics, sout, replay, delta)
+        self.pool.graphs += 1
+        self.pool.bytes += int(nbytes)
+        self.pool.capture_s += time.perf_counter() - t0
+        return out
+
+
+def flat_leaves(tree) -> list:
+    """Every leaf of ``tree`` (tensors, None and values), in the order of
+    the compiled steps' signatures."""
+    leaves: list = []
+    _flatten(tree, leaves)
+    return leaves
+
+
+def refill(state, fresh):
+    """``state`` with ``fresh``'s values copied in where the two trees
+    match leaf for leaf in shape and device (a compiled step captured
+    ``state``'s tensors, so they are kept from run to run); else
+    ``fresh``."""
+    if state is None:
+        return fresh
+    old, new = [], []
+    if _flatten(state, old) != _flatten(fresh, new) or any(
+            (a is None) != (b is None) or a is not None and (
+                a.shape != b.shape or a.device != b.device)
+            for a, b in zip(old, new)):
+        return fresh
+    for dst, src in zip(old, new):
+        if dst is not None:
+            dst.copy_(src)
+    return state
+
+
+def _describe(sig) -> str:
+    """A signature's leaves, readable: shapes and dtypes, or values."""
+    return ", ".join(f"{tuple(k[0])} {str(k[1]).replace('torch.', '')}"
+                     if isinstance(k[1], torch.dtype) else repr(k[1])
+                     for k in sig[1])
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One captured signature: its static input leaves, static outputs,
+    replay and launches a replay."""
+
+    statics: list
+    out: Any
+    run: Callable
+    launches: Dict[object, int]
+
+    def replay(self, leaves: list):
+        for static, x in zip(self.statics, leaves):
+            if isinstance(static, torch.Tensor) and x is not static:
+                static.copy_(x)
+        self.run()
+        build.add_launches(self.launches)
+        return _shallow(self.out)
+
+
+def _no_mesh(cfg: ModelConfig, mesh, name: str) -> None:
+    if mesh is not None or cfg.shard is not None:
+        raise ValueError(f"{name}: {MESH_DEPARTURE}")
+
+
+def jit_serve_step(cfg: ModelConfig, *, mesh=None,
+                   pool: Optional[GraphPool] = None, **kw) -> CompiledStep:
+    """JAX's ``jit_serve_step`` on one device: :func:`make_serve_step`
+    (``kw``: its keywords) compiled, ``inputs["state"]`` donated.
+    ``pool``: see :class:`CompiledStep`."""
+    _no_mesh(cfg, mesh, "jit_serve_step")
+    return CompiledStep(make_serve_step(cfg, **kw), "serve_step",
+                        state=lambda args: args[0]["state"], pool=pool)
+
+
+def jit_prefill_chunk_step(cfg: ModelConfig, cache_len: int, *, mesh=None,
+                           pool: Optional[GraphPool] = None,
+                           **kw) -> CompiledStep:
+    """JAX's ``jit_prefill_chunk_step`` on one device:
+    :func:`make_prefill_chunk_step` compiled, its ``state`` donated; the
+    ``slot`` a carry or encdec family reads is best a 0-d device tensor
+    (one graph for every slot; an int is part of the signature, a graph
+    per slot)."""
+    _no_mesh(cfg, mesh, "jit_prefill_chunk_step")
+    return CompiledStep(make_prefill_chunk_step(cfg, cache_len, **kw),
+                        "prefill_chunk_step", state=lambda args: args[0],
+                        pool=pool)
+
+
+def jit_verify_step(cfg: ModelConfig, cache_len: int, *, mesh=None,
+                    pool: Optional[GraphPool] = None, **kw) -> CompiledStep:
+    """JAX's ``jit_verify_step`` on one device: :func:`make_verify_step`
+    compiled, its ``state`` donated; the carry checkpoints come back in
+    static buffers."""
+    _no_mesh(cfg, mesh, "jit_verify_step")
+    return CompiledStep(make_verify_step(cfg, cache_len, **kw),
+                        "verify_step", state=lambda args: args[0],
+                        pool=pool)
+
+
+def jit_prefill_step(cfg: ModelConfig, cache_len: int, *, mesh=None,
+                     pool: Optional[GraphPool] = None,
+                     **kw) -> CompiledStep:
+    """JAX's ``jit_prefill_step`` on one device: :func:`make_prefill_step`
+    compiled, a graph per prompt length; nothing donated (the state it
+    returns is a static buffer)."""
+    _no_mesh(cfg, mesh, "jit_prefill_step")
+    return CompiledStep(make_prefill_step(cfg, cache_len, **kw),
+                        "prefill_step", pool=pool)
+
+
+def jit_encode_step(cfg: ModelConfig, *, mesh=None,
+                    pool: Optional[GraphPool] = None, **kw) -> CompiledStep:
+    """JAX's engine's jitted encoder on one device: :func:`make_encode_step`
+    compiled (one signature: the config's frames)."""
+    _no_mesh(cfg, mesh, "jit_encode_step")
+    return CompiledStep(make_encode_step(cfg, **kw), "encode_step",
+                        pool=pool)

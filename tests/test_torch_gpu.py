@@ -331,6 +331,51 @@ def test_engine_kernel_path_matches_plain_path(cuda_device, dtype, tol):
                                    rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_compiled_engine_matches_eager_on_the_card(cuda_device, dtype):
+    """REDUCED danube (fp32 as configured, and bf16) served compiled
+    (CUDA graphs, the default on the card) and eagerly on the same
+    weights: the same tokens, prefill logits bit-equal (the same kernels
+    on the same inputs with the same launches), each kernel launched as
+    many times (the replays counted), the pool's tensors kept from the
+    first step to the last, and graphs captured."""
+    cfg = dataclasses.replace(configs.get_reduced("h2o-danube-1.8b"),
+                              dtype=dtype)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    params = T.quantize_params(T.init_params(gen, cfg, device=cuda_device),
+                               cfg, min_size=0)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             size=(3, 12)).astype(np.int32)
+    kernels = (wf.W4A16_GEMM, tpa.PAGED_ATTENTION)
+
+    def run(compiled):
+        eng = ServingEngine(cfg, params, max_batch=2, max_prompt_len=12,
+                            max_new_tokens=6, page_size=4, prefill_chunk=5,
+                            device=cuda_device, compiled=compiled)
+        before = [k.launches for k in kernels]
+        eng.start()
+        for i in range(3):
+            eng.submit(Request(rid=i, prompt=toks[i], max_new_tokens=6,
+                               arrival_step=i))
+        ptr = eng._state["cache"]["kv"].k_pool.data_ptr()
+        while eng.has_work():
+            eng.step()
+        torch.cuda.synchronize()
+        assert eng._state["cache"]["kv"].k_pool.data_ptr() == ptr
+        return eng, eng.report, [k.launches - b
+                                 for k, b in zip(kernels, before)]
+
+    eng, compiled, got = run(None)
+    assert eng.compiled and eng.graph_pool.graphs > 0
+    _, eager, want = run(False)
+    assert compiled.results == eager.results
+    assert got == want and all(n > 0 for n in got)
+    for rid in compiled.results:
+        assert torch.equal(compiled.prefill_logits[rid],
+                           eager.prefill_logits[rid])
+
+
 @pytest.mark.parametrize("fmt,strategy,plain,kernels", [
     ("w4a16_g128", "decoupled", "reference",
      (tdec.DEQUANT_W4, tgemm.DENSE_GEMM, tdec.REDUCE_PARTIALS)),

@@ -296,6 +296,16 @@ def test_shard_local_plans_and_heads(ranks):
     assert ranks["olmoe-1x2"][0]["heads"] == (2, 2)
 
 
+def test_mesh_steps_stay_eager(ranks):
+    """On a mesh the serving steps run eagerly, JAX's sharded ``jit_*``
+    steps' named departure (``runtime/steps.py``: a rank's collectives
+    go through gloo and host memory, which a CUDA graph cannot
+    capture)."""
+    from repro_torch.runtime import steps as rsteps
+    notes = {r["steps_note"] for rs in ranks.values() for r in rs}
+    assert notes == {f"eager ({rsteps.MESH_DEPARTURE})"}
+
+
 def test_prefix_sharing_and_warm_readmit_on_a_mesh(ranks):
     """A prompt prefix published by slot 0 (data rank 0) is adopted by
     slot 1 (data rank 1) — the same prefill steps saved and peak pages as

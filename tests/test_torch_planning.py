@@ -60,7 +60,10 @@ def test_fused_only_for_cuda_operands():
     assert planning.plan_matmul(_problem("cpu"), strategy="fused").strategy \
         == "fused"
     with pytest.raises(ValueError, match="unknown strategy"):
-        planning.plan_matmul(_problem("cpu"), strategy="xla")
+        planning.plan_matmul(_problem("cpu"), strategy="nope")
+    # JAX's xla strategy: plain, never ranked above reference
+    assert planning.plan_matmul(_problem("cpu"), strategy="xla").strategy \
+        == "xla"
     with pytest.raises(ValueError, match="does not support"):
         planning.plan_matmul(planning.MatmulProblem(
             M=1, N=16, K=128, format="w8a16_channel"), strategy="fused")
@@ -232,9 +235,9 @@ def test_plan_cache_round_trip(tmp_path):
 
 
 def test_plan_cache_files_cross_packages(tmp_path):
-    """The port reads a JAX-written file (tile sizes dropped, the ``xla``
-    plans it cannot dispatch dropped) and JAX's ``PlanCache.load`` reads a
-    port-written one (tile sizes defaulted)."""
+    """The port reads a JAX-written file (tile sizes dropped, its ``xla``
+    plans kept: the port registers the strategy) and JAX's
+    ``PlanCache.load`` reads a port-written one (tile sizes defaulted)."""
     jpath, tpath = str(tmp_path / "jax.json"), str(tmp_path / "port.json")
     jcache = jplanning.PlanCache()
     jp = jplanning.MatmulProblem(M=8, N=2560, K=2560, backend="tpu")
@@ -244,11 +247,13 @@ def test_plan_cache_files_cross_packages(tmp_path):
                jplanning.KernelPlan(strategy="xla"))
     jcache.save(jpath)
     tcache = planning.PlanCache()
-    assert tcache.load(jpath) == 1
-    (prob, plan), = tcache._plans.items()
-    assert prob == planning.MatmulProblem(M=8, N=2560, K=2560,
-                                          backend="tpu")
-    assert plan == planning.KernelPlan(strategy="fused", split_k=4)
+    assert tcache.load(jpath) == 2
+    assert tcache._plans[planning.MatmulProblem(
+        M=8, N=2560, K=2560, backend="tpu")] == planning.KernelPlan(
+            strategy="fused", split_k=4)
+    assert tcache._plans[planning.MatmulProblem(
+        M=8, N=640, K=2560, backend="cpu")] == planning.KernelPlan(
+            strategy="xla")
 
     tcache = planning.PlanCache()
     for prob in _problems():
