@@ -104,11 +104,14 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              training launcher (``repro_torch.launch.train``) at full width
              and depth, 4 steps of 2 x 8192 tokens with checkpoints at
              steps 0 and 3 (~18.3 GB each, in a temporary directory that is
-             removed; disk and host RAM are checked first): step time,
-             tokens/s, MFU, peak memory, 48 flash launches a step, and a
-             history of checkpoints only; (c) one step of (b)'s shape
-             under ``torch.profiler``: device time by kernel group, idle
-             share.
+             removed; disk and host RAM are checked first), the step
+             compiled as the launcher runs it by default (one graph; its
+             capture seconds, kernel nodes and pool bytes, the first
+             step's seconds apart from the replays'): step time,
+             tokens/s, MFU, peak memory, 48 flash launches a step equal to
+             the graph's flash nodes, and a history of checkpoints only;
+             (c) one compiled step of (b)'s shape under
+             ``torch.profiler``: device time by kernel group, idle share.
 8. features — the serving features at full width, danube's first 12 of
              24 layers (``FEATURE_LAYERS``, for the script's time; W4A16,
              kv_fp16, 8 slots, 8 prompts of 512 tokens sharing a 384-token
@@ -428,13 +431,36 @@ repository, where ``src/repro_torch`` is missing). Phases, one line each
              16-token segment), rwkv6-7b (8 layers, carries, a chunk graph
              per slot), whisper-small (full depth, the encoder compiled)
              and olmoe-1b-7b (8 layers).
+18. train-compiled — the train step under CUDA graphs
+             (``steps.jit_train_step``: JAX's ``jit_train_step``, the
+             parameters and AdamW state donated, the step a 0-d int32
+             tensor on the card) against the eager ``make_train_step``
+             from the same seed-0 weights and batches, the eager run's
+             memory freed before its compiled twin, counters set to 0
+             just before each run and read just after: (a) danube at full
+             width and depth, 4 x 2048 tokens, steps 0, 1, 2000 and 2001
+             (one graph; the LR scale 0, 0.01, ~1, ~1): loss and grad norm
+             at every step and m and v after the last within
+             ``TRAIN_TOL``, the parameters within ``PARAM_TOL`` of the
+             update steps 2000-2001 made, bit-equality printed, 48 flash
+             launches a step both ways equal to the graph's flash nodes,
+             step ms on the host clock and on the device (step 2001 under
+             ``torch.profiler``) with the idle share, the peak memory
+             beside eager's and ``launch.train.train_bytes``; (b) every
+             ``FAMILY_TRAIN`` arch at its phase-12 cut and shape, steps 0,
+             1 and 2 (a capture and two replays) held the same way, the
+             replays' ms beside eager's, the graph's kernel nodes, capture
+             seconds and pool bytes.
 
 Every serving phase runs the engine's steps compiled (the engine's
 default on one card), except where it says otherwise: phase 9's routed
 pairs step eagerly (their expert choices are recorded and replayed in
 Python between the ops), phase 8's verify-against-decode timing and phase
 10's replayed decode steps call the eager steps, and the mesh's ranks are
-eager (``steps.MESH_DEPARTURE``).
+eager (``steps.MESH_DEPARTURE``). The training launcher (phases 7(b) and
+12) runs its step compiled, as it does by default on the card; phases
+7(a), 12's path comparisons and 14's ranks call the eager
+``make_train_step`` (14: ``steps.TRAIN_MESH_DEPARTURE``).
 
 Work that needs no card, or only ranks of its own, runs beside the
 card's phases: phase 15's production grid traces in a process of its own
@@ -2032,6 +2058,15 @@ def run_launcher(torch, card, table, phase, argv):
              if s % args.ckpt_every == 0 or s == args.steps - 1]
     attn_layers = cfg.num_layers + cfg.encoder_layers
     want = args.steps * 2 * attn_layers
+    log(phase, f"{args.arch} launcher: steps {report.steps}; first step "
+        f"{report.first_step_s:.2f} s (the eager warm-up and the capture), "
+        f"the replays' ms {[f'{t * 1e3:.1f}' for t in report.step_s[1:]]}; "
+        f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    if report.graphs is None or report.graphs.graphs != 1 \
+            or report.graphs.nodes != 2 * attn_layers:
+        raise AssertionError(f"the {args.arch} launcher must run compiled on "
+                             f"the card, one graph for every step holding "
+                             f"{2 * attn_layers} flash nodes: {report.steps}")
     log(phase, f"{args.arch} launcher: history {report.history}; losses "
         f"{[f'{l:.4f}' for l in report.losses]}; grad norm "
         f"{[f'{g:.3f}' for g in report.grad_norms]}; step ms "
@@ -2084,12 +2119,14 @@ def train_launcher(torch, card, table):
 
 def trace_train(torch, dev, card, step_s):
     """Phase 7(c): where a training step's time goes, at the launcher's
-    shape (full width and depth, 2 x 8192 tokens, flash attention): one
-    warm-up step, then one step under ``torch.profiler`` (device activity
-    only). Device time is grouped into the flash kernel, matrix products
-    (kernels named gemm / xmma / cutlass) and the rest; the idle share is
-    the traced busy time against the untraced wall time of the same step,
-    ``step_s``: the launcher's median step (7(b))."""
+    shape (full width and depth, 2 x 8192 tokens, flash attention),
+    compiled as the launcher runs it (``steps.jit_train_step``): the first
+    call (the eager warm-up and the capture), then one replay under
+    ``torch.profiler`` (device activity only). Device time is grouped into
+    the flash kernel, matrix products (kernels named gemm / xmma /
+    cutlass) and the rest; the idle share is the traced busy time against
+    the untraced wall time of the same step, ``step_s``: the launcher's
+    median replay (7(b))."""
     import dataclasses
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2104,15 +2141,14 @@ def trace_train(torch, dev, card, step_s):
     params = T.init_params(gen, cfg, device=dev)
     opt_cfg = AdamWConfig(lr=1e-3)
     state = adamw_init(params, opt_cfg)
-    step_fn = steps.make_train_step(cfg, opt_cfg)
+    step_fn = steps.jit_train_step(cfg, opt_cfg)
     stream = SyntheticTokenStream(vocab_size=cfg.vocab_size,
                                   seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH,
                                   device=dev)
 
     def one(i):
-        nonlocal params, state
-        params, state, _ = step_fn(params, state,
-                                   {"batch": stream.batch_at(i), "step": i})
+        step_fn(params, state, {"batch": stream.batch_at(i),
+                                "step": device_step(torch, i, dev)})
         torch.cuda.synchronize()
 
     one(0)
@@ -2131,16 +2167,23 @@ def trace_train(torch, dev, card, step_s):
             else "other"
         groups[g] += e.self_device_time_total / 1e3
     ops = sum(e.count for e in dev_ev)
-    log("train", f"one step at {TRAIN_BATCH} x {TRAIN_SEQ}: device busy "
+    log("train", f"one compiled step at {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"device busy "
         f"{busy:.1f} ms ({ops} device ops) against {wall:.1f} ms untraced "
-        f"(the launcher's median step) -> device idle {1 - busy / wall:.1%}; " + "; ".join(
+        f"(the launcher's median replay) -> device idle {1 - busy / wall:.1%}; " + "; ".join(
             f"{g} {t:.1f} ms ({t / busy:.1%})" for g, t in groups.items())
         + f" [{card}]")
     for e in dev_ev[:10]:
         log("train", f"  device {e.self_device_time_total / 1e3:9.2f} ms  "
             f"x{e.count:<6d} {e.key[:90]}")
-    del params, state
+    del params, state, step_fn
     torch.cuda.empty_cache()
+
+
+def device_step(torch, i, dev):
+    """Train step ``i`` as the compiled step takes it (JAX's
+    ``jnp.asarray(step, jnp.int32)``): a 0-d int32 tensor on the card."""
+    return torch.full((), i, dtype=torch.int32, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -4814,7 +4857,7 @@ FAMILY_LAUNCH_ARGV = ["--arch", "whisper-small", "--steps", "3", "--batch",
                       "4", "--seq", "448", "--ckpt-every", "2"]
 
 
-def family_config(arch, layers):
+def family_config(arch, layers, phase="train-families"):
     """The full config at ``layers`` decoder layers, the cut printed; its
     training state (``launch.train.train_bytes``) must stay under
     ``TRAIN_MEM_CAP``."""
@@ -4826,7 +4869,7 @@ def family_config(arch, layers):
         dataclasses.replace(full, num_layers=layers)
     if cfg.num_layers < full.num_layers:
         more = dataclasses.replace(cfg, num_layers=cfg.num_layers + 1)
-        log("train-families", f"{arch}: depth cut to {cfg.num_layers} of "
+        log(phase, f"{arch}: depth cut to {cfg.num_layers} of "
             f"{full.num_layers} layers, full width: all {full.num_layers} "
             f"would hold {train_bytes(full) / 2**30:.1f} GiB at the "
             f"update's peak, {more.num_layers} "
@@ -7432,6 +7475,377 @@ def compiled_phase(torch, dev, card, table):
     log("compiled", f"phase 17 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the compiled train step
+# ---------------------------------------------------------------------------
+
+# 18(a)'s steps, fed as 0-d int32 tensors on the card (one graph for all
+# four): the LR scale 0, 0.01, then about 1 at 2000 and 2001
+# (``cosine_schedule``: 100 warmup steps of 10000)
+COMPILED_TRAIN_STEPS = (0, 1, 2000, 2001)
+# 18(b)'s steps: the capture and two replays
+FAMILY_COMPILED_STEPS = (0, 1, 2)
+# 18(a)'s parameters after steps 2000 and 2001, where AdamW moves an
+# element by about lr = 1e-3, many bf16 steps of a weight: per leaf, the
+# L2 norm of the compiled run's difference from eager's at most PARAM_TOL
+# of the L2 norm of what those two steps changed in the eager run. A
+# learning rate baked into the graph at its capture (step 0: scale 0)
+# would leave the weights where step 1 left them, a ratio of about 1.
+PARAM_TOL = 0.25
+
+
+class HostArena:
+    """Page-locked host memory for phase 18's held trees: one buffer of
+    ``nbytes`` registered once with CUDA (``cudaHostRegister``) and
+    handed out as views, so a tree crosses to the host and back at the
+    copy engines' rate rather than a pageable copy's (~2 GB/s, which
+    would take most of 18(b)'s time)."""
+
+    def __init__(self, torch, nbytes):
+        self.torch = torch
+        # the pages faulted in by torch's threads first, which the
+        # registration would otherwise do one at a time
+        self.buf = torch.zeros(nbytes, dtype=torch.uint8)
+        rc = torch.cuda.cudart().cudaHostRegister(self.buf.data_ptr(),
+                                                  nbytes, 0)
+        if int(rc) != 0:
+            raise RuntimeError(f"cudaHostRegister of {nbytes} B: error "
+                               f"{int(rc)}")
+        self.off = 0
+
+    def hold(self, tree):
+        """``tree`` (on the card) copied into the buffer's next views."""
+        from repro_torch.core.tree import tree_map
+
+        def one(t):
+            start = -(-self.off // 256) * 256
+            n = t.numel() * t.element_size()
+            if start + n > self.buf.numel():
+                raise RuntimeError(f"the host arena's {self.buf.numel()} B "
+                                   f"are full")
+            view = self.buf[start:start + n].view(t.dtype).view(t.shape)
+            view.copy_(t)
+            self.off = start + n
+            return view
+        return tree_map(one, tree)
+
+    def reset(self):
+        self.off = 0
+
+    def close(self):
+        self.torch.cuda.cudart().cudaHostUnregister(self.buf.data_ptr())
+        del self.buf
+
+
+def train_run(torch, dev, cfg, batches, at, table, *, compiled, host,
+              snapshot=None, trace=None):
+    """Steps ``at`` of the train step over ``batches`` from seed 0's
+    parameters: ``steps.jit_train_step`` (``compiled``) or the eager
+    ``make_train_step``, each step fed as a 0-d int32 tensor on the card
+    (``device_step``), counters set to 0 just before the first step and
+    read just after the last. The parameters are copied to the host
+    (``host``: a :class:`HostArena`) just before step ``snapshot`` (None:
+    not), and step ``trace`` runs under
+    ``torch.profiler`` (None: none). Returns a dict: (loss, grad norm,
+    seconds to a sync) per step, the final parameters and moments (on the
+    card), the snapshot, the launches, the peak device memory over what
+    was allocated before the weights, the traced step's device busy ms and
+    ops, and the compiled step's pool (None: eager)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import steps
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = T.init_params(gen, cfg, device=dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    state = adamw_init(params, opt_cfg)
+    step_fn = (steps.jit_train_step if compiled else steps.make_train_step)(
+        cfg, opt_cfg)
+    out = dict(metrics=[], snapshot=None, busy=None, ops=None,
+               pool=step_fn.pool if compiled else None)
+    reset_counts(table)
+    for i, batch in zip(at, batches):
+        if i == snapshot:
+            out["snapshot"] = host.hold(params)
+        inputs = {"batch": batch, "step": device_step(torch, i, dev)}
+        prof = profile(activities=[ProfilerActivity.CUDA]) if i == trace \
+            else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof:
+            params, state, m = step_fn(params, state, inputs)
+            torch.cuda.synchronize()
+        out["metrics"].append((float(m["loss"]), float(m["grad_norm"]),
+                               time.perf_counter() - t0))
+        if i == trace:
+            _, out["busy"], out["ops"] = device_rows(prof, 1)
+    out.update(launches=read_counts(table), params=params, m=state["m"],
+               v=state["v"], peak=torch.cuda.max_memory_allocated() - base)
+    return out
+
+
+def tree_holds(torch, got, want, before=None):
+    """``got`` (on the card) against ``want`` (on the host, each leaf
+    moved to the card in turn): the worst leaf's max|d| / max|want|,
+    whether every leaf is bit-equal, and with ``before`` (``want``'s tree
+    before its last steps, on the host) the worst leaf's L2 norm of
+    got - want over that of want - before, the least L2 norm of want -
+    before over want's own among the leaves that moved, and the leaves
+    that did not move (``still``: there the hold is bit-equality)."""
+    from repro_torch.core.tree import tree_flatten_with_keys
+    g = dict(tree_flatten_with_keys(got))
+    b = dict(tree_flatten_with_keys(before)) if before is not None else {}
+    r = dict(worst=0.0, where="", same=True, ratio=0.0, rwhere="",
+             moved=float("inf"), still=[])
+    for key, w in tree_flatten_with_keys(want):
+        x = g[key]
+        w = w.to(x.device)
+        r["same"] = r["same"] and bool(torch.equal(x, w))
+        w = w.float()
+        d = x.float() - w
+        rel = float(d.abs().max()) / max(float(w.abs().max()), 1e-30)
+        if rel > r["worst"]:
+            r["worst"], r["where"] = rel, "/".join(key)
+        if key in b:
+            moved = float(torch.linalg.vector_norm(
+                w - b[key].to(x.device).float()))
+            if moved == 0:
+                r["still"].append("/".join(key))
+            else:
+                r["moved"] = min(r["moved"], moved / max(
+                    float(torch.linalg.vector_norm(w)), 1e-30))
+            q = float(torch.linalg.vector_norm(d)) / max(moved, 1e-30)
+            if q > r["ratio"]:
+                r["ratio"], r["rwhere"] = q, "/".join(key)
+        del w, d
+    return r
+
+
+def hold_compiled_train(torch, label, c, e, want, at, before=None):
+    """The compiled run ``c`` against the eager run ``e`` (its final trees
+    ``want`` on the host): loss and grad norm at every step, m and v
+    after the last, within ``TRAIN_TOL`` (and with ``before``, the
+    parameters within ``PARAM_TOL``); bit-equality printed."""
+    bad = []
+    for i, ((lc, gc, _), (le, ge, _)) in enumerate(zip(c["metrics"],
+                                                       e["metrics"])):
+        for name, x, y in (("loss", lc, le), ("grad_norm", gc, ge)):
+            d = abs(x - y) / abs(y)
+            bad += [] if d <= TRAIN_TOL[name] else [f"step {at[i]} {name}"]
+        log("train-compiled", f"{label} step {at[i]}: loss compiled "
+            f"{lc:.6f} eager {le:.6f}, grad norm {gc:.6f} / {ge:.6f}"
+            + (" (bit-equal)" if (lc, gc) == (le, ge) else ""))
+    same = all(c["metrics"][i][:2] == e["metrics"][i][:2]
+               for i in range(len(at)))
+    for name in ("m", "v", "params"):
+        if name not in want:
+            continue
+        r = tree_holds(torch, c[name], want[name],
+                       before if name == "params" else None)
+        same = same and r["same"]
+        if name == "params":
+            ok = r["ratio"] <= PARAM_TOL
+            still = r["still"]
+            log("train-compiled", f"{label} parameters after step {at[-1]}: "
+                f"{'bit-equal' if r['same'] else 'not bit-equal'}; per leaf "
+                f"|compiled - eager| over |what steps {at[-2]}-{at[-1]} "
+                f"changed in eager| (L2) {r['ratio']:.3e} (worst "
+                f"{r['rwhere'] or '-'}), max|d| / max|eager| "
+                f"{r['worst']:.3e} {'ok' if ok else 'FAIL'} ({PARAM_TOL}); "
+                f"those steps moved every other leaf by at least "
+                f"{r['moved']:.3e} of its L2 norm; {len(still)} leaves "
+                f"unchanged in eager, held to compiled == eager only"
+                + (f" ({', '.join(still[:8])}"
+                   f"{', ...' if len(still) > 8 else ''})" if still else ""))
+        else:
+            ok = r["worst"] <= TRAIN_TOL[name]
+            log("train-compiled", f"{label} after step {at[-1]}, {name}: "
+                f"{'bit-equal' if r['same'] else 'not bit-equal'}; max|d| "
+                f"/ max|eager| per leaf {r['worst']:.3e} (worst "
+                f"{r['where'] or '-'}) {'ok' if ok else 'FAIL'} "
+                f"({TRAIN_TOL[name]:.3g})")
+        bad += [] if ok else [name]
+    if bad:
+        raise AssertionError(f"{label}: the compiled train step disagrees "
+                             f"with the eager one: {bad}")
+    return same
+
+
+def compiled_pair(torch, dev, cfg, batches, at, table, label, card, host,
+                  *, snapshot=None, trace=None):
+    """``train_run`` eager, its final trees moved to the host (``host``)
+    and its memory freed, then compiled from the same weights and
+    batches; held
+    by ``hold_compiled_train``, the flash kernel's launches equal to 2 x
+    the attention layers a step both ways and to the graph's flash nodes
+    a step, one graph. Returns (compiled, eager, bit-equal)."""
+    attn_layers = 0 if cfg.attn_free else \
+        cfg.num_layers + cfg.encoder_layers
+    host.reset()
+    e = train_run(torch, dev, cfg, batches, at, table, compiled=False,
+                  host=host, snapshot=snapshot, trace=trace)
+    want = {"m": host.hold(e.pop("m")), "v": host.hold(e.pop("v"))}
+    params = e.pop("params")
+    if snapshot is not None:
+        want["params"] = host.hold(params)
+    del params
+    torch.cuda.empty_cache()
+    c = train_run(torch, dev, cfg, batches, at, table, compiled=True,
+                  host=host, trace=trace)
+    flash = {n: r["launches"]["flash_attention"] for n, r in
+             (("compiled", c), ("eager", e))}
+    others = {n: k for r in (c, e) for n, k in r["launches"].items()
+              if k and n != "flash_attention"}
+    pool = c["pool"]
+    log("train-compiled", f"{label}: flash launches compiled "
+        f"{flash['compiled']}, eager {flash['eager']} (want "
+        f"{len(at) * 2 * attn_layers}: 2 x {attn_layers} attention layers a "
+        f"step); {pool.graphs} graph, {pool.kernels} kernel nodes "
+        f"({pool.nodes} flash), capture {pool.capture_s:.2f} s with the "
+        f"eager first step, {pool.bytes / 2**20:.1f} MiB in its pool [{card}]")
+    if set(flash.values()) != {len(at) * 2 * attn_layers} or others \
+            or pool.graphs != 1 or pool.nodes != 2 * attn_layers:
+        raise AssertionError(f"{label}: launches {flash} and {others}, "
+                             f"{pool.graphs} graphs holding {pool.nodes} "
+                             f"flash nodes")
+    same = hold_compiled_train(torch, label, c, e, want, at,
+                               e.pop("snapshot"))
+    c.pop("params"), c.pop("m"), c.pop("v")
+    del want
+    torch.cuda.empty_cache()
+    return c, e, same
+
+
+def replay_ms(run):
+    """The mean seconds of a run's steps after the first (the compiled
+    step's replays), untraced, in ms."""
+    times = [t for _, _, t in run["metrics"][1:]]
+    return sum(times) / len(times) * 1e3
+
+
+def train_compiled_danube(torch, dev, card, table, host):
+    """18(a): danube at full width and depth, phase 7(a)'s 4 x 2048
+    tokens, the steps ``COMPILED_TRAIN_STEPS`` through
+    ``steps.jit_train_step`` and the eager ``make_train_step`` from the
+    same seed-0 weights and batches (``compiled_pair``), step 2001 under
+    ``torch.profiler``: step ms on the host clock (steps 1 and 2000) and
+    on the device, the idle share, the peak memory beside
+    ``launch.train.train_bytes``."""
+    from repro_torch import configs
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.launch.train import train_bytes
+    cfg = dataclasses.replace(configs.get_config(ARCH), attn_impl="flash")
+    at = COMPILED_TRAIN_STEPS
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=2048,
+                                  batch_size=4, device=dev)
+    batches = [stream.batch_at(i) for i in range(len(at))]
+    c, e, same = compiled_pair(torch, dev, cfg, batches, at, table,
+                               "danube 4 x 2048", card, host, snapshot=at[2],
+                               trace=at[-1])
+    walls = {}
+    for name, r in (("compiled", c), ("eager", e)):
+        wall = walls[name] = (r["metrics"][1][2] + r["metrics"][2][2]) / 2 \
+            * 1e3
+        log("train-compiled", f"danube 4 x 2048 {name}: first step "
+            f"{r['metrics'][0][2] * 1e3:.1f} ms; steps {at[1]} and {at[2]} "
+            f"{wall:.1f} ms a step on the host clock; step {at[3]} device "
+            f"busy {r['busy']:.1f} ms in {r['ops']:.0f} device ops -> idle "
+            f"{1 - r['busy'] / wall:.1%}; peak device memory "
+            f"{r['peak'] / 2**30:.2f} GiB (train_bytes "
+            f"{train_bytes(cfg) / 2**30:.2f} GiB: the state at the update's "
+            f"peak, activations not counted) [{card}]")
+    log("train-compiled", f"danube 4 x 2048: compiled and eager "
+        f"{'bit-equal' if same else 'not bit-equal'} over steps {list(at)}; "
+        f"compiled / eager step on the host clock "
+        f"{walls['compiled'] / walls['eager']:.3f}x, peak "
+        f"{c['peak'] / e['peak']:.3f}x [{card}]")
+
+
+def train_compiled_families(torch, dev, card, table, host):
+    """18(b): every ``FAMILY_TRAIN`` arch at its phase-12 cut and shape
+    (bf16, its launcher's ``extra_inputs``), the steps
+    ``FAMILY_COMPILED_STEPS`` compiled against eager (``compiled_pair``):
+    the replays' ms beside eager's, the graph's kernel nodes, capture
+    seconds and pool bytes."""
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.launch import train as launcher
+    at = FAMILY_COMPILED_STEPS
+    rows = []
+    for arch, layers, B, S in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(
+            family_config(arch, layers, "train-compiled"), attn_impl="flash")
+        stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=S,
+                                      batch_size=B, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        extra = launcher.extra_inputs(cfg, B, gen, dev)
+        batches = [{**stream.batch_at(i), **extra} for i in range(len(at))]
+        label = f"{arch} ({cfg.num_layers} layers) {B} x {S}"
+        c, e, same = compiled_pair(torch, dev, cfg, batches, at, table,
+                                   label, card, host)
+        del batches, extra
+        rows.append((arch, replay_ms(c), replay_ms(e), c["pool"], same,
+                     c["peak"], e["peak"]))
+        log("train-compiled", f"{label}: replays {replay_ms(c):.1f} ms a "
+            f"step, eager {replay_ms(e):.1f} (steps {at[1]}-{at[-1]}, host "
+            f"clock); first step {c['metrics'][0][2]:.2f} s compiled; peak "
+            f"{c['peak'] / 2**30:.2f} GiB compiled, {e['peak'] / 2**30:.2f} "
+            f"eager; {time.perf_counter() - t0:.1f} s [{card}]")
+        torch.cuda.empty_cache()
+    log("train-compiled", "summary: " + "; ".join(
+        f"{a} {cm:.1f} ms compiled / {em:.1f} eager ({em / cm:.2f}x), "
+        f"{p.kernels} nodes, capture {p.capture_s:.2f} s, "
+        f"{p.bytes / 2**20:.0f} MiB pool, "
+        f"{'bit-equal' if same else 'within TRAIN_TOL'}"
+        for a, cm, em, p, same, _, _ in rows) + f" [{card}]")
+
+
+def held_bytes():
+    """The host bytes phase 18 holds at once, from the parameter trees'
+    leaves (``T.abstract_params``): danube's parameters twice and its m
+    and v (fp32), or a family's m and v, each leaf aligned to 256 B."""
+    from repro_torch import configs
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import transformer as T
+
+    def tree_bytes(cfg, params, moments):
+        leaves = tree_leaves(T.abstract_params(cfg))
+        return sum(params * (t.numel() * t.element_size() + 256)
+                   + moments * (4 * t.numel() + 256) for t in leaves)
+    need = [tree_bytes(configs.get_config(ARCH), 2, 2)]
+    for arch, layers, _, _ in FAMILY_TRAIN:
+        full = configs.get_config(arch)
+        need.append(tree_bytes(full if layers is None else dataclasses.replace(
+            full, num_layers=layers), 0, 2))
+    return max(need)
+
+
+def train_compiled_phase(torch, dev, card, table):
+    """Phase 18: the compiled train step against eager."""
+    t0 = time.perf_counter()
+    need, avail = held_bytes(), _mem_available()
+    if avail < 1.5 * need:
+        raise RuntimeError(
+            f"phase 18 page-locks {need / 1e9:.2f} GB of host memory for "
+            f"its held trees and wants {1.5 * need / 1e9:.2f} GB of host "
+            f"RAM available; found {avail / 1e9:.2f} GB")
+    host = HostArena(torch, need)
+    log("train-compiled", f"{host.buf.numel() / 1e9:.2f} GB of host memory "
+        f"page-locked for the held trees in {time.perf_counter() - t0:.1f} "
+        f"s")
+    try:
+        train_compiled_danube(torch, dev, card, table, host)
+        train_compiled_families(torch, dev, card, table, host)
+    finally:
+        host.close()
+    log("train-compiled", f"phase 18 took {time.perf_counter() - t0:.1f} s")
+
+
 def time_mesh_flash(torch, dev, gen, timer, card):
     """Phase 5's row 7d: the flash forward at phase 14's shard-local
     shapes (``MESH_TRAIN_FLASH``; ``time_flash_shape``)."""
@@ -7694,6 +8108,8 @@ def main() -> int:
     log("ring", f"phase 16 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     compiled_phase(torch, dev, card, table)
+    torch.cuda.empty_cache()
+    train_compiled_phase(torch, dev, card, table)
 
     # one entry per kernel: a GEMM entry sums one decode step's seven
     # per-layer GEMMs at M=8 (the set a step repeats in each of 24 layers),

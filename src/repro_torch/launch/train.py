@@ -16,6 +16,14 @@ PyTorch. One device: ``--device cpu`` runs the plain PyTorch path on the
 CPU (the kernel's plain version included); by default the launcher needs
 a CUDA card and fails without one. ``--plan-cache`` pre-plans the quantized
 serving GEMMs of the trained model and saves them for the serve launcher.
+
+On the card the train step is compiled, as JAX's launcher jits it:
+``steps.jit_train_step``, one CUDA graph for every step (the step is fed
+as a 0-d int32 tensor on the card), the parameters and AdamW state
+donated. ``--eager`` runs the eager step; on the CPU the step runs
+eagerly. The run ends with ``[train] steps: compiled (CUDA graphs: <n>
+captured, ...)`` or ``[train] steps: eager (<why>)``. A capture that
+fails raises; nothing falls back to the eager step.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ import dataclasses
 import os
 import tempfile
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -59,7 +67,11 @@ class TrainReport:
     grad norm and the seconds of the train step to a device sync; per step
     the seconds from its end to the next step's start, or to the run's end
     (the checkpoint save where one is due, the old checkpoints' removal,
-    the next batch); the runner's history; the flash kernel's launches."""
+    the next batch); the runner's history; the flash kernel's launches.
+    ``first_step_s`` is the first call's seconds (compiled: the eager
+    warm-up and the capture), which ``step_s`` holds too, ahead of the
+    replays'; ``steps`` says how the steps ran (the closing line's text)
+    and ``graphs`` is the compiled step's pool (None: eager)."""
 
     losses: List[float]
     grad_norms: List[float]
@@ -67,6 +79,9 @@ class TrainReport:
     after_step_s: Dict[int, float]
     history: List[Tuple]
     flash_launches: int
+    first_step_s: float
+    steps: str
+    graphs: Optional[rsteps.GraphPool]
 
 
 def extra_inputs(cfg, batch_size: int, gen: torch.Generator,
@@ -153,7 +168,24 @@ def build_args(argv=None) -> argparse.Namespace:
                          "quant_format)")
     ap.add_argument("--device", default=None,
                     help="cuda (default; fails without a card) or cpu")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the eager train step on the card (default: "
+                         "compiled under CUDA graphs)")
     return ap.parse_args(argv)
+
+
+def steps_line(step_fn, why: Optional[str]) -> str:
+    """How the train step ran: compiled, with the graphs it captured, the
+    bytes their pool reserved, the capture's seconds and the kernel nodes
+    held; or eager and why."""
+    if why is not None:
+        return f"eager ({why})"
+    pool = step_fn.pool
+    return (f"compiled (CUDA graphs: {pool.graphs} captured, "
+            f"{pool.bytes / 2**20:.1f} MiB in their pool; capture "
+            f"{pool.capture_s:.2f} s with the eager first step; "
+            f"{pool.kernels} kernel nodes, {pool.nodes} of them held to the "
+            f"launch counters)")
 
 
 def main(argv=None) -> TrainReport:
@@ -182,7 +214,9 @@ def main(argv=None) -> TrainReport:
     print(f"[train] {cfg.name} ({cfg.family}) params={n_params / 1e6:.2f}M "
           f"device={device}")
 
-    step_fn = rsteps.make_train_step(cfg, opt_cfg, settings)
+    why = "--eager" if args.eager else rsteps.eager_reason(device)
+    step_fn = (rsteps.make_train_step if why else rsteps.jit_train_step)(
+        cfg, opt_cfg, settings)
     stream = SyntheticTokenStream(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, batch_size=args.batch,
                                   device=device)
@@ -190,7 +224,11 @@ def main(argv=None) -> TrainReport:
     ex = extra_inputs(cfg, args.batch, gen, device)
 
     def batches(step):
-        return {"batch": {**stream.batch_at(step), **ex}, "step": step}
+        # a 0-d device tensor, as JAX feeds jnp.int32: one graph serves
+        # every step
+        return {"batch": {**stream.batch_at(step), **ex},
+                "step": torch.full((), step, dtype=torch.int32,
+                                   device=device)}
 
     losses, gnorms, step_s = [], [], []
     last = {"metrics_t": None, "step": None}
@@ -206,6 +244,7 @@ def main(argv=None) -> TrainReport:
             torch.cuda.synchronize(device)
         step_s.append(time.perf_counter() - t0)
         return out
+    timed_step.donates = getattr(step_fn, "donates", False)
 
     def on_metrics(step, m):
         losses.append(m["loss"])
@@ -230,6 +269,11 @@ def main(argv=None) -> TrainReport:
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
           f"events: {[h[0] for h in history]}")
     print(f"[train] attn: {cfg.attn_impl} (kernel launches {launches})")
+    steps = steps_line(step_fn, why)
+    later = sorted(step_s[1:])
+    print(f"[train] steps: {steps}; first step {step_s[0]:.3f} s" + (
+        f", the later steps' median {later[len(later) // 2]:.4f} s"
+        if later else ""))
     if args.plan_cache:
         # quantize a throwaway copy of the trained tree to enumerate the
         # serving GEMMs, plan them at decode batch M, and persist them
@@ -241,7 +285,8 @@ def main(argv=None) -> TrainReport:
               f"{n} plans -> {args.plan_cache}")
     return TrainReport(losses=losses, grad_norms=gnorms, step_s=step_s,
                        after_step_s=after_step_s, history=history,
-                       flash_launches=launches)
+                       flash_launches=launches, first_step_s=step_s[0],
+                       steps=steps, graphs=None if why else step_fn.pool)
 
 
 if __name__ == "__main__":

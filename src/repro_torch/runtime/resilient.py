@@ -11,8 +11,23 @@
 Every exception a step raises is caught and retried, as in the JAX
 package, so a failure that repeats (a kernel that does not build, a sticky
 CUDA error) loops for ever: callers that must fail fast run one step
-directly first. ``inject_failure`` lets tests script failures. Each step
-ends in a device sync (``jax.block_until_ready`` in the JAX package).
+directly first. A compiled step's failed capture (``steps.CaptureFailed``)
+is the exception: it is raised, since the same capture would fail again
+and nothing falls back to the eager step. ``inject_failure`` lets tests
+script failures. Each step ends in a device sync
+(``jax.block_until_ready`` in the JAX package).
+
+A step that donates its state (``steps.jit_train_step``: ``donates``)
+writes the new parameters and AdamW state into the tensors it was given,
+so the runner never runs it again on the state it wrote. A straggler has
+finished by the time its clock is read, and the step is deterministic:
+the state it wrote is what the eager runner's retry computes, so the
+failure is recorded and that state kept. A donated step that raises once
+called may have written part of its state: the latest checkpoint is
+restored into those same tensors (the compiled step keeps its buffers),
+recording ``("restore", step)``; with no checkpoint to restore the runner
+raises. Resumes and hard failures restore into them too. An eager step's
+retry stays in memory.
 
 On a mesh every rank runs the runner with the same arguments, the step
 being ``make_train_step(..., mesh=)`` and ``shards`` its
@@ -40,7 +55,8 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.runtime.steps import CaptureFailed
 
 
 @dataclasses.dataclass
@@ -69,6 +85,27 @@ def _block_until_ready(tree) -> None:
     for dev in {t.device for t in tree_leaves(tree)
                 if isinstance(t, torch.Tensor) and t.device.type == "cuda"}:
         torch.cuda.synchronize(dev)
+
+
+def _restore(ckpt_dir: str, params, opt_state, shards, donated: bool):
+    """The latest checkpoint as ``(params, opt_state, step)``, or None
+    where there is none. For a ``donated`` step it is read on the host and
+    copied into the tensors of ``params`` and ``opt_state``, which are
+    returned: the compiled step keeps its buffers, and the device never
+    holds two copies of the state."""
+    like = {"params": params, "opt": opt_state}
+    if not donated:
+        restored, step0, _ = restore_checkpoint(ckpt_dir, like,
+                                                shards=shards)
+        return None if restored is None else \
+            (restored["params"], restored["opt"], step0)
+    restored, step0, _ = restore_checkpoint(
+        ckpt_dir, tree_map(lambda t: t.to("meta"), like))
+    if restored is None:
+        return None
+    for dst, src in zip(tree_leaves(like), tree_leaves(restored)):
+        dst.copy_(src)
+    return params, opt_state, step0
 
 
 def _anyone(flag: bool, shards, tree) -> bool:
@@ -103,11 +140,10 @@ def run_training(
     start = latest_step(cfg.ckpt_dir)
     step = 0
     writer = shards is None or dist.get_rank() == 0
+    donated = getattr(train_step, "donates", False)
     if start is not None:
-        restored, step0, _ = restore_checkpoint(
-            cfg.ckpt_dir, {"params": params, "opt": opt_state},
-            shards=shards)
-        params, opt_state = restored["params"], restored["opt"]
+        params, opt_state, step0 = _restore(cfg.ckpt_dir, params, opt_state,
+                                            shards, donated)
         step = step0 + 1
         history.append(("resume", step))
 
@@ -115,34 +151,54 @@ def run_training(
     while step < num_steps:
         inputs = batches(step)
         t0 = time.time()
+        called = slow = False
         try:
             if inject_failure is not None and inject_failure(step, retries):
                 raise StepFailure(f"injected failure at step {step}")
+            called = True
             params2, opt2, metrics = train_step(params, opt_state, inputs)
             _block_until_ready(metrics)
-            if _anyone(time.time() - t0 > cfg.step_timeout_s, shards,
-                       metrics):
+            slow = _anyone(time.time() - t0 > cfg.step_timeout_s, shards,
+                           metrics)
+            if slow and not donated:
                 raise StepFailure(f"straggler timeout at step {step}")
+        except CaptureFailed:
+            raise
         except Exception as e:  # noqa: BLE001 — any failure is retried
             retries += 1
             history.append(("failure", step, str(e)[:120]))
-            if retries > cfg.max_retries:
-                if remesh_fn is not None:
-                    train_step = remesh_fn()
-                    shards = getattr(train_step, "shards", shards)
-                    writer = shards is None or dist.get_rank() == 0
-                restored, step0, _ = restore_checkpoint(
-                    cfg.ckpt_dir, {"params": params, "opt": opt_state},
-                    shards=shards)
-                if restored is not None:
-                    params, opt_state = restored["params"], restored["opt"]
+            # a donated step that raised may have written part of its state
+            written = donated and called
+            hard = retries > cfg.max_retries
+            if hard and remesh_fn is not None:
+                train_step = remesh_fn()
+                shards = getattr(train_step, "shards", shards)
+                writer = shards is None or dist.get_rank() == 0
+                donated = getattr(train_step, "donates", False)
+            if hard or written:
+                got = _restore(cfg.ckpt_dir, params, opt_state, shards,
+                               donated)
+                if got is not None:
+                    params, opt_state, step0 = got
                     step = step0 + 1
+                elif written:
+                    raise StepFailure(
+                        f"step {step} failed after writing its donated "
+                        f"state, and there is no checkpoint to restore "
+                        f"(the step is never run again on the state it "
+                        f"wrote): {e}") from e
+            if hard:
                 if remesh_fn is not None:
                     history.append(("remesh", step))
                 retries = 0
                 history.append(("restart", step))
+            elif written:
+                history.append(("restore", step))
             continue
 
+        if slow:  # donated: what it wrote is what a retry would compute
+            history.append(("failure", step,
+                            f"straggler timeout at step {step}"))
         params, opt_state = params2, opt2
         retries = 0
         if on_metrics is not None:

@@ -30,7 +30,8 @@ mismatch raises). A capture that fails
 raises, naming the step and its signature; nothing falls back to the eager
 step.
 
-On a mesh the serving steps stay eager, a named departure: a rank's
+On a mesh the serving and train steps stay eager, a named departure
+(``MESH_DEPARTURE``, ``TRAIN_MESH_DEPARTURE``): a rank's
 collectives go through gloo and host memory, which a CUDA graph cannot
 capture. JAX's sharded ``jit_*`` steps get their counterpart once NCCL
 runs across cards.
@@ -40,8 +41,14 @@ microbatch count, accumulates them across microbatches in that dtype and
 divides by the count, then runs the AdamW update. On one device it
 computes the plain step whatever the settings, as JAX's does when it is
 given no sharding pytrees. With ``mesh`` it is the counterpart of JAX's
-``jit_train_step``, SPMD by hand (:func:`_mesh_train_step`); the train
-step is not captured yet.
+``jit_train_step``, SPMD by hand (:func:`_mesh_train_step`), and runs
+eagerly. :func:`jit_train_step` is JAX's ``jit_train_step`` on one
+device: the step under CUDA graphs, its autograd pass and microbatch
+loop inside the one graph, ``params`` and the AdamW state donated (the
+new leaves are written back into the caller's tensors inside the graph).
+A step that is captured reads nothing from the host: its ``step`` is a
+0-d int32 tensor on the card, and the schedule and AdamW's scalars stay
+on the card (``optim/schedule.py``).
 
 The serving steps take ``fsdp_serve`` as JAX's ``jit_*_step`` do: on a
 mesh their ``params`` are then the rank's shares over "data" of its
@@ -352,7 +359,7 @@ def make_verify_step(cfg: ModelConfig, cache_len: int, *,
 
 
 # ---------------------------------------------------------------------------
-# compiled steps: the counterparts of JAX's jax.jit serving steps
+# compiled steps: the counterparts of JAX's jax.jit serving and train steps
 # ---------------------------------------------------------------------------
 
 MESH_DEPARTURE = (
@@ -360,6 +367,17 @@ MESH_DEPARTURE = (
     "through gloo and host memory, which a CUDA graph cannot capture "
     "(JAX's sharded jit_* steps get their counterpart once NCCL runs "
     "across cards)")
+TRAIN_MESH_DEPARTURE = (
+    "on a mesh the train step stays eager: a rank's collectives go "
+    "through gloo and host memory, which a CUDA graph cannot capture "
+    "(JAX's sharded jit_train_step gets its counterpart once NCCL runs "
+    "across cards)")
+
+
+class CaptureFailed(RuntimeError):
+    """A compiled step's capture failed (or its graph disagreed with the
+    launches counted during it). Nothing falls back to the eager step, and
+    the training runner does not retry it: the same capture fails again."""
 
 
 class CudaGraphs:
@@ -436,15 +454,17 @@ def eager_reason(device, mesh=None) -> Optional[str]:
 class GraphPool:
     """One memory pool that compiled steps share (an engine's), and what
     was captured into it: ``graphs``, the ``bytes`` the captures reserved,
-    the seconds they took (``capture_s``, the eager warm-ups included) and
+    the seconds they took (``capture_s``, the eager warm-ups included),
     the kernel nodes of the counted kernels held against their counted
-    launches (``nodes``)."""
+    launches (``nodes``) and every kernel node of the graphs
+    (``kernels``)."""
 
     handle: Any = None
     graphs: int = 0
     bytes: int = 0
     capture_s: float = 0.0
     nodes: int = 0
+    kernels: int = 0
 
 
 def _flatten(tree, leaves: list):
@@ -494,33 +514,41 @@ def _shallow(out):
 
 
 class CompiledStep:
-    """A serving step under CUDA graphs (module docstring): ``fn(params,
-    *args)`` captured once per signature of ``args``; ``params`` stay the
-    tensors of the first call (a call on other weights raises). ``state``
-    picks the donated state out of ``args`` (None: nothing donated); the
-    step returns it under the ``"state"`` key. ``fn`` stays the eager
-    step. ``pool`` is the :class:`GraphPool` shared with other steps."""
+    """A step under CUDA graphs (module docstring): a serving step
+    ``fn(params, *args)`` captured under ``torch.no_grad`` once per
+    signature of ``args``, its ``params`` the tensors of the first call (a
+    call on other weights raises); with ``train``, ``fn(*args)`` captured
+    with autograd on (the backward inside the graph), every argument part
+    of the signature (the train step, whose parameters are donated
+    state). ``state`` picks the donated state out of ``args`` (None:
+    nothing donated); the step returns it under the ``"state"`` key.
+    ``fn`` stays the eager step. ``pool`` is the :class:`GraphPool`
+    shared with other steps."""
 
     def __init__(self, fn: Callable, name: str, *,
                  state: Optional[Callable] = None,
-                 pool: Optional[GraphPool] = None):
-        self.fn, self.name, self.state = fn, name, state
+                 pool: Optional[GraphPool] = None, train: bool = False):
+        self.fn, self.name, self.state, self.train = fn, name, state, train
         self.pool = GraphPool() if pool is None else pool
         self.graphs: Dict[Any, "_Captured"] = {}
         self._params = None
 
-    def __call__(self, params, *args):
-        if self._params is None:
-            self._params = params
-        elif params is not self._params:
-            raise ValueError(f"{self.name}: captured on other weights; "
-                             f"compile a new step for these")
+    def __call__(self, *args):
+        fn = self.fn
+        if not self.train:
+            params, args = args[0], args[1:]
+            if self._params is None:
+                self._params = params
+            elif params is not self._params:
+                raise ValueError(f"{self.name}: captured on other weights; "
+                                 f"compile a new step for these")
+            fn = functools.partial(fn, params)
         leaves: list = []
         shape = _flatten(args, leaves)
         sig = (shape, tuple(_leaf_key(leaf) for leaf in leaves))
         cap = self.graphs.get(sig)
         if cap is None:
-            return self._first(sig, params, args)
+            return self._first(sig, fn, args)
         return cap.replay(leaves)
 
     def _merge(self, out, state):
@@ -539,7 +567,7 @@ class CompiledStep:
                 dst.copy_(src)
         return dict(out, state=state)
 
-    def _first(self, sig, params, args):
+    def _first(self, sig, fn, args):
         """A new signature: run eagerly (the call's result), then capture
         on static inputs (the donated state is the caller's own)."""
         where = [leaf.device for leaf in flat_leaves(args)
@@ -548,9 +576,8 @@ class CompiledStep:
             raise ValueError(f"{self.name}: {eager_reason(where[0])}")
         t0 = time.perf_counter()
         state = None if self.state is None else self.state(args)
-        with torch.no_grad():
-            out = GRAPHS.warm_up(
-                lambda: self._merge(self.fn(params, *args), state))
+        with torch.enable_grad() if self.train else torch.no_grad():
+            out = GRAPHS.warm_up(lambda: self._merge(fn(*args), state))
             static_args = _rebuild(
                 args, state,
                 lambda x: x.clone() if isinstance(x, torch.Tensor) else x)
@@ -560,10 +587,10 @@ class CompiledStep:
             before = build.launch_counts()
             try:
                 sout, replay, nbytes, names = GRAPHS.capture(
-                    lambda: self._merge(self.fn(params, *static_args),
-                                        state), statics, self.pool.handle)
+                    lambda: self._merge(fn(*static_args), state), statics,
+                    self.pool.handle)
             except Exception as e:
-                raise RuntimeError(
+                raise CaptureFailed(
                     f"capturing {self.name} failed at signature "
                     f"{_describe(sig)}: {e}") from e
             finally:
@@ -575,12 +602,13 @@ class CompiledStep:
             if names is not None:
                 bad = build.node_mismatch(delta, names)
                 if bad:
-                    raise RuntimeError(
+                    raise CaptureFailed(
                         f"{self.name} at signature {_describe(sig)}: the "
                         f"graph's kernel nodes disagree with the launches "
                         f"counted during its capture: {'; '.join(bad)}")
                 self.pool.nodes += sum(n for k, n in delta.items()
                                        if isinstance(k, build.CudaKernel))
+                self.pool.kernels += len(names)
         self.graphs[sig] = _Captured(statics, sout, replay, delta)
         self.pool.graphs += 1
         self.pool.bytes += int(nbytes)
@@ -699,3 +727,59 @@ def jit_encode_step(cfg: ModelConfig, *, mesh=None,
     _no_mesh(cfg, mesh, "jit_encode_step")
     return CompiledStep(make_encode_step(cfg, **kw), "encode_step",
                         pool=pool)
+
+
+class CompiledTrainStep:
+    """:func:`make_train_step` under CUDA graphs: ``step(params,
+    opt_state, inputs) → (params, opt_state, metrics)`` as the eager step,
+    one graph per signature of its arguments (the parameters' and
+    moments' shapes, the batch's, the 0-d int32 ``step``), the backward
+    and every microbatch inside it. ``params`` and ``opt_state`` are
+    donated: the graph writes the new leaves into the caller's tensors and
+    the call returns the trees of the first call, whose every leaf keeps
+    its ``data_ptr`` from the first step to the last (a call on other
+    tensors copies them in first). ``metrics`` are static buffers that
+    the next replay overwrites. ``fn`` is the eager step; ``donates``
+    tells the training runner that a step it ran has written its state
+    (``runtime/resilient.py``)."""
+
+    donates = True
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+        def train_step(state, inputs):
+            params, opt_state, metrics = fn(state["params"], state["opt"],
+                                            inputs)
+            return {"state": {"params": params, "opt": opt_state},
+                    "metrics": metrics}
+        self.step = CompiledStep(train_step, "train_step",
+                                 state=lambda args: args[0], train=True)
+
+    @property
+    def pool(self) -> GraphPool:
+        return self.step.pool
+
+    @property
+    def graphs(self) -> Dict[Any, "_Captured"]:
+        return self.step.graphs
+
+    def __call__(self, params, opt_state, inputs):
+        out = self.step({"params": params, "opt": opt_state}, inputs)
+        state = out["state"]
+        return state["params"], state["opt"], out["metrics"]
+
+
+def jit_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                   settings: TrainSettings = TrainSettings(), *,
+                   mesh=None) -> CompiledTrainStep:
+    """JAX's ``jit_train_step`` (``donate_argnums=(0, 1)``) on one device:
+    :func:`make_train_step` compiled, ``params`` and the AdamW state
+    donated (:class:`CompiledTrainStep`). Feed ``step`` as a 0-d int32
+    tensor on the card (an int is part of the signature: a graph per
+    step). On a mesh it raises, a named departure
+    (``TRAIN_MESH_DEPARTURE``): ``make_train_step(mesh=)`` runs eagerly.
+    The step's graph has a :class:`GraphPool` of its own (``.pool``)."""
+    if mesh is not None or cfg.shard is not None:
+        raise ValueError(f"jit_train_step: {TRAIN_MESH_DEPARTURE}")
+    return CompiledTrainStep(make_train_step(cfg, opt_cfg, settings))

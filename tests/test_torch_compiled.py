@@ -2,11 +2,11 @@
 ``CompiledStep``; the counterparts of JAX's ``jax.jit`` steps) on the CPU.
 
 A CUDA graph captures work on the card only, so here the capture is a
-stand-in patched in for ``steps.GRAPHS`` (:class:`StandIn`): its capture
-runs the step once on the static inputs to make the static outputs and
-puts the static inputs back (a capture launches nothing); its replay
-re-runs the step on the static inputs and copies what it returns into
-those static outputs. The aliasing is then a CUDA graph's: a replay
+stand-in patched in for ``steps.GRAPHS`` (``torch_parity_helpers.StandIn``):
+its capture runs the step once on the static inputs to make the static
+outputs and puts the static inputs back (a capture launches nothing); its
+replay re-runs the step on the static inputs and copies what it returns
+into those static outputs. The aliasing is then a CUDA graph's: a replay
 overwrites the outputs of the last one, and the state is the caller's own
 tensors. With it the port's engine, compiled, gives the greedy tokens of
 JAX's engine (which jits every step) on REDUCED configs: danube paged with
@@ -37,58 +37,7 @@ from repro_torch.runtime import speculative as spec
 from repro_torch.runtime import steps as rsteps
 from repro_torch.runtime.engine import Request, ServingEngine
 
-from torch_parity_helpers import jax_to_numpy
-
-
-class StandIn:
-    """``steps.GRAPHS`` on the CPU (module docstring). ``fail`` makes every
-    capture raise as a capture that meets a host sync does. ``nodes``: the
-    function names of the graph's kernel nodes a capture reports (None:
-    the kernel nodes its counted launches would make)."""
-
-    device_type = "cpu"
-
-    def __init__(self, fail=False, nodes=None):
-        self.fail, self.captures, self.replays = fail, 0, 0
-        self.nodes = nodes
-
-    def new_pool(self):
-        return None
-
-    def warm_up(self, run):
-        return run()
-
-    def capture(self, run, statics, pool):
-        if self.fail:
-            raise RuntimeError("operation not permitted when stream is "
-                               "capturing")
-        saved = [s.clone() if isinstance(s, torch.Tensor) else None
-                 for s in statics]
-        before = build.launch_counts()
-        out = run()
-        nodes = self.nodes
-        if nodes is None:
-            nodes = [f"void {' '.join(k.device)}<8>(Args)"
-                     for k, n in build.launch_counts().items()
-                     if isinstance(k, build.CudaKernel) and k.device
-                     for _ in range(n - before.get(k, 0))]
-        for s, c in zip(statics, saved):
-            if c is not None:
-                s.copy_(c)
-        self.captures += 1
-
-        def replay():
-            # a graph's replay enters no wrapper: the counts it launched
-            # come from the capture (CompiledStep adds them)
-            before = build.launch_counts()
-            new = run()
-            for a, b in zip(rsteps.flat_leaves(out), rsteps.flat_leaves(new)):
-                if isinstance(a, torch.Tensor) and a is not b:
-                    a.copy_(b)
-            build.add_launches({k: before[k] - n for k, n in
-                                build.launch_counts().items() if k in before})
-            self.replays += 1
-        return out, replay, 0, nodes
+from torch_parity_helpers import StandIn, jax_to_numpy
 
 
 @pytest.fixture

@@ -1308,3 +1308,62 @@ def test_family_train_step_kernel_path_matches_plain_path(cuda_device, arch):
         assert np.isfinite(out["flash"][i])
         assert abs(out["flash"][i] - out["chunked"][i]) \
             <= 1e-5 * abs(out["chunked"][i]), (out, i)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "olmoe-1b-7b",
+                                  "rwkv6-7b", "whisper-small"])
+def test_compiled_train_step_matches_eager_on_the_card(cuda_device, arch):
+    """REDUCED ``arch`` (remat, flash, the launcher's extra inputs): steps
+    0, 1, 2000 and 2001 through ``jit_train_step`` (one CUDA graph, the
+    step a 0-d int32 tensor on the card) and the eager ``make_train_step``
+    from the same parameters: losses, grad norms, parameters and AdamW
+    state bit-equal (the same kernels on the same inputs), the flash
+    kernel launched as many times, the donated leaves' ``data_ptr`` kept;
+    at steps 2000-2001 the compiled parameters move (a learning rate
+    baked in at the capture, scale 0, would keep every one)."""
+    from repro_torch.launch import train as ttrain
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_reduced(arch), remat=True,
+                              attn_impl="flash")
+    stream = SyntheticTokenStream(vocab_size=cfg.vocab_size, seq_len=64,
+                                  batch_size=4, device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    extra = ttrain.extra_inputs(cfg, 4, gen, cuda_device)
+    at = (0, 1, 2000, 2001)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    runs = {}
+    for name, make in (("compiled", tsteps.jit_train_step),
+                       ("eager", tsteps.make_train_step)):
+        gen.manual_seed(0)
+        params = T.init_params(gen, cfg, device=cuda_device)
+        state = adamw_init(params, opt_cfg)
+        ptrs = [t.data_ptr() for t in tsteps.flat_leaves((params, state))]
+        step_fn = make(cfg, opt_cfg)
+        n0 = tfa.FLASH_ATTENTION.launches
+        metrics = []
+        for i, s in enumerate(at):
+            if s == 2000:
+                before = {k: t.clone()
+                          for k, t in tree_flatten_with_keys(params)}
+            params, state, m = step_fn(params, state, {
+                "batch": {**stream.batch_at(i), **extra},
+                "step": torch.full((), s, dtype=torch.int32,
+                                   device=cuda_device)})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        if name == "compiled":
+            assert len(step_fn.graphs) == 1
+            assert [t.data_ptr() for t in
+                    tsteps.flat_leaves((params, state))] == ptrs
+        runs[name] = (metrics, params, state, before,
+                      tfa.FLASH_ATTENTION.launches - n0)
+    (cm, cp, cs, cb, cn), (em, ep, es, _, en) = runs["compiled"], \
+        runs["eager"]
+    assert cm == em and cn == en
+    for got, want in ((cp, ep), (cs, es)):
+        for (k, a), (_, b) in zip(tree_flatten_with_keys(got),
+                                  tree_flatten_with_keys(want)):
+            assert torch.equal(a, b), k
+    assert any(not torch.equal(t, cb[k])
+               for k, t in tree_flatten_with_keys(cp))

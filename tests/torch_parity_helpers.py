@@ -7,7 +7,11 @@ Importing it gives the test process one torch thread. The suite runs
 under pytest-xdist, several workers on a few cores, and each worker's
 torch would otherwise start an intra-op pool as wide as the machine: the
 pools' threads starve one another (the four heaviest port files took
-2.1x as long on 4 workers so). Each mesh rank runs on one thread too."""
+2.1x as long on 4 workers so). Each mesh rank runs on one thread too.
+
+``StandIn`` is the CUDA-graph capture of the port's compiled steps
+(``repro_torch.runtime.steps.GRAPHS``) on the CPU, for the compiled
+serving and train steps' tests."""
 import numpy as np
 import pytest
 import torch
@@ -15,6 +19,68 @@ import torch
 from repro.core import quant as jquant
 
 torch.set_num_threads(1)
+
+
+class StandIn:
+    """``steps.GRAPHS`` on the CPU: its capture runs the step once on the
+    static inputs to make the static outputs and puts the static inputs
+    back (a capture launches nothing); its replay re-runs the step on the
+    static inputs, in the capture's grad mode, and copies what it returns
+    into those static outputs, so a replay overwrites the last one's
+    outputs and the donated state is the caller's own tensors, as under a
+    CUDA graph. It cannot see a host value that a real capture would bake
+    in (the replay re-runs the Python step). ``fail`` makes every capture
+    raise as a capture that meets a host sync does. ``nodes``: the
+    function names of the graph's kernel nodes a capture reports (None:
+    the kernel nodes its counted launches would make)."""
+
+    device_type = "cpu"
+
+    def __init__(self, fail=False, nodes=None):
+        self.fail, self.captures, self.replays = fail, 0, 0
+        self.nodes = nodes
+
+    def new_pool(self):
+        return None
+
+    def warm_up(self, run):
+        return run()
+
+    def capture(self, run, statics, pool):
+        from repro_torch.kernels import build
+        from repro_torch.runtime import steps as rsteps
+        if self.fail:
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+        saved = [s.clone() if isinstance(s, torch.Tensor) else None
+                 for s in statics]
+        before = build.launch_counts()
+        grad = torch.is_grad_enabled()
+        out = run()
+        nodes = self.nodes
+        if nodes is None:
+            nodes = [f"void {' '.join(k.device)}<8>(Args)"
+                     for k, n in build.launch_counts().items()
+                     if isinstance(k, build.CudaKernel) and k.device
+                     for _ in range(n - before.get(k, 0))]
+        for s, c in zip(statics, saved):
+            if c is not None:
+                s.copy_(c)
+        self.captures += 1
+
+        def replay():
+            # a graph's replay enters no wrapper: the counts it launched
+            # come from the capture (CompiledStep adds them)
+            before = build.launch_counts()
+            with torch.set_grad_enabled(grad):
+                new = run()
+            for a, b in zip(rsteps.flat_leaves(out), rsteps.flat_leaves(new)):
+                if isinstance(a, torch.Tensor) and a is not b:
+                    a.copy_(b)
+            build.add_launches({k: before[k] - n for k, n in
+                                build.launch_counts().items() if k in before})
+            self.replays += 1
+        return out, replay, 0, nodes
 
 
 def jax_to_numpy(tree):
@@ -39,13 +105,13 @@ def jax_to_numpy(tree):
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 16, 3
 
 
-def train_batches(cfg, seed=0):
-    """``TRAIN_STEPS`` numpy batches of ``TRAIN_B`` x ``TRAIN_S`` tokens
+def train_batches(cfg, seed=0, steps=TRAIN_STEPS):
+    """``steps`` numpy batches of ``TRAIN_B`` x ``TRAIN_S`` tokens
     (labels the next token), with the arch's vision patches or audio
     frames, one draw for both packages."""
     rng = np.random.default_rng(seed)
     out = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t = rng.integers(0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S + 1)) \
             .astype(np.int32)
         b = {"tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()}
@@ -59,12 +125,12 @@ def train_batches(cfg, seed=0):
     return out
 
 
-def jax_train(arch, micro):
+def jax_train(arch, micro, steps=TRAIN_STEPS):
     """JAX's ``make_train_step`` (jitted, REDUCED defaults: chunked
     attention, no remat; fp32 gradients, see ``assert_train_matches``)
-    over ``train_batches`` from ``init_params(key 0)``: {"params0",
-    "metrics": [(loss, grad norm)], "params", "m", "v"}, trees as
-    numpy."""
+    over ``steps`` of ``train_batches`` from ``init_params(key 0)``:
+    {"params0", "metrics": [(loss, grad norm)], "params", "m", "v"},
+    trees as numpy."""
     import jax
     import jax.numpy as jnp
     from repro import configs as jconfigs
@@ -79,12 +145,12 @@ def jax_train(arch, micro):
                                     grad_dtype=jnp.float32)
     step_fn = jax.jit(jsteps.make_train_step(cfg, opt_cfg, settings))
     out = {"params0": jax_to_numpy(params), "metrics": []}
-    for step, b in enumerate(train_batches(cfg)):
+    for step, b in enumerate(train_batches(cfg, steps=steps)):
         params, state, m = step_fn(
             params, state, {"batch": {k: jnp.asarray(v) for k, v in b.items()},
                             "step": jnp.asarray(step, jnp.int32)})
         out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
-    assert int(state["count"]) == TRAIN_STEPS
+    assert int(state["count"]) == steps
     out.update(params=jax_to_numpy(params), m=jax_to_numpy(state["m"]),
                v=jax_to_numpy(state["v"]))
     return out
